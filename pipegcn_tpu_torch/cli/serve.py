@@ -1,0 +1,193 @@
+"""Online serving entry point: ``python -m pipegcn_tpu_torch.cli.serve``.
+
+Port of ``pipegcn_tpu/cli/serve.py``: resolve (or, with ``--serve-build``,
+build) the partition artifact, stage it on the device, build and warm the
+ServingEngine, serve open-loop constant-rate traffic, and print the
+summary as one final ``{"serve": true, ...}`` JSON line, as the JAX CLI
+does. Its own parser covers the flags this slice uses, with the JAX
+CLI's names and defaults. The port builds the base local-id layout (the
+JAX CLI's ``--local-reorder none``; locality clusters are not ported) and
+names it as the JAX CLI names that layout; any artifact of either package
+loads through ``--graph-name``.
+
+Runs on CUDA; ``--device cpu`` runs the plain PyTorch path on the CPU.
+Without a checkpoint (restore waits for a later slice) it serves freshly
+initialized params drawn from ``--seed``, as the JAX CLI does without
+one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import signal
+import sys
+import time
+
+import torch
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="PipeGCN serving on PyTorch/CUDA (port slice 1)")
+    p.add_argument("--dataset", type=str, default="reddit")
+    p.add_argument("--graph-name", "--graph_name", type=str, default="")
+    p.add_argument("--data-root", "--data_root", type=str, default=None,
+                   help="dataset root (default $PIPEGCN_DATA or ./dataset)")
+    p.add_argument("--partition-dir", "--partition_dir", type=str,
+                   default="partitions")
+    p.add_argument("--n-partitions", "--n_partitions", type=int, default=2)
+    p.add_argument("--partition-method", "--partition_method",
+                   choices=["metis", "random"], default="metis")
+    p.add_argument("--partition-obj", "--partition_obj",
+                   choices=["vol", "cut"], default="vol")
+    p.add_argument("--model", type=str, default="graphsage")
+    p.add_argument("--n-layers", "--n_layers", type=int, default=2)
+    p.add_argument("--n-hidden", "--n_hidden", type=int, default=16)
+    p.add_argument("--norm", choices=["layer", "none"], default="layer")
+    p.add_argument("--use-pp", "--use_pp", action="store_true")
+    p.add_argument("--dtype", choices=["float32"], default="float32")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--fix-seed", "--fix_seed", action="store_true")
+    p.add_argument("--device", type=str, default=None,
+                   help="cuda (default) or cpu; no silent fallback")
+    g = p.add_argument_group("serving")
+    g.add_argument("--serve-duration", "--serve_duration", type=float,
+                   default=10.0, help="seconds of open-loop load to serve")
+    g.add_argument("--serve-qps", "--serve_qps", type=float, default=50.0,
+                   help="target query arrival rate (open-loop Poisson)")
+    g.add_argument("--serve-max-batch", "--serve_max_batch", type=int,
+                   default=64, help="top of the padded batch ladder")
+    g.add_argument("--serve-max-delay-ms", "--serve_max_delay_ms",
+                   type=float, default=5.0,
+                   help="max queueing delay before a partial batch flushes")
+    g.add_argument("--serve-ladder-min", "--serve_ladder_min", type=int,
+                   default=8, help="bottom of the padded batch ladder")
+    g.add_argument("--serve-report-every", "--serve_report_every",
+                   type=float, default=2.0,
+                   help="seconds between serving stats windows")
+    g.add_argument("--serve-refresh-every", "--serve_refresh_every",
+                   type=float, default=0.5,
+                   help="seconds between logits recomputes")
+    g.add_argument("--serve-build", "--serve_build", action="store_true",
+                   help="build the partition artifact when missing")
+    return p
+
+
+def build_artifact(args, log=print):
+    """Build the artifact in memory: ``load_data``, ``partition_graph``
+    and ``ShardedGraph.build``, logging the seconds of each step."""
+    from ..graph.datasets import load_data
+    from ..partition.halo import ShardedGraph
+    from ..partition.partitioner import partition_graph
+
+    t0 = time.monotonic()
+    g = load_data(args.dataset, args.data_root)
+    t1 = time.monotonic()
+    parts = partition_graph(g, args.n_partitions,
+                            method=args.partition_method,
+                            obj=args.partition_obj,
+                            seed=args.seed if args.fix_seed else 0)
+    t2 = time.monotonic()
+    sg = ShardedGraph.build(g, parts, n_parts=args.n_partitions)
+    t3 = time.monotonic()
+    log(f"serve: artifact built in {t3 - t0:.1f}s (load_data "
+        f"{t1 - t0:.1f}s, partition_graph {t2 - t1:.1f}s, "
+        f"ShardedGraph.build {t3 - t2:.1f}s; {g.num_edges} edges)")
+    return sg
+
+
+def _load_partition(args, log=print):
+    """The artifact at the JAX CLI's path
+    ``<partition-dir>/<dataset>-<P>-<method>-<obj>-trans``; with
+    ``--serve-build`` a missing one is built and saved there."""
+    from ..partition.halo import ShardedGraph
+
+    graph_name = args.graph_name or (
+        f"{args.dataset}-{args.n_partitions}-{args.partition_method}-"
+        f"{args.partition_obj}-trans")
+    part_path = os.path.join(args.partition_dir, graph_name)
+    if ShardedGraph.exists(part_path):
+        sg = ShardedGraph.load(part_path)
+        if sg.num_parts != args.n_partitions:
+            raise ValueError(
+                f"partition artifact at {part_path} has {sg.num_parts} "
+                f"parts, requested {args.n_partitions}")
+        return sg
+    if not args.serve_build:
+        raise FileNotFoundError(
+            f"no partition artifact at {part_path}; pass --serve-build to "
+            "build it")
+    sg = build_artifact(args, log)
+    t0 = time.monotonic()
+    # v3 (uncompressed, memory-mapped on load): compressing a Reddit-size
+    # artifact costs minutes; both packages load either format
+    sg.save(part_path, mmap=True)
+    log(f"serve: saved artifact {part_path} in "
+        f"{time.monotonic() - t0:.1f}s")
+    return sg
+
+
+def build_serving_engine(args, log=print, sg=None):
+    """Everything between parsed args and a warm ServingEngine: the
+    artifact (``sg``, else resolved or built from ``args``), staging,
+    params and warmup. Returns the engine."""
+    from ..device import resolve_device
+    from ..models.sage import ModelConfig, init_params
+    from ..parallel.staging import stage
+    from ..serve import ServingEngine
+
+    device = resolve_device(args.device)
+    if sg is None:
+        sg = _load_partition(args, log)
+    layer_sizes = (sg.n_feat,) + (args.n_hidden,) * (args.n_layers - 1) \
+        + (sg.n_class,)
+    cfg = ModelConfig(layer_sizes=layer_sizes, model=args.model,
+                      use_pp=args.use_pp,
+                      norm=None if args.norm == "none" else args.norm,
+                      dtype=args.dtype)
+    gen = torch.Generator().manual_seed(args.seed)
+    params = init_params(cfg, gen, device)
+    engine = ServingEngine(sg, stage(sg, device), cfg, params,
+                           max_batch=args.serve_max_batch,
+                           ladder_min=args.serve_ladder_min)
+    warm_s = engine.warmup()
+    log(f"serve: engine warm in {warm_s:.2f}s (ladder {engine.ladder}, "
+        f"{engine.num_global_nodes} nodes, {engine.P} partitions, "
+        f"{device})")
+    return engine
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    from ..serve import run_serving_loop
+
+    engine = build_serving_engine(args)
+    stop_flag = {"stop": False}
+
+    def _on_signal(signum, frame):  # noqa: ARG001
+        stop_flag["stop"] = True
+
+    old = [signal.signal(s, _on_signal)
+           for s in (signal.SIGTERM, signal.SIGINT)]
+    try:
+        summary = run_serving_loop(
+            engine,
+            duration_s=args.serve_duration,
+            qps=args.serve_qps,
+            max_delay_ms=args.serve_max_delay_ms,
+            report_every_s=args.serve_report_every,
+            refresh_every_s=args.serve_refresh_every,
+            seed=args.seed,
+            stop=lambda: stop_flag["stop"],
+        )
+    finally:
+        for s, h in zip((signal.SIGTERM, signal.SIGINT), old):
+            signal.signal(s, h)
+    print(json.dumps({"serve": True, **summary}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

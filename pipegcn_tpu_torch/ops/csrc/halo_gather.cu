@@ -1,0 +1,141 @@
+// K2: masked halo gather / emulated ring exchange, hand-written for Hopper
+// (sm_90a).
+//
+// Replaces: pipegcn_tpu/parallel/halo.py  exchange_blocks / halo_exchange:
+// for each ring distance d = 1..P-1, part r receives h[s][send_idx[s][d-1]]
+// from s = (r-d) mod P, zeroed where send_mask[s][d-1] is off, and stacks
+// the received blocks behind its inner rows in distance order. On one card
+// the P parts live stacked as [P, n_max, F], so the ppermute becomes a row
+// copy between parts.
+//
+// One launch writes, for every part r, the rows [row_begin, n_max + H) of
+//   concat(h[r], block_1, ..., block_{P-1}),   H = (P-1) * B
+// into out[r] (row row_begin lands at out row 0): row_begin = 0 is
+// halo_exchange with the concat fused in; row_begin = n_max is
+// exchange_blocks (the halo block alone).
+//
+// What bounds it on the H100: bytes. It does no arithmetic; each output
+// row is one source row read and written once (the least traffic is
+// exactly what it moves, plus the index and mask bytes), so HBM bandwidth
+// is the limit.
+//
+// Design: one warp per output row; the warp resolves (sender, distance,
+// slot) from the row number, reads send_idx/send_mask once, clamps the
+// index (jnp.take(mode="clip")), and copies the row with the widest
+// vector (16/8/4/2/1 bytes) that the row size, part strides and pointers
+// allow. Masked-off rows are written as zero bytes. The copy is
+// byte-for-byte, so the result is bit-exact against the plain version.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWarpsPerBlock = 8;
+
+template <typename V>
+__device__ __forceinline__ V zero_vec();
+template <> __device__ __forceinline__ uint4 zero_vec<uint4>() {
+  return make_uint4(0u, 0u, 0u, 0u);
+}
+template <> __device__ __forceinline__ uint2 zero_vec<uint2>() {
+  return make_uint2(0u, 0u);
+}
+template <> __device__ __forceinline__ unsigned int zero_vec<unsigned int>() {
+  return 0u;
+}
+template <>
+__device__ __forceinline__ unsigned short zero_vec<unsigned short>() {
+  return 0;
+}
+template <>
+__device__ __forceinline__ unsigned char zero_vec<unsigned char>() {
+  return 0;
+}
+
+template <typename V>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+halo_gather_kernel(const char* __restrict__ h, long long h_part_stride,
+                   char* __restrict__ out, long long out_part_stride,
+                   const int* __restrict__ send_idx,
+                   const unsigned char* __restrict__ send_mask, int P,
+                   int n_max, int B, int row_begin, int n_rows,
+                   int row_bytes) {
+  const int part = blockIdx.y;
+  const int r = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (r >= n_rows) return;
+
+  const int g = row_begin + r;  // row of concat(h[part], halo[part])
+  const V* from = nullptr;
+  if (g < n_max) {
+    from = reinterpret_cast<const V*>(h + part * h_part_stride +
+                                      static_cast<size_t>(g) * row_bytes);
+  } else {
+    const int k = g - n_max;
+    const int d = k / B;  // ring distance d + 1
+    const int b = k - d * B;
+    const int sender = (part - d - 1 + P) % P;
+    const size_t e = (static_cast<size_t>(sender) * (P - 1) + d) * B + b;
+    if (send_mask[e]) {
+      const int idx = min(max(send_idx[e], 0), n_max - 1);
+      from = reinterpret_cast<const V*>(h + sender * h_part_stride +
+                                        static_cast<size_t>(idx) * row_bytes);
+    }
+  }
+  V* to = reinterpret_cast<V*>(out + part * out_part_stride +
+                               static_cast<size_t>(r) * row_bytes);
+  const int nv = row_bytes / static_cast<int>(sizeof(V));
+  if (from != nullptr) {
+    for (int i = lane; i < nv; i += 32) to[i] = __ldg(from + i);
+  } else {
+    const V z = zero_vec<V>();
+    for (int i = lane; i < nv; i += 32) to[i] = z;
+  }
+}
+
+template <typename V>
+int launch(const void* h, long long h_part_stride, void* out,
+           long long out_part_stride, const int* send_idx,
+           const unsigned char* send_mask, int P, int n_max, int B,
+           int row_begin, int n_rows, int row_bytes, cudaStream_t stream) {
+  const dim3 grid((n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock, P);
+  halo_gather_kernel<V><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
+      static_cast<const char*>(h), h_part_stride, static_cast<char*>(out),
+      out_part_stride, send_idx, send_mask, P, n_max, B, row_begin, n_rows,
+      row_bytes);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// h: P parts of n_max rows of row_bytes each, part stride h_part_stride
+// bytes, rows contiguous; out: P parts of n_rows rows, part stride
+// out_part_stride bytes; send_idx [P, P-1, B] int32; send_mask [P, P-1, B]
+// bool (one byte each). Strides in bytes. Returns cudaGetLastError().
+extern "C" int pgt_halo_gather(const void* h, long long h_part_stride,
+                               void* out, long long out_part_stride,
+                               const void* send_idx, const void* send_mask,
+                               int P, int n_max, int B, int row_begin,
+                               int n_rows, int row_bytes, void* stream) {
+  if (P == 0 || n_rows == 0 || row_bytes == 0) return 0;
+  if (n_max <= 0 || (row_begin + n_rows > n_max && B <= 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const uintptr_t a = reinterpret_cast<uintptr_t>(h) |
+                      reinterpret_cast<uintptr_t>(out) |
+                      static_cast<uintptr_t>(h_part_stride) |
+                      static_cast<uintptr_t>(out_part_stride) |
+                      static_cast<uintptr_t>(row_bytes);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* si = static_cast<const int*>(send_idx);
+  const unsigned char* sm = static_cast<const unsigned char*>(send_mask);
+#define PGT_LAUNCH(V)                                                    \
+  return launch<V>(h, h_part_stride, out, out_part_stride, si, sm, P,    \
+                   n_max, B, row_begin, n_rows, row_bytes, st)
+  if (a % 16 == 0) PGT_LAUNCH(uint4);
+  if (a % 8 == 0) PGT_LAUNCH(uint2);
+  if (a % 4 == 0) PGT_LAUNCH(unsigned int);
+  if (a % 2 == 0) PGT_LAUNCH(unsigned short);
+  PGT_LAUNCH(unsigned char);
+#undef PGT_LAUNCH
+}

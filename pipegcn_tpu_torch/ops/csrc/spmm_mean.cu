@@ -1,0 +1,252 @@
+// K1: CSR mean SpMM forward, hand-written for Hopper (sm_90a).
+//
+// Replaces: pipegcn_tpu/ops/spmm.py  _segment_sum_once / spmm_sum /
+// spmm_mean (forward): gather fbuf[edge_src], segment-sum into the sorted
+// edge_dst (sentinel row dropped), accumulate in f32, divide by the
+// full-graph in-degree.
+//
+//   out[p, i, :] = (sum_{e in [indptr[p,i], indptr[p,i+1])}
+//                   fbuf[p, src[p,e], :]) / in_deg[p, i]
+//
+// fbuf is f32 or bf16 (raw bf16 bits), accumulation and output are f32.
+// The CSR row pointer is built on the host from the dst-sorted edge list,
+// so pad edges (dst == n_out, src == 0) lie past indptr[n_out] and are
+// never read.
+//
+// What bounds it on the H100: the gather. Every edge reads one full source
+// row (F*4 bytes at f32), so at the serving shapes (57.4M edges/part,
+// F = 256) the kernel streams ~59 GB of rows per part from L2/HBM, while
+// the least traffic (each input read once) is ~0.6 GB and the adds are
+// E*F f32 ops. It is a random-row-gather kernel: the time is set by how
+// many independent row loads are in flight, not by arithmetic.
+//
+// Design: one warp per destination row (and per 32*VEC*NV-column tile),
+// lanes spread over the columns with vector loads of VEC elements (16 B
+// where the width and alignment allow it). The warp loads 32 edge indices
+// at a time with one coalesced load and broadcasts them with __shfl_sync;
+// the edge loop is unrolled so several source rows are in flight per lane.
+// Each row's sum runs in edge order in registers: no atomics, no shared
+// memory, deterministic results. Rows of any degree (0 to thousands) run
+// the same loop. Out-of-range source indices are clamped (the JAX
+// package's jnp.take(mode="clip")).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWarpsPerBlock = 8;
+
+// bf16 is carried as its raw 16 bits: f32 = bits << 16 (exact)
+__device__ __forceinline__ float bf16_lo(unsigned int u) {
+  return __uint_as_float(u << 16);
+}
+__device__ __forceinline__ float bf16_hi(unsigned int u) {
+  return __uint_as_float(u & 0xffff0000u);
+}
+
+template <typename T, int VEC>
+struct Loader;
+
+template <>
+struct Loader<float, 4> {
+  static __device__ __forceinline__ void load(const float* p, float* o) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+    o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
+  }
+};
+template <>
+struct Loader<float, 2> {
+  static __device__ __forceinline__ void load(const float* p, float* o) {
+    const float2 v = __ldg(reinterpret_cast<const float2*>(p));
+    o[0] = v.x; o[1] = v.y;
+  }
+};
+template <>
+struct Loader<float, 1> {
+  static __device__ __forceinline__ void load(const float* p, float* o) {
+    o[0] = __ldg(p);
+  }
+};
+template <>
+struct Loader<unsigned short, 8> {
+  static __device__ __forceinline__ void load(const unsigned short* p,
+                                              float* o) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+    o[0] = bf16_lo(v.x); o[1] = bf16_hi(v.x);
+    o[2] = bf16_lo(v.y); o[3] = bf16_hi(v.y);
+    o[4] = bf16_lo(v.z); o[5] = bf16_hi(v.z);
+    o[6] = bf16_lo(v.w); o[7] = bf16_hi(v.w);
+  }
+};
+template <>
+struct Loader<unsigned short, 2> {
+  static __device__ __forceinline__ void load(const unsigned short* p,
+                                              float* o) {
+    const unsigned int u = __ldg(reinterpret_cast<const unsigned int*>(p));
+    o[0] = bf16_lo(u); o[1] = bf16_hi(u);
+  }
+};
+template <>
+struct Loader<unsigned short, 1> {
+  static __device__ __forceinline__ void load(const unsigned short* p,
+                                              float* o) {
+    o[0] = __uint_as_float(static_cast<unsigned int>(__ldg(p)) << 16);
+  }
+};
+
+// out row chunks of VEC floats; the wrapper guarantees F % VEC == 0 and a
+// 16-byte aligned output base, so chunk c is (4*VEC)-byte aligned
+template <int VEC>
+__device__ __forceinline__ void store(float* p, const float* v) {
+  if constexpr (VEC % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < VEC; k += 4)
+      *reinterpret_cast<float4*>(p + k) =
+          make_float4(v[k], v[k + 1], v[k + 2], v[k + 3]);
+  } else if constexpr (VEC == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    p[0] = v[0];
+  }
+}
+
+template <typename T, int VEC, int NV>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+spmm_mean_kernel(const T* __restrict__ fbuf, const void* __restrict__ indptr,
+                 int indptr_64, const int* __restrict__ src,
+                 long long src_part_stride, const float* __restrict__ in_deg,
+                 float* __restrict__ out, int n_src, int n_out, int F) {
+  const int part = blockIdx.z;
+  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= n_out) return;  // whole warp leaves together
+
+  fbuf += static_cast<size_t>(part) * n_src * F;
+  src += static_cast<size_t>(part) * src_part_stride;
+  const size_t rp = static_cast<size_t>(part) * (n_out + 1) + row;
+  long long beg, end;
+  if (indptr_64) {
+    const long long* ip = static_cast<const long long*>(indptr);
+    beg = ip[rp];
+    end = ip[rp + 1];
+  } else {
+    const int* ip = static_cast<const int*>(indptr);
+    beg = ip[rp];
+    end = ip[rp + 1];
+  }
+
+  const int col0 = blockIdx.y * (32 * VEC * NV);
+  float acc[NV][VEC];
+#pragma unroll
+  for (int v = 0; v < NV; ++v)
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) acc[v][k] = 0.0f;
+
+  for (long long base = beg; base < end; base += 32) {
+    const int n = static_cast<int>(min(32LL, end - base));
+    int mine = lane < n ? __ldg(src + base + lane) : 0;
+    mine = min(max(mine, 0), n_src - 1);
+#pragma unroll 4
+    for (int j = 0; j < n; ++j) {
+      const int s = __shfl_sync(0xffffffffu, mine, j);
+      const T* rowp = fbuf + static_cast<size_t>(s) * F;
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        const int c = col0 + (v * 32 + lane) * VEC;
+        if (c < F) {
+          float x[VEC];
+          Loader<T, VEC>::load(rowp + c, x);
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) acc[v][k] += x[k];
+        }
+      }
+    }
+  }
+
+  const size_t orow = static_cast<size_t>(part) * n_out + row;
+  const float d = in_deg[orow];
+  float* op = out + orow * F;
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    const int c = col0 + (v * 32 + lane) * VEC;
+    if (c < F) {
+      float y[VEC];
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) y[k] = acc[v][k] / d;
+      store<VEC>(op + c, y);
+    }
+  }
+}
+
+template <typename T, int VEC>
+int launch_vec(const T* fbuf, const void* indptr, int indptr_64,
+               const int* src, long long src_part_stride,
+               const float* in_deg, float* out, int P, int n_src,
+               int n_out, int F, cudaStream_t stream) {
+  const int per = 32 * VEC;
+  const int need = (F + per - 1) / per;
+  const int nv = need <= 1 ? 1 : need <= 2 ? 2 : need <= 4 ? 4 : 8;
+  const int tile = per * nv;
+  const dim3 grid((n_out + kWarpsPerBlock - 1) / kWarpsPerBlock,
+                  (F + tile - 1) / tile, P);
+  const dim3 block(kWarpsPerBlock * 32);
+#define PGT_LAUNCH(NV_)                                                  \
+  spmm_mean_kernel<T, VEC, NV_><<<grid, block, 0, stream>>>(             \
+      fbuf, indptr, indptr_64, src, src_part_stride, in_deg, out, n_src, \
+      n_out, F)
+  switch (nv) {
+    case 1: PGT_LAUNCH(1); break;
+    case 2: PGT_LAUNCH(2); break;
+    case 4: PGT_LAUNCH(4); break;
+    default: PGT_LAUNCH(8); break;
+  }
+#undef PGT_LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+}  // namespace
+
+// fbuf [P, n_src, F] (f32, or bf16 bits when fbuf_bf16), indptr
+// [P, n_out + 1] (int32, or int64 when indptr_64), src [P, *] int32 with
+// part stride src_part_stride, in_deg [P, n_out] f32, out [P, n_out, F]
+// f32 (16-byte aligned). All contiguous. Returns cudaGetLastError().
+extern "C" int pgt_spmm_mean(const void* fbuf, int fbuf_bf16,
+                             const void* indptr, int indptr_64,
+                             const void* src, long long src_part_stride,
+                             const void* in_deg, void* out, int P,
+                             int n_src, int n_out, int F, void* stream) {
+  if (P == 0 || n_out == 0 || F == 0) return 0;
+  if (n_src <= 0 || !aligned(out, 16)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* s = static_cast<const int*>(src);
+  const float* dg = static_cast<const float*>(in_deg);
+  float* o = static_cast<float*>(out);
+  if (fbuf_bf16) {
+    const unsigned short* f = static_cast<const unsigned short*>(fbuf);
+    if (F % 8 == 0 && aligned(f, 16))
+      return launch_vec<unsigned short, 8>(f, indptr, indptr_64, s,
+                                           src_part_stride, dg, o, P, n_src,
+                                           n_out, F, st);
+    if (F % 2 == 0 && aligned(f, 4))
+      return launch_vec<unsigned short, 2>(f, indptr, indptr_64, s,
+                                           src_part_stride, dg, o, P, n_src,
+                                           n_out, F, st);
+    return launch_vec<unsigned short, 1>(f, indptr, indptr_64, s,
+                                         src_part_stride, dg, o, P, n_src,
+                                         n_out, F, st);
+  }
+  const float* f = static_cast<const float*>(fbuf);
+  if (F % 4 == 0 && aligned(f, 16))
+    return launch_vec<float, 4>(f, indptr, indptr_64, s, src_part_stride, dg,
+                                o, P, n_src, n_out, F, st);
+  if (F % 2 == 0 && aligned(f, 8))
+    return launch_vec<float, 2>(f, indptr, indptr_64, s, src_part_stride, dg,
+                                o, P, n_src, n_out, F, st);
+  return launch_vec<float, 1>(f, indptr, indptr_64, s, src_part_stride, dg, o,
+                              P, n_src, n_out, F, st);
+}

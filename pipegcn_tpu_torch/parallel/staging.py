@@ -1,0 +1,84 @@
+"""Put a ``ShardedGraph`` on the device — port of the data staging of
+``pipegcn_tpu/parallel/trainer.py``: ``Trainer._put_data`` (the ``[P, ...]``
+device arrays) and ``Trainer._precompute_pp`` (the use_pp concat). Holds
+no optimizer state.
+
+Differences from the JAX staging:
+  - the destination CSR ``indptr [P, n_max+1]`` is built on the host from
+    the sorted ``edge_dst`` and staged in its place (kernel K1 reads the
+    CSR; pad edges past ``indptr[n_max]`` are never read);
+  - ``Trainer._pad_cols`` (the TPU 128-lane ``lane_pad``) has no
+    counterpart: it only aligned feature slabs to TPU tiles and is
+    numerically inert, so features are staged at their own width.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..ops.spmm import csr_indptr, spmm_mean
+from ..partition.halo import ShardedGraph
+from .halo import halo_exchange
+
+
+@dataclasses.dataclass
+class StagedGraph:
+    """The device-side ``[P, ...]`` arrays of one ``ShardedGraph``."""
+
+    num_parts: int
+    n_max: int
+    b_max: int
+    feat: torch.Tensor       # [P, n_max, F] f32 raw features
+    in_deg: torch.Tensor     # [P, n_max] f32 full-graph in-degrees
+    indptr: torch.Tensor     # [P, n_max + 1] int32 (int64 past 2**31 edges)
+    edge_src: torch.Tensor   # [P, e_max] int32 local source rows
+    send_idx: torch.Tensor   # [P, P-1, B] int32
+    send_mask: torch.Tensor  # [P, P-1, B] bool
+
+    @property
+    def halo_size(self) -> int:
+        return (self.num_parts - 1) * self.b_max
+
+    @property
+    def device(self) -> torch.device:
+        return self.feat.device
+
+
+def _put(x: np.ndarray, dtype, device: torch.device) -> torch.Tensor:
+    # writable + contiguous host copy only where needed (memmapped
+    # artifacts are read-only), then one host-to-device copy
+    host = np.require(np.asarray(x, dtype=dtype), requirements=["C", "W"])
+    return torch.from_numpy(host).to(device)
+
+
+def stage(sg: ShardedGraph, device: torch.device) -> StagedGraph:
+    """Copy the arrays the serving path reads to ``device``."""
+    return StagedGraph(
+        num_parts=sg.num_parts,
+        n_max=sg.n_max,
+        b_max=sg.b_max,
+        feat=_put(sg.feat, np.float32, device),
+        in_deg=_put(sg.in_deg, np.float32, device),
+        indptr=torch.from_numpy(csr_indptr(sg.edge_dst, sg.n_max)).to(device),
+        edge_src=_put(sg.edge_src, np.int32, device),
+        send_idx=_put(sg.send_idx, np.int32, device),
+        send_mask=_put(sg.send_mask, np.bool_, device),
+    )
+
+
+def precompute_pp(
+        data: StagedGraph,
+        exchange: Callable[..., torch.Tensor] = halo_exchange,
+        spmm_fn: Callable[..., torch.Tensor] = spmm_mean) -> torch.Tensor:
+    """One halo exchange + mean aggregation of the raw features, returned
+    as ``concat([feat, mean_neigh], -1)`` ``[P, n_max, 2F]`` so layer 0
+    needs no communication (``Trainer._precompute_pp``). ``exchange`` and
+    ``spmm_fn`` default to the kernel wrappers (K2, K1); a caller holding
+    the kernels against their plain versions passes the plain ones."""
+    fbuf = exchange(data.feat, data.send_idx, data.send_mask)
+    ah = spmm_fn(fbuf, data.indptr, data.edge_src, data.in_deg)
+    return torch.cat([data.feat, ah.to(data.feat.dtype)], dim=-1)

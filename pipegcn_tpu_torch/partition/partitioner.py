@@ -1,0 +1,262 @@
+"""Graph partitioner — port of ``pipegcn_tpu/partition/partitioner.py``
+(``partition_graph``), numpy paths only.
+
+``method='random'`` is the balanced random assignment and gives the same
+parts as the JAX package at the same seed. ``method='metis'`` is the
+vectorized BFS-blocks + greedy-refinement partitioner on numpy/scipy —
+the JAX package's ``PIPEGCN_NATIVE=0`` path; the native C++ multilevel
+partitioner (``pipegcn_tpu/native/``) is not ported in this slice, so
+where the JAX package finds its native library the two 'metis' results
+differ (partition quality moves communication volume, not correctness).
+
+Objectives:
+    'cut' — minimize the number of edges crossing partitions.
+    'vol' — minimize total communication volume: the number of distinct
+            (node, foreign-partition) pairs, i.e. how many halo rows get
+            exchanged per layer.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import scipy.sparse as sp
+
+from ..graph.csr import Graph
+
+def partition_graph(
+    g: Graph,
+    n_parts: int,
+    method: str = "metis",
+    obj: str = "vol",
+    seed: int = 0,
+    refine_iters: int = 10,
+    imbalance: float = 1.05,
+    symmetric: bool = False,
+) -> np.ndarray:
+    """Assign each node to one of `n_parts` partitions.
+
+    Returns an int32 array [num_nodes] of partition ids. Every partition is
+    guaranteed non-empty (each device must own at least one node).
+
+    `symmetric=True` asserts g's edge list is already mirrored (e.g.
+    the papers100M finalized-edge cache): the adjacency is then built
+    WITHOUT the doubling mirror — at billion-edge scale the difference
+    is ~50 GB of transient.
+    """
+    if n_parts <= 0:
+        raise ValueError(f"n_parts must be positive, got {n_parts}")
+    if method not in ("metis", "random"):
+        raise ValueError(f"unknown partition method: {method}")
+    if obj not in ("vol", "cut"):
+        raise ValueError(f"unknown partition objective: {obj}")
+    if n_parts > g.num_nodes:
+        raise ValueError(
+            f"n_parts={n_parts} exceeds num_nodes={g.num_nodes}"
+        )
+    if n_parts == 1:
+        return np.zeros(g.num_nodes, dtype=np.int32)
+
+    rng = np.random.default_rng(seed)
+    if method == "random":
+        # Balanced random assignment (reference part_method='random').
+        parts = np.repeat(
+            np.arange(n_parts, dtype=np.int32), -(-g.num_nodes // n_parts)
+        )[: g.num_nodes]
+        rng.shuffle(parts)
+        return parts
+
+    if symmetric or g.num_edges > _CHUNKED_ADJ_EDGES:
+        # RAM-bounded path: counting-sort CSR build (no scipy COO,
+        # whose doubled u/v int64 buffers alone cost ~100 GB at
+        # papers100M scale). Duplicate/bidirectional edges stay as
+        # parallel unit-weight entries — mutual pairs effectively weigh
+        # 2 vs a one-way edge's 1 (an approximation vs _sym_adj's
+        # dedup-to-1; exact when the input is uniformly mirrored, as
+        # symmetric=True asserts)
+        indptr, indices = _csr_adjacency_chunked(g, symmetric=symmetric)
+        adj = sp.csr_matrix(
+            (np.ones(indices.shape[0], np.int8), indices, indptr),
+            shape=(g.num_nodes, g.num_nodes))
+    else:
+        adj = _sym_adj(g)
+
+    order = _bfs_order(adj, rng)
+    # contiguous balanced blocks of the BFS order
+    parts = np.empty(g.num_nodes, dtype=np.int32)
+    parts[order] = (
+        np.arange(g.num_nodes, dtype=np.int64) * n_parts // g.num_nodes
+    ).astype(np.int32)
+    parts = _refine(adj, parts, n_parts, obj, refine_iters, imbalance, rng)
+    return parts
+
+
+# above this many edges the scipy COO symmetrize is replaced by the
+# chunked counting-sort CSR build (RAM: ~3x edge bytes vs ~30x)
+_CHUNKED_ADJ_EDGES = 50_000_000
+
+
+def _csr_adjacency_chunked(g: Graph, symmetric: bool = False,
+                           chunk: int = 32_000_000):
+    """Self-loop-free CSR adjacency (indptr int64, indices int32) built
+    by a two-pass chunked counting sort — peak transient is O(chunk),
+    plus the output arrays themselves. With symmetric=False each edge
+    is filled in both directions (no dedup: a bidirectional input pair
+    contributes weight 2 per direction, uniformly — equivalent for the
+    partition objectives); with symmetric=True the input is trusted to
+    be mirrored already and filled as-is. Sources may be memmaps."""
+    n = g.num_nodes
+    counts = np.zeros(n, np.int64)
+    E = g.src.shape[0]
+    for i in range(0, E, chunk):
+        s = np.asarray(g.src[i:i + chunk])
+        d = np.asarray(g.dst[i:i + chunk])
+        m = s != d
+        s, d = s[m], d[m]
+        counts += np.bincount(s, minlength=n)
+        if not symmetric:
+            counts += np.bincount(d, minlength=n)
+    indptr = np.zeros(n + 1, np.int64)
+    np.cumsum(counts, out=indptr[1:])
+    del counts
+    indices = np.empty(indptr[-1], np.int32)
+    cursor = indptr[:-1].copy()
+
+    def fill(s, d):
+        if s.shape[0] == 0:
+            return
+        order = np.argsort(s, kind="stable")
+        ss = s[order]
+        dd = d[order]
+        starts = np.concatenate(
+            [[0], np.flatnonzero(np.diff(ss)) + 1])
+        lens = np.diff(np.concatenate([starts, [ss.shape[0]]]))
+        within = np.arange(ss.shape[0], dtype=np.int64) \
+            - np.repeat(starts, lens)
+        indices[cursor[ss] + within] = dd
+        cursor[ss[starts]] += lens
+
+    for i in range(0, E, chunk):
+        s = np.asarray(g.src[i:i + chunk]).astype(np.int64, copy=False)
+        d = np.asarray(g.dst[i:i + chunk]).astype(np.int64, copy=False)
+        m = s != d
+        s, d = s[m], d[m]
+        fill(s, d)
+        if not symmetric:
+            fill(d, s)
+    return indptr, indices
+
+
+def _sym_adj(g: Graph) -> sp.csr_matrix:
+    """Symmetric 0/1 adjacency without self loops."""
+    non_loop = g.src != g.dst
+    u = np.concatenate([g.src[non_loop], g.dst[non_loop]])
+    v = np.concatenate([g.dst[non_loop], g.src[non_loop]])
+    n = g.num_nodes
+    a = sp.csr_matrix(
+        (np.ones(u.shape[0], dtype=np.int32), (u, v)), shape=(n, n)
+    )
+    a.data[:] = 1  # collapse duplicate edges
+    return a
+
+
+def _bfs_order(adj: sp.csr_matrix, rng) -> np.ndarray:
+    """Vectorized BFS ordering covering all components (restart at a random
+    unvisited node per component)."""
+    n = adj.shape[0]
+    visited = np.zeros(n, dtype=bool)
+    order = np.empty(n, dtype=np.int64)
+    pos = 0
+    # restart cursor over a fixed random permutation: amortized O(N) over
+    # all components instead of an O(N) scan per component
+    restart_perm = rng.permutation(n)
+    cursor = 0
+    while pos < n:
+        while cursor < n and visited[restart_perm[cursor]]:
+            cursor += 1
+        start = int(restart_perm[cursor])
+        frontier = np.array([start])
+        visited[start] = True
+        order[pos] = start
+        pos += 1
+        while frontier.size:
+            # union of neighbors of the frontier, via one sparse matvec
+            ind = np.unique(adj[frontier].indices)
+            ind = ind[~visited[ind]]
+            if ind.size == 0:
+                break
+            visited[ind] = True
+            order[pos: pos + ind.size] = ind
+            pos += ind.size
+            frontier = ind
+    return order
+
+
+def _refine(
+    adj: sp.csr_matrix,
+    parts: np.ndarray,
+    n_parts: int,
+    obj: str,
+    iters: int,
+    imbalance: float,
+    rng,
+) -> np.ndarray:
+    """Parallel greedy refinement. Each sweep computes, for every node, its
+    neighbor count per partition (one sparse-dense matmul), derives move
+    gains for the requested objective, and applies the highest-gain moves
+    subject to the per-partition balance cap."""
+    n = adj.shape[0]
+    parts = parts.astype(np.int32).copy()
+    cap = int(imbalance * (-(-n // n_parts)))
+    arange = np.arange(n)
+
+    for _ in range(iters):
+        onehot = sp.csr_matrix(
+            (np.ones(n, dtype=np.float32), (arange, parts)),
+            shape=(n, n_parts),
+        )
+        counts = np.asarray((adj @ onehot).todense())  # [N, P]
+        own = counts[arange, parts]
+        if obj == "cut":
+            gains = counts - own[:, None]
+        else:  # vol: also count the halo pairs this node creates/removes
+            gains = (
+                counts
+                - own[:, None]
+                + (counts > 0).astype(np.float32)
+                - (own > 0).astype(np.float32)[:, None]
+            )
+        gains[arange, parts] = -np.inf
+        target = np.argmax(gains, axis=1).astype(np.int32)
+        gain = gains[arange, target]
+        movers = np.nonzero(gain > 0)[0]
+        if movers.size == 0:
+            break
+
+        # enforce balance: admit the best movers into each target part up
+        # to its remaining room, and never drain a part empty
+        sizes = np.bincount(parts, minlength=n_parts)
+        room = np.maximum(cap - sizes, 0)
+        # sort movers by (target, -gain); rank within target group
+        key = np.lexsort((-gain[movers], target[movers]))
+        movers = movers[key]
+        tgt = target[movers]
+        grp_start = np.searchsorted(tgt, np.arange(n_parts))
+        rank = arange[: movers.size] - grp_start[tgt]
+        admitted = movers[rank < room[tgt]]
+        if admitted.size == 0:
+            break
+        parts[admitted] = target[admitted]
+        _fill_empty_parts(parts, n_parts)
+    _fill_empty_parts(parts, n_parts)
+    return parts
+
+
+def _fill_empty_parts(parts: np.ndarray, n_parts: int) -> None:
+    """Ensure every partition owns at least one node (each device must hold
+    a shard); steal single nodes from the currently largest partition."""
+    sizes = np.bincount(parts, minlength=n_parts)
+    for p in np.nonzero(sizes == 0)[0]:
+        donor = int(np.argmax(sizes))
+        parts[np.nonzero(parts == donor)[0][0]] = p
+        sizes[donor] -= 1
+        sizes[p] += 1

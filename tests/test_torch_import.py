@@ -1,0 +1,115 @@
+"""The port (pipegcn_tpu_torch) and chip_smoke.py stand alone: they import
+neither jax nor anything of pipegcn_tpu, and no entry point falls back to
+the CPU when CUDA is missing."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from pipegcn_tpu_torch import device as port_device
+from pipegcn_tpu_torch.cli import serve as port_cli
+from pipegcn_tpu_torch.ops.spmm import spmm_mean
+from pipegcn_tpu_torch.parallel.halo import halo_gather
+
+pytestmark = pytest.mark.torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "pipegcn_tpu_torch")
+
+
+def _port_files():
+    for dirpath, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == m or name.startswith(m + ".")
+               for m in ("jax", "jaxlib", "pipegcn_tpu"))
+
+
+def test_no_jax_import_statement_in_port():
+    bad = []
+    for path in _port_files():
+        tree = ast.parse(open(path).read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [(path, n) for n in names if _forbidden(n)]
+    assert not bad, bad
+
+
+def test_importing_every_port_module_leaves_jax_out():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import pipegcn_tpu_torch as p\n"
+        "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
+        "'pipegcn_tpu_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', "
+        "'pipegcn_tpu') or m.startswith(('jax.', 'jaxlib.', "
+        "'pipegcn_tpu.'))]\n"
+        "print(len(mods), bad)\n"
+        "sys.exit(1 if bad or len(mods) < 20 else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_no_cuda_and_no_cpu_request_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        port_device.resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        port_device.resolve_device("cuda")
+    assert port_device.resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        port_cli.main(["--dataset", "karate", "--n-partitions", "2",
+                       "--partition-dir", "unused-nonexistent",
+                       "--serve-build"])
+
+
+def test_wrappers_refuse_devices_without_a_kernel():
+    # a tensor that is neither on the CPU (plain version) nor on CUDA
+    # (the kernel) has no path: the wrappers raise instead of guessing
+    m = torch.device("meta")
+    fbuf = torch.empty((4, 3), device=m)
+    with pytest.raises(ValueError, match="unsupported device"):
+        spmm_mean(fbuf, torch.zeros(3, dtype=torch.int32, device=m),
+                  torch.zeros(5, dtype=torch.int32, device=m),
+                  torch.ones(2, device=m))
+    h = torch.empty((2, 4, 3), device=m)
+    with pytest.raises(ValueError, match="unsupported device"):
+        halo_gather(h, torch.zeros((2, 1, 2), dtype=torch.int32, device=m),
+                    torch.zeros((2, 1, 2), dtype=torch.bool, device=m),
+                    with_inner=True)
+
+
+@pytest.mark.parametrize("alone", [False, True],
+                         ids=["in-repo", "script-alone"])
+def test_chip_smoke_fails_without_a_card(tmp_path, alone):
+    """No CUDA here: chip_smoke.py exits non-zero and prints no result —
+    also when copied into a directory with nothing else of the repo."""
+    script = os.path.join(ROOT, "chip_smoke.py")
+    cwd = ROOT
+    if alone:
+        dst = tmp_path / "chip_smoke.py"
+        dst.write_text(open(script).read())
+        script, cwd = str(dst), str(tmp_path)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run([sys.executable, script], cwd=cwd, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert r.stdout == ""
