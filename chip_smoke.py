@@ -3,16 +3,21 @@
 
     python3 chip_smoke.py            # one NVIDIA H100 (any CUDA card runs)
 
-Drives the port's serving path end to end on one card, at the full width
-of the repo's main model config (``scripts/reddit.sh``: GraphSAGE
-602 -> 256 -> 256 -> 256 -> 41, use_pp, LayerNorm, f32) on the
-``synthetic-reddit`` graph split into 2 random parts:
+Drives the port's serving path and its training main path end to end on
+one card, at the full width of the repo's main model config
+(``scripts/reddit.sh``: GraphSAGE 602 -> 256 -> 256 -> 256 -> 41, use_pp,
+LayerNorm, f32) on the ``synthetic-reddit`` graph (loaded once, shared by
+both paths):
 
   1. prints the card's name and power limit (nvidia-smi) and versions;
-  2. builds both hand-written kernels from ``pipegcn_tpu_torch/ops/csrc``
-     (one nvcc per source, started together);
-  3. serves: builds the artifact in memory (the CLI's ``build_artifact``:
-     load, partition, build, each step timed; nothing is saved), builds
+  2. builds the five hand-written kernels from
+     ``pipegcn_tpu_torch/ops/csrc`` (one nvcc per source, started
+     together): K1 mean SpMM and K3 its transpose (``spmm_mean.cu``), K2
+     halo gather and K5 reverse-ring return (``halo_gather.cu``), K4
+     boundary-gradient scatter (``halo_scatter.cu``);
+  3. serves, over 2 random parts of the full graph: builds the artifact
+     in memory (the serve CLI's ``build_artifact``: partition, build,
+     each step timed; nothing is saved), builds
      and warms the ServingEngine through the CLI's
      ``build_serving_engine``, serves a few seconds of
      open-loop queries with ``run_serving_loop``, and checks that the
@@ -21,11 +26,32 @@ of the repo's main model config (``scripts/reddit.sh``: GraphSAGE
      PyTorch versions on the card;
   4. holds each kernel against its plain version at the main path's
      shapes and on edge cases (K1 in f32 and bf16; K2 bit-exact);
-  5. times each kernel (CUDA events, median), its plain version and one
+  5. times K1 and K2 (CUDA events, median), their plain versions and one
      PyTorch library call computing the same function, beside the least
      time the card could take (``bound_ms``), and times the refresh;
-  6. prints the ``kernels`` JSON line, a serving line, the nvidia-smi line,
-     and last ``{"ok": true, "device": {...}}``.
+  6. trains the ``scripts/reddit.sh`` cell through the training CLI's
+     functions (``cli/main.py``: ``--inductive --enable-pipeline
+     --use-pp``, dropout 0.5, Adam lr 0.01, 2 random parts of the train
+     subgraph; cut: random instead of metis partitioning, and the epoch
+     count), with every launch counter set to 0 just before the trainer is
+     built and read after the final val/test eval: a finite loss every
+     epoch that falls, finite accuracies, every one of K1-K5 launched;
+  7. runs one pipelined epoch through the kernels twice from the same
+     state and dropout seed (bit-identical: no kernel uses atomics), and
+     holds it against the same epoch through the plain versions on the
+     kernel run's relu masks (loss, parameter gradients, new params and
+     carries; the relu sign flips between the two are counted);
+  8. holds K3, K4 and K5 against their plain versions at the cell's shapes
+     and on edge cases (K4 at P = 2 and K5 bit-exact);
+  9. times K3-K5 as in [5], and K1/K2 again at the epoch's shapes, the
+     training epoch (median) with its split into kernel time x launches,
+     and the peak memory; then runs 3 vanilla epochs (the differentiable
+     exchange: K2 forward, K5 + K4 backward) and holds a fourth through
+     the kernels against the plain versions as in [7];
+ 10. prints the ``kernels`` JSON line (K1-K5: times at the training
+     shapes beside the training run's launches; K1/K2 also their serving
+     numbers), a serving line, a training line, the nvidia-smi line, and
+     last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when the
 package is missing (the script alone), or when any phase fails.
@@ -55,6 +81,26 @@ F32_FLOP_PER_S = 67e12
 # matmuls and LayerNorm, whose rounding the normalization can amplify.
 K1_ATOL, K1_RTOL = 1e-5, 1e-5
 LOGITS_ATOL, LOGITS_RTOL = 1e-4, 1e-4
+# K3 sums the same f32 terms g * (1 / in_deg) as its plain version (the
+# product rounded before the add in both), K3 per row in edge order, the
+# plain version by index_add_ atomics: they differ only by summation
+# order, as K1 does. K4 at P > 2 adds up to P-1 rows per element in
+# another order than index_add_ (at P = 2 one add: bit-exact). A training
+# step through the kernels against the plain versions: the order
+# differences of 6 SpMMs pass through 4 layers, LayerNorm and softmax;
+# gradients and carries are compared against their largest magnitude,
+# on the kernel run's relu masks (step_phase); a pre-activation whose
+# sign the two roundings disagree on is a flip, rare where the inputs
+# are O(1) LayerNorm outputs and the roundings differ by ulps.
+K3_ATOL, K3_RTOL = 1e-5, 1e-5
+# K3 sums (not averages) up to thousands of terms per row, which can
+# cancel: its checks add SUM_RTOL times the sum of the terms' magnitudes
+# (about sqrt(n) * f32 eps for n terms in two random orders is far below)
+SUM_RTOL = 1e-5
+K4_ATOL, K4_RTOL = 1e-6, 1e-6
+STEP_LOSS_RTOL = 1e-5
+STEP_REL_TOL = 1e-4
+RELU_FLIP_FRAC = 1e-4
 
 
 def log(msg: str) -> None:
@@ -101,17 +147,25 @@ def max_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
-def check_close(name, got, ref, atol, rtol) -> float:
+def check_close(name, got, ref, atol, rtol, abs_sum=None) -> float:
+    """|got - ref| <= atol + rtol * |ref| elementwise; with ``abs_sum``
+    (the same sum taken over the terms' absolute values) the bound adds
+    SUM_RTOL * abs_sum: two summation orders of n terms differ by a
+    multiple of f32 eps times the sum of the terms' magnitudes, which
+    |ref| does not bound where the terms cancel."""
     import torch
 
     require(got.shape == ref.shape, f"{name}: shape {tuple(got.shape)} != "
             f"{tuple(ref.shape)}")
     require(bool(torch.isfinite(got).all()), f"{name}: non-finite values")
     err = max_err(got, ref)
-    ok = bool(((got.double() - ref.double()).abs()
-               <= atol + rtol * ref.double().abs()).all())
-    log(f"  {name}: max_abs_err={err:.3e} (tol {atol:g} + {rtol:g}*|ref|)"
-        f" {'ok' if ok else 'FAIL'}")
+    bound = atol + rtol * ref.double().abs()
+    if abs_sum is not None:
+        bound = bound + SUM_RTOL * abs_sum.double()
+    ok = bool(((got.double() - ref.double()).abs() <= bound).all())
+    extra = f" + {SUM_RTOL:g}*sum|terms|" if abs_sum is not None else ""
+    log(f"  {name}: max_abs_err={err:.3e} (tol {atol:g} + {rtol:g}*|ref|"
+        f"{extra}) {'ok' if ok else 'FAIL'}")
     require(ok, f"{name}: kernel disagrees with its plain version")
     return err
 
@@ -132,7 +186,7 @@ def check_bits(name, got, ref) -> float:
 # phase 3: the serving path
 
 
-def serve_phase(args, spmm, halo):
+def serve_phase(args, g, spmm, halo):
     import torch
     from pipegcn_tpu_torch.cli.serve import build_artifact, \
         build_parser, build_serving_engine
@@ -146,7 +200,7 @@ def serve_phase(args, spmm, halo):
         "--n-layers", "4", "--n-hidden", "256", "--use-pp",
         "--norm", "layer", "--dtype", "float32", "--seed", "0"])
     t0 = time.monotonic()
-    sg = build_artifact(cli, log=log)
+    sg = build_artifact(cli, log=log, g=g)
     t_artifact = time.monotonic() - t0
 
     spmm.spmm_mean.launches = 0
@@ -308,11 +362,14 @@ def k2_phase(engine, halo):
 # phase 5: timings
 
 
-def timings(engine, spmm, halo, launches, errs):
+def k1_k2_timings(d, spmm, halo, with_inner, seed):
+    """K1 and K2 on staged data ``d`` (serving engine's or trainer's): ms,
+    plain ms, one library call's ms and the bound, at F = 256 f32. K2 with
+    the inner rows (serving, vanilla exchange) or without (the pipelined
+    epoch's fresh-halo blocks)."""
     import torch
 
-    d = engine.data
-    gen = torch.Generator(device="cuda").manual_seed(5)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     P, n_max, H = d.num_parts, d.n_max, d.halo_size
     F = 256
     h = torch.randn((P, n_max, F), generator=gen, device="cuda")
@@ -344,66 +401,570 @@ def timings(engine, spmm, halo, launches, errs):
                 * d.indptr.element_size() + d.in_deg.numel() * 4
                 + P * n_max * F * 4)
     k1_ops = n_edges * F + P * n_max * F
-    k1_bound, k1_by = bound_ms(k1_bytes, k1_ops)
+    del fbuf
 
     # --- K2 ------------------------------------------------------------
-    k2_ms = time_ms(lambda: halo.halo_exchange(h, d.send_idx, d.send_mask))
+    k2_ms = time_ms(lambda: halo.halo_gather(h, d.send_idx, d.send_mask,
+                                             with_inner))
     k2_plain = time_ms(lambda: halo.halo_gather_plain(
-        h, d.send_idx, d.send_mask, True), reps=5)
+        h, d.send_idx, d.send_mask, with_inner), reps=5)
     # library yardstick: one index_select of every output row from the
     # flattened parts, then the mask
     r = torch.arange(P, device="cuda")
-    inner_rows = (r[:, None] * n_max
-                  + torch.arange(n_max, device="cuda")[None, :])
     sender = (r[:, None] - torch.arange(1, P, device="cuda")[None, :]) % P
     sidx = d.send_idx[sender, torch.arange(P - 1, device="cuda")[None, :]]
     smask = d.send_mask[sender, torch.arange(P - 1, device="cuda")[None, :]]
-    halo_rows = sender[..., None] * n_max + sidx.long().clamp(0, n_max - 1)
-    gidx = torch.cat([inner_rows, halo_rows.reshape(P, -1)], 1).reshape(-1)
-    gmask = torch.cat([torch.ones_like(inner_rows, dtype=torch.bool),
-                       smask.reshape(P, -1)], 1).reshape(-1, 1)
+    gidx = (sender[..., None] * n_max
+            + sidx.long().clamp(0, n_max - 1)).reshape(P, -1)
+    gmask = smask.reshape(P, -1)
+    if with_inner:
+        inner_rows = (r[:, None] * n_max
+                      + torch.arange(n_max, device="cuda")[None, :])
+        gidx = torch.cat([inner_rows, gidx], 1)
+        gmask = torch.cat([torch.ones_like(inner_rows, dtype=torch.bool),
+                           gmask], 1)
+    gidx, gmask = gidx.reshape(-1), gmask.reshape(-1, 1)
     flat = h.reshape(P * n_max, F)
     zero = torch.zeros((), device="cuda")
     k2_lib = time_ms(lambda: torch.where(
         gmask, flat.index_select(0, gidx), zero))
-    k2_bytes = (h.numel() * 4 + d.send_idx.numel() * 4
-                + d.send_mask.numel() + P * (n_max + H) * F * 4)
-    k2_bound, k2_by = bound_ms(k2_bytes, 0)
+    # reads: every inner row with them, else only the rows sent
+    read_rows = P * n_max if with_inner else int(d.send_mask.sum())
+    n_out = (n_max if with_inner else 0) + H
+    k2_bytes = (read_rows * F * 4 + d.send_idx.numel() * 4
+                + d.send_mask.numel() + P * n_out * F * 4)
+    return {
+        "K1": dict(ms=k1_ms, plain_ms=k1_plain, library_ms=k1_lib,
+                   bound=bound_ms(k1_bytes, k1_ops),
+                   shape=f"P={P} n_src={n_src} n_out={n_max} F={F} "
+                         f"edges={n_edges} f32"),
+        "K2": dict(ms=k2_ms, plain_ms=k2_plain, library_ms=k2_lib,
+                   bound=bound_ms(k2_bytes, 0),
+                   shape=f"P={P} n_max={n_max} H={H} F={F} "
+                         f"with_inner={with_inner} f32"),
+    }
 
-    kernels = [
-        {"name": "spmm_mean", "route": "cuda",
-         "source": "pipegcn_tpu_torch/ops/csrc/spmm_mean.cu",
-         "replaces": "pipegcn_tpu/ops/spmm.py:33",
-         "launches": launches["spmm_mean"], "max_abs_err": errs["K1"],
-         "ms": k1_ms, "kernel_ms": k1_ms, "plain_ms": k1_plain,
-         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": k1_lib,
-         "shape": f"P={P} n_src={n_src} n_out={n_max} F={F} "
-                  f"edges={n_edges} f32"},
-        {"name": "halo_gather", "route": "cuda",
-         "source": "pipegcn_tpu_torch/ops/csrc/halo_gather.cu",
-         "replaces": "pipegcn_tpu/parallel/halo.py:173",
-         "launches": launches["halo_gather"], "max_abs_err": errs["K2"],
-         "ms": k2_ms, "kernel_ms": k2_ms, "plain_ms": k2_plain,
-         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": k2_lib,
-         "shape": f"P={P} n_max={n_max} H={H} F={F} f32"},
-    ]
+
+def timings(engine, spmm, halo):
+    """K1 and K2 at the serving shape, and at the pp precompute's."""
+    d = engine.data
+    t = k1_k2_timings(d, spmm, halo, with_inner=True, seed=5)
     # the pp precompute shape (F = 602, once per engine) for the record
+    args = (d.indptr, d.edge_src, d.in_deg)
     fpp = halo.halo_exchange(d.feat, d.send_idx, d.send_mask)
     pp = {"k1_pp_ms": time_ms(lambda: spmm.spmm_mean(fpp, *args), reps=5),
           "k2_pp_ms": time_ms(lambda: halo.halo_exchange(
               d.feat, d.send_idx, d.send_mask), reps=5)}
-    return kernels, pp
+    return t, pp
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the training cell (scripts/reddit.sh) through cli/main.py
+
+
+def counters(spmm, halo):
+    """Every kernel wrapper of the port, by kernel name: each counts its
+    own launches in ``.launches``."""
+    return {"spmm_mean": spmm.spmm_mean, "halo_gather": halo.halo_gather,
+            "spmm_mean_t": spmm.spmm_mean_t,
+            "halo_scatter": halo.scatter_bgrad,
+            "halo_return": halo.return_blocks}
+
+
+def reset_counts(cnt) -> None:
+    for fn in cnt.values():
+        fn.launches = 0
+
+
+def read_counts(cnt):
+    return {k: fn.launches for k, fn in cnt.items()}
+
+
+def train_cli(args, pipeline=True, epochs=None):
+    from pipegcn_tpu_torch.cli.main import build_parser
+
+    argv = ["--dataset", args.dataset, "--dropout", "0.5", "--lr", "0.01",
+            "--n-partitions", "2",
+            "--n-epochs", str(epochs or args.train_epochs),
+            "--model", "graphsage", "--n-layers", "4", "--n-hidden", "256",
+            "--log-every", "10", "--inductive", "--use-pp",
+            "--norm", "layer", "--dtype", "float32",
+            "--partition-method", "random", "--fix-seed", "--seed", "0",
+            "--device", "cuda"]
+    return build_parser().parse_args(
+        argv + (["--enable-pipeline"] if pipeline else []))
+
+
+def train_phase(args, g, spmm, halo):
+    import math
+
+    import torch
+    from pipegcn_tpu_torch.cli.main import build_trainer, prepare
+
+    cli = train_cli(args)
+    steps = {}
+    sg, eval_graphs = prepare(cli, log=log, g=g, steps=steps)
+    cnt = counters(spmm, halo)
+    device = torch.device("cuda", 0)
+    reset_counts(cnt)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = build_trainer(cli, sg, device, log=log, steps=steps)
+    t0 = time.monotonic()
+    res = trainer.fit(eval_graphs, log_fn=log, inductive=True)
+    torch.cuda.synchronize()
+    fit_s = time.monotonic() - t0
+    launches = read_counts(cnt)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps["eval_graph_csr"] = trainer.eval_setup_s
+    losses = res["losses"]
+    log(f"  fit: {len(losses)} epochs in {fit_s:.1f}s (eval-graph CSRs "
+        f"{trainer.eval_setup_s:.1f}s of it), losses "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, best val "
+        f"{res['best_val']:.4f}, test {res.get('test_acc', float('nan')):.4f},"
+        f" launches {launches}, peak {peak_gib:.3f} GiB")
+    require(len(losses) == cli.n_epochs, "fit ran the wrong epoch count")
+    require(all(math.isfinite(x) for x in losses), f"non-finite loss: "
+            f"{losses}")
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    require(last < first, f"loss did not fall: first-5 mean {first:.4f}, "
+            f"last-5 mean {last:.4f}")
+    require(all(v > 0 for v in launches.values()),
+            f"a kernel of the training path was never launched: {launches}")
+    accs = (res["best_val"], res.get("test_acc", float("nan")))
+    require(all(math.isfinite(a) and 0.0 <= a <= 1.0 for a in accs),
+            f"accuracies not finite: {accs}")
+    stats = {"epochs": len(losses), "losses": losses,
+             "first5_mean": first, "last5_mean": last,
+             "best_val": res["best_val"], "best_epoch": res["best_epoch"],
+             "test_acc": res["test_acc"], "fit_s": fit_s,
+             "epoch_time_s_mean": res["epoch_time"],
+             "peak_mem_gib": peak_gib, "host_steps_s": steps,
+             "launches": launches}
+    return cli, sg, trainer, stats
+
+
+# ---------------------------------------------------------------------------
+# phase 7: one training step through the kernels vs the plain versions
+
+
+def rel_err(a, b) -> float:
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    if a.size == 0:
+        return 0.0
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def step_phase(trainer, epoch):
+    """One epoch through the kernels, run twice from the same state and
+    dropout seed (no kernel uses atomics: the rerun must be bit-identical),
+    then once through the plain versions, held against the first within
+    the STEP tolerances. The plain run applies the kernel run's relu masks:
+    where the two forwards' rounding puts a pre-activation on the other
+    side of 0, relu passes or stops that element's whole gradient, a jump
+    no tolerance on rounding bounds. Such flips are counted and must stay
+    below RELU_FLIP_FRAC of the relu elements."""
+    import numpy as np
+    import torch
+    from pipegcn_tpu_torch.tree import tree_leaves
+
+    snap = trainer.host_state()
+    masks, flips = [], [0, 0]  # [differing signs, relu elements]
+
+    def record(h):
+        masks.append(h > 0)
+        return torch.relu(h)
+
+    def replay(h):
+        m = next(replayed)
+        flips[0] += int((m != (h > 0)).sum())
+        flips[1] += m.numel()
+        return torch.where(m, h, h.new_zeros(()))
+
+    def run(plain, act):
+        trainer.restore_state(snap)
+        trainer.plain, trainer.act = plain, act
+        loss = trainer.train_epoch(epoch)
+        return (loss, [g.detach().cpu().numpy() for g in trainer.last_grads],
+                trainer.host_state())
+
+    try:
+        first = run(False, record)
+        rerun = run(False, torch.relu)
+        replayed = iter(masks)
+        plain = run(True, replay)
+        own = run(True, torch.relu)  # on its own masks: shown, not held
+    finally:
+        trainer.plain, trainer.act = False, torch.relu
+    del masks[:]
+    trainer.restore_state(first[2])
+
+    def leaves(r):
+        return [np.asarray(r[0])] + r[1] + [np.asarray(x) for x in
+                                            tree_leaves(r[2])]
+
+    same = all(a.dtype == b.dtype and a.tobytes() == b.tobytes()
+               for a, b in zip(leaves(first), leaves(rerun)))
+    (lk, gk, sk), (lp, gp, sp) = first, plain
+    loss_err = abs(lk - lp) / abs(lp)
+    grad_err = max(rel_err(a, b) for a, b in zip(gk, gp))
+    param_err = max(rel_err(a, b) for a, b in zip(
+        tree_leaves(sk["params"]), tree_leaves(sp["params"])))
+    comm_err = {f"{grp}.{k}": rel_err(sk["comm"][grp][k], sp["comm"][grp][k])
+                for grp in sk["comm"] for k in sk["comm"][grp]}
+    flip_frac = flips[0] / max(flips[1], 1)
+    own_err = max([rel_err(a, b) for a, b in zip(gk, own[1])]
+                  + [rel_err(a, b) for a, b in zip(
+                      tree_leaves(sk["comm"]), tree_leaves(own[2]["comm"]))])
+    ok = (loss_err <= STEP_LOSS_RTOL and grad_err <= STEP_REL_TOL
+          and param_err <= STEP_REL_TOL
+          and all(v <= STEP_REL_TOL for v in comm_err.values())
+          and all(np.isfinite(g).all() for g in gk)
+          and flip_frac <= RELU_FLIP_FRAC)
+    carries = (f"{max(comm_err.values()):.2e}" if comm_err
+               else "none (vanilla)")
+    log(f"  step rerun through the kernels (epoch {epoch}): bit-identical "
+        f"{'ok' if same else 'FAIL'}")
+    require(same, "two runs of one training epoch through the kernels "
+            "from the same state differ")
+    log(f"  step kernels vs plain (epoch {epoch}): loss {lk:.6f} vs "
+        f"{lp:.6f} (rel {loss_err:.2e}, tol {STEP_LOSS_RTOL:g}); grads "
+        f"{grad_err:.2e}, params {param_err:.2e}, carries {carries} (tol "
+        f"{STEP_REL_TOL:g} of each tensor's max); relu flips {flips[0]} of "
+        f"{flips[1]} (tol {RELU_FLIP_FRAC:g}) {'ok' if ok else 'FAIL'}; "
+        f"on the plain run's own masks grads and carries {own_err:.2e}")
+    require(ok, f"training step through the kernels disagrees with the "
+            f"plain versions: loss {loss_err}, grads {grad_err}, params "
+            f"{param_err}, carries {comm_err}, relu flips {flips}")
+    return {"loss_kernel": lk, "loss_plain": lp, "loss_rel_err": loss_err,
+            "grad_rel_err": grad_err, "param_rel_err": param_err,
+            "carry_rel_err": comm_err, "relu_flips": flips[0],
+            "relu_elements": flips[1], "rerun_bit_identical": same,
+            "own_masks_rel_err": own_err}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: K3, K4, K5 against their plain versions
+
+
+def k3_phase(trainer, spmm):
+    import numpy as np
+    import torch
+
+    d = trainer.data
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    P, n_max, H = d.num_parts, d.n_max, d.halo_size
+    it, dt = d.transpose
+    errs = []
+    g = torch.randn((P, n_max, 256), generator=gen, device="cuda")
+    errs.append(check_close("K3 f32 F=256 (cell)",
+                            spmm.spmm_mean_t(g, it, dt, d.in_deg),
+                            spmm.spmm_mean_t_plain(g, it, dt, d.in_deg),
+                            K3_ATOL, K3_RTOL, abs_sum=spmm.spmm_mean_t_plain(
+                                g.abs(), it, dt, d.in_deg)))
+    # SpmmMean's backward (K3) for f32 and bf16 fbuf: d_fbuf in fbuf's
+    # dtype; bf16 rounds the f32 sums once, so one bf16 ulp apart at most
+    w = torch.randn((P, n_max, 256), generator=gen, device="cuda")
+    fb32 = torch.randn((P, n_max + H, 256), generator=gen, device="cuda")
+    w_abs = spmm.spmm_mean_t_plain(w.abs(), it, dt, d.in_deg)
+    for dtp, atol, rtol in ((torch.float32, K3_ATOL, K3_RTOL),
+                            (torch.bfloat16, 1e-6, 2.0 ** -7)):
+        grads = []
+        for fn in (spmm.spmm_mean, spmm.spmm_mean_plain):
+            x = fb32.to(dtp).clone().requires_grad_(True)
+            (fn(x, d.indptr, d.edge_src, d.in_deg, d.transpose)
+             * w).sum().backward()
+            grads.append(x.grad)
+        require(grads[0].dtype == dtp, "SpmmMean: d_fbuf dtype")
+        errs.append(check_close(f"SpmmMean backward {dtp} (cell)",
+                                grads[0].float(), grads[1].float(), atol,
+                                rtol, abs_sum=w_abs))
+    # edge cases: sources with no edges (exact zero rows), a 5000-edge
+    # source, pad edges dropped, junk past indptr_t[n_src] never read,
+    # odd widths, int64 row pointers
+    rng = np.random.default_rng(7)
+    n_out, n_src = 300, 700
+    deg = rng.integers(0, 80, n_out)
+    dst = np.repeat(np.arange(n_out), deg)
+    src_np = rng.integers(0, n_src, dst.size)
+    src_np[rng.random(dst.size) < 0.45] = 5  # a ~5000-edge source row
+    src_np[np.isin(src_np, np.arange(100, 160))] = 0  # empty rows
+    pad = 37
+    edge_dst = np.concatenate([dst, np.full(pad, n_out)])
+    edge_src = np.concatenate([src_np, np.zeros(pad, np.int64)])
+    ip_np, dt_np = spmm.csr_transpose(edge_src, edge_dst, n_out, n_src)
+    it = torch.from_numpy(ip_np).cuda()
+    dtt = torch.from_numpy(dt_np).cuda()
+    in_deg = torch.from_numpy(rng.uniform(1, 50, n_out).astype(
+        np.float32)).cuda()
+    require(int(np.diff(ip_np)[5]) > 3000, "K3 edge case lost its heavy row")
+    for F in (1, 3, 16, 256):
+        g = torch.randn((n_out, F), generator=gen, device="cuda")
+        got = spmm.spmm_mean_t(g, it, dtt, in_deg)
+        errs.append(check_close(f"K3 edge cases F={F}", got,
+                                spmm.spmm_mean_t_plain(g, it, dtt, in_deg),
+                                K3_ATOL, K3_RTOL, abs_sum=spmm.spmm_mean_t_plain(
+                                    g.abs(), it, dtt, in_deg)))
+        require(bool((got[100:160] == 0).all()),
+                "K3: sources without edges must be exactly zero")
+    junk = dtt.clone()
+    junk[dst.size:] = n_out - 1
+    g = torch.randn((n_out, 16), generator=gen, device="cuda")
+    require(torch.equal(spmm.spmm_mean_t(g, it, junk, in_deg),
+                        spmm.spmm_mean_t(g, it, dtt, in_deg)),
+            "K3 read an edge past indptr_t[n_src]")
+    errs.append(check_close("K3 int64 indptr_t", spmm.spmm_mean_t(
+        g, it.long(), dtt, in_deg), spmm.spmm_mean_t_plain(
+        g, it, dtt, in_deg), K3_ATOL, K3_RTOL,
+        abs_sum=spmm.spmm_mean_t_plain(g.abs(), it, dtt, in_deg)))
+    return max(errs)
+
+
+def index_add_ref(g, bgrad, send_idx, send_mask):
+    """d_h from the send lists themselves, independent of the inverse CSR:
+    one masked ``index_add_`` per part (the library yardstick's call)."""
+    import torch
+
+    out = g.clone(memory_format=torch.contiguous_format)
+    P, F = g.shape[0], g.shape[2]
+    for p in range(P):
+        m = send_mask[p].reshape(-1)
+        out[p].index_add_(0, send_idx[p].reshape(-1)[m].long(),
+                          bgrad[p].reshape(-1, F)[m])
+    return out
+
+
+def k4_phase(trainer, halo):
+    import torch
+
+    d = trainer.data
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    P, n_max, H = d.num_parts, d.n_max, d.halo_size
+    errs = []
+    # P = 2 at the cell's shape, g a view of a [P, n_max + H, F] cotangent
+    # as the backward hands it: at most one slot per row, bit-exact, and
+    # equal to the index_add_ over the send lists (the CSR is right)
+    full = torch.randn((P, n_max + H, 256), generator=gen, device="cuda")
+    bg = torch.randn((P, H, 256), generator=gen, device="cuda")
+    got = halo.scatter_bgrad(full[:, :n_max], bg, *d.inverse)
+    errs.append(check_bits("K4 P=2 F=256 (cell)", got,
+                           halo.scatter_bgrad_plain(full[:, :n_max], bg,
+                                                    *d.inverse)))
+    check_bits("K4 P=2 F=256 (cell) vs index_add_ over the send lists", got,
+               index_add_ref(full[:, :n_max], bg, d.send_idx, d.send_mask))
+    # P = 4, rows repeated across distances, masked-off slots, odd widths
+    for F in (3, 256):
+        P4, n4, B4 = 4, 64, 40
+        idx = torch.stack([torch.stack([
+            torch.randperm(n4, generator=gen, device="cuda")[:B4]
+            for _ in range(P4 - 1)]) for _ in range(P4)]).int()
+        mask = torch.rand((P4, P4 - 1, B4), generator=gen,
+                          device="cuda") < 0.8
+        ptr, slot = halo.send_csr(idx.cpu().numpy(), mask.cpu().numpy(), n4)
+        ptr, slot = torch.from_numpy(ptr).cuda(), torch.from_numpy(slot).cuda()
+        require(int(ptr.diff(dim=1).max()) > 1, "K4 case has no repeats")
+        g = torch.randn((P4, n4, F), generator=gen, device="cuda")
+        b = torch.randn((P4, (P4 - 1) * B4, F), generator=gen,
+                        device="cuda")
+        got = halo.scatter_bgrad(g, b, ptr, slot)
+        errs.append(check_close(f"K4 P=4 F={F} (repeated rows)", got,
+                                halo.scatter_bgrad_plain(g, b, ptr, slot),
+                                K4_ATOL, K4_RTOL))
+        check_close(f"K4 P=4 F={F} vs index_add_ over the send lists", got,
+                    index_add_ref(g, b, idx, mask), K4_ATOL, K4_RTOL)
+    return max(errs)
+
+
+def k5_phase(trainer, halo):
+    import torch
+
+    d = trainer.data
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    P, n_max, H = d.num_parts, d.n_max, d.halo_size
+    full = torch.randn((P, n_max + H, 256), generator=gen, device="cuda")
+    check_bits("K5 P=2 F=256 (cell, strided view)",
+               halo.return_blocks(full[:, n_max:], d.b_max),
+               halo.return_blocks_plain(full[:, n_max:], d.b_max))
+    for P, B, F, dt in ((3, 20, 7, torch.float32),
+                        (4, 9, 3, torch.bfloat16),
+                        (4, 16, 256, torch.float32)):
+        x = torch.randn((P, (P - 1) * B + 5, F), generator=gen,
+                        device="cuda").to(dt)
+        x[0, 0, 0] = float("nan")
+        x[1, 1, 0] = -0.0
+        v = x[:, 5:]
+        check_bits(f"K5 P={P} F={F} {dt} (strided view)",
+                   halo.return_blocks(v, B), halo.return_blocks_plain(v, B))
+    return 0.0
+
+
+# ---------------------------------------------------------------------------
+# phase 9: timings of K3-K5, the epoch and its split
+
+
+def train_timings(trainer, spmm, halo, cnt):
+    import torch
+
+    d = trainer.data
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    P, n_max, H, B = d.num_parts, d.n_max, d.halo_size, d.b_max
+    n_src = n_max + H
+    F = 256
+    it, dt = d.transpose
+    edges = [int(it[p, -1]) for p in range(P)]
+    n_edges = sum(edges)
+    out = {}
+
+    # --- K3 ------------------------------------------------------------
+    g = torch.randn((P, n_max, F), generator=gen, device="cuda")
+    k3 = time_ms(lambda: spmm.spmm_mean_t(g, it, dt, d.in_deg))
+    k3_plain = time_ms(lambda: spmm.spmm_mean_t_plain(g, it, dt, d.in_deg),
+                       reps=5)
+    # library yardstick: one cuSPARSE CSR SpMM with the block-diagonal
+    # transpose of both parts, values 1/in_deg[dst]
+    crow = torch.cat([it[0].long()] + [
+        it[p, 1:].long() + sum(edges[:p]) for p in range(1, P)])
+    col = torch.cat([dt[p, :edges[p]].long() + p * n_max for p in range(P)])
+    val = torch.cat([torch.reciprocal(d.in_deg[p]).index_select(
+        0, dt[p, :edges[p]].long()) for p in range(P)])
+    with warnings.catch_warnings():  # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        a = torch.sparse_csr_tensor(crow, col, val,
+                                    size=(P * n_src, P * n_max))
+    dense = g.reshape(P * n_max, F)
+    k3_lib = time_ms(lambda: torch.sparse.mm(a, dense))
+    del a, crow, col, val
+    k3_bytes = (g.numel() * 4 + n_edges * 4 + it.numel() * it.element_size()
+                + d.in_deg.numel() * 4 + P * n_src * F * 4)
+    # g[dst] / in_deg[dst] depends on dst alone: the function needs one
+    # scaling per output element of g and one add per edge and element
+    # (K3 multiplies per edge: work the bound does not count)
+    k3_ops = n_edges * F + P * n_max * F
+    out["K3"] = dict(ms=k3, plain_ms=k3_plain, library_ms=k3_lib,
+                     bound=bound_ms(k3_bytes, k3_ops),
+                     shape=f"P={P} n_out={n_max} n_src={n_src} F={F} "
+                           f"edges={n_edges} f32")
+
+    # --- K4 ------------------------------------------------------------
+    full = torch.randn((P, n_src, F), generator=gen, device="cuda")
+    gi = full[:, :n_max]
+    bg = torch.randn((P, H, F), generator=gen, device="cuda")
+    ptr, slot = d.inverse
+    k4 = time_ms(lambda: halo.scatter_bgrad(gi, bg, ptr, slot))
+    k4_plain = time_ms(lambda: halo.scatter_bgrad_plain(gi, bg, ptr, slot),
+                       reps=5)
+    # library yardstick: one index_add over the flattened parts, given the
+    # inner rows contiguous and the masked slots' bgrad rows compacted
+    m = d.send_mask.reshape(P, -1)
+    rows = torch.cat([d.send_idx[p].reshape(-1)[m[p]].long() + p * n_max
+                      for p in range(P)])
+    vals = torch.cat([bg[p][m[p]] for p in range(P)])
+    gflat = gi.contiguous().reshape(P * n_max, F)
+    k4_lib = time_ms(lambda: torch.index_add(gflat, 0, rows, vals))
+    nnz = int(rows.numel())
+    k4_bytes = (2 * P * n_max * F * 4 + nnz * F * 4 + ptr.numel() * 4
+                + nnz * 4)
+    out["K4"] = dict(ms=k4, plain_ms=k4_plain, library_ms=k4_lib,
+                     bound=bound_ms(k4_bytes, nnz * F),
+                     shape=f"P={P} n_max={n_max} H={H} nnz={nnz} F={F} f32")
+    del vals, gflat
+
+    # --- K5 ------------------------------------------------------------
+    gh = full[:, n_max:]
+    k5 = time_ms(lambda: halo.return_blocks(gh, B))
+    k5_plain = time_ms(lambda: halo.return_blocks_plain(gh, B), reps=5)
+    # library yardstick: one index_select of every output row from the
+    # flattened (contiguous) halo blocks
+    r = torch.arange(P, device="cuda")[:, None]
+    k = torch.arange(H, device="cuda")[None, :]
+    ridx = (((r + k // B + 1) % P) * H + k).reshape(-1)
+    ghc = gh.contiguous().reshape(P * H, F)
+    k5_lib = time_ms(lambda: ghc.index_select(0, ridx))
+    out["K5"] = dict(ms=k5, plain_ms=k5_plain, library_ms=k5_lib,
+                     bound=bound_ms(2 * P * H * F * 4, 0),
+                     shape=f"P={P} H={H} B={B} F={F} f32")
+    del ghc, gh, gi, bg, full
+
+    # --- K1 and K2 at the epoch's shapes, and the epoch ----------------
+    out.update(k1_k2_timings(d, spmm, halo, with_inner=False, seed=11))
+    reset_counts(cnt)
+    base = trainer.tcfg.n_epochs + 10
+    epochs = iter(range(base, base + 100))
+    reps = 5
+    out["epoch_ms"] = time_ms(lambda: trainer.train_epoch(next(epochs)),
+                              reps=reps, warmup=1)
+    per_epoch = {kk: v / (reps + 1) for kk, v in read_counts(cnt).items()}
+    kernel_ms = (per_epoch["spmm_mean"] * out["K1"]["ms"]
+                 + per_epoch["spmm_mean_t"] * k3
+                 + per_epoch["halo_gather"] * out["K2"]["ms"]
+                 + per_epoch["halo_scatter"] * k4
+                 + per_epoch["halo_return"] * k5)
+    out["launches_per_epoch"] = per_epoch
+    out["epoch_kernel_ms"] = kernel_ms
+    out["epoch_rest_ms"] = out["epoch_ms"] - kernel_ms
+    log(f"  epoch {out['epoch_ms']:.3f} ms median: kernels "
+        f"{kernel_ms:.3f} ms ({per_epoch}), rest "
+        f"{out['epoch_rest_ms']:.3f} ms")
+    return out
+
+
+def vanilla_phase(args, sg, spmm, halo):
+    import math
+
+    import torch
+    from pipegcn_tpu_torch.cli.main import build_trainer
+
+    cli = train_cli(args, pipeline=False, epochs=3)
+    cnt = counters(spmm, halo)
+    trainer = build_trainer(cli, sg, torch.device("cuda", 0), log=log)
+    reset_counts(cnt)
+    losses = [trainer.train_epoch(e) for e in range(3)]
+    launches = read_counts(cnt)
+    log(f"  vanilla: losses {losses}, launches {launches}")
+    require(all(math.isfinite(x) for x in losses), "vanilla: non-finite loss")
+    require(all(v > 0 for v in launches.values()),
+            f"vanilla: a kernel was never launched: {launches}")
+    # the differentiable exchange's backward (K5 then K4) through the
+    # kernels against the plain versions, one epoch from the same state
+    step = step_phase(trainer, 3)
+    return {"losses": losses, "launches": launches, "step_check": step}
 
 
 # ---------------------------------------------------------------------------
 
 
+def kernel_entry(name, source, replaces, launches, err, t, serving=None):
+    """One kernel of the ``kernels`` line: ``t`` timed at the shape whose
+    launches are counted (the training run's); K1/K2 also carry their
+    serving-path timings and serving-run count under ``serving``."""
+    bound, by = t["bound"]
+    entry = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": launches, "max_abs_err": err,
+             "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
+             "bound_ms": bound, "bound_by": by,
+             "library_ms": t["library_ms"], "shape": t["shape"]}
+    if serving is not None:
+        t, n = serving
+        entry["serving"] = {"launches": n, "ms": t["ms"],
+                            "plain_ms": t["plain_ms"],
+                            "bound_ms": t["bound"][0],
+                            "bound_by": t["bound"][1],
+                            "library_ms": t["library_ms"],
+                            "shape": t["shape"]}
+    return entry
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--dataset", default="synthetic-reddit",
-                    help="graph to serve (default: the full-width cell)")
+                    help="graph of both cells (default: the full-width "
+                         "cell)")
     ap.add_argument("--serve-seconds", type=float, default=5.0)
     ap.add_argument("--qps", type=float, default=200.0)
+    ap.add_argument("--train-epochs", type=int, default=30)
+    ap.add_argument("--step-repeats", type=int, default=1,
+                    help="run [7] on this many consecutive epochs")
     args = ap.parse_args()
 
     import torch
@@ -413,6 +974,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     try:
+        from pipegcn_tpu_torch.graph.datasets import load_data
         from pipegcn_tpu_torch.ops import _build, spmm
         from pipegcn_tpu_torch.parallel import halo
     except ImportError as exc:
@@ -434,18 +996,75 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.monotonic()
-    secs = _build.build(["spmm_mean", "halo_gather"])
+    secs = _build.build(["spmm_mean", "halo_gather", "halo_scatter"])
     log(f"[2] kernels built in {time.monotonic() - t0:.1f}s: {secs}")
+
+    t0 = time.monotonic()
+    g = load_data(args.dataset)
+    load_s = time.monotonic() - t0
+    log(f"    load_data {args.dataset}: {load_s:.1f}s ({g.num_nodes} "
+        f"nodes, {g.num_edges} edges)")
 
     log(f"[3] serving path: {args.dataset}, 2 parts, GraphSAGE 4x256 "
         "use_pp")
-    engine, summary, launches, serve_stats = serve_phase(args, spmm, halo)
+    engine, summary, launches, serve_stats = serve_phase(args, g, spmm,
+                                                         halo)
 
-    log("[4] kernels vs plain versions")
+    log("[4] K1, K2 vs plain versions")
     errs = {"K1": k1_phase(engine, spmm, halo), "K2": k2_phase(engine, halo)}
 
-    log("[5] timings")
-    kernels, pp = timings(engine, spmm, halo, launches, errs)
+    log("[5] K1, K2 timings")
+    serve_t, pp = timings(engine, spmm, halo)
+    del engine
+    torch.cuda.empty_cache()
+
+    log(f"[6] training cell: scripts/reddit.sh at full width on "
+        f"{args.dataset} (--inductive --enable-pipeline --use-pp, dropout "
+        f"0.5, lr 0.01, 2 parts); cuts: random instead of metis "
+        f"partitioning, {args.train_epochs} epochs instead of 3000")
+    cli, sg, trainer, train_stats = train_phase(args, g, spmm, halo)
+    del g
+    train_launches = train_stats["launches"]
+
+    log("[7] one pipelined epoch: kernels vs plain versions")
+    step = step_phase(trainer, cli.n_epochs)
+    for r in range(1, args.step_repeats):
+        step_phase(trainer, cli.n_epochs + r)
+
+    log("[8] K3, K4, K5 vs plain versions")
+    errs.update(K3=k3_phase(trainer, spmm), K4=k4_phase(trainer, halo),
+                K5=k5_phase(trainer, halo))
+
+    log("[9] K3-K5 timings, the epoch and its split; 3 vanilla epochs")
+    tt = train_timings(trainer, spmm, halo, counters(spmm, halo))
+    del trainer
+    torch.cuda.empty_cache()
+    vanilla = vanilla_phase(args, sg, spmm, halo)
+
+    # the main path of this slice is training: every kernel's launches
+    # are its training-run count and its times are taken at the epoch's
+    # shapes; K1/K2 carry their serving-path numbers beside them
+    src = "pipegcn_tpu_torch/ops/csrc/"
+    n = train_launches
+    kernels = [
+        kernel_entry("spmm_mean", src + "spmm_mean.cu",
+                     "pipegcn_tpu/ops/spmm.py:33", n["spmm_mean"],
+                     errs["K1"], tt["K1"],
+                     (serve_t["K1"], launches["spmm_mean"])),
+        kernel_entry("halo_gather", src + "halo_gather.cu",
+                     "pipegcn_tpu/parallel/halo.py:173", n["halo_gather"],
+                     errs["K2"], tt["K2"],
+                     (serve_t["K2"], launches["halo_gather"])),
+        kernel_entry("spmm_mean_t", src + "spmm_mean.cu",
+                     "pipegcn_tpu/ops/spmm.py:143", n["spmm_mean_t"],
+                     errs["K3"], tt["K3"]),
+        kernel_entry("halo_scatter", src + "halo_scatter.cu",
+                     "pipegcn_tpu/parallel/halo.py:285", n["halo_scatter"],
+                     errs["K4"], tt["K4"]),
+        kernel_entry("halo_return", src + "halo_gather.cu",
+                     "pipegcn_tpu/parallel/halo.py:244", n["halo_return"],
+                     errs["K5"], tt["K5"]),
+    ]
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
@@ -454,10 +1073,26 @@ def main() -> int:
                     "p99_ms": summary["p99_ms"], "qps": summary["qps"],
                     "n_queries": summary["n_queries"],
                     "peak_mem_gib": serve_stats["peak_mem_gib"],
+                    "load_data_s": load_s,
                     "artifact_build_s": serve_stats["artifact_build_s"],
                     "engine_build_s": serve_stats["engine_build_s"],
                     "logits_max_abs_err": serve_stats["logits_max_abs_err"],
                     **pp}}))
+    print(json.dumps({"training": {
+        "dataset": args.dataset,
+        "cell": "scripts/reddit.sh: graphsage 4x256 --use-pp --inductive "
+                "--enable-pipeline, dropout 0.5, lr 0.01, 2 parts, "
+                "LayerNorm, f32",
+        "cuts": ["partition random (not metis)",
+                 f"{args.train_epochs} epochs (not 3000)"],
+        **train_stats,
+        "step_check": step,
+        "epoch_ms_median": tt["epoch_ms"],
+        "epoch_kernel_ms": tt["epoch_kernel_ms"],
+        "epoch_rest_ms": tt["epoch_rest_ms"],
+        "launches_per_epoch": tt["launches_per_epoch"],
+        "vanilla": vanilla,
+        "card": smi}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,164 @@
+"""Training entry point: ``python -m pipegcn_tpu_torch.cli.main``.
+
+Port of ``pipegcn_tpu/cli/main.py`` (``prepare`` + ``run``) for the runs
+``scripts/reddit.sh`` makes: load the graph, split it under
+``--inductive`` (the train subgraph is partitioned; val and test are
+evaluated on the train+val subgraph and the full graph), partition and
+build the ``ShardedGraph`` in memory (each host step timed), train the P
+parts stacked on one device, and print the reference's lines:
+
+  Process 000 | Epoch 00009 | Time(s) ... | Comm(s) ... | Reduce(s) ... | Loss ...
+  Epoch 00009 | Accuracy 95.00%                  (inductive)
+  Validation accuracy ...
+  Test Result | Accuracy ...
+
+Its parser takes every flag of ``scripts/reddit.sh`` with the JAX
+parser's names and defaults (``cli/parser.py``), plus ``--device``. As in
+the JAX CLI, the seed is drawn at random unless ``--fix-seed``. Runs on
+CUDA; ``--device cpu`` runs the plain PyTorch path on the CPU; without
+CUDA and without ``--device cpu`` it raises. Result files, saved models,
+artifacts on disk and the rest of the JAX flag set are ROADMAP A3.
+"""
+
+from __future__ import annotations
+
+import argparse
+import random
+import sys
+import time
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="PipeGCN training on PyTorch/CUDA (port slice 2)")
+    p.add_argument("--dataset", type=str, default="reddit")
+    p.add_argument("--data-root", "--data_root", type=str, default=None,
+                   help="dataset root (default $PIPEGCN_DATA or ./dataset)")
+    p.add_argument("--model", type=str, default="graphsage")
+    p.add_argument("--dropout", type=float, default=0.5)
+    p.add_argument("--lr", type=float, default=1e-2)
+    p.add_argument("--n-epochs", "--n_epochs", type=int, default=200)
+    p.add_argument("--n-partitions", "--n_partitions", type=int, default=2)
+    p.add_argument("--n-hidden", "--n_hidden", type=int, default=16)
+    p.add_argument("--n-layers", "--n_layers", type=int, default=2)
+    p.add_argument("--norm", choices=["layer", "batch", "none"],
+                   default="layer")
+    p.add_argument("--weight-decay", "--weight_decay", type=float,
+                   default=0)
+    p.add_argument("--partition-obj", "--partition_obj",
+                   choices=["vol", "cut"], default="vol")
+    p.add_argument("--partition-method", "--partition_method",
+                   choices=["metis", "random"], default="metis")
+    p.add_argument("--enable-pipeline", "--enable_pipeline",
+                   action="store_true")
+    p.add_argument("--feat-corr", "--feat_corr", action="store_true")
+    p.add_argument("--grad-corr", "--grad_corr", action="store_true")
+    p.add_argument("--corr-momentum", "--corr_momentum", type=float,
+                   default=0.95)
+    p.add_argument("--use-pp", "--use_pp", action="store_true")
+    p.add_argument("--inductive", action="store_true")
+    p.add_argument("--fix-seed", "--fix_seed", action="store_true")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--log-every", "--log_every", type=int, default=10)
+    p.add_argument("--eval", action="store_true")
+    p.add_argument("--no-eval", action="store_false", dest="eval")
+    p.set_defaults(eval=True)
+    p.add_argument("--dtype", choices=["float32", "bfloat16"],
+                   default="float32")
+    p.add_argument("--device", type=str, default=None,
+                   help="cuda (default) or cpu; no silent fallback")
+    return p
+
+
+def prepare(args, log=print, g=None, steps=None):
+    """Load (unless ``g`` is given), split under ``--inductive`` and build
+    the ``ShardedGraph`` in memory; returns ``(sg, eval_graphs)`` with
+    ``eval_graphs`` ``{'val': (graph, 'val_mask'), 'test': (...)}``.
+    Host-step seconds are logged and added to ``steps`` when given."""
+    from ..graph.datasets import inductive_split, load_data
+    from .serve import build_artifact
+
+    steps = {} if steps is None else steps
+    if g is None:
+        t0 = time.monotonic()
+        g = load_data(args.dataset, args.data_root)
+        steps["load_data"] = time.monotonic() - t0
+    if args.inductive:
+        t0 = time.monotonic()
+        train_g, val_g, test_g = inductive_split(g)
+        steps["inductive_split"] = time.monotonic() - t0
+        log(f"inductive_split in {steps['inductive_split']:.1f}s "
+            f"({train_g.num_edges} train-graph edges)")
+        eval_graphs = {"val": (val_g, "val_mask"),
+                       "test": (test_g, "test_mask")}
+    else:
+        train_g = g
+        eval_graphs = {"val": (g, "val_mask"), "test": (g, "test_mask")}
+    sg = build_artifact(args, log, g=train_g, steps=steps)
+    return sg, eval_graphs
+
+
+def build_trainer(args, sg, device, log=print, steps=None):
+    """The ``Trainer`` for parsed ``args`` over ``sg`` on ``device``
+    (staging, the transpose and inverse send CSRs, and the use_pp
+    precompute, timed)."""
+    from ..models.sage import ModelConfig
+    from ..parallel.trainer import TrainConfig, Trainer
+
+    layer_sizes = (sg.n_feat,) + (args.n_hidden,) * (args.n_layers - 1) \
+        + (sg.n_class,)
+    cfg = ModelConfig(layer_sizes=layer_sizes, model=args.model,
+                      use_pp=args.use_pp,
+                      norm=None if args.norm == "none" else args.norm,
+                      dropout=args.dropout, train_size=sg.n_train_global,
+                      dtype=args.dtype)
+    tcfg = TrainConfig(lr=args.lr, weight_decay=args.weight_decay,
+                       n_epochs=args.n_epochs,
+                       enable_pipeline=args.enable_pipeline,
+                       feat_corr=args.feat_corr, grad_corr=args.grad_corr,
+                       corr_momentum=args.corr_momentum,
+                       log_every=args.log_every, seed=args.seed,
+                       eval=args.eval)
+    t0 = time.monotonic()
+    trainer = Trainer(sg, cfg, tcfg, device)
+    if device.type == "cuda":
+        import torch
+
+        torch.cuda.synchronize(device)
+    secs = time.monotonic() - t0
+    if steps is not None:
+        steps["trainer_setup"] = secs
+    log(f"trainer set up in {secs:.1f}s (staging, transpose and send "
+        f"CSRs{', use_pp precompute' if args.use_pp else ''}; {device})")
+    return trainer
+
+
+def run(args, log=print) -> dict:
+    """Full training run; returns ``Trainer.fit``'s result dict."""
+    from ..device import resolve_device
+
+    device = resolve_device(args.device)
+    # seed semantics: random unless --fix-seed (reference main.py:11-14)
+    if not args.fix_seed:
+        args.seed = random.randint(0, 1 << 31)
+    sg, eval_graphs = prepare(args, log)
+    sizes = ", ".join(str(int(c)) for c in sg.inner_count)
+    print(f"partition sizes (inner nodes per device): {sizes}")
+    trainer = build_trainer(args, sg, device, log)
+    res = trainer.fit(eval_graphs if args.eval else None,
+                      inductive=args.inductive)
+    if args.eval and "test_acc" in res:
+        print("Validation accuracy {:.2%}".format(res["best_val"]))
+        print("Test Result | Accuracy {:.2%}".format(res["test_acc"]))
+    return res
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    print(args)
+    run(args)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

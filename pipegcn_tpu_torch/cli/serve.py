@@ -75,15 +75,18 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def build_artifact(args, log=print):
-    """Build the artifact in memory: ``load_data``, ``partition_graph``
-    and ``ShardedGraph.build``, logging the seconds of each step."""
+def build_artifact(args, log=print, g=None, steps=None):
+    """Build the artifact in memory: ``load_data`` (skipped when the graph
+    ``g`` is given), ``partition_graph`` and ``ShardedGraph.build``,
+    logging the seconds of each step (and adding them to ``steps``, a
+    dict, when given)."""
     from ..graph.datasets import load_data
     from ..partition.halo import ShardedGraph
     from ..partition.partitioner import partition_graph
 
     t0 = time.monotonic()
-    g = load_data(args.dataset, args.data_root)
+    if g is None:
+        g = load_data(args.dataset, args.data_root)
     t1 = time.monotonic()
     parts = partition_graph(g, args.n_partitions,
                             method=args.partition_method,
@@ -92,9 +95,13 @@ def build_artifact(args, log=print):
     t2 = time.monotonic()
     sg = ShardedGraph.build(g, parts, n_parts=args.n_partitions)
     t3 = time.monotonic()
-    log(f"serve: artifact built in {t3 - t0:.1f}s (load_data "
-        f"{t1 - t0:.1f}s, partition_graph {t2 - t1:.1f}s, "
-        f"ShardedGraph.build {t3 - t2:.1f}s; {g.num_edges} edges)")
+    log(f"artifact built in {t3 - t0:.1f}s (load_data {t1 - t0:.1f}s, "
+        f"partition_graph {t2 - t1:.1f}s, ShardedGraph.build "
+        f"{t3 - t2:.1f}s; {g.num_edges} edges)")
+    if steps is not None:
+        for k, v in (("load_data", t1 - t0), ("partition_graph", t2 - t1),
+                     ("ShardedGraph.build", t3 - t2)):
+            steps[k] = steps.get(k, 0.0) + v
     return sg
 
 

@@ -5,7 +5,9 @@
 as numpy arrays, into the port's parameter dict, so both packages
 compute the same function. torch cannot reproduce JAX's RNG streams, so
 this is how a test (or a JAX checkpoint) gives the port the exact
-weights the reference holds.
+weights the reference holds. The reverse view is ``tree.tree_numpy`` (the
+port's layout is the JAX pytree's), and ``first_copy`` takes one copy of
+the stacked ``[P, ...]`` leaves an emulated JAX trainer keeps.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from ..tree import tree_map
 from .sage import Params
 
 
@@ -33,3 +36,9 @@ def params_from_jax(tree: Mapping[str, Any],
         "norms": [{k: leaf(v) for k, v in nrm.items()}
                   for nrm in tree["norms"]],
     }
+
+
+def first_copy(tree: Mapping[str, Any]) -> dict:
+    """``v[0]`` of every leaf: one copy of an emulated JAX trainer's
+    stacked ``[P, ...]`` params (or optimizer moments), as numpy."""
+    return tree_map(lambda v: np.asarray(v)[0], tree)

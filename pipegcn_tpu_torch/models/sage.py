@@ -1,6 +1,6 @@
-"""GraphSAGE for the serving path — port of ``pipegcn_tpu/models/sage.py``
-(``ModelConfig``, ``init_params``, ``_layer_norm``, and ``forward`` on its
-``training=False, halo_eval=True`` path).
+"""GraphSAGE — port of ``pipegcn_tpu/models/sage.py`` (``ModelConfig``,
+``init_params``, ``_layer_norm``, ``_dropout`` and ``forward`` on its
+training, ``halo_eval`` and full-graph eval (``eval_pp_agg``) paths).
 
 Parameters are a plain dict of tensors with the JAX pytree's layout,
 ``{'layers': [...], 'norms': [...]}``: the use_pp first layer holds
@@ -8,9 +8,10 @@ Parameters are a plain dict of tensors with the JAX pytree's layout,
 ``{'scale', 'bias'}``; weights are stored ``[in, out]`` (right-multiply).
 Activations are stacked over parts, ``[P, rows, F]``.
 
-Only what this slice runs is ported: graphsage, LayerNorm or no norm,
-float32 compute. Training, dropout, GCN, GAT, BatchNorm, the dense tail
-and bfloat16 compute raise ``NotImplementedError``.
+Only what the ported slices run is here: graphsage, LayerNorm or no norm,
+float32 compute, 32-bit dropout masks. GCN, GAT, BatchNorm, the dense
+tail, bfloat16 compute and 8-bit dropout masks raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ Params = Dict[str, List[Dict[str, torch.Tensor]]]
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The fields of ``pipegcn_tpu.models.sage.ModelConfig`` this slice
+    """The fields of ``pipegcn_tpu.models.sage.ModelConfig`` the port
     reads; anything it cannot run is refused at construction."""
 
     layer_sizes: Tuple[int, ...]   # [in_feat, hidden..., n_class]
@@ -35,6 +36,9 @@ class ModelConfig:
     n_linear: int = 0
     use_pp: bool = False
     norm: Optional[str] = "layer"  # 'layer' | None
+    dropout: float = 0.5
+    train_size: int = 0            # global n_train (informational here)
+    dropout_bits: int = 32
     dtype: str = "float32"
 
     def __post_init__(self):
@@ -51,6 +55,12 @@ class ModelConfig:
         if self.dtype != "float32":
             raise NotImplementedError(
                 f"dtype {self.dtype!r} waits for a later slice (float32)")
+        if self.dropout_bits != 32:
+            raise NotImplementedError(
+                "8-bit dropout masks (dropout_bits=8) wait for ROADMAP A6")
+        if not 0.0 <= self.dropout < 1.0:
+            raise ValueError(f"dropout must be in [0, 1), got "
+                             f"{self.dropout}")
 
     @property
     def n_layers(self) -> int:
@@ -102,36 +112,84 @@ def _dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, w) + b
 
 
+def _dropout(gen: torch.Generator, h: torch.Tensor,
+             rate: float) -> torch.Tensor:
+    """Inverted dropout with an explicit generator: keep where a uniform
+    draw is ``>= rate`` (keep probability ``1 - rate``), scale kept values
+    by ``1 / (1 - rate)`` (the JAX ``_dropout`` 32-bit path). The bits
+    differ from JAX's; the distribution is the same."""
+    if rate <= 0.0:
+        return h
+    keep = torch.rand(h.shape, generator=gen, device=h.device) >= rate
+    return torch.where(keep, h / (1.0 - rate), h.new_zeros(()))
+
+
 def forward(params: Params, cfg: ModelConfig, h: torch.Tensor,
             indptr: torch.Tensor, src: torch.Tensor, in_deg: torch.Tensor,
-            *, comm_update: Callable[[int, torch.Tensor], torch.Tensor],
-            spmm_fn: Callable[..., torch.Tensor] = spmm_mean
+            *, comm_update: Optional[Callable[[int, torch.Tensor],
+                                              torch.Tensor]] = None,
+            spmm_fn: Callable[..., torch.Tensor] = spmm_mean,
+            training: bool = False,
+            generator: Optional[torch.Generator] = None,
+            eval_pp_agg: bool = False,
+            act: Callable[[torch.Tensor], torch.Tensor] = torch.relu
             ) -> torch.Tensor:
-    """Sharded eval of the GraphSAGE stack over P stacked parts; returns
-    logits ``[P, n_max, n_class]`` (f32).
+    """The GraphSAGE stack over P stacked parts; returns logits
+    ``[P, n_dst, n_class]`` (f32).
 
-    ``h`` is the per-part input ``[P, n_max, F]`` (under use_pp the
-    precomputed ``[feat, mean_neigh]`` concat, so layer 0 is a plain
+    Partitioned (``comm_update`` given: training, or the sharded eval of
+    serving): ``h`` is the per-part input ``[P, n_max, F]`` (under use_pp
+    the precomputed ``[feat, mean_neigh]`` concat, so layer 0 is a plain
     dense layer). ``comm_update(i, h)`` returns graph layer i's
     aggregation source buffer ``[P, n_max + H, F]`` (inner rows then halo
-    rows); it is skipped for layer 0 under use_pp. ``spmm_fn`` defaults to
-    the kernel wrapper; a caller holding the kernels against their plain
-    versions passes the plain one. Mirrors the JAX ``forward`` with
-    ``training=False, halo_eval=True``: no dropout, f32 logits,
-    LayerNorm + relu between layers."""
+    rows); it is skipped for layer 0 under use_pp. With ``training`` the
+    per-layer order is comm update -> dropout (``generator``; the whole
+    buffer, halo rows included) -> layer -> norm -> relu.
+
+    Full graph (``comm_update`` None, ``training`` False): ``h`` is
+    ``[1, N, F]`` and the graph its own source space; with
+    ``eval_pp_agg`` the use_pp layer 0 computes ``cat(h, mean(h)) @ W``.
+
+    ``spmm_fn(fbuf, indptr, src, in_deg)`` defaults to the kernel wrapper;
+    a trainer passes one that carries the transpose CSR, and a caller
+    holding the kernels against their plain versions passes the plain
+    one. ``act`` is the nonlinearity between layers (relu; a caller holding
+    two runs on the same relu masks passes its own). Mirrors the JAX
+    ``forward`` (f32 logits, LayerNorm + relu between layers)."""
+    if training and cfg.dropout > 0 and generator is None:
+        raise ValueError("training with dropout needs a generator")
+    if training and comm_update is None:
+        raise ValueError("training runs on the partitioned layout "
+                         "(comm_update)")
     n_dst = h.shape[1]
+    drop = training and cfg.dropout > 0
     for i in range(cfg.n_layers):
         lp = params["layers"][i]
-        if cfg.use_pp and i == 0:
-            h = _dense(h, lp["w"], lp["b"])
+        pp_layer = cfg.use_pp and i == 0
+        if comm_update is None:
+            ah = spmm_fn(h, indptr, src, in_deg)
+            if pp_layer:
+                if not eval_pp_agg:
+                    raise ValueError(
+                        "use_pp model evaluated without eval_pp_agg")
+                h = _dense(torch.cat([h, ah], dim=-1), lp["w"], lp["b"])
+            else:
+                h = _dense(h, lp["w1"], lp["b1"]) \
+                    + _dense(ah, lp["w2"], lp["b2"])
         else:
-            fbuf = comm_update(i, h)
-            ah = spmm_fn(fbuf, indptr, src, in_deg)
-            h = (_dense(fbuf[:, :n_dst], lp["w1"], lp["b1"])
-                 + _dense(ah, lp["w2"], lp["b2"]))
+            if not pp_layer:
+                h = comm_update(i, h)
+            if drop:
+                h = _dropout(generator, h, cfg.dropout)
+            if pp_layer:
+                h = _dense(h, lp["w"], lp["b"])
+            else:
+                ah = spmm_fn(h, indptr, src, in_deg)
+                h = (_dense(h[:, :n_dst], lp["w1"], lp["b1"])
+                     + _dense(ah, lp["w2"], lp["b2"]))
         if i < cfg.n_layers - 1:
             if cfg.norm == "layer":
                 nrm = params["norms"][i]
                 h = _layer_norm(h, nrm["scale"], nrm["bias"])
-            h = torch.relu(h)
+            h = act(h)
     return h

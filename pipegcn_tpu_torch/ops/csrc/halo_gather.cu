@@ -1,7 +1,7 @@
-// K2: masked halo gather / emulated ring exchange, hand-written for Hopper
-// (sm_90a).
+// K2 / K5: masked halo gather (emulated ring exchange) and the reverse-ring
+// block return, hand-written for Hopper (sm_90a).
 //
-// Replaces: pipegcn_tpu/parallel/halo.py  exchange_blocks / halo_exchange:
+// K2 replaces: pipegcn_tpu/parallel/halo.py  exchange_blocks / halo_exchange:
 // for each ring distance d = 1..P-1, part r receives h[s][send_idx[s][d-1]]
 // from s = (r-d) mod P, zeroed where send_mask[s][d-1] is off, and stacks
 // the received blocks behind its inner rows in distance order. On one card
@@ -25,6 +25,15 @@
 // vector (16/8/4/2/1 bytes) that the row size, part strides and pointers
 // allow. Masked-off rows are written as zero bytes. The copy is
 // byte-for-byte, so the result is bit-exact against the plain version.
+//
+// K5 replaces: pipegcn_tpu/parallel/halo.py  return_blocks: the halo
+// cotangent of receiver r, [(P-1)*B, F] in distance order, goes back along
+// the reverse ring, so on the stacked layout
+//   out[r, (d-1)B : dB] = in[(r+d) mod P, (d-1)B : dB],   d = 1..P-1.
+// One launch covers every part and distance with the same warp-per-row
+// byte copy as K2 (same vector choice, same bound: bytes, each row read
+// and written once); the input may be a strided view (the halo rows of a
+// [P, n_max + H, F] cotangent), since each part's block is contiguous.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -107,6 +116,35 @@ int launch(const void* h, long long h_part_stride, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename V>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+halo_return_kernel(const char* __restrict__ in, long long in_part_stride,
+                   char* __restrict__ out, long long out_part_stride, int P,
+                   int B, int n_rows, int row_bytes) {
+  const int part = blockIdx.y;
+  const int r = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (r >= n_rows) return;
+  const int sender = (part + r / B + 1) % P;  // ring distance r / B + 1
+  const V* from = reinterpret_cast<const V*>(
+      in + sender * in_part_stride + static_cast<size_t>(r) * row_bytes);
+  V* to = reinterpret_cast<V*>(out + part * out_part_stride +
+                               static_cast<size_t>(r) * row_bytes);
+  const int nv = row_bytes / static_cast<int>(sizeof(V));
+  for (int i = lane; i < nv; i += 32) to[i] = __ldg(from + i);
+}
+
+template <typename V>
+int launch_return(const void* in, long long in_part_stride, void* out,
+                  long long out_part_stride, int P, int B, int n_rows,
+                  int row_bytes, cudaStream_t stream) {
+  const dim3 grid((n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock, P);
+  halo_return_kernel<V><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
+      static_cast<const char*>(in), in_part_stride, static_cast<char*>(out),
+      out_part_stride, P, B, n_rows, row_bytes);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // h: P parts of n_max rows of row_bytes each, part stride h_part_stride
@@ -132,6 +170,34 @@ extern "C" int pgt_halo_gather(const void* h, long long h_part_stride,
 #define PGT_LAUNCH(V)                                                    \
   return launch<V>(h, h_part_stride, out, out_part_stride, si, sm, P,    \
                    n_max, B, row_begin, n_rows, row_bytes, st)
+  if (a % 16 == 0) PGT_LAUNCH(uint4);
+  if (a % 8 == 0) PGT_LAUNCH(uint2);
+  if (a % 4 == 0) PGT_LAUNCH(unsigned int);
+  if (a % 2 == 0) PGT_LAUNCH(unsigned short);
+  PGT_LAUNCH(unsigned char);
+#undef PGT_LAUNCH
+}
+
+// K5. in: P parts of n_rows = (P-1)*B rows of row_bytes each, part stride
+// in_part_stride bytes, rows contiguous within a part; out: the same
+// layout with part stride out_part_stride. Strides in bytes. Returns
+// cudaGetLastError().
+extern "C" int pgt_halo_return(const void* in, long long in_part_stride,
+                               void* out, long long out_part_stride, int P,
+                               int B, int n_rows, int row_bytes,
+                               void* stream) {
+  if (P == 0 || n_rows == 0 || row_bytes == 0) return 0;
+  if (B <= 0 || n_rows != (P - 1) * B)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const uintptr_t a = reinterpret_cast<uintptr_t>(in) |
+                      reinterpret_cast<uintptr_t>(out) |
+                      static_cast<uintptr_t>(in_part_stride) |
+                      static_cast<uintptr_t>(out_part_stride) |
+                      static_cast<uintptr_t>(row_bytes);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PGT_LAUNCH(V)                                                    \
+  return launch_return<V>(in, in_part_stride, out, out_part_stride, P, B, \
+                          n_rows, row_bytes, st)
   if (a % 16 == 0) PGT_LAUNCH(uint4);
   if (a % 8 == 0) PGT_LAUNCH(uint2);
   if (a % 4 == 0) PGT_LAUNCH(unsigned int);

@@ -1,6 +1,7 @@
-// K1: CSR mean SpMM forward, hand-written for Hopper (sm_90a).
+// K1 / K3: CSR mean SpMM forward and transpose, hand-written for Hopper
+// (sm_90a).
 //
-// Replaces: pipegcn_tpu/ops/spmm.py  _segment_sum_once / spmm_sum /
+// K1 replaces: pipegcn_tpu/ops/spmm.py  _segment_sum_once / spmm_sum /
 // spmm_mean (forward): gather fbuf[edge_src], segment-sum into the sorted
 // edge_dst (sentinel row dropped), accumulate in f32, divide by the
 // full-graph in-degree.
@@ -8,27 +9,40 @@
 //   out[p, i, :] = (sum_{e in [indptr[p,i], indptr[p,i+1])}
 //                   fbuf[p, src[p,e], :]) / in_deg[p, i]
 //
-// fbuf is f32 or bf16 (raw bf16 bits), accumulation and output are f32.
-// The CSR row pointer is built on the host from the dst-sorted edge list,
-// so pad edges (dst == n_out, src == 0) lie past indptr[n_out] and are
-// never read.
+// K3 replaces: pipegcn_tpu/ops/spmm.py  _spmm_mean_lowp_bwd (and the f32
+// autodiff of spmm_sum / spmm_mean): the transpose aggregation of
+// g / in_deg with edge roles swapped, accumulated in f32. It reads a
+// host-built source-keyed CSR (indptr_t, dst_t) over the real edges:
 //
-// What bounds it on the H100: the gather. Every edge reads one full source
-// row (F*4 bytes at f32), so at the serving shapes (57.4M edges/part,
-// F = 256) the kernel streams ~59 GB of rows per part from L2/HBM, while
-// the least traffic (each input read once) is ~0.6 GB and the adds are
-// E*F f32 ops. It is a random-row-gather kernel: the time is set by how
-// many independent row loads are in flight, not by arithmetic.
+//   d_fbuf[p, s, :] = sum_{e in [indptr_t[p,s], indptr_t[p,s+1])}
+//                     g[p, dst_t[p,e], :] * (1 / in_deg[p, dst_t[p,e]])
 //
-// Design: one warp per destination row (and per 32*VEC*NV-column tile),
-// lanes spread over the columns with vector loads of VEC elements (16 B
-// where the width and alignment allow it). The warp loads 32 edge indices
-// at a time with one coalesced load and broadcasts them with __shfl_sync;
-// the edge loop is unrolled so several source rows are in flight per lane.
-// Each row's sum runs in edge order in registers: no atomics, no shared
-// memory, deterministic results. Rows of any degree (0 to thousands) run
-// the same loop. Out-of-range source indices are clamped (the JAX
-// package's jnp.take(mode="clip")).
+// The product is rounded before the add (__fmul_rn, no FMA contraction),
+// so each term equals the plain version's g * reciprocal(in_deg).
+//
+// fbuf is f32 or bf16 (raw bf16 bits); g is f32; accumulation and output
+// are f32. The forward CSR row pointer is built on the host from the
+// dst-sorted edge list, so pad edges (dst == n_out, src == 0) lie past
+// indptr[n_out] and are never read; the transpose CSR drops them.
+//
+// What bounds both on the H100: the gather. Every edge reads one full
+// row (F*4 bytes at f32), so at the training shapes (~21M edges/part,
+// F = 256) each launch streams ~21 GB of rows per part from L2/HBM, while
+// the least traffic (each input read once) is a few hundred MB and the
+// adds are E*F f32 ops. They are random-row-gather kernels: the time is
+// set by how many independent row loads are in flight, not by
+// arithmetic.
+//
+// Design (one kernel body for both): one warp per output row (and per
+// 32*VEC*NV-column tile), lanes spread over the columns with vector loads
+// of VEC elements (16 B where the width and alignment allow it). The warp
+// loads 32 edge indices at a time with one coalesced load (K3 also loads
+// the 32 divisors and takes their reciprocals once) and broadcasts them
+// with __shfl_sync; the edge loop is unrolled so several rows are in
+// flight per lane. Each row's sum runs in edge order in registers: no
+// atomics, no shared memory, deterministic results. Rows of any degree
+// (0 to thousands) run the same loop. Out-of-range gather indices are
+// clamped (the JAX package's jnp.take(mode="clip")).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -111,20 +125,24 @@ __device__ __forceinline__ void store(float* p, const float* v) {
   }
 }
 
-template <typename T, int VEC, int NV>
+// PER_EDGE = false (K1): deg is [P, n_rows], each output row is divided
+// by its own degree at the end. PER_EDGE = true (K3): deg is [P, n_in],
+// each gathered row is scaled by 1 / deg of that row as it is loaded.
+template <typename T, int VEC, int NV, bool PER_EDGE>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-spmm_mean_kernel(const T* __restrict__ fbuf, const void* __restrict__ indptr,
-                 int indptr_64, const int* __restrict__ src,
-                 long long src_part_stride, const float* __restrict__ in_deg,
-                 float* __restrict__ out, int n_src, int n_out, int F) {
+gather_sum_kernel(const T* __restrict__ x, const void* __restrict__ indptr,
+                  int indptr_64, const int* __restrict__ idx,
+                  long long idx_part_stride, const float* __restrict__ deg,
+                  float* __restrict__ out, int n_in, int n_rows, int F) {
   const int part = blockIdx.z;
   const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
-  if (row >= n_out) return;  // whole warp leaves together
+  if (row >= n_rows) return;  // whole warp leaves together
 
-  fbuf += static_cast<size_t>(part) * n_src * F;
-  src += static_cast<size_t>(part) * src_part_stride;
-  const size_t rp = static_cast<size_t>(part) * (n_out + 1) + row;
+  x += static_cast<size_t>(part) * n_in * F;
+  idx += static_cast<size_t>(part) * idx_part_stride;
+  deg += static_cast<size_t>(part) * (PER_EDGE ? n_in : n_rows);
+  const size_t rp = static_cast<size_t>(part) * (n_rows + 1) + row;
   long long beg, end;
   if (indptr_64) {
     const long long* ip = static_cast<const long long*>(indptr);
@@ -145,56 +163,66 @@ spmm_mean_kernel(const T* __restrict__ fbuf, const void* __restrict__ indptr,
 
   for (long long base = beg; base < end; base += 32) {
     const int n = static_cast<int>(min(32LL, end - base));
-    int mine = lane < n ? __ldg(src + base + lane) : 0;
-    mine = min(max(mine, 0), n_src - 1);
+    int mine = lane < n ? __ldg(idx + base + lane) : 0;
+    mine = min(max(mine, 0), n_in - 1);
+    float rmine = 1.0f;
+    if constexpr (PER_EDGE) rmine = 1.0f / __ldg(deg + mine);
 #pragma unroll 4
     for (int j = 0; j < n; ++j) {
       const int s = __shfl_sync(0xffffffffu, mine, j);
-      const T* rowp = fbuf + static_cast<size_t>(s) * F;
+      float r = 1.0f;
+      if constexpr (PER_EDGE) r = __shfl_sync(0xffffffffu, rmine, j);
+      const T* rowp = x + static_cast<size_t>(s) * F;
 #pragma unroll
       for (int v = 0; v < NV; ++v) {
         const int c = col0 + (v * 32 + lane) * VEC;
         if (c < F) {
-          float x[VEC];
-          Loader<T, VEC>::load(rowp + c, x);
+          float y[VEC];
+          Loader<T, VEC>::load(rowp + c, y);
 #pragma unroll
-          for (int k = 0; k < VEC; ++k) acc[v][k] += x[k];
+          for (int k = 0; k < VEC; ++k) {
+            if constexpr (PER_EDGE)
+              acc[v][k] += __fmul_rn(y[k], r);
+            else
+              acc[v][k] += y[k];
+          }
         }
       }
     }
   }
 
-  const size_t orow = static_cast<size_t>(part) * n_out + row;
-  const float d = in_deg[orow];
+  const size_t orow = static_cast<size_t>(part) * n_rows + row;
   float* op = out + orow * F;
+  const float d = PER_EDGE ? 1.0f : deg[row];
 #pragma unroll
   for (int v = 0; v < NV; ++v) {
     const int c = col0 + (v * 32 + lane) * VEC;
     if (c < F) {
       float y[VEC];
 #pragma unroll
-      for (int k = 0; k < VEC; ++k) y[k] = acc[v][k] / d;
+      for (int k = 0; k < VEC; ++k)
+        y[k] = PER_EDGE ? acc[v][k] : acc[v][k] / d;
       store<VEC>(op + c, y);
     }
   }
 }
 
-template <typename T, int VEC>
-int launch_vec(const T* fbuf, const void* indptr, int indptr_64,
-               const int* src, long long src_part_stride,
-               const float* in_deg, float* out, int P, int n_src,
-               int n_out, int F, cudaStream_t stream) {
+template <typename T, int VEC, bool PER_EDGE>
+int launch_vec(const T* x, const void* indptr, int indptr_64,
+               const int* idx, long long idx_part_stride, const float* deg,
+               float* out, int P, int n_in, int n_rows, int F,
+               cudaStream_t stream) {
   const int per = 32 * VEC;
   const int need = (F + per - 1) / per;
   const int nv = need <= 1 ? 1 : need <= 2 ? 2 : need <= 4 ? 4 : 8;
   const int tile = per * nv;
-  const dim3 grid((n_out + kWarpsPerBlock - 1) / kWarpsPerBlock,
+  const dim3 grid((n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock,
                   (F + tile - 1) / tile, P);
   const dim3 block(kWarpsPerBlock * 32);
 #define PGT_LAUNCH(NV_)                                                  \
-  spmm_mean_kernel<T, VEC, NV_><<<grid, block, 0, stream>>>(             \
-      fbuf, indptr, indptr_64, src, src_part_stride, in_deg, out, n_src, \
-      n_out, F)
+  gather_sum_kernel<T, VEC, NV_, PER_EDGE><<<grid, block, 0, stream>>>(  \
+      x, indptr, indptr_64, idx, idx_part_stride, deg, out, n_in,        \
+      n_rows, F)
   switch (nv) {
     case 1: PGT_LAUNCH(1); break;
     case 2: PGT_LAUNCH(2); break;
@@ -221,32 +249,52 @@ extern "C" int pgt_spmm_mean(const void* fbuf, int fbuf_bf16,
                              const void* in_deg, void* out, int P,
                              int n_src, int n_out, int F, void* stream) {
   if (P == 0 || n_out == 0 || F == 0) return 0;
-  if (n_src <= 0 || !aligned(out, 16)) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_src <= 0 || !aligned(out, 16))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* s = static_cast<const int*>(src);
   const float* dg = static_cast<const float*>(in_deg);
   float* o = static_cast<float*>(out);
+#define PGT_K1(T, VEC)                                                   \
+  return launch_vec<T, VEC, false>(f, indptr, indptr_64, s,              \
+                                   src_part_stride, dg, o, P, n_src,     \
+                                   n_out, F, st)
   if (fbuf_bf16) {
     const unsigned short* f = static_cast<const unsigned short*>(fbuf);
-    if (F % 8 == 0 && aligned(f, 16))
-      return launch_vec<unsigned short, 8>(f, indptr, indptr_64, s,
-                                           src_part_stride, dg, o, P, n_src,
-                                           n_out, F, st);
-    if (F % 2 == 0 && aligned(f, 4))
-      return launch_vec<unsigned short, 2>(f, indptr, indptr_64, s,
-                                           src_part_stride, dg, o, P, n_src,
-                                           n_out, F, st);
-    return launch_vec<unsigned short, 1>(f, indptr, indptr_64, s,
-                                         src_part_stride, dg, o, P, n_src,
-                                         n_out, F, st);
+    if (F % 8 == 0 && aligned(f, 16)) PGT_K1(unsigned short, 8);
+    if (F % 2 == 0 && aligned(f, 4)) PGT_K1(unsigned short, 2);
+    PGT_K1(unsigned short, 1);
   }
   const float* f = static_cast<const float*>(fbuf);
-  if (F % 4 == 0 && aligned(f, 16))
-    return launch_vec<float, 4>(f, indptr, indptr_64, s, src_part_stride, dg,
-                                o, P, n_src, n_out, F, st);
-  if (F % 2 == 0 && aligned(f, 8))
-    return launch_vec<float, 2>(f, indptr, indptr_64, s, src_part_stride, dg,
-                                o, P, n_src, n_out, F, st);
-  return launch_vec<float, 1>(f, indptr, indptr_64, s, src_part_stride, dg, o,
-                              P, n_src, n_out, F, st);
+  if (F % 4 == 0 && aligned(f, 16)) PGT_K1(float, 4);
+  if (F % 2 == 0 && aligned(f, 8)) PGT_K1(float, 2);
+  PGT_K1(float, 1);
+#undef PGT_K1
+}
+
+// K3. g [P, n_out, F] f32, indptr_t [P, n_src + 1] (int32, or int64 when
+// indptr_64), dst_t [P, *] int32 with part stride dst_part_stride,
+// in_deg [P, n_out] f32, out [P, n_src, F] f32 (16-byte aligned). All
+// contiguous. Returns cudaGetLastError().
+extern "C" int pgt_spmm_mean_t(const void* g, const void* indptr_t,
+                               int indptr_64, const void* dst_t,
+                               long long dst_part_stride,
+                               const void* in_deg, void* out, int P,
+                               int n_out, int n_src, int F, void* stream) {
+  if (P == 0 || n_src == 0 || F == 0) return 0;
+  if (n_out <= 0 || !aligned(out, 16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* x = static_cast<const float*>(g);
+  const int* d = static_cast<const int*>(dst_t);
+  const float* dg = static_cast<const float*>(in_deg);
+  float* o = static_cast<float*>(out);
+#define PGT_K3(VEC)                                                      \
+  return launch_vec<float, VEC, true>(x, indptr_t, indptr_64, d,         \
+                                      dst_part_stride, dg, o, P, n_out,  \
+                                      n_src, F, st)
+  if (F % 4 == 0 && aligned(x, 16)) PGT_K3(4);
+  if (F % 2 == 0 && aligned(x, 8)) PGT_K3(2);
+  PGT_K3(1);
+#undef PGT_K3
 }

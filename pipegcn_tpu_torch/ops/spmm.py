@@ -1,18 +1,29 @@
-"""Mean SpMM forward — port of ``pipegcn_tpu/ops/spmm.py`` (``spmm_mean``,
-``spmm_sum``, ``_segment_sum_once``; forward only, the transpose and the
-bf16 custom VJP come with training).
+"""Mean SpMM, forward and transpose — port of ``pipegcn_tpu/ops/spmm.py``
+(``spmm_mean``, ``spmm_sum``, ``_segment_sum_once`` and the custom VJP
+``_spmm_mean_lowp_fwd`` / ``_spmm_mean_lowp_bwd``).
 
 The JAX package aggregates with gather + ``segment_sum`` over the padded,
 dst-sorted edge list of ``ShardedGraph``. The port keeps that padding
 contract (``pipegcn_tpu/ops/spmm.py:11-16``: pad edges carry dst = n_out
-and src = row 0) but hands the kernel a destination CSR instead: the host
-builds ``indptr`` from the sorted ``edge_dst`` (:func:`csr_indptr`), and pad
-edges, which sort to the tail, lie past ``indptr[n_out]`` and are never
-read.
+and src = row 0) but hands the kernels CSRs instead:
 
-:func:`spmm_mean` launches kernel K1 (``csrc/spmm_mean.cu``) for CUDA
-tensors and runs :func:`spmm_mean_plain` for CPU tensors; anything else
-raises. Both take one part (``fbuf [n_src, F]``) or P stacked parts
+  - forward: the destination CSR ``indptr`` built on the host from the
+    sorted ``edge_dst`` (:func:`csr_indptr`); pad edges, which sort to the
+    tail, lie past ``indptr[n_out]`` and are never read;
+  - backward: the source-keyed CSR ``(indptr_t, dst_t)`` over the real
+    edges (:func:`csr_transpose`), so the transpose is a row-parallel
+    gather as well — no atomics, a deterministic result.
+
+:class:`SpmmMean` ties the two together as an autograd function; its
+backward takes the f32 cotangent, accumulates in f32 and casts ``d_fbuf``
+to ``fbuf``'s dtype once (the ``_spmm_mean_lowp_bwd`` contract), and
+returns ``d_in_deg = -sum_f(out * g) / in_deg`` when ``in_deg`` needs it.
+
+:func:`spmm_mean` launches kernel K1 forward and K3 backward
+(``csrc/spmm_mean.cu``) for CUDA tensors and runs the plain versions for
+CPU tensors; anything else raises. :func:`spmm_mean_plain` is the same
+function through the plain versions on any device (the card-side
+comparison). All take one part (``fbuf [n_src, F]``) or P stacked parts
 (``fbuf [P, n_src, F]`` with ``indptr [P, n_out+1]``, ``src [P, E]``,
 ``in_deg [P, n_out]``).
 """
@@ -20,20 +31,28 @@ raises. Both take one part (``fbuf [n_src, F]``) or P stacked parts
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import _build
 
-# edges per step of the plain version: bounds its [chunk, F] gathered
+# edges per step of the plain versions: bounds their [chunk, F] gathered
 # message tensor (the same role as the JAX package's spmm_chunk)
 PLAIN_CHUNK = 1 << 21
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "pgt_spmm_mean": [_P, _I, _P, _I, _P, _LL, _P, _P, _I, _I, _I, _I, _P],
+    "pgt_spmm_mean_t": [_P, _P, _I, _P, _LL, _P, _P, _I, _I, _I, _I, _P],
 }
+
+Transpose = Tuple[torch.Tensor, torch.Tensor]
+
+
+def _index_dtype(counts: np.ndarray):
+    return np.int32 if counts.max(initial=0) < 2 ** 31 else np.int64
 
 
 def csr_indptr(edge_dst: np.ndarray, n_out: int) -> np.ndarray:
@@ -55,15 +74,42 @@ def csr_indptr(edge_dst: np.ndarray, n_out: int) -> np.ndarray:
                              "ascending (CSR order)")
         np.cumsum(np.bincount(d, minlength=n_out + 1)[:n_out],
                   out=out[p, 1:])
-    dtype = np.int32 if out[:, -1].max(initial=0) < 2 ** 31 else np.int64
-    return out.astype(dtype).reshape(dst.shape[:-1] + (n_out + 1,))
+    return out.astype(_index_dtype(out[:, -1])).reshape(
+        dst.shape[:-1] + (n_out + 1,))
 
 
-def _stacked(fbuf, indptr, src, in_deg):
+def csr_transpose(edge_src: np.ndarray, edge_dst: np.ndarray, n_out: int,
+                  n_src: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Source-keyed CSR of a dst-sorted, sentinel-padded edge list
+    ``[..., E]``: ``indptr_t [..., n_src + 1]`` and ``dst_t [..., E]``
+    (int32), where row s lists the dst of every real edge whose source
+    is s. Pad edges (dst == n_out) are dropped; the tail of ``dst_t`` past
+    ``indptr_t[n_src]`` is zero. Within a row the edges keep their
+    dst-sorted order (a stable sort by source), so the result is
+    deterministic. Sources are clipped to [0, n_src - 1], as the forward
+    gather clips them. No ``np.unique`` (which hashes on NumPy >= 2.3)."""
+    src = np.asarray(edge_src)
+    dst = np.asarray(edge_dst)
+    indptr = csr_indptr(dst, n_out).reshape(-1, n_out + 1)
+    fs, fd = src.reshape(-1, src.shape[-1]), dst.reshape(-1, dst.shape[-1])
+    ptr = np.zeros((fs.shape[0], n_src + 1), np.int64)
+    dst_t = np.zeros(fs.shape, np.int32)
+    for p in range(fs.shape[0]):
+        n_e = int(indptr[p, -1])
+        s = np.clip(fs[p, :n_e], 0, n_src - 1)
+        order = np.argsort(s, kind="stable")
+        dst_t[p, :n_e] = fd[p, :n_e][order]
+        np.cumsum(np.bincount(s, minlength=n_src), out=ptr[p, 1:])
+    return (ptr.astype(_index_dtype(ptr[:, -1])).reshape(
+                src.shape[:-1] + (n_src + 1,)),
+            dst_t.reshape(src.shape))
+
+
+def _stacked(x, indptr, idx, deg):
     """View single-part arguments as P = 1 stacks."""
-    if fbuf.dim() == 2:
-        return fbuf[None], indptr[None], src[None], in_deg[None], True
-    return fbuf, indptr, src, in_deg, False
+    if x.dim() == 2:
+        return x[None], indptr[None], idx[None], deg[None], True
+    return x, indptr, idx, deg, False
 
 
 def _check(fbuf, indptr, src, in_deg):
@@ -89,36 +135,64 @@ def _check(fbuf, indptr, src, in_deg):
         raise ValueError(f"arguments on different devices: {devs}")
 
 
-def spmm_mean_plain(fbuf: torch.Tensor, indptr: torch.Tensor,
-                    src: torch.Tensor, in_deg: torch.Tensor,
-                    chunk: int = PLAIN_CHUNK) -> torch.Tensor:
+def _check_t(g, indptr_t, dst_t, in_deg):
+    if g.dim() not in (2, 3) or g.dtype != torch.float32:
+        raise ValueError(f"g must be f32 [n_out, F] or [P, n_out, F], got "
+                         f"{g.dtype} {tuple(g.shape)}")
+    x, ip, d, dg, _ = _stacked(g, indptr_t, dst_t, in_deg)
+    P, n_out = x.shape[0], x.shape[1]
+    if ip.dim() != 2 or ip.shape[0] != P or d.dim() != 2 \
+            or d.shape[0] != P or dg.shape != (P, n_out):
+        raise ValueError(
+            f"shape mismatch: g {tuple(g.shape)}, indptr_t "
+            f"{tuple(indptr_t.shape)}, dst_t {tuple(dst_t.shape)}, in_deg "
+            f"{tuple(in_deg.shape)}")
+    if indptr_t.dtype not in (torch.int32, torch.int64) \
+            or dst_t.dtype != torch.int32 or in_deg.dtype != torch.float32:
+        raise TypeError("indptr_t must be int32/int64, dst_t int32, in_deg "
+                        "float32")
+    devs = {t.device for t in (g, indptr_t, dst_t, in_deg)}
+    if len(devs) != 1:
+        raise ValueError(f"arguments on different devices: {devs}")
+
+
+def _gather_sum_plain(x, indptr, idx, n_rows, scale=None,
+                      chunk=PLAIN_CHUNK):
+    """``out[p, i] = sum_{e in row i} x[p, idx[p, e]] (* scale[p, idx])``
+    in f32 by chunked ``index_select`` + ``index_add_``; stacked only."""
+    P = x.shape[0]
+    out = torch.zeros((P, n_rows, x.shape[-1]), dtype=torch.float32,
+                      device=x.device)
+    rows = torch.arange(n_rows, device=x.device)
+    for p in range(P):
+        n_e = int(indptr[p, -1])
+        dst = torch.repeat_interleave(rows, indptr[p].diff().long())
+        idx_p = idx[p, :n_e].long().clamp_(0, x.shape[1] - 1)
+        for e0 in range(0, n_e, chunk):
+            e1 = min(e0 + chunk, n_e)
+            msg = x[p].index_select(0, idx_p[e0:e1]).float()
+            if scale is not None:
+                msg = msg * scale[p].index_select(0, idx_p[e0:e1])[:, None]
+            out[p].index_add_(0, dst[e0:e1], msg)
+    return out
+
+
+def _spmm_mean_fwd_plain(fbuf, indptr, src, in_deg):
     """Plain PyTorch version of K1: gather ``fbuf[src]`` in chunks of
     edges, cast to f32, ``index_add_`` into the destination rows, divide
     by ``in_deg``. Runs on any device."""
     _check(fbuf, indptr, src, in_deg)
     f, ip, s, dg, single = _stacked(fbuf, indptr, src, in_deg)
-    P, n_out = f.shape[0], ip.shape[-1] - 1
-    out = torch.zeros((P, n_out, f.shape[-1]), dtype=torch.float32,
-                      device=f.device)
-    rows = torch.arange(n_out, device=f.device)
-    for p in range(P):
-        n_e = int(ip[p, -1])
-        dst = torch.repeat_interleave(rows, ip[p].diff().long())
-        src_p = s[p, :n_e].long().clamp_(0, f.shape[1] - 1)
-        for e0 in range(0, n_e, chunk):
-            e1 = min(e0 + chunk, n_e)
-            out[p].index_add_(0, dst[e0:e1],
-                              f[p].index_select(0, src_p[e0:e1]).float())
+    out = _gather_sum_plain(f, ip, s, ip.shape[-1] - 1)
     out /= dg[..., None]
     return out[0] if single else out
 
 
-def spmm_mean(fbuf: torch.Tensor, indptr: torch.Tensor, src: torch.Tensor,
-              in_deg: torch.Tensor) -> torch.Tensor:
-    """Mean aggregation, f32 out: kernel K1 on CUDA tensors (counted in
-    ``spmm_mean.launches``), :func:`spmm_mean_plain` on CPU tensors."""
+def _spmm_mean_fwd(fbuf, indptr, src, in_deg):
+    """K1 on CUDA tensors (counted in ``spmm_mean.launches``), the plain
+    version on CPU tensors."""
     if fbuf.device.type == "cpu":
-        return spmm_mean_plain(fbuf, indptr, src, in_deg)
+        return _spmm_mean_fwd_plain(fbuf, indptr, src, in_deg)
     _check(fbuf, indptr, src, in_deg)
     if fbuf.device.type != "cuda":
         raise ValueError(f"spmm_mean: unsupported device {fbuf.device}")
@@ -141,4 +215,102 @@ def spmm_mean(fbuf: torch.Tensor, indptr: torch.Tensor, src: torch.Tensor,
     return out[0] if single else out
 
 
+def spmm_mean_t_plain(g: torch.Tensor, indptr_t: torch.Tensor,
+                      dst_t: torch.Tensor, in_deg: torch.Tensor
+                      ) -> torch.Tensor:
+    """Plain PyTorch version of K3: ``d_fbuf[s] = sum_{e: src=s}
+    g[dst_e] * (1 / in_deg[dst_e])`` in f32, by chunked ``index_select``
+    + ``index_add_`` over the source-keyed CSR. Runs on any device."""
+    _check_t(g, indptr_t, dst_t, in_deg)
+    x, ip, d, dg, single = _stacked(g, indptr_t, dst_t, in_deg)
+    out = _gather_sum_plain(x, ip, d, ip.shape[-1] - 1,
+                            scale=torch.reciprocal(dg))
+    return out[0] if single else out
+
+
+def spmm_mean_t(g: torch.Tensor, indptr_t: torch.Tensor,
+                dst_t: torch.Tensor, in_deg: torch.Tensor) -> torch.Tensor:
+    """Transpose mean aggregation ``[P, n_out, F] f32 -> [P, n_src, F]
+    f32``: kernel K3 on CUDA tensors (counted in
+    ``spmm_mean_t.launches``), :func:`spmm_mean_t_plain` on CPU."""
+    if g.device.type == "cpu":
+        return spmm_mean_t_plain(g, indptr_t, dst_t, in_deg)
+    _check_t(g, indptr_t, dst_t, in_deg)
+    if g.device.type != "cuda":
+        raise ValueError(f"spmm_mean_t: unsupported device {g.device}")
+    x, ip, d, dg, single = _stacked(g, indptr_t, dst_t, in_deg)
+    if not all(t.is_contiguous() for t in (x, ip, d, dg)):
+        raise ValueError("spmm_mean_t: the kernel takes contiguous tensors")
+    P, n_out, F = x.shape
+    n_src = ip.shape[-1] - 1
+    if P * max(n_out, n_src) * F >= 2 ** 62 or n_out >= 2 ** 31:
+        raise ValueError("spmm_mean_t: g too large for the kernel")
+    out = torch.empty((P, n_src, F), dtype=torch.float32, device=x.device)
+    lib = _build.load("spmm_mean", _SIGNATURES)
+    rc = lib.pgt_spmm_mean_t(
+        x.data_ptr(), ip.data_ptr(), int(ip.dtype == torch.int64),
+        d.data_ptr(), d.shape[1], dg.data_ptr(), out.data_ptr(), P, n_out,
+        n_src, F, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, "spmm_mean_t")
+    spmm_mean_t.launches += 1
+    return out[0] if single else out
+
+
+class SpmmMean(torch.autograd.Function):
+    """``out = spmm(fbuf) / in_deg`` (f32) with the transpose as its
+    backward. ``plain`` picks the plain versions on any device; otherwise
+    CUDA tensors run K1/K3 and CPU tensors the plain versions."""
+
+    @staticmethod
+    def forward(ctx, fbuf, indptr, src, in_deg, indptr_t, dst_t, plain):
+        fwd = _spmm_mean_fwd_plain if plain else _spmm_mean_fwd
+        out = fwd(fbuf, indptr, src, in_deg)
+        ctx.plain, ctx.fbuf_dtype = plain, fbuf.dtype
+        ctx.has_t = indptr_t is not None
+        ctx.save_for_backward(indptr_t, dst_t, in_deg,
+                              out if in_deg.requires_grad else None)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        indptr_t, dst_t, in_deg, out = ctx.saved_tensors
+        gf = g.float()
+        d_fbuf = d_in_deg = None
+        if ctx.needs_input_grad[0]:
+            if not ctx.has_t:
+                raise ValueError("spmm_mean: the backward needs the "
+                                 "transpose CSR (transpose=(indptr_t, "
+                                 "dst_t), ops.spmm.csr_transpose)")
+            bwd = spmm_mean_t_plain if ctx.plain else spmm_mean_t
+            d_fbuf = bwd(gf.contiguous(), indptr_t, dst_t, in_deg).to(
+                ctx.fbuf_dtype)
+        if ctx.needs_input_grad[3]:
+            d_in_deg = -(out * gf).sum(-1) / in_deg
+        return d_fbuf, None, None, d_in_deg, None, None, None
+
+
+def _apply(fbuf, indptr, src, in_deg, transpose, plain):
+    it, dt = transpose if transpose is not None else (None, None)
+    return SpmmMean.apply(fbuf, indptr, src, in_deg, it, dt, plain)
+
+
+def spmm_mean(fbuf: torch.Tensor, indptr: torch.Tensor, src: torch.Tensor,
+              in_deg: torch.Tensor, transpose: Optional[Transpose] = None
+              ) -> torch.Tensor:
+    """Mean aggregation, f32 out: kernel K1 on CUDA tensors (counted in
+    ``spmm_mean.launches``), the plain version on CPU tensors.
+    Differentiable: the backward runs K3 (CPU: its plain version) over
+    ``transpose = (indptr_t, dst_t)`` from :func:`csr_transpose`, which a
+    gradient with respect to ``fbuf`` needs."""
+    return _apply(fbuf, indptr, src, in_deg, transpose, False)
+
+
+def spmm_mean_plain(fbuf: torch.Tensor, indptr: torch.Tensor,
+                    src: torch.Tensor, in_deg: torch.Tensor,
+                    transpose: Optional[Transpose] = None) -> torch.Tensor:
+    """:func:`spmm_mean` through the plain versions on any device."""
+    return _apply(fbuf, indptr, src, in_deg, transpose, True)
+
+
 spmm_mean.launches = 0
+spmm_mean_t.launches = 0

@@ -7,6 +7,10 @@ Differences from the JAX staging:
   - the destination CSR ``indptr [P, n_max+1]`` is built on the host from
     the sorted ``edge_dst`` and staged in its place (kernel K1 reads the
     CSR; pad edges past ``indptr[n_max]`` are never read);
+  - training (``stage(..., training=True)``) also stages the two host-built
+    inverses the backward kernels read: the source-keyed transpose CSR of
+    the edges (K3) and the inverse send CSR (K4); ``edge_dst`` itself is
+    never staged;
   - ``Trainer._pad_cols`` (the TPU 128-lane ``lane_pad``) has no
     counterpart: it only aligned feature slabs to TPU tiles and is
     numerically inert, so features are staged at their own width.
@@ -15,14 +19,14 @@ Differences from the JAX staging:
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..ops.spmm import csr_indptr, spmm_mean
+from ..ops.spmm import csr_indptr, csr_transpose, spmm_mean
 from ..partition.halo import ShardedGraph
-from .halo import halo_exchange
+from .halo import halo_exchange, send_csr
 
 
 @dataclasses.dataclass
@@ -38,10 +42,29 @@ class StagedGraph:
     edge_src: torch.Tensor   # [P, e_max] int32 local source rows
     send_idx: torch.Tensor   # [P, P-1, B] int32
     send_mask: torch.Tensor  # [P, P-1, B] bool
+    # training only (stage(..., training=True)); None when serving
+    n_train_global: int = 0
+    label: Optional[torch.Tensor] = None       # [P, n_max] int64
+    train_mask: Optional[torch.Tensor] = None  # [P, n_max] bool
+    row_mask: Optional[torch.Tensor] = None    # [P, n_max] f32 real rows
+    indptr_t: Optional[torch.Tensor] = None    # [P, n_max + H + 1] int32
+    dst_t: Optional[torch.Tensor] = None       # [P, e_max] int32
+    send_ptr: Optional[torch.Tensor] = None    # [P, n_max + 1] int32
+    send_slot: Optional[torch.Tensor] = None   # [P, nnz] int32
 
     @property
     def halo_size(self) -> int:
         return (self.num_parts - 1) * self.b_max
+
+    @property
+    def transpose(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(indptr_t, dst_t)``: the source-keyed CSR K3 reads."""
+        return self.indptr_t, self.dst_t
+
+    @property
+    def inverse(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(send_ptr, send_slot)``: the inverse send CSR K4 reads."""
+        return self.send_ptr, self.send_slot
 
     @property
     def device(self) -> torch.device:
@@ -55,8 +78,31 @@ def _put(x: np.ndarray, dtype, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(host).to(device)
 
 
-def stage(sg: ShardedGraph, device: torch.device) -> StagedGraph:
-    """Copy the arrays the serving path reads to ``device``."""
+def stage(sg: ShardedGraph, device: torch.device,
+          training: bool = False) -> StagedGraph:
+    """Copy the arrays the serving path reads to ``device``; with
+    ``training`` also the labels, masks and the two host-built inverses
+    the training step reads (``Trainer._put_data``)."""
+    extra = {}
+    if training:
+        if sg.multilabel:
+            raise NotImplementedError(
+                "multilabel training (BCE) waits for ROADMAP A5")
+        n_src = sg.n_max + sg.halo_size
+        indptr_t, dst_t = csr_transpose(sg.edge_src, sg.edge_dst, sg.n_max,
+                                        n_src)
+        send_ptr, send_slot = send_csr(sg.send_idx, sg.send_mask, sg.n_max)
+        row_mask = (np.arange(sg.n_max)[None, :]
+                    < np.asarray(sg.inner_count)[:, None])
+        extra = dict(
+            n_train_global=int(sg.n_train_global),
+            label=_put(sg.label, np.int64, device),
+            train_mask=_put(sg.train_mask, np.bool_, device),
+            row_mask=_put(row_mask, np.float32, device),
+            indptr_t=torch.from_numpy(indptr_t).to(device),
+            dst_t=torch.from_numpy(dst_t).to(device),
+            send_ptr=torch.from_numpy(send_ptr).to(device),
+            send_slot=torch.from_numpy(send_slot).to(device))
     return StagedGraph(
         num_parts=sg.num_parts,
         n_max=sg.n_max,
@@ -67,6 +113,7 @@ def stage(sg: ShardedGraph, device: torch.device) -> StagedGraph:
         edge_src=_put(sg.edge_src, np.int32, device),
         send_idx=_put(sg.send_idx, np.int32, device),
         send_mask=_put(sg.send_mask, np.bool_, device),
+        **extra,
     )
 
 
@@ -78,7 +125,9 @@ def precompute_pp(
     as ``concat([feat, mean_neigh], -1)`` ``[P, n_max, 2F]`` so layer 0
     needs no communication (``Trainer._precompute_pp``). ``exchange`` and
     ``spmm_fn`` default to the kernel wrappers (K2, K1); a caller holding
-    the kernels against their plain versions passes the plain ones."""
-    fbuf = exchange(data.feat, data.send_idx, data.send_mask)
-    ah = spmm_fn(fbuf, data.indptr, data.edge_src, data.in_deg)
-    return torch.cat([data.feat, ah.to(data.feat.dtype)], dim=-1)
+    the kernels against their plain versions passes the plain ones. Runs
+    without autograd: the concat is a constant of training."""
+    with torch.no_grad():
+        fbuf = exchange(data.feat, data.send_idx, data.send_mask)
+        ah = spmm_fn(fbuf, data.indptr, data.edge_src, data.in_deg)
+        return torch.cat([data.feat, ah.to(data.feat.dtype)], dim=-1)

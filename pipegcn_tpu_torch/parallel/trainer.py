@@ -1,0 +1,416 @@
+"""Full-graph training over P parts stacked on one card — port of
+``pipegcn_tpu/parallel/trainer.py`` (``TrainConfig``, ``Trainer``: the
+vanilla and pipelined step of ``_build_step``, ``train_epoch``,
+``evaluate``, ``host_state`` and a reduced ``fit``).
+
+The semantics are those of the JAX ``TrainConfig.emulate_parts=True``
+(``trainer.py:144-153``, its vmap step at ``:1327-1357``): the P parts run
+as one program on one device. Where the JAX step keeps P stacked copies
+of the parameters that its psum'd update keeps identical, the port keeps
+one parameter set; differentiating the sum of the parts' CE losses with
+respect to it is the psum of the per-part gradients (``:1226-1233``).
+
+One epoch (``train_epoch``):
+  1. forward over the stacked parts; every graph layer's ``comm_update``
+     is the differentiable exchange (vanilla: K2 forward, K5 + K4
+     backward) or the staleness-1 concat of last epoch's halo rows
+     (pipelined: its backward injects last epoch's boundary gradients
+     with K4 and hands this epoch's halo cotangent to a zero ``probe``);
+  2. CE-sum over all parts; 3. backward (``torch.autograd.grad`` over the
+  params and the probes); 4. gradients / ``n_train_global``; 5. Adam.
+  Then, pipelined, per exchanged layer: the new halo is K2 of the
+  detached layer input (shipped during the forward), the new boundary
+  gradient K5 of this epoch's probe cotangent, and the ``feat_corr`` /
+  ``grad_corr`` EMAs (``:1271-1310``).
+
+Dropout masks come from a ``torch.Generator`` seeded from (seed, epoch),
+so ``train_epoch(e)`` is reproducible; the bits differ from JAX's
+(``jax.random`` folds the epoch and the rank into a key), so runs held
+against the JAX trainer use dropout 0.
+
+Not ported (``NotImplementedError`` naming the ROADMAP item): fused epochs
+and epoch blocks, halo wire dtypes and the comm prefetch, loss scaling,
+the integrity checks and the numerics tripwire, other RNG
+implementations and mask reuse, streaming, checkpoints and sharded eval.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..graph.csr import Graph
+from ..models.sage import ModelConfig, Params, forward, init_params
+from ..ops.spmm import csr_indptr, spmm_mean, spmm_mean_plain
+from ..partition.halo import ShardedGraph
+from ..train.losses import cross_entropy_sum
+from ..train.metrics import calc_acc
+from ..train.optim import adam_init, adam_update
+from ..tree import tree_leaves, tree_map, tree_numpy
+from .halo import KERNELS, PLAIN, halo_exchange, make_stale_concat
+from .staging import precompute_pp, stage
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """The fields of ``pipegcn_tpu.parallel.trainer.TrainConfig`` the port
+    runs; the rest keep the JAX names and defaults only to be refused."""
+
+    lr: float = 1e-2
+    weight_decay: float = 0.0
+    n_epochs: int = 100
+    enable_pipeline: bool = False
+    feat_corr: bool = False
+    grad_corr: bool = False
+    corr_momentum: float = 0.95
+    log_every: int = 10
+    seed: int = 0
+    eval: bool = True
+    fused_epochs: int = 1
+    epoch_block: int = 0
+    halo_dtype: str = "none"
+    comm_prefetch: bool = False
+    loss_scale: str = "off"
+    integrity_check_every: int = 0
+    numerics_tripwire: bool = False
+    rng_impl: str = "threefry"
+    dropout_reuse: int = 0
+
+    def __post_init__(self):
+        refused = [
+            (self.fused_epochs > 1 or self.epoch_block > 1,
+             "fused epochs / epoch blocks (ROADMAP A6, CUDA graphs)"),
+            (self.halo_dtype != "none", "halo wire dtypes (ROADMAP A6)"),
+            (self.comm_prefetch, "the layer-0 comm prefetch (ROADMAP A6)"),
+            (self.loss_scale != "off", "loss scaling (ROADMAP A9)"),
+            (self.integrity_check_every > 0,
+             "integrity checks (ROADMAP A9, kernels B10)"),
+            (self.numerics_tripwire, "the numerics tripwire (ROADMAP A9)"),
+            (self.rng_impl != "threefry" or self.dropout_reuse > 1,
+             "other dropout RNGs and mask reuse (ROADMAP A6)"),
+        ]
+        for bad, what in refused:
+            if bad:
+                raise NotImplementedError(f"{what} is not ported yet")
+
+
+def epoch_generator(seed: int, epoch: int,
+                    device: torch.device) -> torch.Generator:
+    """The dropout generator of one epoch: seeded from (seed, epoch)
+    through a SeedSequence, so epochs draw independent masks and a rerun
+    of an epoch draws the same ones."""
+    s = int(np.random.SeedSequence([seed, epoch]).generate_state(1)[0])
+    return torch.Generator(device=device).manual_seed(s)
+
+
+class Trainer:
+    """Owns the staged graph, the parameters, Adam and the comm carry of
+    one training run on one device (``device``: CUDA runs the kernels,
+    the CPU their plain versions). ``params`` (the port's layout, e.g.
+    ``params_from_jax`` of a JAX trainer's) start the run; otherwise it
+    draws its own init from ``tcfg.seed``. Setting ``plain`` runs every
+    kernel's plain version on any device from then on, and ``act`` (relu)
+    is the training forward's nonlinearity between layers — the card-side
+    comparison of a training step sets both."""
+
+    def __init__(self, sg: ShardedGraph, cfg: ModelConfig,
+                 tcfg: TrainConfig, device: torch.device,
+                 params: Optional[Params] = None):
+        if cfg.dtype != "float32":
+            raise NotImplementedError("bf16 compute waits for ROADMAP A5")
+        self.sg, self.cfg, self.tcfg = sg, cfg, tcfg
+        self.device = device
+        self.P = sg.num_parts
+        self.plain = False
+        self.act = torch.relu
+        self.data = stage(sg, device, training=True)
+        self.n_train = float(self.data.n_train_global)
+        if cfg.use_pp:
+            self.feat = precompute_pp(
+                self.data,
+                exchange=lambda h, i, m: halo_exchange(
+                    h, i, m, ops=self._halo_ops),
+                spmm_fn=self._spmm)
+        else:
+            self.feat = self.data.feat
+        if params is None:
+            params = init_params(cfg, torch.Generator().manual_seed(
+                tcfg.seed), device)
+        self.params = tree_map(
+            lambda t: t.detach().to(device, torch.float32).clone()
+            .requires_grad_(True), params)
+        self._leaves = tree_leaves(self.params)
+        self.opt = adam_init(self.params)
+        self.glayers = list(range(1 if cfg.use_pp else 0, cfg.n_layers))
+        self.comm = self._init_comm()
+        self._grad_norm: Optional[torch.Tensor] = None  # 0-d, on device
+        self.last_grads: List[torch.Tensor] = []  # reduced, leaf order
+        self._eval_cache: Dict[int, Dict[str, Any]] = {}
+        self.eval_setup_s = 0.0  # host seconds building eval-graph CSRs
+
+    @property
+    def plain(self) -> bool:
+        return self._halo_ops is PLAIN
+
+    @plain.setter
+    def plain(self, value: bool) -> None:
+        self._halo_ops = PLAIN if value else KERNELS
+        self._spmm = spmm_mean_plain if value else spmm_mean
+
+    @property
+    def grad_norm(self) -> Optional[float]:
+        """Global L2 norm of the last epoch's reduced gradients."""
+        return None if self._grad_norm is None else float(self._grad_norm)
+
+    # ---------------- comm carry --------------------------------------
+
+    def _init_comm(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """``{'halo', 'bgrad'[, 'favg', 'bavg']}[str(i)]``, each
+        ``[P, H, F_i]`` zeros, for the graph layers that exchange (layer 0
+        is skipped under use_pp) — the JAX ``_init_comm`` layout. halo and
+        bgrad in the compute dtype (f32), the EMAs in f32."""
+        tc = self.tcfg
+        if not tc.enable_pipeline:
+            return {}
+        groups = ["halo", "bgrad"] + (["favg"] if tc.feat_corr else []) \
+            + (["bavg"] if tc.grad_corr else [])
+        H = self.data.halo_size
+        return {grp: {str(i): torch.zeros(
+                    (self.P, H, self.cfg.layer_sizes[i]),
+                    dtype=torch.float32, device=self.device)
+                    for i in self.glayers} for grp in groups}
+
+    # ---------------- the step ----------------------------------------
+
+    def train_epoch(self, epoch: int) -> float:
+        """One epoch; returns ``sum of the parts' CE / n_train`` (the JAX
+        step's ``psum(loss) / n_train``) and keeps ``grad_norm``."""
+        d, cfg, tc = self.data, self.cfg, self.tcfg
+        ops = self._halo_ops
+        pipeline = tc.enable_pipeline
+        probes: Dict[str, torch.Tensor] = {}
+        fresh: Dict[str, torch.Tensor] = {}
+        if pipeline:
+            stale_concat = make_stale_concat(*d.inverse, ops=ops)
+            H = d.halo_size
+            probes = {str(i): torch.zeros(
+                (self.P, H, cfg.layer_sizes[i]), device=self.device,
+                requires_grad=True) for i in self.glayers}
+
+            def comm_update(i: int, h: torch.Tensor) -> torch.Tensor:
+                k = str(i)
+                stale_halo = self.comm["favg" if tc.feat_corr else "halo"][k]
+                stale_bgrad = self.comm["bavg" if tc.grad_corr
+                                        else "bgrad"][k]
+                fbuf = stale_concat(h, stale_halo, stale_bgrad, probes[k])
+                # this epoch's exchange, consumed next epoch
+                fresh[k] = ops.gather(h.detach(), d.send_idx, d.send_mask,
+                                      False)
+                return fbuf
+        else:
+            def comm_update(i: int, h: torch.Tensor) -> torch.Tensor:
+                return halo_exchange(h, d.send_idx, d.send_mask, d.inverse,
+                                     ops=ops)
+
+        def spmm_fn(fbuf, indptr, src, in_deg):
+            return self._spmm(fbuf, indptr, src, in_deg, d.transpose)
+
+        gen = epoch_generator(tc.seed, epoch, self.device) \
+            if cfg.dropout > 0 else None
+        logits = forward(self.params, cfg, self.feat, d.indptr, d.edge_src,
+                         d.in_deg, comm_update=comm_update, spmm_fn=spmm_fn,
+                         training=True, generator=gen, act=self.act)
+        loss = cross_entropy_sum(logits, d.label, d.train_mask)
+        keys = sorted(probes)
+        grads = torch.autograd.grad(
+            loss, self._leaves + [probes[k] for k in keys])
+        n = len(self._leaves)
+        with torch.no_grad():
+            pgrads = [g / self.n_train for g in grads[:n]]
+            self.last_grads = pgrads
+            # stays on the device: read through ``grad_norm`` on demand,
+            # so Adam and the carry update queue with no host round trip
+            self._grad_norm = torch.sqrt(sum(
+                (g.float() ** 2).sum() for g in pgrads))
+            adam_update(pgrads, self.opt, self.params, lr=tc.lr,
+                        weight_decay=tc.weight_decay)
+            if pipeline:
+                self._update_comm(fresh, dict(zip(keys, grads[n:])))
+            return float(loss / self.n_train)
+
+    def _update_comm(self, fresh: Dict[str, torch.Tensor],
+                     probe_grads: Dict[str, torch.Tensor]) -> None:
+        tc, b_max = self.tcfg, self.data.b_max
+        m = tc.corr_momentum
+        comm = self.comm
+        for k in fresh:
+            bg = self._halo_ops.ret(probe_grads[k], b_max)
+            comm["halo"][k] = fresh[k]
+            comm["bgrad"][k] = bg
+            if tc.feat_corr:
+                comm["favg"][k] = m * comm["favg"][k] + (1 - m) * fresh[k]
+            if tc.grad_corr:
+                comm["bavg"][k] = m * comm["bavg"][k] + (1 - m) * bg
+
+    # ---------------- evaluation --------------------------------------
+
+    def _full_eval_cache(self, g: Graph) -> Dict[str, Any]:
+        key = id(g)
+        if key not in self._eval_cache:
+            t0 = time.perf_counter()
+            n = g.num_nodes
+            # dst-sorted CSR of the eval graph (a stable sort, like the
+            # JAX trainer's native stable_argsort)
+            order = np.argsort(g.dst, kind="stable")
+            dev = self.device
+            self._eval_cache[key] = {
+                "graph": g,  # strong ref: keeps id(g) valid while cached
+                "feat": torch.from_numpy(np.ascontiguousarray(
+                    g.ndata["feat"], np.float32))[None].to(dev),
+                "indptr": torch.from_numpy(
+                    csr_indptr(g.dst[order], n))[None].to(dev),
+                "src": torch.from_numpy(
+                    g.src[order].astype(np.int32))[None].to(dev),
+                "in_deg": torch.from_numpy(np.maximum(
+                    g.in_degrees(), 1).astype(np.float32))[None].to(dev),
+            }
+            self.eval_setup_s += time.perf_counter() - t0
+        return self._eval_cache[key]
+
+    def eval_logits(self, g: Graph, params: Optional[Params] = None
+                    ) -> torch.Tensor:
+        """Full-graph logits ``[N, n_class]`` of ``g`` on this device (the
+        JAX emulated trainer's eval: P = 1, no halo, ``in_deg = max(deg,
+        1)`` of ``g``, use_pp layer 0 as ``cat(feat, mean(feat)) @ W``)."""
+        c = self._full_eval_cache(g)
+        with torch.no_grad():
+            out = forward(self.params if params is None else params,
+                          self.cfg, c["feat"], c["indptr"], c["src"],
+                          c["in_deg"], spmm_fn=self._spmm,
+                          eval_pp_agg=self.cfg.use_pp)
+        return out[0]
+
+    def evaluate(self, g: Graph, mask_key: str,
+                 params: Optional[Params] = None) -> float:
+        """Accuracy (micro-F1 for multilabel) of the full-graph eval of
+        ``g`` over the rows of ``g.ndata[mask_key]``."""
+        logits = self.eval_logits(g, params).cpu().numpy()
+        m = np.asarray(g.ndata[mask_key])
+        return calc_acc(logits[m], np.asarray(g.ndata["label"])[m])
+
+    # ---------------- state -------------------------------------------
+
+    def host_state(self) -> Dict[str, Any]:
+        """params, opt and comm as numpy in the JAX trainer's layout
+        (``{'params', 'opt': {'mu', 'nu', 'step'}, 'norm': [], 'comm'}``),
+        without the emulated trainer's stacked ``[P]`` parameter copies."""
+        return {
+            "params": tree_numpy(self.params),
+            "opt": {"mu": tree_numpy(self.opt["mu"]),
+                    "nu": tree_numpy(self.opt["nu"]),
+                    "step": np.int32(self.opt["step"])},
+            "norm": [],
+            "comm": tree_numpy(self.comm),
+        }
+
+    def restore_state(self, host_state: Dict[str, Any]) -> None:
+        """Put a :meth:`host_state` back (params and moments in place,
+        the comm carry anew)."""
+        with torch.no_grad():
+            for dst, src in zip(
+                    tree_leaves([self.params, self.opt["mu"],
+                                 self.opt["nu"]]),
+                    tree_leaves([host_state["params"],
+                                 host_state["opt"]["mu"],
+                                 host_state["opt"]["nu"]])):
+                dst.copy_(torch.from_numpy(np.asarray(src)))
+        self.opt["step"] = int(host_state["opt"]["step"])
+        self.comm = tree_map(
+            lambda a: torch.from_numpy(np.array(a)).to(self.device),
+            host_state["comm"])
+
+    # ---------------- the epoch loop ----------------------------------
+
+    def fit(self, eval_graphs: Optional[Dict[str, Tuple[Graph, str]]] = None,
+            log_fn=print, *, inductive: bool = False,
+            checkpoint_dir: Optional[str] = None, sharded_eval: bool = False,
+            stream_plan=None) -> Dict[str, Any]:
+        """The epoch loop, reduced: the reference train line every
+        ``log_every`` epochs with a val evaluation at the same points (and
+        at the end when the last epoch is off that grid), best-val params
+        kept, test evaluated on them at the end. Comm(s) and Reduce(s)
+        print 0: on one card the exchange and the reduction are parts of
+        the epoch, not separate collectives. Epoch times exclude the first
+        5 epochs, as the JAX ``fit`` does."""
+        if checkpoint_dir or sharded_eval or stream_plan is not None:
+            raise NotImplementedError(
+                "checkpoints (ROADMAP A4), sharded eval (ROADMAP A4) and "
+                "streaming (ROADMAP A9) are not ported yet")
+        tc = self.tcfg
+        do_eval = tc.eval and bool(eval_graphs) and "val" in eval_graphs
+        best_val, best_params, best_epoch = 0.0, None, -1
+        durs: List[float] = []
+        losses: List[float] = []
+        history = []
+
+        def _eval(epoch: int, loss: float) -> None:
+            nonlocal best_val, best_params, best_epoch
+            acc = self.evaluate(*eval_graphs["val"])
+            if inductive or "test" not in eval_graphs:
+                log_fn(_eval_line(epoch, acc))
+            else:
+                log_fn(_eval_line(epoch, acc,
+                                  self.evaluate(*eval_graphs["test"])))
+            history.append((epoch + 1, loss, acc))
+            if acc > best_val:
+                best_val, best_epoch = acc, epoch + 1
+                best_params = tree_map(lambda t: t.detach().clone(),
+                                   self.params)
+
+        epoch, loss = -1, float("nan")
+        for epoch in range(tc.n_epochs):
+            t0 = time.perf_counter()
+            loss = self.train_epoch(epoch)
+            dur = time.perf_counter() - t0
+            losses.append(loss)
+            if epoch >= 5:
+                durs.append(dur)
+            if (epoch + 1) % tc.log_every == 0:
+                log_fn(_train_line(epoch, float(np.mean(durs or [dur])),
+                                   loss))
+                if do_eval:
+                    _eval(epoch, loss)
+        if do_eval and tc.n_epochs % tc.log_every != 0:
+            _eval(epoch, loss)
+        result = {
+            "best_val": best_val, "best_epoch": best_epoch,
+            "best_params": best_params, "losses": losses,
+            "epoch_time": float(np.mean(durs)) if durs else None,
+            "history": history,
+        }
+        if do_eval and "test" in eval_graphs and best_params is not None:
+            result["test_acc"] = self.evaluate(*eval_graphs["test"],
+                                               params=best_params)
+        return result
+
+
+def _train_line(epoch: int, time_s: float, loss: float) -> str:
+    # the reference line (reference train.py:369-371, pinned in the JAX
+    # package's obs/format.py); rank 0, no separate collectives
+    return ("Process {:03d} | Epoch {:05d} | Time(s) {:.4f} | "
+            "Comm(s) {:.4f} | Reduce(s) {:.4f} | Loss {:.4f}"
+            .format(0, epoch, time_s, 0.0, 0.0, loss))
+
+
+def _eval_line(epoch: int, val_acc: float,
+               test_acc: Optional[float] = None) -> str:
+    # reference evaluate_induc (train.py:33-39) / evaluate_trans (:54-60)
+    if test_acc is None:
+        return "Epoch {:05d} | Accuracy {:.2%}".format(epoch, val_acc)
+    return ("Epoch {:05d} | Validation Accuracy {:.2%} | "
+            "Test Accuracy {:.2%}".format(epoch, val_acc, test_acc))
+

@@ -1,0 +1,34 @@
+"""Nested dicts and lists of tensors (the port's parameter, optimizer and
+comm layouts) — the few pytree helpers the port needs, without JAX."""
+
+from __future__ import annotations
+
+from typing import Any, Callable, List
+
+import numpy as np
+import torch
+
+
+def tree_map(fn: Callable[[Any], Any], tree):
+    """Apply ``fn`` to every leaf (anything that is not a dict, list or
+    tuple), keeping the structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def tree_leaves(tree) -> List[Any]:
+    """The leaves in a fixed order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_numpy(tree):
+    """Tensors -> numpy copies on the host."""
+    return tree_map(lambda t: t.detach().cpu().numpy().copy()
+                    if isinstance(t, torch.Tensor) else np.asarray(t), tree)

@@ -1,0 +1,110 @@
+"""The training CLI (python -m pipegcn_tpu_torch.cli.main) end to end on
+the CPU at a tiny size: the scripts/reddit.sh flags parse with the JAX
+parser's defaults, the reference's lines come out, and without CUDA it
+raises unless --device cpu is passed."""
+
+import os
+import shlex
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from pipegcn_tpu.cli.parser import create_parser as jax_parser
+from pipegcn_tpu_torch.cli import main as cli
+
+pytestmark = pytest.mark.torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the port: the suite runs several test
+    processes on a few cores, where torch's OpenMP pools oversubscribe
+    them (the port's test files ran ~4x longer with the default pool)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def reddit_sh_argv():
+    """The flags scripts/reddit.sh passes to main.py."""
+    text = open(os.path.join(ROOT, "scripts", "reddit.sh")).read()
+    tokens = shlex.split(text.replace("\\\n", " "))
+    return tokens[tokens.index("main.py") + 1:]
+
+
+def test_parser_takes_every_reddit_sh_flag():
+    argv = reddit_sh_argv()
+    assert "--enable-pipeline" in argv and "--use-pp" in argv
+    args = cli.build_parser().parse_args(argv)
+    want = jax_parser().parse_args(argv)
+    for k, v in vars(args).items():
+        if k != "device":
+            assert getattr(want, k) == v, k
+    assert (args.dataset, args.n_layers, args.n_hidden, args.dropout,
+            args.lr) == ("reddit", 4, 256, 0.5, 0.01)
+    assert args.inductive and args.enable_pipeline and args.use_pp
+
+
+def test_parser_defaults_equal_the_jax_parser():
+    ours = vars(cli.build_parser().parse_args([]))
+    theirs = vars(jax_parser().parse_args([]))
+    assert ours.pop("device") is None
+    for k, v in ours.items():
+        assert theirs[k] == v, k
+
+
+def _tiny_argv(extra=()):
+    argv = reddit_sh_argv()
+    for flag, value in (("--dataset", "synthetic:500:8:12:5"),
+                        ("--n-hidden", "16"), ("--n-epochs", "20")):
+        argv[argv.index(flag) + 1] = value
+    return argv + ["--partition-method", "random", "--fix-seed",
+                   *extra]
+
+
+def test_cli_trains_on_the_cpu(capsys):
+    res = cli.run(cli.build_parser().parse_args(
+        _tiny_argv(["--device", "cpu"])))
+    out = capsys.readouterr().out.strip().splitlines()
+    assert any(line.startswith("partition sizes (inner nodes per device): ")
+               for line in out)
+    assert any(line.startswith("Process 000 | Epoch 00009 | Time(s) ")
+               and " | Loss " in line for line in out)
+    assert "Epoch 00019 | Accuracy " in "\n".join(out)
+    assert out[-2] == "Validation accuracy {:.2%}".format(res["best_val"])
+    assert out[-1] == "Test Result | Accuracy {:.2%}".format(
+        res["test_acc"])
+    assert res["losses"][-1] < res["losses"][0]
+    assert 0.5 < res["test_acc"] <= 1.0
+
+
+def test_module_entry_point_runs():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    r = subprocess.run(
+        [sys.executable, "-m", "pipegcn_tpu_torch.cli.main",
+         *_tiny_argv(["--device", "cpu", "--n-epochs", "10",
+                      "--no-eval"])],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    lines = r.stdout.strip().splitlines()
+    assert lines[0].startswith("Namespace(")
+    assert lines[-1].startswith("Process 000 | Epoch 00009 | ")
+
+
+def test_cli_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(_tiny_argv())
+
+
+@pytest.mark.parametrize("extra", [["--model", "gcn"], ["--norm", "batch"],
+                                   ["--dtype", "bfloat16"]])
+def test_unported_cli_choices_refuse(extra):
+    with pytest.raises(NotImplementedError):
+        cli.run(cli.build_parser().parse_args(
+            _tiny_argv(["--device", "cpu", *extra])))

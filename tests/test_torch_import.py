@@ -113,3 +113,54 @@ def test_chip_smoke_fails_without_a_card(tmp_path, alone):
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
     assert r.stdout == ""
+
+
+TRAINING_MODULES = ("pipegcn_tpu_torch.parallel.trainer",
+                    "pipegcn_tpu_torch.cli.main", "pipegcn_tpu_torch.train",
+                    "pipegcn_tpu_torch.train.losses",
+                    "pipegcn_tpu_torch.train.optim",
+                    "pipegcn_tpu_torch.train.metrics",
+                    "pipegcn_tpu_torch.tree")
+
+
+def test_training_modules_import_without_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {TRAINING_MODULES!r}: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', "
+        "'pipegcn_tpu') or m.startswith(('jax.', 'jaxlib.', "
+        "'pipegcn_tpu.'))]\n"
+        "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    for m in TRAINING_MODULES:
+        path = os.path.join(ROOT, *m.split(".")) + ".py"
+        if not os.path.exists(path):
+            path = os.path.join(ROOT, *m.split("."), "__init__.py")
+        assert path in set(_port_files()), m
+
+
+def test_training_wrappers_refuse_devices_without_a_kernel():
+    from pipegcn_tpu_torch.ops.spmm import spmm_mean_t
+    from pipegcn_tpu_torch.parallel.halo import return_blocks, scatter_bgrad
+
+    m = torch.device("meta")
+    i32 = dict(dtype=torch.int32, device=m)
+    with pytest.raises(ValueError, match="unsupported device"):
+        spmm_mean_t(torch.empty((2, 3), device=m), torch.zeros(5, **i32),
+                    torch.zeros(4, **i32), torch.ones(2, device=m))
+    with pytest.raises(ValueError, match="unsupported device"):
+        return_blocks(torch.empty((2, 3, 4), device=m), 3)
+    with pytest.raises(ValueError, match="unsupported device"):
+        scatter_bgrad(torch.empty((2, 5, 4), device=m),
+                      torch.empty((2, 3, 4), device=m),
+                      torch.zeros((2, 6), **i32), torch.zeros((2, 3), **i32))
+
+
+def test_training_cli_without_cuda_raises(monkeypatch):
+    from pipegcn_tpu_torch.cli import main as train_cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_cli.main(["--dataset", "karate", "--n-partitions", "2"])

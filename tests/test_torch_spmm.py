@@ -1,5 +1,6 @@
 """The port's mean SpMM (plain path, CPU) against the JAX spmm_mean, on the
-padded, dst-sorted per-part edge lists of a real ShardedGraph."""
+padded, dst-sorted per-part edge lists of a real ShardedGraph: the
+forward, the transpose CSR, and the backward against jax.vjp."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -9,7 +10,8 @@ import torch
 from pipegcn_tpu.graph import synthetic_graph
 from pipegcn_tpu.ops.spmm import spmm_mean as jax_spmm_mean
 from pipegcn_tpu.partition import ShardedGraph, partition_graph
-from pipegcn_tpu_torch.ops.spmm import csr_indptr, spmm_mean
+from pipegcn_tpu_torch.ops.spmm import (csr_indptr, csr_transpose, spmm_mean,
+                                        spmm_mean_t, spmm_mean_t_plain)
 
 pytestmark = pytest.mark.torch
 
@@ -113,3 +115,97 @@ def test_empty_rows_and_degree_division():
     np.testing.assert_allclose(out.numpy(), [
         [(0 + 9) / 4, (1 + 10) / 4, (2 + 11) / 4], [0, 0, 0],
         [3 / 2, 4 / 2, 5 / 2]])
+
+
+def test_csr_transpose_matches_stable_argsort(sg):
+    """The source-keyed CSR lists, per source row, the dst of its real
+    edges in their dst-sorted order (a stable argsort by source); pad
+    edges are dropped and the tail is zero."""
+    n_src = sg.n_max + sg.halo_size
+    it, dt = csr_transpose(sg.edge_src, sg.edge_dst, sg.n_max, n_src)
+    assert it.dtype == np.int32 and dt.dtype == np.int32
+    assert it.shape == (sg.num_parts, n_src + 1)
+    assert dt.shape == sg.edge_src.shape
+    for p in range(sg.num_parts):
+        e = int(sg.edge_count[p])
+        s, d = sg.edge_src[p, :e], sg.edge_dst[p, :e]
+        order = np.argsort(s, kind="stable")
+        assert it[p, -1] == e
+        np.testing.assert_array_equal(dt[p, :e], d[order])
+        assert (dt[p, e:] == 0).all()
+        np.testing.assert_array_equal(
+            it[p], np.searchsorted(s[order], np.arange(n_src + 1)))
+        for r in (0, n_src // 2, n_src - 1):  # rows in ascending dst
+            row = dt[p, it[p, r]:it[p, r + 1]]
+            assert (np.diff(row) >= 0).all()
+
+
+def _jax_vjp(fb, sg, p, g, dtype):
+    import jax
+
+    def f(x, deg):
+        return jax_spmm_mean(x, jnp.asarray(sg.edge_src[p]),
+                             jnp.asarray(sg.edge_dst[p]), deg, sg.n_max,
+                             None, True)
+
+    out, vjp = jax.vjp(f, jnp.asarray(fb[p], dtype),
+                       jnp.asarray(sg.in_deg[p]))
+    d_fb, d_deg = vjp(jnp.asarray(g[p]))
+    return np.asarray(out), np.asarray(d_fb.astype(jnp.float32)), \
+        np.asarray(d_deg)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_spmm_mean_backward_matches_jax_vjp(sg, bf16):
+    """SpmmMean's backward (the plain transpose on the CPU) against
+    jax.vjp of spmm_mean: d_fbuf in fbuf's dtype and d_in_deg. f32: the
+    same terms summed in the same edge order up to the division (JAX
+    divides g by in_deg, the port multiplies by its reciprocal), rtol
+    1e-5; bf16: one rounding of d_fbuf to bf16 on each side, rtol 2e-2."""
+    F = 8
+    fb = _fbuf(sg, F, seed=5)
+    g = np.random.default_rng(6).standard_normal(
+        (sg.num_parts, sg.n_max, F)).astype(np.float32)
+    n_src = sg.n_max + sg.halo_size
+    indptr = torch.from_numpy(csr_indptr(sg.edge_dst, sg.n_max))
+    it, dt = (torch.from_numpy(a) for a in csr_transpose(
+        sg.edge_src, sg.edge_dst, sg.n_max, n_src))
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    x = torch.from_numpy(fb).to(dtype).requires_grad_(True)
+    deg = torch.from_numpy(sg.in_deg).requires_grad_(True)
+    out = spmm_mean(x, indptr, torch.from_numpy(sg.edge_src), deg, (it, dt))
+    out.backward(torch.from_numpy(g))
+    assert x.grad.dtype == dtype
+    tol = dict(rtol=2e-2, atol=1e-2) if bf16 else dict(rtol=1e-5, atol=1e-6)
+    for p in range(sg.num_parts):
+        w_out, w_dfb, w_ddeg = _jax_vjp(
+            fb, sg, p, g, jnp.bfloat16 if bf16 else jnp.float32)
+        np.testing.assert_allclose(out[p].detach().numpy(), w_out, **tol)
+        np.testing.assert_allclose(x.grad[p].float().numpy(), w_dfb, **tol)
+        np.testing.assert_allclose(deg.grad[p].numpy(), w_ddeg, **tol)
+
+
+def test_spmm_mean_t_plain_is_the_transpose():
+    """<spmm(x), g> == <x, spmm_t(g)> on a random CSR with empty source
+    rows, and the plain and dispatching wrappers agree on the CPU."""
+    rng = np.random.default_rng(12)
+    n_out, n_src, F = 40, 90, 5
+    deg = rng.integers(0, 9, n_out)
+    dst = np.repeat(np.arange(n_out), deg)
+    src = rng.integers(0, n_src - 10, dst.size)  # sources >= 80 empty
+    in_deg = rng.uniform(1, 5, n_out).astype(np.float32)
+    ip = torch.from_numpy(csr_indptr(dst, n_out))
+    it, dt = (torch.from_numpy(a) for a in csr_transpose(src, dst, n_out,
+                                                         n_src))
+    x = torch.from_numpy(rng.standard_normal((n_src, F)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((n_out, F)).astype(np.float32))
+    dg = torch.from_numpy(in_deg)
+    fwd = spmm_mean(x, ip, torch.from_numpy(src.astype(np.int32)), dg)
+    bwd = spmm_mean_t(g, it, dt, dg)
+    assert torch.equal(bwd, spmm_mean_t_plain(g, it, dt, dg))
+    assert (bwd[80:] == 0).all()
+    np.testing.assert_allclose(float((fwd * g).sum()), float((x * bwd).sum()),
+                               rtol=1e-5)
+    with pytest.raises(ValueError, match="transpose CSR"):
+        spmm_mean(x.requires_grad_(True), ip,
+                  torch.from_numpy(src.astype(np.int32)), dg).sum().backward()
