@@ -3,18 +3,21 @@
 
     python3 chip_smoke.py            # one NVIDIA H100 (any CUDA card runs)
 
-Drives the port's serving path and its training main path end to end on
-one card, at the full width of the repo's main model config
-(``scripts/reddit.sh``: GraphSAGE 602 -> 256 -> 256 -> 256 -> 41, use_pp,
-LayerNorm, f32) on the ``synthetic-reddit`` graph (loaded once, shared by
-both paths):
+Drives the port's serving path and its training paths end to end on
+one card, at the full width of the repo's model configs on the
+``synthetic-reddit`` graph (loaded once, shared by every cell):
+GraphSAGE (``scripts/reddit.sh``: 602 -> 256 -> 256 -> 256 -> 41, use_pp,
+LayerNorm, f32), GAT (the same command with ``--model gat --n-heads 4``
+minus ``--use-pp``: ``scripts/gat_bench.py``'s widths) and GCN:
 
   1. prints the card's name and power limit (nvidia-smi) and versions;
-  2. builds the five hand-written kernels from
+  2. builds the seven hand-written kernels from
      ``pipegcn_tpu_torch/ops/csrc`` (one nvcc per source, started
      together): K1 mean SpMM and K3 its transpose (``spmm_mean.cu``), K2
      halo gather and K5 reverse-ring return (``halo_gather.cu``), K4
-     boundary-gradient scatter (``halo_scatter.cu``);
+     boundary-gradient scatter (``halo_scatter.cu``), K6 GAT attention
+     forward (in training also the sums that give its backward's pass A)
+     and K8 the backward's src-keyed pass B (``gat_attn.cu``);
   3. serves, over 2 random parts of the full graph: builds the artifact
      in memory (the serve CLI's ``build_artifact``: partition, build,
      each step timed; nothing is saved), builds
@@ -48,10 +51,28 @@ both paths):
      and the peak memory; then runs 3 vanilla epochs (the differentiable
      exchange: K2 forward, K5 + K4 backward) and holds a fourth through
      the kernels against the plain versions as in [7];
- 10. prints the ``kernels`` JSON line (K1-K5: times at the training
-     shapes beside the training run's launches; K1/K2 also their serving
-     numbers), a serving line, a training line, the nvidia-smi line, and
-     last ``{"ok": true, "device": {...}}``.
+ 10. trains the GAT cell the same way on the same parts, sharing the
+     SAGE cell's eval-graph CSRs (counts from the trainer's build through
+     the final eval; K2, K4-K6 and K8 launched, K8 four times an
+     epoch);
+ 11. holds one pipelined GAT epoch against the plain versions as in [7],
+     the plain run also taking the kernel run's leaky branch of every
+     edge (flips counted);
+ 12. holds K6 (both modes, and pass A's d_er from its NEG outputs) and
+     K8 against their plain versions at the cell's shapes (dh = 64 and
+     the logits layer's 41) and on edge cases (empty rows, a 5,000-edge
+     row, dh = 5, H = 1 and 8, all-equal logits, int64 row pointers, junk
+     past the CSRs' ends), each rerun bit-identical; then plants a fault
+     (one edge of the 5,000-edge row dropped) that each check must fail;
+ 13. times K6 and K8 (no library call computes the attention: none is
+     timed), the GAT epoch and its split;
+ 14. runs a few pipelined GCN epochs (K1/K3 with the 1/sqrt(deg)
+     scalings): a finite, falling loss; then holds one GCN epoch against
+     the plain versions as in [7];
+ 15. prints the ``kernels`` JSON line (K1-K6, K8: times at the training
+     shapes beside the training runs' launches; K1/K2 also their serving
+     numbers), a serving line, a training line, a GAT/GCN line, the
+     nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when the
 package is missing (the script alone), or when any phase fails.
@@ -101,6 +122,31 @@ K4_ATOL, K4_RTOL = 1e-6, 1e-6
 STEP_LOSS_RTOL = 1e-5
 STEP_REL_TOL = 1e-4
 RELU_FLIP_FRAC = 1e-4
+# K6 and K8 against their plain versions: both compute every term the
+# same way (the leaky logit, expf, the weight times the row value rounded
+# before the add) and differ in summation order (the kernels per row in
+# edge order, the plain versions by index_add_ atomics), and K8 contracts
+# the weighted row sum with the row's own z after the edge loop instead
+# of per edge (the same terms regrouped). So the bound adds a multiple of
+# the sum of the terms' magnitudes (the plain pass on |z|, |g| and -|rho|
+# gives it). The row max m is a max of identically computed values:
+# bit-exact. The GAT step shares the kernel run's leaky branches with the
+# plain run as it shares the relu masks: a logit within rounding of 0
+# switches leaky' between 1 and the slope, a jump no rounding tolerance
+# bounds; such flips are counted.
+GAT_ATOL, GAT_RTOL = 1e-5, 1e-5
+LEAKY_FLIP_FRAC = 1e-4
+# The sum term of a row of n terms is gamma_n = max(SUM_RTOL, GAT_SUM_C
+# sqrt(n) u) times the sum of their magnitudes (u = 2**-24; n plus dh
+# where a dot product adds terms). Two orders of n terms differ by about
+# sqrt(n) u where the roundings are independent; on an H100 the worst
+# seen was 4.75 sqrt(n) u, on the edge cases' 5,000-edge row, a third of
+# whose terms come from one source (equal terms round alike). 16 leaves a
+# margin of 3.4 over that, and stays under the shift of one dropped edge
+# of that row (1/n of the sum, 47 sqrt(n) u): gat_fault_phase plants
+# that fault and requires each check to fail.
+GAT_SUM_C = 16.0
+F32_U = 2.0 ** -24
 
 
 def log(msg: str) -> None:
@@ -147,12 +193,14 @@ def max_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
-def check_close(name, got, ref, atol, rtol, abs_sum=None) -> float:
+def check_close(name, got, ref, atol, rtol, abs_sum=None,
+                sum_rtol=SUM_RTOL) -> float:
     """|got - ref| <= atol + rtol * |ref| elementwise; with ``abs_sum``
     (the same sum taken over the terms' absolute values) the bound adds
-    SUM_RTOL * abs_sum: two summation orders of n terms differ by a
-    multiple of f32 eps times the sum of the terms' magnitudes, which
-    |ref| does not bound where the terms cancel."""
+    ``sum_rtol * abs_sum`` (SUM_RTOL, or a per-row tensor): two summation
+    orders of n terms differ by a multiple of f32 eps times the sum of the
+    terms' magnitudes, which |ref| does not bound where the terms
+    cancel."""
     import torch
 
     require(got.shape == ref.shape, f"{name}: shape {tuple(got.shape)} != "
@@ -161,11 +209,16 @@ def check_close(name, got, ref, atol, rtol, abs_sum=None) -> float:
     err = max_err(got, ref)
     bound = atol + rtol * ref.double().abs()
     if abs_sum is not None:
-        bound = bound + SUM_RTOL * abs_sum.double()
-    ok = bool(((got.double() - ref.double()).abs() <= bound).all())
-    extra = f" + {SUM_RTOL:g}*sum|terms|" if abs_sum is not None else ""
+        bound = bound + sum_rtol * abs_sum.double()
+    diff = (got.double() - ref.double()).abs()
+    ok = bool((diff <= bound).all())
+    worst = float((diff / bound).max()) if diff.numel() else 0.0
+    extra = ""
+    if abs_sum is not None:
+        extra = (f" + {sum_rtol:g}*sum|terms|" if isinstance(sum_rtol, float)
+                 else " + gamma_n*sum|terms|")
     log(f"  {name}: max_abs_err={err:.3e} (tol {atol:g} + {rtol:g}*|ref|"
-        f"{extra}) {'ok' if ok else 'FAIL'}")
+        f"{extra}; worst err/tol {worst:.3f}) {'ok' if ok else 'FAIL'}")
     require(ok, f"{name}: kernel disagrees with its plain version")
     return err
 
@@ -465,10 +518,26 @@ def timings(engine, spmm, halo):
 def counters(spmm, halo):
     """Every kernel wrapper of the port, by kernel name: each counts its
     own launches in ``.launches``."""
+    from pipegcn_tpu_torch.ops import gat
+
     return {"spmm_mean": spmm.spmm_mean, "halo_gather": halo.halo_gather,
             "spmm_mean_t": spmm.spmm_mean_t,
             "halo_scatter": halo.scatter_bgrad,
-            "halo_return": halo.return_blocks}
+            "halo_return": halo.return_blocks,
+            "gat_fwd": gat.gat_fwd, "gat_bwd_src": gat.gat_bwd_src}
+
+
+# the kernels each model's training path runs
+COMM = ("halo_gather", "halo_scatter", "halo_return")
+PATH_KERNELS = {"graphsage": ("spmm_mean", "spmm_mean_t") + COMM,
+                "gcn": ("spmm_mean", "spmm_mean_t") + COMM,
+                "gat": ("gat_fwd", "gat_bwd_src") + COMM}
+
+
+def require_launched(launches, model, what):
+    missing = [k for k in PATH_KERNELS[model] if launches.get(k, 0) <= 0]
+    require(not missing, f"{what}: a kernel of the {model} path was never "
+            f"launched: {missing} ({launches})")
 
 
 def reset_counts(cnt) -> None:
@@ -480,17 +549,24 @@ def read_counts(cnt):
     return {k: fn.launches for k, fn in cnt.items()}
 
 
-def train_cli(args, pipeline=True, epochs=None):
+def train_cli(args, pipeline=True, epochs=None, model="graphsage"):
+    """The cell's command: ``scripts/reddit.sh`` (graphsage, use_pp); for
+    gcn and gat the same minus ``--use-pp`` (which they refuse), gat with
+    ``--n-heads 4`` (``scripts/gat_bench.py``'s width)."""
     from pipegcn_tpu_torch.cli.main import build_parser
 
     argv = ["--dataset", args.dataset, "--dropout", "0.5", "--lr", "0.01",
             "--n-partitions", "2",
             "--n-epochs", str(epochs or args.train_epochs),
-            "--model", "graphsage", "--n-layers", "4", "--n-hidden", "256",
-            "--log-every", "10", "--inductive", "--use-pp",
+            "--model", model, "--n-layers", "4", "--n-hidden", "256",
+            "--log-every", "10", "--inductive",
             "--norm", "layer", "--dtype", "float32",
             "--partition-method", "random", "--fix-seed", "--seed", "0",
             "--device", "cuda"]
+    if model == "graphsage":
+        argv.append("--use-pp")
+    if model == "gat":
+        argv += ["--n-heads", "4"]
     return build_parser().parse_args(
         argv + (["--enable-pipeline"] if pipeline else []))
 
@@ -528,8 +604,7 @@ def train_phase(args, g, spmm, halo):
     first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
     require(last < first, f"loss did not fall: first-5 mean {first:.4f}, "
             f"last-5 mean {last:.4f}")
-    require(all(v > 0 for v in launches.values()),
-            f"a kernel of the training path was never launched: {launches}")
+    require_launched(launches, "graphsage", "training run")
     accs = (res["best_val"], res.get("test_acc", float("nan")))
     require(all(math.isfinite(a) and 0.0 <= a <= 1.0 for a in accs),
             f"accuracies not finite: {accs}")
@@ -540,7 +615,7 @@ def train_phase(args, g, spmm, halo):
              "epoch_time_s_mean": res["epoch_time"],
              "peak_mem_gib": peak_gib, "host_steps_s": steps,
              "launches": launches}
-    return cli, sg, trainer, stats
+    return cli, sg, eval_graphs, trainer, stats
 
 
 # ---------------------------------------------------------------------------
@@ -564,13 +639,18 @@ def step_phase(trainer, epoch):
     where the two forwards' rounding puts a pre-activation on the other
     side of 0, relu passes or stops that element's whole gradient, a jump
     no tolerance on rounding bounds. Such flips are counted and must stay
-    below RELU_FLIP_FRAC of the relu elements."""
+    below RELU_FLIP_FRAC of the relu elements. GAT's attention likewise
+    takes the kernel run's leaky branch of every edge (from that run's el
+    and er, ``ops.gat.LeakyBranch``); its flips must stay below
+    LEAKY_FLIP_FRAC of the edge-heads."""
     import numpy as np
     import torch
+    from pipegcn_tpu_torch.ops import gat
     from pipegcn_tpu_torch.tree import tree_leaves
 
     snap = trainer.host_state()
     masks, flips = [], [0, 0]  # [differing signs, relu elements]
+    logit_halves, branches = [], []  # GAT: the kernel run's (el, er)
 
     def record(h):
         masks.append(h > 0)
@@ -582,23 +662,36 @@ def step_phase(trainer, epoch):
         flips[1] += m.numel()
         return torch.where(m, h, h.new_zeros(()))
 
-    def run(plain, act):
+    def record_attn(z, el, er, *csr):
+        logit_halves.append((el.detach(), er.detach()))
+        return gat.gat_attention(z, el, er, *csr)
+
+    def replay_attn(z, el, er, *csr):
+        branches.append(gat.LeakyBranch(*next(replayed_attn)))
+        return gat.gat_attention_plain(z, el, er, *csr,
+                                       branch=branches[-1])
+
+    def run(plain, act, attn=None):
         trainer.restore_state(snap)
         trainer.plain, trainer.act = plain, act
+        if attn is not None:
+            trainer.attn = attn
         loss = trainer.train_epoch(epoch)
         return (loss, [g.detach().cpu().numpy() for g in trainer.last_grads],
                 trainer.host_state())
 
     try:
-        first = run(False, record)
+        first = run(False, record, record_attn)
         rerun = run(False, torch.relu)
-        replayed = iter(masks)
-        plain = run(True, replay)
+        replayed, replayed_attn = iter(masks), iter(logit_halves)
+        plain = run(True, replay, replay_attn)
         own = run(True, torch.relu)  # on its own masks: shown, not held
     finally:
         trainer.plain, trainer.act = False, torch.relu
-    del masks[:]
+    del masks[:], logit_halves[:]
     trainer.restore_state(first[2])
+    leaky = [sum(b.flips for b in branches), sum(b.elements for b in branches)]
+    leaky_frac = leaky[0] / max(leaky[1], 1)
 
     def leaves(r):
         return [np.asarray(r[0])] + r[1] + [np.asarray(x) for x in
@@ -621,7 +714,7 @@ def step_phase(trainer, epoch):
           and param_err <= STEP_REL_TOL
           and all(v <= STEP_REL_TOL for v in comm_err.values())
           and all(np.isfinite(g).all() for g in gk)
-          and flip_frac <= RELU_FLIP_FRAC)
+          and flip_frac <= RELU_FLIP_FRAC and leaky_frac <= LEAKY_FLIP_FRAC)
     carries = (f"{max(comm_err.values()):.2e}" if comm_err
                else "none (vanilla)")
     log(f"  step rerun through the kernels (epoch {epoch}): bit-identical "
@@ -632,15 +725,18 @@ def step_phase(trainer, epoch):
         f"{lp:.6f} (rel {loss_err:.2e}, tol {STEP_LOSS_RTOL:g}); grads "
         f"{grad_err:.2e}, params {param_err:.2e}, carries {carries} (tol "
         f"{STEP_REL_TOL:g} of each tensor's max); relu flips {flips[0]} of "
-        f"{flips[1]} (tol {RELU_FLIP_FRAC:g}) {'ok' if ok else 'FAIL'}; "
+        f"{flips[1]} (tol {RELU_FLIP_FRAC:g}); leaky flips {leaky[0]} of "
+        f"{leaky[1]} (tol {LEAKY_FLIP_FRAC:g}) {'ok' if ok else 'FAIL'}; "
         f"on the plain run's own masks grads and carries {own_err:.2e}")
     require(ok, f"training step through the kernels disagrees with the "
             f"plain versions: loss {loss_err}, grads {grad_err}, params "
-            f"{param_err}, carries {comm_err}, relu flips {flips}")
+            f"{param_err}, carries {comm_err}, relu flips {flips}, leaky "
+            f"flips {leaky}")
     return {"loss_kernel": lk, "loss_plain": lp, "loss_rel_err": loss_err,
             "grad_rel_err": grad_err, "param_rel_err": param_err,
             "carry_rel_err": comm_err, "relu_flips": flips[0],
-            "relu_elements": flips[1], "rerun_bit_identical": same,
+            "relu_elements": flips[1], "leaky_flips": leaky[0],
+            "leaky_elements": leaky[1], "rerun_bit_identical": same,
             "own_masks_rel_err": own_err}
 
 
@@ -657,12 +753,15 @@ def k3_phase(trainer, spmm):
     P, n_max, H = d.num_parts, d.n_max, d.halo_size
     it, dt = d.transpose
     errs = []
-    g = torch.randn((P, n_max, 256), generator=gen, device="cuda")
-    errs.append(check_close("K3 f32 F=256 (cell)",
-                            spmm.spmm_mean_t(g, it, dt, d.in_deg),
-                            spmm.spmm_mean_t_plain(g, it, dt, d.in_deg),
-                            K3_ATOL, K3_RTOL, abs_sum=spmm.spmm_mean_t_plain(
-                                g.abs(), it, dt, d.in_deg)))
+    # F = 256 (the hidden layers) and 602 (GCN's layer 0, whose 602-wide
+    # input takes K3 in the backward)
+    for F in (256, 602):
+        g = torch.randn((P, n_max, F), generator=gen, device="cuda")
+        errs.append(check_close(
+            f"K3 f32 F={F} (cell)", spmm.spmm_mean_t(g, it, dt, d.in_deg),
+            spmm.spmm_mean_t_plain(g, it, dt, d.in_deg), K3_ATOL, K3_RTOL,
+            abs_sum=spmm.spmm_mean_t_plain(g.abs(), it, dt, d.in_deg)))
+        del g
     # SpmmMean's backward (K3) for f32 and bf16 fbuf: d_fbuf in fbuf's
     # dtype; bf16 rounds the f32 sums once, so one bf16 ulp apart at most
     w = torch.randn((P, n_max, 256), generator=gen, device="cuda")
@@ -699,7 +798,7 @@ def k3_phase(trainer, spmm):
     in_deg = torch.from_numpy(rng.uniform(1, 50, n_out).astype(
         np.float32)).cuda()
     require(int(np.diff(ip_np)[5]) > 3000, "K3 edge case lost its heavy row")
-    for F in (1, 3, 16, 256):
+    for F in (1, 3, 16, 256, 602):
         g = torch.randn((n_out, F), generator=gen, device="cuda")
         got = spmm.spmm_mean_t(g, it, dtt, in_deg)
         errs.append(check_close(f"K3 edge cases F={F}", got,
@@ -923,12 +1022,454 @@ def vanilla_phase(args, sg, spmm, halo):
     launches = read_counts(cnt)
     log(f"  vanilla: losses {losses}, launches {launches}")
     require(all(math.isfinite(x) for x in losses), "vanilla: non-finite loss")
-    require(all(v > 0 for v in launches.values()),
-            f"vanilla: a kernel was never launched: {launches}")
+    require_launched(launches, "graphsage", "vanilla")
     # the differentiable exchange's backward (K5 then K4) through the
     # kernels against the plain versions, one epoch from the same state
     step = step_phase(trainer, 3)
     return {"losses": losses, "launches": launches, "step_check": step}
+
+
+# ---------------------------------------------------------------------------
+# phases 10-14: the GAT and GCN cells, K6 and K8
+
+
+def gat_gamma(deg, extra=0):
+    """The per-row factor of the sum term: GAT_SUM_C * sqrt(n) * u for a
+    row of n terms, at least SUM_RTOL."""
+    import torch
+
+    return torch.clamp(GAT_SUM_C * torch.sqrt(deg.double() + extra) * F32_U,
+                       min=SUM_RTOL)
+
+
+def k6_checks(name, got, ref, abs_ref, deg):
+    """K6's (out, m, s, n_neg, w_neg) against the plain version's: m
+    bit-exact, the rest within GAT_ATOL + GAT_RTOL * |ref| + gamma_n *
+    (the sum of the terms' magnitudes: the plain pass on |z|; s and
+    w_neg sum positive terms, their own value)."""
+    import torch
+
+    out, m, s, n_neg, w_neg = got
+    require(torch.equal(m, ref[1]), f"K6 {name}: the row max m differs "
+            "from the plain version's")
+    gi = gat_gamma(deg)
+    return max(
+        check_close(f"K6 {name}: s", s, ref[2], GAT_ATOL, GAT_RTOL,
+                    abs_sum=ref[2], sum_rtol=gi[..., None]),
+        check_close(f"K6 {name}: out", out, ref[0], GAT_ATOL, GAT_RTOL,
+                    abs_sum=abs_ref[0], sum_rtol=gi[..., None, None]),
+        check_close(f"K6 {name}: w_neg", w_neg, ref[4], GAT_ATOL, GAT_RTOL,
+                    abs_sum=ref[4], sum_rtol=gi[..., None]),
+        check_close(f"K6 {name}: n_neg", n_neg, ref[3], GAT_ATOL, GAT_RTOL,
+                    abs_sum=abs_ref[3], sum_rtol=gi[..., None, None]))
+
+
+def k8_checks(name, got, ref, abs_ref, deg_t, dh):
+    """K8's (d_z, d_el) against the plain version's, as k6_checks (the
+    magnitudes from the plain pass on |z|, |g| and -|rho|; d_el's dot
+    product adds dh terms)."""
+    return max(
+        check_close(f"K8 {name}: d_z", got[0], ref[0], GAT_ATOL, GAT_RTOL,
+                    abs_sum=abs_ref[0],
+                    sum_rtol=gat_gamma(deg_t)[..., None, None]),
+        check_close(f"K8 {name}: d_el", got[1], ref[1], GAT_ATOL, GAT_RTOL,
+                    abs_sum=abs_ref[1],
+                    sum_rtol=gat_gamma(deg_t, dh)[..., None]))
+
+
+def gat_check(name, gat, z, el, er, indptr, src, transpose, slope=0.2,
+              seed=0):
+    """K6 (both modes) and K8 against their plain versions on one input
+    (k6_checks, k8_checks), and pass A's d_er from K6's NEG outputs
+    against d_er from the plain version's; the NEG mode leaves out, m and
+    s bit for bit; each kernel rerun bit-identical. Returns the largest
+    error of each kernel (K6 including d_er)."""
+    import torch
+
+    it, dt = transpose
+    P, R, H, dh = z.shape
+    n = er.shape[1]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    deg = indptr.diff(dim=1)
+    got = gat.gat_fwd(z, el, er, indptr, src, slope, neg=True)
+    require(all(torch.equal(a, b) for a, b in zip(
+        gat.gat_fwd(z, el, er, indptr, src, slope), got)),
+        f"K6 {name}: the NEG mode changes out, m or s")
+    ref = gat.gat_fwd_plain(z, el, er, indptr, src, slope, neg=True)
+    abs_ref = gat.gat_fwd_plain(z.abs(), el, er, indptr, src, slope,
+                                neg=True)
+    e6 = k6_checks(name, got, ref, abs_ref, deg)
+    g = torch.randn((P, n, H, dh), generator=gen, device="cuda")
+    rho = (g * ref[0]).sum(-1)
+    d_er = gat.gat_d_er(g, rho, got[3], got[4], slope)
+    e6 = max(e6, check_close(
+        f"pass A {name}: d_er from K6's n_neg, w_neg", d_er,
+        gat.gat_d_er(g, rho, ref[3], ref[4], slope), GAT_ATOL, GAT_RTOL,
+        abs_sum=(1 - slope) * (rho.abs() * ref[4]
+                               + (g.abs() * abs_ref[3]).sum(-1)),
+        sum_rtol=gat_gamma(deg, dh)[..., None]))
+    stats = (ref[1], ref[2], g, rho)
+    abs_stats = (ref[1], ref[2], g.abs(), -rho.abs())
+    d_src = gat.gat_bwd_src(z, el, er, *stats, it, dt, slope)
+    e8 = k8_checks(name, d_src,
+                   gat.gat_bwd_src_plain(z, el, er, *stats, it, dt, slope),
+                   gat.gat_bwd_src_plain(z.abs(), el, er, *abs_stats, it,
+                                         dt, slope), it.diff(dim=1), dh)
+    again = (*gat.gat_fwd(z, el, er, indptr, src, slope, neg=True),
+             *gat.gat_bwd_src(z, el, er, *stats, it, dt, slope))
+    require(all(torch.equal(a, b) for a, b in zip(again, (*got, *d_src))),
+            f"K6/K8 {name}: a rerun is not bit-identical")
+    return {"K6": e6, "K8": e8}
+
+
+def must_fail(name, check) -> None:
+    """``check()`` must raise Failed: a planted fault has to show."""
+    try:
+        check()
+    except Failed:
+        log(f"  {name}: fails the check, as it must")
+        return
+    raise Failed(f"{name}: a planted fault passed the check")
+
+
+def gat_fault_phase(gat, slope=0.2):
+    """The K6 / K8 checks catch a kernel that drops one edge: K6 and K8
+    run on the edge-case CSR less one edge of the 5,000-edge row (the
+    edge whose weights are nearest the row's mean, from a light source)
+    and are held, with the checks' own tolerances, against the plain
+    versions on the whole CSR. Each of K6's s and out and K8's d_z must
+    fail."""
+    import numpy as np
+    import torch
+    from pipegcn_tpu_torch.ops.spmm import csr_indptr, csr_transpose
+
+    P, n, R, H, dh = 2, 300, 700, 4, 64
+    indptr, src, (it, dt) = gat_edge_graph(P, n, R, seed=P * 100 + dh)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    z = torch.randn((P, R, H, dh), generator=gen, device="cuda")
+    el = torch.randn((P, R, H), generator=gen, device="cuda")
+    er = torch.randn((P, n, H), generator=gen, device="cuda")
+    beg, end = int(indptr[0, 5]), int(indptr[0, 6])
+    require(end - beg == 5000, "fault case lost its 5,000-edge row")
+    srcs = src[0, beg:end].long()
+    lp = el[0, srcs] + er[0, 5]
+    w = torch.exp(torch.where(lp > 0, lp, slope * lp))
+    w = w / w.max(0).values
+    light = torch.bincount(src[0, :int(indptr[0, -1])].long(),
+                           minlength=R)[srcs] < 40
+    score = (w - w.mean(0)).abs().sum(1).masked_fill(~light, float("inf"))
+    j = beg + int(score.argmin())
+    # the CSR less edge j: row 5 one edge shorter, the index list shifted
+    # left (its tail is pad, never read)
+    src_np, ip_np = src.cpu().numpy().copy(), indptr.cpu().numpy()
+    src_np[0, j:-1] = src_np[0, j + 1:].copy()
+    ip_np = ip_np.copy()
+    ip_np[0, 6:] -= 1
+    dst_np = np.full(src_np.shape, n, np.int32)
+    for p in range(P):
+        dst_np[p, :ip_np[p, -1]] = np.repeat(np.arange(n), np.diff(ip_np[p]))
+    require(np.array_equal(csr_indptr(dst_np, n), ip_np), "fault CSR")
+    f_it, f_dt = (torch.from_numpy(x).cuda()
+                  for x in csr_transpose(src_np, dst_np, n, R))
+    f_ip, f_src = torch.from_numpy(ip_np).cuda(), torch.from_numpy(
+        src_np).cuda()
+    deg = indptr.diff(dim=1)
+    got = gat.gat_fwd(z, el, er, f_ip, f_src, slope, neg=True)
+    ref = gat.gat_fwd_plain(z, el, er, indptr, src, slope, neg=True)
+    abs_ref = gat.gat_fwd_plain(z.abs(), el, er, indptr, src, slope,
+                                neg=True)
+    # each check alone: the fault must fail each of them
+    gi = gat_gamma(deg)
+    name = "planted fault (one edge of the 5,000-edge row dropped)"
+    must_fail(f"K6 {name}: s", lambda: check_close(
+        f"K6 {name}: s", got[2], ref[2], GAT_ATOL, GAT_RTOL,
+        abs_sum=ref[2], sum_rtol=gi[..., None]))
+    must_fail(f"K6 {name}: out", lambda: check_close(
+        f"K6 {name}: out", got[0], ref[0], GAT_ATOL, GAT_RTOL,
+        abs_sum=abs_ref[0], sum_rtol=gi[..., None, None]))
+    g = torch.randn((P, n, H, dh), generator=gen, device="cuda")
+    rho = (g * ref[0]).sum(-1)
+    stats = (ref[1], ref[2], g, rho)
+    abs_stats = (ref[1], ref[2], g.abs(), -rho.abs())
+    d_z = gat.gat_bwd_src(z, el, er, *stats, f_it, f_dt, slope)[0]
+    must_fail(f"K8 {name}: d_z", lambda: check_close(
+        f"K8 {name}: d_z", d_z,
+        gat.gat_bwd_src_plain(z, el, er, *stats, it, dt, slope)[0],
+        GAT_ATOL, GAT_RTOL,
+        abs_sum=gat.gat_bwd_src_plain(z.abs(), el, er, *abs_stats, it, dt,
+                                      slope)[0],
+        sum_rtol=gat_gamma(it.diff(dim=1))[..., None, None]))
+
+
+def gat_edge_graph(P, n, R, seed):
+    """Stacked destination and transpose CSRs of P random parts with
+    empty rows, a 5,000-in-edge row, a ~5,000-out-edge source and pad
+    edges (whose src / dst_t tail holds junk the kernels must not read)."""
+    import numpy as np
+    import torch
+    from pipegcn_tpu_torch.ops.spmm import csr_indptr, csr_transpose
+
+    rng = np.random.default_rng(seed)
+    parts = []
+    for _ in range(P):
+        deg = rng.integers(0, 40, n)
+        deg[::7] = 0
+        deg[5] = 5000
+        dst = np.repeat(np.arange(n), deg)
+        src = rng.integers(0, R, dst.size)
+        src[rng.random(dst.size) < 0.3] = 9  # a heavy source row
+        parts.append((src, dst))
+    e_max = max(d.size for _, d in parts) + 37
+    src = np.zeros((P, e_max), np.int32)
+    dst = np.full((P, e_max), n, np.int32)
+    for p, (a, b) in enumerate(parts):
+        src[p, :a.size], dst[p, :b.size] = a, b
+    it, dt = csr_transpose(src, dst, n, R)
+    return (torch.from_numpy(csr_indptr(dst, n)).cuda(),
+            torch.from_numpy(src).cuda(),
+            (torch.from_numpy(it).cuda(), torch.from_numpy(dt).cuda()))
+
+
+def gat_edge_phase(gat):
+    """K6 and K8 on edge cases: empty rows, a 5,000-edge row, dh = 41 (the
+    logits layer: heads straddle 16-byte vectors), dh = 5, H = 1 and
+    H = 8, logits all equal, P = 1 and 2, int64 row pointers, junk past
+    the CSRs' ends."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    errs = []
+    n, R = 300, 700
+    for P, H, dh in ((2, 4, 64), (2, 4, 41), (1, 4, 5), (1, 1, 3),
+                     (2, 8, 8)):
+        indptr, src, tr = gat_edge_graph(P, n, R, seed=P * 100 + dh)
+        z = torch.randn((P, R, H, dh), generator=gen, device="cuda")
+        el = torch.randn((P, R, H), generator=gen, device="cuda")
+        er = torch.randn((P, n, H), generator=gen, device="cuda")
+        name = f"edge cases P={P} H={H} dh={dh}"
+        errs.append(gat_check(name, gat, z, el, er, indptr, src, tr))
+        out = gat.gat_fwd(z, el, er, indptr, src)[0]
+        empty = indptr[:, 1:] == indptr[:, :-1]
+        require(bool((out[empty] == 0).all()),
+                f"K6 {name}: rows without edges must be exactly zero")
+        if dh == 41:
+            errs.append(gat_check(name + " int64 row pointers", gat, z, el,
+                                  er, indptr.long(), src,
+                                  (tr[0].long(), tr[1])))
+            junk, junk_t = src.clone(), tr[1].clone()
+            for p in range(P):
+                junk[p, int(indptr[p, -1]):] = 123
+                junk_t[p, int(tr[0][p, -1]):] = n - 1
+            require(torch.equal(gat.gat_fwd(z, el, er, indptr, junk)[0],
+                                out), "K6 read a pad edge past indptr[n]")
+            require(all(torch.equal(a, b) for a, b in zip(
+                gat.gat_fwd(z, el, er, indptr, junk, neg=True),
+                gat.gat_fwd(z, el, er, indptr, src, neg=True))),
+                "K6 (NEG mode) read a pad edge past indptr[n]")
+            g = torch.randn_like(out)
+            rho = (g * out).sum(-1)
+            m, s = gat.gat_fwd(z, el, er, indptr, src)[1:]
+            require(torch.equal(
+                gat.gat_bwd_src(z, el, er, m, s, g, rho, tr[0], junk_t)[0],
+                gat.gat_bwd_src(z, el, er, m, s, g, rho, *tr)[0]),
+                "K8 read an edge past indptr_t[R]")
+        if (P, H, dh) == (2, 4, 64):
+            # logits all equal: uniform attention, out = the rows' mean
+            c_el = torch.full_like(el, 0.3)
+            c_er = torch.full_like(er, 0.2)
+            errs.append(gat_check(name + " equal logits", gat, z, c_el,
+                                  c_er, indptr, src, tr))
+    return {k: max(e[k] for e in errs) for k in ("K6", "K8")}
+
+
+def gat_cell_inputs(d, dh, seed):
+    """z, el, er, g at the cell's shapes: [P, n_max + H, 4, dh] etc."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    P, n, R = d.num_parts, d.n_max, d.n_max + d.halo_size
+    z = torch.randn((P, R, 4, dh), generator=gen, device="cuda")
+    el = torch.randn((P, R, 4), generator=gen, device="cuda")
+    er = torch.randn((P, n, 4), generator=gen, device="cuda")
+    return z, el, er
+
+
+def gat_cell_phase(trainer, gat):
+    """K6 and K8 against their plain versions on the cell's CSRs, at the
+    hidden layers' dh = 64 and the logits layer's dh = 41."""
+    d = trainer.data
+    errs = []
+    for dh, seed in ((64, 13), (41, 14)):
+        z, el, er = gat_cell_inputs(d, dh, seed)
+        errs.append(gat_check(f"cell dh={dh}", gat, z, el, er, d.indptr,
+                              d.edge_src, d.transpose, seed=seed))
+    return {k: max(e[k] for e in errs) for k in ("K6", "K8")}
+
+
+def gat_timings(trainer, gat):
+    """K6 (training's NEG mode, and eval's plain mode) and K8 at the
+    cell's shapes (dh = 64 and 41): ms, plain ms and the bound. The bound
+    counts each input read once and each output written once, and the
+    function's least work: one FMA (2 flops) per edge per element. For K8
+    that holds too: beta is alpha on the positive leaky branch and slope
+    * alpha on the negative one, so one accumulator per branch takes each
+    edge's alpha * g[dst] once, and d_z and sum(beta * g[dst]) come from
+    the two at the end (3 flops per row element, the d_el dot product
+    included). K6's NEG mode splits the same way (out from both). No
+    single PyTorch call computes the attention aggregation, so there is
+    no library time."""
+    import torch
+
+    d = trainer.data
+    P, n, R = d.num_parts, d.n_max, d.n_max + d.halo_size
+    it, dt = d.transpose
+    E = sum(int(d.indptr[p, -1]) for p in range(P))
+    ip_b = d.indptr.numel() * d.indptr.element_size()
+    out = {}
+    for dh, seed in ((64, 15), (41, 16)):
+        z, el, er = gat_cell_inputs(d, dh, seed)
+        H, F = 4, 4 * dh
+        o, m, s = gat.gat_fwd(z, el, er, d.indptr, d.edge_src)
+        g = torch.randn_like(o)
+        rho = (g * o).sum(-1)
+        z_b, el_b, nh_b, nf_b = (P * R * F * 4, P * R * H * 4, P * n * H * 4,
+                                 P * n * F * 4)
+        shape = (f"P={P} n={n} R={R} H={H} dh={dh} edges={E} f32")
+        a6 = (z, el, er, d.indptr, d.edge_src)
+        a8 = (z, el, er, m, s, g, rho, it, dt)
+        fwd_in = z_b + el_b + nh_b + ip_b + E * 4
+        for name, fn, plain, args, n_bytes, ops in (
+                ("K6", lambda *a: gat.gat_fwd(*a, neg=True),
+                 lambda *a: gat.gat_fwd_plain(*a, neg=True), a6,
+                 fwd_in + 2 * nf_b + 4 * nh_b, 2 * E * F + 2 * P * n * F),
+                ("K6 eval", gat.gat_fwd, gat.gat_fwd_plain, a6,
+                 fwd_in + nf_b + 2 * nh_b, 2 * E * F + P * n * F),
+                ("K8", gat.gat_bwd_src, gat.gat_bwd_src_plain, a8,
+                 z_b + el_b + 4 * nh_b + nf_b
+                 + it.numel() * it.element_size() + E * 4 + z_b + el_b,
+                 2 * E * F + 3 * P * R * F)):
+            out.setdefault(name, {})[dh] = dict(
+                ms=time_ms(lambda: fn(*args)),
+                plain_ms=time_ms(lambda: plain(*args), reps=3, warmup=1),
+                library_ms=None, bound=bound_ms(n_bytes, ops), shape=shape)
+        del z, el, er, o, m, s, g, rho
+    return out
+
+
+def gat_train_phase(args, sg, eval_graphs, eval_cache, spmm, halo):
+    """The GAT cell: the reddit.sh command with ``--model gat --n-heads
+    4`` minus ``--use-pp``, through cli/main.py's functions, on the train
+    subgraph and parts the SAGE cell built, sharing its eval-graph CSRs.
+    Counts every launch from the trainer's build through the final
+    val/test eval."""
+    import math
+
+    import torch
+    from pipegcn_tpu_torch.cli.main import build_trainer
+
+    cli = train_cli(args, epochs=args.gat_epochs, model="gat")
+    cnt = counters(spmm, halo)
+    steps = {}
+    reset_counts(cnt)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = build_trainer(cli, sg, torch.device("cuda", 0), log=log,
+                            steps=steps)
+    trainer.eval_cache = eval_cache
+    t0 = time.monotonic()
+    res = trainer.fit(eval_graphs, log_fn=log, inductive=True)
+    torch.cuda.synchronize()
+    fit_s = time.monotonic() - t0
+    launches = read_counts(cnt)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = res["losses"]
+    n_ep = cli.n_epochs
+    log(f"  gat fit: {n_ep} epochs in {fit_s:.1f}s, losses {losses[0]:.4f} "
+        f"-> {losses[-1]:.4f}, best val {res['best_val']:.4f}, test "
+        f"{res.get('test_acc', float('nan')):.4f}, launches {launches}, "
+        f"peak {peak_gib:.3f} GiB")
+    require(len(losses) == n_ep, "gat fit ran the wrong epoch count")
+    require(all(math.isfinite(x) for x in losses),
+            f"gat: non-finite loss: {losses}")
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    require(last < first, f"gat: loss did not fall: first-5 mean "
+            f"{first:.4f}, last-5 mean {last:.4f}")
+    require_launched(launches, "gat", "gat training run")
+    require(launches["gat_bwd_src"] == 4 * n_ep,
+            f"gat: K8 must run 4 times per epoch: {launches}")
+    require(launches["gat_fwd"] >= 4 * n_ep and launches["gat_fwd"] % 4 == 0,
+            f"gat: K6 must run 4 times per forward: {launches}")
+    accs = (res["best_val"], res.get("test_acc", float("nan")))
+    require(all(math.isfinite(a) and 0.0 <= a <= 1.0 for a in accs),
+            f"gat: accuracies not finite: {accs}")
+    stats = {"epochs": n_ep, "losses": losses, "first5_mean": first,
+             "last5_mean": last, "best_val": res["best_val"],
+             "best_epoch": res["best_epoch"], "test_acc": res["test_acc"],
+             "fit_s": fit_s, "epoch_time_s_mean": res["epoch_time"],
+             "peak_mem_gib": peak_gib, "host_steps_s": steps,
+             "launches": launches}
+    return trainer, stats
+
+
+def gat_epoch_split(trainer, cnt, gt, tt):
+    """The GAT epoch (median of 5 after one warm epoch) and its split by
+    this run's kernel times: K6 (NEG mode) and K8 at dh = 64 for layers
+    0-2 and dh = 41 for the logits layer, the comm kernels at their F =
+    256 times (layer 0 exchanges 602 features: its share is a lower
+    estimate)."""
+    reset_counts(cnt)
+    base = trainer.tcfg.n_epochs + 10
+    epochs = iter(range(base, base + 100))
+    reps = 5
+    epoch_ms = time_ms(lambda: trainer.train_epoch(next(epochs)), reps=reps,
+                       warmup=1)
+    per_epoch = {k: v / (reps + 1) for k, v in read_counts(cnt).items()}
+    attn_ms = sum(3 * gt[k][64]["ms"] + gt[k][41]["ms"]
+                  for k in ("K6", "K8"))
+    comm_ms = (per_epoch["halo_gather"] * tt["K2"]["ms"]
+               + per_epoch["halo_scatter"] * tt["K4"]["ms"]
+               + per_epoch["halo_return"] * tt["K5"]["ms"])
+    split = {"epoch_ms": epoch_ms, "attention_kernels_ms": attn_ms,
+             "comm_kernels_ms": comm_ms,
+             "rest_ms": epoch_ms - attn_ms - comm_ms,
+             "launches_per_epoch": per_epoch}
+    log(f"  gat epoch {epoch_ms:.3f} ms median: K6+K8 {attn_ms:.3f} ms, "
+        f"comm kernels {comm_ms:.3f} ms, rest {split['rest_ms']:.3f} ms "
+        f"({per_epoch})")
+    return split
+
+
+def gcn_phase(args, sg, spmm, halo):
+    """A short GCN run of the cell's command (``--model gcn``, no use_pp):
+    a finite, falling loss and the mean-SpMM kernels launched; then one
+    pipelined epoch through the kernels held against the plain versions
+    (``step_phase``: K1 and K3 with the 1/sqrt(deg) scalings around them,
+    K3 at F = 602 in layer 0's backward)."""
+    import math
+
+    import torch
+    from pipegcn_tpu_torch.cli.main import build_trainer
+
+    epochs = args.gcn_epochs
+    cli = train_cli(args, epochs=epochs, model="gcn")
+    cnt = counters(spmm, halo)
+    reset_counts(cnt)
+    trainer = build_trainer(cli, sg, torch.device("cuda", 0), log=log)
+    t0 = time.monotonic()
+    losses = [trainer.train_epoch(e) for e in range(epochs)]
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    launches = read_counts(cnt)
+    log(f"  gcn: {epochs} epochs in {secs:.1f}s, losses {losses}, "
+        f"launches {launches}")
+    require(all(math.isfinite(x) for x in losses), "gcn: non-finite loss")
+    first, last = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
+    require(last < first, f"gcn: loss did not fall: first-3 mean "
+            f"{first:.4f}, last-3 mean {last:.4f}")
+    require_launched(launches, "gcn", "gcn run")
+    step = step_phase(trainer, epochs)
+    return {"epochs": epochs, "losses": losses, "first3_mean": first,
+            "last3_mean": last, "seconds": secs, "launches": launches,
+            "step_check": step}
 
 
 # ---------------------------------------------------------------------------
@@ -964,7 +1505,9 @@ def main() -> int:
     ap.add_argument("--qps", type=float, default=200.0)
     ap.add_argument("--train-epochs", type=int, default=30)
     ap.add_argument("--step-repeats", type=int, default=1,
-                    help="run [7] on this many consecutive epochs")
+                    help="run [7] and [11] on this many consecutive epochs")
+    ap.add_argument("--gat-epochs", type=int, default=20)
+    ap.add_argument("--gcn-epochs", type=int, default=10)
     args = ap.parse_args()
 
     import torch
@@ -975,7 +1518,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     try:
         from pipegcn_tpu_torch.graph.datasets import load_data
-        from pipegcn_tpu_torch.ops import _build, spmm
+        from pipegcn_tpu_torch.ops import _build, gat, spmm
         from pipegcn_tpu_torch.parallel import halo
     except ImportError as exc:
         log(f"chip_smoke: the port package is missing beside this "
@@ -996,7 +1539,8 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.monotonic()
-    secs = _build.build(["spmm_mean", "halo_gather", "halo_scatter"])
+    secs = _build.build(["spmm_mean", "halo_gather", "halo_scatter",
+                         "gat_attn"])
     log(f"[2] kernels built in {time.monotonic() - t0:.1f}s: {secs}")
 
     t0 = time.monotonic()
@@ -1022,7 +1566,8 @@ def main() -> int:
         f"{args.dataset} (--inductive --enable-pipeline --use-pp, dropout "
         f"0.5, lr 0.01, 2 parts); cuts: random instead of metis "
         f"partitioning, {args.train_epochs} epochs instead of 3000")
-    cli, sg, trainer, train_stats = train_phase(args, g, spmm, halo)
+    cli, sg, eval_graphs, trainer, train_stats = train_phase(args, g, spmm,
+                                                            halo)
     del g
     train_launches = train_stats["launches"]
 
@@ -1037,9 +1582,39 @@ def main() -> int:
 
     log("[9] K3-K5 timings, the epoch and its split; 3 vanilla epochs")
     tt = train_timings(trainer, spmm, halo, counters(spmm, halo))
+    eval_cache = trainer.eval_cache  # the GAT cell evaluates the same graphs
     del trainer
     torch.cuda.empty_cache()
     vanilla = vanilla_phase(args, sg, spmm, halo)
+    torch.cuda.empty_cache()
+
+    log(f"[10] GAT cell: the command with --model gat --n-heads 4 minus "
+        f"--use-pp (602 -> 256x3 -> 41, LayerNorm, dropout 0.5, lr 0.01, "
+        f"pipelined), {args.gat_epochs} epochs on the same parts")
+    gtrainer, gat_stats = gat_train_phase(args, sg, eval_graphs, eval_cache,
+                                          spmm, halo)
+    del eval_graphs, eval_cache
+
+    log("[11] one pipelined GAT epoch: kernels vs plain versions")
+    gat_step = step_phase(gtrainer, args.gat_epochs)
+    for r in range(1, args.step_repeats):
+        step_phase(gtrainer, args.gat_epochs + r)
+
+    log("[12] K6, K8 vs plain versions; a planted fault must fail")
+    edge = gat_edge_phase(gat)
+    cell = gat_cell_phase(gtrainer, gat)
+    errs.update({k: max(edge[k], cell[k]) for k in edge})
+    gat_fault_phase(gat)
+
+    log("[13] K6, K8 timings, the GAT epoch and its split")
+    gt = gat_timings(gtrainer, gat)
+    gat_split = gat_epoch_split(gtrainer, counters(spmm, halo), gt, tt)
+    del gtrainer
+    torch.cuda.empty_cache()
+
+    log(f"[14] GCN: {args.gcn_epochs} pipelined epochs on the same parts, "
+        f"then one epoch: kernels vs plain versions")
+    gcn_stats = gcn_phase(args, sg, spmm, halo)
 
     # the main path of this slice is training: every kernel's launches
     # are its training-run count and its times are taken at the epoch's
@@ -1065,6 +1640,31 @@ def main() -> int:
                      "pipegcn_tpu/parallel/halo.py:244", n["halo_return"],
                      errs["K5"], tt["K5"]),
     ]
+    # K6, K8: times at the hidden layers' shape (dh = 64) beside the GAT
+    # training run's launches; the logits layer's (dh = 41) under "dh41";
+    # K6 in training's NEG mode (which also gives pass A), its eval mode
+    # under "eval"
+    ng = gat_stats["launches"]
+
+    def sub(t):
+        return {"ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+                "shape": t["shape"]}
+
+    for name, kname, replaces, also in (
+            ("K6", "gat_fwd", "pipegcn_tpu/ops/gat_bucket.py:344",
+             ["pipegcn_tpu/ops/gat_bucket.py:419",
+              "pipegcn_tpu/models/sage.py:331"]),
+            ("K8", "gat_bwd_src", "pipegcn_tpu/ops/gat_bucket.py:450",
+             ["pipegcn_tpu/models/sage.py:331"])):
+        entry = kernel_entry(kname, src + "gat_attn.cu", replaces, ng[kname],
+                             errs[name], gt[name][64])
+        entry["dh41"] = sub(gt[name][41])
+        if name == "K6":
+            entry["eval"] = {"dh64": sub(gt["K6 eval"][64]),
+                             "dh41": sub(gt["K6 eval"][41])}
+        entry["also_replaces"] = also
+        kernels.append(entry)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
@@ -1093,6 +1693,17 @@ def main() -> int:
         "launches_per_epoch": tt["launches_per_epoch"],
         "vanilla": vanilla,
         "card": smi}}))
+    print(json.dumps({"gat_training": {
+        "dataset": args.dataset,
+        "cell": "reddit.sh with --model gat --n-heads 4 minus --use-pp "
+                "(scripts/gat_bench.py widths): 602 -> 256 x3 -> 41, 4 "
+                "heads, LayerNorm, dropout 0.5, lr 0.01, pipelined, "
+                "--inductive, 2 parts, f32",
+        "cuts": ["partition random (not metis)",
+                 f"{args.gat_epochs} epochs (not 3000)",
+                 "f32 (gat_bench.py runs bf16)"],
+        **gat_stats, "step_check": gat_step, **gat_split,
+        "gcn": gcn_stats, "card": smi}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

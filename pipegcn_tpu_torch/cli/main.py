@@ -13,7 +13,9 @@ parts stacked on one device, and print the reference's lines:
   Test Result | Accuracy ...
 
 Its parser takes every flag of ``scripts/reddit.sh`` with the JAX
-parser's names and defaults (``cli/parser.py``), plus ``--device``. As in
+parser's names and defaults (``cli/parser.py``), and the model family's
+(``--model {graphsage,gcn,gat}``, ``--n-heads``, ``--spmm-impl``,
+``--rem-dtype``), plus ``--device``. As in
 the JAX CLI, the seed is drawn at random unless ``--fix-seed``. Runs on
 CUDA; ``--device cpu`` runs the plain PyTorch path on the CPU; without
 CUDA and without ``--device cpu`` it raises. Result files, saved models,
@@ -30,11 +32,12 @@ import time
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="PipeGCN training on PyTorch/CUDA (port slice 2)")
+        description="PipeGCN training on PyTorch/CUDA")
     p.add_argument("--dataset", type=str, default="reddit")
     p.add_argument("--data-root", "--data_root", type=str, default=None,
                    help="dataset root (default $PIPEGCN_DATA or ./dataset)")
-    p.add_argument("--model", type=str, default="graphsage")
+    p.add_argument("--model", choices=["graphsage", "gcn", "gat"],
+                   default="graphsage")
     p.add_argument("--dropout", type=float, default=0.5)
     p.add_argument("--lr", type=float, default=1e-2)
     p.add_argument("--n-epochs", "--n_epochs", type=int, default=200)
@@ -65,6 +68,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.set_defaults(eval=True)
     p.add_argument("--dtype", choices=["float32", "bfloat16"],
                    default="float32")
+    p.add_argument("--spmm-impl", "--spmm_impl",
+                   choices=["xla", "bucket", "block", "auto"], default="xla",
+                   help="aggregation: gat runs its attention kernels for "
+                        "xla/bucket/auto; graphsage/gcn take xla (the "
+                        "table kernels are ROADMAP A6)")
+    p.add_argument("--n-heads", "--n_heads", type=int, default=4,
+                   help="attention heads for --model gat")
+    p.add_argument("--rem-dtype", "--rem_dtype",
+                   choices=["none", "bfloat16", "float8"], default="none",
+                   help="gather-transport dtype (ROADMAP A6; only none "
+                        "runs)")
     p.add_argument("--device", type=str, default=None,
                    help="cuda (default) or cpu; no silent fallback")
     return p
@@ -108,7 +122,8 @@ def build_trainer(args, sg, device, log=print, steps=None):
     layer_sizes = (sg.n_feat,) + (args.n_hidden,) * (args.n_layers - 1) \
         + (sg.n_class,)
     cfg = ModelConfig(layer_sizes=layer_sizes, model=args.model,
-                      use_pp=args.use_pp,
+                      n_heads=args.n_heads, spmm_impl=args.spmm_impl,
+                      rem_dtype=args.rem_dtype, use_pp=args.use_pp,
                       norm=None if args.norm == "none" else args.norm,
                       dropout=args.dropout, train_size=sg.n_train_global,
                       dtype=args.dtype)

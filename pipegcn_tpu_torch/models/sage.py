@@ -1,17 +1,20 @@
-"""GraphSAGE — port of ``pipegcn_tpu/models/sage.py`` (``ModelConfig``,
-``init_params``, ``_layer_norm``, ``_dropout`` and ``forward`` on its
-training, ``halo_eval`` and full-graph eval (``eval_pp_agg``) paths).
+"""The model family — port of ``pipegcn_tpu/models/sage.py``
+(``ModelConfig``, ``init_params``, ``_layer_norm``, ``_dropout``,
+``_gat_layer`` and ``forward`` on its training, ``halo_eval`` and
+full-graph eval (``eval_pp_agg``) paths) for GraphSAGE, GCN and GAT.
 
 Parameters are a plain dict of tensors with the JAX pytree's layout,
 ``{'layers': [...], 'norms': [...]}``: the use_pp first layer holds
-``{'w', 'b'}``, other graph layers ``{'w1', 'b1', 'w2', 'b2'}``, norms
+``{'w', 'b'}``, other GraphSAGE layers ``{'w1', 'b1', 'w2', 'b2'}``, GCN
+layers ``{'w', 'b'}``, GAT layers ``{'w', 'b', 'a_src', 'a_dst'}``, norms
 ``{'scale', 'bias'}``; weights are stored ``[in, out]`` (right-multiply).
 Activations are stacked over parts, ``[P, rows, F]``.
 
-Only what the ported slices run is here: graphsage, LayerNorm or no norm,
-float32 compute, 32-bit dropout masks. GCN, GAT, BatchNorm, the dense
-tail, bfloat16 compute and 8-bit dropout masks raise
-``NotImplementedError``.
+Only what the ported slices run is here: LayerNorm or no norm, float32
+compute, 32-bit dropout masks, the raw CSR aggregation. BatchNorm, the
+dense tail, bfloat16 compute, 8-bit dropout masks, the table-driven
+aggregation kernels and narrowed gather transports raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from ..ops.gat import gat_attention
 from ..ops.spmm import spmm_mean
 
 Params = Dict[str, List[Dict[str, torch.Tensor]]]
@@ -32,7 +36,9 @@ class ModelConfig:
     reads; anything it cannot run is refused at construction."""
 
     layer_sizes: Tuple[int, ...]   # [in_feat, hidden..., n_class]
-    model: str = "graphsage"
+    model: str = "graphsage"       # 'graphsage' | 'gcn' | 'gat'
+    n_heads: int = 4               # GAT attention heads
+    leaky_slope: float = 0.2       # GAT LeakyReLU slope
     n_linear: int = 0
     use_pp: bool = False
     norm: Optional[str] = "layer"  # 'layer' | None
@@ -40,12 +46,45 @@ class ModelConfig:
     train_size: int = 0            # global n_train (informational here)
     dropout_bits: int = 32
     dtype: str = "float32"
+    # 'xla' | 'bucket' | 'block' | 'auto', as the JAX package; gat runs
+    # its attention kernels for xla/bucket/auto (the bucket tables are a
+    # TPU layout of the same function), the mean paths only xla
+    spmm_impl: str = "xla"
+    rem_dtype: Optional[str] = None  # None | 'none' | 'bfloat16' | 'float8'
 
     def __post_init__(self):
-        if self.model != "graphsage":
+        if self.model not in ("graphsage", "gcn", "gat"):
+            raise ValueError(f"unknown model: {self.model}")
+        if self.spmm_impl not in ("xla", "bucket", "block", "auto"):
+            raise ValueError(f"unknown spmm_impl: {self.spmm_impl}")
+        if self.rem_dtype in ("", "none"):
+            object.__setattr__(self, "rem_dtype", None)
+        if self.rem_dtype not in (None, "float8", "bfloat16"):
+            raise ValueError(f"unknown rem_dtype: {self.rem_dtype!r} "
+                             "(none | bfloat16 | float8)")
+        if self.model in ("gcn", "gat") and self.use_pp:
+            raise ValueError("use_pp is a GraphSAGE-only optimization")
+        if self.model == "gat":
+            if self.n_heads < 1:
+                raise ValueError(f"n_heads must be >= 1, got {self.n_heads}")
+            if self.spmm_impl not in ("xla", "auto", "bucket"):
+                raise ValueError(
+                    f"spmm_impl={self.spmm_impl!r} does not apply to gat; "
+                    "use 'xla', 'bucket' or 'auto'")
+            for i in range(self.n_layers - 1):
+                if self.layer_sizes[i + 1] % self.n_heads:
+                    raise ValueError(
+                        f"gat hidden width {self.layer_sizes[i + 1]} not "
+                        f"divisible by n_heads={self.n_heads}")
+        elif self.spmm_impl != "xla":
             raise NotImplementedError(
-                f"model {self.model!r} waits for a later slice of the "
-                "port (graphsage only)")
+                f"spmm_impl={self.spmm_impl!r} for {self.model} waits for "
+                "ROADMAP A6 (kernels B5/B7); the port aggregates by CSR "
+                "(xla)")
+        if self.rem_dtype is not None:
+            raise NotImplementedError(
+                f"rem_dtype={self.rem_dtype!r} waits for ROADMAP A6 "
+                "(kernel B6, the narrowed gather transport)")
         if self.n_linear:
             raise NotImplementedError("the dense tail (n_linear > 0) "
                                       "waits for a later slice")
@@ -71,7 +110,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: torch.device) -> Params:
     """Fresh parameters with the shapes and U(-1/sqrt(fan_in),
     +1/sqrt(fan_in)) bounds of the JAX ``init_params`` (its use_pp layer's
-    fan-in is the 2F concat). Drawn on the CPU from ``generator`` — the
+    fan-in is the 2F concat; GAT's attention vectors U(-1/sqrt(dh),
+    +1/sqrt(dh))). Drawn on the CPU from ``generator`` — the
     numbers differ from JAX's, which torch cannot reproduce — then moved
     to ``device``."""
 
@@ -86,6 +126,20 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             bound = 1.0 / (2 * d_in) ** 0.5
             layers.append({"w": uniform((2 * d_in, d_out), bound),
                            "b": uniform((d_out,), bound)})
+        elif cfg.model == "gcn":
+            bound = 1.0 / d_in ** 0.5
+            layers.append({"w": uniform((d_in, d_out), bound),
+                           "b": uniform((d_out,), bound)})
+        elif cfg.model == "gat":
+            # hidden layers concat H heads of d_out / H; the logits layer
+            # averages H heads of d_out
+            H = cfg.n_heads
+            dh = d_out if i == cfg.n_layers - 1 else d_out // H
+            bound = 1.0 / d_in ** 0.5
+            layers.append({"w": uniform((d_in, H * dh), bound),
+                           "b": uniform((d_out,), bound),
+                           "a_src": uniform((H, dh), 1.0 / dh ** 0.5),
+                           "a_dst": uniform((H, dh), 1.0 / dh ** 0.5)})
         else:
             bound = 1.0 / d_in ** 0.5
             layers.append({"w1": uniform((d_in, d_out), bound),
@@ -124,17 +178,40 @@ def _dropout(gen: torch.Generator, h: torch.Tensor,
     return torch.where(keep, h / (1.0 - rate), h.new_zeros(()))
 
 
+AttnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def _gat_layer(fbuf: torch.Tensor, lp: Dict[str, torch.Tensor], n_dst: int,
+               n_heads: int, is_last: bool, attn_fn: AttnFn) -> torch.Tensor:
+    """Multi-head edge-softmax attention over P stacked parts (the JAX
+    ``_gat_layer``): ``z = fbuf @ w`` as ``[P, R, H, dh]``, the logit
+    halves ``el = sum(z * a_src)`` over every source row (halo included)
+    and ``er = sum(z[:, :n_dst] * a_dst)``, then ``attn_fn(z, el, er)``
+    ``[P, n_dst, H, dh]``; heads concatenated on hidden layers, averaged
+    on the logits layer, plus the bias."""
+    P, R = fbuf.shape[:2]
+    z = torch.matmul(fbuf, lp["w"])
+    dh = z.shape[-1] // n_heads
+    z = z.reshape(P, R, n_heads, dh)
+    el = (z * lp["a_src"]).sum(-1)
+    er = (z[:, :n_dst] * lp["a_dst"]).sum(-1)
+    out = attn_fn(z, el, er)
+    out = out.mean(dim=2) if is_last else out.reshape(P, n_dst, n_heads * dh)
+    return out + lp["b"]
+
+
 def forward(params: Params, cfg: ModelConfig, h: torch.Tensor,
             indptr: torch.Tensor, src: torch.Tensor, in_deg: torch.Tensor,
             *, comm_update: Optional[Callable[[int, torch.Tensor],
                                               torch.Tensor]] = None,
             spmm_fn: Callable[..., torch.Tensor] = spmm_mean,
+            attn_fn: Optional[AttnFn] = None,
             training: bool = False,
             generator: Optional[torch.Generator] = None,
             eval_pp_agg: bool = False,
             act: Callable[[torch.Tensor], torch.Tensor] = torch.relu
             ) -> torch.Tensor:
-    """The GraphSAGE stack over P stacked parts; returns logits
+    """The model stack over P stacked parts; returns logits
     ``[P, n_dst, n_class]`` (f32).
 
     Partitioned (``comm_update`` given: training, or the sharded eval of
@@ -153,9 +230,14 @@ def forward(params: Params, cfg: ModelConfig, h: torch.Tensor,
     ``spmm_fn(fbuf, indptr, src, in_deg)`` defaults to the kernel wrapper;
     a trainer passes one that carries the transpose CSR, and a caller
     holding the kernels against their plain versions passes the plain
-    one. ``act`` is the nonlinearity between layers (relu; a caller holding
-    two runs on the same relu masks passes its own). Mirrors the JAX
-    ``forward`` (f32 logits, LayerNorm + relu between layers)."""
+    one. ``attn_fn(z, el, er)`` is GAT's attention aggregation over the
+    same CSR (default: the kernel wrapper, forward only; a trainer passes
+    one that carries the transpose CSR). GCN scales the rows by
+    ``1 / sqrt(in_deg)`` before the exchange (so the halo ships scaled
+    rows) and the mean by ``sqrt(in_deg)`` after it. ``act`` is the
+    nonlinearity between layers (relu; a caller holding two runs on the
+    same relu masks passes its own). Mirrors the JAX ``forward`` (f32
+    logits, LayerNorm + relu between layers)."""
     if training and cfg.dropout > 0 and generator is None:
         raise ValueError("training with dropout needs a generator")
     if training and comm_update is None:
@@ -163,30 +245,40 @@ def forward(params: Params, cfg: ModelConfig, h: torch.Tensor,
                          "(comm_update)")
     n_dst = h.shape[1]
     drop = training and cfg.dropout > 0
+    if cfg.model == "gat" and attn_fn is None:
+        def attn_fn(z, el, er):
+            return gat_attention(z, el, er, indptr, src,
+                                 slope=cfg.leaky_slope)
+    if cfg.model == "gcn":
+        d_sqrt = torch.sqrt(in_deg)[..., None]
     for i in range(cfg.n_layers):
         lp = params["layers"][i]
         pp_layer = cfg.use_pp and i == 0
-        if comm_update is None:
-            ah = spmm_fn(h, indptr, src, in_deg)
-            if pp_layer:
-                if not eval_pp_agg:
-                    raise ValueError(
-                        "use_pp model evaluated without eval_pp_agg")
-                h = _dense(torch.cat([h, ah], dim=-1), lp["w"], lp["b"])
-            else:
-                h = _dense(h, lp["w1"], lp["b1"]) \
-                    + _dense(ah, lp["w2"], lp["b2"])
-        else:
+        is_last = i == cfg.n_layers - 1
+        if cfg.model == "gcn":
+            # src side of the symmetric normalisation, on the owner
+            h = h / d_sqrt
+        if comm_update is not None:
             if not pp_layer:
                 h = comm_update(i, h)
             if drop:
                 h = _dropout(generator, h, cfg.dropout)
-            if pp_layer:
-                h = _dense(h, lp["w"], lp["b"])
-            else:
-                ah = spmm_fn(h, indptr, src, in_deg)
-                h = (_dense(h[:, :n_dst], lp["w1"], lp["b1"])
-                     + _dense(ah, lp["w2"], lp["b2"]))
+        if cfg.model == "gat":
+            h = _gat_layer(h, lp, n_dst, cfg.n_heads, is_last, attn_fn)
+        elif cfg.model == "gcn":
+            ah = spmm_fn(h, indptr, src, in_deg)
+            h = _dense(ah * d_sqrt, lp["w"], lp["b"])
+        elif pp_layer:
+            if comm_update is None:
+                if not eval_pp_agg:
+                    raise ValueError(
+                        "use_pp model evaluated without eval_pp_agg")
+                h = torch.cat([h, spmm_fn(h, indptr, src, in_deg)], dim=-1)
+            h = _dense(h, lp["w"], lp["b"])
+        else:
+            ah = spmm_fn(h, indptr, src, in_deg)
+            h = (_dense(h[:, :n_dst], lp["w1"], lp["b1"])
+                 + _dense(ah, lp["w2"], lp["b2"]))
         if i < cfg.n_layers - 1:
             if cfg.norm == "layer":
                 nrm = params["norms"][i]

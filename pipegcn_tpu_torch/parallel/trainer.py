@@ -45,6 +45,7 @@ import torch
 
 from ..graph.csr import Graph
 from ..models.sage import ModelConfig, Params, forward, init_params
+from ..ops.gat import gat_attention, gat_attention_plain
 from ..ops.spmm import csr_indptr, spmm_mean, spmm_mean_plain
 from ..partition.halo import ShardedGraph
 from ..train.losses import cross_entropy_sum
@@ -113,9 +114,13 @@ class Trainer:
     the CPU their plain versions). ``params`` (the port's layout, e.g.
     ``params_from_jax`` of a JAX trainer's) start the run; otherwise it
     draws its own init from ``tcfg.seed``. Setting ``plain`` runs every
-    kernel's plain version on any device from then on, and ``act`` (relu)
-    is the training forward's nonlinearity between layers — the card-side
-    comparison of a training step sets both."""
+    kernel's plain version on any device from then on (and sets ``attn``,
+    GAT's attention op ``(z, el, er, indptr, src, transpose, slope) ->
+    out``, to the kernels' or the plain versions'), and ``act`` (relu) is
+    the training forward's nonlinearity between layers — the card-side
+    comparison of a training step sets all three. ``eval_cache`` holds
+    the device CSRs of the full-graph eval, by graph; trainers on one
+    device may share it."""
 
     def __init__(self, sg: ShardedGraph, cfg: ModelConfig,
                  tcfg: TrainConfig, device: torch.device,
@@ -149,7 +154,7 @@ class Trainer:
         self.comm = self._init_comm()
         self._grad_norm: Optional[torch.Tensor] = None  # 0-d, on device
         self.last_grads: List[torch.Tensor] = []  # reduced, leaf order
-        self._eval_cache: Dict[int, Dict[str, Any]] = {}
+        self.eval_cache: Dict[int, Dict[str, Any]] = {}
         self.eval_setup_s = 0.0  # host seconds building eval-graph CSRs
 
     @property
@@ -160,6 +165,7 @@ class Trainer:
     def plain(self, value: bool) -> None:
         self._halo_ops = PLAIN if value else KERNELS
         self._spmm = spmm_mean_plain if value else spmm_mean
+        self.attn = gat_attention_plain if value else gat_attention
 
     @property
     def grad_norm(self) -> Optional[float]:
@@ -219,11 +225,16 @@ class Trainer:
         def spmm_fn(fbuf, indptr, src, in_deg):
             return self._spmm(fbuf, indptr, src, in_deg, d.transpose)
 
+        def attn_fn(z, el, er):
+            return self.attn(z, el, er, d.indptr, d.edge_src, d.transpose,
+                             cfg.leaky_slope)
+
         gen = epoch_generator(tc.seed, epoch, self.device) \
             if cfg.dropout > 0 else None
         logits = forward(self.params, cfg, self.feat, d.indptr, d.edge_src,
                          d.in_deg, comm_update=comm_update, spmm_fn=spmm_fn,
-                         training=True, generator=gen, act=self.act)
+                         attn_fn=attn_fn, training=True, generator=gen,
+                         act=self.act)
         loss = cross_entropy_sum(logits, d.label, d.train_mask)
         keys = sorted(probes)
         grads = torch.autograd.grad(
@@ -260,14 +271,14 @@ class Trainer:
 
     def _full_eval_cache(self, g: Graph) -> Dict[str, Any]:
         key = id(g)
-        if key not in self._eval_cache:
+        if key not in self.eval_cache:
             t0 = time.perf_counter()
             n = g.num_nodes
             # dst-sorted CSR of the eval graph (a stable sort, like the
             # JAX trainer's native stable_argsort)
             order = np.argsort(g.dst, kind="stable")
             dev = self.device
-            self._eval_cache[key] = {
+            self.eval_cache[key] = {
                 "graph": g,  # strong ref: keeps id(g) valid while cached
                 "feat": torch.from_numpy(np.ascontiguousarray(
                     g.ndata["feat"], np.float32))[None].to(dev),
@@ -279,18 +290,24 @@ class Trainer:
                     g.in_degrees(), 1).astype(np.float32))[None].to(dev),
             }
             self.eval_setup_s += time.perf_counter() - t0
-        return self._eval_cache[key]
+        return self.eval_cache[key]
 
     def eval_logits(self, g: Graph, params: Optional[Params] = None
                     ) -> torch.Tensor:
         """Full-graph logits ``[N, n_class]`` of ``g`` on this device (the
         JAX emulated trainer's eval: P = 1, no halo, ``in_deg = max(deg,
-        1)`` of ``g``, use_pp layer 0 as ``cat(feat, mean(feat)) @ W``)."""
+        1)`` of ``g``, use_pp layer 0 as ``cat(feat, mean(feat)) @ W``;
+        GAT attends over ``g``'s own edges)."""
         c = self._full_eval_cache(g)
+
+        def attn_fn(z, el, er):
+            return self.attn(z, el, er, c["indptr"], c["src"], None,
+                             self.cfg.leaky_slope)
+
         with torch.no_grad():
             out = forward(self.params if params is None else params,
                           self.cfg, c["feat"], c["indptr"], c["src"],
-                          c["in_deg"], spmm_fn=self._spmm,
+                          c["in_deg"], spmm_fn=self._spmm, attn_fn=attn_fn,
                           eval_pp_agg=self.cfg.use_pp)
         return out[0]
 

@@ -38,6 +38,10 @@ class ServingEngine:
     def __init__(self, sg: ShardedGraph, data: StagedGraph,
                  cfg: ModelConfig, params: Params, *, max_batch: int = 64,
                  ladder_min: int = 8):
+        if cfg.model != "graphsage":
+            raise NotImplementedError(
+                f"serving {cfg.model} waits for ROADMAP A5 (the engine "
+                "runs the graphsage forward)")
         self.cfg = cfg
         self.data = data
         self.device = data.device

@@ -164,3 +164,37 @@ def test_training_cli_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_cli.main(["--dataset", "karate", "--n-partitions", "2"])
+
+
+def test_model_family_modules_import_without_jax():
+    code = (
+        "import sys\n"
+        "import pipegcn_tpu_torch.ops.gat, pipegcn_tpu_torch.models.sage\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', "
+        "'pipegcn_tpu') or m.startswith(('jax.', 'jaxlib.', "
+        "'pipegcn_tpu.'))]\n"
+        "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert os.path.join(PKG, "ops", "gat.py") in set(_port_files())
+
+
+def test_gat_wrappers_refuse_devices_without_a_kernel():
+    from pipegcn_tpu_torch.ops import gat
+
+    m = torch.device("meta")
+    P, R, n, H, dh = 1, 5, 3, 2, 4
+    z = torch.empty((P, R, H, dh), device=m)
+    el = torch.empty((P, R, H), device=m)
+    er = torch.empty((P, n, H), device=m)
+    g = torch.empty((P, n, H, dh), device=m)
+    ip = torch.zeros((P, n + 1), dtype=torch.int32, device=m)
+    ip_t = torch.zeros((P, R + 1), dtype=torch.int32, device=m)
+    idx = torch.zeros((P, 4), dtype=torch.int32, device=m)
+    with pytest.raises(ValueError, match="unsupported device"):
+        gat.gat_attention(z, el, er, ip, idx)
+    with pytest.raises(ValueError, match="unsupported device"):
+        gat.gat_fwd(z, el, er, ip, idx, neg=True)
+    with pytest.raises(ValueError, match="unsupported device"):
+        gat.gat_bwd_src(z, el, er, er, er, g, er, ip_t, idx)
