@@ -8,16 +8,20 @@ one card, at the full width of the repo's model configs on the
 ``synthetic-reddit`` graph (loaded once, shared by every cell):
 GraphSAGE (``scripts/reddit.sh``: 602 -> 256 -> 256 -> 256 -> 41, use_pp,
 LayerNorm, f32), GAT (the same command with ``--model gat --n-heads 4``
-minus ``--use-pp``: ``scripts/gat_bench.py``'s widths) and GCN:
+minus ``--use-pp``: ``scripts/gat_bench.py``'s widths), GCN, and
+GraphSAGE on the bucket tables with the fp8 gather transport (the
+command plus ``--spmm-impl bucket --rem-dtype float8``):
 
   1. prints the card's name and power limit (nvidia-smi) and versions;
-  2. builds the seven hand-written kernels from
+  2. builds the ten hand-written kernels from
      ``pipegcn_tpu_torch/ops/csrc`` (one nvcc per source, started
      together): K1 mean SpMM and K3 its transpose (``spmm_mean.cu``), K2
      halo gather and K5 reverse-ring return (``halo_gather.cu``), K4
      boundary-gradient scatter (``halo_scatter.cu``), K6 GAT attention
      forward (in training also the sums that give its backward's pass A)
-     and K8 the backward's src-keyed pass B (``gat_attn.cu``);
+     and K8 the backward's src-keyed pass B (``gat_attn.cu``), K9 the
+     bucket-ELL gather-sum (``bucket_spmm.cu``), K10 the transport cast
+     and K11 the per-part amax (``transport_cast.cu``);
   3. serves, over 2 random parts of the full graph: builds the artifact
      in memory (the serve CLI's ``build_artifact``: partition, build,
      each step timed; nothing is saved), builds
@@ -69,10 +73,30 @@ minus ``--use-pp``: ``scripts/gat_bench.py``'s widths) and GCN:
  14. runs a few pipelined GCN epochs (K1/K3 with the 1/sqrt(deg)
      scalings): a finite, falling loss; then holds one GCN epoch against
      the plain versions as in [7];
- 15. prints the ``kernels`` JSON line (K1-K6, K8: times at the training
-     shapes beside the training runs' launches; K1/K2 also their serving
-     numbers), a serving line, a training line, a GAT/GCN line, the
-     nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+ 15. trains the bucket cell on the same parts (``--spmm-impl bucket
+     --rem-dtype float8``, counts from the trainer's build through the
+     final eval: K9 and K10 6 times an epoch, K3 never), one epoch alone
+     (K1 and K3 never), and 2 epochs each of ``--rem-amax`` (K11),
+     ``--rem-dtype bfloat16`` and ``none`` on the same trainer;
+ 16. holds one bucket epoch against the plain versions as in [7], the
+     plain run also taking the kernel run's transported values
+     (``TransportShare``; transport flips counted);
+ 17. holds K9 against its plain version in both directions and every
+     input dtype at the cell's shapes, at F = 602 (the pp precompute in
+     f32, GCN layer 0's e4m3 / e5m2 transport) and on edge cases (empty
+     rows, a 5,000-entry row, the bucket merge 4, F = 5, junk in the
+     cap-padding rows), K10 and K11 bit for bit on the cell's tensors at
+     F = 256 and 602 and on a sweep of f32 bit patterns; a dropped index
+     must fail K9's check and a scale off by 2 K10's;
+ 18. times K9-K11 beside their bounds, plain versions and library calls,
+     the bucket epoch and its split (beside the xla epoch), and runs a
+     few GCN epochs on the bucket path (K9 and K10 8 times an epoch),
+     then holds one of its epochs against the plain versions as in [16];
+ 19. prints the ``kernels`` JSON line (K1-K6, K8-K11: times at the
+     training shapes beside the training runs' launches; K1/K2 also their
+     serving numbers), a serving line, a training line, a GAT/GCN line,
+     a bucket-training line, the nvidia-smi line, and last
+     ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when the
 package is missing (the script alone), or when any phase fails.
@@ -147,9 +171,26 @@ LEAKY_FLIP_FRAC = 1e-4
 # that fault and requires each check to fail.
 GAT_SUM_C = 16.0
 F32_U = 2.0 ** -24
+# K9, K10 and K11 are bit-exact against their plain versions (a NaN equal
+# to any NaN: the kernel and torch write different NaN patterns). K9 and
+# its plain version sum each row in table order in f32: no tolerance on
+# summation order is needed (a tolerance linear in the row's length would
+# be: a sequential sum of 1,500 equal terms, as the edge cases' heavy
+# rows hold, drifts ~n u / 2 of its magnitude from a pairwise one).
+# The bucket step shares the kernel run's transported values with the
+# plain run as it shares the relu masks; a cast input within rounding of
+# a midpoint of the narrow format is a transport flip, counted.
+TRANSPORT_FLIP_FRAC = 1e-4
+
+
+START = time.monotonic()
 
 
 def log(msg: str) -> None:
+    """To stderr; a phase heading (``[n] ...``) carries the seconds since
+    the script started, so a run shows where its time went."""
+    if msg[:1] == "[" and msg[1:2].isdigit():
+        msg = f"{msg} (t = {time.monotonic() - START:.1f}s)"
     print(msg, file=sys.stderr, flush=True)
 
 
@@ -518,20 +559,25 @@ def timings(engine, spmm, halo):
 def counters(spmm, halo):
     """Every kernel wrapper of the port, by kernel name: each counts its
     own launches in ``.launches``."""
+    from pipegcn_tpu_torch.ops import bucket_spmm as bs
     from pipegcn_tpu_torch.ops import gat
 
     return {"spmm_mean": spmm.spmm_mean, "halo_gather": halo.halo_gather,
             "spmm_mean_t": spmm.spmm_mean_t,
             "halo_scatter": halo.scatter_bgrad,
             "halo_return": halo.return_blocks,
-            "gat_fwd": gat.gat_fwd, "gat_bwd_src": gat.gat_bwd_src}
+            "gat_fwd": gat.gat_fwd, "gat_bwd_src": gat.gat_bwd_src,
+            "bucket_gather": bs.bucket_gather,
+            "transport_cast": bs.transport_cast,
+            "part_amax": bs.part_amax}
 
 
 # the kernels each model's training path runs
 COMM = ("halo_gather", "halo_scatter", "halo_return")
 PATH_KERNELS = {"graphsage": ("spmm_mean", "spmm_mean_t") + COMM,
                 "gcn": ("spmm_mean", "spmm_mean_t") + COMM,
-                "gat": ("gat_fwd", "gat_bwd_src") + COMM}
+                "gat": ("gat_fwd", "gat_bwd_src") + COMM,
+                "bucket": ("bucket_gather", "transport_cast") + COMM}
 
 
 def require_launched(launches, model, what):
@@ -549,10 +595,12 @@ def read_counts(cnt):
     return {k: fn.launches for k, fn in cnt.items()}
 
 
-def train_cli(args, pipeline=True, epochs=None, model="graphsage"):
+def train_cli(args, pipeline=True, epochs=None, model="graphsage",
+              extra=()):
     """The cell's command: ``scripts/reddit.sh`` (graphsage, use_pp); for
     gcn and gat the same minus ``--use-pp`` (which they refuse), gat with
-    ``--n-heads 4`` (``scripts/gat_bench.py``'s width)."""
+    ``--n-heads 4`` (``scripts/gat_bench.py``'s width); ``extra`` flags
+    appended (the bucket cell's)."""
     from pipegcn_tpu_torch.cli.main import build_parser
 
     argv = ["--dataset", args.dataset, "--dropout", "0.5", "--lr", "0.01",
@@ -568,7 +616,7 @@ def train_cli(args, pipeline=True, epochs=None, model="graphsage"):
     if model == "gat":
         argv += ["--n-heads", "4"]
     return build_parser().parse_args(
-        argv + (["--enable-pipeline"] if pipeline else []))
+        argv + (["--enable-pipeline"] if pipeline else []) + list(extra))
 
 
 def train_phase(args, g, spmm, halo):
@@ -584,6 +632,7 @@ def train_phase(args, g, spmm, halo):
     device = torch.device("cuda", 0)
     reset_counts(cnt)
     torch.cuda.reset_peak_memory_stats()
+    base_gib = torch.cuda.memory_allocated() / 2 ** 30
     trainer = build_trainer(cli, sg, device, log=log, steps=steps)
     t0 = time.monotonic()
     res = trainer.fit(eval_graphs, log_fn=log, inductive=True)
@@ -597,7 +646,8 @@ def train_phase(args, g, spmm, halo):
         f"{trainer.eval_setup_s:.1f}s of it), losses "
         f"{losses[0]:.4f} -> {losses[-1]:.4f}, best val "
         f"{res['best_val']:.4f}, test {res.get('test_acc', float('nan')):.4f},"
-        f" launches {launches}, peak {peak_gib:.3f} GiB")
+        f" launches {launches}, peak {peak_gib:.3f} GiB (held before the "
+        f"build {base_gib:.3f} GiB)")
     require(len(losses) == cli.n_epochs, "fit ran the wrong epoch count")
     require(all(math.isfinite(x) for x in losses), f"non-finite loss: "
             f"{losses}")
@@ -613,8 +663,8 @@ def train_phase(args, g, spmm, halo):
              "best_val": res["best_val"], "best_epoch": res["best_epoch"],
              "test_acc": res["test_acc"], "fit_s": fit_s,
              "epoch_time_s_mean": res["epoch_time"],
-             "peak_mem_gib": peak_gib, "host_steps_s": steps,
-             "launches": launches}
+             "peak_mem_gib": peak_gib, "mem_before_build_gib": base_gib,
+             "host_steps_s": steps, "launches": launches}
     return cli, sg, eval_graphs, trainer, stats
 
 
@@ -642,10 +692,16 @@ def step_phase(trainer, epoch):
     below RELU_FLIP_FRAC of the relu elements. GAT's attention likewise
     takes the kernel run's leaky branch of every edge (from that run's el
     and er, ``ops.gat.LeakyBranch``); its flips must stay below
-    LEAKY_FLIP_FRAC of the edge-heads."""
+    LEAKY_FLIP_FRAC of the edge-heads. On the bucket path with a gather
+    transport the plain run likewise takes the kernel run's transported
+    values (``ops.bucket_spmm.TransportShare``): a cast input within
+    rounding of a rounding midpoint of the narrow format flips by a whole
+    step of it; such transport flips must stay below TRANSPORT_FLIP_FRAC
+    of the transported elements."""
     import numpy as np
     import torch
     from pipegcn_tpu_torch.ops import gat
+    from pipegcn_tpu_torch.ops.bucket_spmm import TransportShare
     from pipegcn_tpu_torch.tree import tree_leaves
 
     snap = trainer.host_state()
@@ -671,24 +727,35 @@ def step_phase(trainer, epoch):
         return gat.gat_attention_plain(z, el, er, *csr,
                                        branch=branches[-1])
 
-    def run(plain, act, attn=None):
+    def run(plain, act, attn=None, share=None):
         trainer.restore_state(snap)
         trainer.plain, trainer.act = plain, act
+        trainer.share = share
         if attn is not None:
             trainer.attn = attn
         loss = trainer.train_epoch(epoch)
         return (loss, [g.detach().cpu().numpy() for g in trainer.last_grads],
                 trainer.host_state())
 
+    transported = trainer.bucket and trainer.cfg.rem_dtype is not None
+    recorded = TransportShare() if transported else None
+    replayed_share = None
     try:
-        first = run(False, record, record_attn)
+        first = run(False, record, record_attn, recorded)
         rerun = run(False, torch.relu)
         replayed, replayed_attn = iter(masks), iter(logit_halves)
-        plain = run(True, replay, replay_attn)
+        if transported:
+            replayed_share = TransportShare.replaying(recorded.recorded)
+        plain = run(True, replay, replay_attn, replayed_share)
         own = run(True, torch.relu)  # on its own masks: shown, not held
     finally:
-        trainer.plain, trainer.act = False, torch.relu
+        trainer.plain, trainer.act, trainer.share = False, torch.relu, None
     del masks[:], logit_halves[:]
+    if recorded is not None:
+        del recorded.recorded[:]
+    tflips = ([replayed_share.flips, replayed_share.elements]
+              if replayed_share is not None else [0, 0])
+    tflip_frac = tflips[0] / max(tflips[1], 1)
     trainer.restore_state(first[2])
     leaky = [sum(b.flips for b in branches), sum(b.elements for b in branches)]
     leaky_frac = leaky[0] / max(leaky[1], 1)
@@ -714,7 +781,8 @@ def step_phase(trainer, epoch):
           and param_err <= STEP_REL_TOL
           and all(v <= STEP_REL_TOL for v in comm_err.values())
           and all(np.isfinite(g).all() for g in gk)
-          and flip_frac <= RELU_FLIP_FRAC and leaky_frac <= LEAKY_FLIP_FRAC)
+          and flip_frac <= RELU_FLIP_FRAC and leaky_frac <= LEAKY_FLIP_FRAC
+          and tflip_frac <= TRANSPORT_FLIP_FRAC)
     carries = (f"{max(comm_err.values()):.2e}" if comm_err
                else "none (vanilla)")
     log(f"  step rerun through the kernels (epoch {epoch}): bit-identical "
@@ -726,17 +794,20 @@ def step_phase(trainer, epoch):
         f"{grad_err:.2e}, params {param_err:.2e}, carries {carries} (tol "
         f"{STEP_REL_TOL:g} of each tensor's max); relu flips {flips[0]} of "
         f"{flips[1]} (tol {RELU_FLIP_FRAC:g}); leaky flips {leaky[0]} of "
-        f"{leaky[1]} (tol {LEAKY_FLIP_FRAC:g}) {'ok' if ok else 'FAIL'}; "
+        f"{leaky[1]} (tol {LEAKY_FLIP_FRAC:g}); transport flips {tflips[0]} "
+        f"of {tflips[1]} (tol {TRANSPORT_FLIP_FRAC:g}) "
+        f"{'ok' if ok else 'FAIL'}; "
         f"on the plain run's own masks grads and carries {own_err:.2e}")
     require(ok, f"training step through the kernels disagrees with the "
             f"plain versions: loss {loss_err}, grads {grad_err}, params "
             f"{param_err}, carries {comm_err}, relu flips {flips}, leaky "
-            f"flips {leaky}")
+            f"flips {leaky}, transport flips {tflips}")
     return {"loss_kernel": lk, "loss_plain": lp, "loss_rel_err": loss_err,
             "grad_rel_err": grad_err, "param_rel_err": param_err,
             "carry_rel_err": comm_err, "relu_flips": flips[0],
             "relu_elements": flips[1], "leaky_flips": leaky[0],
-            "leaky_elements": leaky[1], "rerun_bit_identical": same,
+            "leaky_elements": leaky[1], "transport_flips": tflips[0],
+            "transported_elements": tflips[1], "rerun_bit_identical": same,
             "own_masks_rel_err": own_err}
 
 
@@ -1201,13 +1272,12 @@ def gat_fault_phase(gat, slope=0.2):
         sum_rtol=gat_gamma(it.diff(dim=1))[..., None, None]))
 
 
-def gat_edge_graph(P, n, R, seed):
-    """Stacked destination and transpose CSRs of P random parts with
-    empty rows, a 5,000-in-edge row, a ~5,000-out-edge source and pad
-    edges (whose src / dst_t tail holds junk the kernels must not read)."""
+def edge_case_edges(P, n, R, seed):
+    """Sentinel-padded, dst-sorted edge lists ``(src, dst)`` ``[P, E]`` of
+    P random parts with n destination and R source rows: empty rows, a
+    5,000-in-edge row (row 5), a ~5,000-out-edge source (row 9) and 37
+    pad edges."""
     import numpy as np
-    import torch
-    from pipegcn_tpu_torch.ops.spmm import csr_indptr, csr_transpose
 
     rng = np.random.default_rng(seed)
     parts = []
@@ -1224,6 +1294,16 @@ def gat_edge_graph(P, n, R, seed):
     dst = np.full((P, e_max), n, np.int32)
     for p, (a, b) in enumerate(parts):
         src[p, :a.size], dst[p, :b.size] = a, b
+    return src, dst
+
+
+def gat_edge_graph(P, n, R, seed):
+    """Stacked destination and transpose CSRs of ``edge_case_edges`` (pad
+    edges, whose src / dst_t tail holds junk the kernels must not read)."""
+    import torch
+    from pipegcn_tpu_torch.ops.spmm import csr_indptr, csr_transpose
+
+    src, dst = edge_case_edges(P, n, R, seed)
     it, dt = csr_transpose(src, dst, n, R)
     return (torch.from_numpy(csr_indptr(dst, n)).cuda(),
             torch.from_numpy(src).cuda(),
@@ -1473,6 +1553,567 @@ def gcn_phase(args, sg, spmm, halo):
 
 
 # ---------------------------------------------------------------------------
+# phases 15-18: the bucket cell (--spmm-impl bucket --rem-dtype float8),
+# K9, K10 and K11
+
+
+def check_cast(name, got, ref) -> int:
+    """Bit-identical, except that any NaN equals any NaN. Returns the
+    count of differing elements (0 when the check passes)."""
+    import torch
+
+    require(got.shape == ref.shape and got.dtype == ref.dtype,
+            f"{name}: shape/dtype mismatch")
+    gn, rn = torch.isnan(got.float()), torch.isnan(ref.float())
+    bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[
+        got.element_size()]
+    differ = (gn != rn) | (~gn & ~rn & (got.view(bits) != ref.view(bits)))
+    n_diff = int(differ.sum())
+    log(f"  {name}: bit-exact (NaN = NaN) {'ok' if n_diff == 0 else 'FAIL'}"
+        f" ({n_diff} of {got.numel()} elements differ)")
+    require(n_diff == 0, f"{name}: kernel is not bit-exact against its "
+            f"plain version ({n_diff} elements differ)")
+    return n_diff
+
+
+def cast_err(got, ref) -> float:
+    """Largest |got - ref| over the elements finite in both, widened to
+    f32 (NaN and the infinities are held by ``check_cast``'s bits)."""
+    import torch
+
+    a, b = got.float(), ref.float()
+    both = torch.isfinite(a) & torch.isfinite(b)
+    return float((a - b)[both].abs().max()) if bool(both.any()) else 0.0
+
+
+def k9_check(name, bs, x, side, deg=None, inv=None) -> float:
+    """K9 against its plain version on one input, bit for bit; a rerun
+    bit-identical. Returns the largest |difference| (0)."""
+    import torch
+
+    got = bs.bucket_gather(x, side, deg, inv)
+    ref = bs.bucket_gather_plain(x, side, deg, inv)
+    require(bool(torch.isfinite(got).all()), f"{name}: non-finite values")
+    check_cast(name, got, ref)
+    require(torch.equal(bs.bucket_gather(x, side, deg, inv), got),
+            f"{name}: a rerun is not bit-identical")
+    return max_err(got, ref)
+
+
+def transport_inputs(d, seed, F=256):
+    """Activations [P, n_max + H, F] (post-LayerNorm scale) and
+    cotangents [P, n_max, F] (small, as g / in_deg gives them) on the
+    cell's shapes."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    P, n, R = d.num_parts, d.n_max, d.n_max + d.halo_size
+    act = torch.randn((P, R, F), generator=gen, device="cuda") * 2.0
+    cot = torch.randn((P, n, F), generator=gen, device="cuda") * 1e-3
+    return act, cot
+
+
+def k9_cell_phase(trainer, bs, halo):
+    """K9 against its plain version on the bucket cell's tables: each
+    direction in each input dtype (the transport's), with the amax
+    inverse scale; at F = 602 the pp precompute's f32 and GCN layer 0's
+    transport (the exchanged features in e4m3, cotangents / in_deg in
+    e5m2; the GCN trainer builds the same tables from the same parts)."""
+    import torch
+
+    d = trainer.data
+    t = d.bucket
+    act, cot = transport_inputs(d, 20)
+    errs = []
+    for dt in (torch.float32, torch.bfloat16, torch.float8_e4m3fn,
+               torch.float8_e5m2):
+        x = act if dt == torch.float32 else \
+            bs.transport_cast_plain(act, dt)[0]
+        errs.append(k9_check(f"K9 forward {dt} F=256 (cell)", bs, x, t.fwd,
+                             d.in_deg))
+        g = cot / d.in_deg[..., None]
+        g = g if dt == torch.float32 else bs.transport_cast_plain(g, dt)[0]
+        errs.append(k9_check(f"K9 backward {dt} F=256 (cell)", bs, g, t.bwd))
+    y, inv = bs.transport_cast_plain(act, torch.float8_e4m3fn,
+                                     amax=bs.part_amax_plain(act))
+    errs.append(k9_check("K9 forward e4m3 amax (cell)", bs, y, t.fwd,
+                         d.in_deg, inv))
+    feat = halo.halo_exchange(d.feat, d.send_idx, d.send_mask)
+    errs.append(k9_check("K9 forward f32 F=602 (cell, pp precompute)", bs,
+                         feat, t.fwd, d.in_deg))
+    del act, cot
+    _, cot = transport_inputs(d, 24, F=feat.shape[-1])
+    x = bs.transport_cast_plain(feat, torch.float8_e4m3fn)[0]
+    errs.append(k9_check("K9 forward e4m3 F=602 (cell, GCN layer 0)", bs, x,
+                         t.fwd, d.in_deg))
+    y, inv = bs.transport_cast_plain(feat, torch.float8_e4m3fn,
+                                     amax=bs.part_amax_plain(feat))
+    errs.append(k9_check("K9 forward e4m3 amax F=602 (cell, GCN layer 0)",
+                         bs, y, t.fwd, d.in_deg, inv))
+    del feat, x, y
+    g = bs.transport_cast_plain(cot, torch.float8_e5m2, d.in_deg)[0]
+    errs.append(k9_check("K9 backward e5m2 F=602 (cell, GCN layer 0)", bs, g,
+                         t.bwd))
+    return max(errs)
+
+
+def bucket_edge_case(bs, min_width):
+    """The bucket tables (``min_width`` = the merge) of 2 parts of
+    ``edge_case_edges`` (300 rows, 700 source rows) staged on the card,
+    with the rows' in-degrees (at least 1) and their empty-row mask."""
+    import types
+
+    import numpy as np
+    import torch
+
+    P, n, R = 2, 300, 700
+    src, dst = edge_case_edges(P, n, R, seed=31)
+    sg = types.SimpleNamespace(num_parts=P, n_max=n, halo_size=R - n,
+                               edge_src=src, edge_dst=dst)
+    t = bs.stage_bucket_tables(bs.build_sharded_bucket_tables(
+        sg, min_width=min_width), n, R, torch.device("cuda"))
+    deg = np.stack([np.bincount(d, minlength=n + 1)[:n] for d in dst])
+    return (t, torch.from_numpy(np.maximum(deg, 1).astype(
+        np.float32)).cuda(), torch.from_numpy(deg == 0).cuda())
+
+
+def k9_edge_phase(bs):
+    """K9 on edge cases: empty rows (exact zeros), a 5,000-entry row, the
+    bucket merge 4, F = 5, 16, 256 and 602 in every input dtype, both
+    directions, and junk in the cap-padding table rows (never read)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    errs = []
+    for merge in (0, 4):
+        t, deg, empty = bucket_edge_case(bs, merge)
+        n, R = t.bwd.n_src, t.fwd.n_src
+        require(max(t.fwd.widths) >= 5000 and (merge == 0
+                                               or min(t.fwd.widths) >= 4),
+                f"K9 edge case ladder {t.fwd.widths}")
+        for F in (5, 16, 256, 602):
+            for dt in (torch.float32, torch.bfloat16, torch.float8_e4m3fn,
+                       torch.float8_e5m2):
+                x = torch.randn((2, R, F), generator=gen, device="cuda")
+                g = torch.randn((2, n, F), generator=gen, device="cuda")
+                x, g = (v.to(dt) if dt in (torch.float32, torch.bfloat16)
+                        else bs.transport_cast_plain(v, dt)[0]
+                        for v in (x, g))
+                name = f"K9 edge cases merge={merge} F={F} {dt}"
+                errs.append(k9_check(name + " forward", bs, x, t.fwd, deg))
+                errs.append(k9_check(name + " backward", bs, g, t.bwd))
+                out = bs.bucket_gather(x, t.fwd, deg)
+                require(bool((out[empty] == 0).all()),
+                        f"{name}: rows without edges must be exactly zero")
+        # junk in the cap-padding rows, which no inv entry points at
+        x = torch.randn((2, R, 16), generator=gen, device="cuda")
+        junk = bs.BucketSide(**{**t.fwd.__dict__, "idx": t.fwd.idx.clone()})
+        meta = t.fwd.meta.cpu()
+        n_junk = 0
+        for p in range(2):
+            used = torch.zeros(int(meta[0, -1]) + 1, dtype=torch.bool)
+            used[t.fwd.inv[p].long().cpu()] = True
+            for b in range(t.fwd.nb):
+                r0, r1, e0, w = (int(meta[0, b]), int(meta[0, b + 1]),
+                                 int(meta[1, b]), int(meta[2, b]))
+                for r in range(r0, r1):
+                    if not used[r]:
+                        junk.idx[p, e0 + (r - r0) * w:
+                                 e0 + (r - r0 + 1) * w] = 3
+                        n_junk += 1
+        require(n_junk > 0, "K9 edge case has no cap-padding rows")
+        require(torch.equal(bs.bucket_gather(x, junk, deg),
+                            bs.bucket_gather(x, t.fwd, deg)),
+                "K9 read a cap-padding table row")
+    return max(errs)
+
+
+def k9_fault_phase(bs):
+    """One index of the 5,000-entry row (the widest bucket's) dropped: K9
+    on those tables, held against the plain version on the whole tables
+    by the check's own comparison, must fail."""
+    import torch
+
+    t, deg, _ = bucket_edge_case(bs, 0)
+    R = t.fwd.n_src
+    meta = t.fwd.meta.cpu()
+    b = t.fwd.nb - 1
+    j = int(t.fwd.inv[0, 5])  # the 5,000-entry row of part 0
+    r0, e0, w = int(meta[0, b]), int(meta[1, b]), int(meta[2, b])
+    require(r0 <= j < int(meta[0, b + 1]), "fault row is not in the widest "
+            "bucket")
+    fault = bs.BucketSide(**{**t.fwd.__dict__, "idx": t.fwd.idx.clone()})
+    fault.idx[0, e0 + (j - r0) * w + 1234] = R  # one entry -> sentinel
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    x = torch.randn((2, R, 256), generator=gen, device="cuda")
+    name = "planted fault (one index of the 5,000-entry row dropped)"
+    got = bs.bucket_gather(x, fault, deg)
+    must_fail(f"K9 {name}", lambda: check_cast(
+        f"K9 {name}", got, bs.bucket_gather_plain(x, t.fwd, deg)))
+
+
+def cast_sweep():
+    """f32 bit patterns around the fp8 saturation points, their rounding
+    midpoints and subnormals, f32 subnormals, zeros, infinities and NaNs,
+    both signs: [1, rows, 128]."""
+    import numpy as np
+    import torch
+
+    centers = np.array([448, 464, 480, 57344, 61440, 65536, 2.0 ** -6,
+                        2.0 ** -9, 2.0 ** -10, 2.0 ** -14, 2.0 ** -16,
+                        2.0 ** -17, 2.0 ** -18, 2.0 ** -126, 1.0, 3.4e38,
+                        np.inf], np.float32).view(np.int32)
+    span = np.arange(-2048, 2048, dtype=np.int64)
+    bits = (centers[:, None].astype(np.int64) + span[None, :]).reshape(-1)
+    bits = np.concatenate([bits, np.arange(0, 4096), [0x7fc00000,
+                                                      0x7f800001]])
+    bits = bits[(bits >= 0) & (bits < 2 ** 31)].astype(np.uint32)
+    bits = np.concatenate([bits, bits | np.uint32(2 ** 31)])
+    bits = bits[: bits.size // 128 * 128]
+    return torch.from_numpy(bits.view(np.float32).copy()).reshape(
+        1, -1, 128).cuda()
+
+
+def k10_k11_phase(trainer, bs, halo):
+    """K10 bit-exact against its plain version on the cell's activations
+    and cotangents at F = 256 and at GCN layer 0's F = 602 (the exchanged
+    features; several passes of the kernel's column loop), with static
+    and amax scales and the backward's fused g / in_deg, and on a sweep
+    of f32 bit patterns in f32 and bf16; K11 exact on the same inputs; a
+    scale off by 2 must fail K10's check. Returns, per kernel, the
+    largest |difference| over the elements finite in both, the count of
+    differing elements and the count of elements compared."""
+    import torch
+
+    d = trainer.data
+    res = {"K10": [0.0, 0, 0], "K11": [0.0, 0, 0]}
+
+    def held(k, name, got, ref):
+        n = check_cast(name, got, ref)
+        r = res[k]
+        r[0], r[1], r[2] = (max(r[0], cast_err(got, ref)), r[1] + n,
+                            r[2] + got.numel())
+
+    act, cot = transport_inputs(d, 23)
+    feat = halo.halo_exchange(d.feat, d.send_idx, d.send_mask)
+    _, cot602 = transport_inputs(d, 25, F=feat.shape[-1])
+    for F, (a_in, c_in) in ((256, (act, cot)), (602, (feat, cot602))):
+        for dt in (torch.float8_e4m3fn, torch.float8_e5m2, torch.bfloat16):
+            for name, x, deg in (("activations", a_in, None),
+                                 ("cotangents / in_deg", c_in, d.in_deg)):
+                a = bs.part_amax(x, deg)
+                held("K11", f"K11 {name} F={F} (cell)", a,
+                     bs.part_amax_plain(x, deg))
+                for amax in (None, a):
+                    got = bs.transport_cast(x, dt, deg, amax)
+                    ref = bs.transport_cast_plain(x, dt, deg, amax)
+                    tag = (f"K10 {dt} {name} F={F}"
+                           f"{' amax' if amax is not None else ''}")
+                    held("K10", tag + " (cell)", got[0], ref[0])
+                    if ref[1] is not None:
+                        held("K10", tag + " inv_scale", got[1], ref[1])
+                    del got, ref
+    del feat, cot602
+    sweep = cast_sweep()
+    for src in (torch.float32, torch.bfloat16):
+        x = sweep.to(src)
+        held("K11", f"K11 sweep {src}", bs.part_amax(x),
+             bs.part_amax_plain(x))
+        for dt in (torch.float8_e4m3fn, torch.float8_e5m2, torch.bfloat16):
+            held("K10", f"K10 sweep {src} -> {dt}",
+                 bs.transport_cast(x, dt)[0],
+                 bs.transport_cast_plain(x, dt)[0])
+            scaled = torch.full((1,), 3.0e-3, device="cuda")
+            held("K10", f"K10 sweep {src} -> {dt} amax 3e-3",
+                 bs.transport_cast(x, dt, amax=scaled)[0],
+                 bs.transport_cast_plain(x, dt, amax=scaled)[0])
+    a = bs.part_amax(act)
+    bad = bs.transport_cast(act, torch.float8_e4m3fn, amax=a / 2)[0]
+    must_fail("K10 planted fault (scale off by 2)", lambda: check_cast(
+        "K10 planted fault (scale off by 2)", bad,
+        bs.transport_cast_plain(act, torch.float8_e4m3fn, amax=a)[0]))
+    log(f"  K10 / K11: largest |difference| {res['K10'][0]:g} / "
+        f"{res['K11'][0]:g}, {res['K10'][1]} / {res['K11'][1]} of "
+        f"{res['K10'][2]} / {res['K11'][2]} elements differ")
+    return res
+
+
+def bucket_train_phase(args, sg, eval_graphs, eval_cache, spmm, halo):
+    """The bucket cell: the reddit.sh command plus ``--spmm-impl bucket
+    --rem-dtype float8`` through cli/main.py's functions on the SAGE
+    cell's parts, sharing its eval-graph CSRs; counts from the trainer's
+    build (the pp precompute's one K9 launch, transport off) through the
+    final eval. Then one epoch alone (K9 and K10 6 times, K1 and K3 never)
+    and 2 epochs of each transport variant on the same trainer and
+    tables (the variant's flags parsed by the CLI, its ModelConfig
+    swapped in)."""
+    import math
+
+    import torch
+    from pipegcn_tpu_torch.cli.main import build_trainer, configs
+
+    flags = ["--spmm-impl", "bucket", "--rem-dtype", "float8"]
+    cli = train_cli(args, epochs=args.bucket_epochs, extra=flags)
+    cnt = counters(spmm, halo)
+    steps = {}
+    reset_counts(cnt)
+    torch.cuda.reset_peak_memory_stats()
+    base_gib = torch.cuda.memory_allocated() / 2 ** 30  # the eval CSRs
+    trainer = build_trainer(cli, sg, torch.device("cuda", 0), log=log,
+                            steps=steps)
+    steps["bucket_tables"] = trainer.data.bucket_build_s
+    trainer.eval_cache = eval_cache
+    t0 = time.monotonic()
+    res = trainer.fit(eval_graphs, log_fn=log, inductive=True)
+    torch.cuda.synchronize()
+    fit_s = time.monotonic() - t0
+    launches = read_counts(cnt)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = res["losses"]
+    n_ep = cli.n_epochs
+    log(f"  bucket fit: {n_ep} epochs in {fit_s:.1f}s (tables "
+        f"{steps['bucket_tables']:.1f}s), losses {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}, best val {res['best_val']:.4f}, test "
+        f"{res.get('test_acc', float('nan')):.4f}, launches {launches}, "
+        f"peak {peak_gib:.3f} GiB (held before the build {base_gib:.3f} GiB)")
+    require(len(losses) == n_ep, "bucket fit ran the wrong epoch count")
+    require(all(math.isfinite(x) for x in losses),
+            f"bucket: non-finite loss: {losses}")
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    require(last < first, f"bucket: loss did not fall: first-5 mean "
+            f"{first:.4f}, last-5 mean {last:.4f}")
+    require_launched(launches, "bucket", "bucket training run")
+    require(launches["bucket_gather"] == 6 * n_ep + 1
+            and launches["transport_cast"] == 6 * n_ep
+            and launches["spmm_mean_t"] == 0 and launches["part_amax"] == 0,
+            f"bucket: K9 must run 6 times an epoch (+1 for the pp "
+            f"precompute), K10 6 times, K3 and K11 never: {launches}")
+    accs = (res["best_val"], res.get("test_acc", float("nan")))
+    require(all(math.isfinite(a) and 0.0 <= a <= 1.0 for a in accs),
+            f"bucket: accuracies not finite: {accs}")
+
+    def epochs_of(label, n, epoch0, want):
+        reset_counts(cnt)
+        ls = [trainer.train_epoch(epoch0 + e) for e in range(n)]
+        got = read_counts(cnt)
+        log(f"  bucket {label}: losses {ls}, launches {got}")
+        require(all(math.isfinite(x) for x in ls),
+                f"bucket {label}: non-finite loss")
+        per = {k: got[k] for k in want}
+        require(per == {k: v * n for k, v in want.items()},
+                f"bucket {label}: launches {got}, want {want} per epoch")
+        return {"losses": ls, "launches": got}
+
+    one = epochs_of("one epoch", 1, n_ep, {
+        "bucket_gather": 6, "transport_cast": 6, "part_amax": 0,
+        "spmm_mean": 0, "spmm_mean_t": 0})
+    variants = {}
+    base_cfg = trainer.cfg
+    for i, (label, extra, k10, k11) in enumerate((
+            ("--rem-amax", ["--rem-amax"], 6, 6),
+            ("--rem-dtype bfloat16", ["--rem-dtype", "bfloat16"], 6, 0),
+            ("--rem-dtype none", ["--rem-dtype", "none"], 0, 0))):
+        vcli = train_cli(args, epochs=2, extra=flags + extra)
+        trainer.cfg = configs(vcli, sg)[0]
+        variants[label] = epochs_of(label, 2, n_ep + 1 + 2 * i, {
+            "bucket_gather": 6, "transport_cast": k10, "part_amax": k11,
+            "spmm_mean": 0, "spmm_mean_t": 0})
+    trainer.cfg = base_cfg
+    stats = {"epochs": n_ep, "losses": losses, "first5_mean": first,
+             "last5_mean": last, "best_val": res["best_val"],
+             "best_epoch": res["best_epoch"], "test_acc": res["test_acc"],
+             "fit_s": fit_s, "epoch_time_s_mean": res["epoch_time"],
+             "peak_mem_gib": peak_gib, "mem_before_build_gib": base_gib,
+             "host_steps_s": steps,
+             "launches": launches, "one_epoch": one, "variants": variants,
+             "amax_launches": variants["--rem-amax"]["launches"]}
+    return trainer, stats
+
+
+def bucket_gcn_phase(args, sg, spmm, halo):
+    """``--model gcn --spmm-impl bucket --rem-dtype float8`` (no use_pp)
+    for a few pipelined epochs: finite, falling loss; K9 and K10 8 times
+    an epoch (4 layers forward and backward: layer 0's buffer takes the
+    halo probe, whose cotangent the pipeline returns). Then one epoch
+    through the kernels held against the plain versions (``step_phase``:
+    relu masks and transported values shared, K9 and K10 at F = 602 in
+    layer 0)."""
+    import math
+
+    import torch
+    from pipegcn_tpu_torch.cli.main import build_trainer
+
+    n = args.bucket_gcn_epochs
+    cli = train_cli(args, epochs=n, model="gcn", extra=[
+        "--spmm-impl", "bucket", "--rem-dtype", "float8"])
+    trainer = build_trainer(cli, sg, torch.device("cuda", 0), log=log)
+    cnt = counters(spmm, halo)
+    reset_counts(cnt)
+    losses = [trainer.train_epoch(e) for e in range(n)]
+    launches = read_counts(cnt)
+    log(f"  bucket gcn: losses {losses}, launches {launches}")
+    require(all(math.isfinite(x) for x in losses),
+            "bucket gcn: non-finite loss")
+    require(losses[-1] < losses[0], f"bucket gcn: loss did not fall: "
+            f"{losses}")
+    require(launches["bucket_gather"] == 8 * n
+            and launches["transport_cast"] == 8 * n
+            and launches["spmm_mean"] == 0 and launches["spmm_mean_t"] == 0,
+            f"bucket gcn: K9 and K10 must run 8 times an epoch: {launches}")
+    step = step_phase(trainer, n)
+    return {"epochs": n, "losses": losses, "launches": launches,
+            "bucket_tables_s": trainer.data.bucket_build_s,
+            "step_check": step}
+
+
+def csr_library(d, reverse):
+    """One cuSPARSE CSR matrix over the block-diagonal parts with values
+    1/in_deg[dst] (forward, [P n_max, P R]) or its transpose with values 1
+    (``reverse``: the backward's sum of g / in_deg over out-edges)."""
+    import torch
+
+    P, n, R = d.num_parts, d.n_max, d.n_max + d.halo_size
+    dst, src, val = [], [], []
+    for p in range(P):
+        ne = int(d.indptr[p, -1])
+        rows = torch.repeat_interleave(
+            torch.arange(n, device="cuda"), d.indptr[p].diff().long())
+        dst.append(rows + p * n)
+        src.append(d.edge_src[p, :ne].long() + p * R)
+        val.append(torch.ones(ne, device="cuda") if reverse
+                   else 1.0 / d.in_deg[p].index_select(0, rows))
+    dst, src, val = torch.cat(dst), torch.cat(src), torch.cat(val)
+    idx = torch.stack([src, dst] if reverse else [dst, src])
+    size = (P * R, P * n) if reverse else (P * n, P * R)
+    with warnings.catch_warnings():  # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_coo_tensor(idx, val, size).coalesce() \
+            .to_sparse_csr()
+
+
+def bucket_timings(trainer, bs):
+    """K9 forward and backward in each transport dtype at the cell's
+    shapes (ms, plain ms, bound; cuSPARSE over the CSR for f32 only: no
+    single PyTorch call gathers bf16 or fp8 rows into f32 sums), K10
+    forward (e4m3) and backward (e5m2, g / in_deg fused) against
+    ``clamp().to()`` (two calls), K11 against one
+    ``torch.linalg.vector_norm(ord=inf)``. Bounds count each input read
+    once and each output written once (K9: the real table entries, not
+    the sentinel padding) and K9's least work: one add per real entry and
+    column and (forward) one division per output element. The static
+    transport of the epoch passes no inverse scale."""
+    import torch
+
+    d = trainer.data
+    t = d.bucket
+    P, n, R = d.num_parts, d.n_max, d.n_max + d.halo_size
+    F = 256
+    act, cot = transport_inputs(d, 24)
+    gd = cot / d.in_deg[..., None]
+    out = {"K9": {}, "K10": {}, "K11": {}}
+    lib = {}
+    for name, reverse in (("forward", False), ("backward", True)):
+        a = csr_library(d, reverse)
+        dense = (act if not reverse else gd).reshape(-1, F)
+        lib[name] = time_ms(lambda: torch.sparse.mm(a, dense))
+        del a
+    for name, side, x0, deg in (("forward", t.fwd, act, d.in_deg),
+                                ("backward", t.bwd, gd, None)):
+        E = int((side.idx < side.n_src).sum())
+        n_out = side.n_out
+        for dt in (torch.float32, torch.bfloat16,
+                   torch.float8_e4m3fn if name == "forward"
+                   else torch.float8_e5m2):
+            x = x0 if dt == torch.float32 else \
+                bs.transport_cast_plain(x0, dt)[0]
+            n_bytes = (x.numel() * x.element_size() + E * 4
+                       + side.inv.numel() * 4 + side.meta.numel() * 8
+                       + (deg.numel() * 4 if deg is not None else 0)
+                       + P * n_out * F * 4)
+            ops = E * F + (P * n_out * F if deg is not None else 0)
+            out["K9"][f"{name} {str(dt).split('.')[-1]}"] = dict(
+                ms=time_ms(lambda: bs.bucket_gather(x, side, deg)),
+                # one call: the plain version (a launch per table
+                # column) takes seconds, and it ran in the checks before
+                plain_ms=time_ms(lambda: bs.bucket_gather_plain(
+                    x, side, deg), reps=1, warmup=0),
+                library_ms=lib[name] if dt == torch.float32 else None,
+                bound=bound_ms(n_bytes, ops),
+                shape=f"P={P} n_src={side.n_src} n_out={n_out} F={F} "
+                      f"entries={E} {dt}")
+    for name, x, dt, deg in (
+            ("forward e4m3", act, torch.float8_e4m3fn, None),
+            ("backward e5m2", cot, torch.float8_e5m2, d.in_deg)):
+        m = bs.F8_MAX[dt]
+        n_bytes = x.numel() * 5 + (deg.numel() * 4 if deg is not None else 0)
+        ops = x.numel() * (2 if deg is not None else 1)
+        out["K10"][name] = dict(
+            ms=time_ms(lambda: bs.transport_cast(x, dt, deg)),
+            plain_ms=time_ms(lambda: bs.transport_cast_plain(x, dt, deg)),
+            library_ms=time_ms(lambda: torch.clamp(x, -m, m).to(dt)),
+            library_calls="torch.clamp + Tensor.to (two calls; the "
+                          "backward's division not included)",
+            bound=bound_ms(n_bytes, ops),
+            shape=f"{tuple(x.shape)} f32 -> {dt}"
+                  f"{' / in_deg' if deg is not None else ''}")
+        a = bs.part_amax(x, deg)
+        scaled = dict(
+            ms=time_ms(lambda: bs.transport_cast(x, dt, deg, a)),
+            plain_ms=time_ms(lambda: bs.transport_cast_plain(x, dt, deg, a)),
+            library_ms=None, bound=bound_ms(n_bytes + P * 8, ops + x.numel()),
+            shape=out["K10"][name]["shape"] + " amax scale")
+        out["K10"][name + " amax"] = scaled
+        out["K11"][name] = dict(
+            ms=time_ms(lambda: bs.part_amax(x, deg)),
+            plain_ms=time_ms(lambda: bs.part_amax_plain(x, deg)),
+            library_ms=time_ms(lambda: torch.linalg.vector_norm(
+                x, ord=float("inf"), dim=(1, 2))),
+            bound=bound_ms(x.numel() * 4 + P * 4
+                           + (deg.numel() * 4 if deg is not None else 0),
+                           x.numel()),
+            shape=f"{tuple(x.shape)} f32"
+                  f"{' / in_deg' if deg is not None else ''}")
+    for k, v in out.items():
+        for name, e in v.items():
+            log(f"  {k} {name}: {e['ms']:.3f} ms (plain {e['plain_ms']:.3f},"
+                f" library {e['library_ms']}, bound {e['bound'][0]:.3f} "
+                f"{e['bound'][1]}) [{e['shape']}]")
+    return out
+
+
+def bucket_epoch_split(trainer, cnt, bt, tt):
+    """The bucket epoch (median of 5 after one warm epoch) and its split
+    by this run's kernel times: K9 (3 forward e4m3 + 3 backward e5m2),
+    K10 (3 + 3), the comm kernels at the SAGE cell's F = 256 times, the
+    rest by subtraction; beside it the xla epoch of the SAGE cell."""
+    reset_counts(cnt)
+    base = trainer.tcfg.n_epochs + 20
+    epochs = iter(range(base, base + 100))
+    reps = 5
+    epoch_ms = time_ms(lambda: trainer.train_epoch(next(epochs)), reps=reps,
+                       warmup=1)
+    per_epoch = {k: v / (reps + 1) for k, v in read_counts(cnt).items()}
+    k9 = 3 * (bt["K9"]["forward float8_e4m3fn"]["ms"]
+              + bt["K9"]["backward float8_e5m2"]["ms"])
+    k10 = 3 * (bt["K10"]["forward e4m3"]["ms"]
+               + bt["K10"]["backward e5m2"]["ms"])
+    comm = (per_epoch["halo_gather"] * tt["K2"]["ms"]
+            + per_epoch["halo_scatter"] * tt["K4"]["ms"]
+            + per_epoch["halo_return"] * tt["K5"]["ms"])
+    split = {"epoch_ms": epoch_ms, "k9_ms": k9, "k10_ms": k10,
+             "comm_kernels_ms": comm, "rest_ms": epoch_ms - k9 - k10 - comm,
+             "xla_epoch_ms": tt["epoch_ms"],
+             "xla_k1_k3_ms": 3 * (tt["K1"]["ms"] + tt["K3"]["ms"]),
+             "launches_per_epoch": per_epoch}
+    log(f"  bucket epoch {epoch_ms:.3f} ms median: K9 {k9:.3f} ms, K10 "
+        f"{k10:.3f} ms, comm kernels {comm:.3f} ms, rest "
+        f"{split['rest_ms']:.3f} ms ({per_epoch}); the xla epoch "
+        f"{tt['epoch_ms']:.3f} ms (3 x (K1 + K3) "
+        f"{split['xla_k1_k3_ms']:.3f} ms)")
+    return split
+
+
+# ---------------------------------------------------------------------------
 
 
 def kernel_entry(name, source, replaces, launches, err, t, serving=None):
@@ -1508,6 +2149,8 @@ def main() -> int:
                     help="run [7] and [11] on this many consecutive epochs")
     ap.add_argument("--gat-epochs", type=int, default=20)
     ap.add_argument("--gcn-epochs", type=int, default=10)
+    ap.add_argument("--bucket-epochs", type=int, default=30)
+    ap.add_argument("--bucket-gcn-epochs", type=int, default=5)
     args = ap.parse_args()
 
     import torch
@@ -1519,6 +2162,7 @@ def main() -> int:
     try:
         from pipegcn_tpu_torch.graph.datasets import load_data
         from pipegcn_tpu_torch.ops import _build, gat, spmm
+        from pipegcn_tpu_torch.ops import bucket_spmm as bs
         from pipegcn_tpu_torch.parallel import halo
     except ImportError as exc:
         log(f"chip_smoke: the port package is missing beside this "
@@ -1540,7 +2184,7 @@ def main() -> int:
 
     t0 = time.monotonic()
     secs = _build.build(["spmm_mean", "halo_gather", "halo_scatter",
-                         "gat_attn"])
+                         "gat_attn", "bucket_spmm", "transport_cast"])
     log(f"[2] kernels built in {time.monotonic() - t0:.1f}s: {secs}")
 
     t0 = time.monotonic()
@@ -1593,7 +2237,6 @@ def main() -> int:
         f"pipelined), {args.gat_epochs} epochs on the same parts")
     gtrainer, gat_stats = gat_train_phase(args, sg, eval_graphs, eval_cache,
                                           spmm, halo)
-    del eval_graphs, eval_cache
 
     log("[11] one pipelined GAT epoch: kernels vs plain versions")
     gat_step = step_phase(gtrainer, args.gat_epochs)
@@ -1615,6 +2258,33 @@ def main() -> int:
     log(f"[14] GCN: {args.gcn_epochs} pipelined epochs on the same parts, "
         f"then one epoch: kernels vs plain versions")
     gcn_stats = gcn_phase(args, sg, spmm, halo)
+    torch.cuda.empty_cache()
+
+    log(f"[15] bucket cell: the command plus --spmm-impl bucket --rem-dtype "
+        f"float8, {args.bucket_epochs} epochs on the same parts; then one "
+        f"epoch alone and 2 epochs each of --rem-amax, --rem-dtype "
+        f"bfloat16 and none")
+    btrainer, bucket_stats = bucket_train_phase(args, sg, eval_graphs,
+                                                eval_cache, spmm, halo)
+    del eval_graphs, eval_cache
+
+    log("[16] one pipelined bucket epoch: kernels vs plain versions "
+        "(relu masks and transported values shared)")
+    bucket_step = step_phase(btrainer, args.bucket_epochs + 10)
+
+    log("[17] K9, K10, K11 vs plain versions; planted faults must fail")
+    errs["K9"] = max(k9_cell_phase(btrainer, bs, halo), k9_edge_phase(bs))
+    k9_fault_phase(bs)
+    cast_res = k10_k11_phase(btrainer, bs, halo)
+    errs["K10"], errs["K11"] = cast_res["K10"][0], cast_res["K11"][0]
+
+    log("[18] K9-K11 timings, the bucket epoch and its split; GCN on the "
+        "bucket path, then one epoch: kernels vs plain versions")
+    bt = bucket_timings(btrainer, bs)
+    bucket_split = bucket_epoch_split(btrainer, counters(spmm, halo), bt, tt)
+    del btrainer
+    torch.cuda.empty_cache()
+    bucket_gcn = bucket_gcn_phase(args, sg, spmm, halo)
 
     # the main path of this slice is training: every kernel's launches
     # are its training-run count and its times are taken at the epoch's
@@ -1665,6 +2335,35 @@ def main() -> int:
                              "dh41": sub(gt["K6 eval"][41])}
         entry["also_replaces"] = also
         kernels.append(entry)
+    # K9-K11: the bucket cell's run (K11: its --rem-amax variant's), times
+    # at its shapes; K9's main numbers are the e4m3 forward, the other
+    # directions and dtypes under "by_dtype"
+    nb = bucket_stats["launches"]
+    k9 = kernel_entry("bucket_gather", src + "bucket_spmm.cu",
+                      "pipegcn_tpu/ops/bucket_spmm.py:290", nb["bucket_gather"],
+                      errs["K9"], bt["K9"]["forward float8_e4m3fn"])
+    k9["by_dtype"] = {k: {**sub(v), "library_ms": v["library_ms"]}
+                      for k, v in bt["K9"].items()}
+    k9["also_replaces"] = ["pipegcn_tpu/ops/bucket_spmm.py:490",
+                           "pipegcn_tpu/ops/bucket_spmm.py:777"]
+    k10 = kernel_entry("transport_cast", src + "transport_cast.cu",
+                       "pipegcn_tpu/ops/bucket_spmm.py:451",
+                       nb["transport_cast"], errs["K10"],
+                       bt["K10"]["forward e4m3"])
+    k10["library_calls"] = bt["K10"]["forward e4m3"]["library_calls"]
+    k10["others"] = {k: {**sub(v), "library_ms": v["library_ms"]}
+                     for k, v in bt["K10"].items() if k != "forward e4m3"}
+    k10["also_replaces"] = ["pipegcn_tpu/ops/bucket_spmm.py:462"]
+    k11 = kernel_entry("part_amax", src + "transport_cast.cu",
+                       "pipegcn_tpu/ops/bucket_spmm.py:462",
+                       bucket_stats["amax_launches"]["part_amax"],
+                       errs["K11"], bt["K11"]["forward e4m3"])
+    k11["launches_run"] = "the --rem-amax variant, 2 epochs"
+    for k, e in (("K10", k10), ("K11", k11)):
+        e["differing_elements"], e["checked_elements"] = cast_res[k][1:]
+    k11["backward"] = {**sub(bt["K11"]["backward e5m2"]),
+                       "library_ms": bt["K11"]["backward e5m2"]["library_ms"]}
+    kernels += [k9, k10, k11]
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
@@ -1704,6 +2403,16 @@ def main() -> int:
                  "f32 (gat_bench.py runs bf16)"],
         **gat_stats, "step_check": gat_step, **gat_split,
         "gcn": gcn_stats, "card": smi}}))
+    print(json.dumps({"bucket_training": {
+        "dataset": args.dataset,
+        "cell": "scripts/reddit.sh + --spmm-impl bucket --rem-dtype float8: "
+                "graphsage 4x256 --use-pp --inductive --enable-pipeline, "
+                "dropout 0.5, lr 0.01, 2 parts, LayerNorm, f32 compute, "
+                "e4m3 / e5m2 gather transport",
+        "cuts": ["partition random (not metis)",
+                 f"{args.bucket_epochs} epochs (not 3000)"],
+        **bucket_stats, "step_check": bucket_step, **bucket_split,
+        "gcn": bucket_gcn, "card": smi}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,8 +14,9 @@ parts stacked on one device, and print the reference's lines:
 
 Its parser takes every flag of ``scripts/reddit.sh`` with the JAX
 parser's names and defaults (``cli/parser.py``), and the model family's
-(``--model {graphsage,gcn,gat}``, ``--n-heads``, ``--spmm-impl``,
-``--rem-dtype``), plus ``--device``. As in
+(``--model {graphsage,gcn,gat}``, ``--n-heads``) and the bucket
+aggregation's (``--spmm-impl``, ``--rem-dtype``, ``--rem-amax``,
+``--bucket-merge``, ``--spmm-chunk``), plus ``--device``. As in
 the JAX CLI, the seed is drawn at random unless ``--fix-seed``. Runs on
 CUDA; ``--device cpu`` runs the plain PyTorch path on the CPU; without
 CUDA and without ``--device cpu`` it raises. Result files, saved models,
@@ -68,17 +69,32 @@ def build_parser() -> argparse.ArgumentParser:
     p.set_defaults(eval=True)
     p.add_argument("--dtype", choices=["float32", "bfloat16"],
                    default="float32")
+    p.add_argument("--spmm-chunk", "--spmm_chunk", type=int, default=0,
+                   help="edge-chunk size of the JAX SpMM (0 = unchunked); "
+                        "accepted for the JAX parser's sake and ignored: "
+                        "the kernels walk each row in registers and need "
+                        "no chunks")
     p.add_argument("--spmm-impl", "--spmm_impl",
                    choices=["xla", "bucket", "block", "auto"], default="xla",
-                   help="aggregation: gat runs its attention kernels for "
-                        "xla/bucket/auto; graphsage/gcn take xla (the "
-                        "table kernels are ROADMAP A6)")
+                   help="aggregation: graphsage/gcn by CSR (xla: K1/K3) or "
+                        "through degree-bucketed tables (bucket: K9); gat "
+                        "runs its attention kernels for xla/bucket/auto; "
+                        "block and auto for graphsage/gcn are ROADMAP A6")
     p.add_argument("--n-heads", "--n_heads", type=int, default=4,
                    help="attention heads for --model gat")
+    p.add_argument("--bucket-merge", "--bucket_merge", type=int, default=0,
+                   help="merge bucket-ladder rungs below this width into "
+                        "one bucket (0 = full ladder)")
     p.add_argument("--rem-dtype", "--rem_dtype",
                    choices=["none", "bfloat16", "float8"], default="none",
-                   help="gather-transport dtype (ROADMAP A6; only none "
-                        "runs)")
+                   help="gather-transport dtype of --spmm-impl bucket: "
+                        "float8 = e4m3 activations, e5m2 cotangents (K10), "
+                        "f32 accumulation; a no-op under xla, as in JAX")
+    p.add_argument("--rem-amax", "--rem_amax", action="store_true",
+                   help="amax-clamped fp8 transport: scale each part's "
+                        "gathered tensor by a power of two from its amax "
+                        "(K11) before the cast (only with --rem-dtype "
+                        "float8)")
     p.add_argument("--device", type=str, default=None,
                    help="cuda (default) or cpu; no silent fallback")
     return p
@@ -112,18 +128,18 @@ def prepare(args, log=print, g=None, steps=None):
     return sg, eval_graphs
 
 
-def build_trainer(args, sg, device, log=print, steps=None):
-    """The ``Trainer`` for parsed ``args`` over ``sg`` on ``device``
-    (staging, the transpose and inverse send CSRs, and the use_pp
-    precompute, timed)."""
+def configs(args, sg):
+    """``(ModelConfig, TrainConfig)`` of parsed ``args`` over ``sg``."""
     from ..models.sage import ModelConfig
-    from ..parallel.trainer import TrainConfig, Trainer
+    from ..parallel.trainer import TrainConfig
 
     layer_sizes = (sg.n_feat,) + (args.n_hidden,) * (args.n_layers - 1) \
         + (sg.n_class,)
     cfg = ModelConfig(layer_sizes=layer_sizes, model=args.model,
                       n_heads=args.n_heads, spmm_impl=args.spmm_impl,
-                      rem_dtype=args.rem_dtype, use_pp=args.use_pp,
+                      rem_dtype=args.rem_dtype, rem_amax=args.rem_amax,
+                      bucket_merge=args.bucket_merge,
+                      use_pp=args.use_pp,
                       norm=None if args.norm == "none" else args.norm,
                       dropout=args.dropout, train_size=sg.n_train_global,
                       dtype=args.dtype)
@@ -134,6 +150,16 @@ def build_trainer(args, sg, device, log=print, steps=None):
                        corr_momentum=args.corr_momentum,
                        log_every=args.log_every, seed=args.seed,
                        eval=args.eval)
+    return cfg, tcfg
+
+
+def build_trainer(args, sg, device, log=print, steps=None):
+    """The ``Trainer`` for parsed ``args`` over ``sg`` on ``device``
+    (staging, the transpose CSR or the bucket tables, the inverse send
+    CSR, and the use_pp precompute, timed)."""
+    from ..parallel.trainer import Trainer
+
+    cfg, tcfg = configs(args, sg)
     t0 = time.monotonic()
     trainer = Trainer(sg, cfg, tcfg, device)
     if device.type == "cuda":
@@ -143,8 +169,10 @@ def build_trainer(args, sg, device, log=print, steps=None):
     secs = time.monotonic() - t0
     if steps is not None:
         steps["trainer_setup"] = secs
-    log(f"trainer set up in {secs:.1f}s (staging, transpose and send "
-        f"CSRs{', use_pp precompute' if args.use_pp else ''}; {device})")
+    tables = (f"bucket tables {trainer.data.bucket_build_s:.1f}s"
+              if trainer.bucket else "transpose CSR")
+    log(f"trainer set up in {secs:.1f}s (staging, {tables}, send CSR"
+        f"{', use_pp precompute' if args.use_pp else ''}; {device})")
     return trainer
 
 

@@ -11,10 +11,11 @@ layers ``{'w', 'b'}``, GAT layers ``{'w', 'b', 'a_src', 'a_dst'}``, norms
 Activations are stacked over parts, ``[P, rows, F]``.
 
 Only what the ported slices run is here: LayerNorm or no norm, float32
-compute, 32-bit dropout masks, the raw CSR aggregation. BatchNorm, the
-dense tail, bfloat16 compute, 8-bit dropout masks, the table-driven
-aggregation kernels and narrowed gather transports raise
-``NotImplementedError`` naming their ROADMAP item.
+compute, 32-bit dropout masks, the raw CSR aggregation and (GraphSAGE,
+GCN) the bucket tables with their narrowed gather transport. BatchNorm,
+the dense tail, bfloat16 compute, 8-bit dropout masks, the block-dense
+kernel and GAT's transport raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -48,9 +49,16 @@ class ModelConfig:
     dtype: str = "float32"
     # 'xla' | 'bucket' | 'block' | 'auto', as the JAX package; gat runs
     # its attention kernels for xla/bucket/auto (the bucket tables are a
-    # TPU layout of the same function), the mean paths only xla
+    # TPU layout of the same function); graphsage and gcn aggregate by
+    # CSR (K1/K3) under xla and through the bucket tables (K9) under
+    # bucket
     spmm_impl: str = "xla"
-    rem_dtype: Optional[str] = None  # None | 'none' | 'bfloat16' | 'float8'
+    # the bucket path's gather transport (ops/bucket_spmm): None |
+    # 'bfloat16' | 'float8' (e4m3 activations, e5m2 cotangents); a no-op
+    # under xla, as in JAX, whose raw-edge path has no transport
+    rem_dtype: Optional[str] = None
+    rem_amax: bool = False  # per-part power-of-two fp8 scale (K11)
+    bucket_merge: int = 0   # merge ladder rungs narrower than this
 
     def __post_init__(self):
         if self.model not in ("graphsage", "gcn", "gat"):
@@ -62,6 +70,9 @@ class ModelConfig:
         if self.rem_dtype not in (None, "float8", "bfloat16"):
             raise ValueError(f"unknown rem_dtype: {self.rem_dtype!r} "
                              "(none | bfloat16 | float8)")
+        if self.bucket_merge < 0:
+            raise ValueError(
+                f"bucket_merge must be >= 0, got {self.bucket_merge}")
         if self.model in ("gcn", "gat") and self.use_pp:
             raise ValueError("use_pp is a GraphSAGE-only optimization")
         if self.model == "gat":
@@ -76,15 +87,15 @@ class ModelConfig:
                     raise ValueError(
                         f"gat hidden width {self.layer_sizes[i + 1]} not "
                         f"divisible by n_heads={self.n_heads}")
-        elif self.spmm_impl != "xla":
+            if self.rem_dtype is not None and self.spmm_impl != "xla":
+                raise NotImplementedError(
+                    f"rem_dtype={self.rem_dtype!r} for gat (its attention "
+                    "kernels' gather transport) waits for ROADMAP A5")
+        elif self.spmm_impl not in ("xla", "bucket"):
             raise NotImplementedError(
                 f"spmm_impl={self.spmm_impl!r} for {self.model} waits for "
-                "ROADMAP A6 (kernels B5/B7); the port aggregates by CSR "
-                "(xla)")
-        if self.rem_dtype is not None:
-            raise NotImplementedError(
-                f"rem_dtype={self.rem_dtype!r} waits for ROADMAP A6 "
-                "(kernel B6, the narrowed gather transport)")
+                "ROADMAP A6 (kernel B7 and the tuner); the port aggregates "
+                "by CSR (xla) or bucket tables (bucket)")
         if self.n_linear:
             raise NotImplementedError("the dense tail (n_linear > 0) "
                                       "waits for a later slice")
@@ -93,7 +104,8 @@ class ModelConfig:
                 f"norm {self.norm!r} waits for a later slice (layer | None)")
         if self.dtype != "float32":
             raise NotImplementedError(
-                f"dtype {self.dtype!r} waits for a later slice (float32)")
+                f"dtype {self.dtype!r} (bf16 compute) waits for ROADMAP A5 "
+                "(float32)")
         if self.dropout_bits != 32:
             raise NotImplementedError(
                 "8-bit dropout masks (dropout_bits=8) wait for ROADMAP A6")

@@ -11,6 +11,11 @@ Differences from the JAX staging:
     inverses the backward kernels read: the source-keyed transpose CSR of
     the edges (K3) and the inverse send CSR (K4); ``edge_dst`` itself is
     never staged;
+  - with ``bucket_merge`` (``--spmm-impl bucket``) training stages the
+    stacked bucket tables (``ops.bucket_spmm``, flattened for K9) in place
+    of the transpose CSR, which the bucket step does not read (as the JAX
+    trainer drops its raw edges, ``trainer.py:208-237``); the
+    destination CSR stays for the CSR paths that share ``forward``;
   - ``Trainer._pad_cols`` (the TPU 128-lane ``lane_pad``) has no
     counterpart: it only aligned feature slabs to TPU tiles and is
     numerically inert, so features are staged at their own width.
@@ -19,11 +24,14 @@ Differences from the JAX staging:
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..ops.bucket_spmm import (BucketTables, build_sharded_bucket_tables,
+                               stage_bucket_tables)
 from ..ops.spmm import csr_indptr, csr_transpose, spmm_mean
 from ..partition.halo import ShardedGraph
 from .halo import halo_exchange, send_csr
@@ -51,6 +59,8 @@ class StagedGraph:
     dst_t: Optional[torch.Tensor] = None       # [P, e_max] int32
     send_ptr: Optional[torch.Tensor] = None    # [P, n_max + 1] int32
     send_slot: Optional[torch.Tensor] = None   # [P, nnz] int32
+    bucket: Optional[BucketTables] = None      # --spmm-impl bucket
+    bucket_build_s: float = 0.0                # host seconds, its tables
 
     @property
     def halo_size(self) -> int:
@@ -79,28 +89,41 @@ def _put(x: np.ndarray, dtype, device: torch.device) -> torch.Tensor:
 
 
 def stage(sg: ShardedGraph, device: torch.device,
-          training: bool = False) -> StagedGraph:
+          training: bool = False,
+          bucket_merge: Optional[int] = None) -> StagedGraph:
     """Copy the arrays the serving path reads to ``device``; with
     ``training`` also the labels, masks and the two host-built inverses
-    the training step reads (``Trainer._put_data``)."""
+    the training step reads (``Trainer._put_data``), or, given
+    ``bucket_merge`` (the ladder's ``min_width``), the bucket tables in
+    place of the transpose CSR."""
     extra = {}
     if training:
         if sg.multilabel:
             raise NotImplementedError(
                 "multilabel training (BCE) waits for ROADMAP A5")
         n_src = sg.n_max + sg.halo_size
-        indptr_t, dst_t = csr_transpose(sg.edge_src, sg.edge_dst, sg.n_max,
-                                        n_src)
+        if bucket_merge is None:
+            indptr_t, dst_t = (torch.from_numpy(a).to(device) for a in
+                               csr_transpose(sg.edge_src, sg.edge_dst,
+                                             sg.n_max, n_src))
+        else:
+            t0 = time.perf_counter()
+            tables = build_sharded_bucket_tables(sg, min_width=bucket_merge)
+            extra["bucket"] = stage_bucket_tables(tables, sg.n_max, n_src,
+                                                  device)
+            extra["bucket_build_s"] = time.perf_counter() - t0
+            del tables
+            indptr_t = dst_t = None
         send_ptr, send_slot = send_csr(sg.send_idx, sg.send_mask, sg.n_max)
         row_mask = (np.arange(sg.n_max)[None, :]
                     < np.asarray(sg.inner_count)[:, None])
-        extra = dict(
+        extra.update(
             n_train_global=int(sg.n_train_global),
             label=_put(sg.label, np.int64, device),
             train_mask=_put(sg.train_mask, np.bool_, device),
             row_mask=_put(row_mask, np.float32, device),
-            indptr_t=torch.from_numpy(indptr_t).to(device),
-            dst_t=torch.from_numpy(dst_t).to(device),
+            indptr_t=indptr_t,
+            dst_t=dst_t,
             send_ptr=torch.from_numpy(send_ptr).to(device),
             send_slot=torch.from_numpy(send_slot).to(device))
     return StagedGraph(

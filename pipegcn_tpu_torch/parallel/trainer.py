@@ -23,6 +23,15 @@ One epoch (``train_epoch``):
   gradient K5 of this epoch's probe cotangent, and the ``feat_corr`` /
   ``grad_corr`` EMAs (``:1271-1310``).
 
+With ``spmm_impl="bucket"`` (graphsage, gcn; JAX ``_setup_spmm`` /
+``_use_bucket``, ``trainer.py:365-450``) every graph layer aggregates
+through the bucket tables (``ops.bucket_spmm.BucketSpmm``: K9, with the
+``rem_dtype`` transport cast K10 and the ``rem_amax`` amax K11); the
+use_pp precompute goes through the same tables with the transport off
+(``transport=False``, ``trainer.py:918-1008``), and the full-graph eval
+stays on K1 over the eval graph's CSR (the JAX ``_eval_run`` aggregates
+raw edges with ``spmm_mean``).
+
 Dropout masks come from a ``torch.Generator`` seeded from (seed, epoch),
 so ``train_epoch(e)`` is reproducible; the bits differ from JAX's
 (``jax.random`` folds the epoch and the rank into a key), so runs held
@@ -45,6 +54,7 @@ import torch
 
 from ..graph.csr import Graph
 from ..models.sage import ModelConfig, Params, forward, init_params
+from ..ops.bucket_spmm import TransportShare, bucket_spmm
 from ..ops.gat import gat_attention, gat_attention_plain
 from ..ops.spmm import csr_indptr, spmm_mean, spmm_mean_plain
 from ..partition.halo import ShardedGraph
@@ -118,7 +128,9 @@ class Trainer:
     GAT's attention op ``(z, el, er, indptr, src, transpose, slope) ->
     out``, to the kernels' or the plain versions'), and ``act`` (relu) is
     the training forward's nonlinearity between layers — the card-side
-    comparison of a training step sets all three. ``eval_cache`` holds
+    comparison of a training step sets all three, and on the bucket path
+    ``share``, the ``TransportShare`` its transport casts record into or
+    replay from (None: neither). ``eval_cache`` holds
     the device CSRs of the full-graph eval, by graph; trainers on one
     device may share it."""
 
@@ -132,14 +144,18 @@ class Trainer:
         self.P = sg.num_parts
         self.plain = False
         self.act = torch.relu
-        self.data = stage(sg, device, training=True)
+        self.share: Optional[TransportShare] = None
+        self.bucket = cfg.spmm_impl == "bucket" and cfg.model != "gat"
+        self.data = stage(sg, device, training=True,
+                          bucket_merge=cfg.bucket_merge if self.bucket
+                          else None)
         self.n_train = float(self.data.n_train_global)
         if cfg.use_pp:
             self.feat = precompute_pp(
                 self.data,
                 exchange=lambda h, i, m: halo_exchange(
                     h, i, m, ops=self._halo_ops),
-                spmm_fn=self._spmm)
+                spmm_fn=self._step_spmm(transport=False))
         else:
             self.feat = self.data.feat
         if params is None:
@@ -166,6 +182,23 @@ class Trainer:
         self._halo_ops = PLAIN if value else KERNELS
         self._spmm = spmm_mean_plain if value else spmm_mean
         self.attn = gat_attention_plain if value else gat_attention
+
+    def _step_spmm(self, transport: bool):
+        """The partitioned aggregation ``(fbuf, indptr, src, in_deg) ->
+        mean``: the bucket tables (with the gather transport unless
+        ``transport`` is False) or the part's CSRs."""
+        d, cfg = self.data, self.cfg
+        if self.bucket:
+            def spmm_fn(fbuf, indptr, src, in_deg):
+                return bucket_spmm(
+                    fbuf, d.bucket, in_deg,
+                    cfg.rem_dtype if transport else None,
+                    cfg.rem_amax and transport, self.plain,
+                    self.share if transport else None)
+        else:
+            def spmm_fn(fbuf, indptr, src, in_deg):
+                return self._spmm(fbuf, indptr, src, in_deg, d.transpose)
+        return spmm_fn
 
     @property
     def grad_norm(self) -> Optional[float]:
@@ -222,8 +255,7 @@ class Trainer:
                 return halo_exchange(h, d.send_idx, d.send_mask, d.inverse,
                                      ops=ops)
 
-        def spmm_fn(fbuf, indptr, src, in_deg):
-            return self._spmm(fbuf, indptr, src, in_deg, d.transpose)
+        spmm_fn = self._step_spmm(transport=True)
 
         def attn_fn(z, el, er):
             return self.attn(z, el, er, d.indptr, d.edge_src, d.transpose,

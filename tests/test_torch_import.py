@@ -198,3 +198,36 @@ def test_gat_wrappers_refuse_devices_without_a_kernel():
         gat.gat_fwd(z, el, er, ip, idx, neg=True)
     with pytest.raises(ValueError, match="unsupported device"):
         gat.gat_bwd_src(z, el, er, er, er, g, er, ip_t, idx)
+
+
+def test_bucket_wrappers_refuse_devices_without_a_kernel():
+    import pipegcn_tpu_torch.ops.bucket_spmm as bs
+
+    m = torch.device("meta")
+    side = bs.BucketSide(idx=torch.zeros((2, 6), dtype=torch.int32, device=m),
+                         inv=torch.zeros((2, 3), dtype=torch.int32, device=m),
+                         meta=torch.zeros((3, 2), dtype=torch.int64,
+                                          device=m),
+                         n_src=5, widths=(2,))
+    x = torch.empty((2, 5, 4), device=m)
+    with pytest.raises(ValueError, match="unsupported device"):
+        bs.bucket_gather(x, side)
+    with pytest.raises(ValueError, match="unsupported device"):
+        bs.transport_cast(x, torch.float8_e4m3fn)
+    with pytest.raises(ValueError, match="unsupported device"):
+        bs.part_amax(x)
+
+
+def test_bucket_modules_import_without_jax():
+    code = (
+        "import sys\n"
+        "import pipegcn_tpu_torch.ops.bucket_spmm\n"
+        "import pipegcn_tpu_torch.parallel.staging\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', "
+        "'pipegcn_tpu') or m.startswith(('jax.', 'jaxlib.', "
+        "'pipegcn_tpu.'))]\n"
+        "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert os.path.join(PKG, "ops", "bucket_spmm.py") in set(_port_files())
