@@ -292,7 +292,10 @@ def serve_phase(args, g, spmm, halo):
         "--dataset", args.dataset, "--n-partitions", "2",
         "--partition-method", "random", "--model", "graphsage",
         "--n-layers", "4", "--n-hidden", "256", "--use-pp",
-        "--norm", "layer", "--dtype", "float32", "--seed", "0"])
+        "--norm", "layer", "--dtype", "float32", "--seed", "0",
+        # a cut: locality clusters of the full graph cost a second
+        # clustering; serving reads K1 over either layout
+        "--local-reorder", "none"])
     t0 = time.monotonic()
     sg = build_artifact(cli, log=log, g=g)
     t_artifact = time.monotonic() - t0
@@ -559,6 +562,7 @@ def timings(engine, spmm, halo):
 def counters(spmm, halo):
     """Every kernel wrapper of the port, by kernel name: each counts its
     own launches in ``.launches``."""
+    from pipegcn_tpu_torch.ops import block_spmm as blk
     from pipegcn_tpu_torch.ops import bucket_spmm as bs
     from pipegcn_tpu_torch.ops import gat
 
@@ -569,7 +573,9 @@ def counters(spmm, halo):
             "gat_fwd": gat.gat_fwd, "gat_bwd_src": gat.gat_bwd_src,
             "bucket_gather": bs.bucket_gather,
             "transport_cast": bs.transport_cast,
-            "part_amax": bs.part_amax}
+            "part_amax": bs.part_amax,
+            "block_dense": blk.block_dense,
+            "block_dense_t": blk.block_dense_t}
 
 
 # the kernels each model's training path runs
@@ -577,7 +583,9 @@ COMM = ("halo_gather", "halo_scatter", "halo_return")
 PATH_KERNELS = {"graphsage": ("spmm_mean", "spmm_mean_t") + COMM,
                 "gcn": ("spmm_mean", "spmm_mean_t") + COMM,
                 "gat": ("gat_fwd", "gat_bwd_src") + COMM,
-                "bucket": ("bucket_gather", "transport_cast") + COMM}
+                "bucket": ("bucket_gather", "transport_cast") + COMM,
+                "block": ("block_dense", "block_dense_t", "bucket_gather",
+                          "transport_cast") + COMM}
 
 
 def require_launched(launches, model, what):
@@ -694,7 +702,8 @@ def step_phase(trainer, epoch):
     and er, ``ops.gat.LeakyBranch``); its flips must stay below
     LEAKY_FLIP_FRAC of the edge-heads. On the bucket path with a gather
     transport the plain run likewise takes the kernel run's transported
-    values (``ops.bucket_spmm.TransportShare``): a cast input within
+    values (``ops.bucket_spmm.TransportShare``; on the block path the
+    remainder's): a cast input within
     rounding of a rounding midpoint of the narrow format flips by a whole
     step of it; such transport flips must stay below TRANSPORT_FLIP_FRAC
     of the transported elements."""
@@ -737,7 +746,8 @@ def step_phase(trainer, epoch):
         return (loss, [g.detach().cpu().numpy() for g in trainer.last_grads],
                 trainer.host_state())
 
-    transported = trainer.bucket and trainer.cfg.rem_dtype is not None
+    transported = ((trainer.bucket or trainer.block)
+                   and trainer.cfg.rem_dtype is not None)
     recorded = TransportShare() if transported else None
     replayed_share = None
     try:
@@ -2034,7 +2044,8 @@ def bucket_timings(trainer, bs):
             out["K9"][f"{name} {str(dt).split('.')[-1]}"] = dict(
                 ms=time_ms(lambda: bs.bucket_gather(x, side, deg)),
                 # one call: the plain version (a launch per table
-                # column) takes seconds, and it ran in the checks before
+                # column of each bucket) is slow, and it ran in the
+                # checks before
                 plain_ms=time_ms(lambda: bs.bucket_gather_plain(
                     x, side, deg), reps=1, warmup=0),
                 library_ms=lib[name] if dt == torch.float32 else None,
@@ -2114,6 +2125,507 @@ def bucket_epoch_split(trainer, cnt, bt, tt):
 
 
 # ---------------------------------------------------------------------------
+# phases 19-23: the block cell (--spmm-impl block --rem-dtype float8), K12
+# and K13
+
+# bf16 tensor-core peak of one H100 SXM (dense, 700 W): the floor of the
+# tile products were they run there (a second bound beside bound_ms)
+BF16_TC_FLOP_PER_S = 989e12
+# K12 and K13 against their plain version: both form the same exact
+# products of the f32 inputs and the A values (0/1, or integers that
+# int8, bf16 and f32 hold exactly; the kernels split each input into
+# three bf16 terms whose products with A are exact, or, for f32 A, use
+# fmaf), the plain version sums them by bmm (cuBLAS in f32, TF32 off) and
+# index_add_ across pairs, the kernels on the tensor cores within a pair
+# (adds that truncate: a few ulps of the pair's partial sum, ~1 edge of a
+# row at the cell's density) and in f32 across pairs, in list order. A
+# zero entry adds nothing, so a sum runs over a row's dense edges (~240
+# at the cell); two orders of n terms differ by a few sqrt(n) u of the
+# terms' magnitudes (~5e-6 at n = 240), under BLOCK_SUM_RTOL, while one
+# flipped A bit moves an output element by a whole input value (~1e-1 of
+# the sum of ~240 unit terms): the planted fault must fail.
+BLOCK_SUM_RTOL = 1e-5
+BLOCK_ATOL = 1e-30  # the bound of an empty row is 0: both write zeros
+
+
+def block_check(name, blk, x, tables, side) -> float:
+    """K12 (K13 for a transpose side) against the plain version on one
+    input within BLOCK_SUM_RTOL * sum|terms| (the plain product on |x|:
+    A >= 0); a rerun bit-identical. Returns the largest |difference|."""
+    import torch
+
+    fn = blk.block_dense_t if side.transpose else blk.block_dense
+    got = fn(x, tables)
+    ref = blk.block_dense_plain(x, tables, side)
+    abs_sum = blk.block_dense_plain(x.abs(), tables, side)
+    err = check_close(name, got, ref, BLOCK_ATOL, 0.0, abs_sum,
+                      BLOCK_SUM_RTOL)
+    require(torch.equal(fn(x, tables), got),
+            f"{name}: a rerun is not bit-identical")
+    return err
+
+
+def block_side(pairs, n_keys, n_out, n_in, transpose):
+    """One part's BlockSide on the card from ``pairs`` [(key tile, block,
+    input tile)] in list order."""
+    import numpy as np
+    import torch
+    from pipegcn_tpu_torch.ops import block_spmm as blk
+
+    pairs = sorted(pairs, key=lambda q: q[0])  # stable: list order kept
+    keys = np.array([q[0] for q in pairs], np.int64)
+    ptr = np.zeros(n_keys + 1, np.int32)
+    np.cumsum(np.bincount(keys, minlength=n_keys), out=ptr[1:])
+    blks = np.array([q[1] for q in pairs] or [0], np.int32)
+    tiles = np.array([q[2] for q in pairs] or [0], np.int32)
+    put = (lambda a: torch.from_numpy(a[None]).cuda())  # noqa: E731
+    return blk.BlockSide(ptr=put(ptr), blk=put(blks), tile=put(tiles),
+                         n_out=n_out, n_in=n_in, transpose=transpose)
+
+
+def block_tables_of(a, packed, tile, pairs, n_out, n_in):
+    """BlockTables of one part on the card: A ``a`` [1, B, T, T(/8)] and
+    the forward pairs [(output tile, block, input tile)]; the transpose
+    lists hold the same pairs keyed by input tile. No remainder."""
+    from pipegcn_tpu_torch.ops import block_spmm as blk
+
+    n_out_t, n_in_t = -(-n_out // tile), -(-n_in // tile)
+    return blk.BlockTables(
+        a=a.cuda(), packed=packed, tile=tile,
+        fwd=block_side(pairs, n_out_t, n_out, n_in, False),
+        bwd=block_side([(t, b, i) for i, b, t in pairs], n_in_t, n_in,
+                       n_out, True), rem_fwd=None, rem_bwd=None)
+
+
+def planted_multigraph_tables(dup, seed):
+    """The block tables of a small community multigraph in the cluster
+    layout (6,000 nodes, ~120 edges a node, 2 random parts, tile 256 at
+    the cell's 602-wide hint) with one (dst, src) pair planted ``dup``
+    more times and five others 3 times: ``dup`` 3 ships int8 A, 200 bf16,
+    300 f32."""
+    import numpy as np
+    import torch
+    from pipegcn_tpu_torch.graph.synthetic import synthetic_graph
+    from pipegcn_tpu_torch.ops import block_spmm as blk
+    from pipegcn_tpu_torch.partition.halo import ShardedGraph
+    from pipegcn_tpu_torch.partition.partitioner import (locality_clusters,
+                                                         partition_graph)
+
+    g = synthetic_graph(num_nodes=6000, avg_degree=120, n_feat=8,
+                        n_class=6, seed=seed)
+    cluster = locality_clusters(g, target_size=256, seed=0)
+    rng = np.random.default_rng(seed)
+    pick = rng.integers(0, g.num_edges, 6)
+    reps = np.concatenate([np.full(dup, pick[0]), np.repeat(pick[1:], 3)])
+    g.src = np.concatenate([g.src, g.src[reps]]).astype(g.src.dtype)
+    g.dst = np.concatenate([g.dst, g.dst[reps]]).astype(g.dst.dtype)
+    sg = ShardedGraph.build(g, partition_graph(g, 2, method="random",
+                                               seed=0), n_parts=2,
+                            cluster=cluster)
+    st = {}
+    tables, _ = blk.build_sharded_block_tables(sg, tile=256, n_feat_hint=602,
+                                               stats=st)
+    staged = blk.stage_block_tables(tables, 256, sg.n_max,
+                                    sg.n_max + sg.halo_size,
+                                    torch.device("cuda", 0))
+    return staged, st
+
+
+def k12_k13_edge_phase(blk):
+    """K12 and K13 on edge cases, both directions: every A encoding from a
+    planted multigraph (int8, bf16, f32) at F = 256 and 602; an empty
+    pair list (zeros out); a ragged last output and input tile with F = 5
+    and 64; one tile of 256 x 256 ones."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    errs = []
+
+    def both(label, t, F):
+        for side in (t.fwd, t.bwd):
+            x = torch.randn((t.a.shape[0], side.n_in, F), generator=gen,
+                            device="cuda")
+            errs.append(block_check(
+                f"{'K13' if side.transpose else 'K12'} {label} F={F}",
+                blk, x, t, side))
+
+    for dup, want_bits in ((3, 8), (200, 16), (300, 32)):
+        t, st = planted_multigraph_tables(dup, seed=dup)
+        require(st["bits"] == want_bits and not t.packed,
+                f"planted multigraph x{dup}: {st['bits']}-bit A, want "
+                f"{want_bits}")
+        log(f"  planted multigraph x{dup}: {st['bits']}-bit A "
+            f"({t.a.dtype}), {st['blocks']} blocks")
+        for F in (256, 602):
+            both(f"{t.a.dtype} A", t, F)
+    T = 256
+    gb = torch.Generator().manual_seed(5)
+    bits = torch.randint(0, 256, (1, 4, T, T // 8), generator=gb,
+                         dtype=torch.uint8)
+    # 300 output rows (2 tiles, the last ragged: 44 rows), 700 input rows
+    # (3 tiles, the last 188 rows)
+    pairs = [(0, 0, 0), (0, 1, 2), (1, 2, 1), (1, 3, 2), (1, 0, 0)]
+    empty = block_tables_of(bits, True, T, [], 300, 700)
+    for side in (empty.fwd, empty.bwd):
+        x = torch.randn((1, side.n_in, 64), generator=gen, device="cuda")
+        fn = blk.block_dense_t if side.transpose else blk.block_dense
+        out = fn(x, empty)
+        require(out.shape == (1, side.n_out, 64) and not bool(out.any()),
+                "K12/K13 empty pair list: output is not all zeros")
+    log("  K12 / K13 empty pair list: zeros ok")
+    ragged = block_tables_of(bits, True, T, pairs, 300, 700)
+    for F in (5, 64):
+        both("ragged tiles", ragged, F)
+    ones = torch.full((1, 1, T, T // 8), 255, dtype=torch.uint8)
+    full = block_tables_of(ones, True, T, [(0, 0, 0)], T, T)
+    both("256 x 256 ones", full, 256)
+    return max(errs)
+
+
+def block_fault_phase(blk, trainer):
+    """One bit of one A block flipped (the block of part 0's first pair):
+    K12's and K13's checks at the cell's shapes must fail against the
+    plain versions on the true A."""
+    import dataclasses
+
+    import torch
+
+    t = trainer.data.block
+    b = int(t.fwd.blk[0, 0])
+    bad = dataclasses.replace(t, a=t.a.clone())
+    bad.a[0, b, 7, 3] ^= 1 << 5  # row 7, input column 3 * 8 + 5
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    for name, side, fn in (("K12", t.fwd, blk.block_dense),
+                           ("K13", t.bwd, blk.block_dense_t)):
+        x = torch.randn((t.a.shape[0], side.n_in, 256), generator=gen,
+                        device="cuda")
+        got = fn(x, bad)
+        ref = blk.block_dense_plain(x, t, side)
+        abs_sum = blk.block_dense_plain(x.abs(), t, side)
+        must_fail(f"{name} planted fault (one A bit flipped)",
+                  lambda: check_close(f"{name} planted fault", got, ref,
+                                      BLOCK_ATOL, 0.0, abs_sum,
+                                      BLOCK_SUM_RTOL))
+
+
+def k12_k13_cell_phase(trainer, blk, halo):
+    """K12 and K13 at the cell's shapes: F = 256 (the hidden layers) and
+    602 (the pp precompute's exchanged features, GCN layer 0)."""
+    import torch
+
+    d = trainer.data
+    t = d.block
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    R = d.n_max + d.halo_size
+    errs = []
+    act = torch.randn((d.num_parts, R, 256), generator=gen, device="cuda")
+    g = torch.randn((d.num_parts, d.n_max, 256), generator=gen,
+                    device="cuda")
+    errs.append(block_check("K12 cell F=256", blk, act, t, t.fwd))
+    errs.append(block_check("K13 cell F=256", blk, g, t, t.bwd))
+    del act, g
+    fbuf = halo.halo_gather(d.feat, d.send_idx, d.send_mask, with_inner=True)
+    errs.append(block_check("K12 cell F=602 (pp precompute)", blk, fbuf, t,
+                            t.fwd))
+    del fbuf
+    g = torch.randn((d.num_parts, d.n_max, 602), generator=gen,
+                    device="cuda")
+    errs.append(block_check("K13 cell F=602", blk, g, t, t.bwd))
+    return max(errs)
+
+
+def block_train_phase(args, sg, eval_graphs, eval_cache, spmm, halo):
+    """The block cell: the reddit.sh command plus ``--spmm-impl block
+    --rem-dtype float8`` through cli/main.py's functions on the SAGE
+    cell's parts (the cluster layout), sharing its eval-graph CSRs; counts
+    from the trainer's build (the pp precompute: K12 and K9 once each,
+    transport off) through the final eval. Then 2 epochs of
+    ``--rem-dtype none`` on the same trainer and tables."""
+    import math
+
+    import torch
+    from pipegcn_tpu_torch.cli.main import build_trainer, configs
+    from pipegcn_tpu_torch.ops import block_spmm as blk
+
+    flags = ["--spmm-impl", "block", "--rem-dtype", "float8"]
+    cli = train_cli(args, epochs=args.block_epochs, extra=flags)
+    cnt = counters(spmm, halo)
+    steps = {}
+    reset_counts(cnt)
+    torch.cuda.reset_peak_memory_stats()
+    base_gib = torch.cuda.memory_allocated() / 2 ** 30  # the eval CSRs
+    trainer = build_trainer(cli, sg, torch.device("cuda", 0), log=log,
+                            steps=steps)
+    d = trainer.data
+    st = d.block_stats
+    steps["block_tables"] = d.block_build_s
+    trainer.eval_cache = eval_cache
+    t0 = time.monotonic()
+    res = trainer.fit(eval_graphs, log_fn=log, inductive=True)
+    torch.cuda.synchronize()
+    fit_s = time.monotonic() - t0
+    launches = read_counts(cnt)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = res["losses"]
+    n_ep = cli.n_epochs
+    coverage = sum(st["dense_edges"]) / max(sum(st["edges"]), 1)
+    # the structural estimate (estimate_block_coverage, which JAX's auto
+    # reads) at the same tile, hint and budget: the same split
+    t0 = time.monotonic()
+    estimate = blk.estimate_block_coverage(sg, 256, 602)
+    est_s = time.monotonic() - t0
+    log(f"  block tables: {d.block_build_s:.1f}s, dense coverage "
+        f"{coverage:.4f} (estimate_block_coverage {estimate:.4f} in "
+        f"{est_s:.1f}s; {st['dense_edges']} of {st['edges']} edges), "
+        f"blocks {st['blocks']}, A {st['bits']}-bit "
+        f"({t_dtype(d.block.a)}), {st['a_bytes']} bytes a part")
+    log(f"  block fit: {n_ep} epochs in {fit_s:.1f}s, losses "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, best val "
+        f"{res['best_val']:.4f}, test {res.get('test_acc', float('nan')):.4f},"
+        f" launches {launches}, peak {peak_gib:.3f} GiB (held before the "
+        f"build {base_gib:.3f} GiB)")
+    require(len(losses) == n_ep, "block fit ran the wrong epoch count")
+    require(all(math.isfinite(x) for x in losses),
+            f"block: non-finite loss: {losses}")
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    require(last < first, f"block: loss did not fall: first-5 mean "
+            f"{first:.4f}, last-5 mean {last:.4f}")
+    require_launched(launches, "block", "block training run")
+    want = {"block_dense": 3 * n_ep + 1, "block_dense_t": 3 * n_ep,
+            "bucket_gather": 6 * n_ep + 1, "transport_cast": 6 * n_ep,
+            "spmm_mean_t": 0, "part_amax": 0}
+    require({k: launches[k] for k in want} == want,
+            f"block: K12 must run 3 times an epoch (+1 for the pp "
+            f"precompute), K13 3 times, K9 6 (+1), K10 6, K3 and K11 "
+            f"never: {launches}, want {want}")
+    require(coverage > 0.0 and min(st["blocks"]) > 0,
+            f"block: no dense tiles on the cluster layout: {st}")
+    require(estimate == coverage, f"block: estimate_block_coverage "
+            f"{estimate} != the tables' coverage {coverage}")
+    accs = (res["best_val"], res.get("test_acc", float("nan")))
+    require(all(math.isfinite(a) and 0.0 <= a <= 1.0 for a in accs),
+            f"block: accuracies not finite: {accs}")
+    # --rem-dtype none on the same trainer and tables
+    vcli = train_cli(args, epochs=2, extra=flags[:2] + ["--rem-dtype",
+                                                        "none"])
+    base_cfg = trainer.cfg
+    trainer.cfg = configs(vcli, sg)[0]
+    reset_counts(cnt)
+    ls = [trainer.train_epoch(n_ep + e) for e in range(2)]
+    got = read_counts(cnt)
+    trainer.cfg = base_cfg
+    log(f"  block --rem-dtype none: losses {ls}, launches {got}")
+    require(all(math.isfinite(x) for x in ls),
+            "block --rem-dtype none: non-finite loss")
+    want = {"block_dense": 6, "block_dense_t": 6, "bucket_gather": 12,
+            "transport_cast": 0, "spmm_mean": 0, "spmm_mean_t": 0}
+    require({k: got[k] for k in want} == want,
+            f"block --rem-dtype none: launches {got}, want {want}")
+    stats = {"epochs": n_ep, "losses": losses, "first5_mean": first,
+             "last5_mean": last, "best_val": res["best_val"],
+             "best_epoch": res["best_epoch"], "test_acc": res["test_acc"],
+             "fit_s": fit_s, "epoch_time_s_mean": res["epoch_time"],
+             "peak_mem_gib": peak_gib, "mem_before_build_gib": base_gib,
+             "host_steps_s": steps, "launches": launches,
+             "tables": {**st, "coverage": coverage,
+                        "estimate_block_coverage": estimate,
+                        "estimate_s": est_s,
+                        "a_dtype": t_dtype(d.block.a),
+                        "build_s": d.block_build_s},
+             "rem_none": {"losses": ls, "launches": got}}
+    return trainer, stats
+
+
+def t_dtype(t) -> str:
+    return str(t.dtype).split(".")[-1]
+
+
+def dense_csr(t, n_out, n_in, reverse):
+    """One cuSPARSE CSR matrix of the dense tiles' edges over the
+    block-diagonal parts, values the multiplicities: ``[P n_out, P n_in]``
+    (the forward) or its transpose (``reverse``) — the sums K12 / K13
+    take, as one PyTorch call (timed only) — and the dense edges, each
+    counted as often as it occurs (the sum of the multiplicities)."""
+    import torch
+    from pipegcn_tpu_torch.ops import block_spmm as blk
+
+    side, T = t.fwd, t.tile
+    P = t.a.shape[0]
+    rows, cols, vals = [], [], []
+    for p in range(P):
+        n = int(side.ptr[p, -1])
+        owner = torch.repeat_interleave(
+            torch.arange(side.n_out_tiles, device="cuda"),
+            side.ptr[p].diff().long())
+        for i in range(0, n, 512):
+            j = min(n, i + 512)
+            a = blk._unpack(t.a[p].index_select(0, side.blk[p, i:j].long()),
+                            t.packed)
+            k, r, c = a.nonzero(as_tuple=True)
+            vals.append(a[k, r, c])
+            rows.append(owner[i:j][k] * T + r + p * n_out)
+            cols.append(side.tile[p, i:j].long()[k] * T + c + p * n_in)
+    r, c, v = torch.cat(rows), torch.cat(cols), torch.cat(vals)
+    idx = torch.stack([c, r] if reverse else [r, c])
+    size = (P * n_in, P * n_out) if reverse else (P * n_out, P * n_in)
+    with warnings.catch_warnings():  # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_coo_tensor(idx, v, size).coalesce() \
+            .to_sparse_csr(), int(v.sum())
+
+
+def block_timings(trainer, blk, bs):
+    """K12 and K13 at the cell's shape (F = 256; ms, plain ms, bound,
+    cuSPARSE over the dense edges' CSR) and the tile-product floors; K9
+    on the block trainer's remainder tables (e4m3 forward, e5m2
+    backward). The bound is the least time of the function over the
+    dense edges, counted as K1's and K9's are: the whole input read once,
+    one int32 index per dense edge and a row pointer per output row (the
+    dense edges' CSR), the output written once, and one add per dense
+    edge and column. The bytes of the stored A blocks the pair lists read
+    are the chosen representation's cost, not the function's: they are
+    reported beside the bound (``a_bytes``, ``a_bytes_ms``), as are the
+    floors of the tile products, 2 * pairs * T * T * F flops: over the
+    bf16 tensor-core peak for one product an entry, three times that for
+    K12 / K13's design (the three-term split of each input), and over the
+    f32 CUDA-core peak."""
+    import torch
+
+    d = trainer.data
+    t = d.block
+    P, n, R, F, T = d.num_parts, d.n_max, d.n_max + d.halo_size, 256, t.tile
+    act, cot = transport_inputs(d, 25)
+    gd = cot / d.in_deg[..., None]
+    out = {}
+    for name, side, x, fn in (("K12", t.fwd, act, blk.block_dense),
+                              ("K13", t.bwd, gd, blk.block_dense_t)):
+        a, e_dense = dense_csr(t, n, R, side.transpose)
+        lib = time_ms(lambda: torch.sparse.mm(a, x.reshape(-1, F)))
+        del a
+        pairs = int(side.ptr[:, -1].sum())
+        a_bytes = pairs * t.a[0, 0].numel() * t.a.element_size()
+        n_bytes = (x.numel() * 4 + e_dense * 4 + P * (side.n_out + 1) * 4
+                   + P * side.n_out * F * 4)
+        tile_ops = 2 * pairs * T * T * F
+        out[name] = dict(
+            ms=time_ms(lambda: fn(x, t)),
+            plain_ms=time_ms(lambda: blk.block_dense_plain(x, t, side),
+                             reps=3, warmup=1),
+            library_ms=lib, bound=bound_ms(n_bytes, e_dense * F),
+            a_bytes=a_bytes, a_bytes_ms=a_bytes / HBM_BYTES_PER_S * 1e3,
+            tile_floor_bf16_tc_ms=tile_ops / BF16_TC_FLOP_PER_S * 1e3,
+            tile_floor_split3_tc_ms=3 * tile_ops / BF16_TC_FLOP_PER_S * 1e3,
+            tile_floor_f32_ms=tile_ops / F32_FLOP_PER_S * 1e3,
+            shape=f"P={P} n_out={side.n_out} n_in={side.n_in} F={F} T={T} "
+                  f"pairs={pairs} dense_edges={e_dense} "
+                  f"A {t_dtype(t.a)}{' bits' if t.packed else ''}")
+    for name, side, x0, dt in (
+            ("K9 remainder forward e4m3", t.rem_fwd, act,
+             torch.float8_e4m3fn),
+            ("K9 remainder backward e5m2", t.rem_bwd, gd,
+             torch.float8_e5m2)):
+        x = bs.transport_cast_plain(x0, dt)[0]
+        E = int((side.idx < side.n_src).sum())
+        n_bytes = (x.numel() + E * 4 + side.inv.numel() * 4
+                   + side.meta.numel() * 8 + P * side.n_out * F * 4)
+        out[name] = dict(ms=time_ms(lambda: bs.bucket_gather(x, side)),
+                         plain_ms=None, library_ms=None,
+                         bound=bound_ms(n_bytes, E * F),
+                         shape=f"P={P} n_src={side.n_src} "
+                               f"n_out={side.n_out} F={F} entries={E} {dt}")
+    for k, e in out.items():
+        floors = ""
+        if "tile_floor_f32_ms" in e:
+            floors = (f", stored A {e['a_bytes']} bytes = "
+                      f"{e['a_bytes_ms']:.3f} ms at the memory rate"
+                      f", tile floors {e['tile_floor_bf16_tc_ms']:.3f} "
+                      f"(bf16 tensor cores, one product) / "
+                      f"{e['tile_floor_split3_tc_ms']:.3f} (three-term "
+                      f"split) / {e['tile_floor_f32_ms']:.3f} (f32 CUDA "
+                      f"cores)")
+        log(f"  {k}: {e['ms']:.3f} ms (plain {e['plain_ms']}, library "
+            f"{e['library_ms']}, bound {e['bound'][0]:.3f} "
+            f"{e['bound'][1]}{floors}) [{e['shape']}]")
+    return out
+
+
+def block_epoch_split(trainer, cnt, kt, bt, tt, bucket_split):
+    """The block epoch (median of 5 after one warm epoch) and its split by
+    this run's kernel times: K12 (3 forward) and K13 (3 backward) at F =
+    256, K9 on the remainder (3 + 3), K10 (3 + 3, the bucket cell's
+    times: the same shapes), the comm kernels at the SAGE cell's times,
+    the rest by subtraction; beside it the xla and bucket epochs of the
+    same run."""
+    import torch
+
+    reset_counts(cnt)
+    base = trainer.tcfg.n_epochs + 20
+    epochs = iter(range(base, base + 100))
+    reps = 5
+    torch.cuda.reset_peak_memory_stats()
+    epoch_ms = time_ms(lambda: trainer.train_epoch(next(epochs)), reps=reps,
+                       warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    per_epoch = {k: v / (reps + 1) for k, v in read_counts(cnt).items()}
+    k12, k13 = 3 * kt["K12"]["ms"], 3 * kt["K13"]["ms"]
+    k9 = 3 * (kt["K9 remainder forward e4m3"]["ms"]
+              + kt["K9 remainder backward e5m2"]["ms"])
+    k10 = 3 * (bt["K10"]["forward e4m3"]["ms"]
+               + bt["K10"]["backward e5m2"]["ms"])
+    comm = (per_epoch["halo_gather"] * tt["K2"]["ms"]
+            + per_epoch["halo_scatter"] * tt["K4"]["ms"]
+            + per_epoch["halo_return"] * tt["K5"]["ms"])
+    split = {"epoch_ms": epoch_ms, "k12_ms": k12, "k13_ms": k13,
+             "k9_remainder_ms": k9, "k10_ms": k10, "comm_kernels_ms": comm,
+             "rest_ms": epoch_ms - k12 - k13 - k9 - k10 - comm,
+             "xla_epoch_ms": tt["epoch_ms"],
+             "bucket_epoch_ms": bucket_split["epoch_ms"],
+             "epoch_peak_mem_gib": peak, "launches_per_epoch": per_epoch}
+    log(f"  block epoch {epoch_ms:.3f} ms median: K12 {k12:.3f} ms, K13 "
+        f"{k13:.3f} ms, K9 (remainder) {k9:.3f} ms, K10 {k10:.3f} ms, comm "
+        f"kernels {comm:.3f} ms, rest {split['rest_ms']:.3f} ms "
+        f"({per_epoch}); peak {peak:.3f} GiB; the xla epoch "
+        f"{tt['epoch_ms']:.3f} ms, the bucket epoch "
+        f"{bucket_split['epoch_ms']:.3f} ms")
+    return split
+
+
+def block_gcn_phase(args, sg, spmm, halo):
+    """``--model gcn --spmm-impl block --rem-dtype float8`` (no use_pp)
+    for a few pipelined epochs: finite, falling loss; K12 and K13 4 times
+    an epoch (layer 0 at F = 602), K9 and K10 8 times. Then one epoch
+    through the kernels held against the plain versions (``step_phase``:
+    relu masks and the remainder's transported values shared)."""
+    import math
+
+    import torch
+    from pipegcn_tpu_torch.cli.main import build_trainer
+
+    n = args.block_gcn_epochs
+    cli = train_cli(args, epochs=n, model="gcn", extra=[
+        "--spmm-impl", "block", "--rem-dtype", "float8"])
+    trainer = build_trainer(cli, sg, torch.device("cuda", 0), log=log)
+    cnt = counters(spmm, halo)
+    reset_counts(cnt)
+    losses = [trainer.train_epoch(e) for e in range(n)]
+    launches = read_counts(cnt)
+    log(f"  block gcn: losses {losses}, launches {launches}")
+    require(all(math.isfinite(x) for x in losses),
+            "block gcn: non-finite loss")
+    require(losses[-1] < losses[0], f"block gcn: loss did not fall: "
+            f"{losses}")
+    want = {"block_dense": 4 * n, "block_dense_t": 4 * n,
+            "bucket_gather": 8 * n, "transport_cast": 8 * n,
+            "spmm_mean": 0, "spmm_mean_t": 0}
+    require({k: launches[k] for k in want} == want,
+            f"block gcn: launches {launches}, want {want}")
+    step = step_phase(trainer, n)
+    return {"epochs": n, "losses": losses, "launches": launches,
+            "block_tables_s": trainer.data.block_build_s,
+            "step_check": step}
+
+
+# ---------------------------------------------------------------------------
 
 
 def kernel_entry(name, source, replaces, launches, err, t, serving=None):
@@ -2144,13 +2656,15 @@ def main() -> int:
                          "cell)")
     ap.add_argument("--serve-seconds", type=float, default=5.0)
     ap.add_argument("--qps", type=float, default=200.0)
-    ap.add_argument("--train-epochs", type=int, default=30)
+    ap.add_argument("--train-epochs", type=int, default=20)
     ap.add_argument("--step-repeats", type=int, default=1,
                     help="run [7] and [11] on this many consecutive epochs")
-    ap.add_argument("--gat-epochs", type=int, default=20)
-    ap.add_argument("--gcn-epochs", type=int, default=10)
-    ap.add_argument("--bucket-epochs", type=int, default=30)
-    ap.add_argument("--bucket-gcn-epochs", type=int, default=5)
+    ap.add_argument("--gat-epochs", type=int, default=12)
+    ap.add_argument("--gcn-epochs", type=int, default=6)
+    ap.add_argument("--bucket-epochs", type=int, default=20)
+    ap.add_argument("--bucket-gcn-epochs", type=int, default=4)
+    ap.add_argument("--block-epochs", type=int, default=20)
+    ap.add_argument("--block-gcn-epochs", type=int, default=4)
     args = ap.parse_args()
 
     import torch
@@ -2162,6 +2676,7 @@ def main() -> int:
     try:
         from pipegcn_tpu_torch.graph.datasets import load_data
         from pipegcn_tpu_torch.ops import _build, gat, spmm
+        from pipegcn_tpu_torch.ops import block_spmm as blk
         from pipegcn_tpu_torch.ops import bucket_spmm as bs
         from pipegcn_tpu_torch.parallel import halo
     except ImportError as exc:
@@ -2184,7 +2699,8 @@ def main() -> int:
 
     t0 = time.monotonic()
     secs = _build.build(["spmm_mean", "halo_gather", "halo_scatter",
-                         "gat_attn", "bucket_spmm", "transport_cast"])
+                         "gat_attn", "bucket_spmm", "transport_cast",
+                         "block_spmm"])
     log(f"[2] kernels built in {time.monotonic() - t0:.1f}s: {secs}")
 
     t0 = time.monotonic()
@@ -2208,8 +2724,10 @@ def main() -> int:
 
     log(f"[6] training cell: scripts/reddit.sh at full width on "
         f"{args.dataset} (--inductive --enable-pipeline --use-pp, dropout "
-        f"0.5, lr 0.01, 2 parts); cuts: random instead of metis "
-        f"partitioning, {args.train_epochs} epochs instead of 3000")
+        f"0.5, lr 0.01, 2 parts, the default --local-reorder cluster: "
+        f"locality clusters of the train subgraph, shared by every "
+        f"training cell); cuts: random instead of metis partitioning, "
+        f"{args.train_epochs} epochs instead of 3000")
     cli, sg, eval_graphs, trainer, train_stats = train_phase(args, g, spmm,
                                                             halo)
     del g
@@ -2266,7 +2784,6 @@ def main() -> int:
         f"bfloat16 and none")
     btrainer, bucket_stats = bucket_train_phase(args, sg, eval_graphs,
                                                 eval_cache, spmm, halo)
-    del eval_graphs, eval_cache
 
     log("[16] one pipelined bucket epoch: kernels vs plain versions "
         "(relu masks and transported values shared)")
@@ -2285,6 +2802,34 @@ def main() -> int:
     del btrainer
     torch.cuda.empty_cache()
     bucket_gcn = bucket_gcn_phase(args, sg, spmm, halo)
+    torch.cuda.empty_cache()
+
+    log(f"[19] block cell: the command plus --spmm-impl block --rem-dtype "
+        f"float8, {args.block_epochs} epochs on the same parts; then 2 "
+        f"epochs of --rem-dtype none")
+    ktrainer, block_stats = block_train_phase(args, sg, eval_graphs,
+                                              eval_cache, spmm, halo)
+    del eval_graphs, eval_cache
+
+    log("[20] one pipelined block epoch: kernels vs plain versions (relu "
+        "masks and the remainder's transported values shared)")
+    block_step = step_phase(ktrainer, args.block_epochs + 10)
+
+    log("[21] K12, K13 vs plain versions; a planted fault must fail")
+    errs["K12/K13 cell"] = k12_k13_cell_phase(ktrainer, blk, halo)
+    errs["K12/K13 edge"] = k12_k13_edge_phase(blk)
+    block_fault_phase(blk, ktrainer)
+
+    log("[22] K12, K13 timings, the block epoch and its split")
+    kt = block_timings(ktrainer, blk, bs)
+    block_split = block_epoch_split(ktrainer, counters(spmm, halo), kt, bt,
+                                    tt, bucket_split)
+    del ktrainer
+    torch.cuda.empty_cache()
+
+    log(f"[23] GCN on the block path: {args.block_gcn_epochs} epochs, then "
+        f"one epoch: kernels vs plain versions")
+    block_gcn = block_gcn_phase(args, sg, spmm, halo)
 
     # the main path of this slice is training: every kernel's launches
     # are its training-run count and its times are taken at the epoch's
@@ -2364,6 +2909,26 @@ def main() -> int:
     k11["backward"] = {**sub(bt["K11"]["backward e5m2"]),
                        "library_ms": bt["K11"]["backward e5m2"]["library_ms"]}
     kernels += [k9, k10, k11]
+    # K12, K13: the block cell's run, times at its shape (F = 256); the
+    # stored A bytes and the tile-product floors beside the bound
+    nk = block_stats["launches"]
+    for kname, key, replaces, also in (
+            ("block_dense", "K12", "pipegcn_tpu/ops/block_spmm.py:520",
+             ["pipegcn_tpu/ops/block_spmm.py:89",
+              "pipegcn_tpu/ops/block_spmm.py:660",
+              "pipegcn_tpu/ops/block_spmm.py:952"]),
+            ("block_dense_t", "K13", "pipegcn_tpu/ops/block_spmm.py:520",
+             ["pipegcn_tpu/ops/block_spmm.py:89",
+              "pipegcn_tpu/ops/block_spmm.py:685",
+              "pipegcn_tpu/ops/block_spmm.py:952"])):
+        e = kernel_entry(kname, src + "block_spmm.cu", replaces, nk[kname],
+                         max(errs["K12/K13 cell"], errs["K12/K13 edge"]),
+                         kt[key])
+        for f in ("a_bytes", "a_bytes_ms", "tile_floor_bf16_tc_ms",
+                  "tile_floor_split3_tc_ms", "tile_floor_f32_ms"):
+            e[f] = kt[key][f]
+        e["also_replaces"] = also
+        kernels.append(e)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
@@ -2413,6 +2978,17 @@ def main() -> int:
                  f"{args.bucket_epochs} epochs (not 3000)"],
         **bucket_stats, "step_check": bucket_step, **bucket_split,
         "gcn": bucket_gcn, "card": smi}}))
+    print(json.dumps({"block_training": {
+        "dataset": args.dataset,
+        "cell": "scripts/reddit.sh + --spmm-impl block --rem-dtype float8: "
+                "graphsage 4x256 --use-pp --inductive --enable-pipeline, "
+                "dropout 0.5, lr 0.01, 2 parts, LayerNorm, f32 compute, "
+                "256 x 256 dense tiles (K12/K13) plus an e4m3 / e5m2 "
+                "bucket remainder (K9/K10), --local-reorder cluster",
+        "cuts": ["partition random (not metis)",
+                 f"{args.block_epochs} epochs (not 3000)"],
+        **block_stats, "step_check": block_step, **block_split,
+        "kernel_timings": kt, "gcn": block_gcn, "card": smi}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,9 +14,12 @@ parts stacked on one device, and print the reference's lines:
 
 Its parser takes every flag of ``scripts/reddit.sh`` with the JAX
 parser's names and defaults (``cli/parser.py``), and the model family's
-(``--model {graphsage,gcn,gat}``, ``--n-heads``) and the bucket
-aggregation's (``--spmm-impl``, ``--rem-dtype``, ``--rem-amax``,
-``--bucket-merge``, ``--spmm-chunk``), plus ``--device``. As in
+(``--model {graphsage,gcn,gat}``, ``--n-heads``), the bucket and block
+aggregations' (``--spmm-impl``, ``--rem-dtype``, ``--rem-amax``,
+``--bucket-merge``, ``--spmm-chunk``, ``--block-tile``, ``--block-nnz``,
+``--block-group``) and the local-id layout's (``--local-reorder``, by
+default ``cluster`` as in JAX: locality clusters of the train subgraph
+under ``--inductive``, ``--cluster-size``), plus ``--device``. As in
 the JAX CLI, the seed is drawn at random unless ``--fix-seed``. Runs on
 CUDA; ``--device cpu`` runs the plain PyTorch path on the CPU; without
 CUDA and without ``--device cpu`` it raises. Result files, saved models,
@@ -29,6 +32,8 @@ import argparse
 import random
 import sys
 import time
+
+from .layout import add_layout_flags
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -76,10 +81,21 @@ def build_parser() -> argparse.ArgumentParser:
                         "no chunks")
     p.add_argument("--spmm-impl", "--spmm_impl",
                    choices=["xla", "bucket", "block", "auto"], default="xla",
-                   help="aggregation: graphsage/gcn by CSR (xla: K1/K3) or "
-                        "through degree-bucketed tables (bucket: K9); gat "
-                        "runs its attention kernels for xla/bucket/auto; "
-                        "block and auto for graphsage/gcn are ROADMAP A6")
+                   help="aggregation: graphsage/gcn by CSR (xla: K1/K3), "
+                        "through degree-bucketed tables (bucket: K9) or "
+                        "through dense tiles plus a bucket remainder "
+                        "(block: K12/K13 and K9); gat runs its attention "
+                        "kernels for xla/bucket/auto; auto for "
+                        "graphsage/gcn is ROADMAP A6")
+    p.add_argument("--block-tile", "--block_tile", type=int, default=256,
+                   help="dense-tile edge length of the block kernel")
+    p.add_argument("--block-nnz", "--block_nnz", type=int, default=0,
+                   help="minimum edges for a tile pair to go dense in the "
+                        "block kernel (0 = read-cost break-even)")
+    p.add_argument("--block-group", "--block_group", type=int, default=1,
+                   help="union-gather group of the block kernel's dense "
+                        "path (1 = per-tile pair lists; > 1 is ROADMAP A6)")
+    add_layout_flags(p)
     p.add_argument("--n-heads", "--n_heads", type=int, default=4,
                    help="attention heads for --model gat")
     p.add_argument("--bucket-merge", "--bucket_merge", type=int, default=0,
@@ -139,6 +155,9 @@ def configs(args, sg):
                       n_heads=args.n_heads, spmm_impl=args.spmm_impl,
                       rem_dtype=args.rem_dtype, rem_amax=args.rem_amax,
                       bucket_merge=args.bucket_merge,
+                      block_tile=args.block_tile,
+                      block_nnz=args.block_nnz or None,
+                      block_group=args.block_group,
                       use_pp=args.use_pp,
                       norm=None if args.norm == "none" else args.norm,
                       dropout=args.dropout, train_size=sg.n_train_global,
@@ -155,8 +174,8 @@ def configs(args, sg):
 
 def build_trainer(args, sg, device, log=print, steps=None):
     """The ``Trainer`` for parsed ``args`` over ``sg`` on ``device``
-    (staging, the transpose CSR or the bucket tables, the inverse send
-    CSR, and the use_pp precompute, timed)."""
+    (staging, the transpose CSR or the bucket or block tables, the inverse
+    send CSR, and the use_pp precompute, timed)."""
     from ..parallel.trainer import Trainer
 
     cfg, tcfg = configs(args, sg)
@@ -169,8 +188,17 @@ def build_trainer(args, sg, device, log=print, steps=None):
     secs = time.monotonic() - t0
     if steps is not None:
         steps["trainer_setup"] = secs
-    tables = (f"bucket tables {trainer.data.bucket_build_s:.1f}s"
-              if trainer.bucket else "transpose CSR")
+    d = trainer.data
+    if trainer.block:
+        st = d.block_stats
+        cov = sum(st["dense_edges"]) / max(sum(st["edges"]), 1)
+        tables = (f"block tables {d.block_build_s:.1f}s: {st['blocks']} "
+                  f"dense blocks, {cov:.1%} of the edges, A "
+                  f"{st['bits']}-bit {st['a_bytes']} bytes")
+    elif trainer.bucket:
+        tables = f"bucket tables {d.bucket_build_s:.1f}s"
+    else:
+        tables = "transpose CSR"
     log(f"trainer set up in {secs:.1f}s (staging, {tables}, send CSR"
         f"{', use_pp precompute' if args.use_pp else ''}; {device})")
     return trainer

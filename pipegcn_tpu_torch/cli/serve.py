@@ -5,10 +5,11 @@ build) the partition artifact, stage it on the device, build and warm the
 ServingEngine, serve open-loop constant-rate traffic, and print the
 summary as one final ``{"serve": true, ...}`` JSON line, as the JAX CLI
 does. Its own parser covers the flags this slice uses, with the JAX
-CLI's names and defaults. The port builds the base local-id layout (the
-JAX CLI's ``--local-reorder none``; locality clusters are not ported) and
-names it as the JAX CLI names that layout; any artifact of either package
-loads through ``--graph-name``.
+CLI's names and defaults. ``--local-reorder cluster`` (the default, as in
+JAX) renumbers each part's nodes by locality clusters of the full graph
+(``--cluster-size`` nodes each) and names the artifact with the JAX
+CLI's ``-cs<size>`` suffix; ``--local-reorder none`` keeps the base
+order. Any artifact of either package loads through ``--graph-name``.
 
 Runs on CUDA; ``--device cpu`` runs the plain PyTorch path on the CPU.
 Without a checkpoint (restore waits for a later slice) it serves freshly
@@ -27,6 +28,8 @@ import time
 
 import torch
 
+from .layout import add_layout_flags, artifact_name
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -42,6 +45,7 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["metis", "random"], default="metis")
     p.add_argument("--partition-obj", "--partition_obj",
                    choices=["vol", "cut"], default="vol")
+    add_layout_flags(p)
     p.add_argument("--model", type=str, default="graphsage")
     p.add_argument("--n-layers", "--n_layers", type=int, default=2)
     p.add_argument("--n-hidden", "--n_hidden", type=int, default=16)
@@ -77,44 +81,51 @@ def build_parser() -> argparse.ArgumentParser:
 
 def build_artifact(args, log=print, g=None, steps=None):
     """Build the artifact in memory: ``load_data`` (skipped when the graph
-    ``g`` is given), ``partition_graph`` and ``ShardedGraph.build``,
-    logging the seconds of each step (and adding them to ``steps``, a
-    dict, when given)."""
+    ``g`` is given), ``partition_graph``, under ``--local-reorder
+    cluster`` ``locality_clusters`` of the same graph, and
+    ``ShardedGraph.build``, logging the seconds of each step (and adding
+    them to ``steps``, a dict, when given)."""
     from ..graph.datasets import load_data
     from ..partition.halo import ShardedGraph
-    from ..partition.partitioner import partition_graph
+    from ..partition.partitioner import locality_clusters, partition_graph
 
     t0 = time.monotonic()
     if g is None:
         g = load_data(args.dataset, args.data_root)
     t1 = time.monotonic()
+    seed = args.seed if args.fix_seed else 0
     parts = partition_graph(g, args.n_partitions,
                             method=args.partition_method,
-                            obj=args.partition_obj,
-                            seed=args.seed if args.fix_seed else 0)
+                            obj=args.partition_obj, seed=seed)
     t2 = time.monotonic()
-    sg = ShardedGraph.build(g, parts, n_parts=args.n_partitions)
+    cluster = None
+    if args.local_reorder == "cluster":
+        cluster = locality_clusters(g, target_size=args.cluster_size,
+                                    seed=seed)
     t3 = time.monotonic()
-    log(f"artifact built in {t3 - t0:.1f}s (load_data {t1 - t0:.1f}s, "
-        f"partition_graph {t2 - t1:.1f}s, ShardedGraph.build "
-        f"{t3 - t2:.1f}s; {g.num_edges} edges)")
+    sg = ShardedGraph.build(g, parts, n_parts=args.n_partitions,
+                            cluster=cluster)
+    t4 = time.monotonic()
+    n_clusters = 0 if cluster is None else int(cluster.max()) + 1
+    log(f"artifact built in {t4 - t0:.1f}s (load_data {t1 - t0:.1f}s, "
+        f"partition_graph {t2 - t1:.1f}s, locality_clusters {t3 - t2:.1f}s "
+        f"({n_clusters} clusters), ShardedGraph.build {t4 - t3:.1f}s; "
+        f"{g.num_edges} edges; layout {artifact_name(args)})")
     if steps is not None:
         for k, v in (("load_data", t1 - t0), ("partition_graph", t2 - t1),
-                     ("ShardedGraph.build", t3 - t2)):
+                     ("locality_clusters", t3 - t2),
+                     ("ShardedGraph.build", t4 - t3)):
             steps[k] = steps.get(k, 0.0) + v
     return sg
 
 
 def _load_partition(args, log=print):
-    """The artifact at the JAX CLI's path
-    ``<partition-dir>/<dataset>-<P>-<method>-<obj>-trans``; with
-    ``--serve-build`` a missing one is built and saved there."""
+    """The artifact at the JAX CLI's path ``<partition-dir>/<name>``
+    (:func:`.layout.artifact_name`); with ``--serve-build`` a missing one
+    is built and saved there."""
     from ..partition.halo import ShardedGraph
 
-    graph_name = args.graph_name or (
-        f"{args.dataset}-{args.n_partitions}-{args.partition_method}-"
-        f"{args.partition_obj}-trans")
-    part_path = os.path.join(args.partition_dir, graph_name)
+    part_path = os.path.join(args.partition_dir, artifact_name(args))
     if ShardedGraph.exists(part_path):
         sg = ShardedGraph.load(part_path)
         if sg.num_parts != args.n_partitions:

@@ -1,5 +1,8 @@
 """Port copy of ``pipegcn_tpu/graph/csr.py`` (``Graph``, self-loop helpers,
 ``finalize``), kept here so the port imports nothing of the JAX package.
+One addition: ``sorted_unique``, the sort-based dedupe the port's host
+layer (the synthetic generator, ``ShardedGraph.build``) uses in place of
+``np.unique``.
 
 Host-side graph container.
 
@@ -118,6 +121,16 @@ class Graph:
             dst=self.dst.copy(),
             ndata={k: v.copy() for k, v in self.ndata.items()},
         )
+
+
+def sorted_unique(x: np.ndarray) -> np.ndarray:
+    """``np.unique(x)`` for a 1-D integer array, always by sorting.
+    NumPy 2.3 and later route ``np.unique`` through a hash set first,
+    which is far slower than a sort at Reddit scale (57M distinct keys)."""
+    x = np.sort(x)
+    if x.size:
+        x = x[np.concatenate(([True], x[1:] != x[:-1]))]
+    return x
 
 
 def remove_self_loops(g: Graph) -> Graph:

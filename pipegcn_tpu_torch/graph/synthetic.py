@@ -1,6 +1,6 @@
 """Port copy of ``pipegcn_tpu/graph/synthetic.py`` (``synthetic_graph``,
 ``karate_club``); the same seed gives the same graph on both sides. One
-change: the edge-key dedupe sorts explicitly (``_sorted_unique``) instead
+change: the edge-key dedupe sorts explicitly (``csr.sorted_unique``) instead
 of calling ``np.unique``/``np.union1d``; the result is the same array.
 
 Synthetic graph generators.
@@ -17,17 +17,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .csr import Graph, finalize
-
-
-def _sorted_unique(x: np.ndarray) -> np.ndarray:
-    """``np.unique(x)`` for a 1-D integer array, always by sorting.
-    NumPy 2.3 and later route ``np.unique`` through a hash set first,
-    which is far slower than a sort at Reddit scale (57M distinct keys)."""
-    x = np.sort(x)
-    if x.size:
-        x = x[np.concatenate(([True], x[1:] != x[:-1]))]
-    return x
+from .csr import Graph, finalize, sorted_unique
 
 
 def synthetic_graph(
@@ -78,11 +68,11 @@ def synthetic_graph(
     # are SIMPLE graphs; duplicate sampled pairs are dropped and topped
     # up so the graph is simple at exactly the requested edge count
     # (multiplicity-1 adjacency is also what lets the block-dense
-    # kernel bit-pack its A tiles, ops/block_spmm.pack_a_blocks).
-    keys = _sorted_unique(sample_pairs(n_edges))
+    # kernel bit-pack its A tiles, ops/block_spmm.BlockPlan.a_stored).
+    keys = sorted_unique(sample_pairs(n_edges))
     while keys.size < n_edges:
         extra = sample_pairs(2 * (n_edges - keys.size))
-        merged = _sorted_unique(np.concatenate([keys, extra]))
+        merged = sorted_unique(np.concatenate([keys, extra]))
         if merged.size == keys.size:  # saturated (requested degree
             break                     # exceeds the simple-pair space)
         keys = merged

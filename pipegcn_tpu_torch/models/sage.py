@@ -12,10 +12,11 @@ Activations are stacked over parts, ``[P, rows, F]``.
 
 Only what the ported slices run is here: LayerNorm or no norm, float32
 compute, 32-bit dropout masks, the raw CSR aggregation and (GraphSAGE,
-GCN) the bucket tables with their narrowed gather transport. BatchNorm,
-the dense tail, bfloat16 compute, 8-bit dropout masks, the block-dense
-kernel and GAT's transport raise ``NotImplementedError`` naming their
-ROADMAP item.
+GCN) the bucket tables with their narrowed gather transport and the
+block-dense tiles at ``block_group = 1``. BatchNorm, the dense tail,
+bfloat16 compute, 8-bit dropout masks, the union-gather block layout,
+the ``auto`` tuner and GAT's transport raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -50,9 +51,17 @@ class ModelConfig:
     # 'xla' | 'bucket' | 'block' | 'auto', as the JAX package; gat runs
     # its attention kernels for xla/bucket/auto (the bucket tables are a
     # TPU layout of the same function); graphsage and gcn aggregate by
-    # CSR (K1/K3) under xla and through the bucket tables (K9) under
-    # bucket
+    # CSR (K1/K3) under xla, through the bucket tables (K9) under bucket
+    # and through the dense tiles (K12/K13) plus the bucket remainder
+    # under block
     spmm_impl: str = "xla"
+    block_tile: int = 256            # dense-tile edge for spmm_impl='block'
+    # minimum edges for a (dst, src) tile to go dense; None = the
+    # read-cost break-even tile*tile/n_feat (ops/block_spmm.BlockPlan)
+    block_nnz: Optional[int] = None
+    # union-gather group of the block kernel's dense path; 1 = per-tile
+    # pair lists (the only layout ported)
+    block_group: int = 1
     # the bucket path's gather transport (ops/bucket_spmm): None |
     # 'bfloat16' | 'float8' (e4m3 activations, e5m2 cotangents); a no-op
     # under xla, as in JAX, whose raw-edge path has no transport
@@ -91,11 +100,14 @@ class ModelConfig:
                 raise NotImplementedError(
                     f"rem_dtype={self.rem_dtype!r} for gat (its attention "
                     "kernels' gather transport) waits for ROADMAP A5")
-        elif self.spmm_impl not in ("xla", "bucket"):
+        elif self.spmm_impl == "auto":
             raise NotImplementedError(
-                f"spmm_impl={self.spmm_impl!r} for {self.model} waits for "
-                "ROADMAP A6 (kernel B7 and the tuner); the port aggregates "
-                "by CSR (xla) or bucket tables (bucket)")
+                f"spmm_impl='auto' for {self.model} (the measured tuner) "
+                "waits for ROADMAP A6; pass xla, bucket or block")
+        if self.spmm_impl == "block" and self.block_group > 1:
+            raise NotImplementedError(
+                f"block_group={self.block_group} (the union-gather layout) "
+                "waits for ROADMAP A6; the port runs block_group 1")
         if self.n_linear:
             raise NotImplementedError("the dense tail (n_linear > 0) "
                                       "waits for a later slice")

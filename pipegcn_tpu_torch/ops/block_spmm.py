@@ -1,0 +1,825 @@
+"""Hybrid block-dense mean aggregation — port of
+``pipegcn_tpu/ops/block_spmm.py`` at ``group = 1``.
+
+Dense (destination-tile, source-tile) blocks of a part's adjacency, the
+ones holding at least ``nnz_threshold`` edges (by default the read-cost
+break-even ``T*S // n_feat``), are multiplied as dense ``[T, S]`` matrices
+of edge multiplicities; the remaining edges go through the bucket tables
+of ``ops/bucket_spmm.py`` (K9, with its gather transport). The sum of the
+two is divided by ``in_deg`` once.
+
+Host half (numpy): ``DENSE_A_BYTE_BUDGET``, ``budget_block_cap``,
+``_max_group_count``, ``_group_by_key``,
+``_part_block_stats``, ``estimate_block_coverage``, ``BlockPlan`` and
+``build_sharded_block_tables`` (the A-encoding fixpoint, the byte-budget
+cap, the unified ladders and the reoffset ``inv``\\ s). The stacked tables
+are array for array the JAX build's (``tests/test_torch_block.py``), with
+these differences of representation:
+  - a bf16 ``blk_a`` is held as its raw ``uint16`` bits (the port does
+    not depend on ``ml_dtypes``);
+  - ``BlockPlan`` never materializes ``a_blocks`` as f32 ``[B, T, S]``
+    (256 KB a block): it keeps the block-sorted edges and writes the
+    stored encoding directly (``a_stored``), the same bytes as JAX's
+    ``pack_a_blocks(a_blocks)`` (1 bit an entry, little-endian within
+    each byte: the layout K12/K13 unpack) / ``a_blocks.astype(dtype)``;
+  - the build sorts each part's edges once and rebuilds only the
+    tables (never the selection) for the unified ladders;
+  - ``native.stable_argsort`` is ``np.argsort(kind="stable")`` (the same
+    permutation), and ``np.unique`` over large arrays an explicit sort.
+Not ported: the union-gather layout (``block_group > 1``,
+``_group_union`` / ``_dense_apply_grouped``, ROADMAP A6) and the
+remainder's slab-run plans (a TPU row-gather mechanism).
+
+Device half:
+  - :func:`stage_block_tables` flattens each direction's width classes
+    into per-output-tile pair lists (K9's ``flatten_side`` for the dense
+    path): forward keyed by destination tile, backward by source tile,
+    each tile's ``(A block, input tile)`` pairs in the JAX class order,
+    the pad pairs (block ``B_max``, the zero tile) dropped;
+  - kernels K12 (:func:`block_dense`, the forward tile products) and K13
+    (:func:`block_dense_t`, the transpose over the same A blocks), in
+    ``csrc/block_spmm.cu``; :func:`block_dense_plain` is their plain
+    version (unpack, ``bmm`` per chunk of pairs, ``index_add_``);
+  - :class:`BlockSpmm`, the autograd function of ``make_block_spmm_fn``
+    in the JAX order: forward ``(dense(fbuf) + K9(cast(fbuf)) *
+    inv_scale) / in_deg`` (the dense path never takes the transport);
+    backward ``dense^T(g / in_deg)`` plus K9 over the transpose tables of
+    ``cast(g / in_deg)`` (the division fused into K10) times inv_scale.
+
+CUDA tensors launch the kernels (each wrapper counts its launches in
+``<wrapper>.launches``), CPU tensors run the plain versions, anything
+else raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from . import _build
+from .bucket_spmm import (BucketSide, _bucket_widths, _transport,
+                          bucket_gather, bucket_gather_plain,
+                          build_tables_for_edges, flatten_side,
+                          transport_dtypes)
+
+# ---------------------------------------------------------------------------
+# host half: the plans and the stacked tables (numpy)
+
+# device-memory budget of one part's dense-A tensor (the JAX default)
+DENSE_A_BYTE_BUDGET = 2 << 30
+
+
+def budget_block_cap(byte_budget: int, tile: int, bits: int = 1) -> int:
+    """Most dense A blocks that fit ``byte_budget`` at ``bits`` an entry."""
+    return max(1, (int(byte_budget) * 8) // (tile * tile * bits))
+
+
+def _pad_rows(mat: np.ndarray, rows: int, fill) -> np.ndarray:
+    if mat.shape[0] == rows:
+        return mat
+    return np.pad(mat, ((0, rows - mat.shape[0]),) +
+                  ((0, 0),) * (mat.ndim - 1), constant_values=fill)
+
+
+def _max_group_count(keys: np.ndarray, n_groups: int) -> int:
+    return max(int(np.bincount(keys, minlength=n_groups).max(initial=0)),
+               1)
+
+
+def _group_by_key(keys, vals_a, vals_b, n_groups, widths, pad_a, pad_b):
+    """The (vals_a[i], vals_b[i]) pairs of each key in power-of-2-ish width
+    classes by the key's pair count (the JAX function): ``(mats, inv,
+    counts)`` with ``mats[w] = (a_mat, b_mat)`` ``[n_w, widths[w]]`` int32
+    padded with pad_a / pad_b, ``inv [n_groups]`` int32 the row of each key
+    in the class concatenation (keys with no pairs -> ``sum(counts)``) and
+    ``counts[w]`` the real rows of class w."""
+    order = np.argsort(keys, kind="stable")
+    va, vb = vals_a[order], vals_b[order]
+    cnt = np.bincount(keys, minlength=n_groups)
+    max_cnt = int(cnt.max(initial=0))
+    if max_cnt > widths[-1]:
+        raise ValueError(
+            f"width ladder {tuple(widths)} tops out below the max "
+            f"per-key pair count {max_cnt}; pairs would be dropped")
+    ptr = np.zeros(n_groups + 1, np.int64)
+    np.cumsum(cnt, out=ptr[1:])
+    widths_arr = np.asarray(widths, dtype=np.int64)
+    wid = np.minimum(np.searchsorted(widths_arr, np.maximum(cnt, 1)),
+                     len(widths) - 1)
+    mats, counts = [], []
+    inv = np.full(n_groups, -1, np.int64)
+    offset = 0
+    for w_i, w in enumerate(widths):
+        rows = np.nonzero((wid == w_i) & (cnt > 0))[0]
+        n_w = rows.shape[0]
+        a_mat = np.full((n_w, w), pad_a, np.int32)
+        b_mat = np.full((n_w, w), pad_b, np.int32)
+        if n_w:
+            j = np.arange(w)[None, :]
+            mask = j < cnt[rows][:, None]
+            pos = (ptr[rows][:, None] + j)[mask]
+            r, c = np.nonzero(mask)
+            a_mat[r, c] = va[pos]
+            b_mat[r, c] = vb[pos]
+            inv[rows] = offset + np.arange(n_w)
+        mats.append((a_mat, b_mat))
+        counts.append(n_w)
+        offset += n_w
+    inv[inv < 0] = offset
+    return mats, inv.astype(np.int32), counts
+
+
+def _run_lengths(sorted_keys: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """``(unique values, counts)`` of a sorted 1-D array (``np.unique``
+    with ``return_counts``, by the sort's runs)."""
+    n = sorted_keys.shape[0]
+    if n == 0:
+        return sorted_keys[:0], np.zeros(0, np.int64)
+    starts = np.flatnonzero(np.concatenate(
+        ([True], sorted_keys[1:] != sorted_keys[:-1])))
+    return sorted_keys[starts], np.diff(np.append(starts, n))
+
+
+def _part_block_stats(sg, r: int, tile: int, n_src_tiles: int, thr: int,
+                      max_blocks: Optional[int] = None):
+    """``(coverage, dense_block_count, dense_edges, real_edges)`` of part
+    r's edges at this tile and threshold, keeping only the ``max_blocks``
+    densest blocks when given (BlockPlan's budget cutoff)."""
+    e = int(sg.edge_count[r])
+    src = sg.edge_src[r][:e].astype(np.int64)
+    dst = sg.edge_dst[r][:e].astype(np.int64)
+    real = dst < sg.n_max
+    src, dst = src[real], dst[real]
+    _, counts = _run_lengths(np.sort((dst // tile) * n_src_tiles
+                                     + (src // tile)))
+    sel = counts >= thr
+    if max_blocks is not None and int(sel.sum()) > max_blocks:
+        kept = np.sort(counts[sel])[-max_blocks:]
+        dense, n_dense = int(kept.sum()), int(kept.shape[0])
+    else:
+        dense, n_dense = int(counts[sel].sum()), int(sel.sum())
+    tot = int(src.shape[0])
+    return dense / max(tot, 1), n_dense, dense, tot
+
+
+def estimate_block_coverage(sg, tile: int, n_feat_hint: int,
+                            nnz_threshold: Optional[int] = None,
+                            byte_budget: Optional[int] = DENSE_A_BYTE_BUDGET,
+                            ) -> float:
+    """Fraction of the real edges in blocks dense enough for the tile
+    products (>= ``nnz_threshold``, by default the break-even), under the
+    byte budget's block cap for the encoding the graph allows (1 bit when
+    it is simple and ``tile % 8 == 0``, else int8)."""
+    thr = nnz_threshold if nnz_threshold is not None else max(
+        1, (tile * tile) // max(n_feat_hint, 1))
+    n_src_rows = sg.n_max + sg.halo_size
+    n_src_tiles = -(-n_src_rows // tile)
+    cap = None
+    if byte_budget is not None:
+        bits = 1 if tile % 8 == 0 else 8
+        if bits == 1:
+            for r in range(sg.num_parts):
+                e = int(sg.edge_count[r])
+                key = np.sort(sg.edge_dst[r][:e].astype(np.int64)
+                              * n_src_rows
+                              + sg.edge_src[r][:e].astype(np.int64))
+                if bool((key[1:] == key[:-1]).any()):
+                    bits = 8  # duplicate edges: no bit-packing
+                    break
+        cap = budget_block_cap(byte_budget, tile, bits)
+    dense = tot = 0
+    for r in range(sg.num_parts):
+        _, _, d, t = _part_block_stats(sg, r, tile, n_src_tiles, thr,
+                                       max_blocks=cap)
+        dense += d
+        tot += t
+    return dense / max(tot, 1)
+
+
+class PartEdges:
+    """One part's real edges (``dst < n_out``) in block order: the stable
+    sort by block id ``(dst // T) * n_src_tiles + src // T`` (the JAX
+    ``BlockPlan``'s order), with each block's id and edge count, and
+    ``mult``, each edge's multiplicity of its (dst, src) pair (None when
+    the part has no duplicate edge). Built once a part; every selection
+    and table build reads it."""
+
+    def __init__(self, edge_src: np.ndarray, edge_dst: np.ndarray,
+                 n_out: int, n_src_rows: int, tile: int):
+        real = edge_dst < n_out
+        src = edge_src[real].astype(np.int64)
+        dst = edge_dst[real].astype(np.int64)
+        self.tile, self.n_out, self.n_src_rows = tile, n_out, n_src_rows
+        self.n_dst_tiles = -(-n_out // tile)
+        self.n_src_tiles = -(-n_src_rows // tile)
+        bid = (dst // tile) * self.n_src_tiles + (src // tile)
+        order = np.argsort(bid, kind="stable")
+        self.src, self.dst = src[order], dst[order]
+        self.uniq, self.counts = _run_lengths(bid[order])
+        key = self.dst * n_src_rows + self.src
+        self.mult: Optional[np.ndarray] = None
+        sk = np.sort(key)
+        if bool((sk[1:] == sk[:-1]).any()):  # a multigraph
+            order = np.argsort(key, kind="stable")
+            _, cnt = _run_lengths(key[order])
+            self.mult = np.empty_like(key)
+            self.mult[order] = np.repeat(cnt, cnt)
+
+
+class BlockPlan:
+    """One part's hybrid plan (the JAX ``BlockPlan`` at group 1, numpy):
+    the dense blocks (``B``, ``dense_ids``; A in its stored encoding from
+    :meth:`a_stored`), the per-tile pair lists in width classes
+    (``fwd_groups`` / ``fwd_ginv`` / ``fwd_gcounts`` per destination tile,
+    ``bwd_*`` per source tile, ladders ``fwd_k_widths`` /
+    ``bwd_k_widths``) and the remainder's bucket tables both ways
+    (``rem_fwd_*``, ``rem_bwd_*``). ``edges`` is the part's
+    :class:`PartEdges`; without explicit ladders each is the part's own,
+    as in JAX."""
+
+    def __init__(self, edges: PartEdges, n_feat: int,
+                 nnz_threshold: Optional[int] = None,
+                 fwd_widths: Optional[Sequence[int]] = None,
+                 bwd_widths: Optional[Sequence[int]] = None,
+                 fwd_k_widths: Optional[Sequence[int]] = None,
+                 bwd_k_widths: Optional[Sequence[int]] = None,
+                 max_blocks: Optional[int] = None):
+        e = edges
+        T = self.tile = e.tile
+        self.n_out, self.n_src_rows = e.n_out, e.n_src_rows
+        self.n_dst_tiles, self.n_src_tiles = e.n_dst_tiles, e.n_src_tiles
+        if nnz_threshold is None:
+            # a dense block reads T*S A entries and an S*F tile; each
+            # replaced edge saves an F-wide gather
+            nnz_threshold = max(1, (T * T) // max(n_feat, 1))
+        self.nnz_threshold = nnz_threshold
+        counts = e.counts
+        dense_sel = counts >= nnz_threshold
+        if max_blocks is not None and int(dense_sel.sum()) > max_blocks:
+            # the byte budget keeps the densest blocks; ties at the cutoff
+            # drop the first ones in block order (the JAX rule)
+            cutoff = np.sort(counts[dense_sel])[-max_blocks]
+            dense_sel &= counts >= cutoff
+            if int(dense_sel.sum()) > max_blocks:
+                over = int(dense_sel.sum()) - max_blocks
+                tie_idx = np.nonzero(dense_sel & (counts == cutoff))[0]
+                dense_sel[tie_idx[:over]] = False
+        self.dense_ids = e.uniq[dense_sel]
+        B = self.B = int(self.dense_ids.shape[0])
+        self._in_dense = np.repeat(dense_sel, counts)
+        self._edges = e
+        self._k_of_edge = np.repeat(np.arange(B, dtype=np.int64),
+                                    counts[dense_sel])
+        self.dense_edges = int(self._k_of_edge.shape[0])
+        self.a_max = (0 if B == 0 else 1 if e.mult is None
+                      else int(e.mult[self._in_dense].max()))
+        bd = (self.dense_ids // e.n_src_tiles).astype(np.int64)
+        bs = (self.dense_ids % e.n_src_tiles).astype(np.int64)
+        blk_idx = np.arange(B, dtype=np.int64)
+        self.fwd_k_widths = list(
+            fwd_k_widths if fwd_k_widths is not None
+            else _bucket_widths(_max_group_count(bd, e.n_dst_tiles)))
+        self.bwd_k_widths = list(
+            bwd_k_widths if bwd_k_widths is not None
+            else _bucket_widths(_max_group_count(bs, e.n_src_tiles)))
+        self.fwd_groups, self.fwd_ginv, self.fwd_gcounts = _group_by_key(
+            bd, blk_idx, bs, e.n_dst_tiles, self.fwd_k_widths, pad_a=B,
+            pad_b=e.n_src_tiles)
+        self.bwd_groups, self.bwd_ginv, self.bwd_gcounts = _group_by_key(
+            bs, blk_idx, bd, e.n_src_tiles, self.bwd_k_widths, pad_a=B,
+            pad_b=e.n_dst_tiles)
+
+        # the sparse remainder, in block order (the JAX order), through
+        # the bucket tables both ways
+        r_src = e.src[~self._in_dense]
+        r_dst = e.dst[~self._in_dense]
+        self.rem_count = int(r_src.shape[0])
+        max_in = int(np.bincount(r_dst, minlength=e.n_out).max(initial=1))
+        max_out = int(np.bincount(r_src, minlength=e.n_src_rows).max(
+            initial=1))
+        self.rem_fwd_widths = list(
+            fwd_widths if fwd_widths is not None
+            else _bucket_widths(max(max_in, 1)))
+        self.rem_bwd_widths = list(
+            bwd_widths if bwd_widths is not None
+            else _bucket_widths(max(max_out, 1)))
+        self.rem_fwd_mats, self.rem_fwd_inv, self.rem_fwd_counts = \
+            build_tables_for_edges(r_src, r_dst, e.n_out, e.n_src_rows,
+                                   self.rem_fwd_widths)
+        self.rem_bwd_mats, self.rem_bwd_inv, self.rem_bwd_counts = \
+            build_tables_for_edges(r_dst, r_src, e.n_src_rows, e.n_out,
+                                   self.rem_bwd_widths)
+
+    def a_stored(self, bits: int, rows: int) -> np.ndarray:
+        """The A blocks padded with zero blocks to ``rows`` in the stored
+        encoding of ``bits`` an entry: 1 -> uint8 ``[rows, T, T//8]``
+        (JAX's ``pack_a_blocks`` of the f32 blocks), 8 -> int8, 16 -> the raw
+        uint16 bits of bf16, 32 -> f32 ``[rows, T, T]``. Written from the
+        block-sorted edges in chunks of blocks, never as f32 ``[B, T,
+        T]``."""
+        T, B, e = self.tile, self.B, self._edges
+        k = self._k_of_edge
+        dst_d = e.dst[self._in_dense] % T
+        src_d = e.src[self._in_dense] % T
+        if bits == 1:
+            if self.a_max > 1 or T % 8:
+                raise ValueError("bit-packing needs 0/1 A and tile % 8 == 0")
+            per = T * T // 8
+            out = np.zeros(rows * per, np.uint8)
+            # a byte's bits come from distinct edges (multiplicity 1):
+            # their sum is their OR
+            flat = k * per + dst_d * (T // 8) + src_d // 8
+            val = (1 << (src_d % 8)).astype(np.float64)
+        else:
+            per = T * T
+            dt = {8: np.int8, 16: np.float32, 32: np.float32}[bits]
+            out = np.zeros(rows * per, dt)
+            flat = k * per + dst_d * T + src_d
+            val = None
+        chunk = max(1, (1 << 25) // per)  # blocks a chunk: ~256 MB transient
+        bounds = np.searchsorted(k, np.arange(0, B + chunk, chunk))
+        for ci in range(len(bounds) - 1):
+            lo, hi = bounds[ci], bounds[ci + 1]
+            if lo == hi:
+                continue
+            k0 = ci * chunk
+            n = min(chunk, B - k0) * per
+            cnt = np.bincount(flat[lo:hi] - k0 * per,
+                              weights=None if val is None else val[lo:hi],
+                              minlength=n)
+            out[k0 * per:k0 * per + n] = cnt.astype(out.dtype)
+        shape = (rows, T, T // 8 if bits == 1 else T)
+        out = out.reshape(shape)
+        if bits == 16:  # counts <= 256 are exact in bf16: its top 16 bits
+            out = (out.view(np.uint32) >> 16).astype(np.uint16)
+        return out
+
+
+def _required_bits(a_max: float, tile: int) -> int:
+    """The narrowest exact A encoding for counts up to ``a_max``."""
+    if a_max <= 1 and tile % 8 == 0:
+        return 1
+    if a_max <= 127:
+        return 8
+    if a_max <= 256:
+        return 16
+    return 32
+
+
+def _reoffset_inv(inv, counts, caps):
+    # per-part class offsets (cumsum of counts) -> the shared cap layout;
+    # anything else -> the sentinel after the last class
+    inv = inv.astype(np.int64)
+    out = np.full_like(inv, sum(caps))
+    off_old = off_new = 0
+    for n_b, cap in zip(counts, caps):
+        sel = (inv >= off_old) & (inv < off_old + n_b)
+        out[sel] = inv[sel] - off_old + off_new
+        off_old += n_b
+        off_new += cap
+    return out.astype(np.int32)
+
+
+def build_sharded_block_tables(sg, tile: int = 256, n_feat_hint: int = 256,
+                               byte_budget: int = DENSE_A_BYTE_BUDGET,
+                               nnz_threshold: Optional[int] = None,
+                               group: int = 1,
+                               stats: Optional[dict] = None,
+                               ) -> Tuple[Dict[str, np.ndarray], int]:
+    """The stacked per-part hybrid plans of a ``ShardedGraph`` (leading
+    part axis), padded to shared shapes: ``(tables, tile)`` with the JAX
+    keys ``blk_a_bits`` ``[P, B_max, T, T//8]`` uint8 (or ``blk_a`` ``[P,
+    B_max, T, T]`` int8 / bf16 as uint16 bits / f32), ``blk_fwd_gNNb`` /
+    ``blk_fwd_gNNt`` ``[P, cap, w]``, ``blk_fwd_ginv`` ``[P,
+    n_dst_tiles]``, the ``blk_bwd_*`` transpose, ``blkrem_fwd_NN`` /
+    ``blkrem_fwd_inv`` and ``blkrem_bwd_*``. The A encoding is the
+    narrowest exact one, found by the JAX fixpoint (the byte budget's
+    block cap depends on the bits an entry, and the counts the kept
+    blocks hold decide the bits). ``stats``, when given, receives per-part
+    lists ``blocks``, ``dense_edges``, ``edges`` and ``a_bytes``, the
+    shipped ``bits`` an entry and the block ``cap``."""
+    if group > 1:
+        raise NotImplementedError(
+            "block_group > 1 (the union-gather layout, _group_union) waits "
+            "for ROADMAP A6")
+    P = sg.num_parts
+    n_src_rows = sg.n_max + sg.halo_size
+    edges = [PartEdges(sg.edge_src[r], sg.edge_dst[r], sg.n_max,
+                       n_src_rows, tile) for r in range(P)]
+
+    def plans_for(cap, ladders=None):
+        kw = dict(zip(("fwd_widths", "bwd_widths", "fwd_k_widths",
+                       "bwd_k_widths"), ladders or (None,) * 4))
+        return [BlockPlan(e, n_feat_hint, nnz_threshold=nnz_threshold,
+                          max_blocks=cap, **kw) for e in edges]
+
+    bits = 1
+    while True:
+        cap = budget_block_cap(byte_budget, tile, bits)
+        plans = plans_for(cap)
+        emit_bits = _required_bits(max(p.a_max for p in plans), tile)
+        if emit_bits <= bits:
+            break
+        bits = emit_bits
+    # the unified ladders (the longest part's); the selection is the
+    # same at the same cap, so only the tables are built again
+    ladders = tuple(
+        max((getattr(p, name) for p in plans), key=len)
+        for name in ("rem_fwd_widths", "rem_bwd_widths", "fwd_k_widths",
+                     "bwd_k_widths"))
+    if any(getattr(p, name) != lad for p in plans
+           for name, lad in zip(("rem_fwd_widths", "rem_bwd_widths",
+                                 "fwd_k_widths", "bwd_k_widths"), ladders)):
+        plans = plans_for(cap, ladders)
+    fw, bw, fk, bk = ladders
+
+    B_max = max(p.B for p in plans)
+    fwd_caps = [max(p.rem_fwd_counts[b] for p in plans)
+                for b in range(len(fw))]
+    bwd_caps = [max(p.rem_bwd_counts[b] for p in plans)
+                for b in range(len(bw))]
+    fk_caps = [max(p.fwd_gcounts[w] for p in plans) for w in range(len(fk))]
+    bk_caps = [max(p.bwd_gcounts[w] for p in plans) for w in range(len(bk))]
+
+    tables: Dict[str, List[np.ndarray]] = {}
+    for p in plans:
+        B = p.B
+        arrs = {
+            ("blk_a_bits" if emit_bits == 1 else "blk_a"):
+                p.a_stored(emit_bits, B_max),
+            "blkrem_fwd_inv": _reoffset_inv(p.rem_fwd_inv, p.rem_fwd_counts,
+                                            fwd_caps),
+            "blkrem_bwd_inv": _reoffset_inv(p.rem_bwd_inv, p.rem_bwd_counts,
+                                            bwd_caps),
+            "blk_fwd_ginv": _reoffset_inv(p.fwd_ginv, p.fwd_gcounts,
+                                          fk_caps),
+            "blk_bwd_ginv": _reoffset_inv(p.bwd_ginv, p.bwd_gcounts,
+                                          bk_caps),
+        }
+        for direction, groups, caps in (("fwd", p.fwd_groups, fk_caps),
+                                        ("bwd", p.bwd_groups, bk_caps)):
+            for w_i, (a_mat, b_mat) in enumerate(groups):
+                if not caps[w_i]:
+                    continue
+                # this part's pad block B -> the shared zero block B_max
+                a_mat = np.where(a_mat == B, B_max, a_mat)
+                arrs[f"blk_{direction}_g{w_i:02d}b"] = _pad_rows(
+                    a_mat, caps[w_i], B_max).astype(np.int32)
+                arrs[f"blk_{direction}_g{w_i:02d}t"] = _pad_rows(
+                    b_mat, caps[w_i],
+                    p.n_src_tiles if direction == "fwd"
+                    else p.n_dst_tiles).astype(np.int32)
+        for b in range(len(fw)):
+            if fwd_caps[b]:
+                arrs[f"blkrem_fwd_{b:02d}"] = _pad_rows(
+                    p.rem_fwd_mats[b], fwd_caps[b], n_src_rows)
+        for b in range(len(bw)):
+            if bwd_caps[b]:
+                arrs[f"blkrem_bwd_{b:02d}"] = _pad_rows(
+                    p.rem_bwd_mats[b], bwd_caps[b], sg.n_max)
+        for k, v in arrs.items():
+            tables.setdefault(k, []).append(v)
+    if stats is not None:
+        a_key = "blk_a_bits" if emit_bits == 1 else "blk_a"
+        stats.update(
+            blocks=[p.B for p in plans],
+            dense_edges=[p.dense_edges for p in plans],
+            edges=[p.dense_edges + p.rem_count for p in plans],
+            a_bytes=[int(a.nbytes) for a in tables[a_key]], bits=emit_bits,
+            cap=cap)
+    return {k: np.stack(v) for k, v in tables.items()}, tile
+
+
+# ---------------------------------------------------------------------------
+# device half: the staged tables
+
+
+@dataclasses.dataclass
+class BlockSide:
+    """One direction's dense pair lists, flattened for K12/K13: output
+    tile i of part p takes the pairs ``ptr[p, i] .. ptr[p, i + 1]`` of
+    ``blk`` (A block) and ``tile`` (input tile), ``[P, n_pairs]`` int32
+    (``ptr`` ``[P, n_out_tiles + 1]`` int32). ``n_out`` / ``n_in`` are the
+    output and input row counts; ``transpose`` marks the backward (A^T)."""
+
+    ptr: torch.Tensor
+    blk: torch.Tensor
+    tile: torch.Tensor
+    n_out: int
+    n_in: int
+    transpose: bool
+
+    @property
+    def n_out_tiles(self) -> int:
+        return int(self.ptr.shape[1]) - 1
+
+
+@dataclasses.dataclass
+class BlockTables:
+    """The staged block tables of P parts: ``a`` the A blocks ``[P, B_max,
+    T, T//8]`` uint8 when ``packed`` (1 bit an entry), else ``[P, B_max, T,
+    T]`` int8 / bfloat16 / float32; the dense pair lists ``fwd`` (keyed by
+    destination tile) and ``bwd`` (by source tile); the remainder's bucket
+    tables ``rem_fwd`` / ``rem_bwd`` (K9's)."""
+
+    a: torch.Tensor
+    packed: bool
+    tile: int
+    fwd: BlockSide
+    bwd: BlockSide
+    rem_fwd: BucketSide
+    rem_bwd: BucketSide
+
+    @property
+    def b_max(self) -> int:
+        return int(self.a.shape[1])
+
+
+def _class_keys(tables, direction: str) -> List[str]:
+    return sorted(k[:-1] for k in tables
+                  if k.startswith(f"blk_{direction}_g") and k.endswith("b"))
+
+
+def _flatten_pairs(tables, direction: str, b_max: int, n_in_tiles: int):
+    """``(ptr, blk, tile)`` numpy of one direction: each output tile's
+    pairs in class order (the row its ``ginv`` points at, left to right),
+    pad pairs dropped. Raises on an index out of range."""
+    ginv = np.asarray(tables[f"blk_{direction}_ginv"]).astype(np.int64)
+    P, n_tiles = ginv.shape
+    keys = _class_keys(tables, direction)
+    mats = [(np.asarray(tables[k + "b"]), np.asarray(tables[k + "t"]))
+            for k in keys]
+    caps = [int(b.shape[1]) for b, _ in mats]
+    total = sum(caps)
+    per_part = []
+    for p in range(P):
+        if int(ginv[p].min(initial=0)) < 0 or \
+                int(ginv[p].max(initial=0)) > total:
+            raise ValueError(f"block table blk_{direction}_ginv holds rows "
+                             f"out of [0, {total}]")
+        tile_of_row = np.full(total + 1, -1, np.int64)
+        tile_of_row[ginv[p]] = np.arange(n_tiles)
+        tile_of_row[total] = -1  # the sentinel: tiles with no pairs
+        tl, col, bk, tk = [], [], [], []
+        off = 0
+        for (b, t), cap in zip(mats, caps):
+            r, c = np.nonzero(b[p] != b_max)
+            owner = tile_of_row[off + r]
+            keep = owner >= 0  # cap-padding rows are never read
+            tl.append(owner[keep])
+            col.append(c[keep])
+            bk.append(b[p][r[keep], c[keep]])
+            tk.append(t[p][r[keep], c[keep]])
+            off += cap
+        tl, col, bk, tk = (np.concatenate(x) if x else np.zeros(0, np.int64)
+                           for x in (tl, col, bk, tk))
+        order = np.lexsort((col, tl))
+        bk, tk, tl = bk[order], tk[order], tl[order]
+        if bk.size and (int(bk.min()) < 0 or int(bk.max()) >= b_max
+                        or int(tk.min()) < 0
+                        or int(tk.max()) >= n_in_tiles):
+            raise ValueError(f"block table blk_{direction}_g* holds a block "
+                             f"or tile index out of range")
+        ptr = np.zeros(n_tiles + 1, np.int64)
+        np.cumsum(np.bincount(tl, minlength=n_tiles), out=ptr[1:])
+        per_part.append((ptr, bk, tk))
+    width = max(1, max(x[1].shape[0] for x in per_part))
+    ptr = np.stack([x[0] for x in per_part]).astype(np.int32)
+    blk = np.zeros((P, width), np.int32)
+    til = np.zeros((P, width), np.int32)
+    for p, (_, bk, tk) in enumerate(per_part):
+        blk[p, :bk.shape[0]] = bk
+        til[p, :tk.shape[0]] = tk
+    return ptr, blk, til
+
+
+def stage_block_tables(tables: Dict[str, np.ndarray], tile: int, n_max: int,
+                       n_src: int, device: torch.device) -> BlockTables:
+    """Both directions of :func:`build_sharded_block_tables` on ``device``
+    (``n_src = n_max + H``): the A blocks as stored, the dense pair lists
+    and the remainder's bucket tables (``flatten_side``)."""
+    packed = "blk_a_bits" in tables
+    a = np.asarray(tables["blk_a_bits" if packed else "blk_a"])
+    b_max = int(a.shape[1])
+    if a.dtype == np.uint16:  # bf16 bits
+        a_t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        a_t = torch.from_numpy(np.ascontiguousarray(a))
+    n_dst_tiles, n_src_tiles = -(-n_max // tile), -(-n_src // tile)
+    sides = {}
+    for direction, n_out, n_in, n_in_tiles in (
+            ("fwd", n_max, n_src, n_src_tiles),
+            ("bwd", n_src, n_max, n_dst_tiles)):
+        ptr, blk, til = _flatten_pairs(tables, direction, b_max, n_in_tiles)
+        put = lambda x: torch.from_numpy(x).to(device)  # noqa: E731
+        sides[direction] = BlockSide(ptr=put(ptr), blk=put(blk),
+                                     tile=put(til), n_out=n_out, n_in=n_in,
+                                     transpose=direction == "bwd")
+    return BlockTables(
+        a=a_t.to(device), packed=packed, tile=tile, fwd=sides["fwd"],
+        bwd=sides["bwd"],
+        rem_fwd=flatten_side(tables, "blkrem_fwd", n_src, device),
+        rem_bwd=flatten_side(tables, "blkrem_bwd", n_max, device))
+
+
+# ---------------------------------------------------------------------------
+# K12, K13: the tile products
+
+# elements of the plain version's per-chunk transients (unpacked A, the
+# gathered input tiles, the products)
+PLAIN_ELEMS = 1 << 25
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    "pgt_block_dense": [_P, _I, _I, _I, _P, _I, _LL, _I, _P, _P, _P, _LL, _I,
+                        _I, _I, _P, _P],
+}
+# the kernel's A encodings
+_ENC = {torch.int8: 1, torch.bfloat16: 2, torch.float32: 3}
+
+
+def _check_dense(x: torch.Tensor, tables: BlockTables, side: BlockSide):
+    if x.dim() != 3 or x.dtype != torch.float32:
+        raise ValueError(f"x must be f32 [P, n_in, F], got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    P = x.shape[0]
+    if x.shape[1] != side.n_in or side.ptr.shape[0] != P \
+            or tables.a.shape[0] != P:
+        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, tables for "
+                         f"{side.ptr.shape[0]} parts of {side.n_in} rows")
+    if tables.packed != (tables.a.dtype == torch.uint8) \
+            or tables.a.dtype not in (torch.uint8, *_ENC):
+        raise ValueError(f"unknown A encoding {tables.a.dtype}")
+    devs = {t.device for t in (x, tables.a, side.ptr, side.blk, side.tile)}
+    if len(devs) != 1:
+        raise ValueError(f"arguments on different devices: {devs}")
+
+
+def _unpack(blocks: torch.Tensor, packed: bool) -> torch.Tensor:
+    """Gathered A blocks ``[n, T, T//8]`` uint8 (little-endian bits) or
+    ``[n, T, T]`` -> f32 ``[n, T, T]`` (``_unpack_bits`` / the cast)."""
+    if not packed:
+        return blocks.float()
+    shifts = torch.arange(8, dtype=torch.uint8, device=blocks.device)
+    bits = (blocks[..., None] >> shifts) & 1
+    return bits.reshape(blocks.shape[:-1] + (-1,)).float()
+
+
+def block_dense_plain(x: torch.Tensor, tables: BlockTables,
+                      side: BlockSide) -> torch.Tensor:
+    """Plain PyTorch version of K12 (``side.transpose`` False) and K13:
+    for every output tile the sum over its pairs of ``A @ tile`` (K13
+    ``A^T @ tile``), the input zero-padded to whole tiles; unpacked and
+    multiplied by ``bmm`` a chunk of pairs at a time, summed into the
+    output tiles with ``index_add_``. ``[P, n_out, F]`` f32, on any
+    device."""
+    _check_dense(x, tables, side)
+    P, R, F = x.shape
+    T = tables.tile
+    n_in_tiles = -(-R // T)
+    n_tiles = side.n_out_tiles
+    xt = torch.zeros((P, n_in_tiles * T, F), dtype=torch.float32,
+                     device=x.device)
+    xt[:, :R] = x
+    xt = xt.view(P, n_in_tiles, T, F)
+    out = torch.zeros((P, n_tiles, T, F), dtype=torch.float32,
+                      device=x.device)
+    ptr = side.ptr.cpu().long()
+    step = max(1, PLAIN_ELEMS // (T * T + 2 * T * F))
+    for p in range(P):
+        n = int(ptr[p, -1])
+        owner = torch.repeat_interleave(
+            torch.arange(n_tiles), ptr[p].diff()).to(x.device)
+        for i in range(0, n, step):
+            j = min(n, i + step)
+            a = _unpack(tables.a[p].index_select(0, side.blk[p, i:j].long()),
+                        tables.packed)
+            if side.transpose:
+                a = a.transpose(1, 2)
+            tiles = xt[p].index_select(0, side.tile[p, i:j].long())
+            out[p].index_add_(0, owner[i:j], torch.bmm(a, tiles))
+    return out.reshape(P, n_tiles * T, F)[:, :side.n_out]
+
+
+def _launch(x: torch.Tensor, tables: BlockTables,
+            side: BlockSide) -> torch.Tensor:
+    _check_dense(x, tables, side)
+    if x.device.type != "cuda":
+        raise ValueError(f"block_dense: unsupported device {x.device}")
+    ts = (x, tables.a, side.ptr, side.blk, side.tile)
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("block_dense: the kernel takes contiguous tensors")
+    T = tables.tile
+    if T % 32 or not 32 <= T <= 256:
+        raise ValueError(f"block_dense: the kernel takes tiles of 32 to 256 "
+                         f"rows in steps of 32, not {T}")
+    P, R, F = x.shape
+    if side.ptr.dtype != torch.int32 or side.blk.dtype != torch.int32 \
+            or side.tile.dtype != torch.int32:
+        raise ValueError("block_dense: the pair lists must be int32")
+    if R >= 2 ** 31 or F >= 2 ** 31 or side.n_out >= 2 ** 31 \
+            or side.n_out_tiles > 65535 or P > 65535:
+        raise ValueError("block_dense: x too large for the kernel")
+    out = torch.empty((P, side.n_out, F), dtype=torch.float32,
+                      device=x.device)
+    lib = _build.load("block_spmm", _SIGNATURES)
+    enc = 0 if tables.packed else _ENC[tables.a.dtype]
+    rc = lib.pgt_block_dense(
+        x.data_ptr(), P, R, F, tables.a.data_ptr(), enc, tables.b_max, T,
+        side.ptr.data_ptr(), side.blk.data_ptr(), side.tile.data_ptr(),
+        side.blk.shape[1], side.n_out_tiles, side.n_out,
+        int(side.transpose), out.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, "block_spmm")
+    return out
+
+
+def block_dense(x: torch.Tensor, tables: BlockTables) -> torch.Tensor:
+    """K12, the forward tile products over ``tables.fwd``, on CUDA tensors
+    (counted in ``block_dense.launches``); the plain version on CPU
+    tensors; anything else raises."""
+    if x.device.type == "cpu":
+        return block_dense_plain(x, tables, tables.fwd)
+    out = _launch(x, tables, tables.fwd)
+    block_dense.launches += 1
+    return out
+
+
+def block_dense_t(g: torch.Tensor, tables: BlockTables) -> torch.Tensor:
+    """K13, the transpose tile products over ``tables.bwd`` (the same A
+    blocks, A^T), on CUDA tensors (counted in ``block_dense_t.launches``);
+    the plain version on CPU tensors; anything else raises."""
+    if g.device.type == "cpu":
+        return block_dense_plain(g, tables, tables.bwd)
+    out = _launch(g, tables, tables.bwd)
+    block_dense_t.launches += 1
+    return out
+
+
+block_dense.launches = 0
+block_dense_t.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the differentiable aggregation
+
+
+class BlockSpmm(torch.autograd.Function):
+    """``out = (dense(fbuf) + bucket(cast(fbuf)) * inv_scale) / in_deg``
+    (f32 ``[P, n_max, F]``) with its transpose as the backward
+    (``make_block_spmm_fn``). ``plain`` picks the plain versions on any
+    device; otherwise CUDA tensors run K12, K13, K9-K11 and CPU tensors
+    the plain versions. ``share`` is the remainder's ``TransportShare``."""
+
+    @staticmethod
+    def forward(ctx, fbuf, tables, in_deg, rem_dtype, rem_amax, plain,
+                share):
+        fwd_dt, bwd_dt = transport_dtypes(rem_dtype)
+        x = fbuf.float().contiguous()
+        dense = (block_dense_plain(x, tables, tables.fwd) if plain
+                 else block_dense(x, tables))
+        # the remainder's transport only: the dense path reads f32 rows
+        y, inv = _transport(x, fwd_dt, rem_amax, None, plain, share)
+        gather = bucket_gather_plain if plain else bucket_gather
+        rem = gather(y, tables.rem_fwd, None, inv)
+        ctx.tables, ctx.bwd_dt, ctx.amax = tables, bwd_dt, rem_amax
+        ctx.plain, ctx.share, ctx.fbuf_dtype = plain, share, fbuf.dtype
+        ctx.save_for_backward(in_deg)
+        return (dense + rem) / in_deg[..., None]
+
+    @staticmethod
+    def backward(ctx, g):
+        (in_deg,) = ctx.saved_tensors
+        t = ctx.tables
+        gf = g.float().contiguous()
+        gd = (gf / in_deg[..., None]).to(ctx.fbuf_dtype)
+        dense = (block_dense_plain(gd, t, t.bwd) if ctx.plain
+                 else block_dense_t(gd, t))
+        # the remainder's cast comes straight from the f32 cotangent, with
+        # the division fused into it (bucket_spmm's single rounding)
+        if ctx.bwd_dt is not None:
+            rem_in, inv = _transport(gf, ctx.bwd_dt, ctx.amax, in_deg,
+                                     ctx.plain, ctx.share)
+        else:
+            rem_in, inv = gd, None
+        gather = bucket_gather_plain if ctx.plain else bucket_gather
+        rem = gather(rem_in, t.rem_bwd, None, inv)
+        return ((dense + rem).to(ctx.fbuf_dtype), None, None, None, None,
+                None, None)
+
+
+def block_spmm(fbuf: torch.Tensor, tables: BlockTables,
+               in_deg: torch.Tensor, rem_dtype: Optional[str] = None,
+               rem_amax: bool = False, plain: bool = False,
+               share=None) -> torch.Tensor:
+    """Mean aggregation of the stacked ``fbuf [P, n_max + H, F]`` through
+    the block tables, ``[P, n_max, F]`` f32, differentiable in fbuf.
+    ``rem_dtype`` narrows the remainder's gather transport (None |
+    'bfloat16' | 'float8'), ``rem_amax`` scales its fp8 casts by the
+    per-part amax."""
+    return BlockSpmm.apply(fbuf, tables, in_deg, rem_dtype, rem_amax,
+                           plain, share)

@@ -336,7 +336,7 @@ def stage_bucket_tables(tables: Dict[str, np.ndarray], n_max: int,
 # ---------------------------------------------------------------------------
 # K9: the bucket gather-sum
 
-# elements of the plain version's gathered [rows, w, F] message block
+# elements of the plain version's gathered [P, rows, F] message column
 PLAIN_ELEMS = 1 << 24
 
 _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -352,7 +352,6 @@ _CAST_SIGNATURES = {
 F8_MAX = {torch.float8_e4m3fn: 448.0, torch.float8_e5m2: 57344.0}
 _X_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2,
             torch.float8_e5m2: 3}
-_BITS = {4: torch.int32, 2: torch.int16, 1: torch.uint8}
 _OUT_TYPES = {torch.bfloat16: 0, torch.float8_e4m3fn: 1,
               torch.float8_e5m2: 2}
 
@@ -390,32 +389,33 @@ def bucket_gather_plain(x: torch.Tensor, side: BucketSide,
     ``/ in_deg``, ``* inv_scale``. ``[P, n_out, F]`` f32. Runs on any
     device. Each row is summed in table order, one column of the table
     at a time, as K9 sums it, so the two agree bit for bit (JAX's
-    ``.sum(axis=1)`` order is XLA's)."""
+    ``.sum(axis=1)`` order is XLA's): a launch gathers one table column
+    for every row of a bucket (chunked at ``PLAIN_ELEMS``), so the
+    launches number about the ladder's total width, not rows x width."""
     _check_gather(x, side, in_deg, inv_scale)
     P, R, F = x.shape
     meta = side.meta.cpu()
     total = int(meta[0, -1])
     dev = x.device
     # the parts side by side: part p's rows at p * (R + 1), each followed
-    # by its zero sentinel row; gathers and concats on the raw bits (fp8
-    # has few device ops)
-    bits = x.view(_BITS[x.element_size()])
-    x_pad = torch.cat([bits, bits.new_zeros((P, 1, F))], 1).reshape(-1, F)
+    # by its zero sentinel row; widened to f32 once (exact for every
+    # input type), so each column's gather reads f32 rows
+    xf = x.float()
+    x_pad = torch.cat([xf, xf.new_zeros((P, 1, F))], 1).reshape(-1, F)
     base = torch.arange(P, device=dev)[:, None] * (R + 1)
     res = torch.zeros((P, total + 1, F), dtype=torch.float32, device=dev)
+    step = max(1, PLAIN_ELEMS // max(1, P * F))
     for b in range(side.nb):
         r0, e0, w = (int(meta[0, b]), int(meta[1, b]), int(meta[2, b]))
         cap = int(meta[0, b + 1]) - r0
-        tab = side.idx[:, e0:e0 + cap * w].long().clamp(0, R) + base
-        step = max(1, PLAIN_ELEMS // max(1, P * w * F))
+        tab = (side.idx[:, e0:e0 + cap * w].long().clamp(0, R)
+               + base).view(P, cap, w)
         for i in range(0, cap, step):
             n = min(step, cap - i)
-            msgs = x_pad.index_select(
-                0, tab[:, i * w:(i + n) * w].reshape(-1)).view(
-                x.dtype).view(P, n, w, F).float()
             acc = res[:, r0 + i:r0 + i + n]
             for k in range(w):
-                acc += msgs[:, :, k]
+                acc += x_pad.index_select(
+                    0, tab[:, i:i + n, k].reshape(-1)).view(P, n, F)
     out = torch.gather(res, 1, side.inv.long().clamp(0, total)[..., None]
                        .expand(P, side.n_out, F))
     if in_deg is not None:

@@ -1,0 +1,609 @@
+// K12 and K13: the dense-tile products of the block-dense SpMM, written by
+// hand for Hopper (sm_90a). One template, two entry points' worth of work:
+// K12 the forward, K13 the transpose (the backward).
+//
+// They replace: pipegcn_tpu/ops/block_spmm.py  _dense_apply (with
+// _unpack_bits), inside make_block_spmm_fn / make_device_block_spmm_fn,
+// at group = 1 (the per-tile pair lists; the union-gather layout
+// _dense_apply_grouped is not ported). For every part p and output tile i
+// of T rows:
+//
+//   K12:  out[p, i*T + t, :] = sum_k  A[blk_k] @ X[p, tile_k*T : +T, :]
+//   K13:  out[p, i*T + s, :] = sum_k  A[blk_k]^T @ G[p, tile_k*T : +T, :]
+//
+// where (blk_k, tile_k) is output tile i's pair list (host-built, in the
+// JAX class order: ops/block_spmm.py stage_block_tables), A a [T, T] dense
+// block of edge multiplicities and the input rows past n_in read as zeros
+// (JAX's zero-padded tiles). K13 reads the same A blocks as K12, with the
+// roles of its rows and columns swapped in the staging: no transposed
+// copy exists. A is stored bit-packed (1 bit an entry, little-endian
+// within each byte: np.packbits(bitorder="little")), int8, bf16 or f32;
+// X, G and out are f32. An output tile with no pairs is written as zeros.
+//
+// What bounds it on the H100: the tile products. The function needs one
+// add per dense edge and column (~7.5e9 adds a call at the training shape,
+// ~0.11 ms at the card's 67 TFLOP/s f32) and moves ~0.55 GB over the
+// dense edges (input, output and an int32 index an edge: ~0.16 ms at
+// 3.35 TB/s); the stored A blocks add their own bytes (~0.78 GB of 1-bit
+// tiles at 0.5 % density, ~27 bytes a dense edge), and the tile products
+// do T*T*F multiply-adds per pair whatever the tile's density (T*T / nnz,
+// ~200x the edges' adds on the cell's cluster layout).
+//
+// Design. Exactness first: A holds small integers (0/1, or multiplicities)
+// and JAX multiplies in f32, so a bf16 product of a rounded input would be
+// wrong by ~2^-9. Each f32 input is split exactly into three bf16 terms,
+// hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid) (x = hi + mid
+// + lo: 24 significant bits in three 8-bit terms); A up to 256 is exact in
+// bf16, so every product a * term is exact in f32, and the tensor cores
+// (mma.sync.m16n8k16 bf16, f32 accumulation) take three products per
+// entry: 3 * 2 * pairs * T*T*F flops, a floor 5x under the CUDA cores' for
+// one f32 product. The tensor cores add with truncation and no guard bits,
+// which grows with the running sum's magnitude, so each pair's products go
+// into a fresh accumulator (lo, mid, hi terms in that order at each
+// 16-deep step) that is then added to the output's f32 sum with an IEEE
+// add ("promotion"): kernel and plain version differ by a few ulps of each
+// pair's partial sum and by summation order. One CTA of 8 warps owns one
+// (part, output tile, 32-column chunk) and walks the tile's pairs in list
+// order; for each 32-deep step of a pair it stages the A chunk in shared
+// memory as bf16 (unpacked from bits, or widened from int8) and the input
+// chunk's three bf16 terms, then each warp loads its fragments with
+// ldmatrix (K13: ldmatrix.trans of the same staged rows, the transpose
+// with no transposed copy) and runs 2 x 4 mma tiles of 16 x 8 per term.
+// No atomics; a rerun is bit-identical. The ragged last row tile, the
+// input rows past n_in and the columns past F are masked (staged as 0).
+// Inputs are finite (an infinite input's split is NaN).
+//
+// A stored as f32 (multiplicities above 256, not exact in bf16) takes a
+// scalar path instead: a register-tiled SGEMM over the same pair lists, 8
+// x 8 outputs a thread over 64 columns, fmaf on the CUDA cores (one
+// rounding an add with 0/1 A).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kRows = 256;    // output rows a CTA covers (the largest tile)
+constexpr int kCols = 64;     // output columns a CTA covers (scalar path)
+constexpr int kMmaCols = 32;  // output columns a CTA covers (tensor cores)
+constexpr int kK = 32;        // contraction rows staged per step
+constexpr int kThreads = 256;
+// staged bf16 row strides (elements): 16-byte aligned rows whose 8-row
+// ldmatrix reads fall in distinct banks
+constexpr int kAStride = kK + 8;      // K12: A [256 rows][32 contraction]
+constexpr int kATStride = kRows + 8;  // K13: A [32 contraction][256 rows]
+constexpr int kXStride = kMmaCols + 8;  // X [32 contraction][32 columns]
+
+enum Enc { kBits = 0, kI8 = 1, kBF16 = 2, kF32 = 3 };
+
+template <int ENC>
+__host__ __device__ constexpr int row_bytes(int T) {
+  return ENC == kBits ? T / 8 : ENC == kI8 ? T : ENC == kBF16 ? 2 * T : 4 * T;
+}
+
+__device__ __forceinline__ float bf16_lo(unsigned int u) {
+  return __uint_as_float(u << 16);
+}
+__device__ __forceinline__ float bf16_hi(unsigned int u) {
+  return __uint_as_float(u & 0xffff0000u);
+}
+__device__ __forceinline__ float i8(unsigned int u, int b) {
+  return static_cast<float>(static_cast<signed char>((u >> (8 * b)) & 0xffu));
+}
+
+// A[row, c0 : c0 + 32] of one block (c0 % 32 == 0) as floats
+template <int ENC>
+__device__ __forceinline__ void load_a32(const unsigned char* blk, int T,
+                                         int row, int c0, float* v) {
+  const unsigned char* p = blk + static_cast<size_t>(row) * row_bytes<ENC>(T);
+  if constexpr (ENC == kBits) {
+    const unsigned int w = __ldg(reinterpret_cast<const unsigned int*>(
+        p + c0 / 8));
+#pragma unroll
+    for (int j = 0; j < 32; ++j) v[j] = static_cast<float>((w >> j) & 1u);
+  } else if constexpr (ENC == kI8) {
+    const uint4* q = reinterpret_cast<const uint4*>(p + c0);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint4 u = __ldg(q + h);
+      const unsigned int w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) v[16 * h + 4 * i + b] = i8(w[i], b);
+    }
+  } else if constexpr (ENC == kBF16) {
+    const uint4* q = reinterpret_cast<const uint4*>(p + 2 * c0);
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const uint4 u = __ldg(q + h);
+      const unsigned int w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        v[8 * h + 2 * i] = bf16_lo(w[i]);
+        v[8 * h + 2 * i + 1] = bf16_hi(w[i]);
+      }
+    }
+  } else {
+    const float4* q = reinterpret_cast<const float4*>(p + 4 * c0);
+#pragma unroll
+    for (int h = 0; h < 8; ++h) {
+      const float4 u = __ldg(q + h);
+      v[4 * h] = u.x; v[4 * h + 1] = u.y; v[4 * h + 2] = u.z;
+      v[4 * h + 3] = u.w;
+    }
+  }
+}
+
+// 8 consecutive f32 of one input row from column c (masked at F; VEC
+// divides F and the row stride, so a vector never straddles F)
+template <int VEC>
+__device__ __forceinline__ void load_x8(const float* row, int c, int F,
+                                        float* v) {
+#pragma unroll
+  for (int j = 0; j < 8; j += VEC) {
+    const int cc = c + j;
+    if constexpr (VEC == 4) {
+      float4 u = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (cc < F) u = __ldg(reinterpret_cast<const float4*>(row + cc));
+      v[j] = u.x; v[j + 1] = u.y; v[j + 2] = u.z; v[j + 3] = u.w;
+    } else if constexpr (VEC == 2) {
+      float2 u = make_float2(0.f, 0.f);
+      if (cc < F) u = __ldg(reinterpret_cast<const float2*>(row + cc));
+      v[j] = u.x; v[j + 1] = u.y;
+    } else {
+      v[j] = cc < F ? __ldg(row + cc) : 0.f;
+    }
+  }
+}
+
+template <int ENC, bool TRANSPOSE, int VEC>
+__global__ void __launch_bounds__(kThreads, 2)
+block_kernel(const float* __restrict__ x, int n_in, int F,
+             const unsigned char* __restrict__ a, long long b_max, int T,
+             const int* __restrict__ ptr, const int* __restrict__ blk,
+             const int* __restrict__ til, long long pair_stride,
+             int n_out_tiles, int n_out, float* __restrict__ out) {
+  // contraction-major staging: As[kk][m] = A value for output row m and
+  // contraction row kk of this step; Xs[kk][c] the input's
+  __shared__ __align__(16) float As[kK][kRows];
+  __shared__ __align__(16) float Xs[kK][kCols];
+
+  const int tid = threadIdx.x;
+  const int ty = tid >> 3;  // 0..31: output rows ty*4 + i, 128 + ty*4 + i
+  const int tx = tid & 7;   // 0..7: output columns tx*4 + j, 32 + tx*4 + j
+  const int c0 = blockIdx.x * kCols;
+  const int otile = blockIdx.y;
+  const int part = blockIdx.z;
+
+  const float* xp = x + static_cast<size_t>(part) * n_in * F;
+  const unsigned char* ap =
+      a + static_cast<size_t>(part) * b_max * T * row_bytes<ENC>(T);
+  const int* pp = ptr + static_cast<size_t>(part) * (n_out_tiles + 1);
+  const int* bp = blk + static_cast<size_t>(part) * pair_stride;
+  const int* tp = til + static_cast<size_t>(part) * pair_stride;
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+
+  const int k0 = pp[otile], k1 = pp[otile + 1];
+  // staging roles of this thread: the input's row kk = tid / 8 and its
+  // columns (tid % 8) * 8 ..; K13's A row kk = tid / 8 and columns
+  // (tid % 8) * 32 ..; K12's A row tid (all contraction columns)
+  const int xr = tid >> 3, xc = (tid & 7) * 8;
+  for (int k = k0; k < k1; ++k) {
+    const unsigned char* ab =
+        ap + static_cast<size_t>(__ldg(bp + k)) * T * row_bytes<ENC>(T);
+    const long long in0 = static_cast<long long>(__ldg(tp + k)) * T;
+    for (int s0 = 0; s0 < T; s0 += kK) {
+      __syncthreads();  // the previous step's reads are done
+      float v[32];
+      if constexpr (!TRANSPOSE) {
+        // A row m = tid, contraction columns s0 .. s0 + 31
+        if (tid < T) {
+          load_a32<ENC>(ab, T, tid, s0, v);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 32; ++j) v[j] = 0.0f;
+        }
+#pragma unroll
+        for (int j = 0; j < 32; ++j) As[j][tid] = v[j];
+      } else {
+        // A row s0 + kk (a contraction row), output columns q .. q + 31
+        const int q = (tid & 7) * 32;
+        if (q < T) {
+          load_a32<ENC>(ab, T, s0 + xr, q, v);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 32; ++j) v[j] = 0.0f;
+        }
+#pragma unroll
+        for (int j = 0; j < 32; j += 4)
+          *reinterpret_cast<float4*>(&As[xr][q + j]) =
+              make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
+      }
+      {
+        const long long r = in0 + s0 + xr;
+        float u[8];
+        if (r < n_in) {
+          load_x8<VEC>(xp + static_cast<size_t>(r) * F, c0 + xc, F, u);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) u[j] = 0.0f;
+        }
+        *reinterpret_cast<float4*>(&Xs[xr][xc]) =
+            make_float4(u[0], u[1], u[2], u[3]);
+        *reinterpret_cast<float4*>(&Xs[xr][xc + 4]) =
+            make_float4(u[4], u[5], u[6], u[7]);
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int kk = 0; kk < kK; ++kk) {
+        const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
+        const float4 a1 =
+            *reinterpret_cast<const float4*>(&As[kk][128 + ty * 4]);
+        const float4 x0 = *reinterpret_cast<const float4*>(&Xs[kk][tx * 4]);
+        const float4 x1 =
+            *reinterpret_cast<const float4*>(&Xs[kk][32 + tx * 4]);
+        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        const float xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            acc[i][j] = fmaf(av[i], xv[j], acc[i][j]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = (i < 4 ? 0 : 128) + ty * 4 + (i & 3);
+    const long long row = static_cast<long long>(otile) * T + m;
+    if (m >= T || row >= n_out) continue;
+    float* op = out + (static_cast<size_t>(part) * n_out + row) * F;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = c0 + h * 32 + tx * 4;
+      if constexpr (VEC == 4) {
+        if (c < F)
+          *reinterpret_cast<float4*>(op + c) =
+              make_float4(acc[i][4 * h], acc[i][4 * h + 1],
+                          acc[i][4 * h + 2], acc[i][4 * h + 3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (c + j < F) op[c + j] = acc[i][4 * h + j];
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(const void* p, unsigned* r) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(const void* p, unsigned* r) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// d += a (16 x 16, row) . b (16 x 8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float* d, const unsigned* a,
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// x = hi + mid + lo exactly (finite x), each term a bf16
+__device__ __forceinline__ void split3(float x, float* t) {
+  const float hi = __bfloat162float(__float2bfloat16_rn(x));
+  const float r = x - hi;
+  const float mid = __bfloat162float(__float2bfloat16_rn(r));
+  t[0] = r - mid;  // lo: exact in bf16 (the bits left after hi and mid)
+  t[1] = mid;
+  t[2] = hi;
+}
+
+// 4 consecutive f32 of one input row from column c (masked at F)
+template <int VEC>
+__device__ __forceinline__ void load_x4(const float* row, int c, int F,
+                                        float* v) {
+  if constexpr (VEC == 4) {
+    float4 u = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (c < F) u = __ldg(reinterpret_cast<const float4*>(row + c));
+    v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; j += VEC) {
+      if constexpr (VEC == 2) {
+        float2 u = make_float2(0.f, 0.f);
+        if (c + j < F) u = __ldg(reinterpret_cast<const float2*>(row + c + j));
+        v[j] = u.x; v[j + 1] = u.y;
+      } else {
+        v[j] = c + j < F ? __ldg(row + c + j) : 0.f;
+      }
+    }
+  }
+}
+
+template <int ENC, bool TRANSPOSE, int VEC>
+__global__ void __launch_bounds__(kThreads, 2)
+mma_kernel(const float* __restrict__ x, int n_in, int F,
+           const unsigned char* __restrict__ a, long long b_max, int T,
+           const int* __restrict__ ptr, const int* __restrict__ blk,
+           const int* __restrict__ til, long long pair_stride,
+           int n_out_tiles, int n_out, float* __restrict__ out) {
+  // the staged A chunk (bf16 bits): K12 [256 rows][kAStride] (row m,
+  // contraction column), K13 [32 contraction rows][kATStride] (the A
+  // rows as stored); the input chunk's three terms [3][32][kXStride]
+  __shared__ __align__(16) unsigned short As[TRANSPOSE ? kK * kATStride
+                                                       : kRows * kAStride];
+  __shared__ __align__(16) unsigned short Xs[3][kK * kXStride];
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;  // the mma fragments' row / pair
+  const int li = lane >> 3, lj = lane & 7;  // ldmatrix: matrix, its row
+  const int c0 = blockIdx.x * kMmaCols;
+  const int otile = blockIdx.y;
+  const int part = blockIdx.z;
+
+  const float* xp = x + static_cast<size_t>(part) * n_in * F;
+  const unsigned char* ap =
+      a + static_cast<size_t>(part) * b_max * T * row_bytes<ENC>(T);
+  const int* pp = ptr + static_cast<size_t>(part) * (n_out_tiles + 1);
+  const int* bp = blk + static_cast<size_t>(part) * pair_stride;
+  const int* tp = til + static_cast<size_t>(part) * pair_stride;
+
+  // warp w: output rows w*32 + [0, 32) as 2 m-tiles of 16, all 32
+  // columns as 4 n-tiles of 8
+  float acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+  const int k0 = pp[otile], k1 = pp[otile + 1];
+  const int xr = tid >> 3, xc = (tid & 7) * 4;  // staging: input row, cols
+  for (int k = k0; k < k1; ++k) {
+    const unsigned char* ab =
+        ap + static_cast<size_t>(__ldg(bp + k)) * T * row_bytes<ENC>(T);
+    const long long in0 = static_cast<long long>(__ldg(tp + k)) * T;
+    float d[2][4][4];  // this pair's products, promoted after it
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d[i][j][e] = 0.0f;
+    for (int s0 = 0; s0 < T; s0 += kK) {
+      __syncthreads();  // the previous step's fragment loads are done
+      {
+        float v[32];
+        unsigned short* dst;
+        if constexpr (!TRANSPOSE) {
+          // A row tid, contraction columns s0 .. s0 + 31
+          if (tid < T) {
+            load_a32<ENC>(ab, T, tid, s0, v);
+          } else {
+#pragma unroll
+            for (int j = 0; j < 32; ++j) v[j] = 0.0f;
+          }
+          dst = &As[tid * kAStride];
+        } else {
+          // A row s0 + xr (a contraction row), output columns q .. q + 31
+          const int q = (tid & 7) * 32;
+          if (q < T) {
+            load_a32<ENC>(ab, T, s0 + xr, q, v);
+          } else {
+#pragma unroll
+            for (int j = 0; j < 32; ++j) v[j] = 0.0f;
+          }
+          dst = &As[xr * kATStride + q];
+        }
+#pragma unroll
+        for (int j = 0; j < 32; j += 8)
+          *reinterpret_cast<uint4*>(dst + j) =
+              make_uint4(bf16x2(v[j], v[j + 1]), bf16x2(v[j + 2], v[j + 3]),
+                         bf16x2(v[j + 4], v[j + 5]),
+                         bf16x2(v[j + 6], v[j + 7]));
+      }
+      {
+        const long long r = in0 + s0 + xr;
+        float u[4];
+        if (r < n_in) {
+          load_x4<VEC>(xp + static_cast<size_t>(r) * F, c0 + xc, F, u);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) u[j] = 0.0f;
+        }
+        float terms[4][3];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) split3(u[j], terms[j]);
+#pragma unroll
+        for (int h = 0; h < 3; ++h)
+          *reinterpret_cast<uint2*>(&Xs[h][xr * kXStride + xc]) =
+              make_uint2(bf16x2(terms[0][h], terms[1][h]),
+                         bf16x2(terms[2][h], terms[3][h]));
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < kK; kk += 16) {
+        unsigned af[2][4];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          const int r0 = warp * 32 + mi * 16;
+          if constexpr (!TRANSPOSE) {
+            // matrices (rows r0 | r0 + 8) x (columns kk | kk + 8)
+            ldsm_x4(&As[(r0 + lj + (li & 1) * 8) * kAStride + kk +
+                        (li >> 1) * 8], af[mi]);
+          } else {
+            // A^T rows r0.., columns kk..: the staged rows kk.. read
+            // transposed
+            ldsm_x4_t(&As[(kk + lj + (li >> 1) * 8) * kATStride + r0 +
+                          (li & 1) * 8], af[mi]);
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < 3; ++h) {  // lo, mid, hi
+#pragma unroll
+          for (int nj = 0; nj < 2; ++nj) {
+            unsigned bf[4];  // n-tiles 2 nj and 2 nj + 1
+            ldsm_x4_t(&Xs[h][(kk + lj + (li & 1) * 8) * kXStride + nj * 16 +
+                             (li >> 1) * 8], bf);
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi) {
+              mma_bf16(d[mi][2 * nj], af[mi], bf[0], bf[1]);
+              mma_bf16(d[mi][2 * nj + 1], af[mi], bf[2], bf[3]);
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += d[i][j][e];
+  }
+
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = warp * 32 + mi * 16 + g + half * 8;
+      const long long row = static_cast<long long>(otile) * T + m;
+      if (m >= T || row >= n_out) continue;
+      float* op = out + (static_cast<size_t>(part) * n_out + row) * F;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int c = c0 + ni * 8 + 2 * t4;
+        const float v0 = acc[mi][ni][2 * half], v1 = acc[mi][ni][2 * half + 1];
+        if constexpr (VEC >= 2) {
+          if (c < F) *reinterpret_cast<float2*>(op + c) = make_float2(v0, v1);
+        } else {
+          if (c < F) op[c] = v0;
+          if (c + 1 < F) op[c + 1] = v1;
+        }
+      }
+    }
+  }
+}
+
+template <int ENC, bool TR>
+int launch_vec(const float* x, int P, int n_in, int F,
+               const unsigned char* a, long long b_max, int T, const int* ptr,
+               const int* blk, const int* til, long long pair_stride,
+               int n_out_tiles, int n_out, float* out, cudaStream_t st) {
+  const bool a16 = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const bool a8 = reinterpret_cast<uintptr_t>(x) % 8 == 0 &&
+                  reinterpret_cast<uintptr_t>(out) % 8 == 0;
+  const int vec = F % 4 == 0 && a16 ? 4 : F % 2 == 0 && a8 ? 2 : 1;
+#define PGT_ARGS                                                           \
+  x, n_in, F, a, b_max, T, ptr, blk, til, pair_stride, n_out_tiles, n_out, \
+      out
+  if constexpr (ENC == kF32) {
+    // f32 A is not exact in bf16: the scalar CUDA-core path
+    const dim3 grid((F + kCols - 1) / kCols, n_out_tiles, P);
+    if (vec == 4)
+      block_kernel<ENC, TR, 4><<<grid, kThreads, 0, st>>>(PGT_ARGS);
+    else if (vec == 2)
+      block_kernel<ENC, TR, 2><<<grid, kThreads, 0, st>>>(PGT_ARGS);
+    else
+      block_kernel<ENC, TR, 1><<<grid, kThreads, 0, st>>>(PGT_ARGS);
+  } else {
+    const dim3 grid((F + kMmaCols - 1) / kMmaCols, n_out_tiles, P);
+    if (vec == 4)
+      mma_kernel<ENC, TR, 4><<<grid, kThreads, 0, st>>>(PGT_ARGS);
+    else if (vec == 2)
+      mma_kernel<ENC, TR, 2><<<grid, kThreads, 0, st>>>(PGT_ARGS);
+    else
+      mma_kernel<ENC, TR, 1><<<grid, kThreads, 0, st>>>(PGT_ARGS);
+  }
+#undef PGT_ARGS
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int ENC>
+int launch_enc(bool transpose, const float* x, int P, int n_in, int F,
+               const unsigned char* a, long long b_max, int T, const int* ptr,
+               const int* blk, const int* til, long long pair_stride,
+               int n_out_tiles, int n_out, float* out, cudaStream_t st) {
+  if (transpose)
+    return launch_vec<ENC, true>(x, P, n_in, F, a, b_max, T, ptr, blk, til,
+                                 pair_stride, n_out_tiles, n_out, out, st);
+  return launch_vec<ENC, false>(x, P, n_in, F, a, b_max, T, ptr, blk, til,
+                                pair_stride, n_out_tiles, n_out, out, st);
+}
+
+}  // namespace
+
+// x [P, n_in, F] f32; a [P, b_max, T, row_bytes] (enc 0 bits, 1 int8,
+// 2 bf16, 3 f32); ptr [P, n_out_tiles + 1] int32, blk / til [P,
+// pair_stride] int32 (pair k of part p: A block blk and input tile til;
+// output tile i's pairs at ptr[p, i] .. ptr[p, i + 1]); out [P, n_out, F]
+// f32. transpose 0 = K12, 1 = K13. T a multiple of 32 up to 256. All
+// contiguous, on the device; the host validated every index. Returns
+// cudaGetLastError().
+extern "C" int pgt_block_dense(const void* x, int P, int n_in, int F,
+                               const void* a, int enc, long long b_max,
+                               int T, const void* ptr, const void* blk,
+                               const void* til, long long pair_stride,
+                               int n_out_tiles, int n_out, int transpose,
+                               void* out, void* stream) {
+  if (P == 0 || n_out == 0 || F == 0) return 0;
+  if (T < 32 || T > kRows || T % 32 != 0 || n_out_tiles <= 0 ||
+      n_out_tiles > 65535 || P > 65535 || n_in < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  const unsigned char* ab = static_cast<const unsigned char*>(a);
+  const int* pt = static_cast<const int*>(ptr);
+  const int* bk = static_cast<const int*>(blk);
+  const int* tl = static_cast<const int*>(til);
+  float* o = static_cast<float*>(out);
+  const bool tr = transpose != 0;
+  switch (enc) {
+    case kBits:
+      return launch_enc<kBits>(tr, xf, P, n_in, F, ab, b_max, T, pt, bk, tl,
+                               pair_stride, n_out_tiles, n_out, o, st);
+    case kI8:
+      return launch_enc<kI8>(tr, xf, P, n_in, F, ab, b_max, T, pt, bk, tl,
+                             pair_stride, n_out_tiles, n_out, o, st);
+    case kBF16:
+      return launch_enc<kBF16>(tr, xf, P, n_in, F, ab, b_max, T, pt, bk, tl,
+                               pair_stride, n_out_tiles, n_out, o, st);
+    case kF32:
+      return launch_enc<kF32>(tr, xf, P, n_in, F, ab, b_max, T, pt, bk, tl,
+                              pair_stride, n_out_tiles, n_out, o, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

@@ -16,6 +16,9 @@ Differences from the JAX staging:
     of the transpose CSR, which the bucket step does not read (as the JAX
     trainer drops its raw edges, ``trainer.py:208-237``); the
     destination CSR stays for the CSR paths that share ``forward``;
+  - with ``block`` (``--spmm-impl block``) training stages the block
+    tables (``ops.block_spmm``: the A blocks, the dense pair lists and the
+    remainder's bucket tables) in place of the transpose CSR, likewise;
   - ``Trainer._pad_cols`` (the TPU 128-lane ``lane_pad``) has no
     counterpart: it only aligned feature slabs to TPU tiles and is
     numerically inert, so features are staged at their own width.
@@ -30,6 +33,8 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops.block_spmm import (BlockTables, build_sharded_block_tables,
+                              stage_block_tables)
 from ..ops.bucket_spmm import (BucketTables, build_sharded_bucket_tables,
                                stage_bucket_tables)
 from ..ops.spmm import csr_indptr, csr_transpose, spmm_mean
@@ -61,6 +66,9 @@ class StagedGraph:
     send_slot: Optional[torch.Tensor] = None   # [P, nnz] int32
     bucket: Optional[BucketTables] = None      # --spmm-impl bucket
     bucket_build_s: float = 0.0                # host seconds, its tables
+    block: Optional[BlockTables] = None        # --spmm-impl block
+    block_build_s: float = 0.0                 # host seconds, its tables
+    block_stats: Optional[dict] = None         # blocks, edges, A bytes
 
     @property
     def halo_size(self) -> int:
@@ -90,19 +98,35 @@ def _put(x: np.ndarray, dtype, device: torch.device) -> torch.Tensor:
 
 def stage(sg: ShardedGraph, device: torch.device,
           training: bool = False,
-          bucket_merge: Optional[int] = None) -> StagedGraph:
+          bucket_merge: Optional[int] = None,
+          block: Optional[Tuple[int, int, Optional[int]]] = None
+          ) -> StagedGraph:
     """Copy the arrays the serving path reads to ``device``; with
     ``training`` also the labels, masks and the two host-built inverses
     the training step reads (``Trainer._put_data``), or, given
     ``bucket_merge`` (the ladder's ``min_width``), the bucket tables in
-    place of the transpose CSR."""
+    place of the transpose CSR, or, given ``block`` ``(tile, n_feat_hint,
+    nnz_threshold)``, the block tables in its place."""
     extra = {}
     if training:
         if sg.multilabel:
             raise NotImplementedError(
                 "multilabel training (BCE) waits for ROADMAP A5")
         n_src = sg.n_max + sg.halo_size
-        if bucket_merge is None:
+        if block is not None:
+            t0 = time.perf_counter()
+            tile, hint, nnz = block
+            bstats: dict = {}
+            tables, _ = build_sharded_block_tables(
+                sg, tile=tile, n_feat_hint=hint, nnz_threshold=nnz,
+                stats=bstats)
+            extra["block"] = stage_block_tables(tables, tile, sg.n_max, n_src,
+                                                device)
+            extra["block_build_s"] = time.perf_counter() - t0
+            extra["block_stats"] = bstats
+            del tables
+            indptr_t = dst_t = None
+        elif bucket_merge is None:
             indptr_t, dst_t = (torch.from_numpy(a).to(device) for a in
                                csr_transpose(sg.edge_src, sg.edge_dst,
                                              sg.n_max, n_src))

@@ -23,6 +23,14 @@ One epoch (``train_epoch``):
   gradient K5 of this epoch's probe cotangent, and the ``feat_corr`` /
   ``grad_corr`` EMAs (``:1271-1310``).
 
+With ``spmm_impl="block"`` (graphsage, gcn; JAX ``_use_block``,
+``trainer.py:452-468``) the trainer builds the block tables at the widest
+graph layer's input as the width hint and aggregates through
+``ops.block_spmm.BlockSpmm`` (K12 forward, K13 backward over the dense
+tiles; K9 with the ``rem_dtype`` transport over the remainder), the
+use_pp precompute through the same tables with the transport off, and
+the full-graph eval on K1, as on the bucket path.
+
 With ``spmm_impl="bucket"`` (graphsage, gcn; JAX ``_setup_spmm`` /
 ``_use_bucket``, ``trainer.py:365-450``) every graph layer aggregates
 through the bucket tables (``ops.bucket_spmm.BucketSpmm``: K9, with the
@@ -54,9 +62,10 @@ import torch
 
 from ..graph.csr import Graph
 from ..models.sage import ModelConfig, Params, forward, init_params
+from ..ops.block_spmm import block_spmm
 from ..ops.bucket_spmm import TransportShare, bucket_spmm
 from ..ops.gat import gat_attention, gat_attention_plain
-from ..ops.spmm import csr_indptr, spmm_mean, spmm_mean_plain
+from ..ops.spmm import spmm_mean, spmm_mean_plain
 from ..partition.halo import ShardedGraph
 from ..train.losses import cross_entropy_sum
 from ..train.metrics import calc_acc
@@ -128,11 +137,11 @@ class Trainer:
     GAT's attention op ``(z, el, er, indptr, src, transpose, slope) ->
     out``, to the kernels' or the plain versions'), and ``act`` (relu) is
     the training forward's nonlinearity between layers — the card-side
-    comparison of a training step sets all three, and on the bucket path
-    ``share``, the ``TransportShare`` its transport casts record into or
-    replay from (None: neither). ``eval_cache`` holds
-    the device CSRs of the full-graph eval, by graph; trainers on one
-    device may share it."""
+    comparison of a training step sets all three, and on the bucket and
+    block paths ``share``, the ``TransportShare`` its transport casts
+    record into or replay from (None: neither). ``eval_cache`` holds the
+    device CSRs of the full-graph eval, by graph; trainers on one device
+    may share it."""
 
     def __init__(self, sg: ShardedGraph, cfg: ModelConfig,
                  tcfg: TrainConfig, device: torch.device,
@@ -146,9 +155,15 @@ class Trainer:
         self.act = torch.relu
         self.share: Optional[TransportShare] = None
         self.bucket = cfg.spmm_impl == "bucket" and cfg.model != "gat"
+        self.block = cfg.spmm_impl == "block" and cfg.model != "gat"
+        # the block tables' width hint: the widest graph layer input (JAX
+        # _use_block; every layer of the port is a graph layer)
+        w_hint = max(cfg.layer_sizes[:cfg.n_layers])
         self.data = stage(sg, device, training=True,
                           bucket_merge=cfg.bucket_merge if self.bucket
-                          else None)
+                          else None,
+                          block=(cfg.block_tile, w_hint, cfg.block_nnz)
+                          if self.block else None)
         self.n_train = float(self.data.n_train_global)
         if cfg.use_pp:
             self.feat = precompute_pp(
@@ -185,10 +200,17 @@ class Trainer:
 
     def _step_spmm(self, transport: bool):
         """The partitioned aggregation ``(fbuf, indptr, src, in_deg) ->
-        mean``: the bucket tables (with the gather transport unless
-        ``transport`` is False) or the part's CSRs."""
+        mean``: the block or bucket tables (with the gather transport
+        unless ``transport`` is False) or the part's CSRs."""
         d, cfg = self.data, self.cfg
-        if self.bucket:
+        if self.block:
+            def spmm_fn(fbuf, indptr, src, in_deg):
+                return block_spmm(
+                    fbuf, d.block, in_deg,
+                    cfg.rem_dtype if transport else None,
+                    cfg.rem_amax and transport, self.plain,
+                    self.share if transport else None)
+        elif self.bucket:
             def spmm_fn(fbuf, indptr, src, in_deg):
                 return bucket_spmm(
                     fbuf, d.bucket, in_deg,
@@ -306,18 +328,27 @@ class Trainer:
         if key not in self.eval_cache:
             t0 = time.perf_counter()
             n = g.num_nodes
-            # dst-sorted CSR of the eval graph (a stable sort, like the
-            # JAX trainer's native stable_argsort)
-            order = np.argsort(g.dst, kind="stable")
             dev = self.device
+            # dst-sorted CSR of the eval graph: a stable sort (the
+            # permutation of the JAX trainer's native stable_argsort), on
+            # the device, where a 100M-edge sort takes a fraction of the
+            # host's seconds
+            dst, order = torch.sort(torch.from_numpy(
+                np.ascontiguousarray(g.dst)).to(dev), stable=True)
+            if dst.numel() and (int(dst[0]) < 0 or int(dst[-1]) >= n):
+                raise ValueError(f"eval graph dst outside [0, {n})")
+            indptr = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+            torch.cumsum(torch.bincount(dst, minlength=n), 0,
+                         out=indptr[1:])
+            if dst.numel() < 2 ** 31:
+                indptr = indptr.to(torch.int32)
+            src = torch.from_numpy(np.ascontiguousarray(g.src)).to(dev)
             self.eval_cache[key] = {
                 "graph": g,  # strong ref: keeps id(g) valid while cached
                 "feat": torch.from_numpy(np.ascontiguousarray(
                     g.ndata["feat"], np.float32))[None].to(dev),
-                "indptr": torch.from_numpy(
-                    csr_indptr(g.dst[order], n))[None].to(dev),
-                "src": torch.from_numpy(
-                    g.src[order].astype(np.int32))[None].to(dev),
+                "indptr": indptr[None],
+                "src": src[order].to(torch.int32)[None],
                 "in_deg": torch.from_numpy(np.maximum(
                     g.in_degrees(), 1).astype(np.float32))[None].to(dev),
             }

@@ -3,9 +3,10 @@ save / load / exists), numpy only. Arrays and layout are unchanged, so a
 port artifact and a JAX artifact of the same graph and partition are equal
 array for array, and either package loads the other's artifact.
 
-Not ported in this slice: ``build_chunked`` (papers100M-scale RAM-bounded
-build), the locality ``cluster``/``reorder`` keys and streaming ``slack``
-of ``build``, and trimmed-edge (``trim_edges``) artifacts.
+Not ported yet: ``build_chunked`` (papers100M-scale RAM-bounded build),
+the ``reorder`` key and streaming ``slack`` of ``build``, and
+trimmed-edge (``trim_edges``) artifacts. The locality ``cluster`` key is
+ported.
 
 Halo index pipeline: partitioned graph -> static-shaped device arrays.
 
@@ -49,7 +50,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from ..graph.csr import Graph
+from ..graph.csr import Graph, sorted_unique
 
 
 def _round_up(x: int, m: int) -> int:
@@ -244,11 +245,15 @@ class ShardedGraph:
     # ------------------------------------------------------------------
     @staticmethod
     def _local_ids(n: int, train_mask: np.ndarray, parts: np.ndarray,
-                   num_parts: int):
-        """Local-id assignment: sort nodes by (part, ~is_train, global
-        id) into contiguous per-part train-first blocks. Returns
+                   num_parts: int, cluster: Optional[np.ndarray] = None):
+        """Local-id assignment: sort nodes by (part, ~is_train[, cluster],
+        global id) into contiguous per-part train-first blocks. Returns
         (local_id, part_sizes)."""
-        order = np.lexsort((np.arange(n), ~train_mask, parts))
+        keys = [np.arange(n)]
+        if cluster is not None:
+            keys.append(cluster.astype(np.int64))
+        keys += [~train_mask, parts]
+        order = np.lexsort(tuple(keys))
         part_sizes = np.bincount(parts, minlength=num_parts)
         part_starts = np.zeros(num_parts + 1, dtype=np.int64)
         np.cumsum(part_sizes, out=part_starts[1:])
@@ -262,6 +267,7 @@ class ShardedGraph:
         parts: np.ndarray,
         n_parts: Optional[int] = None,
         pad_to: int = 8,
+        cluster: Optional[np.ndarray] = None,
     ) -> "ShardedGraph":
         """Build the sharded layout from a graph and a partition assignment.
 
@@ -269,6 +275,14 @@ class ShardedGraph:
         `n_parts` is the intended device count; defaults to parts.max()+1
         but must be passed explicitly when trailing partitions could be
         empty (an empty shard is valid, just wasteful).
+
+        `cluster` ([N] int, optional; ``partitioner.locality_clusters``)
+        adds a locality key to the local renumbering: within each part's
+        train and non-train segments nodes sort by (cluster, global id),
+        so a community's nodes get contiguous local ids and the part's
+        adjacency concentrates into dense tiles (what ops/block_spmm.py
+        multiplies). An ordering choice only: every layout invariant
+        (train-first, CSR edges, send lists) holds for any order.
         """
         n = g.num_nodes
         parts = parts.astype(np.int32)
@@ -282,7 +296,7 @@ class ShardedGraph:
 
         # ---- local ids: train-first within each partition ------------
         local_id, part_sizes = ShardedGraph._local_ids(
-            n, train_mask, parts, num_parts)
+            n, train_mask, parts, num_parts, cluster)
 
         inner_count = part_sizes.astype(np.int32)
         train_count = np.bincount(
@@ -297,7 +311,7 @@ class ShardedGraph:
         # sort instead of numpy's slow axis-0 row unique
         cross = parts[g.src] != parts[g.dst]
         cs, cd = g.src[cross], g.dst[cross]
-        pair_fused = np.unique(
+        pair_fused = sorted_unique(
             cs.astype(np.int64) * num_parts + parts[cd]
         )  # sorted by (node, dest part), same order as the row unique
         ss = ShardedGraph._send_structures(pair_fused, parts, local_id,

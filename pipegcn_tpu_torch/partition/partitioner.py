@@ -1,5 +1,6 @@
 """Graph partitioner — port of ``pipegcn_tpu/partition/partitioner.py``
-(``partition_graph``), numpy paths only.
+(``partition_graph``, ``DEFAULT_CLUSTER_SIZE``, ``cluster_suffix``,
+``locality_clusters``), numpy paths only.
 
 ``method='random'`` is the balanced random assignment and gives the same
 parts as the JAX package at the same seed. ``method='metis'`` is the
@@ -88,6 +89,41 @@ def partition_graph(
     ).astype(np.int32)
     parts = _refine(adj, parts, n_parts, obj, refine_iters, imbalance, rng)
     return parts
+
+
+# default locality-cluster granularity (the JAX default); artifact names
+# derive from it through cluster_suffix
+DEFAULT_CLUSTER_SIZE = 1024
+
+
+def cluster_suffix(target_size: int) -> str:
+    """Artifact-name fragment identifying the cluster layout; always
+    encodes the size (the JAX package's naming)."""
+    return f"s{target_size}"
+
+
+def locality_clusters(
+    g: Graph,
+    target_size: int = DEFAULT_CLUSTER_SIZE,
+    seed: int = 0,
+) -> np.ndarray:
+    """Cluster labels for locality-aware local renumbering: ~target_size
+    nodes per cluster, k = ceil(n / target_size) clusters by the numpy
+    'metis' path with the cut objective (6 refinement passes, imbalance
+    1.3: clusters only steer the order, so balance does not matter).
+    ``ShardedGraph.build(cluster=...)`` sorts each part's inner nodes by
+    them, so a community's nodes get contiguous local ids and the part's
+    adjacency concentrates into the dense tiles ``ops/block_spmm.py``
+    multiplies. The numpy refiner holds dense [N, k] gain tables, so k is
+    capped at (64 << 20) // N, as the JAX package caps it when its native
+    partitioner is missing. Zeros (one cluster, a no-op ordering) at or
+    below ``target_size`` nodes."""
+    k = max(1, -(-g.num_nodes // target_size))
+    k = min(k, max(1, (64 << 20) // max(g.num_nodes, 1)))
+    if k == 1:
+        return np.zeros(g.num_nodes, dtype=np.int32)
+    return partition_graph(g, k, method="metis", obj="cut", seed=seed,
+                           refine_iters=6, imbalance=1.3)
 
 
 # above this many edges the scipy COO symmetrize is replaced by the

@@ -11,6 +11,7 @@ import sys
 import pytest
 import torch
 
+import pipegcn_tpu.native
 from pipegcn_tpu.cli.parser import create_parser as jax_parser
 from pipegcn_tpu_torch.cli import main as cli
 
@@ -28,6 +29,13 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture
+def numpy_partitioner(monkeypatch):
+    """The JAX package's numpy metis path (the port's): its native
+    partitioner is not ported."""
+    monkeypatch.setattr(pipegcn_tpu.native, "available", lambda: False)
 
 
 def reddit_sh_argv():
@@ -102,7 +110,8 @@ def test_cli_raises_without_cuda(monkeypatch):
         cli.main(_tiny_argv())
 
 
-@pytest.mark.parametrize("extra", [["--spmm-impl", "block"],
+@pytest.mark.parametrize("extra", [["--spmm-impl", "block",
+                                    "--block-group", "2"],
                                    ["--norm", "batch"],
                                    ["--dtype", "bfloat16"]])
 def test_unported_cli_choices_refuse(extra):
@@ -149,13 +158,13 @@ def test_model_flags_parse_with_the_jax_defaults():
     ("gat", ["--spmm-impl", "block"], ValueError),
     ("gat", ["--spmm-impl", "bucket", "--rem-dtype", "float8"],
      "ROADMAP A5"),
-    ("gcn", ["--spmm-impl", "block"], "ROADMAP A6"),
+    ("gcn", ["--spmm-impl", "block", "--block-group", "2"], "ROADMAP A6"),
     ("graphsage", ["--spmm-impl", "auto"], "ROADMAP A6")])
 def test_model_refusals(model, extra, err):
     """The JAX package's refusals (use_pp with gcn/gat, block with gat)
-    raise its ValueError; what the port has not got yet (the block-dense
-    kernel and the tuner, GAT's gather transport) raises
-    NotImplementedError naming its ROADMAP item (``err``)."""
+    raise its ValueError; what the port has not got yet (the block
+    kernel's union-gather layout and the tuner, GAT's gather transport)
+    raises NotImplementedError naming its ROADMAP item (``err``)."""
     exc = err if isinstance(err, type) else NotImplementedError
     with pytest.raises(exc) as info:
         cli.run(cli.build_parser().parse_args(_model_argv(model, extra)))
@@ -217,3 +226,69 @@ def test_serving_engine_refuses_gcn_and_gat():
         params = init_params(cfg, torch.Generator().manual_seed(0), cpu)
         with pytest.raises(NotImplementedError, match="ROADMAP A5"):
             ServingEngine(sg, stage(sg, cpu), cfg, params)
+
+
+def test_block_and_layout_flags_parse_with_the_jax_parser():
+    for argv in ([], ["--spmm-impl", "block", "--block-tile", "128",
+                      "--block-nnz", "40", "--block-group", "2",
+                      "--local-reorder", "none", "--cluster-size", "512"]):
+        ours, theirs = (vars(cli.build_parser().parse_args(argv)),
+                        vars(jax_parser().parse_args(argv)))
+        for k in ("spmm_impl", "block_tile", "block_nnz", "block_group",
+                  "local_reorder", "cluster_size"):
+            assert ours[k] == theirs[k], (argv, k)
+    assert vars(cli.build_parser().parse_args([]))["local_reorder"] == \
+        "cluster"
+    with pytest.raises(SystemExit):
+        cli.build_parser().parse_args(["--local-reorder", "degree"])
+
+
+def test_cli_builds_the_jax_cluster_layout(numpy_partitioner):
+    """The reddit.sh flags (--local-reorder cluster by default): the
+    port's prepare builds the cluster-renumbered artifact of the train
+    subgraph, array-equal to the JAX CLI's numpy-path build (partition,
+    locality_clusters of the train subgraph, build with cluster=)."""
+    from pipegcn_tpu.graph import datasets as jax_datasets
+    from pipegcn_tpu.partition import ShardedGraph as JaxShardedGraph
+    from pipegcn_tpu.partition import partition_graph as jax_partition
+    from pipegcn_tpu.partition.partitioner import \
+        locality_clusters as jax_clusters
+    from test_torch_partition import _assert_artifacts_equal
+
+    args = cli.build_parser().parse_args(_tiny_argv(
+        ["--device", "cpu", "--cluster-size", "256"]))
+    args.dataset = "synthetic:1500:10:12:5"
+    assert args.local_reorder == "cluster"
+    sg, _ = cli.prepare(args, log=lambda *a: None)
+    train_g, _, _ = jax_datasets.inductive_split(
+        jax_datasets.load_data(args.dataset))
+    parts = jax_partition(train_g, 2, method="random", seed=args.seed)
+    cluster = jax_clusters(train_g, target_size=256, seed=args.seed)
+    assert int(cluster.max()) > 0
+    _assert_artifacts_equal(sg, JaxShardedGraph.build(
+        train_g, parts, n_parts=2, cluster=cluster))
+
+
+@pytest.mark.parametrize("model,extra", [
+    ("graphsage", ["--rem-dtype", "float8"]),
+    ("graphsage", ["--rem-dtype", "none", "--block-nnz", "20"]),
+    ("gcn", ["--rem-dtype", "bfloat16"])])
+def test_cli_trains_the_block_path_on_the_cpu(capsys, model, extra):
+    """--spmm-impl block through cli/main.py on the cluster layout: the
+    reference's lines, a falling loss; the trainer aggregates through the
+    dense tiles and the remainder's bucket tables."""
+    argv = _tiny_argv(["--device", "cpu", "--model", model,
+                       "--spmm-impl", "block", "--block-tile", "32",
+                       "--cluster-size", "64", *extra])
+    argv[argv.index("--dataset") + 1] = "synthetic:800:30:12:5"
+    if model != "graphsage":
+        argv.remove("--use-pp")
+    args = cli.build_parser().parse_args(argv)
+    res = cli.run(args)
+    out = capsys.readouterr().out.strip().splitlines()
+    assert any(line.startswith("Process 000 | Epoch 00019 | Time(s) ")
+               for line in out)
+    assert out[-1] == "Test Result | Accuracy {:.2%}".format(
+        res["test_acc"])
+    assert res["losses"][-1] < res["losses"][0]
+    assert 0.3 < res["test_acc"] <= 1.0

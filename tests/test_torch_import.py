@@ -231,3 +231,48 @@ def test_bucket_modules_import_without_jax():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     assert os.path.join(PKG, "ops", "bucket_spmm.py") in set(_port_files())
+
+
+def test_block_modules_import_without_jax():
+    code = (
+        "import sys\n"
+        "import pipegcn_tpu_torch.ops.block_spmm\n"
+        "import pipegcn_tpu_torch.partition.partitioner\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', "
+        "'pipegcn_tpu', 'ml_dtypes') or m.startswith(('jax.', 'jaxlib.', "
+        "'pipegcn_tpu.'))]\n"
+        "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    for rel in (("ops", "block_spmm.py"), ("ops", "csrc", "block_spmm.cu")):
+        assert os.path.exists(os.path.join(PKG, *rel)), rel
+    assert os.path.join(PKG, "ops", "block_spmm.py") in set(_port_files())
+
+
+def test_block_wrappers_refuse_devices_without_a_kernel():
+    from pipegcn_tpu_torch.ops import block_spmm as blk
+    from pipegcn_tpu_torch.ops.bucket_spmm import BucketSide
+
+    m = torch.device("meta")
+    P, n, R, T = 1, 40, 64, 32
+    i32 = dict(dtype=torch.int32, device=m)
+
+    def side(n_out, n_in, tr):
+        return blk.BlockSide(ptr=torch.zeros((P, -(-n_out // T) + 1), **i32),
+                             blk=torch.zeros((P, 1), **i32),
+                             tile=torch.zeros((P, 1), **i32), n_out=n_out,
+                             n_in=n_in, transpose=tr)
+
+    rem = BucketSide(idx=torch.zeros((P, 1), **i32),
+                     inv=torch.zeros((P, n), **i32),
+                     meta=torch.zeros((3, 2), dtype=torch.int64, device=m),
+                     n_src=R, widths=(1,))
+    t = blk.BlockTables(a=torch.zeros((P, 1, T, T // 8), dtype=torch.uint8,
+                                      device=m), packed=True, tile=T,
+                        fwd=side(n, R, False), bwd=side(R, n, True),
+                        rem_fwd=rem, rem_bwd=rem)
+    with pytest.raises(ValueError, match="unsupported device"):
+        blk.block_dense(torch.empty((P, R, 3), device=m), t)
+    with pytest.raises(ValueError, match="unsupported device"):
+        blk.block_dense_t(torch.empty((P, n, 3), device=m), t)

@@ -12,10 +12,13 @@ import pipegcn_tpu.native
 from pipegcn_tpu.graph import datasets as jax_datasets
 from pipegcn_tpu.partition import ShardedGraph as JaxShardedGraph
 from pipegcn_tpu.partition import partition_graph as jax_partition_graph
+from pipegcn_tpu.partition import partitioner as jax_partitioner
 from pipegcn_tpu_torch.graph import datasets as port_datasets
 from pipegcn_tpu_torch.graph.synthetic import synthetic_graph
 from pipegcn_tpu_torch.partition.halo import ShardedGraph
-from pipegcn_tpu_torch.partition.partitioner import partition_graph
+from pipegcn_tpu_torch.partition import partitioner as port_partitioner
+from pipegcn_tpu_torch.partition.partitioner import (locality_clusters,
+                                                     partition_graph)
 
 pytestmark = pytest.mark.torch
 
@@ -92,6 +95,34 @@ def test_partition_and_build_match_jax(dataset, method, P,
     _assert_artifacts_equal(ShardedGraph.build(g_port, parts, n_parts=P),
                             JaxShardedGraph.build(g_jax, want_parts,
                                                   n_parts=P))
+
+
+@pytest.mark.parametrize("dataset,size", [("karate", 8),
+                                          ("synthetic:400:8:12:5", 64),
+                                          ("synthetic:300:6:10:4:ml", 32),
+                                          ("synthetic", 1024)])
+def test_cluster_layout_matches_jax(dataset, size, numpy_partitioner):
+    """locality_clusters (the numpy metis path, k = ceil(n / size)) and
+    ShardedGraph.build(cluster=...) against the JAX package's, array for
+    array; a graph at or below the size gets one cluster."""
+    g_port = port_datasets.load_data(dataset)
+    g_jax = jax_datasets.load_data(dataset)
+    got = locality_clusters(g_port, target_size=size, seed=3)
+    want = jax_partitioner.locality_clusters(g_jax, target_size=size, seed=3)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+    k = -(-g_port.num_nodes // size)
+    assert int(got.max()) + 1 == k and (k > 1 or not got.any())
+    parts = partition_graph(g_port, 2, method="random", seed=1)
+    built = ShardedGraph.build(g_port, parts, n_parts=2, cluster=got)
+    _assert_artifacts_equal(built, JaxShardedGraph.build(
+        g_jax, parts, n_parts=2, cluster=want))
+    if k > 1:  # the key reorders: not the base layout
+        base = ShardedGraph.build(g_port, parts, n_parts=2)
+        assert not np.array_equal(built.edge_src, base.edge_src)
+    assert port_partitioner.DEFAULT_CLUSTER_SIZE == \
+        jax_partitioner.DEFAULT_CLUSTER_SIZE
+    assert port_partitioner.cluster_suffix(size) == \
+        jax_partitioner.cluster_suffix(size)
 
 
 @pytest.mark.parametrize("mmap", [False, True], ids=["v2", "v3"])

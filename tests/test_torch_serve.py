@@ -119,7 +119,9 @@ def test_cli_serves_on_cpu(tmp_path):
               "n_queries"):
         assert summary[k] is not None, k
     assert summary["n_queries"] > 0 and summary["drained"]
-    # the artifact it built loads back, in either package
-    art = tmp_path / "synthetic:300:8:12:5-2-random-vol-trans"
+    # the artifact it built loads back, in either package; it carries the
+    # JAX CLI's name for the default cluster layout (--local-reorder
+    # cluster, --cluster-size 1024)
+    art = tmp_path / "synthetic:300:8:12:5-2-random-vol-trans-cs1024"
     assert ShardedGraph.exists(str(art))
     assert ShardedGraph.load(str(art)).num_parts == 2
