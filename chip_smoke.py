@@ -8,95 +8,106 @@ one card, at the full width of the repo's model configs on the
 ``synthetic-reddit`` graph (loaded once, shared by every cell):
 GraphSAGE (``scripts/reddit.sh``: 602 -> 256 -> 256 -> 256 -> 41, use_pp,
 LayerNorm, f32), GAT (the same command with ``--model gat --n-heads 4``
-minus ``--use-pp``: ``scripts/gat_bench.py``'s widths), GCN, and
-GraphSAGE on the bucket tables with the fp8 gather transport (the
-command plus ``--spmm-impl bucket --rem-dtype float8``):
+minus ``--use-pp``: ``scripts/gat_bench.py``'s widths), GCN, GraphSAGE on
+the bucket tables and on the block tiles with the fp8 gather transport,
+GraphSAGE at bf16 compute on all three aggregations, and this slice's
+cell, ``scripts/gat_bench.py``'s configuration (GAT at bf16 compute with
+the fp8 gather transport):
 
   1. prints the card's name and power limit (nvidia-smi) and versions;
-  2. builds the ten hand-written kernels from
-     ``pipegcn_tpu_torch/ops/csrc`` (one nvcc per source, started
-     together): K1 mean SpMM and K3 its transpose (``spmm_mean.cu``), K2
-     halo gather and K5 reverse-ring return (``halo_gather.cu``), K4
-     boundary-gradient scatter (``halo_scatter.cu``), K6 GAT attention
-     forward (in training also the sums that give its backward's pass A)
-     and K8 the backward's src-keyed pass B (``gat_attn.cu``), K9 the
-     bucket-ELL gather-sum (``bucket_spmm.cu``), K10 the transport cast
-     and K11 the per-part amax (``transport_cast.cu``);
-  3. serves, over 2 random parts of the full graph: builds the artifact
-     in memory (the serve CLI's ``build_artifact``: partition, build,
-     each step timed; nothing is saved), builds
-     and warms the ServingEngine through the CLI's
-     ``build_serving_engine``, serves a few seconds of
-     open-loop queries with ``run_serving_loop``, and checks that the
-     logits are finite, that both kernels were launched on that run, and
-     that the served logits match a recompute through the kernels' plain
-     PyTorch versions on the card;
-  4. holds each kernel against its plain version at the main path's
-     shapes and on edge cases (K1 in f32 and bf16; K2 bit-exact);
+  2. builds the hand-written kernels from ``pipegcn_tpu_torch/ops/csrc``
+     (one nvcc per source, started together): K1 mean SpMM and K3 its
+     transpose (``spmm_mean.cu``), K2 halo gather and K5 reverse-ring
+     return (``halo_gather.cu``), K4 boundary-gradient scatter in f32 and
+     bf16 (``halo_scatter.cu``), K6 GAT attention forward (in training
+     also the sums that give its backward's pass A) and K8 the
+     backward's src-keyed pass B (``gat_attn.cuh``, one library a row
+     type: f32 ``gat_attn.cu``, bf16 ``gat_attn_bf16.cu``, e4m3 z / e5m2
+     g ``gat_attn_fp8.cu``), K9 the bucket-ELL gather-sum
+     (``bucket_spmm.cu``), K10 the transport cast and K11 the per-part
+     amax (``transport_cast.cu``), K12 / K13 the dense-tile products with
+     f32 or bf16 rows (``block_spmm.cu``); and the native host library
+     (``pipegcn_tpu_torch/native``, g++), whose absence fails the run;
+  3. serves, over 2 random parts of the full graph (cut: not metis, no
+     locality clusters): builds the artifact in memory (the serve CLI's
+     ``build_artifact``), builds and warms the ServingEngine through the
+     CLI's ``build_serving_engine``, serves a few seconds of open-loop
+     queries with ``run_serving_loop``, and checks that the logits are
+     finite, that both kernels were launched on that run, and that the
+     served logits match a recompute through the plain versions;
+  4. holds K1 (f32 and bf16) and K2 (bit-exact) against their plain
+     versions at the main path's shapes and on edge cases;
   5. times K1 and K2 (CUDA events, median), their plain versions and one
      PyTorch library call computing the same function, beside the least
      time the card could take (``bound_ms``), and times the refresh;
   6. trains the ``scripts/reddit.sh`` cell through the training CLI's
      functions (``cli/main.py``: ``--inductive --enable-pipeline
-     --use-pp``, dropout 0.5, Adam lr 0.01, 2 random parts of the train
-     subgraph; cut: random instead of metis partitioning, and the epoch
-     count), with every launch counter set to 0 just before the trainer is
+     --use-pp``, dropout 0.5, Adam lr 0.01, 2 metis parts of the train
+     subgraph by the native partitioner, native locality clusters; cut:
+     the epoch count), the counts set to 0 just before the trainer is
      built and read after the final val/test eval: a finite loss every
      epoch that falls, finite accuracies, every one of K1-K5 launched;
   7. runs one pipelined epoch through the kernels twice from the same
      state and dropout seed (bit-identical: no kernel uses atomics), and
      holds it against the same epoch through the plain versions on the
-     kernel run's relu masks (loss, parameter gradients, new params and
-     carries; the relu sign flips between the two are counted);
+     kernel run's relu masks (flips counted);
   8. holds K3, K4 and K5 against their plain versions at the cell's shapes
-     and on edge cases (K4 at P = 2 and K5 bit-exact);
-  9. times K3-K5 as in [5], and K1/K2 again at the epoch's shapes, the
-     training epoch (median) with its split into kernel time x launches,
-     and the peak memory; then runs 3 vanilla epochs (the differentiable
-     exchange: K2 forward, K5 + K4 backward) and holds a fourth through
-     the kernels against the plain versions as in [7];
- 10. trains the GAT cell the same way on the same parts, sharing the
-     SAGE cell's eval-graph CSRs (counts from the trainer's build through
-     the final eval; K2, K4-K6 and K8 launched, K8 four times an
-     epoch);
+     and on edge cases; K4 in bf16 (bit-exact at P = 2 and 4), K2 and K5
+     bit-exact on bf16 rows;
+  9. times K3-K5 (K4 also in bf16) and K1/K2 at the epoch's shapes, the
+     epoch (median) with its split and the peak memory; then 3 vanilla
+     epochs and a fourth held against the plain versions as in [7];
+ 10. trains the GAT cell the same way on the same parts (f32);
  11. holds one pipelined GAT epoch against the plain versions as in [7],
-     the plain run also taking the kernel run's leaky branch of every
-     edge (flips counted);
- 12. holds K6 (both modes, and pass A's d_er from its NEG outputs) and
-     K8 against their plain versions at the cell's shapes (dh = 64 and
-     the logits layer's 41) and on edge cases (empty rows, a 5,000-edge
-     row, dh = 5, H = 1 and 8, all-equal logits, int64 row pointers, junk
-     past the CSRs' ends), each rerun bit-identical; then plants a fault
-     (one edge of the 5,000-edge row dropped) that each check must fail;
- 13. times K6 and K8 (no library call computes the attention: none is
-     timed), the GAT epoch and its split;
- 14. runs a few pipelined GCN epochs (K1/K3 with the 1/sqrt(deg)
-     scalings): a finite, falling loss; then holds one GCN epoch against
-     the plain versions as in [7];
- 15. trains the bucket cell on the same parts (``--spmm-impl bucket
-     --rem-dtype float8``, counts from the trainer's build through the
-     final eval: K9 and K10 6 times an epoch, K3 never), one epoch alone
-     (K1 and K3 never), and 2 epochs each of ``--rem-amax`` (K11),
+     the plain run also taking the kernel run's leaky branches;
+ 12. holds K6 and K8 against their plain versions in each row type (f32;
+     bf16; e4m3 z with e5m2 g) at the cell's shapes (dh = 64 and the
+     logits layer's 41) and on edge cases (empty rows, a 5,000-edge row,
+     dh = 5 with H = 8, unaligned rows; f32 also H = 1, equal logits,
+     int64 row pointers, junk past the CSRs' ends), each rerun
+     bit-identical; a planted fault (one edge of the 5,000-edge row
+     dropped) must fail each check in each row type;
+ 13. times K6 and K8 in each row type, the GAT epoch and its split;
+ 14. runs a few pipelined GCN epochs and holds one against the plain
+     versions;
+ 15. trains the bucket cell (``--spmm-impl bucket --rem-dtype float8``),
+     one epoch alone, and 2 epochs each of ``--rem-amax``,
      ``--rem-dtype bfloat16`` and ``none`` on the same trainer;
- 16. holds one bucket epoch against the plain versions as in [7], the
-     plain run also taking the kernel run's transported values
-     (``TransportShare``; transport flips counted);
- 17. holds K9 against its plain version in both directions and every
-     input dtype at the cell's shapes, at F = 602 (the pp precompute in
-     f32, GCN layer 0's e4m3 / e5m2 transport) and on edge cases (empty
-     rows, a 5,000-entry row, the bucket merge 4, F = 5, junk in the
-     cap-padding rows), K10 and K11 bit for bit on the cell's tensors at
-     F = 256 and 602 and on a sweep of f32 bit patterns; a dropped index
-     must fail K9's check and a scale off by 2 K10's;
- 18. times K9-K11 beside their bounds, plain versions and library calls,
-     the bucket epoch and its split (beside the xla epoch), and runs a
-     few GCN epochs on the bucket path (K9 and K10 8 times an epoch),
-     then holds one of its epochs against the plain versions as in [16];
- 19. prints the ``kernels`` JSON line (K1-K6, K8-K11: times at the
-     training shapes beside the training runs' launches; K1/K2 also their
-     serving numbers), a serving line, a training line, a GAT/GCN line,
-     a bucket-training line, the nvidia-smi line, and last
-     ``{"ok": true, "device": {...}}``.
+ 16. holds one bucket epoch against the plain versions, the transported
+     values shared (``TransportShare``);
+ 17. holds K9-K11 against their plain versions (K9 in every dtype, K10 /
+     K11 bit-exact), two planted faults;
+ 18. times K9-K11, the bucket epoch and its split;
+ 19. runs the bucket command at ``--dtype bfloat16`` on the same trainer
+     and tables for a few epochs, then its step check; a few GCN epochs
+     on the bucket path and their step check;
+ 20. trains the block cell (``--spmm-impl block --rem-dtype float8``),
+     then 2 epochs of ``--rem-dtype none``;
+ 21. holds one block epoch against the plain versions;
+ 22. holds K12 / K13 against their plain version on f32 rows and in their
+     bf16 mode, at the cell's shapes and on edge cases; a flipped A bit
+     must fail in both;
+ 23. times K12 / K13 on f32 rows and in the bf16 mode beside cuSPARSE
+     (f32) and the tile floors; the block epoch and its split;
+ 24. runs the block command at ``--dtype bfloat16`` on the same trainer
+     and tables (K12 / K13 in their bf16 mode), then its step check;
+ 25. a few GCN epochs on the block path and their step check;
+ 26. runs ``scripts/reddit.sh --dtype bfloat16`` (xla) for a few epochs
+     and its step check;
+ 27. trains this slice's cell: ``scripts/gat_bench.py``'s configuration
+     (``--model gat --n-heads 4 --n-layers 4 --n-hidden 256 --dtype
+     bfloat16 --spmm-impl bucket --rem-dtype float8``, pipelined) through
+     the CLI's functions, the counts set to 0 just before the build and
+     read after the final eval (K6 / K8 on e4m3 / e5m2 rows, K10, K4 in
+     bf16), then 2 epochs each of ``--rem-dtype bfloat16`` and ``none``;
+ 28. holds one of its epochs against the plain versions (relu masks,
+     leaky branches and transported values shared; at bf16 each tensor
+     within the repo's bf16 tolerance of its max, the bf16 carries'
+     rounding steps counted), and times the epoch and its split;
+ 29. prints the ``kernels`` JSON line (every kernel and each of its row
+     types, times at the shapes whose launches are counted), a line for
+     each cell, the nvidia-smi line, and last ``{"ok": true, "device":
+     {...}}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when the
 package is missing (the script alone), or when any phase fails.
@@ -181,6 +192,21 @@ F32_U = 2.0 ** -24
 # plain run as it shares the relu masks; a cast input within rounding of
 # a midpoint of the narrow format is a transport flip, counted.
 TRANSPORT_FLIP_FRAC = 1e-4
+# bf16 compute: where the plain versions sum in another order than the
+# kernels (K1, K3, K6, K8 against index_add_; K9's plain version sums in
+# the kernel's order), a bf16 value can round to the neighbouring bf16
+# value, a step of up to 2**-7 of its magnitude, and LayerNorm scales a
+# step by the row's 1/std; each moves every tensor downstream of it. So a
+# bf16 epoch's gradients, params and carries are held within BF16_RTOL of
+# each tensor's max, the repo's bf16 tolerance (ROADMAP: rtol 2e-2), in
+# place of STEP_REL_TOL (seen, full size: carries 3.9e-3, gradients
+# 1.7e-5 in the bf16 GAT cell; gradients 8.3e-6, params 4.4e-4 on the xla
+# path); the loss keeps STEP_LOSS_RTOL. The carries' elements that differ
+# by more than STEP_REL_TOL of the max (the rounding steps, 1.5e-3 of
+# them seen) must stay below BF16_STEP_FRAC, and so must the transport
+# flips, whose bf16 inputs move by those steps (1.4e-4 seen)
+BF16_RTOL = 2e-2
+BF16_STEP_FRAC = 1e-2
 
 
 START = time.monotonic()
@@ -597,18 +623,28 @@ def require_launched(launches, model, what):
 def reset_counts(cnt) -> None:
     for fn in cnt.values():
         fn.launches = 0
+        for k in getattr(fn, "by_mode", {}):
+            fn.by_mode[k] = 0
 
 
 def read_counts(cnt):
     return {k: fn.launches for k, fn in cnt.items()}
 
 
+def read_modes(cnt):
+    """The launches by row-type mode of the kernels that have modes (K4,
+    K6, K8, K12, K13)."""
+    return {k: dict(fn.by_mode) for k, fn in cnt.items()
+            if hasattr(fn, "by_mode")}
+
+
 def train_cli(args, pipeline=True, epochs=None, model="graphsage",
-              extra=()):
-    """The cell's command: ``scripts/reddit.sh`` (graphsage, use_pp); for
-    gcn and gat the same minus ``--use-pp`` (which they refuse), gat with
-    ``--n-heads 4`` (``scripts/gat_bench.py``'s width); ``extra`` flags
-    appended (the bucket cell's)."""
+              extra=(), dtype="float32"):
+    """The cell's command: ``scripts/reddit.sh`` (graphsage, use_pp, metis
+    parts: the native partitioner); for gcn and gat the same minus
+    ``--use-pp`` (which they refuse), gat with ``--n-heads 4``
+    (``scripts/gat_bench.py``'s width); ``dtype`` the compute dtype
+    (``--dtype``); ``extra`` flags appended (the bucket cell's)."""
     from pipegcn_tpu_torch.cli.main import build_parser
 
     argv = ["--dataset", args.dataset, "--dropout", "0.5", "--lr", "0.01",
@@ -616,8 +652,8 @@ def train_cli(args, pipeline=True, epochs=None, model="graphsage",
             "--n-epochs", str(epochs or args.train_epochs),
             "--model", model, "--n-layers", "4", "--n-hidden", "256",
             "--log-every", "10", "--inductive",
-            "--norm", "layer", "--dtype", "float32",
-            "--partition-method", "random", "--fix-seed", "--seed", "0",
+            "--norm", "layer", "--dtype", dtype,
+            "--partition-method", "metis", "--fix-seed", "--seed", "0",
             "--device", "cuda"]
     if model == "graphsage":
         argv.append("--use-pp")
@@ -689,6 +725,17 @@ def rel_err(a, b) -> float:
     return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
 
 
+def bf16_steps(a, b) -> int:
+    """The elements of a bf16 tensor of two runs that differ by more than
+    STEP_REL_TOL of its max: the rounding steps."""
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    if a.size == 0:
+        return 0
+    return int((np.abs(a - b) > STEP_REL_TOL * np.abs(b).max()).sum())
+
+
 def step_phase(trainer, epoch):
     """One epoch through the kernels, run twice from the same state and
     dropout seed (no kernel uses atomics: the rerun must be bit-identical),
@@ -727,14 +774,14 @@ def step_phase(trainer, epoch):
         flips[1] += m.numel()
         return torch.where(m, h, h.new_zeros(()))
 
-    def record_attn(z, el, er, *csr):
+    def record_attn(z, el, er, *csr, **kw):
         logit_halves.append((el.detach(), er.detach()))
-        return gat.gat_attention(z, el, er, *csr)
+        return gat.gat_attention(z, el, er, *csr, **kw)
 
-    def replay_attn(z, el, er, *csr):
+    def replay_attn(z, el, er, *csr, **kw):
         branches.append(gat.LeakyBranch(*next(replayed_attn)))
         return gat.gat_attention_plain(z, el, er, *csr,
-                                       branch=branches[-1])
+                                       branch=branches[-1], **kw)
 
     def run(plain, act, attn=None, share=None):
         trainer.restore_state(snap)
@@ -746,7 +793,8 @@ def step_phase(trainer, epoch):
         return (loss, [g.detach().cpu().numpy() for g in trainer.last_grads],
                 trainer.host_state())
 
-    transported = ((trainer.bucket or trainer.block)
+    transported = ((trainer.bucket or trainer.block
+                    or trainer.gat_transport is not None)
                    and trainer.cfg.rem_dtype is not None)
     recorded = TransportShare() if transported else None
     replayed_share = None
@@ -778,21 +826,35 @@ def step_phase(trainer, epoch):
                for a, b in zip(leaves(first), leaves(rerun)))
     (lk, gk, sk), (lp, gp, sp) = first, plain
     loss_err = abs(lk - lp) / abs(lp)
+    bf16 = trainer.cfg.dtype == "bfloat16"
     grad_err = max(rel_err(a, b) for a, b in zip(gk, gp))
     param_err = max(rel_err(a, b) for a, b in zip(
         tree_leaves(sk["params"]), tree_leaves(sp["params"])))
-    comm_err = {f"{grp}.{k}": rel_err(sk["comm"][grp][k], sp["comm"][grp][k])
-                for grp in sk["comm"] for k in sk["comm"][grp]}
+    # at bf16 compute the halo and bgrad carries are bf16: the elements a
+    # rounding step apart are counted (bf16_steps)
+    steps = [0, 0]  # [elements a rounding step apart, carry elements]
+    comm_err = {}
+    for grp in sk["comm"]:
+        for k in sk["comm"][grp]:
+            a, b = sk["comm"][grp][k], sp["comm"][grp][k]
+            comm_err[f"{grp}.{k}"] = rel_err(a, b)
+            if bf16 and grp in ("halo", "bgrad"):
+                steps[0] += bf16_steps(a, b)
+                steps[1] += np.asarray(b).size
+    step_frac = steps[0] / max(steps[1], 1)
+    tol = BF16_RTOL if bf16 else STEP_REL_TOL
     flip_frac = flips[0] / max(flips[1], 1)
     own_err = max([rel_err(a, b) for a, b in zip(gk, own[1])]
                   + [rel_err(a, b) for a, b in zip(
                       tree_leaves(sk["comm"]), tree_leaves(own[2]["comm"]))])
-    ok = (loss_err <= STEP_LOSS_RTOL and grad_err <= STEP_REL_TOL
-          and param_err <= STEP_REL_TOL
-          and all(v <= STEP_REL_TOL for v in comm_err.values())
+    ok = (loss_err <= STEP_LOSS_RTOL and grad_err <= tol
+          and param_err <= tol
+          and all(v <= tol for v in comm_err.values())
           and all(np.isfinite(g).all() for g in gk)
           and flip_frac <= RELU_FLIP_FRAC and leaky_frac <= LEAKY_FLIP_FRAC
-          and tflip_frac <= TRANSPORT_FLIP_FRAC)
+          and tflip_frac <= (BF16_STEP_FRAC if bf16
+                             else TRANSPORT_FLIP_FRAC)
+          and step_frac <= BF16_STEP_FRAC)
     carries = (f"{max(comm_err.values()):.2e}" if comm_err
                else "none (vanilla)")
     log(f"  step rerun through the kernels (epoch {epoch}): bit-identical "
@@ -802,23 +864,27 @@ def step_phase(trainer, epoch):
     log(f"  step kernels vs plain (epoch {epoch}): loss {lk:.6f} vs "
         f"{lp:.6f} (rel {loss_err:.2e}, tol {STEP_LOSS_RTOL:g}); grads "
         f"{grad_err:.2e}, params {param_err:.2e}, carries {carries} (tol "
-        f"{STEP_REL_TOL:g} of each tensor's max); relu flips {flips[0]} of "
+        f"{tol:g} of each tensor's max); relu flips {flips[0]} of "
         f"{flips[1]} (tol {RELU_FLIP_FRAC:g}); leaky flips {leaky[0]} of "
         f"{leaky[1]} (tol {LEAKY_FLIP_FRAC:g}); transport flips {tflips[0]} "
-        f"of {tflips[1]} (tol {TRANSPORT_FLIP_FRAC:g}) "
-        f"{'ok' if ok else 'FAIL'}; "
+        f"of {tflips[1]} (tol "
+        f"{BF16_STEP_FRAC if bf16 else TRANSPORT_FLIP_FRAC:g})"
+        + (f"; bf16 carries a rounding step apart {steps[0]} of {steps[1]}"
+           f" (tol {BF16_STEP_FRAC:g})" if bf16 else "")
+        + f" {'ok' if ok else 'FAIL'}; "
         f"on the plain run's own masks grads and carries {own_err:.2e}")
     require(ok, f"training step through the kernels disagrees with the "
             f"plain versions: loss {loss_err}, grads {grad_err}, params "
             f"{param_err}, carries {comm_err}, relu flips {flips}, leaky "
-            f"flips {leaky}, transport flips {tflips}")
+            f"flips {leaky}, transport flips {tflips}, bf16 steps {steps}")
     return {"loss_kernel": lk, "loss_plain": lp, "loss_rel_err": loss_err,
             "grad_rel_err": grad_err, "param_rel_err": param_err,
             "carry_rel_err": comm_err, "relu_flips": flips[0],
             "relu_elements": flips[1], "leaky_flips": leaky[0],
             "leaky_elements": leaky[1], "transport_flips": tflips[0],
             "transported_elements": tflips[1], "rerun_bit_identical": same,
-            "own_masks_rel_err": own_err}
+            "own_masks_rel_err": own_err, "dtype": trainer.cfg.dtype,
+            "bf16_carry_steps": steps[0], "bf16_carry_elements": steps[1]}
 
 
 # ---------------------------------------------------------------------------
@@ -1158,27 +1224,54 @@ def k8_checks(name, got, ref, abs_ref, deg_t, dh):
                     sum_rtol=gat_gamma(deg_t, dh)[..., None]))
 
 
+# the row types of K6 / K8: (z, g) dtypes by mode
+def gat_modes():
+    import torch
+
+    return {"f32": (torch.float32, torch.float32),
+            "bf16": (torch.bfloat16, torch.bfloat16),
+            "fp8": (torch.float8_e4m3fn, torch.float8_e5m2)}
+
+
+def narrow(x, dt):
+    """``x`` [P, rows, H, dh] f32 in the row type ``dt`` (K10's plain
+    cast: fp8 saturates, bf16 rounds)."""
+    import torch
+    from pipegcn_tpu_torch.ops import bucket_spmm as bs
+
+    if dt == torch.float32:
+        return x
+    P, rows = x.shape[:2]
+    return bs.transport_cast_plain(x.reshape(P, rows, -1).contiguous(),
+                                   dt)[0].view(x.shape)
+
+
 def gat_check(name, gat, z, el, er, indptr, src, transpose, slope=0.2,
-              seed=0):
+              seed=0, mode="f32"):
     """K6 (both modes) and K8 against their plain versions on one input
     (k6_checks, k8_checks), and pass A's d_er from K6's NEG outputs
     against d_er from the plain version's; the NEG mode leaves out, m and
-    s bit for bit; each kernel rerun bit-identical. Returns the largest
-    error of each kernel (K6 including d_er)."""
+    s bit for bit; each kernel rerun bit-identical. ``mode`` picks the row
+    types (``gat_modes``): z and the cotangent g are cast to them, and
+    both sides read the same narrow rows (the plain versions widen them).
+    Returns the largest error of each kernel (K6 including d_er)."""
     import torch
 
     it, dt = transpose
+    zdt, gdt = gat_modes()[mode]
+    z = narrow(z, zdt)
     P, R, H, dh = z.shape
     n = er.shape[1]
     gen = torch.Generator(device="cuda").manual_seed(seed)
     deg = indptr.diff(dim=1)
+    name = f"{name} [{mode}]"
     got = gat.gat_fwd(z, el, er, indptr, src, slope, neg=True)
     require(all(torch.equal(a, b) for a, b in zip(
         gat.gat_fwd(z, el, er, indptr, src, slope), got)),
         f"K6 {name}: the NEG mode changes out, m or s")
     ref = gat.gat_fwd_plain(z, el, er, indptr, src, slope, neg=True)
-    abs_ref = gat.gat_fwd_plain(z.abs(), el, er, indptr, src, slope,
-                                neg=True)
+    abs_ref = gat.gat_fwd_plain(z.float().abs(), el, er, indptr, src,
+                                slope, neg=True)
     e6 = k6_checks(name, got, ref, abs_ref, deg)
     g = torch.randn((P, n, H, dh), generator=gen, device="cuda")
     rho = (g * ref[0]).sum(-1)
@@ -1189,13 +1282,15 @@ def gat_check(name, gat, z, el, er, indptr, src, transpose, slope=0.2,
         abs_sum=(1 - slope) * (rho.abs() * ref[4]
                                + (g.abs() * abs_ref[3]).sum(-1)),
         sum_rtol=gat_gamma(deg, dh)[..., None]))
-    stats = (ref[1], ref[2], g, rho)
-    abs_stats = (ref[1], ref[2], g.abs(), -rho.abs())
+    gq = narrow(g, gdt)
+    stats = (ref[1], ref[2], gq, rho)
+    abs_stats = (ref[1], ref[2], gq.float().abs(), -rho.abs())
     d_src = gat.gat_bwd_src(z, el, er, *stats, it, dt, slope)
     e8 = k8_checks(name, d_src,
                    gat.gat_bwd_src_plain(z, el, er, *stats, it, dt, slope),
-                   gat.gat_bwd_src_plain(z.abs(), el, er, *abs_stats, it,
-                                         dt, slope), it.diff(dim=1), dh)
+                   gat.gat_bwd_src_plain(z.float().abs(), el, er,
+                                         *abs_stats, it, dt, slope),
+                   it.diff(dim=1), dh)
     again = (*gat.gat_fwd(z, el, er, indptr, src, slope, neg=True),
              *gat.gat_bwd_src(z, el, er, *stats, it, dt, slope))
     require(all(torch.equal(a, b) for a, b in zip(again, (*got, *d_src))),
@@ -1213,13 +1308,13 @@ def must_fail(name, check) -> None:
     raise Failed(f"{name}: a planted fault passed the check")
 
 
-def gat_fault_phase(gat, slope=0.2):
+def gat_fault_phase(gat, slope=0.2, mode="f32"):
     """The K6 / K8 checks catch a kernel that drops one edge: K6 and K8
     run on the edge-case CSR less one edge of the 5,000-edge row (the
     edge whose weights are nearest the row's mean, from a light source)
     and are held, with the checks' own tolerances, against the plain
     versions on the whole CSR. Each of K6's s and out and K8's d_z must
-    fail."""
+    fail, in the row types of ``mode``."""
     import numpy as np
     import torch
     from pipegcn_tpu_torch.ops.spmm import csr_indptr, csr_transpose
@@ -1227,7 +1322,9 @@ def gat_fault_phase(gat, slope=0.2):
     P, n, R, H, dh = 2, 300, 700, 4, 64
     indptr, src, (it, dt) = gat_edge_graph(P, n, R, seed=P * 100 + dh)
     gen = torch.Generator(device="cuda").manual_seed(17)
-    z = torch.randn((P, R, H, dh), generator=gen, device="cuda")
+    zdt, gdt = gat_modes()[mode]
+    z = narrow(torch.randn((P, R, H, dh), generator=gen, device="cuda"),
+               zdt)
     el = torch.randn((P, R, H), generator=gen, device="cuda")
     er = torch.randn((P, n, H), generator=gen, device="cuda")
     beg, end = int(indptr[0, 5]), int(indptr[0, 6])
@@ -1257,11 +1354,11 @@ def gat_fault_phase(gat, slope=0.2):
     deg = indptr.diff(dim=1)
     got = gat.gat_fwd(z, el, er, f_ip, f_src, slope, neg=True)
     ref = gat.gat_fwd_plain(z, el, er, indptr, src, slope, neg=True)
-    abs_ref = gat.gat_fwd_plain(z.abs(), el, er, indptr, src, slope,
-                                neg=True)
+    abs_ref = gat.gat_fwd_plain(z.float().abs(), el, er, indptr, src,
+                                slope, neg=True)
     # each check alone: the fault must fail each of them
     gi = gat_gamma(deg)
-    name = "planted fault (one edge of the 5,000-edge row dropped)"
+    name = f"planted fault [{mode}] (one edge of the 5,000-edge row dropped)"
     must_fail(f"K6 {name}: s", lambda: check_close(
         f"K6 {name}: s", got[2], ref[2], GAT_ATOL, GAT_RTOL,
         abs_sum=ref[2], sum_rtol=gi[..., None]))
@@ -1270,15 +1367,16 @@ def gat_fault_phase(gat, slope=0.2):
         abs_sum=abs_ref[0], sum_rtol=gi[..., None, None]))
     g = torch.randn((P, n, H, dh), generator=gen, device="cuda")
     rho = (g * ref[0]).sum(-1)
-    stats = (ref[1], ref[2], g, rho)
-    abs_stats = (ref[1], ref[2], g.abs(), -rho.abs())
+    gq = narrow(g, gdt)
+    stats = (ref[1], ref[2], gq, rho)
+    abs_stats = (ref[1], ref[2], gq.float().abs(), -rho.abs())
     d_z = gat.gat_bwd_src(z, el, er, *stats, f_it, f_dt, slope)[0]
     must_fail(f"K8 {name}: d_z", lambda: check_close(
         f"K8 {name}: d_z", d_z,
         gat.gat_bwd_src_plain(z, el, er, *stats, it, dt, slope)[0],
         GAT_ATOL, GAT_RTOL,
-        abs_sum=gat.gat_bwd_src_plain(z.abs(), el, er, *abs_stats, it, dt,
-                                      slope)[0],
+        abs_sum=gat.gat_bwd_src_plain(z.float().abs(), el, er, *abs_stats,
+                                      it, dt, slope)[0],
         sum_rtol=gat_gamma(it.diff(dim=1))[..., None, None]))
 
 
@@ -1318,6 +1416,57 @@ def gat_edge_graph(P, n, R, seed):
     return (torch.from_numpy(csr_indptr(dst, n)).cuda(),
             torch.from_numpy(src).cuda(),
             (torch.from_numpy(it).cuda(), torch.from_numpy(dt).cuda()))
+
+
+def gat_narrow_edge_phase(gat, mode):
+    """K6 and K8 in the narrow row types of ``mode`` on edge cases: empty
+    rows, the 5,000-edge row, dh = 64 and the logits layer's 41 (F = 164:
+    chunks of 4 elements straddle two heads), dh = 5 with H = 8; and rows
+    whose base is not aligned to a vector (a tensor starting one element
+    into its storage: the kernels take one element at a time there), whose
+    results must equal the aligned ones bit for bit (K8's d_el within the
+    GAT tolerance: its dot products group the products by chunk)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    zdt, gdt = gat_modes()[mode]
+    errs = []
+    n, R = 300, 700
+    for P, H, dh in ((2, 4, 64), (2, 4, 41), (2, 8, 5)):
+        indptr, src, tr = gat_edge_graph(P, n, R, seed=P * 100 + dh)
+        z = torch.randn((P, R, H, dh), generator=gen, device="cuda")
+        el = torch.randn((P, R, H), generator=gen, device="cuda")
+        er = torch.randn((P, n, H), generator=gen, device="cuda")
+        name = f"edge cases P={P} H={H} dh={dh}"
+        errs.append(gat_check(name, gat, z, el, er, indptr, src, tr,
+                              mode=mode))
+        zq = narrow(z, zdt)
+        zu = torch.empty(zq.numel() + 1, dtype=zdt, device="cuda")[1:]
+        zu = zu.view(zq.shape)
+        zu.copy_(zq)
+        got = gat.gat_fwd(zq, el, er, indptr, src, neg=True)
+        require(all(torch.equal(a, b) for a, b in zip(
+            gat.gat_fwd(zu, el, er, indptr, src, neg=True), got)),
+            f"K6 {name} [{mode}]: unaligned rows differ from aligned ones")
+        g = narrow(torch.randn((P, n, H, dh), generator=gen, device="cuda"),
+                   gdt)
+        gu = torch.empty(g.numel() + 1, dtype=gdt, device="cuda")[1:]
+        gu = gu.view(g.shape)
+        gu.copy_(g)
+        rho = torch.randn((P, n, H), generator=gen, device="cuda")
+        a8 = (got[1], got[2])
+        du = gat.gat_bwd_src(zu, el, er, *a8, gu, rho, *tr)
+        da = gat.gat_bwd_src(zq, el, er, *a8, g, rho, *tr)
+        require(torch.equal(du[0], da[0]),
+                f"K8 {name} [{mode}]: unaligned rows differ from aligned "
+                "ones (d_z)")
+        # d_el's dot products add a chunk's products before the head sum
+        # where the rows take 4-element loads: another order
+        check_close(f"K8 {name} [{mode}] unaligned: d_el", du[1], da[1],
+                    GAT_ATOL, GAT_RTOL)
+        log(f"  K6 / K8 {name} [{mode}]: unaligned rows: K6 and K8's d_z "
+            f"bit-identical ok")
+    return {k: max(e[k] for e in errs) for k in ("K6", "K8")}
 
 
 def gat_edge_phase(gat):
@@ -1384,19 +1533,22 @@ def gat_cell_inputs(d, dh, seed):
     return z, el, er
 
 
-def gat_cell_phase(trainer, gat):
+def gat_cell_phase(trainer, gat, modes=("f32",)):
     """K6 and K8 against their plain versions on the cell's CSRs, at the
-    hidden layers' dh = 64 and the logits layer's dh = 41."""
+    hidden layers' dh = 64 and the logits layer's dh = 41, in the row
+    types of each of ``modes``."""
     d = trainer.data
     errs = []
-    for dh, seed in ((64, 13), (41, 14)):
-        z, el, er = gat_cell_inputs(d, dh, seed)
-        errs.append(gat_check(f"cell dh={dh}", gat, z, el, er, d.indptr,
-                              d.edge_src, d.transpose, seed=seed))
+    for mode in modes:
+        for dh, seed in ((64, 13), (41, 14)):
+            z, el, er = gat_cell_inputs(d, dh, seed)
+            errs.append(gat_check(f"cell dh={dh}", gat, z, el, er, d.indptr,
+                                  d.edge_src, d.transpose, seed=seed,
+                                  mode=mode))
     return {k: max(e[k] for e in errs) for k in ("K6", "K8")}
 
 
-def gat_timings(trainer, gat):
+def gat_timings(trainer, gat, mode="f32"):
     """K6 (training's NEG mode, and eval's plain mode) and K8 at the
     cell's shapes (dh = 64 and 41): ms, plain ms and the bound. The bound
     counts each input read once and each output written once, and the
@@ -1407,7 +1559,8 @@ def gat_timings(trainer, gat):
     the two at the end (3 flops per row element, the d_el dot product
     included). K6's NEG mode splits the same way (out from both). No
     single PyTorch call computes the attention aggregation, so there is
-    no library time."""
+    no library time. ``mode`` picks the row types of z and g (the bytes
+    shrink with them; the operations do not)."""
     import torch
 
     d = trainer.data
@@ -1416,15 +1569,20 @@ def gat_timings(trainer, gat):
     E = sum(int(d.indptr[p, -1]) for p in range(P))
     ip_b = d.indptr.numel() * d.indptr.element_size()
     out = {}
+    zdt, gdt = gat_modes()[mode]
     for dh, seed in ((64, 15), (41, 16)):
         z, el, er = gat_cell_inputs(d, dh, seed)
+        z = narrow(z, zdt)
         H, F = 4, 4 * dh
         o, m, s = gat.gat_fwd(z, el, er, d.indptr, d.edge_src)
         g = torch.randn_like(o)
         rho = (g * o).sum(-1)
-        z_b, el_b, nh_b, nf_b = (P * R * F * 4, P * R * H * 4, P * n * H * 4,
-                                 P * n * F * 4)
-        shape = (f"P={P} n={n} R={R} H={H} dh={dh} edges={E} f32")
+        g = narrow(g, gdt)
+        z_b, el_b, nh_b, nf_b = (P * R * F * z.element_size(), P * R * H * 4,
+                                 P * n * H * 4, P * n * F * 4)
+        g_b = P * n * F * g.element_size()
+        shape = (f"P={P} n={n} R={R} H={H} dh={dh} edges={E} z "
+                 f"{t_dtype(z)} g {t_dtype(g)}")
         a6 = (z, el, er, d.indptr, d.edge_src)
         a8 = (z, el, er, m, s, g, rho, it, dt)
         fwd_in = z_b + el_b + nh_b + ip_b + E * 4
@@ -1435,8 +1593,9 @@ def gat_timings(trainer, gat):
                 ("K6 eval", gat.gat_fwd, gat.gat_fwd_plain, a6,
                  fwd_in + nf_b + 2 * nh_b, 2 * E * F + P * n * F),
                 ("K8", gat.gat_bwd_src, gat.gat_bwd_src_plain, a8,
-                 z_b + el_b + 4 * nh_b + nf_b
-                 + it.numel() * it.element_size() + E * 4 + z_b + el_b,
+                 z_b + el_b + 4 * nh_b + g_b
+                 + it.numel() * it.element_size() + E * 4
+                 + P * R * F * 4 + el_b,
                  2 * E * F + 3 * P * R * F)):
             out.setdefault(name, {})[dh] = dict(
                 ms=time_ms(lambda: fn(*args)),
@@ -2233,7 +2392,8 @@ def planted_multigraph_tables(dup, seed):
 
 def k12_k13_edge_phase(blk):
     """K12 and K13 on edge cases, both directions: every A encoding from a
-    planted multigraph (int8, bf16, f32) at F = 256 and 602; an empty
+    planted multigraph (int8, bf16, f32) at F = 256 and 602, and with
+    bf16 rows (the bf16 mode) at F = 256; an empty
     pair list (zeros out); a ragged last output and input tile with F = 5
     and 64; one tile of 256 x 256 ones."""
     import torch
@@ -2241,13 +2401,13 @@ def k12_k13_edge_phase(blk):
     gen = torch.Generator(device="cuda").manual_seed(31)
     errs = []
 
-    def both(label, t, F):
+    def both(label, t, F, dtype=torch.float32):
         for side in (t.fwd, t.bwd):
             x = torch.randn((t.a.shape[0], side.n_in, F), generator=gen,
-                            device="cuda")
+                            device="cuda").to(dtype)
             errs.append(block_check(
-                f"{'K13' if side.transpose else 'K12'} {label} F={F}",
-                blk, x, t, side))
+                f"{'K13' if side.transpose else 'K12'} {label} F={F} "
+                f"{t_dtype(x)} rows", blk, x, t, side))
 
     for dup, want_bits in ((3, 8), (200, 16), (300, 32)):
         t, st = planted_multigraph_tables(dup, seed=dup)
@@ -2258,6 +2418,8 @@ def k12_k13_edge_phase(blk):
             f"({t.a.dtype}), {st['blocks']} blocks")
         for F in (256, 602):
             both(f"{t.a.dtype} A", t, F)
+        # the bf16 mode over every A encoding (f32 A: the scalar path)
+        both(f"{t.a.dtype} A", t, 256, torch.bfloat16)
     T = 256
     gb = torch.Generator().manual_seed(5)
     bits = torch.randint(0, 256, (1, 4, T, T // 8), generator=gb,
@@ -2282,10 +2444,11 @@ def k12_k13_edge_phase(blk):
     return max(errs)
 
 
-def block_fault_phase(blk, trainer):
+def block_fault_phase(blk, trainer, dtype=None):
     """One bit of one A block flipped (the block of part 0's first pair):
     K12's and K13's checks at the cell's shapes must fail against the
-    plain versions on the true A."""
+    plain versions on the true A (on ``dtype`` rows: f32, or bf16 for the
+    bf16 mode)."""
     import dataclasses
 
     import torch
@@ -2298,7 +2461,9 @@ def block_fault_phase(blk, trainer):
     for name, side, fn in (("K12", t.fwd, blk.block_dense),
                            ("K13", t.bwd, blk.block_dense_t)):
         x = torch.randn((t.a.shape[0], side.n_in, 256), generator=gen,
-                        device="cuda")
+                        device="cuda").to(dtype or torch.float32)
+        if dtype is not None:
+            name = f"{name} [{t_dtype(x)}]"
         got = fn(x, bad)
         ref = blk.block_dense_plain(x, t, side)
         abs_sum = blk.block_dense_plain(x.abs(), t, side)
@@ -2374,11 +2539,13 @@ def block_train_phase(args, sg, eval_graphs, eval_cache, spmm, halo):
     t0 = time.monotonic()
     estimate = blk.estimate_block_coverage(sg, 256, 602)
     est_s = time.monotonic() - t0
+    per_tile = sum(st["dense_edges"]) / max(sum(st["blocks"]), 1)
     log(f"  block tables: {d.block_build_s:.1f}s, dense coverage "
         f"{coverage:.4f} (estimate_block_coverage {estimate:.4f} in "
         f"{est_s:.1f}s; {st['dense_edges']} of {st['edges']} edges), "
-        f"blocks {st['blocks']}, A {st['bits']}-bit "
-        f"({t_dtype(d.block.a)}), {st['a_bytes']} bytes a part")
+        f"blocks {st['blocks']} ({per_tile:.1f} dense edges a tile), A "
+        f"{st['bits']}-bit ({t_dtype(d.block.a)}), {st['a_bytes']} bytes "
+        f"a part")
     log(f"  block fit: {n_ep} epochs in {fit_s:.1f}s, losses "
         f"{losses[0]:.4f} -> {losses[-1]:.4f}, best val "
         f"{res['best_val']:.4f}, test {res.get('test_acc', float('nan')):.4f},"
@@ -2428,6 +2595,7 @@ def block_train_phase(args, sg, eval_graphs, eval_cache, spmm, halo):
              "peak_mem_gib": peak_gib, "mem_before_build_gib": base_gib,
              "host_steps_s": steps, "launches": launches,
              "tables": {**st, "coverage": coverage,
+                        "dense_edges_per_tile": per_tile,
                         "estimate_block_coverage": estimate,
                         "estimate_s": est_s,
                         "a_dtype": t_dtype(d.block.a),
@@ -2474,7 +2642,7 @@ def dense_csr(t, n_out, n_in, reverse):
             .to_sparse_csr(), int(v.sum())
 
 
-def block_timings(trainer, blk, bs):
+def block_timings(trainer, blk, bs, dtype=None):
     """K12 and K13 at the cell's shape (F = 256; ms, plain ms, bound,
     cuSPARSE over the dense edges' CSR) and the tile-product floors; K9
     on the block trainer's remainder tables (e4m3 forward, e5m2
@@ -2488,7 +2656,10 @@ def block_timings(trainer, blk, bs):
     floors of the tile products, 2 * pairs * T * T * F flops: over the
     bf16 tensor-core peak for one product an entry, three times that for
     K12 / K13's design (the three-term split of each input), and over the
-    f32 CUDA-core peak."""
+    f32 CUDA-core peak. With ``dtype`` bf16 (K12 / K13's bf16 mode: one
+    bf16 product an entry) the rows are bf16, the bytes shrink with them,
+    the K9 remainder is not timed again, and no library call is timed (no
+    single PyTorch call multiplies bf16 rows into f32 sums)."""
     import torch
 
     d = trainer.data
@@ -2496,16 +2667,19 @@ def block_timings(trainer, blk, bs):
     P, n, R, F, T = d.num_parts, d.n_max, d.n_max + d.halo_size, 256, t.tile
     act, cot = transport_inputs(d, 25)
     gd = cot / d.in_deg[..., None]
+    if dtype is not None:
+        act, gd = act.to(dtype), gd.to(dtype)
     out = {}
     for name, side, x, fn in (("K12", t.fwd, act, blk.block_dense),
                               ("K13", t.bwd, gd, blk.block_dense_t)):
         a, e_dense = dense_csr(t, n, R, side.transpose)
-        lib = time_ms(lambda: torch.sparse.mm(a, x.reshape(-1, F)))
+        lib = None if dtype is not None else time_ms(
+            lambda: torch.sparse.mm(a, x.reshape(-1, F)))
         del a
         pairs = int(side.ptr[:, -1].sum())
         a_bytes = pairs * t.a[0, 0].numel() * t.a.element_size()
-        n_bytes = (x.numel() * 4 + e_dense * 4 + P * (side.n_out + 1) * 4
-                   + P * side.n_out * F * 4)
+        n_bytes = (x.numel() * x.element_size() + e_dense * 4
+                   + P * (side.n_out + 1) * 4 + P * side.n_out * F * 4)
         tile_ops = 2 * pairs * T * T * F
         out[name] = dict(
             ms=time_ms(lambda: fn(x, t)),
@@ -2518,8 +2692,9 @@ def block_timings(trainer, blk, bs):
             tile_floor_f32_ms=tile_ops / F32_FLOP_PER_S * 1e3,
             shape=f"P={P} n_out={side.n_out} n_in={side.n_in} F={F} T={T} "
                   f"pairs={pairs} dense_edges={e_dense} "
-                  f"A {t_dtype(t.a)}{' bits' if t.packed else ''}")
-    for name, side, x0, dt in (
+                  f"A {t_dtype(t.a)}{' bits' if t.packed else ''} "
+                  f"rows {t_dtype(x)}")
+    for name, side, x0, dt in () if dtype is not None else (
             ("K9 remainder forward e4m3", t.rem_fwd, act,
              torch.float8_e4m3fn),
             ("K9 remainder backward e5m2", t.rem_bwd, gd,
@@ -2628,6 +2803,391 @@ def block_gcn_phase(args, sg, spmm, halo):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# the bf16 phases: K4 in bf16, K2 / K5 on bf16 rows, the bf16 SAGE cells,
+# K12 / K13's bf16 mode and the bf16 GAT cell (scripts/gat_bench.py)
+
+
+def bf16_comm_phase(trainer, halo):
+    """K4 in bf16 at the cell's shape (P = 2: one add a row, done in f32
+    and rounded to bf16 once) and at P = 4 with rows repeated across
+    distances (an add and a rounding a slot, in slot order): bit-exact
+    against the plain version, which rounds at the same places; K2 (with
+    and without the inner rows) and K5 bit-exact on bf16 rows."""
+    import torch
+
+    d = trainer.data
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    P, n_max, H = d.num_parts, d.n_max, d.halo_size
+    bf = torch.bfloat16
+    full = torch.randn((P, n_max + H, 256), generator=gen,
+                       device="cuda").to(bf)
+    bg = torch.randn((P, H, 256), generator=gen, device="cuda").to(bf)
+    got = halo.scatter_bgrad(full[:, :n_max], bg, *d.inverse)
+    require(got.dtype == bf, "K4 bf16: output is not bf16")
+    check_bits("K4 bf16 P=2 F=256 (cell)", got, halo.scatter_bgrad_plain(
+        full[:, :n_max], bg, *d.inverse))
+    want = (full[:, :n_max].float() + halo.scatter_bgrad(
+        torch.zeros_like(full[:, :n_max]).float(), bg.float(),
+        *d.inverse)).to(bf)
+    check_bits("K4 bf16 P=2 F=256 (cell) vs round_bf16(g + inj) in f32",
+               got, want)
+    for F in (3, 256):
+        P4, n4, B4 = 4, 64, 40
+        idx = torch.stack([torch.stack([
+            torch.randperm(n4, generator=gen, device="cuda")[:B4]
+            for _ in range(P4 - 1)]) for _ in range(P4)]).int()
+        mask = torch.rand((P4, P4 - 1, B4), generator=gen,
+                          device="cuda") < 0.8
+        ptr, slot = halo.send_csr(idx.cpu().numpy(), mask.cpu().numpy(), n4)
+        ptr, slot = torch.from_numpy(ptr).cuda(), torch.from_numpy(slot).cuda()
+        g = torch.randn((P4, n4, F), generator=gen, device="cuda").to(bf)
+        b = torch.randn((P4, (P4 - 1) * B4, F), generator=gen,
+                        device="cuda").to(bf)
+        check_bits(f"K4 bf16 P=4 F={F} (repeated rows)",
+                   halo.scatter_bgrad(g, b, ptr, slot),
+                   halo.scatter_bgrad_plain(g, b, ptr, slot))
+    h = torch.randn((P, n_max, 256), generator=gen, device="cuda").to(bf)
+    for inner in (False, True):
+        check_bits(f"K2 bf16 F=256 (cell, inner rows {inner})",
+                   halo.halo_gather(h, d.send_idx, d.send_mask, inner),
+                   halo.halo_gather_plain(h, d.send_idx, d.send_mask,
+                                          inner))
+    check_bits("K5 bf16 F=256 (cell, strided view)",
+               halo.return_blocks(full[:, n_max:], d.b_max),
+               halo.return_blocks_plain(full[:, n_max:], d.b_max))
+    return 0.0
+
+
+def k4_bf16_timing(trainer, halo):
+    """K4 in bf16 at the cell's shape beside its plain version, the
+    library call (one bf16 index_add) and its bound (bytes: half the f32
+    mode's; one add an injected element)."""
+    import torch
+
+    d = trainer.data
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    P, n_max, H, F = d.num_parts, d.n_max, d.halo_size, 256
+    bf = torch.bfloat16
+    full = torch.randn((P, n_max + H, F), generator=gen,
+                       device="cuda").to(bf)
+    gi = full[:, :n_max]
+    bg = torch.randn((P, H, F), generator=gen, device="cuda").to(bf)
+    ptr, slot = d.inverse
+    m = d.send_mask.reshape(P, -1)
+    rows = torch.cat([d.send_idx[p].reshape(-1)[m[p]].long() + p * n_max
+                      for p in range(P)])
+    vals = torch.cat([bg[p][m[p]] for p in range(P)])
+    gflat = gi.contiguous().reshape(P * n_max, F)
+    nnz = int(rows.numel())
+    n_bytes = 2 * P * n_max * F * 2 + nnz * F * 2 + ptr.numel() * 4 + nnz * 4
+    out = dict(ms=time_ms(lambda: halo.scatter_bgrad(gi, bg, ptr, slot)),
+               plain_ms=time_ms(lambda: halo.scatter_bgrad_plain(
+                   gi, bg, ptr, slot), reps=3, warmup=1),
+               library_ms=time_ms(lambda: torch.index_add(gflat, 0, rows,
+                                                          vals)),
+               bound=bound_ms(n_bytes, nnz * F),
+               shape=f"P={P} n_max={n_max} H={H} nnz={nnz} F={F} bf16")
+    log(f"  K4 bf16: {out['ms']:.3f} ms (plain {out['plain_ms']:.3f}, "
+        f"index_add {out['library_ms']:.3f}, bound {out['bound'][0]:.3f} "
+        f"{out['bound'][1]})")
+    return out
+
+
+def switch_dtype(trainer, vcli, sg):
+    """Run ``trainer`` on ``vcli``'s config from here on, on the same
+    staged graph and tables: the variant's ModelConfig swapped in (as the
+    bucket cell's variants are), the features cast to its compute dtype
+    (after the f32 pp precompute, as Trainer does) and the comm carry
+    started anew in its dtypes."""
+    from pipegcn_tpu_torch.cli.main import configs
+
+    trainer.cfg = configs(vcli, sg)[0]
+    trainer.feat = trainer.feat.to(trainer.cfg.compute_dtype)
+    trainer.comm = trainer._init_comm()
+
+
+def bf16_epochs(label, trainer, cnt, epoch0, n, want, modes):
+    """``n`` epochs of a bf16 cell with the counts set to 0 just before
+    and read just after: finite losses, the launches ``want`` a kernel an
+    epoch and, for the kernels with row-type modes, ``modes`` (kernel ->
+    mode -> an epoch); then one epoch held against the plain versions
+    (``step_phase``)."""
+    import math
+
+    import torch
+
+    reset_counts(cnt)
+    t0 = time.monotonic()
+    losses = [trainer.train_epoch(epoch0 + e) for e in range(n)]
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    got, got_modes = read_counts(cnt), read_modes(cnt)
+    log(f"  {label}: {n} epochs in {secs:.1f}s, losses {losses}, launches "
+        f"{got}, by row type {got_modes}")
+    require(all(math.isfinite(x) for x in losses),
+            f"{label}: non-finite loss")
+    require({k: got[k] for k in want} == {k: v * n for k, v in want.items()},
+            f"{label}: launches {got}, want {want} an epoch")
+    for k, per in modes.items():
+        require({m: got_modes[k][m] for m in per}
+                == {m: v * n for m, v in per.items()},
+                f"{label}: {k} launches by row type {got_modes[k]}, want "
+                f"{per} an epoch")
+    step = step_phase(trainer, epoch0 + n)
+    reset_counts(cnt)
+    more = iter(range(epoch0 + n + 10, epoch0 + n + 100))
+    epoch_ms = time_ms(lambda: trainer.train_epoch(next(more)), reps=5,
+                       warmup=1)
+    per_epoch = {k: v / 6 for k, v in read_counts(cnt).items()}
+    log(f"  {label}: epoch {epoch_ms:.3f} ms median ({per_epoch})")
+    return {"epochs": n, "losses": losses, "seconds": secs,
+            "launches": got, "launches_by_mode": got_modes,
+            "step_check": step, "epoch_ms": epoch_ms,
+            "launches_per_epoch": per_epoch}
+
+
+def bf16_split(label, stats, kernel_ms):
+    """A bf16 cell's epoch split: ``kernel_ms`` (kernel -> this run's ms
+    of one launch at the cell's shapes, or an estimate where noted) times
+    its launches an epoch, the rest by subtraction."""
+    per = stats["launches_per_epoch"]
+    parts = {k: per[k] * ms for k, ms in kernel_ms.items()}
+    rest = stats["epoch_ms"] - sum(parts.values())
+    log(f"  {label} epoch {stats['epoch_ms']:.3f} ms: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+        + f", rest {rest:.3f} ms")
+    stats["split"] = {"kernels_ms": parts, "rest_ms": rest}
+
+
+def k1_bf16_timing(trainer, spmm, halo):
+    """K1 on bf16 rows (the bf16 xla cell's aggregation input) at the
+    cell's shape: ms, plain ms and the bound (the rows' bytes halve; the
+    operations do not); no single PyTorch call gathers bf16 rows into f32
+    means, so no library time."""
+    import torch
+
+    d = trainer.data
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    P, n_max, F = d.num_parts, d.n_max, 256
+    h = torch.randn((P, n_max, F), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    fbuf = halo.halo_exchange(h, d.send_idx, d.send_mask)
+    args = (d.indptr, d.edge_src, d.in_deg)
+    n_edges = sum(int(d.indptr[p, -1]) for p in range(P))
+    n_bytes = (fbuf.numel() * 2 + n_edges * 4 + d.indptr.numel()
+               * d.indptr.element_size() + d.in_deg.numel() * 4
+               + P * n_max * F * 4)
+    out = dict(ms=time_ms(lambda: spmm.spmm_mean(fbuf, *args)),
+               plain_ms=time_ms(lambda: spmm.spmm_mean_plain(fbuf, *args),
+                                reps=3, warmup=1),
+               library_ms=None,
+               bound=bound_ms(n_bytes, n_edges * F + P * n_max * F),
+               shape=f"P={P} n_out={n_max} n_src={fbuf.shape[1]} F={F} "
+                     f"edges={n_edges} bf16 rows")
+    log(f"  K1 on bf16 rows: {out['ms']:.3f} ms (plain "
+        f"{out['plain_ms']:.3f}, bound {out['bound'][0]:.3f} "
+        f"{out['bound'][1]})")
+    return out
+
+
+def bf16_sage_xla_phase(args, sg, spmm, halo):
+    """``scripts/reddit.sh --dtype bfloat16`` (xla: K1 on bf16 rows, K3 on
+    the f32 cotangent with d_fbuf cast to bf16 once, K4 in bf16, K2 / K5
+    on bf16 rows) through cli/main.py's trainer for a few epochs, then
+    its step check."""
+    import torch
+    from pipegcn_tpu_torch.cli.main import build_trainer
+
+    cli = train_cli(args, epochs=args.bf16_epochs, dtype="bfloat16")
+    cnt = counters(spmm, halo)
+    trainer = build_trainer(cli, sg, torch.device("cuda", 0), log=log)
+    require(trainer.feat.dtype == torch.bfloat16, "bf16 xla: features")
+    stats = bf16_epochs(
+        "bf16 xla", trainer, cnt, 0, args.bf16_epochs,
+        {"spmm_mean": 3, "spmm_mean_t": 3, "halo_gather": 3,
+         "halo_return": 3, "halo_scatter": 3, "bucket_gather": 0},
+        {"halo_scatter": {"bfloat16": 3, "float32": 0}})
+    return stats, k1_bf16_timing(trainer, spmm, halo)
+
+
+def block_bf16_checks(trainer, blk):
+    """K12 and K13's bf16 mode against the plain version (which widens the
+    same bf16 rows): at the cell's shapes (F = 256 and 602) and on the
+    edge cases (ragged tiles at F = 5 and 64, one tile of ones), each
+    rerun bit-identical; then a flipped A bit must fail both."""
+    import torch
+
+    d = trainer.data
+    t = d.block
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    R = d.n_max + d.halo_size
+    bf = torch.bfloat16
+    errs = []
+    for F in (256, 602):
+        x = torch.randn((d.num_parts, R, F), generator=gen,
+                        device="cuda").to(bf)
+        errs.append(block_check(f"K12 bf16 mode cell F={F}", blk, x, t,
+                                t.fwd))
+        g = torch.randn((d.num_parts, d.n_max, F), generator=gen,
+                        device="cuda").to(bf)
+        errs.append(block_check(f"K13 bf16 mode cell F={F}", blk, g, t,
+                                t.bwd))
+        del x, g
+    T = 256
+    gb = torch.Generator().manual_seed(5)
+    bits = torch.randint(0, 256, (1, 4, T, T // 8), generator=gb,
+                         dtype=torch.uint8)
+    ragged = block_tables_of(bits, True, T, [(0, 0, 0), (0, 1, 2),
+                                             (1, 2, 1), (1, 3, 2),
+                                             (1, 0, 0)], 300, 700)
+    ones = block_tables_of(torch.full((1, 1, T, T // 8), 255,
+                                      dtype=torch.uint8), True, T,
+                           [(0, 0, 0)], T, T)
+    for label, tb, widths in (("ragged tiles", ragged, (5, 64)),
+                              ("256 x 256 ones", ones, (256,))):
+        for F in widths:
+            for side in (tb.fwd, tb.bwd):
+                x = torch.randn((1, side.n_in, F), generator=gen,
+                                device="cuda").to(bf)
+                errs.append(block_check(
+                    f"{'K13' if side.transpose else 'K12'} bf16 mode "
+                    f"{label} F={F}", blk, x, tb, side))
+    block_fault_phase(blk, trainer, dtype=bf)
+    return max(errs)
+
+
+def bf16_gat_phase(args, sg, eval_graphs, eval_cache, spmm, halo):
+    """This slice's cell: ``scripts/gat_bench.py``'s configuration through
+    cli/main.py's functions (``--model gat --n-heads 4 --n-layers 4
+    --n-hidden 256 --dtype bfloat16 --spmm-impl bucket --rem-dtype
+    float8`` with reddit.sh's ``--inductive --enable-pipeline``, dropout
+    0.5, Adam lr 0.01, LayerNorm) on the SAGE cell's parts, sharing its
+    eval-graph CSRs, counts from the trainer's build through the final
+    eval: a finite, falling loss, finite accuracies, K6 (e4m3 z rows) and
+    K8 (e5m2 cotangent rows) 4 times an epoch, K10 8 times (z and g of
+    each layer), K4 in bf16; then 2 epochs each of ``--rem-dtype
+    bfloat16`` and ``none`` on the same trainer."""
+    import math
+
+    import torch
+    from pipegcn_tpu_torch.cli.main import build_trainer, configs
+
+    flags = ["--spmm-impl", "bucket", "--rem-dtype", "float8"]
+    n_ep = args.bf16_gat_epochs
+    cli = train_cli(args, epochs=n_ep, model="gat", extra=flags,
+                    dtype="bfloat16")
+    cnt = counters(spmm, halo)
+    steps = {}
+    reset_counts(cnt)
+    torch.cuda.reset_peak_memory_stats()
+    base_gib = torch.cuda.memory_allocated() / 2 ** 30
+    trainer = build_trainer(cli, sg, torch.device("cuda", 0), log=log,
+                            steps=steps)
+    trainer.eval_cache = eval_cache
+    t0 = time.monotonic()
+    res = trainer.fit(eval_graphs, log_fn=log, inductive=True,
+                      reference_logs=True)
+    torch.cuda.synchronize()
+    fit_s = time.monotonic() - t0
+    launches, modes = read_counts(cnt), read_modes(cnt)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = res["losses"]
+    log(f"  bf16 gat fit: {n_ep} epochs in {fit_s:.1f}s, losses "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, best val "
+        f"{res['best_val']:.4f}, test {res.get('test_acc', float('nan')):.4f}"
+        f", launches {launches}, by row type {modes}, peak {peak_gib:.3f} "
+        f"GiB (held before the build {base_gib:.3f} GiB)")
+    require(trainer.feat.dtype == torch.bfloat16
+            and trainer.comm["halo"]["1"].dtype == torch.bfloat16,
+            "bf16 gat: features and carries must be bf16")
+    require(len(losses) == n_ep and all(math.isfinite(x) for x in losses),
+            f"bf16 gat: losses {losses}")
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    require(last < first, f"bf16 gat: loss did not fall: first-5 mean "
+            f"{first:.4f}, last-5 mean {last:.4f}")
+    require_launched(launches, "gat", "bf16 gat training run")
+    require(launches["gat_bwd_src"] == 4 * n_ep
+            and modes["gat_bwd_src"]["gat_attn_fp8"] == 4 * n_ep
+            and launches["transport_cast"] == 8 * n_ep
+            and modes["gat_fwd"]["gat_attn_fp8"] == 4 * n_ep
+            and modes["halo_scatter"]["bfloat16"] >= 3 * n_ep
+            and modes["halo_scatter"]["float32"] == 0,
+            f"bf16 gat: K8 and K6 (e4m3 / e5m2 rows) 4 times an epoch, "
+            f"K10 8 times, K4 in bf16: {launches} {modes}")
+    accs = (res["best_val"], res.get("test_acc", float("nan")))
+    require(all(math.isfinite(a) and 0.0 <= a <= 1.0 for a in accs),
+            f"bf16 gat: accuracies not finite: {accs}")
+    variants = {}
+    base_cfg = trainer.cfg
+    for i, (rem, k10, per_mode) in enumerate((
+            ("bfloat16", 8, {"gat_attn_bf16": 4}),
+            ("none", 0, {"gat_attn_bf16": 3, "gat_attn": 1}))):
+        vcli = train_cli(args, epochs=2, model="gat", dtype="bfloat16",
+                         extra=flags[:2] + ["--rem-dtype", rem])
+        trainer.cfg = configs(vcli, sg)[0]
+        reset_counts(cnt)
+        ls = [trainer.train_epoch(n_ep + 2 * i + e) for e in range(2)]
+        got, got_modes = read_counts(cnt), read_modes(cnt)
+        log(f"  bf16 gat --rem-dtype {rem}: losses {ls}, launches {got}, "
+            f"by row type {got_modes}")
+        require(all(math.isfinite(x) for x in ls),
+                f"bf16 gat --rem-dtype {rem}: non-finite loss")
+        require(got["transport_cast"] == 2 * k10
+                and {m: got_modes["gat_fwd"][m] for m in per_mode}
+                == {m: 2 * v for m, v in per_mode.items()}
+                and {m: got_modes["gat_bwd_src"][m] for m in per_mode}
+                == {m: 2 * v for m, v in per_mode.items()},
+                f"bf16 gat --rem-dtype {rem}: launches {got} {got_modes}")
+        variants[rem] = {"losses": ls, "launches": got,
+                         "launches_by_mode": got_modes}
+        for k, fn in cnt.items():  # the cell's run: every launch counts
+            launches[k] += got[k]
+            for m in getattr(fn, "by_mode", {}):
+                modes[k][m] += got_modes[k][m]
+    trainer.cfg = base_cfg
+    stats = {"epochs": n_ep, "losses": losses, "first5_mean": first,
+             "last5_mean": last, "best_val": res["best_val"],
+             "best_epoch": res["best_epoch"], "test_acc": res["test_acc"],
+             "fit_s": fit_s, "epoch_time_s_mean": res["epoch_time"],
+             "peak_mem_gib": peak_gib, "mem_before_build_gib": base_gib,
+             "host_steps_s": steps, "launches": launches,
+             "launches_by_mode": modes, "variants": variants}
+    return trainer, stats
+
+
+def bf16_gat_split(trainer, cnt, g16, g8, gf, k4b, tt):
+    """The bf16 GAT epoch (median of 5 after one warm epoch, the cell's
+    float8 transport) and its split by this run's kernel times: K6 and K8
+    in the e4m3 / e5m2 row types at dh = 64 (layers 0-2) and 41 (the
+    logits layer), K10 8 times (the bucket cell's f32 -> e4m3 time at F =
+    256 for each: an estimate), K4 in bf16, K2 / K5 at their f32 times
+    (an upper estimate: the rows are half as wide), the rest by
+    subtraction."""
+    reset_counts(cnt)
+    base = trainer.tcfg.n_epochs + 20
+    epochs = iter(range(base, base + 100))
+    reps = 5
+    epoch_ms = time_ms(lambda: trainer.train_epoch(next(epochs)), reps=reps,
+                       warmup=1)
+    per_epoch = {k: v / (reps + 1) for k, v in read_counts(cnt).items()}
+    attn_ms = sum(3 * g8[k][64]["ms"] + g8[k][41]["ms"]
+                  for k in ("K6", "K8"))
+    comm_ms = (per_epoch["halo_gather"] * tt["K2"]["ms"]
+               + per_epoch["halo_scatter"] * k4b["ms"]
+               + per_epoch["halo_return"] * tt["K5"]["ms"])
+    split = {"epoch_ms": epoch_ms, "attention_kernels_ms": attn_ms,
+             "comm_kernels_ms": comm_ms,
+             "rest_ms": epoch_ms - attn_ms - comm_ms,
+             "launches_per_epoch": per_epoch}
+    log(f"  bf16 gat epoch {epoch_ms:.3f} ms median: K6+K8 (e4m3/e5m2) "
+        f"{attn_ms:.3f} ms, comm kernels {comm_ms:.3f} ms, rest "
+        f"{split['rest_ms']:.3f} ms ({per_epoch}); the same kernels in "
+        f"bf16 rows {sum(3 * g16[k][64]['ms'] + g16[k][41]['ms'] for k in ('K6', 'K8')):.3f} ms, "
+        f"in f32 {sum(3 * gf[k][64]['ms'] + gf[k][41]['ms'] for k in ('K6', 'K8')):.3f} ms")
+    return split
+
+
 def kernel_entry(name, source, replaces, launches, err, t, serving=None):
     """One kernel of the ``kernels`` line: ``t`` timed at the shape whose
     launches are counted (the training run's); K1/K2 also carry their
@@ -2656,15 +3216,19 @@ def main() -> int:
                          "cell)")
     ap.add_argument("--serve-seconds", type=float, default=5.0)
     ap.add_argument("--qps", type=float, default=200.0)
-    ap.add_argument("--train-epochs", type=int, default=20)
+    ap.add_argument("--train-epochs", type=int, default=10)
     ap.add_argument("--step-repeats", type=int, default=1,
                     help="run [7] and [11] on this many consecutive epochs")
-    ap.add_argument("--gat-epochs", type=int, default=12)
-    ap.add_argument("--gcn-epochs", type=int, default=6)
-    ap.add_argument("--bucket-epochs", type=int, default=20)
-    ap.add_argument("--bucket-gcn-epochs", type=int, default=4)
-    ap.add_argument("--block-epochs", type=int, default=20)
-    ap.add_argument("--block-gcn-epochs", type=int, default=4)
+    ap.add_argument("--gat-epochs", type=int, default=6)
+    ap.add_argument("--gcn-epochs", type=int, default=4)
+    ap.add_argument("--bucket-epochs", type=int, default=10)
+    ap.add_argument("--bucket-gcn-epochs", type=int, default=3)
+    ap.add_argument("--block-epochs", type=int, default=6)
+    ap.add_argument("--block-gcn-epochs", type=int, default=3)
+    ap.add_argument("--bf16-epochs", type=int, default=3,
+                    help="epochs of each bf16 GraphSAGE cell")
+    ap.add_argument("--bf16-gat-epochs", type=int, default=12,
+                    help="epochs of the bf16 GAT cell at --rem-dtype float8")
     args = ap.parse_args()
 
     import torch
@@ -2674,6 +3238,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     try:
+        from pipegcn_tpu_torch import native
         from pipegcn_tpu_torch.graph.datasets import load_data
         from pipegcn_tpu_torch.ops import _build, gat, spmm
         from pipegcn_tpu_torch.ops import block_spmm as blk
@@ -2699,9 +3264,17 @@ def main() -> int:
 
     t0 = time.monotonic()
     secs = _build.build(["spmm_mean", "halo_gather", "halo_scatter",
-                         "gat_attn", "bucket_spmm", "transport_cast",
+                         *gat.LIBRARIES, "bucket_spmm", "transport_cast",
                          "block_spmm"])
     log(f"[2] kernels built in {time.monotonic() - t0:.1f}s: {secs}")
+    # the native partitioner and radix sort (g++): the training cells
+    # partition by metis on it, as the JAX CLI does; its absence fails
+    t0 = time.monotonic()
+    require(native.available(), "the native host library "
+            "(pipegcn_tpu_torch/native, built with g++) is unavailable")
+    native_s = time.monotonic() - t0
+    log(f"    native library {native.lib_path()} built and loaded in "
+        f"{native_s:.1f}s")
 
     t0 = time.monotonic()
     g = load_data(args.dataset)
@@ -2724,9 +3297,9 @@ def main() -> int:
 
     log(f"[6] training cell: scripts/reddit.sh at full width on "
         f"{args.dataset} (--inductive --enable-pipeline --use-pp, dropout "
-        f"0.5, lr 0.01, 2 parts, the default --local-reorder cluster: "
-        f"locality clusters of the train subgraph, shared by every "
-        f"training cell); cuts: random instead of metis partitioning, "
+        f"0.5, lr 0.01, 2 metis parts by the native partitioner, the "
+        f"default --local-reorder cluster: native locality clusters of "
+        f"the train subgraph, shared by every training cell); cut: "
         f"{args.train_epochs} epochs instead of 3000")
     cli, sg, eval_graphs, trainer, train_stats = train_phase(args, g, spmm,
                                                             halo)
@@ -2738,12 +3311,16 @@ def main() -> int:
     for r in range(1, args.step_repeats):
         step_phase(trainer, cli.n_epochs + r)
 
-    log("[8] K3, K4, K5 vs plain versions")
+    log("[8] K3, K4, K5 vs plain versions; K4 in bf16, K2 and K5 on bf16 "
+        "rows")
     errs.update(K3=k3_phase(trainer, spmm), K4=k4_phase(trainer, halo),
                 K5=k5_phase(trainer, halo))
+    errs["K4 bf16"] = bf16_comm_phase(trainer, halo)
 
-    log("[9] K3-K5 timings, the epoch and its split; 3 vanilla epochs")
+    log("[9] K3-K5 timings (K4 also in bf16), the epoch and its split; 3 "
+        "vanilla epochs")
     tt = train_timings(trainer, spmm, halo, counters(spmm, halo))
+    k4b = k4_bf16_timing(trainer, halo)
     eval_cache = trainer.eval_cache  # the GAT cell evaluates the same graphs
     del trainer
     torch.cuda.empty_cache()
@@ -2761,14 +3338,23 @@ def main() -> int:
     for r in range(1, args.step_repeats):
         step_phase(gtrainer, args.gat_epochs + r)
 
-    log("[12] K6, K8 vs plain versions; a planted fault must fail")
+    log("[12] K6, K8 vs plain versions in each row type (f32; bf16; e4m3 z "
+        "with e5m2 g); a planted fault must fail in each")
     edge = gat_edge_phase(gat)
     cell = gat_cell_phase(gtrainer, gat)
     errs.update({k: max(edge[k], cell[k]) for k in edge})
     gat_fault_phase(gat)
+    for mode in ("bf16", "fp8"):
+        e_edge = gat_narrow_edge_phase(gat, mode)
+        e_cell = gat_cell_phase(gtrainer, gat, modes=(mode,))
+        errs.update({f"{k} {mode}": max(e_edge[k], e_cell[k])
+                     for k in e_edge})
+        gat_fault_phase(gat, mode=mode)
 
-    log("[13] K6, K8 timings, the GAT epoch and its split")
+    log("[13] K6, K8 timings in each row type, the GAT epoch and its split")
     gt = gat_timings(gtrainer, gat)
+    gt16 = gat_timings(gtrainer, gat, mode="bf16")
+    gt8 = gat_timings(gtrainer, gat, mode="fp8")
     gat_split = gat_epoch_split(gtrainer, counters(spmm, halo), gt, tt)
     del gtrainer
     torch.cuda.empty_cache()
@@ -2799,37 +3385,109 @@ def main() -> int:
         "bucket path, then one epoch: kernels vs plain versions")
     bt = bucket_timings(btrainer, bs)
     bucket_split = bucket_epoch_split(btrainer, counters(spmm, halo), bt, tt)
+
+    log(f"[19] bf16 bucket cell: the bucket command with --dtype bfloat16 "
+        f"on the same trainer and tables, {args.bf16_epochs} epochs (K9 on "
+        f"e4m3 / e5m2 rows cast from bf16, K4 in bf16), then one epoch: "
+        f"kernels vs plain versions")
+    switch_dtype(btrainer, train_cli(
+        args, extra=["--spmm-impl", "bucket", "--rem-dtype", "float8"],
+        dtype="bfloat16"), sg)
+    bf16_bucket = bf16_epochs(
+        "bf16 bucket", btrainer, counters(spmm, halo), 200, args.bf16_epochs,
+        {"bucket_gather": 6, "transport_cast": 6, "spmm_mean": 0,
+         "spmm_mean_t": 0}, {"halo_scatter": {"bfloat16": 3, "float32": 0}})
     del btrainer
     torch.cuda.empty_cache()
     bucket_gcn = bucket_gcn_phase(args, sg, spmm, halo)
     torch.cuda.empty_cache()
 
-    log(f"[19] block cell: the command plus --spmm-impl block --rem-dtype "
+    log(f"[20] block cell: the command plus --spmm-impl block --rem-dtype "
         f"float8, {args.block_epochs} epochs on the same parts; then 2 "
         f"epochs of --rem-dtype none")
     ktrainer, block_stats = block_train_phase(args, sg, eval_graphs,
                                               eval_cache, spmm, halo)
-    del eval_graphs, eval_cache
 
-    log("[20] one pipelined block epoch: kernels vs plain versions (relu "
+    log("[21] one pipelined block epoch: kernels vs plain versions (relu "
         "masks and the remainder's transported values shared)")
     block_step = step_phase(ktrainer, args.block_epochs + 10)
 
-    log("[21] K12, K13 vs plain versions; a planted fault must fail")
+    log("[22] K12, K13 vs plain versions (f32 rows and the bf16 mode); a "
+        "planted fault must fail in each")
     errs["K12/K13 cell"] = k12_k13_cell_phase(ktrainer, blk, halo)
     errs["K12/K13 edge"] = k12_k13_edge_phase(blk)
     block_fault_phase(blk, ktrainer)
+    errs["K12/K13 bf16"] = block_bf16_checks(ktrainer, blk)
 
-    log("[22] K12, K13 timings, the block epoch and its split")
+    log("[23] K12, K13 timings (f32 rows and the bf16 mode), the block "
+        "epoch and its split")
     kt = block_timings(ktrainer, blk, bs)
+    kt16 = block_timings(ktrainer, blk, bs, dtype=torch.bfloat16)
     block_split = block_epoch_split(ktrainer, counters(spmm, halo), kt, bt,
                                     tt, bucket_split)
+
+    log(f"[24] bf16 block cell: the block command with --dtype bfloat16 on "
+        f"the same trainer and tables, {args.bf16_epochs} epochs (K12 / K13 "
+        f"in their bf16 mode), then one epoch: kernels vs plain versions")
+    switch_dtype(ktrainer, train_cli(
+        args, extra=["--spmm-impl", "block", "--rem-dtype", "float8"],
+        dtype="bfloat16"), sg)
+    bf16_block = bf16_epochs(
+        "bf16 block", ktrainer, counters(spmm, halo), 200, args.bf16_epochs,
+        {"block_dense": 3, "block_dense_t": 3, "bucket_gather": 6,
+         "transport_cast": 6},
+        {"block_dense": {"bfloat16": 3, "float32": 0},
+         "block_dense_t": {"bfloat16": 3, "float32": 0},
+         "halo_scatter": {"bfloat16": 3, "float32": 0}})
     del ktrainer
     torch.cuda.empty_cache()
 
-    log(f"[23] GCN on the block path: {args.block_gcn_epochs} epochs, then "
+    log(f"[25] GCN on the block path: {args.block_gcn_epochs} epochs, then "
         f"one epoch: kernels vs plain versions")
     block_gcn = block_gcn_phase(args, sg, spmm, halo)
+    torch.cuda.empty_cache()
+
+    log(f"[26] bf16 xla cell: scripts/reddit.sh --dtype bfloat16, "
+        f"{args.bf16_epochs} epochs, then one epoch: kernels vs plain "
+        f"versions")
+    bf16_xla, k1b = bf16_sage_xla_phase(args, sg, spmm, halo)
+    torch.cuda.empty_cache()
+    # the bf16 SAGE epochs split by this run's kernel times (K2 / K5 at
+    # their f32 times, K10 at its f32-input times: upper estimates, the
+    # rows are bf16)
+    comm = {"halo_gather": tt["K2"]["ms"], "halo_scatter": k4b["ms"],
+            "halo_return": tt["K5"]["ms"]}
+    k9_ms = (bt["K9"]["forward float8_e4m3fn"]["ms"]
+             + bt["K9"]["backward float8_e5m2"]["ms"]) / 2
+    k10_ms = (bt["K10"]["forward e4m3"]["ms"]
+              + bt["K10"]["backward e5m2"]["ms"]) / 2
+    bf16_split("bf16 xla", bf16_xla, {"spmm_mean": k1b["ms"],
+                                      "spmm_mean_t": tt["K3"]["ms"], **comm})
+    bf16_split("bf16 bucket", bf16_bucket, {"bucket_gather": k9_ms,
+                                            "transport_cast": k10_ms, **comm})
+    rem9 = (kt["K9 remainder forward e4m3"]["ms"]
+            + kt["K9 remainder backward e5m2"]["ms"]) / 2
+    bf16_split("bf16 block", bf16_block, {
+        "block_dense": kt16["K12"]["ms"], "block_dense_t": kt16["K13"]["ms"],
+        "bucket_gather": rem9, "transport_cast": k10_ms, **comm})
+
+    log(f"[27] bf16 GAT cell (scripts/gat_bench.py): --model gat --n-heads "
+        f"4 --dtype bfloat16 --spmm-impl bucket --rem-dtype float8 with "
+        f"reddit.sh's --inductive --enable-pipeline, {args.bf16_gat_epochs}"
+        f" epochs on the same parts, then 2 epochs each of --rem-dtype "
+        f"bfloat16 and none")
+    g16trainer, bf16_gat = bf16_gat_phase(args, sg, eval_graphs, eval_cache,
+                                          spmm, halo)
+    del eval_graphs, eval_cache
+
+    log("[28] one pipelined bf16 GAT epoch: kernels vs plain versions (relu "
+        "masks, leaky branches and transported values shared); the epoch "
+        "and its split")
+    bf16_gat_step = step_phase(g16trainer, args.bf16_gat_epochs + 10)
+    bf16_gat["split"] = bf16_gat_split(g16trainer, counters(spmm, halo),
+                                       gt16, gt8, gt, k4b, tt)
+    del g16trainer
+    torch.cuda.empty_cache()
 
     # the main path of this slice is training: every kernel's launches
     # are its training-run count and its times are taken at the epoch's
@@ -2929,10 +3587,51 @@ def main() -> int:
             e[f] = kt[key][f]
         e["also_replaces"] = also
         kernels.append(e)
+    # the bf16 and narrow row-type modes of K4, K6, K8, K12 and K13, each
+    # with its launches by mode in the run of its own cell: K4, K6 and K8
+    # in the bf16 GAT cell (this slice's path; K6 / K8 also timed at the
+    # logits layer's dh = 41 under "dh41"), K12 / K13 in the bf16 block
+    # cell
+    gm = bf16_gat["launches_by_mode"]
+    e = kernel_entry("halo_scatter[bf16]", src + "halo_scatter.cu",
+                     "pipegcn_tpu/parallel/halo.py:285",
+                     gm["halo_scatter"]["bfloat16"], errs["K4 bf16"], k4b)
+    kernels.append(e)
+    for mode, tmode, lib, label in (
+            ("bf16", gt16, "gat_attn_bf16", "bf16"),
+            ("fp8", gt8, "gat_attn_fp8", "e4m3 z, e5m2 g")):
+        for name, kname, replaces in (
+                ("K6", "gat_fwd", "pipegcn_tpu/ops/gat_bucket.py:344"),
+                ("K8", "gat_bwd_src", "pipegcn_tpu/ops/gat_bucket.py:450")):
+            e = kernel_entry(f"{kname}[{label}]", src + lib + ".cu",
+                             replaces, gm[kname][lib], errs[f"{name} {mode}"],
+                             tmode[name][64])
+            e["dh41"] = sub(tmode[name][41])
+            e["header"] = src + "gat_attn.cuh"
+            kernels.append(e)
+    e = kernel_entry("spmm_mean[bf16 rows]", src + "spmm_mean.cu",
+                     "pipegcn_tpu/ops/spmm.py:99",
+                     bf16_xla["launches"]["spmm_mean"], errs["K1"], k1b)
+    e["launches_run"] = "the bf16 xla cell's epochs"
+    kernels.append(e)
+    bm = bf16_block["launches_by_mode"]
+    for kname, key in (("block_dense", "K12"), ("block_dense_t", "K13")):
+        e = kernel_entry(f"{kname}[bf16]", src + "block_spmm.cu",
+                         "pipegcn_tpu/ops/block_spmm.py:520",
+                         bm[kname]["bfloat16"], errs["K12/K13 bf16"],
+                         kt16[key])
+        for f in ("a_bytes", "a_bytes_ms", "tile_floor_bf16_tc_ms",
+                  "tile_floor_f32_ms"):
+            e[f] = kt16[key][f]
+        kernels.append(e)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
-        "serving": {"dataset": args.dataset, "refresh_ms":
+        "serving": {"dataset": args.dataset,
+                    "cuts": ["2 random parts of the full graph (not "
+                             "metis)", "--local-reorder none (no second "
+                             "clustering of the full graph)"],
+                    "refresh_ms":
                     serve_stats["refresh_ms"], "p50_ms": summary["p50_ms"],
                     "p99_ms": summary["p99_ms"], "qps": summary["qps"],
                     "n_queries": summary["n_queries"],
@@ -2947,8 +3646,8 @@ def main() -> int:
         "cell": "scripts/reddit.sh: graphsage 4x256 --use-pp --inductive "
                 "--enable-pipeline, dropout 0.5, lr 0.01, 2 parts, "
                 "LayerNorm, f32",
-        "cuts": ["partition random (not metis)",
-                 f"{args.train_epochs} epochs (not 3000)"],
+        "cuts": [f"{args.train_epochs} epochs (not 3000)"],
+        "native_library_s": native_s,
         **train_stats,
         "step_check": step,
         "epoch_ms_median": tt["epoch_ms"],
@@ -2963,9 +3662,9 @@ def main() -> int:
                 "(scripts/gat_bench.py widths): 602 -> 256 x3 -> 41, 4 "
                 "heads, LayerNorm, dropout 0.5, lr 0.01, pipelined, "
                 "--inductive, 2 parts, f32",
-        "cuts": ["partition random (not metis)",
-                 f"{args.gat_epochs} epochs (not 3000)",
-                 "f32 (gat_bench.py runs bf16)"],
+        "cuts": [f"{args.gat_epochs} epochs (not 3000)",
+                 "f32 (gat_bench.py runs bf16: the bf16_gat_training "
+                 "line)"],
         **gat_stats, "step_check": gat_step, **gat_split,
         "gcn": gcn_stats, "card": smi}}))
     print(json.dumps({"bucket_training": {
@@ -2974,8 +3673,8 @@ def main() -> int:
                 "graphsage 4x256 --use-pp --inductive --enable-pipeline, "
                 "dropout 0.5, lr 0.01, 2 parts, LayerNorm, f32 compute, "
                 "e4m3 / e5m2 gather transport",
-        "cuts": ["partition random (not metis)",
-                 f"{args.bucket_epochs} epochs (not 3000)"],
+        "cuts": [f"{args.bucket_epochs} epochs (not 3000)"],
+        "bf16": bf16_bucket,
         **bucket_stats, "step_check": bucket_step, **bucket_split,
         "gcn": bucket_gcn, "card": smi}}))
     print(json.dumps({"block_training": {
@@ -2985,10 +3684,21 @@ def main() -> int:
                 "dropout 0.5, lr 0.01, 2 parts, LayerNorm, f32 compute, "
                 "256 x 256 dense tiles (K12/K13) plus an e4m3 / e5m2 "
                 "bucket remainder (K9/K10), --local-reorder cluster",
-        "cuts": ["partition random (not metis)",
-                 f"{args.block_epochs} epochs (not 3000)"],
+        "cuts": [f"{args.block_epochs} epochs (not 3000)"],
         **block_stats, "step_check": block_step, **block_split,
-        "kernel_timings": kt, "gcn": block_gcn, "card": smi}}))
+        "kernel_timings": kt, "kernel_timings_bf16": kt16,
+        "bf16": bf16_block, "gcn": block_gcn, "card": smi}}))
+    print(json.dumps({"bf16_gat_training": {
+        "dataset": args.dataset,
+        "cell": "scripts/gat_bench.py: --model gat --n-heads 4 --n-layers "
+                "4 --n-hidden 256 --dtype bfloat16 --spmm-impl bucket "
+                "--rem-dtype float8, with reddit.sh's --inductive "
+                "--enable-pipeline, dropout 0.5, lr 0.01, LayerNorm, 2 "
+                "metis parts",
+        "cuts": [f"{args.bf16_gat_epochs} epochs (not 3000), then 2 each "
+                 f"of --rem-dtype bfloat16 and none"],
+        **bf16_gat, "step_check": bf16_gat_step,
+        "xla_graphsage_bf16": bf16_xla, "card": smi}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

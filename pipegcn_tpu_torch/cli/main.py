@@ -216,8 +216,10 @@ def run(args, log=print) -> dict:
     sizes = ", ".join(str(int(c)) for c in sg.inner_count)
     print(f"partition sizes (inner nodes per device): {sizes}")
     trainer = build_trainer(args, sg, device, log)
+    # the train line every 10 epochs, evals every --log-every, as the
+    # JAX CLI's fit(reference_logs=True) prints them
     res = trainer.fit(eval_graphs if args.eval else None,
-                      inductive=args.inductive)
+                      inductive=args.inductive, reference_logs=True)
     if args.eval and "test_acc" in res:
         print("Validation accuracy {:.2%}".format(res["best_val"]))
         print("Test Result | Accuracy {:.2%}".format(res["test_acc"]))

@@ -11,12 +11,21 @@ layers ``{'w', 'b'}``, GAT layers ``{'w', 'b', 'a_src', 'a_dst'}``, norms
 Activations are stacked over parts, ``[P, rows, F]``.
 
 Only what the ported slices run is here: LayerNorm or no norm, float32
-compute, 32-bit dropout masks, the raw CSR aggregation and (GraphSAGE,
-GCN) the bucket tables with their narrowed gather transport and the
-block-dense tiles at ``block_group = 1``. BatchNorm, the dense tail,
-bfloat16 compute, 8-bit dropout masks, the union-gather block layout,
-the ``auto`` tuner and GAT's transport raise ``NotImplementedError``
-naming their ROADMAP item.
+or bfloat16 compute, 32-bit dropout masks, the raw CSR aggregation, the
+bucket tables with their narrowed gather transport (GraphSAGE and GCN;
+GAT's attention kernels take the same transport) and the block-dense
+tiles at ``block_group = 1``. BatchNorm, the dense tail, 8-bit dropout
+masks, the union-gather block layout and the ``auto`` tuner raise
+``NotImplementedError`` naming their ROADMAP item.
+
+bfloat16 compute is the JAX package's (``ModelConfig.compute_dtype``,
+``forward``'s ``dense``): activations, halo rows and aggregation inputs
+are bf16; parameters, LayerNorm statistics, aggregation sums, attention
+logits and statistics, the logits layer's output and the loss stay f32.
+Hidden dense layers multiply bf16 by the bf16-cast weight into bf16 (a
+product ``round_bf16`` of the f32 sum) and add the bf16-cast bias in
+bf16; the logits layer takes the same bf16 operands into an f32 product
+(products of two bf16 values are exact in f32), never rounded to bf16.
 """
 
 from __future__ import annotations
@@ -96,10 +105,6 @@ class ModelConfig:
                     raise ValueError(
                         f"gat hidden width {self.layer_sizes[i + 1]} not "
                         f"divisible by n_heads={self.n_heads}")
-            if self.rem_dtype is not None and self.spmm_impl != "xla":
-                raise NotImplementedError(
-                    f"rem_dtype={self.rem_dtype!r} for gat (its attention "
-                    "kernels' gather transport) waits for ROADMAP A5")
         elif self.spmm_impl == "auto":
             raise NotImplementedError(
                 f"spmm_impl='auto' for {self.model} (the measured tuner) "
@@ -110,14 +115,13 @@ class ModelConfig:
                 "waits for ROADMAP A6; the port runs block_group 1")
         if self.n_linear:
             raise NotImplementedError("the dense tail (n_linear > 0) "
-                                      "waits for a later slice")
+                                      "waits for ROADMAP A5")
         if self.norm not in ("layer", None):
             raise NotImplementedError(
-                f"norm {self.norm!r} waits for a later slice (layer | None)")
-        if self.dtype != "float32":
-            raise NotImplementedError(
-                f"dtype {self.dtype!r} (bf16 compute) waits for ROADMAP A5 "
-                "(float32)")
+                f"norm {self.norm!r} (SyncBN) waits for ROADMAP A5 "
+                "(layer | None)")
+        if self.dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unknown dtype: {self.dtype}")
         if self.dropout_bits != 32:
             raise NotImplementedError(
                 "8-bit dropout masks (dropout_bits=8) wait for ROADMAP A6")
@@ -128,6 +132,11 @@ class ModelConfig:
     @property
     def n_layers(self) -> int:
         return len(self.layer_sizes) - 1
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        """The activations' dtype (the JAX ``compute_dtype``)."""
+        return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -186,8 +195,20 @@ def _layer_norm(h: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return out.to(h.dtype)
 
 
-def _dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.matmul(x, w) + b
+def _matmul(x: torch.Tensor, w: torch.Tensor,
+            out_dtype: torch.dtype) -> torch.Tensor:
+    """``x @ w`` with the f32 weight cast to x's dtype at use (the JAX
+    ``dense``): into x's dtype, or, where ``out_dtype`` is wider (the bf16
+    logits layer), into an f32 product of the same bf16 operands."""
+    w = w.to(x.dtype)
+    if out_dtype != x.dtype:
+        x, w = x.to(out_dtype), w.to(out_dtype)
+    return torch.matmul(x, w)
+
+
+def _dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+           out_dtype: torch.dtype) -> torch.Tensor:
+    return _matmul(x, w, out_dtype) + b.to(out_dtype)
 
 
 def _dropout(gen: torch.Generator, h: torch.Tensor,
@@ -199,6 +220,7 @@ def _dropout(gen: torch.Generator, h: torch.Tensor,
     if rate <= 0.0:
         return h
     keep = torch.rand(h.shape, generator=gen, device=h.device) >= rate
+    # in h's dtype: bf16 activations are scaled and rounded in bf16
     return torch.where(keep, h / (1.0 - rate), h.new_zeros(()))
 
 
@@ -208,20 +230,24 @@ AttnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 def _gat_layer(fbuf: torch.Tensor, lp: Dict[str, torch.Tensor], n_dst: int,
                n_heads: int, is_last: bool, attn_fn: AttnFn) -> torch.Tensor:
     """Multi-head edge-softmax attention over P stacked parts (the JAX
-    ``_gat_layer``): ``z = fbuf @ w`` as ``[P, R, H, dh]``, the logit
+    ``_gat_layer``): ``z = fbuf @ w`` as ``[P, R, H, dh]`` (in fbuf's
+    dtype on hidden layers, f32 on the logits layer), the f32 logit
     halves ``el = sum(z * a_src)`` over every source row (halo included)
     and ``er = sum(z[:, :n_dst] * a_dst)``, then ``attn_fn(z, el, er)``
-    ``[P, n_dst, H, dh]``; heads concatenated on hidden layers, averaged
-    on the logits layer, plus the bias."""
+    ``[P, n_dst, H, dh]`` f32; heads concatenated on hidden layers,
+    averaged on the logits layer, cast to the layer's output dtype (f32 on
+    the logits layer, fbuf's on hidden layers), plus the bias."""
     P, R = fbuf.shape[:2]
-    z = torch.matmul(fbuf, lp["w"])
+    out_dtype = torch.float32 if is_last else fbuf.dtype
+    z = _matmul(fbuf, lp["w"], out_dtype)
     dh = z.shape[-1] // n_heads
     z = z.reshape(P, R, n_heads, dh)
-    el = (z * lp["a_src"]).sum(-1)
-    er = (z[:, :n_dst] * lp["a_dst"]).sum(-1)
+    zf = z.float()
+    el = (zf * lp["a_src"]).sum(-1)
+    er = (zf[:, :n_dst] * lp["a_dst"]).sum(-1)
     out = attn_fn(z, el, er)
     out = out.mean(dim=2) if is_last else out.reshape(P, n_dst, n_heads * dh)
-    return out + lp["b"]
+    return out.to(out_dtype) + lp["b"].to(out_dtype)
 
 
 def forward(params: Params, cfg: ModelConfig, h: torch.Tensor,
@@ -260,8 +286,9 @@ def forward(params: Params, cfg: ModelConfig, h: torch.Tensor,
     ``1 / sqrt(in_deg)`` before the exchange (so the halo ships scaled
     rows) and the mean by ``sqrt(in_deg)`` after it. ``act`` is the
     nonlinearity between layers (relu; a caller holding two runs on the
-    same relu masks passes its own). Mirrors the JAX ``forward`` (f32
-    logits, LayerNorm + relu between layers)."""
+    same relu masks passes its own). Mirrors the JAX ``forward`` (``h``
+    cast to the compute dtype first, f32 logits, LayerNorm + relu between
+    layers)."""
     if training and cfg.dropout > 0 and generator is None:
         raise ValueError("training with dropout needs a generator")
     if training and comm_update is None:
@@ -269,6 +296,8 @@ def forward(params: Params, cfg: ModelConfig, h: torch.Tensor,
                          "(comm_update)")
     n_dst = h.shape[1]
     drop = training and cfg.dropout > 0
+    cdt = cfg.compute_dtype
+    h = h.to(cdt)
     if cfg.model == "gat" and attn_fn is None:
         def attn_fn(z, el, er):
             return gat_attention(z, el, er, indptr, src,
@@ -279,9 +308,10 @@ def forward(params: Params, cfg: ModelConfig, h: torch.Tensor,
         lp = params["layers"][i]
         pp_layer = cfg.use_pp and i == 0
         is_last = i == cfg.n_layers - 1
+        out_dt = torch.float32 if is_last else cdt
         if cfg.model == "gcn":
-            # src side of the symmetric normalisation, on the owner
-            h = h / d_sqrt
+            # src side of the symmetric normalisation, on the owner, in f32
+            h = (h.float() / d_sqrt).to(cdt)
         if comm_update is not None:
             if not pp_layer:
                 h = comm_update(i, h)
@@ -291,18 +321,21 @@ def forward(params: Params, cfg: ModelConfig, h: torch.Tensor,
             h = _gat_layer(h, lp, n_dst, cfg.n_heads, is_last, attn_fn)
         elif cfg.model == "gcn":
             ah = spmm_fn(h, indptr, src, in_deg)
-            h = _dense(ah * d_sqrt, lp["w"], lp["b"])
+            h = _dense((ah.float() * d_sqrt).to(cdt), lp["w"], lp["b"],
+                       out_dt)
         elif pp_layer:
             if comm_update is None:
                 if not eval_pp_agg:
                     raise ValueError(
                         "use_pp model evaluated without eval_pp_agg")
-                h = torch.cat([h, spmm_fn(h, indptr, src, in_deg)], dim=-1)
-            h = _dense(h, lp["w"], lp["b"])
+                h = torch.cat([h, spmm_fn(h, indptr, src, in_deg).to(cdt)],
+                              dim=-1)
+            h = _dense(h, lp["w"], lp["b"], out_dt)
         else:
             ah = spmm_fn(h, indptr, src, in_deg)
-            h = (_dense(h[:, :n_dst], lp["w1"], lp["b1"])
-                 + _dense(ah, lp["w2"], lp["b2"]))
+            # summed in the output dtype (bf16 on hidden layers)
+            h = (_dense(h[:, :n_dst], lp["w1"], lp["b1"], out_dt)
+                 + _dense(ah.to(cdt), lp["w2"], lp["b2"], out_dt))
         if i < cfg.n_layers - 1:
             if cfg.norm == "layer":
                 nrm = params["norms"][i]

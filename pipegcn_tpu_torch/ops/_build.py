@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
 No JAX counterpart: XLA compiled the JAX package's device ops. Each
-``ops/csrc/<name>.cu`` has a plain C interface and is compiled with
+``ops/csrc/<name>.cu`` (which may include a ``csrc/*.cuh``) has a plain C
+interface and is compiled with
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 -fPIC`` into ``build/kernels/`` at the root of the checkout, at first
 use, then loaded with ``ctypes``. The library file name carries a hash of
@@ -45,7 +46,9 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the headers in csrc count too: a source may include one
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -24,8 +24,7 @@ these differences of representation:
     each byte: the layout K12/K13 unpack) / ``a_blocks.astype(dtype)``;
   - the build sorts each part's edges once and rebuilds only the
     tables (never the selection) for the unified ladders;
-  - ``native.stable_argsort`` is ``np.argsort(kind="stable")`` (the same
-    permutation), and ``np.unique`` over large arrays an explicit sort.
+  - ``np.unique`` over large arrays is an explicit sort.
 Not ported: the union-gather layout (``block_group > 1``,
 ``_group_union`` / ``_dense_apply_grouped``, ROADMAP A6) and the
 remainder's slab-run plans (a TPU row-gather mechanism).
@@ -38,12 +37,16 @@ Device half:
     the pad pairs (block ``B_max``, the zero tile) dropped;
   - kernels K12 (:func:`block_dense`, the forward tile products) and K13
     (:func:`block_dense_t`, the transpose over the same A blocks), in
-    ``csrc/block_spmm.cu``; :func:`block_dense_plain` is their plain
-    version (unpack, ``bmm`` per chunk of pairs, ``index_add_``);
+    ``csrc/block_spmm.cu``, over f32 input rows or, at bf16 compute, bf16
+    rows (JAX multiplies in the input's dtype with f32 products:
+    ``_dense_apply``'s ``compute_dtype``); :func:`block_dense_plain` is
+    their plain version (unpack, ``bmm`` per chunk of pairs in f32 over
+    the exactly widened rows, ``index_add_``);
   - :class:`BlockSpmm`, the autograd function of ``make_block_spmm_fn``
     in the JAX order: forward ``(dense(fbuf) + K9(cast(fbuf)) *
     inv_scale) / in_deg`` (the dense path never takes the transport);
-    backward ``dense^T(g / in_deg)`` plus K9 over the transpose tables of
+    backward ``dense^T(g / in_deg)`` (``g / in_deg`` rounded to fbuf's
+    dtype first, JAX ``:686-687``) plus K9 over the transpose tables of
     ``cast(g / in_deg)`` (the division fused into K10) times inv_scale.
 
 CUDA tensors launch the kernels (each wrapper counts its launches in
@@ -60,6 +63,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import native
 from . import _build
 from .bucket_spmm import (BucketSide, _bucket_widths, _transport,
                           bucket_gather, bucket_gather_plain,
@@ -217,7 +221,7 @@ class PartEdges:
         self.n_dst_tiles = -(-n_out // tile)
         self.n_src_tiles = -(-n_src_rows // tile)
         bid = (dst // tile) * self.n_src_tiles + (src // tile)
-        order = np.argsort(bid, kind="stable")
+        order = native.stable_argsort(bid)
         self.src, self.dst = src[order], dst[order]
         self.uniq, self.counts = _run_lengths(bid[order])
         key = self.dst * n_src_rows + self.src
@@ -636,16 +640,16 @@ PLAIN_ELEMS = 1 << 25
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "pgt_block_dense": [_P, _I, _I, _I, _P, _I, _LL, _I, _P, _P, _P, _LL, _I,
-                        _I, _I, _P, _P],
+                        _I, _I, _I, _P, _P],
 }
 # the kernel's A encodings
 _ENC = {torch.int8: 1, torch.bfloat16: 2, torch.float32: 3}
 
 
 def _check_dense(x: torch.Tensor, tables: BlockTables, side: BlockSide):
-    if x.dim() != 3 or x.dtype != torch.float32:
-        raise ValueError(f"x must be f32 [P, n_in, F], got {x.dtype} "
-                         f"{tuple(x.shape)}")
+    if x.dim() != 3 or x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"x must be f32 or bf16 [P, n_in, F], got "
+                         f"{x.dtype} {tuple(x.shape)}")
     P = x.shape[0]
     if x.shape[1] != side.n_in or side.ptr.shape[0] != P \
             or tables.a.shape[0] != P:
@@ -675,8 +679,8 @@ def block_dense_plain(x: torch.Tensor, tables: BlockTables,
     for every output tile the sum over its pairs of ``A @ tile`` (K13
     ``A^T @ tile``), the input zero-padded to whole tiles; unpacked and
     multiplied by ``bmm`` a chunk of pairs at a time, summed into the
-    output tiles with ``index_add_``. ``[P, n_out, F]`` f32, on any
-    device."""
+    output tiles with ``index_add_``; bf16 rows widened to f32 exactly.
+    ``[P, n_out, F]`` f32, on any device."""
     _check_dense(x, tables, side)
     P, R, F = x.shape
     T = tables.tile
@@ -732,7 +736,7 @@ def _launch(x: torch.Tensor, tables: BlockTables,
         x.data_ptr(), P, R, F, tables.a.data_ptr(), enc, tables.b_max, T,
         side.ptr.data_ptr(), side.blk.data_ptr(), side.tile.data_ptr(),
         side.blk.shape[1], side.n_out_tiles, side.n_out,
-        int(side.transpose), out.data_ptr(),
+        int(side.transpose), int(x.dtype == torch.bfloat16), out.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "block_spmm")
     return out
@@ -740,28 +744,35 @@ def _launch(x: torch.Tensor, tables: BlockTables,
 
 def block_dense(x: torch.Tensor, tables: BlockTables) -> torch.Tensor:
     """K12, the forward tile products over ``tables.fwd``, on CUDA tensors
-    (counted in ``block_dense.launches``); the plain version on CPU
+    (counted in ``block_dense.launches``, and by row dtype in
+    ``block_dense.by_mode``); the plain version on CPU
     tensors; anything else raises."""
     if x.device.type == "cpu":
         return block_dense_plain(x, tables, tables.fwd)
     out = _launch(x, tables, tables.fwd)
     block_dense.launches += 1
+    block_dense.by_mode[str(x.dtype).split(".")[-1]] += 1
     return out
 
 
 def block_dense_t(g: torch.Tensor, tables: BlockTables) -> torch.Tensor:
     """K13, the transpose tile products over ``tables.bwd`` (the same A
-    blocks, A^T), on CUDA tensors (counted in ``block_dense_t.launches``);
+    blocks, A^T), on CUDA tensors (counted in ``block_dense_t.launches``
+    and ``block_dense_t.by_mode``);
     the plain version on CPU tensors; anything else raises."""
     if g.device.type == "cpu":
         return block_dense_plain(g, tables, tables.bwd)
     out = _launch(g, tables, tables.bwd)
     block_dense_t.launches += 1
+    block_dense_t.by_mode[str(g.dtype).split(".")[-1]] += 1
     return out
 
 
 block_dense.launches = 0
 block_dense_t.launches = 0
+# launches by input-row dtype (f32 mode, bf16 mode), beside the total
+block_dense.by_mode = {"float32": 0, "bfloat16": 0}
+block_dense_t.by_mode = {"float32": 0, "bfloat16": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -779,10 +790,11 @@ class BlockSpmm(torch.autograd.Function):
     def forward(ctx, fbuf, tables, in_deg, rem_dtype, rem_amax, plain,
                 share):
         fwd_dt, bwd_dt = transport_dtypes(rem_dtype)
-        x = fbuf.float().contiguous()
+        x = fbuf.contiguous()  # f32, or bf16 rows: K12's bf16 mode
         dense = (block_dense_plain(x, tables, tables.fwd) if plain
                  else block_dense(x, tables))
-        # the remainder's transport only: the dense path reads f32 rows
+        # the remainder's transport only: the dense path reads the rows
+        # in their own dtype
         y, inv = _transport(x, fwd_dt, rem_amax, None, plain, share)
         gather = bucket_gather_plain if plain else bucket_gather
         rem = gather(y, tables.rem_fwd, None, inv)

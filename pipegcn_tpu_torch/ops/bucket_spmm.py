@@ -47,6 +47,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import native
 from . import _build
 
 # ---------------------------------------------------------------------------
@@ -97,7 +98,7 @@ def build_tables_for_edges(
     real = edge_dst < n_out
     src = edge_src[real].astype(np.int64)
     dst = edge_dst[real].astype(np.int64)
-    order = np.argsort(dst, kind="stable")
+    order = native.stable_argsort(dst)
     src, dst = src[order], dst[order]
     row_ptr = np.searchsorted(dst, np.arange(n_out + 1))
     deg = (row_ptr[1:] - row_ptr[:-1]).astype(np.int64)

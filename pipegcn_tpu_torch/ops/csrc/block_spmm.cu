@@ -18,7 +18,8 @@
 // roles of its rows and columns swapped in the staging: no transposed
 // copy exists. A is stored bit-packed (1 bit an entry, little-endian
 // within each byte: np.packbits(bitorder="little")), int8, bf16 or f32;
-// X, G and out are f32. An output tile with no pairs is written as zeros.
+// X and G are f32, or bf16 at bf16 compute (the bf16 mode); out is f32.
+// An output tile with no pairs is written as zeros.
 //
 // What bounds it on the H100: the tile products. The function needs one
 // add per dense edge and column (~7.5e9 adds a call at the training shape,
@@ -52,6 +53,13 @@
 // No atomics; a rerun is bit-identical. The ragged last row tile, the
 // input rows past n_in and the columns past F are masked (staged as 0).
 // Inputs are finite (an infinite input's split is NaN).
+//
+// The bf16 mode. With bf16 input rows (JAX's bf16 einsum with f32
+// products, preferred_element_type f32) an input value is already one
+// bf16 term: each 32-deep step stages it as it is and runs one product
+// instead of three, so the tile products' floor is a third of the f32
+// mode's; every product a * x is still exact in f32 and the promotion per
+// pair is the same.
 //
 // A stored as f32 (multiplicities above 256, not exact in bf16) takes a
 // scalar path instead: a register-tiled SGEMM over the same pair lists, 8
@@ -158,9 +166,21 @@ __device__ __forceinline__ void load_x8(const float* row, int c, int F,
   }
 }
 
-template <int ENC, bool TRANSPOSE, int VEC>
+// 8 consecutive bf16 of one input row from column c as floats (masked at
+// F; scalar loads)
+__device__ __forceinline__ void load_xb8(const unsigned short* row, int c,
+                                         int F, float* v) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    v[j] = c + j < F
+               ? __uint_as_float(static_cast<unsigned>(__ldg(row + c + j))
+                                 << 16)
+               : 0.f;
+}
+
+template <int ENC, bool TRANSPOSE, int VEC, bool XB>
 __global__ void __launch_bounds__(kThreads, 2)
-block_kernel(const float* __restrict__ x, int n_in, int F,
+block_kernel(const void* __restrict__ x, int n_in, int F,
              const unsigned char* __restrict__ a, long long b_max, int T,
              const int* __restrict__ ptr, const int* __restrict__ blk,
              const int* __restrict__ til, long long pair_stride,
@@ -177,7 +197,10 @@ block_kernel(const float* __restrict__ x, int n_in, int F,
   const int otile = blockIdx.y;
   const int part = blockIdx.z;
 
-  const float* xp = x + static_cast<size_t>(part) * n_in * F;
+  const float* xp =
+      static_cast<const float*>(x) + static_cast<size_t>(part) * n_in * F;
+  const unsigned short* xbp = static_cast<const unsigned short*>(x) +
+                              static_cast<size_t>(part) * n_in * F;
   const unsigned char* ap =
       a + static_cast<size_t>(part) * b_max * T * row_bytes<ENC>(T);
   const int* pp = ptr + static_cast<size_t>(part) * (n_out_tiles + 1);
@@ -230,7 +253,10 @@ block_kernel(const float* __restrict__ x, int n_in, int F,
         const long long r = in0 + s0 + xr;
         float u[8];
         if (r < n_in) {
-          load_x8<VEC>(xp + static_cast<size_t>(r) * F, c0 + xc, F, u);
+          if constexpr (XB)
+            load_xb8(xbp + static_cast<size_t>(r) * F, c0 + xc, F, u);
+          else
+            load_x8<VEC>(xp + static_cast<size_t>(r) * F, c0 + xc, F, u);
         } else {
 #pragma unroll
           for (int j = 0; j < 8; ++j) u[j] = 0.0f;
@@ -349,19 +375,41 @@ __device__ __forceinline__ void load_x4(const float* row, int c, int F,
   }
 }
 
-template <int ENC, bool TRANSPOSE, int VEC>
+// 4 consecutive bf16 of one input row from column c, raw bits (masked at
+// F; VEC 4: one 8-byte load, else scalar loads)
+template <int VEC>
+__device__ __forceinline__ void load_xb4(const unsigned short* row, int c,
+                                         int F, unsigned* lo, unsigned* hi) {
+  if constexpr (VEC == 4) {
+    uint2 u = make_uint2(0u, 0u);
+    if (c < F) u = __ldg(reinterpret_cast<const uint2*>(row + c));
+    *lo = u.x;
+    *hi = u.y;
+  } else {
+    unsigned v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      v[j] = c + j < F ? static_cast<unsigned>(__ldg(row + c + j)) : 0u;
+    *lo = v[0] | v[1] << 16;
+    *hi = v[2] | v[3] << 16;
+  }
+}
+
+template <int ENC, bool TRANSPOSE, int VEC, bool XB>
 __global__ void __launch_bounds__(kThreads, 2)
-mma_kernel(const float* __restrict__ x, int n_in, int F,
+mma_kernel(const void* __restrict__ x, int n_in, int F,
            const unsigned char* __restrict__ a, long long b_max, int T,
            const int* __restrict__ ptr, const int* __restrict__ blk,
            const int* __restrict__ til, long long pair_stride,
            int n_out_tiles, int n_out, float* __restrict__ out) {
   // the staged A chunk (bf16 bits): K12 [256 rows][kAStride] (row m,
   // contraction column), K13 [32 contraction rows][kATStride] (the A
-  // rows as stored); the input chunk's three terms [3][32][kXStride]
+  // rows as stored); the input chunk's three terms [3][32][kXStride], or
+  // its one bf16 term in the bf16 mode
+  constexpr int kTerms = XB ? 1 : 3;
   __shared__ __align__(16) unsigned short As[TRANSPOSE ? kK * kATStride
                                                        : kRows * kAStride];
-  __shared__ __align__(16) unsigned short Xs[3][kK * kXStride];
+  __shared__ __align__(16) unsigned short Xs[kTerms][kK * kXStride];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -371,7 +419,10 @@ mma_kernel(const float* __restrict__ x, int n_in, int F,
   const int otile = blockIdx.y;
   const int part = blockIdx.z;
 
-  const float* xp = x + static_cast<size_t>(part) * n_in * F;
+  const float* xp =
+      static_cast<const float*>(x) + static_cast<size_t>(part) * n_in * F;
+  const unsigned short* xbp = static_cast<const unsigned short*>(x) +
+                              static_cast<size_t>(part) * n_in * F;
   const unsigned char* ap =
       a + static_cast<size_t>(part) * b_max * T * row_bytes<ENC>(T);
   const int* pp = ptr + static_cast<size_t>(part) * (n_out_tiles + 1);
@@ -433,7 +484,16 @@ mma_kernel(const float* __restrict__ x, int n_in, int F,
                          bf16x2(v[j + 4], v[j + 5]),
                          bf16x2(v[j + 6], v[j + 7]));
       }
-      {
+      if constexpr (XB) {
+        // the bf16 mode: the input's bits are its one term
+        const long long r = in0 + s0 + xr;
+        unsigned lo = 0u, hi = 0u;
+        if (r < n_in)
+          load_xb4<VEC>(xbp + static_cast<size_t>(r) * F, c0 + xc, F, &lo,
+                        &hi);
+        *reinterpret_cast<uint2*>(&Xs[0][xr * kXStride + xc]) =
+            make_uint2(lo, hi);
+      } else {
         const long long r = in0 + s0 + xr;
         float u[4];
         if (r < n_in) {
@@ -470,7 +530,7 @@ mma_kernel(const float* __restrict__ x, int n_in, int F,
           }
         }
 #pragma unroll
-        for (int h = 0; h < 3; ++h) {  // lo, mid, hi
+        for (int h = 0; h < kTerms; ++h) {  // lo, mid, hi (bf16: the one)
 #pragma unroll
           for (int nj = 0; nj < 2; ++nj) {
             unsigned bf[4];  // n-tiles 2 nj and 2 nj + 1
@@ -517,7 +577,7 @@ mma_kernel(const float* __restrict__ x, int n_in, int F,
 }
 
 template <int ENC, bool TR>
-int launch_vec(const float* x, int P, int n_in, int F,
+int launch_vec(const void* x, bool xb, int P, int n_in, int F,
                const unsigned char* a, long long b_max, int T, const int* ptr,
                const int* blk, const int* til, long long pair_stride,
                int n_out_tiles, int n_out, float* out, cudaStream_t st) {
@@ -529,43 +589,62 @@ int launch_vec(const float* x, int P, int n_in, int F,
 #define PGT_ARGS                                                           \
   x, n_in, F, a, b_max, T, ptr, blk, til, pair_stride, n_out_tiles, n_out, \
       out
+  if (xb) {
+    // bf16 rows: 8-byte loads of 4 values where F and the pointers allow
+    const bool v4 = F % 4 == 0 && a8;
+    if constexpr (ENC == kF32) {
+      const dim3 grid((F + kCols - 1) / kCols, n_out_tiles, P);
+      block_kernel<ENC, TR, 1, true><<<grid, kThreads, 0, st>>>(PGT_ARGS);
+    } else {
+      const dim3 grid((F + kMmaCols - 1) / kMmaCols, n_out_tiles, P);
+      if (v4)
+        mma_kernel<ENC, TR, 4, true><<<grid, kThreads, 0, st>>>(PGT_ARGS);
+      else
+        mma_kernel<ENC, TR, 1, true><<<grid, kThreads, 0, st>>>(PGT_ARGS);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
   if constexpr (ENC == kF32) {
     // f32 A is not exact in bf16: the scalar CUDA-core path
     const dim3 grid((F + kCols - 1) / kCols, n_out_tiles, P);
     if (vec == 4)
-      block_kernel<ENC, TR, 4><<<grid, kThreads, 0, st>>>(PGT_ARGS);
+      block_kernel<ENC, TR, 4, false><<<grid, kThreads, 0, st>>>(PGT_ARGS);
     else if (vec == 2)
-      block_kernel<ENC, TR, 2><<<grid, kThreads, 0, st>>>(PGT_ARGS);
+      block_kernel<ENC, TR, 2, false><<<grid, kThreads, 0, st>>>(PGT_ARGS);
     else
-      block_kernel<ENC, TR, 1><<<grid, kThreads, 0, st>>>(PGT_ARGS);
+      block_kernel<ENC, TR, 1, false><<<grid, kThreads, 0, st>>>(PGT_ARGS);
   } else {
     const dim3 grid((F + kMmaCols - 1) / kMmaCols, n_out_tiles, P);
     if (vec == 4)
-      mma_kernel<ENC, TR, 4><<<grid, kThreads, 0, st>>>(PGT_ARGS);
+      mma_kernel<ENC, TR, 4, false><<<grid, kThreads, 0, st>>>(PGT_ARGS);
     else if (vec == 2)
-      mma_kernel<ENC, TR, 2><<<grid, kThreads, 0, st>>>(PGT_ARGS);
+      mma_kernel<ENC, TR, 2, false><<<grid, kThreads, 0, st>>>(PGT_ARGS);
     else
-      mma_kernel<ENC, TR, 1><<<grid, kThreads, 0, st>>>(PGT_ARGS);
+      mma_kernel<ENC, TR, 1, false><<<grid, kThreads, 0, st>>>(PGT_ARGS);
   }
 #undef PGT_ARGS
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int ENC>
-int launch_enc(bool transpose, const float* x, int P, int n_in, int F,
-               const unsigned char* a, long long b_max, int T, const int* ptr,
-               const int* blk, const int* til, long long pair_stride,
-               int n_out_tiles, int n_out, float* out, cudaStream_t st) {
+int launch_enc(bool transpose, const void* x, bool xb, int P, int n_in,
+               int F, const unsigned char* a, long long b_max, int T,
+               const int* ptr, const int* blk, const int* til,
+               long long pair_stride, int n_out_tiles, int n_out, float* out,
+               cudaStream_t st) {
   if (transpose)
-    return launch_vec<ENC, true>(x, P, n_in, F, a, b_max, T, ptr, blk, til,
-                                 pair_stride, n_out_tiles, n_out, out, st);
-  return launch_vec<ENC, false>(x, P, n_in, F, a, b_max, T, ptr, blk, til,
-                                pair_stride, n_out_tiles, n_out, out, st);
+    return launch_vec<ENC, true>(x, xb, P, n_in, F, a, b_max, T, ptr, blk,
+                                 til, pair_stride, n_out_tiles, n_out, out,
+                                 st);
+  return launch_vec<ENC, false>(x, xb, P, n_in, F, a, b_max, T, ptr, blk,
+                                til, pair_stride, n_out_tiles, n_out, out,
+                                st);
 }
 
 }  // namespace
 
-// x [P, n_in, F] f32; a [P, b_max, T, row_bytes] (enc 0 bits, 1 int8,
+// x [P, n_in, F] f32, or bf16 when x_bf16; a [P, b_max, T, row_bytes]
+// (enc 0 bits, 1 int8,
 // 2 bf16, 3 f32); ptr [P, n_out_tiles + 1] int32, blk / til [P,
 // pair_stride] int32 (pair k of part p: A block blk and input tile til;
 // output tile i's pairs at ptr[p, i] .. ptr[p, i + 1]); out [P, n_out, F]
@@ -577,13 +656,13 @@ extern "C" int pgt_block_dense(const void* x, int P, int n_in, int F,
                                int T, const void* ptr, const void* blk,
                                const void* til, long long pair_stride,
                                int n_out_tiles, int n_out, int transpose,
-                               void* out, void* stream) {
+                               int x_bf16, void* out, void* stream) {
   if (P == 0 || n_out == 0 || F == 0) return 0;
   if (T < 32 || T > kRows || T % 32 != 0 || n_out_tiles <= 0 ||
       n_out_tiles > 65535 || P > 65535 || n_in < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* xf = static_cast<const float*>(x);
+  const bool xb = x_bf16 != 0;
   const unsigned char* ab = static_cast<const unsigned char*>(a);
   const int* pt = static_cast<const int*>(ptr);
   const int* bk = static_cast<const int*>(blk);
@@ -592,17 +671,17 @@ extern "C" int pgt_block_dense(const void* x, int P, int n_in, int F,
   const bool tr = transpose != 0;
   switch (enc) {
     case kBits:
-      return launch_enc<kBits>(tr, xf, P, n_in, F, ab, b_max, T, pt, bk, tl,
-                               pair_stride, n_out_tiles, n_out, o, st);
+      return launch_enc<kBits>(tr, x, xb, P, n_in, F, ab, b_max, T, pt, bk,
+                               tl, pair_stride, n_out_tiles, n_out, o, st);
     case kI8:
-      return launch_enc<kI8>(tr, xf, P, n_in, F, ab, b_max, T, pt, bk, tl,
-                             pair_stride, n_out_tiles, n_out, o, st);
+      return launch_enc<kI8>(tr, x, xb, P, n_in, F, ab, b_max, T, pt, bk,
+                             tl, pair_stride, n_out_tiles, n_out, o, st);
     case kBF16:
-      return launch_enc<kBF16>(tr, xf, P, n_in, F, ab, b_max, T, pt, bk, tl,
-                               pair_stride, n_out_tiles, n_out, o, st);
+      return launch_enc<kBF16>(tr, x, xb, P, n_in, F, ab, b_max, T, pt, bk,
+                               tl, pair_stride, n_out_tiles, n_out, o, st);
     case kF32:
-      return launch_enc<kF32>(tr, xf, P, n_in, F, ab, b_max, T, pt, bk, tl,
-                              pair_stride, n_out_tiles, n_out, o, st);
+      return launch_enc<kF32>(tr, x, xb, P, n_in, F, ab, b_max, T, pt, bk,
+                              tl, pair_stride, n_out_tiles, n_out, o, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,539 +1,6 @@
-// K6 / K8: GAT edge-softmax attention aggregation, forward and the
-// source-keyed pass of its backward, hand-written for Hopper (sm_90a).
-//
-// Replaces: pipegcn_tpu/ops/gat_bucket.py  make_device_gat_fn (fwd_pass,
-// gat_bwd pass A and pass B, _gather_weighted, _gather_contract,
-// _gather_weighted_contract) and the aggregation of
-// pipegcn_tpu/models/sage.py  _gat_layer (raw-edge segment max / sum /
-// weighted sum, autodiff backward). The two compute one function; their
-// bucket tables exist to avoid TPU scatters, and a CSR pass has none.
-//
-// Per destination row d and head h, over the in-edges e = (src, d) of
-// the destination CSR (indptr, src), with leaky(x) = x > 0 ? x : slope*x:
-//
-//   K6  l_e = leaky(el[src,h] + er[d,h]);  m = max_e l_e  (0 if no edge)
-//       s = sum_e exp(l_e - m)  (1 if no edge)
-//       out[d,h,:] = sum_e exp(l_e - m) * z[src,h,:] / s
-//       and, in its NEG mode (training), over the edges on the negative
-//       leaky branch (el + er <= 0) alone, with alpha = exp(l - m) / s:
-//       n_neg[d,h,:] = sum_neg alpha_e * z[src,h,:],  w_neg[d,h] = sum_neg
-//       alpha_e
-//   K8  (pass B, src-keyed, over the transpose CSR (indptr_t, dst_t)),
-//       per source row r, with beta = alpha * leaky'(l), leaky' = 1 if
-//       x > 0 else slope:
-//       d_z[r,h,:] = sum_e alpha_e * g[dst,h,:]
-//       d_el[r,h]  = sum_e beta_e * (g[dst,h,:] . z[r,h,:] - rho[dst,h])
-//
-// Pass A of the backward (d_er) needs no kernel of its own: for a row
-// with edges sum(alpha) = 1 and g . out = rho, so
-//   d_er = sum_e beta_e (g . z[src_e] - rho) = (1 - slope) (rho w_neg -
-//   g . n_neg),
-// an elementwise expression over K6's NEG outputs (ops/gat.py), and 0 for
-// an empty row (n_neg = w_neg = 0). That saves a second wide gather of
-// z[src] per layer.
-//
-// K8 contracts the gathered wide rows after the edge loop instead of per
-// edge: sum_e beta_e (x_e . y) = (sum_e beta_e x_e) . y, since y (the
-// row's own z) does not depend on the edge. So every pass is a weighted
-// row gather-sum plus one dot product per head at the end, and no
-// per-edge warp reduction runs.
-//
-// z [P, R, H*dh] f32 (every source row of the part, halo included), el
-// [P, R, H], er [P, n, H], out/n_neg/g [P, n, H*dh], m/s/w_neg/rho
-// [P, n, H]; K8 reads er, m, s, rho stacked as [P, n, 4, H] (one narrow
-// row per edge).
-//
-// What bounds them on the H100: the wide gather, as in K1/K3. Every edge
-// reads one full row of H*dh floats (1 KB at the hidden layers) from L2
-// or HBM; the least traffic (each input read once) is a few hundred MB,
-// and the least arithmetic is one FMA (2 flops) per edge per element.
-// K6's NEG mode and K8 run two accumulators per element (out and n_neg;
-// d_z and the beta-weighted sum), twice that: split by the edge's leaky
-// branch, one accumulator per branch would do (the weighted sums are then
-// their sum and the positive one plus slope times the negative one).
-// They are random-row-gather kernels.
-//
-// Design (simple and right first): one warp per row. The warp loads 32
-// edge indices with one coalesced load; each lane computes the attention
-// weights of its own edge for every head (a narrow el / stats row gather,
-// expf) and writes them to the warp's slice of shared memory; then the
-// warp walks the 32 edges in order, broadcasting each index with
-// __shfl_sync, and every lane gathers its columns of that edge's wide row
-// (16-byte loads when dh % 4 == 0, else 4-byte loads, so that a chunk
-// never straddles two heads: dh = 41 at the logits layer) and adds the
-// weight of its chunk's head times the value. K6 takes the row max in a
-// first, narrow pass over el (two-pass softmax, as the plain version),
-// then the normaliser and the weighted sum in one wide pass, and divides
-// once at the end. Sums run in registers in edge order, warp reductions
-// are fixed xor butterflies: no atomics, deterministic results. Rows of
-// any degree run the same loop. Gather indices are clamped into range
-// (the JAX package's jnp.take(mode="clip")).
-
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-namespace {
-
-constexpr int kWarps = 8;
-constexpr unsigned kFull = 0xffffffffu;
-
-template <int VEC>
-__device__ __forceinline__ void load(const float* p, float* o) {
-  if constexpr (VEC == 4) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-    o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
-  } else {
-    o[0] = __ldg(p);
-  }
-}
-
-template <int VEC>
-__device__ __forceinline__ void store(float* p, const float* v) {
-  if constexpr (VEC == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  } else {
-    p[0] = v[0];
-  }
-}
-
-__device__ __forceinline__ float leaky(float x, float slope) {
-  return x > 0.0f ? x : slope * x;
-}
-
-__device__ __forceinline__ long long row_ptr(const void* indptr, int is64,
-                                             size_t i) {
-  return is64 ? static_cast<const long long*>(indptr)[i]
-              : static_cast<const int*>(indptr)[i];
-}
-
-__device__ __forceinline__ int clip(int i, int n) {
-  return min(max(i, 0), n - 1);
-}
-
-// xor butterflies: every lane ends with the same value (a + b == b + a
-// bit for bit), in a fixed order
-template <int HM>
-__device__ __forceinline__ void warp_max(float* v) {
-#pragma unroll
-  for (int h = 0; h < HM; ++h)
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v[h] = fmaxf(v[h], __shfl_xor_sync(kFull, v[h], off));
-}
-
-template <int HM>
-__device__ __forceinline__ void warp_sum(float* v) {
-#pragma unroll
-  for (int h = 0; h < HM; ++h)
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v[h] += __shfl_xor_sync(kFull, v[h], off);
-}
-
-// the columns of one lane: chunk v starts at column (v*32 + lane)*VEC and
-// lies in head head[v] (the launcher picks VEC so that dh % VEC == 0)
-template <int VEC, int NV>
-struct Cols {
-  int col[NV], head[NV];
-  bool ok[NV];
-  __device__ __forceinline__ Cols(int lane, int F, int dh) {
-#pragma unroll
-    for (int v = 0; v < NV; ++v) {
-      col[v] = (v * 32 + lane) * VEC;
-      ok[v] = col[v] < F;
-      head[v] = ok[v] ? col[v] / dh : 0;
-    }
-  }
-};
-
-// sum over the lane's chunks that lie in head h of dot(x, y), per head
-template <int VEC, int NV, int HM>
-__device__ __forceinline__ void head_dots(const Cols<VEC, NV>& c,
-                                          const float* yrow,
-                                          const float (&acc)[NV][VEC],
-                                          float* dot) {
-#pragma unroll
-  for (int h = 0; h < HM; ++h) dot[h] = 0.0f;
-#pragma unroll
-  for (int v = 0; v < NV; ++v) {
-    if (!c.ok[v]) continue;
-    float y[VEC];
-    load<VEC>(yrow + c.col[v], y);
-    float t = 0.0f;
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) t += y[k] * acc[v][k];
-#pragma unroll
-    for (int h = 0; h < HM; ++h)
-      if (h == c.head[v]) dot[h] += t;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K6
-
-template <int VEC, int NV, int HM, bool NEG>
-__global__ void __launch_bounds__(kWarps * 32)
-gat_fwd_kernel(const float* __restrict__ z, const float* __restrict__ el,
-               const float* __restrict__ er, const void* __restrict__ indptr,
-               int indptr_64, const int* __restrict__ src,
-               long long src_stride, float* __restrict__ out,
-               float* __restrict__ m_out, float* __restrict__ s_out,
-               float* __restrict__ nneg_out, float* __restrict__ wneg_out,
-               int R, int n, int H, int dh, float slope) {
-  __shared__ float wsh[kWarps][32][HM];
-  // NEG: the weight again where the edge is on the negative branch, else 0
-  __shared__ float nsh[NEG ? kWarps : 1][32][HM];
-  const int part = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + warp;
-  if (row >= n) return;  // whole warp leaves together
-  const int F = H * dh;
-  z += static_cast<size_t>(part) * R * F;
-  el += static_cast<size_t>(part) * R * H;
-  src += static_cast<size_t>(part) * src_stride;
-  const size_t orow = static_cast<size_t>(part) * n + row;
-  const size_t rp = static_cast<size_t>(part) * (n + 1) + row;
-  const long long beg = row_ptr(indptr, indptr_64, rp);
-  const long long end = row_ptr(indptr, indptr_64, rp + 1);
-
-  float er_r[HM], mx[HM], ssum[HM], nsum[HM];
-#pragma unroll
-  for (int h = 0; h < HM; ++h) {
-    er_r[h] = h < H ? __ldg(er + orow * H + h) : 0.0f;
-    mx[h] = -INFINITY;
-    ssum[h] = nsum[h] = 0.0f;
-  }
-  // narrow pass: the row max of every head
-  for (long long base = beg; base < end; base += 32) {
-    if (lane < end - base) {
-      const float* e = el + static_cast<size_t>(clip(
-                                __ldg(src + base + lane), R)) * H;
-#pragma unroll
-      for (int h = 0; h < HM; ++h)
-        if (h < H) mx[h] = fmaxf(mx[h], leaky(__ldg(e + h) + er_r[h], slope));
-    }
-  }
-  warp_max<HM>(mx);
-  if (end == beg) {
-#pragma unroll
-    for (int h = 0; h < HM; ++h) mx[h] = 0.0f;
-  }
-
-  // wide pass: normaliser and weighted row sum
-  const Cols<VEC, NV> c(lane, F, dh);
-  float acc[NV][VEC], accn[NEG ? NV : 1][VEC];
-#pragma unroll
-  for (int v = 0; v < NV; ++v)
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) {
-      acc[v][k] = 0.0f;
-      if constexpr (NEG) accn[v][k] = 0.0f;
-    }
-  float(*w)[HM] = wsh[warp];
-  float(*wn)[HM] = nsh[NEG ? warp : 0];
-  for (long long base = beg; base < end; base += 32) {
-    const int cnt = static_cast<int>(min(32LL, end - base));
-    int mine = 0;
-    if (lane < cnt) {
-      mine = clip(__ldg(src + base + lane), R);
-      const float* e = el + static_cast<size_t>(mine) * H;
-#pragma unroll
-      for (int h = 0; h < HM; ++h) {
-        if (h < H) {
-          const float lp = __ldg(e + h) + er_r[h];
-          const float wt = expf(leaky(lp, slope) - mx[h]);
-          w[lane][h] = wt;
-          ssum[h] += wt;
-          if constexpr (NEG) {
-            const float wnt = lp > 0.0f ? 0.0f : wt;
-            wn[lane][h] = wnt;
-            nsum[h] += wnt;
-          }
-        }
-      }
-    }
-    __syncwarp();
-#pragma unroll 4
-    for (int j = 0; j < cnt; ++j) {
-      const int s = __shfl_sync(kFull, mine, j);
-      const float* rowp = z + static_cast<size_t>(s) * F;
-#pragma unroll
-      for (int v = 0; v < NV; ++v) {
-        if (c.ok[v]) {
-          float y[VEC];
-          load<VEC>(rowp + c.col[v], y);
-          const float wt = w[j][c.head[v]];
-#pragma unroll
-          for (int k = 0; k < VEC; ++k) acc[v][k] += __fmul_rn(wt, y[k]);
-          if constexpr (NEG) {
-            const float wnt = wn[j][c.head[v]];
-#pragma unroll
-            for (int k = 0; k < VEC; ++k)
-              accn[v][k] += __fmul_rn(wnt, y[k]);
-          }
-        }
-      }
-    }
-    __syncwarp();
-  }
-  warp_sum<HM>(ssum);
-  if constexpr (NEG) warp_sum<HM>(nsum);
-  if (end == beg) {
-#pragma unroll
-    for (int h = 0; h < HM; ++h) ssum[h] = 1.0f;
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int h = 0; h < HM; ++h) {
-      if (h < H) {
-        m_out[orow * H + h] = mx[h];
-        s_out[orow * H + h] = ssum[h];
-        if constexpr (NEG) wneg_out[orow * H + h] = nsum[h] / ssum[h];
-      }
-    }
-  }
-  float* op = out + orow * F;
-#pragma unroll
-  for (int v = 0; v < NV; ++v) {
-    if (c.ok[v]) {
-      float sv = 1.0f;
-#pragma unroll
-      for (int h = 0; h < HM; ++h)
-        if (h == c.head[v]) sv = ssum[h];
-      float y[VEC];
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) y[k] = acc[v][k] / sv;
-      store<VEC>(op + c.col[v], y);
-      if constexpr (NEG) {
-#pragma unroll
-        for (int k = 0; k < VEC; ++k) y[k] = accn[v][k] / sv;
-        store<VEC>(nneg_out + orow * F + c.col[v], y);
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K8 (pass B, src-keyed over the transpose CSR): d_z, d_el
-
-template <int VEC, int NV, int HM>
-__global__ void __launch_bounds__(kWarps * 32)
-gat_bwd_src_kernel(const float* __restrict__ z, const float* __restrict__ el,
-                   const float* __restrict__ stats,
-                   const float* __restrict__ g,
-                   const void* __restrict__ indptr_t, int indptr_64,
-                   const int* __restrict__ dst_t, long long dst_stride,
-                   float* __restrict__ d_z, float* __restrict__ d_el, int R,
-                   int n, int H, int dh, float slope) {
-  __shared__ float wa_sh[kWarps][32][HM];
-  __shared__ float wb_sh[kWarps][32][HM];
-  const int part = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + warp;
-  if (row >= R) return;
-  const int F = H * dh;
-  stats += static_cast<size_t>(part) * n * 4 * H;
-  g += static_cast<size_t>(part) * n * F;
-  dst_t += static_cast<size_t>(part) * dst_stride;
-  const size_t orow = static_cast<size_t>(part) * R + row;
-  const size_t rp = static_cast<size_t>(part) * (R + 1) + row;
-  const long long beg = row_ptr(indptr_t, indptr_64, rp);
-  const long long end = row_ptr(indptr_t, indptr_64, rp + 1);
-
-  float el_r[HM], brho[HM];
-#pragma unroll
-  for (int h = 0; h < HM; ++h) {
-    el_r[h] = h < H ? __ldg(el + orow * H + h) : 0.0f;
-    brho[h] = 0.0f;
-  }
-  const Cols<VEC, NV> c(lane, F, dh);
-  float acc_a[NV][VEC], acc_b[NV][VEC];
-#pragma unroll
-  for (int v = 0; v < NV; ++v)
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) acc_a[v][k] = acc_b[v][k] = 0.0f;
-  float(*wa)[HM] = wa_sh[warp];
-  float(*wb)[HM] = wb_sh[warp];
-  for (long long base = beg; base < end; base += 32) {
-    const int cnt = static_cast<int>(min(32LL, end - base));
-    int mine = 0;
-    if (lane < cnt) {
-      mine = clip(__ldg(dst_t + base + lane), n);
-      const float* st = stats + static_cast<size_t>(mine) * 4 * H;
-#pragma unroll
-      for (int h = 0; h < HM; ++h) {
-        if (h < H) {
-          const float lp = el_r[h] + __ldg(st + h);
-          const float a = expf(leaky(lp, slope) - __ldg(st + H + h)) /
-                          __ldg(st + 2 * H + h);
-          const float b = lp > 0.0f ? a : a * slope;
-          wa[lane][h] = a;
-          wb[lane][h] = b;
-          brho[h] += b * __ldg(st + 3 * H + h);
-        }
-      }
-    }
-    __syncwarp();
-#pragma unroll 4
-    for (int j = 0; j < cnt; ++j) {
-      const int dj = __shfl_sync(kFull, mine, j);
-      const float* rowp = g + static_cast<size_t>(dj) * F;
-#pragma unroll
-      for (int v = 0; v < NV; ++v) {
-        if (c.ok[v]) {
-          float y[VEC];
-          load<VEC>(rowp + c.col[v], y);
-          const float a = wa[j][c.head[v]], b = wb[j][c.head[v]];
-#pragma unroll
-          for (int k = 0; k < VEC; ++k) {
-            acc_a[v][k] += __fmul_rn(a, y[k]);
-            acc_b[v][k] += __fmul_rn(b, y[k]);
-          }
-        }
-      }
-    }
-    __syncwarp();
-  }
-  float* dzp = d_z + orow * F;
-#pragma unroll
-  for (int v = 0; v < NV; ++v)
-    if (c.ok[v]) store<VEC>(dzp + c.col[v], acc_a[v]);
-  // d_el = z[r] . (sum_e beta_e g[dst_e]) - sum_e beta_e rho[dst_e]
-  float dot[HM];
-  head_dots<VEC, NV, HM>(c, z + orow * F, acc_b, dot);
-  warp_sum<HM>(dot);
-  warp_sum<HM>(brho);
-  if (lane == 0) {
-#pragma unroll
-    for (int h = 0; h < HM; ++h)
-      if (h < H) d_el[orow * H + h] = dot[h] - brho[h];
-  }
-}
-
-// ---------------------------------------------------------------------------
-// launch: VEC from dh, NV from the row width, HM from the head count
-
-struct Shape {
-  int P, rows, H, dh, vec, nv, hm;
-};
-
-bool aligned(const void* p, int bytes) {
-  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
-}
-
-// false when the kernels cannot take the shape (the wrapper checks first)
-bool pick(Shape& sh, bool vec4_aligned) {
-  const int F = sh.H * sh.dh;
-  if (sh.H < 1 || sh.H > 16 || sh.dh < 1) return false;
-  sh.vec = (sh.dh % 4 == 0 && vec4_aligned) ? 4 : 1;
-  const int need = (F + 32 * sh.vec - 1) / (32 * sh.vec);
-  if (need > 16) return false;
-  sh.nv = need <= 2 ? 2 : need <= 4 ? 4 : need <= 8 ? 8 : 16;
-  sh.hm = sh.H <= 4 ? 4 : 16;
-  return true;
-}
-
-template <template <int, int, int> class L, typename... A>
-int dispatch(const Shape& sh, cudaStream_t st, A... args) {
-  const dim3 grid((sh.rows + kWarps - 1) / kWarps, sh.P);
-  const dim3 block(kWarps * 32);
-#define PGT_NV(VEC_, HM_)                                             \
-  switch (sh.nv) {                                                    \
-    case 2: L<VEC_, 2, HM_>::run(grid, block, st, args...); break;    \
-    case 4: L<VEC_, 4, HM_>::run(grid, block, st, args...); break;    \
-    case 8: L<VEC_, 8, HM_>::run(grid, block, st, args...); break;    \
-    default: L<VEC_, 16, HM_>::run(grid, block, st, args...); break;  \
-  }
-  if (sh.vec == 4) {
-    if (sh.hm == 4) { PGT_NV(4, 4) } else { PGT_NV(4, 16) }
-  } else {
-    if (sh.hm == 4) { PGT_NV(1, 4) } else { PGT_NV(1, 16) }
-  }
-#undef PGT_NV
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int VEC, int NV, int HM>
-struct FwdLaunch {
-  template <typename... A>
-  static void run(dim3 grid, dim3 block, cudaStream_t st, A... args) {
-    gat_fwd_kernel<VEC, NV, HM, false><<<grid, block, 0, st>>>(args...);
-  }
-};
-template <int VEC, int NV, int HM>
-struct FwdNegLaunch {
-  template <typename... A>
-  static void run(dim3 grid, dim3 block, cudaStream_t st, A... args) {
-    gat_fwd_kernel<VEC, NV, HM, true><<<grid, block, 0, st>>>(args...);
-  }
-};
-template <int VEC, int NV, int HM>
-struct SrcLaunch {
-  template <typename... A>
-  static void run(dim3 grid, dim3 block, cudaStream_t st, A... args) {
-    gat_bwd_src_kernel<VEC, NV, HM><<<grid, block, 0, st>>>(args...);
-  }
-};
-
-}  // namespace
-
-// K6. z [P, R, H*dh], el [P, R, H], er [P, n, H] f32; indptr [P, n + 1]
-// (int32, or int64 when indptr_64); src [P, *] int32 with part stride
-// src_stride; out [P, n, H*dh], m, s [P, n, H] f32; n_neg [P, n, H*dh]
-// and w_neg [P, n, H] f32, or both null (then the NEG mode is not run).
-// All contiguous. Returns cudaGetLastError().
-extern "C" int pgt_gat_fwd(const void* z, const void* el, const void* er,
-                           const void* indptr, int indptr_64,
-                           const void* src, long long src_stride, void* out,
-                           void* m, void* s, void* n_neg, void* w_neg, int P,
-                           int R, int n, int H, int dh, float slope,
-                           void* stream) {
-  if (P == 0 || n == 0) return 0;
-  Shape sh{P, n, H, dh, 0, 0, 0};
-  const bool neg = n_neg != nullptr;
-  if (R <= 0 || neg != (w_neg != nullptr) ||
-      !pick(sh, aligned(z, 16) && aligned(out, 16) &&
-                    (!neg || aligned(n_neg, 16))))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const auto st = static_cast<cudaStream_t>(stream);
-  const auto zf = static_cast<const float*>(z);
-  const auto elf = static_cast<const float*>(el);
-  const auto erf = static_cast<const float*>(er);
-  const auto srci = static_cast<const int*>(src);
-  const auto outf = static_cast<float*>(out);
-  const auto mf = static_cast<float*>(m);
-  const auto sf = static_cast<float*>(s);
-  const auto nf = static_cast<float*>(n_neg);
-  const auto wf = static_cast<float*>(w_neg);
-  if (neg)
-    return dispatch<FwdNegLaunch>(sh, st, zf, elf, erf, indptr, indptr_64,
-                                  srci, src_stride, outf, mf, sf, nf, wf, R,
-                                  n, H, dh, slope);
-  return dispatch<FwdLaunch>(sh, st, zf, elf, erf, indptr, indptr_64, srci,
-                             src_stride, outf, mf, sf, nf, wf, R, n, H, dh,
-                             slope);
-}
-
-// K8. z [P, R, H*dh], el [P, R, H]; stats [P, n, 4, H] = (er, m, s, rho);
-// g [P, n, H*dh]; indptr_t [P, R + 1] (int32, or int64 when indptr_64);
-// dst_t [P, *] int32 with part stride dst_stride; d_z [P, R, H*dh], d_el
-// [P, R, H] f32. All contiguous. Returns cudaGetLastError().
-extern "C" int pgt_gat_bwd_src(const void* z, const void* el,
-                               const void* stats, const void* g,
-                               const void* indptr_t, int indptr_64,
-                               const void* dst_t, long long dst_stride,
-                               void* d_z, void* d_el, int P, int R, int n,
-                               int H, int dh, float slope, void* stream) {
-  if (P == 0 || R == 0) return 0;
-  Shape sh{P, R, H, dh, 0, 0, 0};
-  if (n <= 0 ||
-      !pick(sh, aligned(z, 16) && aligned(g, 16) && aligned(d_z, 16)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch<SrcLaunch>(
-      sh, static_cast<cudaStream_t>(stream), static_cast<const float*>(z),
-      static_cast<const float*>(el), static_cast<const float*>(stats),
-      static_cast<const float*>(g), indptr_t, indptr_64,
-      static_cast<const int*>(dst_t), dst_stride, static_cast<float*>(d_z),
-      static_cast<float*>(d_el), R, n, H, dh, slope);
-}
+// K6 / K8 (GAT attention, forward and the src-keyed backward pass) for f32 z
+// and g rows (f32 compute; the bf16 logits layer): the kernels of
+// gat_attn.cuh, compiled for one row-type mode a library so that the three
+// builds run in parallel.
+#define PGT_GAT_MODE 0
+#include "gat_attn.cuh"

@@ -12,9 +12,19 @@ of the destination CSR ``(indptr, src)``:
     s     = sum_e exp(l_e - m)           (1 for a row without edges)
     out_d = sum_e exp(l_e - m) * z[src, h, :] / s
 
-z ``[P, R, H, dh]`` f32 holds every source row of the part (inner rows
-then halo rows), el ``[P, R, H]``, er ``[P, n, H]``; out ``[P, n, H, dh]``
-f32. The two JAX formulations compute this one function and differ only
+z ``[P, R, H, dh]`` holds every source row of the part (inner rows
+then halo rows), el ``[P, R, H]`` and er ``[P, n, H]`` f32; out ``[P, n,
+H, dh]`` f32. z is f32 or bf16 (the compute dtype; f32 on the bf16 logits
+layer), or, behind ``make_device_gat_fn``'s gather transport
+(``rem_dtype``), the e4m3 / bf16 cast of it that K10 makes
+(``ops/bucket_spmm.transport_cast``): the forward, pass A and pass B's
+row-local ``z[r]`` all read that one quantized z (``gat_bucket.py:408``,
+``:466-471``), which the forward saves for the backward. The cotangent
+rows pass B gathers are e5m2 / bf16 casts of g under the transport, else
+g in z's dtype (``gat_bucket.py:459``). Every logit, statistic and sum
+stays f32; ``d_z`` is cast to z's dtype once.
+
+The two JAX formulations compute this one function and differ only
 in summation order and in the empty-row clamp (``max(s, 1e-16)`` in
 ``_gat_layer``, the ``s = 1`` sentinel in ``gat_bucket``): their bucket
 tables exist to avoid TPU scatters, and a CSR pass has none, so one set
@@ -39,9 +49,11 @@ and ``leaky'(x) = 1 if x > 0 else slope``:
 Treating m as a constant is exact: the normalised output does not depend
 on it.
 
-Kernels (``csrc/gat_attn.cu``): K6 ``gat_fwd`` (also returns m and s, and
-in its ``neg`` mode n_neg and w_neg) and K8 ``gat_bwd_src`` (pass B),
-launched for CUDA tensors and counted in ``<wrapper>.launches``. CPU
+Kernels (``csrc/gat_attn.cuh``, one library a row-type mode: f32 z and g
+``gat_attn.cu``, bf16 ``gat_attn_bf16.cu``, e4m3 z and e5m2 g
+``gat_attn_fp8.cu``): K6 ``gat_fwd`` (also returns m and s, and in its
+``neg`` mode n_neg and w_neg) and K8 ``gat_bwd_src`` (pass B), launched
+for CUDA tensors and counted in ``<wrapper>.launches``. CPU
 tensors take the plain versions, which walk the edges in chunks of
 ``PLAIN_CHUNK`` with ``index_add_`` and never hold an ``[E, H, dh]``
 tensor; anything else raises. :class:`GatAttention` ties them together
@@ -62,22 +74,34 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from .bucket_spmm import _transport, transport_dtypes
 
 # edges per step of the plain versions: bounds their [chunk, H, dh]
 # gathered message tensors
 PLAIN_CHUNK = 1 << 20
 # the widest row the kernels take, by the vector width they load it with
-# (32 lanes x 16 chunks of 1 or 4 floats), and the most heads
+# (32 lanes x 16 chunks of 1 or 4 elements), and the most heads
 MAX_F_SCALAR, MAX_F_VEC4, MAX_HEADS = 512, 2048, 16
 
 _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
-_SIGNATURES = {
-    "pgt_gat_fwd": [_P, _P, _P, _P, _I, _P, _LL, _P, _P, _P, _P, _P,
-                    _I, _I, _I, _I, _I, _F, _P],
-    "pgt_gat_bwd_src": [_P, _P, _P, _P, _P, _I, _P, _LL, _P, _P,
-                        _I, _I, _I, _I, _I, _F, _P],
+# the row-type modes: (z dtype, g dtype) -> (mode, library)
+_MODES = {
+    (torch.float32, torch.float32): (0, "gat_attn"),
+    (torch.bfloat16, torch.bfloat16): (1, "gat_attn_bf16"),
+    (torch.float8_e4m3fn, torch.float8_e5m2): (2, "gat_attn_fp8"),
 }
+_G_OF = {z: g for z, g in _MODES}  # z dtype -> its mode's g dtype
+LIBRARIES = tuple(lib for _, lib in _MODES.values())
+
+
+def _signatures(mode: int):
+    return {
+        f"pgt_gat_fwd_m{mode}": [_P, _P, _P, _P, _I, _P, _LL, _P, _P, _P,
+                                 _P, _P, _I, _I, _I, _I, _I, _F, _P],
+        f"pgt_gat_bwd_src_m{mode}": [_P, _P, _P, _P, _P, _I, _P, _LL, _P,
+                                     _P, _I, _I, _I, _I, _I, _F, _P],
+    }
 
 Transpose = Tuple[torch.Tensor, torch.Tensor]
 
@@ -104,9 +128,9 @@ def _dleaky(pos, slope):
 
 
 def _check(name, z, el, er, indptr, idx, n_rows):
-    """z [P, R, H, dh] f32, el [P, R, H] f32, er [P, n, H] f32, a CSR
-    ``indptr [P, n_rows + 1]`` (int32/int64) with ``idx [P, E]`` int32,
-    all on one device."""
+    """z [P, R, H, dh] f32, bf16 or e4m3, el [P, R, H] f32, er [P, n, H]
+    f32, a CSR ``indptr [P, n_rows + 1]`` (int32/int64) with ``idx [P,
+    E]`` int32, all on one device."""
     if z.dim() != 4 or el.dim() != 3 or er.dim() != 3:
         raise ValueError(f"{name}: z must be [P, R, H, dh], el [P, R, H], "
                          f"er [P, n, H]; got {tuple(z.shape)}, "
@@ -120,8 +144,10 @@ def _check(name, z, el, er, indptr, idx, n_rows):
         raise ValueError(f"{name}: CSR shape mismatch: indptr "
                          f"{tuple(indptr.shape)}, idx {tuple(idx.shape)} "
                          f"for P={P}, {n_rows} rows")
-    if any(t.dtype != torch.float32 for t in (z, el, er)):
-        raise TypeError(f"{name}: z, el and er must be float32")
+    if z.dtype not in _G_OF or el.dtype != torch.float32 \
+            or er.dtype != torch.float32:
+        raise TypeError(f"{name}: z must be float32, bfloat16 or "
+                        f"float8_e4m3fn (got {z.dtype}), el and er float32")
     if indptr.dtype not in (torch.int32, torch.int64) \
             or idx.dtype != torch.int32:
         raise TypeError(f"{name}: indptr must be int32/int64, the index "
@@ -165,10 +191,10 @@ def gat_fwd_plain(z: torch.Tensor, el: torch.Tensor, er: torch.Tensor,
                   chunk: int = PLAIN_CHUNK, neg: bool = False):
     """Plain PyTorch version of K6: ``(out [P, n, H, dh], m [P, n, H],
     s [P, n, H])``, the row max by ``scatter_reduce_`` then the
-    normaliser and the weighted sum by ``index_add_``, in chunks of edges;
-    with ``neg`` also ``n_neg [P, n, H, dh]`` and ``w_neg [P, n, H]``, the
-    same sums over the edges on the negative leaky branch alone. Runs on
-    any device."""
+    normaliser and the weighted sum by ``index_add_``, in chunks of edges,
+    over z's rows widened to f32 (``.float()``); with ``neg`` also ``n_neg
+    [P, n, H, dh]`` and ``w_neg [P, n, H]``, the same sums over the edges
+    on the negative leaky branch alone. Runs on any device."""
     n = er.shape[1]
     _check("gat_fwd", z, el, er, indptr, src, n)
     P, R, H, dh = z.shape
@@ -194,7 +220,7 @@ def gat_fwd_plain(z: torch.Tensor, el: torch.Tensor, er: torch.Tensor,
         for e0 in range(0, rows.numel(), chunk):
             r, c, lg, pos = logits(e0, e0 + chunk, False)
             w = torch.exp(lg - m[p].index_select(0, r))
-            zc = z[p].index_select(0, c)
+            zc = z[p].index_select(0, c).float()
             s[p].index_add_(0, r, w)
             out[p].index_add_(0, r, zc * w[..., None])
             if neg:
@@ -215,7 +241,7 @@ def _kernel_shape(name, H, dh, *n_rows):
     if H > MAX_HEADS:
         raise ValueError(f"{name}: the kernel takes at most {MAX_HEADS} "
                          f"heads, got {H}")
-    limit = MAX_F_VEC4 if dh % 4 == 0 else MAX_F_SCALAR
+    limit = MAX_F_VEC4 if F % 4 == 0 and dh >= 4 else MAX_F_SCALAR
     if F > limit:
         raise ValueError(f"{name}: rows of {F} floats (dh={dh}) exceed the "
                          f"kernel's {limit}")
@@ -235,9 +261,10 @@ def _cuda_ready(name, *ts):
 def gat_fwd(z: torch.Tensor, el: torch.Tensor, er: torch.Tensor,
             indptr: torch.Tensor, src: torch.Tensor, slope: float = 0.2,
             neg: bool = False):
-    """K6 on CUDA tensors (counted in ``gat_fwd.launches``), the plain
-    version on CPU tensors: ``(out, m, s)``, with ``neg`` also ``(n_neg,
-    w_neg)`` (the kernel's NEG mode)."""
+    """K6 on CUDA tensors (counted in ``gat_fwd.launches``, and by the
+    library of z's row type in ``gat_fwd.by_mode``), the plain version on
+    CPU tensors: ``(out, m, s)``, with
+    ``neg`` also ``(n_neg, w_neg)`` (the kernel's NEG mode)."""
     if z.device.type == "cpu":
         return gat_fwd_plain(z, el, er, indptr, src, slope, neg=neg)
     n = er.shape[1]
@@ -249,8 +276,9 @@ def gat_fwd(z: torch.Tensor, el: torch.Tensor, er: torch.Tensor,
     m = torch.empty((P, n, H), dtype=torch.float32, device=z.device)
     s = torch.empty_like(m)
     extra = (torch.empty_like(out), torch.empty_like(m)) if neg else ()
-    lib = _build.load("gat_attn", _SIGNATURES)
-    rc = lib.pgt_gat_fwd(
+    mode, name = _MODES[(z.dtype, _G_OF[z.dtype])]
+    lib = _build.load(name, _signatures(mode))
+    rc = getattr(lib, f"pgt_gat_fwd_m{mode}")(
         z.data_ptr(), el.data_ptr(), er.data_ptr(), indptr.data_ptr(),
         int(indptr.dtype == torch.int64), src.data_ptr(), src.shape[1],
         out.data_ptr(), m.data_ptr(), s.data_ptr(),
@@ -258,6 +286,7 @@ def gat_fwd(z: torch.Tensor, el: torch.Tensor, er: torch.Tensor,
         P, R, n, H, dh, float(slope), stream)
     _build.check(rc, "gat_fwd")
     gat_fwd.launches += 1
+    gat_fwd.by_mode[name] += 1
     return (out, m, s) + extra
 
 
@@ -279,10 +308,10 @@ def gat_bwd_src_plain(z, el, er, m, s, g, rho, indptr_t, dst_t,
                       branch: Optional[LeakyBranch] = None,
                       chunk: int = PLAIN_CHUNK):
     """Plain PyTorch version of K8: ``(d_z [P, R, H, dh], d_el [P, R, H])``
-    with ``d_z[r] = sum_e alpha * g[dst]`` and ``d_el[r] = sum_e alpha *
-    (g[dst] . z[r] - rho[dst]) * leaky'(l)`` over each source's out-edges
-    of the transpose CSR, in chunks of edges (``gat_bwd`` pass B). Any
-    device."""
+    f32 with ``d_z[r] = sum_e alpha * g[dst]`` and ``d_el[r] = sum_e alpha
+    * (g[dst] . z[r] - rho[dst]) * leaky'(l)`` over each source's
+    out-edges of the transpose CSR, in chunks of edges (``gat_bwd`` pass
+    B), z and g widened to f32 as gathered. Any device."""
     P, R, H, dh = z.shape
     n = er.shape[1]
     _check("gat_bwd_src", z, el, er, indptr_t, dst_t, R)
@@ -297,9 +326,9 @@ def gat_bwd_src_plain(z, el, er, m, s, g, rho, indptr_t, dst_t,
             alpha = torch.exp(_leaky(lp, pos, slope)
                               - m[p].index_select(0, c)) \
                 / s[p].index_select(0, c)
-            gd = g[p].index_select(0, c)
+            gd = g[p].index_select(0, c).float()
             d_z[p].index_add_(0, r, gd * alpha[..., None])
-            cc = (gd * z[p].index_select(0, r)).sum(-1)
+            cc = (gd * z[p].index_select(0, r).float()).sum(-1)
             d_el[p].index_add_(0, r, alpha * (cc - rho[p].index_select(0, c))
                                * _dleaky(pos, slope))
     return d_z, d_el
@@ -307,9 +336,11 @@ def gat_bwd_src_plain(z, el, er, m, s, g, rho, indptr_t, dst_t,
 
 def gat_bwd_src(z, el, er, m, s, g, rho, indptr_t, dst_t,
                 slope: float = 0.2):
-    """K8 on CUDA tensors (counted in ``gat_bwd_src.launches``), the plain
+    """K8 on CUDA tensors (counted in ``gat_bwd_src.launches``, and in
+    ``gat_bwd_src.by_mode`` by the library of the (z, g) row types:
+    f32/f32, bf16/bf16 or e4m3/e5m2), the plain
     version on CPU tensors. The kernel reads the four per-destination
-    stats as one stacked ``[P, n, 4, H]`` array (one narrow row per
+    stats as one stacked ``[P, n, 4, H]`` f32 array (one narrow row per
     edge)."""
     if z.device.type == "cpu":
         return gat_bwd_src_plain(z, el, er, m, s, g, rho, indptr_t, dst_t,
@@ -321,24 +352,32 @@ def gat_bwd_src(z, el, er, m, s, g, rho, indptr_t, dst_t,
             or g.shape != (P, n, H, dh):
         raise ValueError("gat_bwd_src: m, s, rho must be [P, n, H] and g "
                          "[P, n, H, dh]")
+    if (z.dtype, g.dtype) not in _MODES:
+        raise TypeError(f"gat_bwd_src: no kernel for z {z.dtype} with g "
+                        f"{g.dtype} (f32/f32, bf16/bf16, e4m3/e5m2)")
     stats = torch.stack([er, m, s, rho], dim=2)
     stream = _cuda_ready("gat_bwd_src", z, el, stats, g, indptr_t, dst_t)
     _kernel_shape("gat_bwd_src", H, dh, R, n)
     d_z = torch.empty((P, R, H, dh), dtype=torch.float32, device=z.device)
     d_el = torch.empty((P, R, H), dtype=torch.float32, device=z.device)
-    lib = _build.load("gat_attn", _SIGNATURES)
-    rc = lib.pgt_gat_bwd_src(
+    mode, name = _MODES[(z.dtype, g.dtype)]
+    lib = _build.load(name, _signatures(mode))
+    rc = getattr(lib, f"pgt_gat_bwd_src_m{mode}")(
         z.data_ptr(), el.data_ptr(), stats.data_ptr(), g.data_ptr(),
         indptr_t.data_ptr(), int(indptr_t.dtype == torch.int64),
         dst_t.data_ptr(), dst_t.shape[1], d_z.data_ptr(), d_el.data_ptr(),
         P, R, n, H, dh, float(slope), stream)
     _build.check(rc, "gat_bwd_src")
     gat_bwd_src.launches += 1
+    gat_bwd_src.by_mode[name] += 1
     return d_z, d_el
 
 
 gat_fwd.launches = 0
 gat_bwd_src.launches = 0
+# launches by row-type mode (library name), beside the total
+gat_fwd.by_mode = dict.fromkeys(LIBRARIES, 0)
+gat_bwd_src.by_mode = dict.fromkeys(LIBRARIES, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -348,28 +387,39 @@ gat_bwd_src.launches = 0
 class GatAttention(torch.autograd.Function):
     """``out = attention(z, el, er)`` ``[P, n, H, dh]`` f32 with K6 forward
     (in its ``neg`` mode when er's gradient will be needed) and K8 plus
-    :func:`gat_d_er` backward. ``plain`` picks the plain versions on any
-    device (with ``branch``, on another run's leaky branches); otherwise
-    CUDA tensors run the kernels and CPU tensors the plain versions."""
+    :func:`gat_d_er` backward (``make_device_gat_fn``). ``rem_dtype``
+    casts z (K10: e4m3 or bf16) before the forward and the cotangent
+    (e5m2 or bf16) before K8; ``share`` is the ``TransportShare`` those
+    casts record into or replay from. ``plain`` picks the plain versions
+    on any device (with ``branch``, on another run's leaky branches);
+    otherwise CUDA tensors run the kernels and CPU tensors the plain
+    versions."""
 
     @staticmethod
     def forward(ctx, z, el, er, indptr, src, indptr_t, dst_t, slope, plain,
-                branch, neg):
+                branch, neg, rem_dtype, share):
+        fwd_dt, bwd_dt = transport_dtypes(rem_dtype)
+        P, R, H, dh = z.shape
+        zq = z
+        if fwd_dt is not None:  # the one quantized z every pass reads
+            zq = _transport(z.reshape(P, R, H * dh).contiguous(), fwd_dt,
+                            False, None, plain, share)[0].view(P, R, H, dh)
         if plain:
-            res = gat_fwd_plain(z, el, er, indptr, src, slope, branch,
+            res = gat_fwd_plain(zq, el, er, indptr, src, slope, branch,
                                 neg=neg)
         else:
-            res = gat_fwd(z, el, er, indptr, src, slope, neg=neg)
+            res = gat_fwd(zq, el, er, indptr, src, slope, neg=neg)
         out, m, s = res[:3]
         n_neg, w_neg = res[3:] if neg else (None, None)
         ctx.slope, ctx.plain, ctx.branch = slope, plain, branch
-        ctx.save_for_backward(z, el, er, out, m, s, n_neg, w_neg, indptr_t,
+        ctx.bwd_dt, ctx.share, ctx.z_dtype = bwd_dt, share, z.dtype
+        ctx.save_for_backward(zq, el, er, out, m, s, n_neg, w_neg, indptr_t,
                               dst_t)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        z, el, er, out, m, s, n_neg, w_neg, indptr_t, dst_t = \
+        zq, el, er, out, m, s, n_neg, w_neg, indptr_t, dst_t = \
             ctx.saved_tensors
         if indptr_t is None:
             raise ValueError("gat attention: the backward needs the "
@@ -380,40 +430,56 @@ class GatAttention(torch.autograd.Function):
         slope = ctx.slope
         d_er = None if n_neg is None else gat_d_er(g, rho, n_neg, w_neg,
                                                    slope)
-        if ctx.plain:
-            d_z, d_el = gat_bwd_src_plain(z, el, er, m, s, g, rho, indptr_t,
-                                          dst_t, slope, ctx.branch)
+        # pass B gathers the cotangent narrowed: cast to e5m2 / bf16, or to
+        # z's dtype without a transport
+        if ctx.bwd_dt is not None:
+            P, n, H, dh = g.shape
+            g_t = _transport(g.view(P, n, H * dh), ctx.bwd_dt, False, None,
+                             ctx.plain, ctx.share)[0].view(P, n, H, dh)
         else:
-            d_z, d_el = gat_bwd_src(z, el, er, m, s, g, rho, indptr_t,
+            g_t = g.to(ctx.z_dtype)
+        if ctx.plain:
+            d_z, d_el = gat_bwd_src_plain(zq, el, er, m, s, g_t, rho,
+                                          indptr_t, dst_t, slope, ctx.branch)
+        else:
+            d_z, d_el = gat_bwd_src(zq, el, er, m, s, g_t, rho, indptr_t,
                                     dst_t, slope)
-        return (d_z, d_el, d_er) + (None,) * 8
+        return (d_z.to(ctx.z_dtype), d_el, d_er) + (None,) * 10
 
 
-def _apply(z, el, er, indptr, src, transpose, slope, plain, branch):
+def _apply(z, el, er, indptr, src, transpose, slope, plain, branch,
+           rem_dtype, share):
     it, dt = transpose if transpose is not None else (None, None)
     # n_neg / w_neg only where a backward will ask for d_er
     neg = torch.is_grad_enabled() and er.requires_grad
     return GatAttention.apply(z, el, er, indptr, src, it, dt, slope, plain,
-                              branch, neg)
+                              branch, neg, rem_dtype, share)
 
 
 def gat_attention(z: torch.Tensor, el: torch.Tensor, er: torch.Tensor,
                   indptr: torch.Tensor, src: torch.Tensor,
                   transpose: Optional[Transpose] = None,
-                  slope: float = 0.2) -> torch.Tensor:
+                  slope: float = 0.2, rem_dtype: Optional[str] = None,
+                  share=None) -> torch.Tensor:
     """The attention aggregation ``[P, n, H, dh]`` f32: K6 on CUDA tensors,
     the plain version on CPU tensors. Differentiable with respect to z, el
     and er: the backward runs K8 (CPU: its plain version) and
-    :func:`gat_d_er` and needs ``transpose = (indptr_t, dst_t)``."""
-    return _apply(z, el, er, indptr, src, transpose, slope, False, None)
+    :func:`gat_d_er` and needs ``transpose = (indptr_t, dst_t)``.
+    ``rem_dtype`` (None | 'bfloat16' | 'float8') narrows the gather
+    transport as ``make_device_gat_fn`` does, ``share`` a
+    ``TransportShare`` of its casts."""
+    return _apply(z, el, er, indptr, src, transpose, slope, False, None,
+                  rem_dtype, share)
 
 
 def gat_attention_plain(z: torch.Tensor, el: torch.Tensor, er: torch.Tensor,
                         indptr: torch.Tensor, src: torch.Tensor,
                         transpose: Optional[Transpose] = None,
                         slope: float = 0.2,
-                        branch: Optional[LeakyBranch] = None
-                        ) -> torch.Tensor:
+                        branch: Optional[LeakyBranch] = None,
+                        rem_dtype: Optional[str] = None,
+                        share=None) -> torch.Tensor:
     """:func:`gat_attention` through the plain versions on any device
     (with ``branch``, on another run's leaky branches)."""
-    return _apply(z, el, er, indptr, src, transpose, slope, True, branch)
+    return _apply(z, el, er, indptr, src, transpose, slope, True, branch,
+                  rem_dtype, share)

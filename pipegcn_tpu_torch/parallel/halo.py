@@ -19,7 +19,11 @@ the kernel for CUDA tensors and run the plain version for CPU tensors:
     routes halo cotangents back to their owners;
   - :func:`scatter_bgrad` — K4 (``ops/csrc/halo_scatter.cu``), the add of
     returned boundary gradients onto the send rows, over the inverse send
-    CSR the host builds with :func:`send_csr`.
+    CSR the host builds with :func:`send_csr`; in f32, or in bf16 (bf16
+    compute) with every add done in f32 and rounded to bf16, in slot
+    order, as JAX's bf16 ``.at[].add`` rounds after each update.
+
+K2 and K5 copy bytes, so they take rows of any dtype.
 
 :class:`HaloExchange` (vanilla mode, differentiable ``halo_exchange``) and
 :class:`StaleConcat` (pipelined mode, ``make_stale_concat``) are the
@@ -44,7 +48,7 @@ _SIGNATURES = {
 }
 _SCATTER_SIGNATURES = {
     "pgt_halo_scatter": [_P, _LL, _P, _LL, _P, _P, _LL, _P, _I, _I, _I, _I,
-                         _P],
+                         _I, _P],
 }
 
 
@@ -213,8 +217,10 @@ def _check_scatter(g, bgrad, send_ptr, send_slot):
         raise ValueError(f"send_ptr must be [P, n_max+1] and send_slot "
                          f"[P, nnz], got {tuple(send_ptr.shape)} / "
                          f"{tuple(send_slot.shape)}")
-    if g.dtype != torch.float32 or bgrad.dtype != torch.float32:
-        raise TypeError("scatter_bgrad takes float32 g and bgrad")
+    if g.dtype not in (torch.float32, torch.bfloat16) \
+            or bgrad.dtype != g.dtype:
+        raise TypeError("scatter_bgrad takes float32 or bfloat16 g and "
+                        "bgrad of one dtype")
     if send_ptr.dtype != torch.int32 or send_slot.dtype != torch.int32:
         raise TypeError("send_ptr and send_slot must be int32")
     devs = {t.device for t in (g, bgrad, send_ptr, send_slot)}
@@ -225,29 +231,42 @@ def _check_scatter(g, bgrad, send_ptr, send_slot):
 def scatter_bgrad_plain(g: torch.Tensor, bgrad: torch.Tensor,
                         send_ptr: torch.Tensor, send_slot: torch.Tensor
                         ) -> torch.Tensor:
-    """Plain PyTorch version of K4: a copy of ``g`` plus one
-    ``index_add_`` per part of the masked slots' bgrad rows onto the rows
-    they were sent from (the CSR holds only masked slots)."""
+    """Plain PyTorch version of K4: a copy of ``g`` plus, per part, the
+    masked slots' bgrad rows added onto the rows they were sent from (the
+    CSR holds only masked slots): f32 by one ``index_add_``; bf16 one
+    slot of each row at a time, in slot order, each add in f32 and
+    rounded to bf16."""
     _check_scatter(g, bgrad, send_ptr, send_slot)
     P, n_max = g.shape[0], g.shape[1]
     out = g.clone(memory_format=torch.contiguous_format)
     rows = torch.arange(n_max, device=g.device)
     for p in range(P):
         nnz = int(send_ptr[p, -1])
-        if nnz:
-            dst = torch.repeat_interleave(rows, send_ptr[p].diff().long())
-            out[p].index_add_(0, dst, bgrad[p].index_select(
-                0, send_slot[p, :nnz].long()))
+        if not nnz:
+            continue
+        counts = send_ptr[p].diff().long()
+        dst = torch.repeat_interleave(rows, counts)
+        src = bgrad[p].index_select(0, send_slot[p, :nnz].long())
+        if g.dtype == torch.float32:
+            out[p].index_add_(0, dst, src)
+            continue
+        # the slot's rank within its row: rows are distinct within a rank
+        rank = torch.arange(nnz, device=g.device) - torch.repeat_interleave(
+            send_ptr[p, :-1].long(), counts)
+        for r in range(int(counts.max())):
+            sel = rank == r
+            d = dst[sel]
+            out[p, d] = (out[p, d].float() + src[sel].float()).to(g.dtype)
     return out
 
 
 def scatter_bgrad(g: torch.Tensor, bgrad: torch.Tensor,
                   send_ptr: torch.Tensor, send_slot: torch.Tensor
                   ) -> torch.Tensor:
-    """``d_h [P, n_max, F] = g + scatter_add(send rows, bgrad)``: kernel K4
-    on CUDA tensors (one launch, counted in ``scatter_bgrad.launches``;
-    ``g`` and ``bgrad`` may be views whose parts are each contiguous),
-    :func:`scatter_bgrad_plain` on CPU."""
+    """``d_h [P, n_max, F] = g + scatter_add(send rows, bgrad)`` in g's
+    dtype (f32 or bf16): kernel K4 on CUDA tensors (one launch, counted in
+    ``scatter_bgrad.launches`` and by dtype in ``scatter_bgrad.by_mode``;
+    ``g`` and ``bgrad`` may be views whose parts are each contiguous), :func:`scatter_bgrad_plain` on CPU."""
     if g.device.type == "cpu":
         return scatter_bgrad_plain(g, bgrad, send_ptr, send_slot)
     _check_scatter(g, bgrad, send_ptr, send_slot)
@@ -262,21 +281,23 @@ def scatter_bgrad(g: torch.Tensor, bgrad: torch.Tensor,
     if not (send_ptr.is_contiguous() and send_slot.is_contiguous()):
         raise ValueError("scatter_bgrad: send_ptr/send_slot must be "
                          "contiguous")
-    out = torch.empty((P, n_max, F), dtype=torch.float32, device=g.device)
+    out = torch.empty((P, n_max, F), dtype=g.dtype, device=g.device)
     if out.numel() == 0:
         return out
     lib = _build.load("halo_scatter", _SCATTER_SIGNATURES)
     rc = lib.pgt_halo_scatter(
         g.data_ptr(), g.stride(0), bgrad.data_ptr(), bgrad.stride(0),
         send_ptr.data_ptr(), send_slot.data_ptr(), send_slot.shape[1],
-        out.data_ptr(), P, n_max, H, F,
+        out.data_ptr(), int(g.dtype == torch.bfloat16), P, n_max, H, F,
         torch.cuda.current_stream(g.device).cuda_stream)
     _build.check(rc, "halo_scatter")
     scatter_bgrad.launches += 1
+    scatter_bgrad.by_mode[str(g.dtype).split(".")[-1]] += 1
     return out
 
 
 scatter_bgrad.launches = 0
+scatter_bgrad.by_mode = {"float32": 0, "bfloat16": 0}  # by row dtype
 
 def exchange_blocks(h: torch.Tensor, send_idx: torch.Tensor,
                     send_mask: torch.Tensor) -> torch.Tensor:

@@ -40,6 +40,20 @@ use_pp precompute goes through the same tables with the transport off
 stays on K1 over the eval graph's CSR (the JAX ``_eval_run`` aggregates
 raw edges with ``spmm_mean``).
 
+GAT aggregates through its attention kernels on every impl; under
+``bucket`` or ``auto`` (the JAX trainer's attention-bucket path,
+``make_device_gat_fn``) its z rows travel in ``rem_dtype`` (e4m3 / bf16)
+into K6 and K8, its cotangent rows in e5m2 / bf16 into K8 (the casts are
+K10), and the eval runs without the transport, as in JAX.
+
+With ``dtype="bfloat16"`` (``ModelConfig.compute_dtype``) the features are
+cast to bf16 after the f32 use_pp precompute, the halo and boundary-
+gradient carries are bf16 and the feat/grad-correction EMAs f32, cast at
+use (JAX ``_init_comm``, ``trainer.py:225-231``, ``:1138-1148``). The
+epoch and the eval run their bf16 matrix products with cuBLAS's reduced-
+precision reduction off (and TF32 off), so that a bf16 product is the f32
+sum rounded once, as XLA computes it.
+
 Dropout masks come from a ``torch.Generator`` seeded from (seed, epoch),
 so ``train_epoch(e)`` is reproducible; the bits differ from JAX's
 (``jax.random`` folds the epoch and the rank into a key), so runs held
@@ -53,6 +67,7 @@ implementations and mask reuse, streaming, checkpoints and sharded eval.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Dict, List, Optional, Tuple
@@ -118,6 +133,22 @@ class TrainConfig:
                 raise NotImplementedError(f"{what} is not ported yet")
 
 
+@contextlib.contextmanager
+def exact_matmuls():
+    """cuBLAS products as XLA computes them: no TF32 for f32, and no
+    reduced-precision reduction inside bf16 GEMMs (PyTorch allows it by
+    default), so a bf16 product is ``round_bf16`` of its f32 sum. Sets
+    the two process-wide flags for the duration and restores them."""
+    m = torch.backends.cuda.matmul
+    saved = (m.allow_tf32, m.allow_bf16_reduced_precision_reduction)
+    m.allow_tf32 = False
+    m.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        m.allow_tf32, m.allow_bf16_reduced_precision_reduction = saved
+
+
 def epoch_generator(seed: int, epoch: int,
                     device: torch.device) -> torch.Generator:
     """The dropout generator of one epoch: seeded from (seed, epoch)
@@ -146,8 +177,6 @@ class Trainer:
     def __init__(self, sg: ShardedGraph, cfg: ModelConfig,
                  tcfg: TrainConfig, device: torch.device,
                  params: Optional[Params] = None):
-        if cfg.dtype != "float32":
-            raise NotImplementedError("bf16 compute waits for ROADMAP A5")
         self.sg, self.cfg, self.tcfg = sg, cfg, tcfg
         self.device = device
         self.P = sg.num_parts
@@ -173,6 +202,9 @@ class Trainer:
                 spmm_fn=self._step_spmm(transport=False))
         else:
             self.feat = self.data.feat
+        # stored in the compute dtype after the f32 precompute (JAX
+        # trainer.py:225-231)
+        self.feat = self.feat.to(cfg.compute_dtype)
         if params is None:
             params = init_params(cfg, torch.Generator().manual_seed(
                 tcfg.seed), device)
@@ -187,6 +219,15 @@ class Trainer:
         self.last_grads: List[torch.Tensor] = []  # reduced, leaf order
         self.eval_cache: Dict[int, Dict[str, Any]] = {}
         self.eval_setup_s = 0.0  # host seconds building eval-graph CSRs
+
+    @property
+    def gat_transport(self) -> Optional[str]:
+        """GAT's gather transport: ``rem_dtype`` on its attention-bucket
+        path (``bucket``, ``auto``) only, as in JAX."""
+        cfg = self.cfg
+        if cfg.model == "gat" and cfg.spmm_impl in ("bucket", "auto"):
+            return cfg.rem_dtype
+        return None
 
     @property
     def plain(self) -> bool:
@@ -233,16 +274,19 @@ class Trainer:
         """``{'halo', 'bgrad'[, 'favg', 'bavg']}[str(i)]``, each
         ``[P, H, F_i]`` zeros, for the graph layers that exchange (layer 0
         is skipped under use_pp) — the JAX ``_init_comm`` layout. halo and
-        bgrad in the compute dtype (f32), the EMAs in f32."""
+        bgrad in the compute dtype, the EMAs in f32 (so that the small
+        (1 - momentum) updates do not vanish in bf16)."""
         tc = self.tcfg
         if not tc.enable_pipeline:
             return {}
         groups = ["halo", "bgrad"] + (["favg"] if tc.feat_corr else []) \
             + (["bavg"] if tc.grad_corr else [])
         H = self.data.halo_size
+        cdt = self.cfg.compute_dtype
         return {grp: {str(i): torch.zeros(
                     (self.P, H, self.cfg.layer_sizes[i]),
-                    dtype=torch.float32, device=self.device)
+                    dtype=cdt if grp in ("halo", "bgrad") else torch.float32,
+                    device=self.device)
                     for i in self.glayers} for grp in groups}
 
     # ---------------- the step ----------------------------------------
@@ -250,7 +294,12 @@ class Trainer:
     def train_epoch(self, epoch: int) -> float:
         """One epoch; returns ``sum of the parts' CE / n_train`` (the JAX
         step's ``psum(loss) / n_train``) and keeps ``grad_norm``."""
+        with exact_matmuls():
+            return self._train_epoch(epoch)
+
+    def _train_epoch(self, epoch: int) -> float:
         d, cfg, tc = self.data, self.cfg, self.tcfg
+        cdt = cfg.compute_dtype
         ops = self._halo_ops
         pipeline = tc.enable_pipeline
         probes: Dict[str, torch.Tensor] = {}
@@ -259,14 +308,17 @@ class Trainer:
             stale_concat = make_stale_concat(*d.inverse, ops=ops)
             H = d.halo_size
             probes = {str(i): torch.zeros(
-                (self.P, H, cfg.layer_sizes[i]), device=self.device,
-                requires_grad=True) for i in self.glayers}
+                (self.P, H, cfg.layer_sizes[i]), dtype=cdt,
+                device=self.device, requires_grad=True)
+                for i in self.glayers}
 
             def comm_update(i: int, h: torch.Tensor) -> torch.Tensor:
                 k = str(i)
-                stale_halo = self.comm["favg" if tc.feat_corr else "halo"][k]
-                stale_bgrad = self.comm["bavg" if tc.grad_corr
-                                        else "bgrad"][k]
+                # the f32 EMAs enter in the compute dtype
+                stale_halo = self.comm["favg"][k].to(cdt) if tc.feat_corr \
+                    else self.comm["halo"][k]
+                stale_bgrad = self.comm["bavg"][k].to(cdt) \
+                    if tc.grad_corr else self.comm["bgrad"][k]
                 fbuf = stale_concat(h, stale_halo, stale_bgrad, probes[k])
                 # this epoch's exchange, consumed next epoch
                 fresh[k] = ops.gather(h.detach(), d.send_idx, d.send_mask,
@@ -281,7 +333,8 @@ class Trainer:
 
         def attn_fn(z, el, er):
             return self.attn(z, el, er, d.indptr, d.edge_src, d.transpose,
-                             cfg.leaky_slope)
+                             cfg.leaky_slope, rem_dtype=self.gat_transport,
+                             share=self.share)
 
         gen = epoch_generator(tc.seed, epoch, self.device) \
             if cfg.dropout > 0 else None
@@ -367,7 +420,7 @@ class Trainer:
             return self.attn(z, el, er, c["indptr"], c["src"], None,
                              self.cfg.leaky_slope)
 
-        with torch.no_grad():
+        with torch.no_grad(), exact_matmuls():
             out = forward(self.params if params is None else params,
                           self.cfg, c["feat"], c["indptr"], c["src"],
                           c["in_deg"], spmm_fn=self._spmm, attn_fn=attn_fn,
@@ -399,7 +452,7 @@ class Trainer:
 
     def restore_state(self, host_state: Dict[str, Any]) -> None:
         """Put a :meth:`host_state` back (params and moments in place,
-        the comm carry anew)."""
+        the comm carry anew, each buffer in its dtype)."""
         with torch.no_grad():
             for dst, src in zip(
                     tree_leaves([self.params, self.opt["mu"],
@@ -409,23 +462,28 @@ class Trainer:
                                  host_state["opt"]["nu"]])):
                 dst.copy_(torch.from_numpy(np.asarray(src)))
         self.opt["step"] = int(host_state["opt"]["step"])
-        self.comm = tree_map(
-            lambda a: torch.from_numpy(np.array(a)).to(self.device),
-            host_state["comm"])
+        self.comm = {
+            grp: {k: torch.from_numpy(np.array(a)).to(
+                self.device, self.comm[grp][k].dtype)
+                for k, a in bufs.items()}
+            for grp, bufs in host_state["comm"].items()}
 
     # ---------------- the epoch loop ----------------------------------
 
     def fit(self, eval_graphs: Optional[Dict[str, Tuple[Graph, str]]] = None,
             log_fn=print, *, inductive: bool = False,
             checkpoint_dir: Optional[str] = None, sharded_eval: bool = False,
-            stream_plan=None) -> Dict[str, Any]:
-        """The epoch loop, reduced: the reference train line every
-        ``log_every`` epochs with a val evaluation at the same points (and
-        at the end when the last epoch is off that grid), best-val params
-        kept, test evaluated on them at the end. Comm(s) and Reduce(s)
-        print 0: on one card the exchange and the reduction are parts of
-        the epoch, not separate collectives. Epoch times exclude the first
-        5 epochs, as the JAX ``fit`` does."""
+            stream_plan=None, reference_logs: bool = False
+            ) -> Dict[str, Any]:
+        """The epoch loop, reduced: a val evaluation every ``log_every``
+        epochs (and at the end when the last epoch is off that grid),
+        best-val params kept, test evaluated on them at the end. The
+        reference train line prints every 10 epochs with
+        ``reference_logs`` (the JAX CLI's cadence, that of the
+        reference's ``train.py``), else every ``log_every`` epochs.
+        Comm(s) and Reduce(s) print 0: on one card the exchange and the
+        reduction are parts of the epoch, not separate collectives. Epoch
+        times exclude the first 5 epochs, as the JAX ``fit`` does."""
         if checkpoint_dir or sharded_eval or stream_plan is not None:
             raise NotImplementedError(
                 "checkpoints (ROADMAP A4), sharded eval (ROADMAP A4) and "
@@ -459,11 +517,12 @@ class Trainer:
             losses.append(loss)
             if epoch >= 5:
                 durs.append(dur)
-            if (epoch + 1) % tc.log_every == 0:
+            line_every = 10 if reference_logs else tc.log_every
+            if (epoch + 1) % line_every == 0:
                 log_fn(_train_line(epoch, float(np.mean(durs or [dur])),
                                    loss))
-                if do_eval:
-                    _eval(epoch, loss)
+            if (epoch + 1) % tc.log_every == 0 and do_eval:
+                _eval(epoch, loss)
         if do_eval and tc.n_epochs % tc.log_every != 0:
             _eval(epoch, loss)
         result = {

@@ -64,10 +64,13 @@ _EDGE_CHUNK = 16 * 1024 * 1024
 
 
 def _stable_argsort(keys: np.ndarray) -> np.ndarray:
-    """Stable argsort of non-negative int64 fused keys. The JAX package
-    routes large sorts to its native radix sort, whose permutation is
-    identical to numpy's stable sort used here."""
-    return np.argsort(keys, kind="stable")
+    """Stable argsort of non-negative int64 fused keys: the native radix
+    sort for large arrays (the permutation of numpy's stable sort, in
+    seconds where numpy takes minutes at 100M edges), as the JAX
+    package's build sorts."""
+    from ..native import stable_argsort
+
+    return stable_argsort(keys)
 
 
 @dataclasses.dataclass

@@ -1,14 +1,14 @@
 """Graph partitioner — port of ``pipegcn_tpu/partition/partitioner.py``
 (``partition_graph``, ``DEFAULT_CLUSTER_SIZE``, ``cluster_suffix``,
-``locality_clusters``), numpy paths only.
+``locality_clusters``).
 
 ``method='random'`` is the balanced random assignment and gives the same
-parts as the JAX package at the same seed. ``method='metis'`` is the
-vectorized BFS-blocks + greedy-refinement partitioner on numpy/scipy —
-the JAX package's ``PIPEGCN_NATIVE=0`` path; the native C++ multilevel
-partitioner (``pipegcn_tpu/native/``) is not ported in this slice, so
-where the JAX package finds its native library the two 'metis' results
-differ (partition quality moves communication volume, not correctness).
+parts as the JAX package at the same seed. ``method='metis'`` takes the
+JAX package's paths in its order: the native multilevel partitioner
+(``pipegcn_tpu_torch/native``, the port's copy of the JAX package's C++
+sources) whenever ``native.available()``, else the vectorized BFS-blocks +
+greedy-refinement partitioner on numpy/scipy (the ``PIPEGCN_NATIVE=0``
+path). Each path gives the JAX package's parts on the same input.
 
 Objectives:
     'cut' — minimize the number of edges crossing partitions.
@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse as sp
 
+from .. import native
 from ..graph.csr import Graph
 
 def partition_graph(
@@ -75,11 +76,20 @@ def partition_graph(
         # dedup-to-1; exact when the input is uniformly mirrored, as
         # symmetric=True asserts)
         indptr, indices = _csr_adjacency_chunked(g, symmetric=symmetric)
+        adj = None
+    else:
+        adj = _sym_adj(g)
+        indptr = adj.indptr.astype(np.int64)
+        indices = adj.indices.astype(np.int32)
+    # through the module attribute, so that a caller can patch it
+    if native.available():
+        return native.native_partition(
+            indptr, indices, n_parts, obj=obj, seed=seed,
+            imbalance=imbalance, refine_iters=refine_iters)
+    if adj is None:  # the numpy path needs the scipy structure
         adj = sp.csr_matrix(
             (np.ones(indices.shape[0], np.int8), indices, indptr),
             shape=(g.num_nodes, g.num_nodes))
-    else:
-        adj = _sym_adj(g)
 
     order = _bfs_order(adj, rng)
     # contiguous balanced blocks of the BFS order
@@ -114,12 +124,13 @@ def locality_clusters(
     ``ShardedGraph.build(cluster=...)`` sorts each part's inner nodes by
     them, so a community's nodes get contiguous local ids and the part's
     adjacency concentrates into the dense tiles ``ops/block_spmm.py``
-    multiplies. The numpy refiner holds dense [N, k] gain tables, so k is
-    capped at (64 << 20) // N, as the JAX package caps it when its native
-    partitioner is missing. Zeros (one cluster, a no-op ordering) at or
+    multiplies. Without the native partitioner the numpy refiner holds
+    dense [N, k] gain tables, so k is then capped at (64 << 20) // N, as
+    the JAX package caps it. Zeros (one cluster, a no-op ordering) at or
     below ``target_size`` nodes."""
     k = max(1, -(-g.num_nodes // target_size))
-    k = min(k, max(1, (64 << 20) // max(g.num_nodes, 1)))
+    if not native.available():
+        k = min(k, max(1, (64 << 20) // max(g.num_nodes, 1)))
     if k == 1:
         return np.zeros(g.num_nodes, dtype=np.int32)
     return partition_graph(g, k, method="metis", obj="cut", seed=seed,

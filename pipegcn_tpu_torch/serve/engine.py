@@ -42,6 +42,10 @@ class ServingEngine:
             raise NotImplementedError(
                 f"serving {cfg.model} waits for ROADMAP A5 (the engine "
                 "runs the graphsage forward)")
+        if cfg.dtype != "float32":
+            raise NotImplementedError(
+                f"serving at dtype {cfg.dtype!r} (bf16 compute) waits for "
+                "ROADMAP A5 (the engine serves float32)")
         self.cfg = cfg
         self.data = data
         self.device = data.device

@@ -29,6 +29,15 @@ def tree_leaves(tree) -> List[Any]:
 
 
 def tree_numpy(tree):
-    """Tensors -> numpy copies on the host."""
-    return tree_map(lambda t: t.detach().cpu().numpy().copy()
-                    if isinstance(t, torch.Tensor) else np.asarray(t), tree)
+    """Tensors -> numpy copies on the host; bf16 tensors as exact f32
+    copies (numpy has no bfloat16 and the port does not depend on
+    ml_dtypes)."""
+    def host(t):
+        if not isinstance(t, torch.Tensor):
+            return np.asarray(t)
+        t = t.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.cpu().numpy().copy()
+
+    return tree_map(host, tree)

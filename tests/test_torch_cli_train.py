@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import pipegcn_tpu.native
+import pipegcn_tpu_torch.native
 from pipegcn_tpu.cli.parser import create_parser as jax_parser
 from pipegcn_tpu_torch.cli import main as cli
 
@@ -33,9 +34,10 @@ def one_torch_thread():
 
 @pytest.fixture
 def numpy_partitioner(monkeypatch):
-    """The JAX package's numpy metis path (the port's): its native
-    partitioner is not ported."""
+    """Both packages on their numpy metis path (native partitioner off);
+    the native-on case is test_cli_builds_the_native_cluster_layout."""
     monkeypatch.setattr(pipegcn_tpu.native, "available", lambda: False)
+    monkeypatch.setattr(pipegcn_tpu_torch.native, "available", lambda: False)
 
 
 def reddit_sh_argv():
@@ -113,7 +115,7 @@ def test_cli_raises_without_cuda(monkeypatch):
 @pytest.mark.parametrize("extra", [["--spmm-impl", "block",
                                     "--block-group", "2"],
                                    ["--norm", "batch"],
-                                   ["--dtype", "bfloat16"]])
+                                   ["--spmm-impl", "auto"]])
 def test_unported_cli_choices_refuse(extra):
     with pytest.raises(NotImplementedError):
         cli.run(cli.build_parser().parse_args(
@@ -156,15 +158,14 @@ def test_model_flags_parse_with_the_jax_defaults():
     ("gat", ["--use-pp"], ValueError),
     ("gcn", ["--use-pp"], ValueError),
     ("gat", ["--spmm-impl", "block"], ValueError),
-    ("gat", ["--spmm-impl", "bucket", "--rem-dtype", "float8"],
-     "ROADMAP A5"),
+    ("gat", ["--norm", "batch"], "ROADMAP A5"),
     ("gcn", ["--spmm-impl", "block", "--block-group", "2"], "ROADMAP A6"),
     ("graphsage", ["--spmm-impl", "auto"], "ROADMAP A6")])
 def test_model_refusals(model, extra, err):
     """The JAX package's refusals (use_pp with gcn/gat, block with gat)
     raise its ValueError; what the port has not got yet (the block
-    kernel's union-gather layout and the tuner, GAT's gather transport)
-    raises NotImplementedError naming its ROADMAP item (``err``)."""
+    kernel's union-gather layout and the tuner, SyncBN) raises
+    NotImplementedError naming its ROADMAP item (``err``)."""
     exc = err if isinstance(err, type) else NotImplementedError
     with pytest.raises(exc) as info:
         cli.run(cli.build_parser().parse_args(_model_argv(model, extra)))
@@ -292,3 +293,63 @@ def test_cli_trains_the_block_path_on_the_cpu(capsys, model, extra):
         res["test_acc"])
     assert res["losses"][-1] < res["losses"][0]
     assert 0.3 < res["test_acc"] <= 1.0
+
+
+def _line_epochs(out):
+    """(kind, epoch) of the reference's train lines ("Process 000 | Epoch
+    ...") and eval lines ("Epoch ... | ...") in printed order."""
+    seen = []
+    for line in out.splitlines():
+        if line.startswith("Process 000 | Epoch "):
+            seen.append(("train", int(line.split("|")[1].split()[1])))
+        elif line.startswith("Epoch "):
+            seen.append(("eval", int(line.split("|")[0].split()[1])))
+    return seen
+
+
+def test_cli_log_cadence_matches_the_jax_cli(capsys, tmp_path):
+    """At --log-every 5 over 10 epochs the JAX CLI (fit with
+    reference_logs) prints the train line at epoch 9 only and evaluates
+    at epochs 4 and 9; the port's CLI prints the same lines. (The JAX
+    CLI evaluates asynchronously and prints epoch 4's eval line when it
+    harvests it, after epoch 9's train line; the port evaluates in line.
+    The lines are compared, not their order.)"""
+    from pipegcn_tpu.cli.main import run as jax_run
+
+    argv = _tiny_argv(["--log-every", "5", "--n-epochs", "10"])
+    cli.run(cli.build_parser().parse_args(argv + ["--device", "cpu"]))
+    port = _line_epochs(capsys.readouterr().out)
+    jax_run(jax_parser().parse_args(argv + [
+        "--partition-dir", str(tmp_path / "parts"),
+        "--model-dir", str(tmp_path / "model"),
+        "--results-dir", str(tmp_path / "results")]))
+    theirs = _line_epochs(capsys.readouterr().out)
+    assert sorted(theirs) == [("eval", 4), ("eval", 9), ("train", 9)]
+    assert sorted(port) == sorted(theirs)
+
+
+def test_cli_builds_the_native_cluster_layout():
+    """As test_cli_builds_the_jax_cluster_layout with both native
+    partitioners on (the JAX CLI's default where g++ builds them): native
+    metis parts of the train subgraph, native locality clusters, the
+    cluster-keyed build, array-equal to the JAX package's."""
+    from pipegcn_tpu.graph import datasets as jax_datasets
+    from pipegcn_tpu.partition import ShardedGraph as JaxShardedGraph
+    from pipegcn_tpu.partition import partition_graph as jax_partition
+    from pipegcn_tpu.partition.partitioner import \
+        locality_clusters as jax_clusters
+    from test_torch_partition import _assert_artifacts_equal
+
+    assert pipegcn_tpu.native.available()
+    assert pipegcn_tpu_torch.native.available()
+    argv = _tiny_argv(["--device", "cpu", "--cluster-size", "256"])
+    argv[argv.index("--partition-method") + 1] = "metis"
+    args = cli.build_parser().parse_args(argv)
+    args.dataset = "synthetic:1500:10:12:5"
+    sg, _ = cli.prepare(args, log=lambda *a: None)
+    train_g, _, _ = jax_datasets.inductive_split(
+        jax_datasets.load_data(args.dataset))
+    parts = jax_partition(train_g, 2, method="metis", seed=args.seed)
+    cluster = jax_clusters(train_g, target_size=256, seed=args.seed)
+    _assert_artifacts_equal(sg, JaxShardedGraph.build(
+        train_g, parts, n_parts=2, cluster=cluster))

@@ -276,3 +276,37 @@ def test_block_wrappers_refuse_devices_without_a_kernel():
         blk.block_dense(torch.empty((P, R, 3), device=m), t)
     with pytest.raises(ValueError, match="unsupported device"):
         blk.block_dense_t(torch.empty((P, n, 3), device=m), t)
+
+
+def test_native_module_is_the_ports_own():
+    """pipegcn_tpu_torch.native builds and loads its own copy of the C++
+    sources (into the git-ignored build/ directory, never into a package
+    directory), and using it (a partition, a radix sort) loads neither jax
+    nor anything of pipegcn_tpu."""
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "from pipegcn_tpu_torch import native\n"
+        "from pipegcn_tpu_torch.graph.synthetic import synthetic_graph\n"
+        "from pipegcn_tpu_torch.partition.partitioner import "
+        "partition_graph\n"
+        "assert native.available()\n"
+        "p = native.lib_path()\n"
+        "assert p.parent.name == 'native' and p.parent.parent.name == "
+        "'build', p\n"
+        "g = synthetic_graph(num_nodes=500, avg_degree=6)\n"
+        "assert partition_graph(g, 2).shape == (500,)\n"
+        "k = np.arange(2**20)[::-1].copy()\n"
+        "assert (native.stable_argsort(k) == k).all()\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', "
+        "'pipegcn_tpu') or m.startswith(('jax.', 'jaxlib.', "
+        "'pipegcn_tpu.'))]\n"
+        "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    native_dir = os.path.join(PKG, "native")
+    assert sorted(f for f in os.listdir(native_dir)
+                  if f.endswith(".cpp")) == ["halo_builder.cpp",
+                                             "partitioner.cpp"]
+    assert not [f for f in os.listdir(native_dir) if f.endswith(".so")]

@@ -145,6 +145,6 @@ def _jax_stacked_exchange(sg):
 def test_unported_configs_refuse():
     for kw in ({"spmm_impl": "block", "block_group": 2},
                {"spmm_impl": "auto"},
-               {"norm": "batch"}, {"dtype": "bfloat16"}, {"n_linear": 1}):
+               {"norm": "batch"}, {"dropout_bits": 8}, {"n_linear": 1}):
         with pytest.raises(NotImplementedError):
             ModelConfig(layer_sizes=(4, 8, 3), **kw)

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 import pipegcn_tpu.native
+import pipegcn_tpu_torch.native
 from pipegcn_tpu.graph import datasets as jax_datasets
 from pipegcn_tpu.partition import ShardedGraph as JaxShardedGraph
 from pipegcn_tpu.partition import partition_graph as jax_partition_graph
@@ -30,9 +31,10 @@ FIELDS = [f.name for f in dataclasses.fields(ShardedGraph)
 
 @pytest.fixture
 def numpy_partitioner(monkeypatch):
-    """The JAX package's numpy metis path: its native C++ partitioner is
-    not ported, so the comparison turns it off."""
+    """Both packages on their numpy metis path (native partitioner off);
+    tests/test_torch_native.py holds the native path."""
     monkeypatch.setattr(pipegcn_tpu.native, "available", lambda: False)
+    monkeypatch.setattr(pipegcn_tpu_torch.native, "available", lambda: False)
 
 
 def _assert_graphs_equal(got, want):
