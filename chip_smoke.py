@@ -10,9 +10,10 @@ GraphSAGE (``scripts/reddit.sh``: 602 -> 256 -> 256 -> 256 -> 41, use_pp,
 LayerNorm, f32), GAT (the same command with ``--model gat --n-heads 4``
 minus ``--use-pp``: ``scripts/gat_bench.py``'s widths), GCN, GraphSAGE on
 the bucket tables and on the block tiles with the fp8 gather transport,
-GraphSAGE at bf16 compute on all three aggregations, and this slice's
-cell, ``scripts/gat_bench.py``'s configuration (GAT at bf16 compute with
-the fp8 gather transport):
+GraphSAGE at bf16 compute on all three aggregations,
+``scripts/gat_bench.py``'s configuration (GAT at bf16 compute with the
+fp8 gather transport), and this slice's cell, the JAX package's tuned
+stack (union-gather block tiles and the fp8 halo wire at bf16):
 
   1. prints the card's name and power limit (nvidia-smi) and versions;
   2. builds the hand-written kernels from ``pipegcn_tpu_torch/ops/csrc``
@@ -26,7 +27,9 @@ the fp8 gather transport):
      g ``gat_attn_fp8.cu``), K9 the bucket-ELL gather-sum
      (``bucket_spmm.cu``), K10 the transport cast and K11 the per-part
      amax (``transport_cast.cu``), K12 / K13 the dense-tile products with
-     f32 or bf16 rows (``block_spmm.cu``); and the native host library
+     f32 or bf16 rows and K16 / K17 over union-gather groups
+     (``block_spmm.cu``), K14 / K15 the compressed halo wire
+     (``halo_wire.cu``); and the native host library
      (``pipegcn_tpu_torch/native``, g++), whose absence fails the run;
   3. serves, over 2 random parts of the full graph (cut: not metis, no
      locality clusters): builds the artifact in memory (the serve CLI's
@@ -104,7 +107,26 @@ the fp8 gather transport):
      leaky branches and transported values shared; at bf16 each tensor
      within the repo's bf16 tolerance of its max, the bf16 carries'
      rounding steps counted), and times the epoch and its split;
- 29. prints the ``kernels`` JSON line (every kernel and each of its row
+ 29. trains this slice's cell, the JAX package's tuned stack: the
+     command plus ``--dtype bfloat16 --spmm-impl block --block-group 4
+     --rem-dtype float8 --halo-dtype float8`` through the CLI's
+     functions, the counts set to 0 just before the build and read after
+     the final eval (K16 / K17 in their bf16 mode, K14 / K15 on the e4m3
+     / e5m2 wire, K9, K10, K4 in bf16), then 2 epochs each of
+     ``--halo-dtype bfloat16`` and ``none``;
+ 30. holds one of its epochs against the plain versions (relu masks,
+     transported values and wire payloads shared), rerun bit-identical;
+ 31. holds K14 / K15 bit-exact against their plain versions: the cell's
+     shapes, an emulated P = 4 set whose per-block scales differ across
+     distances, every wire (e4m3, e5m2, bf16) on f32 and bf16 rows, edge
+     cases (all-masked and zero-amax blocks, a NaN row, the bit-pattern
+     sweep); the decode with the receiver's own scale must fail;
+ 32. holds K16 / K17 against their plain version (every A encoding,
+     groups 2, 4 and 8, a tail group, an empty group, a one-tile union),
+     each rerun bit-identical; a flipped A bit must fail;
+ 33. times K14-K17, reports the union dedupe beside K12's group-1 time,
+     the wire cell's epoch and its split;
+ 34. prints the ``kernels`` JSON line (every kernel and each of its row
      types, times at the shapes whose launches are counted), a line for
      each cell, the nvidia-smi line, and last ``{"ok": true, "device":
      {...}}``.
@@ -601,7 +623,10 @@ def counters(spmm, halo):
             "transport_cast": bs.transport_cast,
             "part_amax": bs.part_amax,
             "block_dense": blk.block_dense,
-            "block_dense_t": blk.block_dense_t}
+            "block_dense_t": blk.block_dense_t,
+            "halo_amax": halo.halo_amax, "halo_wire": halo.halo_wire,
+            "block_dense_grouped": blk.block_dense_grouped,
+            "block_dense_grouped_t": blk.block_dense_grouped_t}
 
 
 # the kernels each model's training path runs
@@ -611,7 +636,12 @@ PATH_KERNELS = {"graphsage": ("spmm_mean", "spmm_mean_t") + COMM,
                 "gat": ("gat_fwd", "gat_bwd_src") + COMM,
                 "bucket": ("bucket_gather", "transport_cast") + COMM,
                 "block": ("block_dense", "block_dense_t", "bucket_gather",
-                          "transport_cast") + COMM}
+                          "transport_cast") + COMM,
+                # the union-gather tiles and the compressed halo wire: K2
+                # runs only in the pp precompute, K5 never
+                "wire": ("block_dense_grouped", "block_dense_grouped_t",
+                         "bucket_gather", "transport_cast", "halo_amax",
+                         "halo_wire", "halo_scatter")}
 
 
 def require_launched(launches, model, what):
@@ -750,7 +780,8 @@ def step_phase(trainer, epoch):
     LEAKY_FLIP_FRAC of the edge-heads. On the bucket path with a gather
     transport the plain run likewise takes the kernel run's transported
     values (``ops.bucket_spmm.TransportShare``; on the block path the
-    remainder's): a cast input within
+    remainder's; with a halo wire also its payloads and scales): a cast
+    input within
     rounding of a rounding midpoint of the narrow format flips by a whole
     step of it; such transport flips must stay below TRANSPORT_FLIP_FRAC
     of the transported elements."""
@@ -793,9 +824,10 @@ def step_phase(trainer, epoch):
         return (loss, [g.detach().cpu().numpy() for g in trainer.last_grads],
                 trainer.host_state())
 
-    transported = ((trainer.bucket or trainer.block
-                    or trainer.gat_transport is not None)
-                   and trainer.cfg.rem_dtype is not None)
+    transported = (((trainer.bucket or trainer.block
+                     or trainer.gat_transport is not None)
+                    and trainer.cfg.rem_dtype is not None)
+                   or trainer.tcfg.halo_dtype != "none")
     recorded = TransportShare() if transported else None
     replayed_share = None
     try:
@@ -2307,13 +2339,23 @@ BLOCK_SUM_RTOL = 1e-5
 BLOCK_ATOL = 1e-30  # the bound of an empty row is 0: both write zeros
 
 
+def dense_fn(blk, side):
+    """The kernel wrapper of one side: K12 / K13 over pair lists, K16 /
+    K17 over union groups."""
+    if isinstance(side, blk.GroupSide):
+        return (blk.block_dense_grouped_t if side.transpose
+                else blk.block_dense_grouped)
+    return blk.block_dense_t if side.transpose else blk.block_dense
+
+
 def block_check(name, blk, x, tables, side) -> float:
-    """K12 (K13 for a transpose side) against the plain version on one
-    input within BLOCK_SUM_RTOL * sum|terms| (the plain product on |x|:
-    A >= 0); a rerun bit-identical. Returns the largest |difference|."""
+    """K12 (K13 for a transpose side; K16 / K17 over union groups) against
+    the plain version on one input within BLOCK_SUM_RTOL * sum|terms| (the
+    plain product on |x|: A >= 0); a rerun bit-identical. Returns the
+    largest |difference|."""
     import torch
 
-    fn = blk.block_dense_t if side.transpose else blk.block_dense
+    fn = dense_fn(blk, side)
     got = fn(x, tables)
     ref = blk.block_dense_plain(x, tables, side)
     abs_sum = blk.block_dense_plain(x.abs(), tables, side)
@@ -2356,12 +2398,16 @@ def block_tables_of(a, packed, tile, pairs, n_out, n_in):
                        n_out, True), rem_fwd=None, rem_bwd=None)
 
 
-def planted_multigraph_tables(dup, seed):
+_PLANTED = {}
+
+
+def planted_multigraph_tables(dup, seed, group=1):
     """The block tables of a small community multigraph in the cluster
     layout (6,000 nodes, ~120 edges a node, 2 random parts, tile 256 at
     the cell's 602-wide hint) with one (dst, src) pair planted ``dup``
     more times and five others 3 times: ``dup`` 3 ships int8 A, 200 bf16,
-    300 f32."""
+    300 f32; ``group`` > 1 the union-gather layout. The graph is built
+    once a (dup, seed)."""
     import numpy as np
     import torch
     from pipegcn_tpu_torch.graph.synthetic import synthetic_graph
@@ -2370,20 +2416,23 @@ def planted_multigraph_tables(dup, seed):
     from pipegcn_tpu_torch.partition.partitioner import (locality_clusters,
                                                          partition_graph)
 
-    g = synthetic_graph(num_nodes=6000, avg_degree=120, n_feat=8,
-                        n_class=6, seed=seed)
-    cluster = locality_clusters(g, target_size=256, seed=0)
-    rng = np.random.default_rng(seed)
-    pick = rng.integers(0, g.num_edges, 6)
-    reps = np.concatenate([np.full(dup, pick[0]), np.repeat(pick[1:], 3)])
-    g.src = np.concatenate([g.src, g.src[reps]]).astype(g.src.dtype)
-    g.dst = np.concatenate([g.dst, g.dst[reps]]).astype(g.dst.dtype)
-    sg = ShardedGraph.build(g, partition_graph(g, 2, method="random",
-                                               seed=0), n_parts=2,
-                            cluster=cluster)
+    if (dup, seed) not in _PLANTED:
+        g = synthetic_graph(num_nodes=6000, avg_degree=120, n_feat=8,
+                            n_class=6, seed=seed)
+        cluster = locality_clusters(g, target_size=256, seed=0)
+        rng = np.random.default_rng(seed)
+        pick = rng.integers(0, g.num_edges, 6)
+        reps = np.concatenate([np.full(dup, pick[0]),
+                               np.repeat(pick[1:], 3)])
+        g.src = np.concatenate([g.src, g.src[reps]]).astype(g.src.dtype)
+        g.dst = np.concatenate([g.dst, g.dst[reps]]).astype(g.dst.dtype)
+        _PLANTED[(dup, seed)] = ShardedGraph.build(
+            g, partition_graph(g, 2, method="random", seed=0), n_parts=2,
+            cluster=cluster)
+    sg = _PLANTED[(dup, seed)]
     st = {}
     tables, _ = blk.build_sharded_block_tables(sg, tile=256, n_feat_hint=602,
-                                               stats=st)
+                                               group=group, stats=st)
     staged = blk.stage_block_tables(tables, 256, sg.n_max,
                                     sg.n_max + sg.halo_size,
                                     torch.device("cuda", 0))
@@ -2446,20 +2495,23 @@ def k12_k13_edge_phase(blk):
 
 def block_fault_phase(blk, trainer, dtype=None):
     """One bit of one A block flipped (the block of part 0's first pair):
-    K12's and K13's checks at the cell's shapes must fail against the
-    plain versions on the true A (on ``dtype`` rows: f32, or bf16 for the
-    bf16 mode)."""
+    K12's and K13's checks (K16's and K17's on union-gather tables) at the
+    cell's shapes must fail against the plain versions on the true A (on
+    ``dtype`` rows: f32, or bf16 for the bf16 mode)."""
     import dataclasses
 
     import torch
 
     t = trainer.data.block
-    b = int(t.fwd.blk[0, 0])
+    first = t.fwd.blk[0][t.fwd.blk[0] != t.b_max]  # no pads in pair lists
+    b = int(first.reshape(-1)[0])
     bad = dataclasses.replace(t, a=t.a.clone())
     bad.a[0, b, 7, 3] ^= 1 << 5  # row 7, input column 3 * 8 + 5
     gen = torch.Generator(device="cuda").manual_seed(41)
-    for name, side, fn in (("K12", t.fwd, blk.block_dense),
-                           ("K13", t.bwd, blk.block_dense_t)):
+    grouped = t.group > 1
+    for name, side in (("K16" if grouped else "K12", t.fwd),
+                       ("K17" if grouped else "K13", t.bwd)):
+        fn = dense_fn(blk, side)
         x = torch.randn((t.a.shape[0], side.n_in, 256), generator=gen,
                         device="cuda").to(dtype or torch.float32)
         if dtype is not None:
@@ -2621,18 +2673,15 @@ def dense_csr(t, n_out, n_in, reverse):
     P = t.a.shape[0]
     rows, cols, vals = [], [], []
     for p in range(P):
-        n = int(side.ptr[p, -1])
-        owner = torch.repeat_interleave(
-            torch.arange(side.n_out_tiles, device="cuda"),
-            side.ptr[p].diff().long())
-        for i in range(0, n, 512):
-            j = min(n, i + 512)
-            a = blk._unpack(t.a[p].index_select(0, side.blk[p, i:j].long()),
-                            t.packed)
+        owner, blocks, tiles = blk._products(side, t.b_max, p,
+                                             torch.device("cuda", 0))
+        for i in range(0, owner.shape[0], 512):
+            j = min(owner.shape[0], i + 512)
+            a = blk._unpack(t.a[p].index_select(0, blocks[i:j]), t.packed)
             k, r, c = a.nonzero(as_tuple=True)
             vals.append(a[k, r, c])
             rows.append(owner[i:j][k] * T + r + p * n_out)
-            cols.append(side.tile[p, i:j].long()[k] * T + c + p * n_in)
+            cols.append(tiles[i:j][k] * T + c + p * n_in)
     r, c, v = torch.cat(rows), torch.cat(cols), torch.cat(vals)
     idx = torch.stack([c, r] if reverse else [r, c])
     size = (P * n_in, P * n_out) if reverse else (P * n_out, P * n_in)
@@ -2642,7 +2691,7 @@ def dense_csr(t, n_out, n_in, reverse):
             .to_sparse_csr(), int(v.sum())
 
 
-def block_timings(trainer, blk, bs, dtype=None):
+def block_timings(trainer, blk, bs, dtype=None, remainder=True):
     """K12 and K13 at the cell's shape (F = 256; ms, plain ms, bound,
     cuSPARSE over the dense edges' CSR) and the tile-product floors; K9
     on the block trainer's remainder tables (e4m3 forward, e5m2
@@ -2659,7 +2708,12 @@ def block_timings(trainer, blk, bs, dtype=None):
     f32 CUDA-core peak. With ``dtype`` bf16 (K12 / K13's bf16 mode: one
     bf16 product an entry) the rows are bf16, the bytes shrink with them,
     the K9 remainder is not timed again, and no library call is timed (no
-    single PyTorch call multiplies bf16 rows into f32 sums)."""
+    single PyTorch call multiplies bf16 rows into f32 sums). On
+    union-gather tables (K16 / K17) ``pairs`` counts the tile products
+    (the (tile, union slot) entries with a block: the same products as
+    group 1's pairs) beside ``union_slots``, the input tiles staged once
+    a group; ``remainder`` False skips K9 (the remainder tables are the
+    group-1 cell's)."""
     import torch
 
     d = trainer.data
@@ -2670,13 +2724,16 @@ def block_timings(trainer, blk, bs, dtype=None):
     if dtype is not None:
         act, gd = act.to(dtype), gd.to(dtype)
     out = {}
-    for name, side, x, fn in (("K12", t.fwd, act, blk.block_dense),
-                              ("K13", t.bwd, gd, blk.block_dense_t)):
+    grouped = t.group > 1
+    for name, side, x in ((("K16" if grouped else "K12"), t.fwd, act),
+                          (("K17" if grouped else "K13"), t.bwd, gd)):
+        fn = dense_fn(blk, side)
         a, e_dense = dense_csr(t, n, R, side.transpose)
         lib = None if dtype is not None else time_ms(
             lambda: torch.sparse.mm(a, x.reshape(-1, F)))
         del a
-        pairs = int(side.ptr[:, -1].sum())
+        pairs = sum(int(blk._products(side, t.b_max, p, x.device)[0]
+                        .shape[0]) for p in range(P))
         a_bytes = pairs * t.a[0, 0].numel() * t.a.element_size()
         n_bytes = (x.numel() * x.element_size() + e_dense * 4
                    + P * (side.n_out + 1) * 4 + P * side.n_out * F * 4)
@@ -2693,8 +2750,14 @@ def block_timings(trainer, blk, bs, dtype=None):
             shape=f"P={P} n_out={side.n_out} n_in={side.n_in} F={F} T={T} "
                   f"pairs={pairs} dense_edges={e_dense} "
                   f"A {t_dtype(t.a)}{' bits' if t.packed else ''} "
-                  f"rows {t_dtype(x)}")
-    for name, side, x0, dt in () if dtype is not None else (
+                  f"rows {t_dtype(x)}"
+                  + (f" group={t.group} union_slots="
+                     f"{int(side.ptr[:, -1].sum())}" if grouped else ""))
+        if grouped:
+            out[name]["union_slots"] = int(side.ptr[:, -1].sum())
+            out[name]["pairs"] = pairs
+    for name, side, x0, dt in () if dtype is not None or not remainder \
+            else (
             ("K9 remainder forward e4m3", t.rem_fwd, act,
              torch.float8_e4m3fn),
             ("K9 remainder backward e5m2", t.rem_bwd, gd,
@@ -3188,6 +3251,591 @@ def bf16_gat_split(trainer, cnt, g16, g8, gf, k4b, tt):
     return split
 
 
+# ---------------------------------------------------------------------------
+# the union-gather block + fp8 halo wire cell: K14 / K15 (the compressed
+# halo wire, ops/csrc/halo_wire.cu) and K16 / K17 (the union-gather tile
+# products, ops/csrc/block_spmm.cu)
+
+WIRE_FLAGS = ["--spmm-impl", "block", "--block-group", "4", "--rem-dtype",
+              "float8", "--halo-dtype", "float8"]
+
+
+def wire_check(name, halo, x, idx, mask, b_max, dt):
+    """K14 (fp8 wires) and K15 against their plain versions on one input,
+    the exchange (``idx`` given) or the return: the blocks' amaxes, the
+    decoded halo, the wire payload and the inverse scales bit-exact (NaN
+    equal to any NaN); a rerun bit-identical. Returns the kernels' ``(amax,
+    halo, wire, inv)``."""
+    import torch
+    from pipegcn_tpu_torch.ops.bucket_spmm import F8_MAX
+
+    amax = amax_p = None
+    if dt in F8_MAX:
+        amax = halo.halo_amax(x, idx, mask, b_max)
+        amax_p = halo.halo_amax_plain(x, idx, mask, b_max)
+        check_cast(f"{name}: K14 amax", amax, amax_p)
+    got = halo.halo_wire(x, idx, mask, b_max, dt, amax)
+    ref = halo.halo_wire_plain(x, idx, mask, b_max, dt, amax_p)
+    for part, g, r in zip(("halo", "wire", "inverse scales"), got, ref):
+        if r is not None:
+            check_cast(f"{name}: K15 {part}", g, r)
+    again = halo.halo_wire(x, idx, mask, b_max, dt, amax)
+    require(all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                for a, b in zip(got, again) if a is not None),
+            f"{name}: a rerun of K15 is not bit-identical")
+    return (amax,) + tuple(got)
+
+
+def wire_dtypes():
+    import torch
+
+    return (torch.float8_e4m3fn, torch.float8_e5m2, torch.bfloat16)
+
+
+def k14_k15_cell_phase(trainer, halo):
+    """K14 / K15 at the cell's shapes: the exchange of [P, n_max, 256]
+    rows through the send lists and the return of [P, H, 256] boundary
+    gradients (a strided view of a [P, n_max + H, 256] cotangent, as the
+    probe's is), on bf16 rows (the cell's) and f32 rows, in the wires the
+    cell runs (e4m3 / e5m2 and bf16)."""
+    import torch
+
+    d = trainer.data
+    gen = torch.Generator(device="cuda").manual_seed(51)
+    P, n, H = d.num_parts, d.n_max, d.halo_size
+    for rows in (torch.bfloat16, torch.float32):
+        h = (torch.randn((P, n, 256), generator=gen, device="cuda")
+             * 2.0).to(rows)
+        full = (torch.randn((P, n + H, 256), generator=gen, device="cuda")
+                * 1e-3).to(rows)
+        for dt in (torch.float8_e4m3fn, torch.bfloat16):
+            wire_check(f"exchange {t_dtype(h)} rows -> {str(dt)[6:]} (cell)",
+                       halo, h, d.send_idx, d.send_mask, d.b_max, dt)
+        for dt in (torch.float8_e5m2, torch.bfloat16):
+            wire_check(f"return {t_dtype(h)} rows -> {str(dt)[6:]} (cell)",
+                       halo, full[:, n:], None, None, d.b_max, dt)
+        del h, full
+
+
+def wire_p4_case(seed, F=48):
+    """An emulated P = 4 set of send lists on a small graph (2,000 nodes,
+    4 random parts) with each sender's rows scaled by 8**d, d the least
+    distance that sends them, so that a sender's blocks take different
+    scales at different distances (a per-part scale would not do);
+    returns ``(x, send_idx, send_mask, b_max)`` on the card."""
+    import torch
+    from pipegcn_tpu_torch.graph.synthetic import synthetic_graph
+    from pipegcn_tpu_torch.partition.halo import ShardedGraph
+    from pipegcn_tpu_torch.partition.partitioner import partition_graph
+
+    g = synthetic_graph(num_nodes=2000, avg_degree=6, n_feat=4, n_class=3,
+                        seed=seed)
+    sg = ShardedGraph.build(g, partition_graph(g, 4, method="random",
+                                               seed=seed), n_parts=4)
+    idx = torch.from_numpy(sg.send_idx).cuda()
+    mask = torch.from_numpy(sg.send_mask).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((4, sg.n_max, F), generator=gen, device="cuda")
+    for s in range(4):
+        scale = torch.ones(sg.n_max, device="cuda")
+        for d in range(3, 0, -1):  # the least distance's scale wins
+            scale[idx[s, d - 1][mask[s, d - 1]].long()] = 8.0 ** d
+        x[s] *= scale[:, None]
+    return x, idx, mask, sg.b_max
+
+
+def k14_k15_check_phase(trainer, halo):
+    """K14 / K15 bit-exact against their plain versions: at the cell's
+    shapes; on an emulated P = 4 set whose per-block scales differ across
+    distances, every wire (e4m3, e5m2, bf16) on f32 and bf16 rows, both
+    directions; on edge cases (an all-masked block, a zero-amax block, a
+    NaN row, the f32 bit-pattern sweep around the fp8 saturation points
+    and subnormals in blocks that hold a NaN, so their scale is 1). A
+    planted fault, the decode with the receiver's own scale in place of
+    the sender's, must fail the K15 check."""
+    import torch
+    from pipegcn_tpu_torch.ops import bucket_spmm as bs
+
+    k14_k15_cell_phase(trainer, halo)
+    x, idx, mask, B = wire_p4_case(7)
+    sc = bs.pow2_scale(halo.halo_amax(x, idx, mask, B), 448.0)
+    require(bool((sc != sc[:, :1]).any()),
+            f"P = 4 set: a sender's blocks should take different scales "
+            f"at different distances: {sc.tolist()}")
+    log(f"  P = 4 set: per-block scales {sc.tolist()}")
+    P = 4
+    g = torch.randn((P, (P - 1) * B, x.shape[2]), device="cuda") * \
+        (8.0 ** torch.arange(1, P, device="cuda").repeat_interleave(B)
+         )[None, :, None] * 1e-4
+    for rows in (torch.float32, torch.bfloat16):
+        for dt in wire_dtypes():
+            res = wire_check(f"P=4 exchange {t_dtype(x.to(rows))} rows -> "
+                             f"{str(dt)[6:]}", halo, x.to(rows), idx, mask,
+                             B, dt)
+            wire_check(f"P=4 return {t_dtype(x.to(rows))} rows -> "
+                       f"{str(dt)[6:]}", halo, g.to(rows), None, None, B,
+                       dt)
+            if dt == torch.float8_e4m3fn and rows == torch.float32:
+                planted = res
+    # the planted fault: each receiver decodes with its own scale at that
+    # distance (that of the block it sends there), not its sender's
+    _, out, wire, inv = planted
+    snd = halo._senders(P, True).cuda()
+    col = torch.arange(P - 1, device="cuda")[None, :]
+    own = torch.empty_like(inv)
+    own[snd, col] = inv  # inv in sender order: receiver r's own block
+    bad = (wire.float() * own[..., None, None]).reshape(out.shape)
+    require(not torch.equal(own, inv), "P = 4 set: the receivers' own "
+            "scales equal their senders': the fault would not show")
+    must_fail("K15 planted fault (decoded with the receiver's own scale)",
+              lambda: check_cast("K15 planted fault", bad, out))
+    # edge cases on P = 3: an all-masked block, a zero-amax block (its
+    # rows zero, mask on) and a NaN row
+    gen = torch.Generator(device="cuda").manual_seed(52)
+    P, n, B, F = 3, 40, 12, 64
+    x = torch.randn((P, n, F), generator=gen, device="cuda") * 3.0
+    idx = torch.randint(0, n, (P, P - 1, B), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    mask = torch.rand((P, P - 1, B), generator=gen, device="cuda") < 0.8
+    mask[0, 1] = False                        # all masked
+    x[1, idx[1, 0].long()] = 0.0              # block (1, d=1): amax 0
+    mask[1, 0, 0] = True
+    x[2, int(idx[2, 0, 3])] = float("nan")    # block (2, d=1): a NaN row
+    mask[2, 0, 3] = True
+    g = torch.randn((P, (P - 1) * B, F), generator=gen, device="cuda")
+    g[0, B:2 * B] = 0.0                       # sender 0's block d=2
+    g[2, 5, 7] = float("nan")
+    for rows in (torch.float32, torch.bfloat16):
+        for dt in wire_dtypes():
+            amax, out, _, inv = wire_check(
+                f"edge cases {t_dtype(x.to(rows))} rows -> {str(dt)[6:]}",
+                halo, x.to(rows), idx, mask, B, dt)
+            # receivers of the all-masked (0, d=2) and zero (1, d=1)
+            # blocks: (0 + 2) mod 3 slot 1, (1 + 1) mod 3 slot 0
+            for r, d1 in ((2, 1), (2, 0)):
+                blk = out[r, d1 * B:(d1 + 1) * B]
+                require(bool((blk.float() == 0).all())
+                        and not bool(torch.signbit(blk.float()).any()),
+                        f"edge cases {dt}: an all-masked or zero block is "
+                        f"not exact +0")
+            if inv is not None:
+                require(float(inv[2, 0]) == 1.0 and float(inv[0, 0]) == 1.0
+                        and bool(torch.isnan(amax[2, 0])),
+                        f"edge cases {dt}: a zero or NaN amax must give "
+                        f"scale 1 ({inv.tolist()}, {amax.tolist()})")
+                require(bool(torch.isnan(out[0, :B].float()).any()),
+                        f"edge cases {dt}: the NaN row must stay NaN")
+            wire_check(f"edge cases return {t_dtype(x.to(rows))} rows -> "
+                       f"{str(dt)[6:]}", halo, g.to(rows), None, None, B,
+                       dt)
+    # the bit-pattern sweep: 2 parts, every row sent, each block holding
+    # NaNs (scale 1: the casts meet the saturation points unscaled)
+    sweep = cast_sweep()[0]
+    R = sweep.shape[0]
+    xs = torch.stack([sweep, -sweep])
+    si = torch.arange(R, device="cuda", dtype=torch.int32).repeat(2, 1, 1)
+    sm = torch.ones((2, 1, R), dtype=torch.bool, device="cuda")
+    for rows in (torch.float32, torch.bfloat16):
+        for dt in wire_dtypes():
+            wire_check(f"sweep {t_dtype(xs.to(rows))} rows -> {str(dt)[6:]}",
+                       halo, xs.to(rows), si, sm, R, dt)
+            wire_check(f"sweep return {t_dtype(xs.to(rows))} rows -> "
+                       f"{str(dt)[6:]}", halo, xs.to(rows), None, None, R,
+                       dt)
+
+
+def grouped_tables_of(a, G, slots, n_out, n_in, tile=256):
+    """BlockTables of one part on the card over hand-made union groups:
+    ``slots`` [(group, input tile, [block or None for each of the G
+    tiles])] in list order; the transpose lists hold the same products
+    keyed by input tile, one group a tile. No remainder."""
+    import torch
+    from pipegcn_tpu_torch.ops import block_spmm as blk
+
+    b_max = a.shape[1]
+
+    def side(entries, n_keys, n_o, n_i, transpose, g):
+        entries = sorted(entries, key=lambda q: q[0])  # stable
+        ptr = [0] * (-(-n_keys // g) + 1)
+        for q in entries:
+            ptr[q[0] + 1] += 1
+        for i in range(1, len(ptr)):
+            ptr[i] += ptr[i - 1]
+        til = [q[1] for q in entries] or [0]
+        bl = [[b_max if b is None else b for b in q[2]]
+              for q in entries] or [[b_max] * g]
+        put = (lambda v: torch.tensor([v], dtype=torch.int32,
+                                      device="cuda"))  # noqa: E731
+        return blk.GroupSide(ptr=put(ptr), tile=put(til), blk=put(bl),
+                             group=g, n_out=n_o, n_in=n_i,
+                             n_out_tiles=-(-n_o // tile),
+                             transpose=transpose)
+
+    n_out_t, n_in_t = -(-n_out // tile), -(-n_in // tile)
+    # the transpose: each input tile's products, one "group" of 1 a tile
+    tr = sorted((t, g * G + d, b) for g, t, bs in slots
+                for d, b in enumerate(bs) if b is not None)
+    bwd = side([(t, o, [b]) for t, o, b in tr], n_in_t, n_in, n_out, True,
+               1)
+    return blk.BlockTables(a=a.cuda(), packed=True, tile=tile,
+                           fwd=side(slots, n_out_t, n_out, n_in, False, G),
+                           bwd=bwd, rem_fwd=None, rem_bwd=None)
+
+
+def k16_k17_check_phase(trainer, blk, halo):
+    """K16 / K17 against their plain version within BLOCK_SUM_RTOL *
+    sum|terms| (f32 rows) and in the bf16 mode, each rerun bit-identical:
+    at the cell's shapes (group 4, 1-bit A; F = 256 and 602); for every A
+    encoding (int8, bf16, f32 from planted multigraphs, group 4); at
+    groups 2 and 8; on hand-made groups (a tail group of one tile with a
+    ragged last row tile, an empty group, a one-tile union, pads inside a
+    union) at F = 5 and 64. A flipped A bit must fail both, in both
+    modes."""
+    import torch
+
+    d = trainer.data
+    t = d.block
+    gen = torch.Generator(device="cuda").manual_seed(53)
+    R = d.n_max + d.halo_size
+    errs = []
+    for dt in (torch.float32, torch.bfloat16):
+        for F in (256, 602):
+            x = torch.randn((d.num_parts, R, F), generator=gen,
+                            device="cuda").to(dt)
+            errs.append(block_check(f"K16 cell F={F} {t_dtype(x)} rows",
+                                    blk, x, t, t.fwd))
+            gc = torch.randn((d.num_parts, d.n_max, F), generator=gen,
+                             device="cuda").to(dt)
+            errs.append(block_check(f"K17 cell F={F} {t_dtype(gc)} rows",
+                                    blk, gc, t, t.bwd))
+            del x, gc
+
+    def both(label, tb, F, dtype):
+        for side in (tb.fwd, tb.bwd):
+            x = torch.randn((tb.a.shape[0], side.n_in, F), generator=gen,
+                            device="cuda").to(dtype)
+            errs.append(block_check(
+                f"{'K17' if side.transpose else 'K16'} {label} F={F} "
+                f"{t_dtype(x)} rows", blk, x, tb, side))
+
+    for dup, group, want_bits in ((3, 4, 8), (200, 4, 16), (300, 4, 32),
+                                  (3, 2, 8), (3, 8, 8)):
+        tb, st = planted_multigraph_tables(dup, seed=dup, group=group)
+        require(st["bits"] == want_bits and tb.group == group,
+                f"planted multigraph x{dup} group {group}: {st['bits']}-bit"
+                f" A, group {tb.group}")
+        for dtype in (torch.float32, torch.bfloat16):
+            both(f"{t_dtype(tb.a)} A group {group}", tb, 256, dtype)
+    T = 256
+    gb = torch.Generator().manual_seed(5)
+    a = torch.randint(0, 256, (1, 6, T, T // 8), generator=gb,
+                      dtype=torch.uint8)
+    # 5 output tiles (the last ragged: 212 rows) in 2 groups of 4: group
+    # 0 has two slots (pads inside), group 1 (the tail: tile 4 only) a
+    # one-tile union; output tile 3 has no block; 3 input tiles
+    slots = [(0, 2, [0, None, 1, None]), (0, 0, [None, 2, None, None]),
+             (1, 1, [3, None, None, None])]
+    hand = grouped_tables_of(a, 4, slots, 5 * T - 44, 3 * T - 68)
+    empty = grouped_tables_of(a, 4, [], 5 * T - 44, 3 * T - 68)
+    for dtype in (torch.float32, torch.bfloat16):
+        for F in (5, 64):
+            both("hand-made groups", hand, F, dtype)
+        for side in (empty.fwd, empty.bwd):
+            x = torch.randn((1, side.n_in, 64), generator=gen,
+                            device="cuda").to(dtype)
+            out = dense_fn(blk, side)(x, empty)
+            require(out.shape == (1, side.n_out, 64)
+                    and not bool(out.any()),
+                    "K16/K17 empty groups: output is not all zeros")
+    log("  K16 / K17 empty groups: zeros ok")
+    for dtype in (None, torch.bfloat16):
+        block_fault_phase(blk, trainer, dtype=dtype)
+    return max(errs)
+
+
+def wire_train_phase(args, sg, eval_graphs, eval_cache, spmm, halo):
+    """This slice's cell: the reddit.sh command plus ``--dtype bfloat16
+    --spmm-impl block --block-group 4 --rem-dtype float8 --halo-dtype
+    float8`` through cli/main.py's functions on the SAGE cell's parts,
+    sharing its eval-graph CSRs; counts from the trainer's build (the pp
+    precompute: K16 on f32 rows, K9 and K2 once each) through the final
+    eval: a finite, falling loss, finite accuracies, K16 / K17 in the bf16
+    mode 3 times an epoch, K9 6 and K10 6, K14 and K15 6 (the exchange
+    and the return of 3 layers: e4m3 and e5m2), K4 in bf16, K5 and the
+    group-1 kernels never. Then 2 epochs each of ``--halo-dtype
+    bfloat16`` (K15 bf16, no K14) and ``none`` (K2 and K5 again) on the
+    same trainer and tables (the train config swapped)."""
+    import dataclasses
+    import math
+
+    import torch
+    from pipegcn_tpu_torch.cli.main import build_trainer
+
+    n_ep = args.wire_epochs
+    cli = train_cli(args, epochs=n_ep, extra=WIRE_FLAGS, dtype="bfloat16")
+    cnt = counters(spmm, halo)
+    steps = {}
+    reset_counts(cnt)
+    torch.cuda.reset_peak_memory_stats()
+    base_gib = torch.cuda.memory_allocated() / 2 ** 30
+    trainer = build_trainer(cli, sg, torch.device("cuda", 0), log=log,
+                            steps=steps)
+    d = trainer.data
+    st = d.block_stats
+    steps["block_tables"] = d.block_build_s
+    trainer.eval_cache = eval_cache
+    t0 = time.monotonic()
+    res = trainer.fit(eval_graphs, log_fn=log, inductive=True,
+                      reference_logs=True)
+    torch.cuda.synchronize()
+    fit_s = time.monotonic() - t0
+    launches, modes = read_counts(cnt), read_modes(cnt)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = res["losses"]
+    slots = {k: int(s.ptr[:, -1].sum()) for k, s in (("fwd", d.block.fwd),
+                                                     ("bwd", d.block.bwd))}
+    pairs = sum(st["blocks"])
+    log(f"  wire cell tables: {d.block_build_s:.1f}s, group "
+        f"{d.block.group}, {pairs} dense blocks, union slots fwd "
+        f"{slots['fwd']} / bwd {slots['bwd']} ({slots['fwd'] / pairs:.3f}"
+        f" / {slots['bwd'] / pairs:.3f} of the pairs)")
+    log(f"  wire fit: {n_ep} epochs in {fit_s:.1f}s, losses "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, best val "
+        f"{res['best_val']:.4f}, test {res.get('test_acc', float('nan')):.4f}"
+        f", launches {launches}, by mode {modes}, peak {peak_gib:.3f} GiB "
+        f"(held before the build {base_gib:.3f} GiB); halo wire "
+        f"{trainer.est_halo_bytes_per_epoch()} bytes an epoch "
+        f"({trainer.est_halo_bytes_per_epoch(compressed=False)} in bf16)")
+    require(trainer.feat.dtype == torch.bfloat16
+            and trainer.comm["halo"]["1"].dtype == torch.bfloat16,
+            "wire cell: features and carries must be bf16")
+    require(len(losses) == n_ep and all(math.isfinite(x) for x in losses),
+            f"wire cell: losses {losses}")
+    first, last = (sum(losses[:3]) / 3, sum(losses[-3:]) / 3)
+    require(last < first, f"wire cell: loss did not fall: first-3 mean "
+            f"{first:.4f}, last-3 mean {last:.4f}")
+    require_launched(launches, "wire", "wire cell training run")
+    want = {"block_dense_grouped": 3 * n_ep + 1,
+            "block_dense_grouped_t": 3 * n_ep, "bucket_gather": 6 * n_ep + 1,
+            "transport_cast": 6 * n_ep, "halo_amax": 6 * n_ep,
+            "halo_wire": 6 * n_ep, "halo_gather": 1, "halo_return": 0,
+            "block_dense": 0, "block_dense_t": 0, "part_amax": 0,
+            "spmm_mean_t": 0}
+    want_modes = {
+        "block_dense_grouped": {"bfloat16": 3 * n_ep, "float32": 1},
+        "block_dense_grouped_t": {"bfloat16": 3 * n_ep, "float32": 0},
+        "halo_wire": {"float8_e4m3fn": 3 * n_ep, "float8_e5m2": 3 * n_ep,
+                      "bfloat16": 0},
+        "halo_amax": {"exchange": 3 * n_ep, "return": 3 * n_ep},
+        "halo_scatter": {"bfloat16": 3 * n_ep, "float32": 0}}
+    require({k: launches[k] for k in want} == want
+            and all(modes[k] == v for k, v in want_modes.items()),
+            f"wire cell: launches {launches} {modes}, want {want} "
+            f"{want_modes}")
+    accs = (res["best_val"], res.get("test_acc", float("nan")))
+    require(all(math.isfinite(a) and 0.0 <= a <= 1.0 for a in accs),
+            f"wire cell: accuracies not finite: {accs}")
+    variants = {}
+    base_tcfg = trainer.tcfg
+    for i, (hd, want) in enumerate((
+            ("bfloat16", {"halo_wire": 12, "halo_amax": 0,
+                          "halo_gather": 0, "halo_return": 0}),
+            ("none", {"halo_wire": 0, "halo_amax": 0, "halo_gather": 6,
+                      "halo_return": 6}))):
+        trainer.tcfg = dataclasses.replace(base_tcfg, halo_dtype=hd)
+        reset_counts(cnt)
+        ls = [trainer.train_epoch(n_ep + 2 * i + e) for e in range(2)]
+        got, got_modes = read_counts(cnt), read_modes(cnt)
+        log(f"  wire cell --halo-dtype {hd}: losses {ls}, launches {got}, "
+            f"by mode {got_modes}")
+        require(all(math.isfinite(x) for x in ls),
+                f"wire cell --halo-dtype {hd}: non-finite loss")
+        require({k: got[k] for k in want} == want
+                and got["block_dense_grouped"] == 6,
+                f"wire cell --halo-dtype {hd}: launches {got}, want {want}")
+        variants[hd] = {"losses": ls, "launches": got,
+                        "launches_by_mode": got_modes}
+        for k, fn in cnt.items():  # the cell's run: every launch counts
+            launches[k] += got[k]
+            for m in getattr(fn, "by_mode", {}):
+                modes[k][m] += got_modes[k][m]
+    trainer.tcfg = base_tcfg
+    stats = {"epochs": n_ep, "losses": losses, "first3_mean": first,
+             "last3_mean": last, "best_val": res["best_val"],
+             "best_epoch": res["best_epoch"], "test_acc": res["test_acc"],
+             "fit_s": fit_s, "epoch_time_s_mean": res["epoch_time"],
+             "peak_mem_gib": peak_gib, "mem_before_build_gib": base_gib,
+             "host_steps_s": steps, "launches": launches,
+             "launches_by_mode": modes, "variants": variants,
+             "tables": {**st, "union_slots": slots, "pairs": pairs,
+                        "build_s": d.block_build_s},
+             "halo_bytes_per_epoch": trainer.est_halo_bytes_per_epoch(),
+             "halo_bytes_per_epoch_bf16":
+                 trainer.est_halo_bytes_per_epoch(compressed=False)}
+    return trainer, stats
+
+
+def wire_group_variants(args, sg, spmm, halo):
+    """The slice's command at ``--block-group`` 2, 4 and 8 and both compute
+    dtypes: for each group a trainer built at f32 (its own tables, the f32
+    pp precompute) runs 2 epochs, then the same trainer and tables at
+    bf16 (``switch_dtype``: the features cast as Trainer casts them, the
+    carries anew) 2 more; counts set to 0 before each build: finite
+    losses, K16 / K17 3 times an epoch in the row type of the compute
+    dtype (K16 once more for the pp precompute), K14 and K15 6 times, the
+    group-1 kernels never. Returns the launches by kernel and mode over
+    all six runs, and each run's losses and union slots."""
+    import math
+
+    import torch
+    from pipegcn_tpu_torch.cli.main import build_trainer
+
+    cnt = counters(spmm, halo)
+    total = {k: 0 for k in cnt}
+    total_modes = {k: dict.fromkeys(fn.by_mode, 0) for k, fn in cnt.items()
+                   if hasattr(fn, "by_mode")}
+    runs = {}
+    for group in (2, 4, 8):
+        flags = [f if f != "4" else str(group) for f in WIRE_FLAGS]
+        reset_counts(cnt)
+        trainer = build_trainer(train_cli(args, epochs=2, extra=flags),
+                                sg, torch.device("cuda", 0), log=log)
+        d = trainer.data
+        require(d.block.group == group, f"group {group}: tables of group "
+                f"{d.block.group}")
+        for dtype in ("float32", "bfloat16"):
+            if dtype == "bfloat16":
+                switch_dtype(trainer, train_cli(args, epochs=2, extra=flags,
+                                                dtype=dtype), sg)
+            ls = [trainer.train_epoch(e) for e in range(2)]
+            got, modes = read_counts(cnt), read_modes(cnt)
+            pp = 1 if dtype == "float32" else 0  # the build's precompute
+            want = {"block_dense_grouped": 6 + pp,
+                    "block_dense_grouped_t": 6, "halo_amax": 12,
+                    "halo_wire": 12, "block_dense": 0, "block_dense_t": 0,
+                    "halo_return": 0}
+            log(f"  group {group} {dtype}: losses {ls}, launches {got}")
+            require(all(math.isfinite(x) for x in ls)
+                    and {k: got[k] for k in want} == want
+                    and modes["block_dense_grouped_t"][dtype] == 6
+                    and modes["block_dense_grouped"][dtype] == 6 + pp,
+                    f"group {group} {dtype}: losses {ls}, launches {got} "
+                    f"{modes}, want {want}")
+            runs[f"group {group} {dtype}"] = {
+                "losses": ls, "union_slots": int(d.block.fwd.ptr[:, -1]
+                                                 .sum()),
+                "pairs": sum(d.block_stats["blocks"])}
+            for k in cnt:
+                total[k] += got[k]
+                for m in total_modes.get(k, {}):
+                    total_modes[k][m] += modes[k][m]
+            reset_counts(cnt)
+        del trainer, d
+        torch.cuda.empty_cache()
+    return {"launches": total, "launches_by_mode": total_modes,
+            "runs": runs}
+
+
+def wire_timings(trainer, halo):
+    """K14 and K15 at the cell's shapes on bf16 rows (ms, plain ms, the
+    bound): the exchange's amax and e4m3 wire over the send lists, the
+    return's amax and e5m2 wire over the [P, H, 256] cotangent, and K15's
+    bf16 wire both ways. The bound counts the sent rows' bytes once (a
+    masked row is never read), the send lists, the amaxes, the wire
+    payload and the decoded rows written once, and an operation an
+    element for K14 (|x| and the max), four for K15 (the scale, the two
+    casts, the decode). No single PyTorch call computes either function
+    (a gather, a per-block amax, a scaled saturating cast, a permute and
+    a decode): no library time."""
+    import torch
+
+    d = trainer.data
+    gen = torch.Generator(device="cuda").manual_seed(54)
+    P, n, H, B, F = d.num_parts, d.n_max, d.halo_size, d.b_max, 256
+    bf = torch.bfloat16
+    h = (torch.randn((P, n, F), generator=gen, device="cuda") * 2.0).to(bf)
+    full = (torch.randn((P, n + H, F), generator=gen, device="cuda")
+            * 1e-3).to(bf)
+    g = full[:, n:]
+    sent = int(d.send_mask.sum())
+    lists = d.send_idx.numel() * 4 + d.send_mask.numel()
+    out = {}
+    for name, x, idx, mask, rows_read in (
+            ("exchange", h, d.send_idx, d.send_mask, sent),
+            ("return", g, None, None, P * H)):
+        extra = lists if idx is not None else 0
+        out[f"K14 {name}"] = dict(
+            ms=time_ms(lambda: halo.halo_amax(x, idx, mask, B)),
+            plain_ms=time_ms(lambda: halo.halo_amax_plain(x, idx, mask, B),
+                             reps=5, warmup=1),
+            library_ms=None,
+            bound=bound_ms(rows_read * F * 2 + extra + P * (P - 1) * 4,
+                           2 * rows_read * F),
+            shape=f"P={P} B={B} F={F} bf16 rows, {rows_read} rows read")
+        amax = halo.halo_amax(x, idx, mask, B)
+        for dt in ((torch.float8_e4m3fn if name == "exchange"
+                    else torch.float8_e5m2), bf):
+            a = amax if dt != bf else None
+            wb = torch.tensor([], dtype=dt).element_size()
+            out[f"K15 {name} {str(dt)[6:]}"] = dict(
+                ms=time_ms(lambda: halo.halo_wire(x, idx, mask, B, dt, a)),
+                plain_ms=time_ms(lambda: halo.halo_wire_plain(
+                    x, idx, mask, B, dt, a), reps=5, warmup=1),
+                library_ms=None,
+                bound=bound_ms(rows_read * F * 2 + extra
+                               + (P * (P - 1) * 8 if a is not None else 0)
+                               + P * H * F * (wb + 2),
+                               4 * P * H * F),
+                shape=f"P={P} B={B} F={F} bf16 rows -> {dt}, "
+                      f"{rows_read} rows read")
+    for k, e in out.items():
+        log(f"  {k}: {e['ms']:.3f} ms (plain {e['plain_ms']:.3f}, bound "
+            f"{e['bound'][0]:.3f} {e['bound'][1]}; no single library "
+            f"call) [{e['shape']}]")
+    return out
+
+
+def wire_epoch_split(trainer, cnt, wt, gt16, kt, bt, k4b, block_ms):
+    """The wire cell's epoch (median of 5 after one warm epoch, the
+    cell's float8 wire) and its split by this run's kernel times at the
+    cell's shapes: K16 and K17 in the bf16 mode 3 times each, K9 on the
+    remainder 6 (the f32 block cell's: the same tables and e4m3 / e5m2
+    rows), K10 6 (the bucket cell's f32-input times: an upper estimate),
+    K14 and K15 3 times each way, K4 in bf16, the rest by subtraction;
+    the peak memory."""
+    import torch
+
+    reset_counts(cnt)
+    base = trainer.tcfg.n_epochs + 20
+    epochs = iter(range(base, base + 100))
+    reps = 5
+    torch.cuda.reset_peak_memory_stats()
+    epoch_ms = time_ms(lambda: trainer.train_epoch(next(epochs)), reps=reps,
+                       warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    per_epoch = {k: v / (reps + 1) for k, v in read_counts(cnt).items()}
+    parts = {
+        "k16_ms": 3 * gt16["K16"]["ms"], "k17_ms": 3 * gt16["K17"]["ms"],
+        "k9_remainder_ms": 3 * (kt["K9 remainder forward e4m3"]["ms"]
+                                + kt["K9 remainder backward e5m2"]["ms"]),
+        "k10_ms": 3 * (bt["K10"]["forward e4m3"]["ms"]
+                       + bt["K10"]["backward e5m2"]["ms"]),
+        "k14_ms": 3 * (wt["K14 exchange"]["ms"] + wt["K14 return"]["ms"]),
+        "k15_ms": 3 * (wt["K15 exchange float8_e4m3fn"]["ms"]
+                       + wt["K15 return float8_e5m2"]["ms"]),
+        "k4_bf16_ms": per_epoch["halo_scatter"] * k4b["ms"]}
+    split = {"epoch_ms": epoch_ms, **parts,
+             "rest_ms": epoch_ms - sum(parts.values()),
+             "epoch_peak_mem_gib": peak, "launches_per_epoch": per_epoch}
+    log(f"  wire cell epoch {epoch_ms:.3f} ms median: "
+        + ", ".join(f"{k[:-3]} {v:.3f} ms" for k, v in parts.items())
+        + f", rest {split['rest_ms']:.3f} ms ({per_epoch}); peak "
+        f"{peak:.3f} GiB; this run's group-1 block epochs (no wire): "
+        f"{block_ms}")
+    split["group1_block_epochs_ms"] = block_ms
+    return split
+
+
 def kernel_entry(name, source, replaces, launches, err, t, serving=None):
     """One kernel of the ``kernels`` line: ``t`` timed at the shape whose
     launches are counted (the training run's); K1/K2 also carry their
@@ -3229,6 +3877,9 @@ def main() -> int:
                     help="epochs of each bf16 GraphSAGE cell")
     ap.add_argument("--bf16-gat-epochs", type=int, default=12,
                     help="epochs of the bf16 GAT cell at --rem-dtype float8")
+    ap.add_argument("--wire-epochs", type=int, default=6,
+                    help="epochs of the union-gather block + fp8 halo wire "
+                         "cell")
     args = ap.parse_args()
 
     import torch
@@ -3265,7 +3916,7 @@ def main() -> int:
     t0 = time.monotonic()
     secs = _build.build(["spmm_mean", "halo_gather", "halo_scatter",
                          *gat.LIBRARIES, "bucket_spmm", "transport_cast",
-                         "block_spmm"])
+                         "block_spmm", "halo_wire"])
     log(f"[2] kernels built in {time.monotonic() - t0:.1f}s: {secs}")
     # the native partitioner and radix sort (g++): the training cells
     # partition by metis on it, as the JAX CLI does; its absence fails
@@ -3478,7 +4129,6 @@ def main() -> int:
         f"bfloat16 and none")
     g16trainer, bf16_gat = bf16_gat_phase(args, sg, eval_graphs, eval_cache,
                                           spmm, halo)
-    del eval_graphs, eval_cache
 
     log("[28] one pipelined bf16 GAT epoch: kernels vs plain versions (relu "
         "masks, leaky branches and transported values shared); the epoch "
@@ -3487,6 +4137,50 @@ def main() -> int:
     bf16_gat["split"] = bf16_gat_split(g16trainer, counters(spmm, halo),
                                        gt16, gt8, gt, k4b, tt)
     del g16trainer
+    torch.cuda.empty_cache()
+
+    log(f"[29] union-gather block + fp8 halo wire cell: the command plus "
+        f"--dtype bfloat16 {' '.join(WIRE_FLAGS)}, {args.wire_epochs} "
+        f"epochs on the same parts, then 2 epochs each of --halo-dtype "
+        f"bfloat16 and none")
+    wtrainer, wire_stats = wire_train_phase(args, sg, eval_graphs,
+                                            eval_cache, spmm, halo)
+    del eval_graphs, eval_cache
+    log("  the command at --block-group 2, 4 and 8, each at f32 and bf16 "
+        "compute, 2 epochs each")
+    wire_stats["groups"] = wire_group_variants(args, sg, spmm, halo)
+
+    log("[30] one pipelined epoch of the wire cell: kernels vs plain "
+        "versions (relu masks, the remainder's transported values and the "
+        "halo wire's payloads and scales shared)")
+    wire_step = step_phase(wtrainer, args.wire_epochs + 10)
+
+    log("[31] K14, K15 bit-exact vs plain versions (the cell, an emulated "
+        "P = 4 set, every wire on f32 and bf16 rows, edge cases); a planted "
+        "fault must fail")
+    k14_k15_check_phase(wtrainer, halo)
+
+    log("[32] K16, K17 vs plain versions (the cell, every A encoding, "
+        "groups 2, 4 and 8, hand-made groups); a planted fault must fail")
+    errs["K16/K17"] = k16_k17_check_phase(wtrainer, blk, halo)
+
+    log("[33] K14-K17 timings, the union dedupe beside K12's pairs, the "
+        "wire cell's epoch and its split")
+    wt = wire_timings(wtrainer, halo)
+    gt32 = block_timings(wtrainer, blk, bs, remainder=False)
+    gt16b = block_timings(wtrainer, blk, bs, dtype=torch.bfloat16)
+    log(f"  union dedupe: K16 stages {gt32['K16']['union_slots']} union "
+        f"tiles for {gt32['K16']['pairs']} products "
+        f"({gt32['K16']['union_slots'] / gt32['K16']['pairs']:.3f}); K17 "
+        f"{gt32['K17']['union_slots']} for {gt32['K17']['pairs']}; K16 "
+        f"{gt32['K16']['ms']:.3f} ms beside K12's group-1 "
+        f"{kt['K12']['ms']:.3f} ms (bf16 mode {gt16b['K16']['ms']:.3f} / "
+        f"{kt16['K12']['ms']:.3f} ms)")
+    wire_stats["split"] = wire_epoch_split(
+        wtrainer, counters(spmm, halo), wt, gt16b, kt, bt, k4b,
+        {"f32 block": block_split["epoch_ms"],
+         "bf16 block": bf16_block["epoch_ms"]})
+    del wtrainer
     torch.cuda.empty_cache()
 
     # the main path of this slice is training: every kernel's launches
@@ -3625,6 +4319,65 @@ def main() -> int:
             e[f] = kt16[key][f]
         kernels.append(e)
 
+    # K14 / K15: the wire cell's run (fit and its halo-dtype variants),
+    # times at its shapes on bf16 rows (the exchange's e4m3 wire the main
+    # numbers; the return's e5m2 and the bf16 wires under "others"); no
+    # single PyTorch call computes either: library_ms null
+    nw, mw = wire_stats["launches"], wire_stats["launches_by_mode"]
+    e = kernel_entry("halo_amax", src + "halo_wire.cu",
+                     "pipegcn_tpu/parallel/halo.py:127", nw["halo_amax"],
+                     0.0, wt["K14 exchange"])
+    e["launches_by_mode"] = mw["halo_amax"]
+    e["others"] = {"return": sub(wt["K14 return"])}
+    e["also_replaces"] = ["pipegcn_tpu/ops/bucket_spmm.py:462"]
+    e["library"] = "none: no single PyTorch call takes a per-block amax " \
+        "over gathered send rows"
+    kernels.append(e)
+    e = kernel_entry("halo_wire", src + "halo_wire.cu",
+                     "pipegcn_tpu/parallel/halo.py:127", nw["halo_wire"],
+                     0.0, wt["K15 exchange float8_e4m3fn"])
+    e["launches_by_mode"] = mw["halo_wire"]
+    e["others"] = {k[4:]: sub(v) for k, v in wt.items()
+                   if k.startswith("K15") and k != "K15 exchange "
+                   "float8_e4m3fn"}
+    e["also_replaces"] = ["pipegcn_tpu/parallel/halo.py:48",
+                          "pipegcn_tpu/parallel/halo.py:173",
+                          "pipegcn_tpu/parallel/halo.py:244"]
+    e["library"] = "none: no single PyTorch call gathers, scales, casts, " \
+        "permutes and decodes"
+    kernels.append(e)
+    # K16 / K17: the wire cell's run; the bf16 mode (the cell's rows) and
+    # the f32-row mode (the pp precompute's one K16 launch), times at F =
+    # 256 beside the dense edges' cuSPARSE time (f32), the union slots
+    # and the products
+    for kname, key, replaces, also in (
+            ("block_dense_grouped", "K16",
+             "pipegcn_tpu/ops/block_spmm.py:558",
+             ["pipegcn_tpu/ops/block_spmm.py:154",
+              "pipegcn_tpu/ops/block_spmm.py:418",
+              "pipegcn_tpu/ops/block_spmm.py:648"]),
+            ("block_dense_grouped_t", "K17",
+             "pipegcn_tpu/ops/block_spmm.py:558",
+             ["pipegcn_tpu/ops/block_spmm.py:154",
+              "pipegcn_tpu/ops/block_spmm.py:691"])):
+        for mode, tm, run in (
+                ("bfloat16", gt16b, wire_stats),
+                ("float32", gt32, wire_stats["groups"])):
+            e = kernel_entry(
+                f"{kname}[{'bf16' if mode == 'bfloat16' else 'f32'}]",
+                src + "block_spmm.cu", replaces,
+                run["launches_by_mode"][kname][mode], errs["K16/K17"],
+                tm[key])
+            e["launches_run"] = ("the wire cell's" if run is wire_stats
+                                 else "the group 2 / 4 / 8 runs'")
+            for f in ("a_bytes", "a_bytes_ms", "tile_floor_bf16_tc_ms",
+                      "tile_floor_f32_ms", "union_slots", "pairs"):
+                e[f] = tm[key][f]
+            e["group1_ms"] = (kt16 if mode == "bfloat16" else kt)[
+                "K12" if key == "K16" else "K13"]["ms"]
+            e["also_replaces"] = also
+            kernels.append(e)
+
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "serving": {"dataset": args.dataset,
@@ -3699,6 +4452,16 @@ def main() -> int:
                  f"of --rem-dtype bfloat16 and none"],
         **bf16_gat, "step_check": bf16_gat_step,
         "xla_graphsage_bf16": bf16_xla, "card": smi}}))
+    print(json.dumps({"wire_block_training": {
+        "dataset": args.dataset,
+        "cell": "union-gather block + fp8 halo wire: scripts/reddit.sh + "
+                "--dtype bfloat16 " + " ".join(WIRE_FLAGS) + " (graphsage "
+                "4x256 --use-pp --inductive --enable-pipeline, dropout 0.5,"
+                " lr 0.01, LayerNorm, 2 metis parts, the cluster layout)",
+        "cuts": [f"{args.wire_epochs} epochs (not 3000), then 2 each of "
+                 f"--halo-dtype bfloat16 and none"],
+        **wire_stats, "step_check": wire_step, "kernel_timings": wt,
+        "tile_timings": gt32, "tile_timings_bf16": gt16b, "card": smi}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,7 +17,8 @@ parser's names and defaults (``cli/parser.py``), and the model family's
 (``--model {graphsage,gcn,gat}``, ``--n-heads``), the bucket and block
 aggregations' (``--spmm-impl``, ``--rem-dtype``, ``--rem-amax``,
 ``--bucket-merge``, ``--spmm-chunk``, ``--block-tile``, ``--block-nnz``,
-``--block-group``) and the local-id layout's (``--local-reorder``, by
+``--block-group``), the halo wire's (``--halo-dtype``) and the local-id
+layout's (``--local-reorder``, by
 default ``cluster`` as in JAX: locality clusters of the train subgraph
 under ``--inductive``, ``--cluster-size``), plus ``--device``. As in
 the JAX CLI, the seed is drawn at random unless ``--fix-seed``. Runs on
@@ -50,6 +51,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--n-partitions", "--n_partitions", type=int, default=2)
     p.add_argument("--n-hidden", "--n_hidden", type=int, default=16)
     p.add_argument("--n-layers", "--n_layers", type=int, default=2)
+    p.add_argument("--n-linear", "--n_linear", type=int, default=0,
+                   help="dense layers after the graph layers (the dense "
+                        "tail waits for ROADMAP A5: > 0 is refused)")
     p.add_argument("--norm", choices=["layer", "batch", "none"],
                    default="layer")
     p.add_argument("--weight-decay", "--weight_decay", type=float,
@@ -93,8 +97,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="minimum edges for a tile pair to go dense in the "
                         "block kernel (0 = read-cost break-even)")
     p.add_argument("--block-group", "--block_group", type=int, default=1,
-                   help="union-gather group of the block kernel's dense "
-                        "path (1 = per-tile pair lists; > 1 is ROADMAP A6)")
+                   help="union-gather group: that many consecutive dst "
+                        "tiles share one gathered source-tile union in the "
+                        "block kernel's dense path (K16/K17; 1 = per-tile "
+                        "pair lists, K12/K13)")
     add_layout_flags(p)
     p.add_argument("--n-heads", "--n_heads", type=int, default=4,
                    help="attention heads for --model gat")
@@ -111,6 +117,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "gathered tensor by a power of two from its amax "
                         "(K11) before the cast (only with --rem-dtype "
                         "float8)")
+    p.add_argument("--halo-dtype", "--halo_dtype",
+                   choices=["none", "bfloat16", "float8"], default="none",
+                   help="wire dtype of the halo exchange and boundary-"
+                        "gradient return (pipelined mode only): bfloat16, "
+                        "or float8 (e4m3 features / e5m2 bgrads, one "
+                        "power-of-two scale a distance block: K14/K15); "
+                        "decoded back to the compute dtype on receipt")
     p.add_argument("--device", type=str, default=None,
                    help="cuda (default) or cpu; no silent fallback")
     return p
@@ -158,7 +171,7 @@ def configs(args, sg):
                       block_tile=args.block_tile,
                       block_nnz=args.block_nnz or None,
                       block_group=args.block_group,
-                      use_pp=args.use_pp,
+                      n_linear=args.n_linear, use_pp=args.use_pp,
                       norm=None if args.norm == "none" else args.norm,
                       dropout=args.dropout, train_size=sg.n_train_global,
                       dtype=args.dtype)
@@ -168,7 +181,7 @@ def configs(args, sg):
                        feat_corr=args.feat_corr, grad_corr=args.grad_corr,
                        corr_momentum=args.corr_momentum,
                        log_every=args.log_every, seed=args.seed,
-                       eval=args.eval)
+                       eval=args.eval, halo_dtype=args.halo_dtype)
     return cfg, tcfg
 
 

@@ -14,9 +14,10 @@ Only what the ported slices run is here: LayerNorm or no norm, float32
 or bfloat16 compute, 32-bit dropout masks, the raw CSR aggregation, the
 bucket tables with their narrowed gather transport (GraphSAGE and GCN;
 GAT's attention kernels take the same transport) and the block-dense
-tiles at ``block_group = 1``. BatchNorm, the dense tail, 8-bit dropout
-masks, the union-gather block layout and the ``auto`` tuner raise
-``NotImplementedError`` naming their ROADMAP item.
+tiles, per-tile pair lists (``block_group = 1``) or union-gather groups
+(``block_group > 1``). BatchNorm, the dense tail, 8-bit dropout masks and
+the ``auto`` tuner raise ``NotImplementedError`` naming their ROADMAP
+item.
 
 bfloat16 compute is the JAX package's (``ModelConfig.compute_dtype``,
 ``forward``'s ``dense``): activations, halo rows and aggregation inputs
@@ -69,7 +70,8 @@ class ModelConfig:
     # read-cost break-even tile*tile/n_feat (ops/block_spmm.BlockPlan)
     block_nnz: Optional[int] = None
     # union-gather group of the block kernel's dense path; 1 = per-tile
-    # pair lists (the only layout ported)
+    # pair lists, > 1 = that many consecutive tiles share one gathered
+    # union of source tiles
     block_group: int = 1
     # the bucket path's gather transport (ops/bucket_spmm): None |
     # 'bfloat16' | 'float8' (e4m3 activations, e5m2 cotangents); a no-op
@@ -109,10 +111,6 @@ class ModelConfig:
             raise NotImplementedError(
                 f"spmm_impl='auto' for {self.model} (the measured tuner) "
                 "waits for ROADMAP A6; pass xla, bucket or block")
-        if self.spmm_impl == "block" and self.block_group > 1:
-            raise NotImplementedError(
-                f"block_group={self.block_group} (the union-gather layout) "
-                "waits for ROADMAP A6; the port runs block_group 1")
         if self.n_linear:
             raise NotImplementedError("the dense tail (n_linear > 0) "
                                       "waits for ROADMAP A5")

@@ -1,5 +1,6 @@
 """Hybrid block-dense mean aggregation — port of
-``pipegcn_tpu/ops/block_spmm.py`` at ``group = 1``.
+``pipegcn_tpu/ops/block_spmm.py``, with per-tile pair lists (``group =
+1``) or the union-gather layout (``--block-group > 1``).
 
 Dense (destination-tile, source-tile) blocks of a part's adjacency, the
 ones holding at least ``nnz_threshold`` edges (by default the read-cost
@@ -9,7 +10,7 @@ of ``ops/bucket_spmm.py`` (K9, with its gather transport). The sum of the
 two is divided by ``in_deg`` once.
 
 Host half (numpy): ``DENSE_A_BYTE_BUDGET``, ``budget_block_cap``,
-``_max_group_count``, ``_group_by_key``,
+``_max_group_count``, ``_group_by_key``, ``_group_union``,
 ``_part_block_stats``, ``estimate_block_coverage``, ``BlockPlan`` and
 ``build_sharded_block_tables`` (the A-encoding fixpoint, the byte-budget
 cap, the unified ladders and the reoffset ``inv``\\ s). The stacked tables
@@ -25,9 +26,7 @@ these differences of representation:
   - the build sorts each part's edges once and rebuilds only the
     tables (never the selection) for the unified ladders;
   - ``np.unique`` over large arrays is an explicit sort.
-Not ported: the union-gather layout (``block_group > 1``,
-``_group_union`` / ``_dense_apply_grouped``, ROADMAP A6) and the
-remainder's slab-run plans (a TPU row-gather mechanism).
+Not ported: the remainder's slab-run plans (a TPU row-gather mechanism).
 
 Device half:
   - :func:`stage_block_tables` flattens each direction's width classes
@@ -35,13 +34,21 @@ Device half:
     path): forward keyed by destination tile, backward by source tile,
     each tile's ``(A block, input tile)`` pairs in the JAX class order,
     the pad pairs (block ``B_max``, the zero tile) dropped;
+  - with ``group > 1`` it flattens each direction's U-width classes into
+    per-group lists instead: each group of ``group`` consecutive output
+    tiles walks its union of input tiles, each union slot naming the A
+    block of every tile of the group that multiplies it (``b_max`` where
+    none does), pad slots and cap-padding rows dropped;
   - kernels K12 (:func:`block_dense`, the forward tile products) and K13
-    (:func:`block_dense_t`, the transpose over the same A blocks), in
-    ``csrc/block_spmm.cu``, over f32 input rows or, at bf16 compute, bf16
-    rows (JAX multiplies in the input's dtype with f32 products:
+    (:func:`block_dense_t`, the transpose over the same A blocks), and
+    over the union groups K16 (:func:`block_dense_grouped`) and K17
+    (:func:`block_dense_grouped_t`), in ``csrc/block_spmm.cu``, over f32
+    input rows or, at bf16 compute, bf16 rows (JAX multiplies in the input's dtype with f32 products:
     ``_dense_apply``'s ``compute_dtype``); :func:`block_dense_plain` is
     their plain version (unpack, ``bmm`` per chunk of pairs in f32 over
-    the exactly widened rows, ``index_add_``);
+    the exactly widened rows, ``index_add_``), and of K16 / K17 over the
+    groups' (tile, slot) entries with a block (JAX's ``_dense_apply_grouped``
+    multiplies the zero block at the others: the sum is the same);
   - :class:`BlockSpmm`, the autograd function of ``make_block_spmm_fn``
     in the JAX order: forward ``(dense(fbuf) + K9(cast(fbuf)) *
     inv_scale) / in_deg`` (the dense path never takes the transport);
@@ -135,6 +142,85 @@ def _group_by_key(keys, vals_a, vals_b, n_groups, widths, pad_a, pad_b):
         offset += n_w
     inv[inv < 0] = offset
     return mats, inv.astype(np.int32), counts
+
+
+def _group_union(keys: np.ndarray, others: np.ndarray, n_key_tiles: int,
+                 n_other_tiles: int, group: int, n_blocks_pad: int,
+                 widths: Optional[Sequence[int]] = None):
+    """Union-gather grouping (the JAX function): ``group`` consecutive key
+    tiles share one union of their blocks' other tiles. ``keys`` /
+    ``others`` ``[B]``: each dense block's key tile and other tile (dst /
+    src forward, src / dst for the transpose). Returns ``(classes, inv,
+    counts, widths)``: ``classes[w] = (a_idx [R_w, group, widths[w]],
+    t_mat [R_w, widths[w]])`` int32, the A block of each (tile of the
+    group, union slot) (pad ``n_blocks_pad``) and each slot's other tile
+    (pad ``n_other_tiles``); ``inv [n_key_tiles]`` int32 the position ``r
+    * group + d`` of each key tile in the class concatenation (tiles whose
+    group has no block: ``sum(R_w) * group``); ``counts[w]`` the rows of
+    class w. Groups go into x1.5-ladder U-width classes; a given ladder
+    that tops out below the widest union is extended."""
+    B = int(keys.shape[0])
+    n_groups_max = -(-n_key_tiles // group)
+    if B == 0:
+        widths = list(widths) if widths is not None else [1]
+        classes = [(np.full((0, group, w), n_blocks_pad, np.int32),
+                    np.full((0, w), n_other_tiles, np.int32))
+                   for w in widths]
+        inv = np.zeros(n_key_tiles, np.int32)
+        return classes, inv, [0] * len(widths), widths
+    gid = keys // group
+    order = np.lexsort((others, gid))
+    g_o, o_o = gid[order], others[order]
+    blk_o = np.arange(B, dtype=np.int64)[order]
+    d_o = (keys[order] % group).astype(np.int64)
+    ug, gcnt = _run_lengths(g_o)
+    grow = np.repeat(np.arange(ug.shape[0]), gcnt)  # block -> group row
+    # a block starts a new union slot iff its (group, other) differs from
+    # the previous block's (blocks sorted by (group, other))
+    new_flag = np.ones(B, bool)
+    new_flag[1:] = (g_o[1:] != g_o[:-1]) | (o_o[1:] != o_o[:-1])
+    slot = np.cumsum(new_flag) - 1
+    gstart = np.zeros(ug.shape[0], np.int64)
+    gstart[1:] = np.cumsum(gcnt)[:-1]
+    first = slot[gstart]
+    u_idx = slot - first[grow]
+    u_of_group = np.add.reduceat(new_flag, gstart).astype(np.int64)
+
+    if widths is None:
+        widths = _bucket_widths(int(u_of_group.max(initial=1)))
+    widths = list(widths)
+    max_u = int(u_of_group.max(initial=0))
+    if max_u > widths[-1]:
+        widths += [w for w in _bucket_widths(max_u) if w > widths[-1]]
+    widths_arr = np.asarray(widths, dtype=np.int64)
+    wid = np.minimum(np.searchsorted(widths_arr, np.maximum(u_of_group, 1)),
+                     len(widths) - 1)
+
+    classes, counts = [], []
+    concat_row = np.full(n_groups_max, -1, np.int64)
+    offset = 0
+    for w_i, w in enumerate(widths):
+        gsel = np.nonzero(wid == w_i)[0]
+        n_w = int(gsel.shape[0])
+        a_idx = np.full((n_w, group, w), n_blocks_pad, np.int32)
+        t_mat = np.full((n_w, w), n_other_tiles, np.int32)
+        if n_w:
+            cls_row = np.full(ug.shape[0], -1, np.int64)
+            cls_row[gsel] = np.arange(n_w)
+            bsel = cls_row[grow] >= 0
+            r = cls_row[grow[bsel]]
+            a_idx[r, d_o[bsel], u_idx[bsel]] = blk_o[bsel]
+            nf = bsel & new_flag
+            t_mat[cls_row[grow[nf]], u_idx[nf]] = o_o[nf]
+            concat_row[ug[gsel]] = offset + cls_row[gsel]
+        classes.append((a_idx, t_mat))
+        counts.append(n_w)
+        offset += n_w
+    key_tiles = np.arange(n_key_tiles, dtype=np.int64)
+    gr = concat_row[key_tiles // group]
+    inv = np.where(gr >= 0, gr * group + key_tiles % group,
+                   offset * group)
+    return classes, inv.astype(np.int32), counts, widths
 
 
 def _run_lengths(sorted_keys: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -235,15 +321,17 @@ class PartEdges:
 
 
 class BlockPlan:
-    """One part's hybrid plan (the JAX ``BlockPlan`` at group 1, numpy):
-    the dense blocks (``B``, ``dense_ids``; A in its stored encoding from
-    :meth:`a_stored`), the per-tile pair lists in width classes
-    (``fwd_groups`` / ``fwd_ginv`` / ``fwd_gcounts`` per destination tile,
-    ``bwd_*`` per source tile, ladders ``fwd_k_widths`` /
-    ``bwd_k_widths``) and the remainder's bucket tables both ways
-    (``rem_fwd_*``, ``rem_bwd_*``). ``edges`` is the part's
-    :class:`PartEdges`; without explicit ladders each is the part's own,
-    as in JAX."""
+    """One part's hybrid plan (the JAX ``BlockPlan``, numpy): the dense
+    blocks (``B``, ``dense_ids``; A in its stored encoding from
+    :meth:`a_stored`), at ``group`` 1 the per-tile pair lists in width
+    classes (``fwd_groups`` / ``fwd_ginv`` / ``fwd_gcounts`` per
+    destination tile, ``bwd_*`` per source tile), at ``group > 1`` the
+    union-gather classes (``fwd_u_classes`` / ``fwd_u_inv`` /
+    ``fwd_u_counts``, ``bwd_u_*``; :func:`_group_union`), the ladders
+    ``fwd_k_widths`` / ``bwd_k_widths`` of either, and the remainder's
+    bucket tables both ways (``rem_fwd_*``, ``rem_bwd_*``). ``edges`` is
+    the part's :class:`PartEdges`; without explicit ladders each is the
+    part's own, as in JAX."""
 
     def __init__(self, edges: PartEdges, n_feat: int,
                  nnz_threshold: Optional[int] = None,
@@ -251,9 +339,10 @@ class BlockPlan:
                  bwd_widths: Optional[Sequence[int]] = None,
                  fwd_k_widths: Optional[Sequence[int]] = None,
                  bwd_k_widths: Optional[Sequence[int]] = None,
-                 max_blocks: Optional[int] = None):
+                 max_blocks: Optional[int] = None, group: int = 1):
         e = edges
         T = self.tile = e.tile
+        self.group = max(1, int(group))
         self.n_out, self.n_src_rows = e.n_out, e.n_src_rows
         self.n_dst_tiles, self.n_src_tiles = e.n_dst_tiles, e.n_src_tiles
         if nnz_threshold is None:
@@ -284,18 +373,32 @@ class BlockPlan:
         bd = (self.dense_ids // e.n_src_tiles).astype(np.int64)
         bs = (self.dense_ids % e.n_src_tiles).astype(np.int64)
         blk_idx = np.arange(B, dtype=np.int64)
-        self.fwd_k_widths = list(
-            fwd_k_widths if fwd_k_widths is not None
-            else _bucket_widths(_max_group_count(bd, e.n_dst_tiles)))
-        self.bwd_k_widths = list(
-            bwd_k_widths if bwd_k_widths is not None
-            else _bucket_widths(_max_group_count(bs, e.n_src_tiles)))
-        self.fwd_groups, self.fwd_ginv, self.fwd_gcounts = _group_by_key(
-            bd, blk_idx, bs, e.n_dst_tiles, self.fwd_k_widths, pad_a=B,
-            pad_b=e.n_src_tiles)
-        self.bwd_groups, self.bwd_ginv, self.bwd_gcounts = _group_by_key(
-            bs, blk_idx, bd, e.n_src_tiles, self.bwd_k_widths, pad_a=B,
-            pad_b=e.n_dst_tiles)
+        if self.group > 1:
+            # union-gather: `group` consecutive key tiles share one union
+            # of other tiles (_group_union)
+            (self.fwd_u_classes, self.fwd_u_inv, self.fwd_u_counts,
+             self.fwd_k_widths) = _group_union(
+                bd, bs, e.n_dst_tiles, e.n_src_tiles, self.group, B,
+                widths=fwd_k_widths)
+            (self.bwd_u_classes, self.bwd_u_inv, self.bwd_u_counts,
+             self.bwd_k_widths) = _group_union(
+                bs, bd, e.n_src_tiles, e.n_dst_tiles, self.group, B,
+                widths=bwd_k_widths)
+        else:
+            self.fwd_k_widths = list(
+                fwd_k_widths if fwd_k_widths is not None
+                else _bucket_widths(_max_group_count(bd, e.n_dst_tiles)))
+            self.bwd_k_widths = list(
+                bwd_k_widths if bwd_k_widths is not None
+                else _bucket_widths(_max_group_count(bs, e.n_src_tiles)))
+            self.fwd_groups, self.fwd_ginv, self.fwd_gcounts = \
+                _group_by_key(bd, blk_idx, bs, e.n_dst_tiles,
+                              self.fwd_k_widths, pad_a=B,
+                              pad_b=e.n_src_tiles)
+            self.bwd_groups, self.bwd_ginv, self.bwd_gcounts = \
+                _group_by_key(bs, blk_idx, bd, e.n_src_tiles,
+                              self.bwd_k_widths, pad_a=B,
+                              pad_b=e.n_dst_tiles)
 
         # the sparse remainder, in block order (the JAX order), through
         # the bucket tables both ways
@@ -399,17 +502,16 @@ def build_sharded_block_tables(sg, tile: int = 256, n_feat_hint: int = 256,
     keys ``blk_a_bits`` ``[P, B_max, T, T//8]`` uint8 (or ``blk_a`` ``[P,
     B_max, T, T]`` int8 / bf16 as uint16 bits / f32), ``blk_fwd_gNNb`` /
     ``blk_fwd_gNNt`` ``[P, cap, w]``, ``blk_fwd_ginv`` ``[P,
-    n_dst_tiles]``, the ``blk_bwd_*`` transpose, ``blkrem_fwd_NN`` /
-    ``blkrem_fwd_inv`` and ``blkrem_bwd_*``. The A encoding is the
+    n_dst_tiles]``, the ``blk_bwd_*`` transpose (at ``group > 1`` in their
+    place ``blk_fwdu_gNNa`` ``[P, cap, group, w]`` / ``blk_fwdu_gNNt``
+    ``[P, cap, w]``, ``blk_fwdu_inv`` ``[P, n_dst_tiles]`` and the
+    ``blk_bwdu_*`` transpose), ``blkrem_fwd_NN`` / ``blkrem_fwd_inv`` and
+    ``blkrem_bwd_*``. The A encoding is the
     narrowest exact one, found by the JAX fixpoint (the byte budget's
     block cap depends on the bits an entry, and the counts the kept
     blocks hold decide the bits). ``stats``, when given, receives per-part
     lists ``blocks``, ``dense_edges``, ``edges`` and ``a_bytes``, the
     shipped ``bits`` an entry and the block ``cap``."""
-    if group > 1:
-        raise NotImplementedError(
-            "block_group > 1 (the union-gather layout, _group_union) waits "
-            "for ROADMAP A6")
     P = sg.num_parts
     n_src_rows = sg.n_max + sg.halo_size
     edges = [PartEdges(sg.edge_src[r], sg.edge_dst[r], sg.n_max,
@@ -419,7 +521,7 @@ def build_sharded_block_tables(sg, tile: int = 256, n_feat_hint: int = 256,
         kw = dict(zip(("fwd_widths", "bwd_widths", "fwd_k_widths",
                        "bwd_k_widths"), ladders or (None,) * 4))
         return [BlockPlan(e, n_feat_hint, nnz_threshold=nnz_threshold,
-                          max_blocks=cap, **kw) for e in edges]
+                          max_blocks=cap, group=group, **kw) for e in edges]
 
     bits = 1
     while True:
@@ -446,8 +548,15 @@ def build_sharded_block_tables(sg, tile: int = 256, n_feat_hint: int = 256,
                 for b in range(len(fw))]
     bwd_caps = [max(p.rem_bwd_counts[b] for p in plans)
                 for b in range(len(bw))]
-    fk_caps = [max(p.fwd_gcounts[w] for p in plans) for w in range(len(fk))]
-    bk_caps = [max(p.bwd_gcounts[w] for p in plans) for w in range(len(bk))]
+    def dense_counts(p, direction):
+        if group > 1:
+            return p.fwd_u_counts if direction == "fwd" else p.bwd_u_counts
+        return p.fwd_gcounts if direction == "fwd" else p.bwd_gcounts
+
+    fk_caps = [max(dense_counts(p, "fwd")[w] for p in plans)
+               for w in range(len(fk))]
+    bk_caps = [max(dense_counts(p, "bwd")[w] for p in plans)
+               for w in range(len(bk))]
 
     tables: Dict[str, List[np.ndarray]] = {}
     for p in plans:
@@ -459,24 +568,47 @@ def build_sharded_block_tables(sg, tile: int = 256, n_feat_hint: int = 256,
                                             fwd_caps),
             "blkrem_bwd_inv": _reoffset_inv(p.rem_bwd_inv, p.rem_bwd_counts,
                                             bwd_caps),
-            "blk_fwd_ginv": _reoffset_inv(p.fwd_ginv, p.fwd_gcounts,
-                                          fk_caps),
-            "blk_bwd_ginv": _reoffset_inv(p.bwd_ginv, p.bwd_gcounts,
-                                          bk_caps),
         }
-        for direction, groups, caps in (("fwd", p.fwd_groups, fk_caps),
-                                        ("bwd", p.bwd_groups, bk_caps)):
-            for w_i, (a_mat, b_mat) in enumerate(groups):
-                if not caps[w_i]:
-                    continue
-                # this part's pad block B -> the shared zero block B_max
-                a_mat = np.where(a_mat == B, B_max, a_mat)
-                arrs[f"blk_{direction}_g{w_i:02d}b"] = _pad_rows(
-                    a_mat, caps[w_i], B_max).astype(np.int32)
-                arrs[f"blk_{direction}_g{w_i:02d}t"] = _pad_rows(
-                    b_mat, caps[w_i],
-                    p.n_src_tiles if direction == "fwd"
-                    else p.n_dst_tiles).astype(np.int32)
+        if group > 1:
+            # inv holds r * group + d: the row part moves to the shared
+            # caps (the sentinel sum(counts) * group -> sum(caps) * group)
+            for direction, inv, counts, caps in (
+                    ("fwd", p.fwd_u_inv, p.fwd_u_counts, fk_caps),
+                    ("bwd", p.bwd_u_inv, p.bwd_u_counts, bk_caps)):
+                arrs[f"blk_{direction}u_inv"] = (
+                    _reoffset_inv(inv // group, counts, caps)
+                    .astype(np.int64) * group + inv % group).astype(np.int32)
+            for direction, classes, caps in (
+                    ("fwd", p.fwd_u_classes, fk_caps),
+                    ("bwd", p.bwd_u_classes, bk_caps)):
+                for w_i, (a_idx, t_mat) in enumerate(classes):
+                    if not caps[w_i]:
+                        continue
+                    a_idx = np.where(a_idx == B, B_max, a_idx)
+                    arrs[f"blk_{direction}u_g{w_i:02d}a"] = _pad_rows(
+                        a_idx, caps[w_i], B_max).astype(np.int32)
+                    arrs[f"blk_{direction}u_g{w_i:02d}t"] = _pad_rows(
+                        t_mat, caps[w_i],
+                        p.n_src_tiles if direction == "fwd"
+                        else p.n_dst_tiles).astype(np.int32)
+        else:
+            arrs["blk_fwd_ginv"] = _reoffset_inv(p.fwd_ginv, p.fwd_gcounts,
+                                                 fk_caps)
+            arrs["blk_bwd_ginv"] = _reoffset_inv(p.bwd_ginv, p.bwd_gcounts,
+                                                 bk_caps)
+            for direction, groups, caps in (("fwd", p.fwd_groups, fk_caps),
+                                            ("bwd", p.bwd_groups, bk_caps)):
+                for w_i, (a_mat, b_mat) in enumerate(groups):
+                    if not caps[w_i]:
+                        continue
+                    # this part's pad block B -> the shared zero block
+                    a_mat = np.where(a_mat == B, B_max, a_mat)
+                    arrs[f"blk_{direction}_g{w_i:02d}b"] = _pad_rows(
+                        a_mat, caps[w_i], B_max).astype(np.int32)
+                    arrs[f"blk_{direction}_g{w_i:02d}t"] = _pad_rows(
+                        b_mat, caps[w_i],
+                        p.n_src_tiles if direction == "fwd"
+                        else p.n_dst_tiles).astype(np.int32)
         for b in range(len(fw)):
             if fwd_caps[b]:
                 arrs[f"blkrem_fwd_{b:02d}"] = _pad_rows(
@@ -494,7 +626,7 @@ def build_sharded_block_tables(sg, tile: int = 256, n_feat_hint: int = 256,
             dense_edges=[p.dense_edges for p in plans],
             edges=[p.dense_edges + p.rem_count for p in plans],
             a_bytes=[int(a.nbytes) for a in tables[a_key]], bits=emit_bits,
-            cap=cap)
+            cap=cap, group=group)
     return {k: np.stack(v) for k, v in tables.items()}, tile
 
 
@@ -523,24 +655,56 @@ class BlockSide:
 
 
 @dataclasses.dataclass
+class GroupSide:
+    """One direction's union-gather lists (``group > 1``), flattened for
+    K16/K17: the group of output tiles ``j*group .. j*group + group - 1``
+    of part p walks the union slots ``ptr[p, j] .. ptr[p, j + 1]``; slot k
+    holds its input tile ``tile[p, k]`` and, for each tile d of the
+    group, the A block that multiplies it there, ``blk[p, k, d]``
+    (``b_max``: none). ``ptr`` ``[P, n_groups + 1]``, ``tile`` ``[P,
+    n_slots]``, ``blk`` ``[P, n_slots, group]``, int32. ``n_out`` /
+    ``n_in`` are the output and input row counts, ``n_out_tiles`` the
+    output tiles; ``transpose`` marks the backward (A^T)."""
+
+    ptr: torch.Tensor
+    tile: torch.Tensor
+    blk: torch.Tensor
+    group: int
+    n_out: int
+    n_in: int
+    n_out_tiles: int
+    transpose: bool
+
+    @property
+    def n_groups(self) -> int:
+        return int(self.ptr.shape[1]) - 1
+
+
+@dataclasses.dataclass
 class BlockTables:
     """The staged block tables of P parts: ``a`` the A blocks ``[P, B_max,
     T, T//8]`` uint8 when ``packed`` (1 bit an entry), else ``[P, B_max, T,
-    T]`` int8 / bfloat16 / float32; the dense pair lists ``fwd`` (keyed by
-    destination tile) and ``bwd`` (by source tile); the remainder's bucket
-    tables ``rem_fwd`` / ``rem_bwd`` (K9's)."""
+    T]`` int8 / bfloat16 / float32; the dense lists ``fwd`` (keyed by
+    destination tile) and ``bwd`` (by source tile), per-tile pairs
+    (:class:`BlockSide`) or, at ``group > 1``, union groups
+    (:class:`GroupSide`); the remainder's bucket tables ``rem_fwd`` /
+    ``rem_bwd`` (K9's)."""
 
     a: torch.Tensor
     packed: bool
     tile: int
-    fwd: BlockSide
-    bwd: BlockSide
+    fwd: "BlockSide | GroupSide"
+    bwd: "BlockSide | GroupSide"
     rem_fwd: BucketSide
     rem_bwd: BucketSide
 
     @property
     def b_max(self) -> int:
         return int(self.a.shape[1])
+
+    @property
+    def group(self) -> int:
+        return self.fwd.group if isinstance(self.fwd, GroupSide) else 1
 
 
 def _class_keys(tables, direction: str) -> List[str]:
@@ -601,11 +765,87 @@ def _flatten_pairs(tables, direction: str, b_max: int, n_in_tiles: int):
     return ptr, blk, til
 
 
+def _flatten_unions(tables, direction: str, b_max: int, n_in_tiles: int):
+    """``(ptr, tile, blk, group)`` numpy of one direction's union-gather
+    classes: each group of output tiles' union slots in class order (the
+    row its tiles' ``inv`` points at, slot by slot), slots with no block
+    or the zero tile and cap-padding rows dropped. Raises on an index out
+    of range or an ``inv`` that does not map a group's tiles to one row."""
+    inv = np.asarray(tables[f"blk_{direction}u_inv"]).astype(np.int64)
+    P, n_tiles = inv.shape
+    keys = sorted(k[:-1] for k in tables
+                  if k.startswith(f"blk_{direction}u_g") and k.endswith("a"))
+    mats = [(np.asarray(tables[k + "a"]), np.asarray(tables[k + "t"]))
+            for k in keys]
+    if not mats:
+        raise ValueError(f"block tables hold blk_{direction}u_inv but no "
+                         f"blk_{direction}u_g* class")
+    group = int(mats[0][0].shape[2])
+    caps = [int(a.shape[1]) for a, _ in mats]
+    total = sum(caps)
+    sentinel = total * group
+    n_groups = -(-n_tiles // group)
+    tid = np.arange(n_tiles)
+    per_part = []
+    for p in range(P):
+        iv = inv[p]
+        if int(iv.min(initial=0)) < 0 or int(iv.max(initial=0)) > sentinel:
+            raise ValueError(f"block table blk_{direction}u_inv holds "
+                             f"positions out of [0, {sentinel}]")
+        real = iv != sentinel
+        row = np.where(real, iv // group, -1)
+        starts = np.arange(0, n_tiles, group)
+        if (real & (iv % group != tid % group)).any() or (
+                np.minimum.reduceat(row, starts)
+                != np.maximum.reduceat(row, starts)).any():
+            raise ValueError(f"block table blk_{direction}u_inv does not map "
+                             f"each group's tiles to one row")
+        grow = row[starts]  # each group's class row, -1: no block
+        used = grow[grow >= 0]
+        if np.unique(used).shape[0] != used.shape[0]:
+            raise ValueError(f"block table blk_{direction}u_inv maps two "
+                             f"groups to one row")
+        gl, ul, tl, bl = [], [], [], []
+        off = 0
+        for (a, t), cap in zip(mats, caps):
+            gsel = np.nonzero((grow >= off) & (grow < off + cap))[0]
+            lr = grow[gsel] - off
+            ab = a[p][lr].transpose(0, 2, 1)  # [n, w, group]
+            tt = t[p][lr]                     # [n, w]
+            keep = (tt != n_in_tiles) & (ab != b_max).any(axis=2)
+            r, c = np.nonzero(keep)
+            gl.append(gsel[r])
+            ul.append(c)
+            tl.append(tt[r, c])
+            bl.append(ab[r, c])
+            off += cap
+        g, u, til = (np.concatenate(x) for x in (gl, ul, tl))
+        blk = np.concatenate(bl).reshape(-1, group)
+        order = np.lexsort((u, g))
+        g, til, blk = g[order], til[order], blk[order]
+        if til.size and (int(til.min()) < 0 or int(til.max()) >= n_in_tiles
+                         or int(blk.min()) < 0 or int(blk.max()) > b_max):
+            raise ValueError(f"block table blk_{direction}u_g* holds a block "
+                             f"or tile index out of range")
+        ptr = np.zeros(n_groups + 1, np.int64)
+        np.cumsum(np.bincount(g, minlength=n_groups), out=ptr[1:])
+        per_part.append((ptr, til, blk))
+    width = max(1, max(x[1].shape[0] for x in per_part))
+    ptr = np.stack([x[0] for x in per_part]).astype(np.int32)
+    til = np.zeros((P, width), np.int32)
+    blk = np.full((P, width, group), b_max, np.int32)
+    for p, (_, tk, bk) in enumerate(per_part):
+        til[p, :tk.shape[0]] = tk
+        blk[p, :bk.shape[0]] = bk
+    return ptr, til, blk, group
+
+
 def stage_block_tables(tables: Dict[str, np.ndarray], tile: int, n_max: int,
                        n_src: int, device: torch.device) -> BlockTables:
     """Both directions of :func:`build_sharded_block_tables` on ``device``
     (``n_src = n_max + H``): the A blocks as stored, the dense pair lists
-    and the remainder's bucket tables (``flatten_side``)."""
+    (or the union groups) and the remainder's bucket tables
+    (``flatten_side``)."""
     packed = "blk_a_bits" in tables
     a = np.asarray(tables["blk_a_bits" if packed else "blk_a"])
     b_max = int(a.shape[1])
@@ -615,11 +855,19 @@ def stage_block_tables(tables: Dict[str, np.ndarray], tile: int, n_max: int,
         a_t = torch.from_numpy(np.ascontiguousarray(a))
     n_dst_tiles, n_src_tiles = -(-n_max // tile), -(-n_src // tile)
     sides = {}
+    put = lambda x: torch.from_numpy(x).to(device)  # noqa: E731
     for direction, n_out, n_in, n_in_tiles in (
             ("fwd", n_max, n_src, n_src_tiles),
             ("bwd", n_src, n_max, n_dst_tiles)):
+        if "blk_fwdu_inv" in tables:
+            ptr, til, blk, group = _flatten_unions(tables, direction, b_max,
+                                                   n_in_tiles)
+            sides[direction] = GroupSide(
+                ptr=put(ptr), tile=put(til), blk=put(blk), group=group,
+                n_out=n_out, n_in=n_in, n_out_tiles=-(-n_out // tile),
+                transpose=direction == "bwd")
+            continue
         ptr, blk, til = _flatten_pairs(tables, direction, b_max, n_in_tiles)
-        put = lambda x: torch.from_numpy(x).to(device)  # noqa: E731
         sides[direction] = BlockSide(ptr=put(ptr), blk=put(blk),
                                      tile=put(til), n_out=n_out, n_in=n_in,
                                      transpose=direction == "bwd")
@@ -641,12 +889,14 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "pgt_block_dense": [_P, _I, _I, _I, _P, _I, _LL, _I, _P, _P, _P, _LL, _I,
                         _I, _I, _I, _P, _P],
+    "pgt_block_grouped": [_P, _I, _I, _I, _P, _I, _LL, _I, _I, _P, _P, _P,
+                          _LL, _I, _I, _I, _I, _P, _P],
 }
 # the kernel's A encodings
 _ENC = {torch.int8: 1, torch.bfloat16: 2, torch.float32: 3}
 
 
-def _check_dense(x: torch.Tensor, tables: BlockTables, side: BlockSide):
+def _check_dense(x: torch.Tensor, tables: BlockTables, side):
     if x.dim() != 3 or x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"x must be f32 or bf16 [P, n_in, F], got "
                          f"{x.dtype} {tuple(x.shape)}")
@@ -673,38 +923,61 @@ def _unpack(blocks: torch.Tensor, packed: bool) -> torch.Tensor:
     return bits.reshape(blocks.shape[:-1] + (-1,)).float()
 
 
+def _products(side, b_max: int, p: int, device: torch.device):
+    """``(owner, block, tile)``: part p's tile products in list order,
+    each one's output tile, A block and input tile (int64 on ``device``):
+    a pair list's pairs, or each union slot's (tile of the group, block)
+    entries that hold a block, in slot order."""
+    if isinstance(side, GroupSide):
+        ptr = side.ptr[p].long()
+        n = int(ptr[-1])
+        group_of = torch.repeat_interleave(
+            torch.arange(side.n_groups, device=ptr.device), ptr.diff())
+        blk = side.blk[p, :n].long()
+        k, d = (blk != b_max).nonzero(as_tuple=True)
+        owner = group_of[k] * side.group + d
+        return (owner.to(device), blk[k, d].to(device),
+                side.tile[p, :n].long()[k].to(device))
+    ptr = side.ptr[p].long()
+    n = int(ptr[-1])
+    owner = torch.repeat_interleave(
+        torch.arange(side.n_out_tiles, device=ptr.device), ptr.diff())
+    return (owner.to(device), side.blk[p, :n].long().to(device),
+            side.tile[p, :n].long().to(device))
+
+
 def block_dense_plain(x: torch.Tensor, tables: BlockTables,
-                      side: BlockSide) -> torch.Tensor:
-    """Plain PyTorch version of K12 (``side.transpose`` False) and K13:
-    for every output tile the sum over its pairs of ``A @ tile`` (K13
-    ``A^T @ tile``), the input zero-padded to whole tiles; unpacked and
-    multiplied by ``bmm`` a chunk of pairs at a time, summed into the
-    output tiles with ``index_add_``; bf16 rows widened to f32 exactly.
-    ``[P, n_out, F]`` f32, on any device."""
+                      side) -> torch.Tensor:
+    """Plain PyTorch version of K12 (``side.transpose`` False) and K13, and
+    over a :class:`GroupSide` of K16 / K17: for every output tile the sum
+    over its products of ``A @ tile`` (``A^T @ tile`` transposed), the
+    input zero-padded to whole tiles; unpacked and multiplied by ``bmm`` a
+    chunk of products at a time, summed into the output tiles with
+    ``index_add_``; bf16 rows widened to f32 exactly. ``[P, n_out, F]``
+    f32, on any device."""
     _check_dense(x, tables, side)
     P, R, F = x.shape
     T = tables.tile
     n_in_tiles = -(-R // T)
     n_tiles = side.n_out_tiles
+    if isinstance(side, GroupSide):
+        n_tiles = side.n_groups * side.group  # the last group's tail too
     xt = torch.zeros((P, n_in_tiles * T, F), dtype=torch.float32,
                      device=x.device)
     xt[:, :R] = x
     xt = xt.view(P, n_in_tiles, T, F)
     out = torch.zeros((P, n_tiles, T, F), dtype=torch.float32,
                       device=x.device)
-    ptr = side.ptr.cpu().long()
     step = max(1, PLAIN_ELEMS // (T * T + 2 * T * F))
     for p in range(P):
-        n = int(ptr[p, -1])
-        owner = torch.repeat_interleave(
-            torch.arange(n_tiles), ptr[p].diff()).to(x.device)
-        for i in range(0, n, step):
-            j = min(n, i + step)
-            a = _unpack(tables.a[p].index_select(0, side.blk[p, i:j].long()),
+        owner, blk, til = _products(side, tables.b_max, p, x.device)
+        for i in range(0, owner.shape[0], step):
+            j = min(owner.shape[0], i + step)
+            a = _unpack(tables.a[p].index_select(0, blk[i:j]),
                         tables.packed)
             if side.transpose:
                 a = a.transpose(1, 2)
-            tiles = xt[p].index_select(0, side.tile[p, i:j].long())
+            tiles = xt[p].index_select(0, til[i:j])
             out[p].index_add_(0, owner[i:j], torch.bmm(a, tiles))
     return out.reshape(P, n_tiles * T, F)[:, :side.n_out]
 
@@ -725,19 +998,30 @@ def _launch(x: torch.Tensor, tables: BlockTables,
     if side.ptr.dtype != torch.int32 or side.blk.dtype != torch.int32 \
             or side.tile.dtype != torch.int32:
         raise ValueError("block_dense: the pair lists must be int32")
+    grouped = isinstance(side, GroupSide)
+    G = side.group if grouped else 1
+    n_keys = side.n_groups if grouped else side.n_out_tiles
     if R >= 2 ** 31 or F >= 2 ** 31 or side.n_out >= 2 ** 31 \
-            or side.n_out_tiles > 65535 or P > 65535:
+            or n_keys * (-(-G * T // 256)) > 65535 or P > 65535:
         raise ValueError("block_dense: x too large for the kernel")
     out = torch.empty((P, side.n_out, F), dtype=torch.float32,
                       device=x.device)
     lib = _build.load("block_spmm", _SIGNATURES)
     enc = 0 if tables.packed else _ENC[tables.a.dtype]
-    rc = lib.pgt_block_dense(
-        x.data_ptr(), P, R, F, tables.a.data_ptr(), enc, tables.b_max, T,
-        side.ptr.data_ptr(), side.blk.data_ptr(), side.tile.data_ptr(),
-        side.blk.shape[1], side.n_out_tiles, side.n_out,
-        int(side.transpose), int(x.dtype == torch.bfloat16), out.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    xb = int(x.dtype == torch.bfloat16)
+    if grouped:
+        rc = lib.pgt_block_grouped(
+            x.data_ptr(), P, R, F, tables.a.data_ptr(), enc, tables.b_max,
+            T, G, side.ptr.data_ptr(), side.blk.data_ptr(),
+            side.tile.data_ptr(), side.tile.shape[1], n_keys, side.n_out,
+            int(side.transpose), xb, out.data_ptr(), stream)
+    else:
+        rc = lib.pgt_block_dense(
+            x.data_ptr(), P, R, F, tables.a.data_ptr(), enc, tables.b_max,
+            T, side.ptr.data_ptr(), side.blk.data_ptr(),
+            side.tile.data_ptr(), side.blk.shape[1], n_keys, side.n_out,
+            int(side.transpose), xb, out.data_ptr(), stream)
     _build.check(rc, "block_spmm")
     return out
 
@@ -768,11 +1052,66 @@ def block_dense_t(g: torch.Tensor, tables: BlockTables) -> torch.Tensor:
     return out
 
 
+def _grouped_side(tables: BlockTables, side):
+    if not isinstance(side, GroupSide):
+        raise ValueError("K16 / K17 take union-gather tables (block group "
+                         "> 1); K12 / K13 take the pair lists")
+    return side
+
+
+def block_dense_grouped(x: torch.Tensor, tables: BlockTables
+                        ) -> torch.Tensor:
+    """K16, the forward tile products over the union groups of
+    ``tables.fwd`` (``--block-group > 1``), on CUDA tensors (counted in
+    ``block_dense_grouped.launches`` and by row dtype in ``.by_mode``);
+    the plain version on CPU tensors; anything else raises."""
+    side = _grouped_side(tables, tables.fwd)
+    if x.device.type == "cpu":
+        return block_dense_plain(x, tables, side)
+    out = _launch(x, tables, side)
+    block_dense_grouped.launches += 1
+    block_dense_grouped.by_mode[str(x.dtype).split(".")[-1]] += 1
+    return out
+
+
+def block_dense_grouped_t(g: torch.Tensor, tables: BlockTables
+                          ) -> torch.Tensor:
+    """K17, the transpose over the union groups of ``tables.bwd`` (the same
+    A blocks, A^T), on CUDA tensors (counted in
+    ``block_dense_grouped_t.launches`` and ``.by_mode``); the plain
+    version on CPU tensors; anything else raises."""
+    side = _grouped_side(tables, tables.bwd)
+    if g.device.type == "cpu":
+        return block_dense_plain(g, tables, side)
+    out = _launch(g, tables, side)
+    block_dense_grouped_t.launches += 1
+    block_dense_grouped_t.by_mode[str(g.dtype).split(".")[-1]] += 1
+    return out
+
+
 block_dense.launches = 0
 block_dense_t.launches = 0
+block_dense_grouped.launches = 0
+block_dense_grouped_t.launches = 0
 # launches by input-row dtype (f32 mode, bf16 mode), beside the total
 block_dense.by_mode = {"float32": 0, "bfloat16": 0}
 block_dense_t.by_mode = {"float32": 0, "bfloat16": 0}
+block_dense_grouped.by_mode = {"float32": 0, "bfloat16": 0}
+block_dense_grouped_t.by_mode = {"float32": 0, "bfloat16": 0}
+
+
+def _dense(x: torch.Tensor, tables: BlockTables, transpose: bool,
+           plain: bool) -> torch.Tensor:
+    """The dense tiles' products of one direction: the plain version, or
+    K12 / K13 (pair lists) or K16 / K17 (union groups)."""
+    side = tables.bwd if transpose else tables.fwd
+    if plain:
+        return block_dense_plain(x, tables, side)
+    if isinstance(side, GroupSide):
+        fn = block_dense_grouped_t if transpose else block_dense_grouped
+    else:
+        fn = block_dense_t if transpose else block_dense
+    return fn(x, tables)
 
 
 # ---------------------------------------------------------------------------
@@ -791,8 +1130,7 @@ class BlockSpmm(torch.autograd.Function):
                 share):
         fwd_dt, bwd_dt = transport_dtypes(rem_dtype)
         x = fbuf.contiguous()  # f32, or bf16 rows: K12's bf16 mode
-        dense = (block_dense_plain(x, tables, tables.fwd) if plain
-                 else block_dense(x, tables))
+        dense = _dense(x, tables, False, plain)
         # the remainder's transport only: the dense path reads the rows
         # in their own dtype
         y, inv = _transport(x, fwd_dt, rem_amax, None, plain, share)
@@ -809,8 +1147,7 @@ class BlockSpmm(torch.autograd.Function):
         t = ctx.tables
         gf = g.float().contiguous()
         gd = (gf / in_deg[..., None]).to(ctx.fbuf_dtype)
-        dense = (block_dense_plain(gd, t, t.bwd) if ctx.plain
-                 else block_dense_t(gd, t))
+        dense = _dense(gd, t, True, ctx.plain)
         # the remainder's cast comes straight from the f32 cotangent, with
         # the division fused into it (bucket_spmm's single rounding)
         if ctx.bwd_dt is not None:

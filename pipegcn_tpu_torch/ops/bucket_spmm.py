@@ -540,9 +540,11 @@ def part_amax(x: torch.Tensor, deg: Optional[torch.Tensor] = None
     return bits.view(torch.float32)
 
 
-def _quantize(x, dt, deg, scale):
-    """The plain cast of x (/ deg) (* scale [P]) to dt: fp8 clamps to its
-    finite max first (JAX's clip-then-cast), bf16 rounds."""
+def quantize(x, dt, deg=None, scale=None):
+    """The plain cast of ``x [n, rows, F]`` (/ deg) (* scale ``[n]``) to
+    dt: fp8 clamps to its finite max first (JAX's clip-then-cast), bf16
+    rounds. The gather transport casts one block a part, the halo wire
+    (``parallel/halo.py``) one a (part, ring distance)."""
     xf = x.float()
     if deg is not None:
         xf = xf / deg[..., None]
@@ -566,9 +568,9 @@ def transport_cast_plain(x: torch.Tensor, dt: torch.dtype,
     if dt not in _OUT_TYPES:
         raise ValueError(f"unknown transport dtype {dt}")
     if amax is None or dt not in F8_MAX:
-        return _quantize(x, dt, deg, None), None
+        return quantize(x, dt, deg, None), None
     s = pow2_scale(amax, F8_MAX[dt])
-    return _quantize(x, dt, deg, s), 1.0 / s
+    return quantize(x, dt, deg, s), 1.0 / s
 
 
 def transport_cast(x: torch.Tensor, dt: torch.dtype,
@@ -624,9 +626,10 @@ part_amax.launches = 0
 
 @dataclasses.dataclass
 class TransportShare:
-    """Transported values shared between two runs. Without a ``source``
-    it records each cast's ``(y, inv_scale)`` in ``recorded``, in call
-    order. With one, every cast takes ``source(x, dt, deg) -> (y,
+    """Transported values shared between two runs: those of the gather
+    transport and of the halo wire (``parallel/halo.py``), in call order.
+    Without a ``source`` it records each cast's ``(y, inv_scale)`` in
+    ``recorded``. With one, every cast takes ``source(x, dt, deg) -> (y,
     inv_scale)`` (another run's values) instead of its own, and counts in
     ``flips`` the elements where its own cast of x, at that run's scale,
     would differ (NaN equal to NaN), out of ``elements``."""
@@ -642,6 +645,17 @@ class TransportShare:
         it = iter(recorded)
         return TransportShare(source=lambda x, dt, deg: next(it))
 
+    def take(self, x: torch.Tensor, dt: torch.dtype,
+             deg: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The source's ``(y, inv_scale)`` for the cast of ``x [n, rows,
+        F]`` (/ deg), with the flips of this run's own cast counted."""
+        y, inv = self.source(x, dt, deg)
+        own = quantize(x, dt, deg, None if inv is None else 1.0 / inv)
+        self.flips += _count_differing(own, y)
+        self.elements += own.numel()
+        return y, inv
+
 
 def _count_differing(a: torch.Tensor, b: torch.Tensor) -> int:
     """Elements of two same-typed tensors whose values differ, a NaN
@@ -656,12 +670,7 @@ def _transport(x, dt, amax, deg, plain, share):
     if dt is None:
         return x, None
     if share is not None and share.source is not None:
-        y, inv = share.source(x, dt, deg)
-        scale = None if inv is None else 1.0 / inv
-        own = _quantize(x, dt, deg, scale)
-        share.flips += _count_differing(own, y)
-        share.elements += own.numel()
-        return y, inv
+        return share.take(x, dt, deg)
     cast = transport_cast_plain if plain else transport_cast
     a = None
     if amax and dt in F8_MAX:

@@ -1,11 +1,14 @@
-// K12 and K13: the dense-tile products of the block-dense SpMM, written by
-// hand for Hopper (sm_90a). One template, two entry points' worth of work:
-// K12 the forward, K13 the transpose (the backward).
+// K12 / K13 and K16 / K17: the dense-tile products of the block-dense
+// SpMM, written by hand for Hopper (sm_90a). One template, four kernels'
+// worth of work: K12 the forward, K13 the transpose (the backward), over
+// per-tile pair lists; K16 / K17 the same over union-gather groups.
 //
-// They replace: pipegcn_tpu/ops/block_spmm.py  _dense_apply (with
+// K12 / K13 replace: pipegcn_tpu/ops/block_spmm.py  _dense_apply (with
 // _unpack_bits), inside make_block_spmm_fn / make_device_block_spmm_fn,
-// at group = 1 (the per-tile pair lists; the union-gather layout
-// _dense_apply_grouped is not ported). For every part p and output tile i
+// at group = 1 (the per-tile pair lists). K16 / K17 replace
+// _dense_apply_grouped (--block-group > 1): G consecutive output tiles
+// share one union of input tiles, "rduts,rusf->rdtf" forward and
+// "rduts,rutf->rdsf" transposed. For every part p and output tile i
 // of T rows:
 //
 //   K12:  out[p, i*T + t, :] = sum_k  A[blk_k] @ X[p, tile_k*T : +T, :]
@@ -20,6 +23,25 @@
 // within each byte: np.packbits(bitorder="little")), int8, bf16 or f32;
 // X and G are f32, or bf16 at bf16 compute (the bf16 mode); out is f32.
 // An output tile with no pairs is written as zeros.
+//
+// The union-gather groups (K16 / K17). Output tiles j G .. j G + G - 1
+// form group j; its list holds union slots, each one input tile u and, for
+// every tile d of the group, the A block that multiplies it there, or the
+// pad (b_max: tile d does not touch u). Group 1 is K12 / K13's pair list
+// (one slot a pair, never a pad), so one kernel runs both layouts: a CTA
+// owns 256 consecutive rows of its group's G T output rows (G T / 256
+// CTAs a group: at T = 256 one tile each; at G T <= 256 the whole group)
+// and a column slice, walks the group's slots once, stages each slot's
+// input tile once for all of its rows and applies it against the A block
+// of each of its tiles. A warp's 32 rows lie in one tile (T % 32 == 0): a
+// warp whose tile has the pad at a slot skips its products, and a slot
+// none of the CTA's tiles uses is skipped whole. JAX multiplies the zero
+// block at a pad; skipping it changes nothing but a non-finite input's
+// NaN. The accumulator stays one 256-row tile a CTA (G T rows of 32
+// columns at G = 4, T = 256 would be 128 KB of registers). The tensor-core
+// kernel takes the group as a compile-time flag: its group-1 instance is
+// the pair-list code without the group's per-slot bookkeeping, which cost
+// K12's bf16 mode 22 % when it ran there too.
 //
 // What bounds it on the H100: the tile products. The function needs one
 // add per dense edge and column (~7.5e9 adds a call at the training shape,
@@ -178,13 +200,55 @@ __device__ __forceinline__ void load_xb8(const unsigned short* row, int c,
                : 0.f;
 }
 
+// Where a CTA's rows lie in its group, worked out once a CTA (the integer
+// divisions by the runtime T stay out of the slot loop): the tiles its
+// 256 rows r0 .. touch (d_lo .. d_hi), the tile of the group row f a
+// thread stages (t_d, -1 past the group's G T rows) with its row (K12) or
+// first column (K13) in A (t_m), and the tile of its warp's rows (w_d).
+struct GroupRows {
+  int d_lo, d_hi, t_d, t_m, w_d;
+};
+
+__device__ __forceinline__ GroupRows group_rows(int r0, int f, int fw,
+                                                int G, int T) {
+  const int GT = G * T;
+  GroupRows g;
+  g.d_lo = r0 / T;
+  g.d_hi = min(G, (r0 + kRows + T - 1) / T);
+  g.t_d = f < GT ? f / T : -1;
+  g.t_m = f - (g.t_d < 0 ? 0 : g.t_d) * T;
+  g.w_d = fw < GT ? fw / T : -1;
+  return g;
+}
+
+// whether any tile of the CTA's rows has an A block at one slot (bk: the
+// slot's G block ids; pad = b_max)
+__device__ __forceinline__ bool slot_used(const int* bk, const GroupRows& g,
+                                          long long b_max) {
+  for (int d = g.d_lo; d < g.d_hi; ++d)
+    if (__ldg(bk + d) != b_max) return true;
+  return false;
+}
+
+// the A block of tile d of the group at one slot, or null (the pad, or
+// d < 0: rows past the group's)
+template <int ENC>
+__device__ __forceinline__ const unsigned char* slot_block(
+    const unsigned char* ap, const int* bk, int d, int T, long long b_max) {
+  if (d < 0) return nullptr;
+  const int b = __ldg(bk + d);
+  if (b == b_max) return nullptr;
+  return ap + static_cast<size_t>(b) * T * row_bytes<ENC>(T);
+}
+
 template <int ENC, bool TRANSPOSE, int VEC, bool XB>
 __global__ void __launch_bounds__(kThreads, 2)
 block_kernel(const void* __restrict__ x, int n_in, int F,
              const unsigned char* __restrict__ a, long long b_max, int T,
              const int* __restrict__ ptr, const int* __restrict__ blk,
              const int* __restrict__ til, long long pair_stride,
-             int n_out_tiles, int n_out, float* __restrict__ out) {
+             int n_keys, int G, int n_row_ctas, int n_out,
+             float* __restrict__ out) {
   // contraction-major staging: As[kk][m] = A value for output row m and
   // contraction row kk of this step; Xs[kk][c] the input's
   __shared__ __align__(16) float As[kK][kRows];
@@ -194,7 +258,9 @@ block_kernel(const void* __restrict__ x, int n_in, int F,
   const int ty = tid >> 3;  // 0..31: output rows ty*4 + i, 128 + ty*4 + i
   const int tx = tid & 7;   // 0..7: output columns tx*4 + j, 32 + tx*4 + j
   const int c0 = blockIdx.x * kCols;
-  const int otile = blockIdx.y;
+  const int key = blockIdx.y / n_row_ctas;  // the output tile group
+  const int r0 = (blockIdx.y % n_row_ctas) * kRows;  // its rows r0 ..
+  const int GT = G * T;
   const int part = blockIdx.z;
 
   const float* xp =
@@ -203,8 +269,8 @@ block_kernel(const void* __restrict__ x, int n_in, int F,
                               static_cast<size_t>(part) * n_in * F;
   const unsigned char* ap =
       a + static_cast<size_t>(part) * b_max * T * row_bytes<ENC>(T);
-  const int* pp = ptr + static_cast<size_t>(part) * (n_out_tiles + 1);
-  const int* bp = blk + static_cast<size_t>(part) * pair_stride;
+  const int* pp = ptr + static_cast<size_t>(part) * (n_keys + 1);
+  const int* bp = blk + static_cast<size_t>(part) * pair_stride * G;
   const int* tp = til + static_cast<size_t>(part) * pair_stride;
 
   float acc[8][8];
@@ -213,22 +279,29 @@ block_kernel(const void* __restrict__ x, int n_in, int F,
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
 
-  const int k0 = pp[otile], k1 = pp[otile + 1];
+  const int k0 = pp[key], k1 = pp[key + 1];
   // staging roles of this thread: the input's row kk = tid / 8 and its
   // columns (tid % 8) * 8 ..; K13's A row kk = tid / 8 and columns
-  // (tid % 8) * 32 ..; K12's A row tid (all contraction columns)
+  // (tid % 8) * 32 .. (the CTA's rows r0 + q ..); K12's A row tid (the
+  // CTA's row r0 + tid, all contraction columns)
   const int xr = tid >> 3, xc = (tid & 7) * 8;
+  const int q = (tid & 7) * 32;
+  const GroupRows gr =
+      group_rows(r0, TRANSPOSE ? r0 + q : r0 + tid, r0, G, T);
+  const int fm = gr.t_m;  // the staged row (K12) or first column (K13)
   for (int k = k0; k < k1; ++k) {
-    const unsigned char* ab =
-        ap + static_cast<size_t>(__ldg(bp + k)) * T * row_bytes<ENC>(T);
+    const int* bk = bp + static_cast<size_t>(k) * G;
+    if (!slot_used(bk, gr, b_max)) continue;  // uniform in the CTA
+    // this thread's staged A block (null: zeros, which add nothing)
+    const unsigned char* ab = slot_block<ENC>(ap, bk, gr.t_d, T, b_max);
     const long long in0 = static_cast<long long>(__ldg(tp + k)) * T;
     for (int s0 = 0; s0 < T; s0 += kK) {
       __syncthreads();  // the previous step's reads are done
       float v[32];
       if constexpr (!TRANSPOSE) {
-        // A row m = tid, contraction columns s0 .. s0 + 31
-        if (tid < T) {
-          load_a32<ENC>(ab, T, tid, s0, v);
+        // A row fm, contraction columns s0 .. s0 + 31
+        if (ab != nullptr) {
+          load_a32<ENC>(ab, T, fm, s0, v);
         } else {
 #pragma unroll
           for (int j = 0; j < 32; ++j) v[j] = 0.0f;
@@ -236,10 +309,9 @@ block_kernel(const void* __restrict__ x, int n_in, int F,
 #pragma unroll
         for (int j = 0; j < 32; ++j) As[j][tid] = v[j];
       } else {
-        // A row s0 + kk (a contraction row), output columns q .. q + 31
-        const int q = (tid & 7) * 32;
-        if (q < T) {
-          load_a32<ENC>(ab, T, s0 + xr, q, v);
+        // A row s0 + kk (a contraction row), output columns fm .. fm + 31
+        if (ab != nullptr) {
+          load_a32<ENC>(ab, T, s0 + xr, fm, v);
         } else {
 #pragma unroll
           for (int j = 0; j < 32; ++j) v[j] = 0.0f;
@@ -289,8 +361,8 @@ block_kernel(const void* __restrict__ x, int n_in, int F,
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int m = (i < 4 ? 0 : 128) + ty * 4 + (i & 3);
-    const long long row = static_cast<long long>(otile) * T + m;
-    if (m >= T || row >= n_out) continue;
+    const long long row = static_cast<long long>(key) * GT + r0 + m;
+    if (r0 + m >= GT || row >= n_out) continue;
     float* op = out + (static_cast<size_t>(part) * n_out + row) * F;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -395,13 +467,13 @@ __device__ __forceinline__ void load_xb4(const unsigned short* row, int c,
   }
 }
 
-template <int ENC, bool TRANSPOSE, int VEC, bool XB>
+template <int ENC, bool TRANSPOSE, int VEC, bool XB, bool GROUPED>
 __global__ void __launch_bounds__(kThreads, 2)
 mma_kernel(const void* __restrict__ x, int n_in, int F,
            const unsigned char* __restrict__ a, long long b_max, int T,
            const int* __restrict__ ptr, const int* __restrict__ blk,
-           const int* __restrict__ til, long long pair_stride,
-           int n_out_tiles, int n_out, float* __restrict__ out) {
+           const int* __restrict__ til, long long pair_stride, int n_keys,
+           int G, int n_row_ctas, int n_out, float* __restrict__ out) {
   // the staged A chunk (bf16 bits): K12 [256 rows][kAStride] (row m,
   // contraction column), K13 [32 contraction rows][kATStride] (the A
   // rows as stored); the input chunk's three terms [3][32][kXStride], or
@@ -416,7 +488,12 @@ mma_kernel(const void* __restrict__ x, int n_in, int F,
   const int g = lane >> 2, t4 = lane & 3;  // the mma fragments' row / pair
   const int li = lane >> 3, lj = lane & 7;  // ldmatrix: matrix, its row
   const int c0 = blockIdx.x * kMmaCols;
-  const int otile = blockIdx.y;
+  // group 1 (K12 / K13's pair lists) compiles without the group's
+  // bookkeeping: a CTA a tile, every slot a block for all its rows
+  const int Gs = GROUPED ? G : 1;
+  const int key = GROUPED ? blockIdx.y / n_row_ctas : blockIdx.y;
+  const int r0 = GROUPED ? (blockIdx.y % n_row_ctas) * kRows : 0;
+  const int GT = Gs * T;
   const int part = blockIdx.z;
 
   const float* xp =
@@ -425,12 +502,12 @@ mma_kernel(const void* __restrict__ x, int n_in, int F,
                               static_cast<size_t>(part) * n_in * F;
   const unsigned char* ap =
       a + static_cast<size_t>(part) * b_max * T * row_bytes<ENC>(T);
-  const int* pp = ptr + static_cast<size_t>(part) * (n_out_tiles + 1);
-  const int* bp = blk + static_cast<size_t>(part) * pair_stride;
+  const int* pp = ptr + static_cast<size_t>(part) * (n_keys + 1);
+  const int* bp = blk + static_cast<size_t>(part) * pair_stride * Gs;
   const int* tp = til + static_cast<size_t>(part) * pair_stride;
 
-  // warp w: output rows w*32 + [0, 32) as 2 m-tiles of 16, all 32
-  // columns as 4 n-tiles of 8
+  // warp w: output rows r0 + w*32 + [0, 32) (in one tile of the group) as
+  // 2 m-tiles of 16, all 32 columns as 4 n-tiles of 8
   float acc[2][4][4];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
@@ -439,11 +516,31 @@ mma_kernel(const void* __restrict__ x, int n_in, int F,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
 
-  const int k0 = pp[otile], k1 = pp[otile + 1];
+  const int k0 = pp[key], k1 = pp[key + 1];
   const int xr = tid >> 3, xc = (tid & 7) * 4;  // staging: input row, cols
+  const int q = (tid & 7) * 32;
+  // the staged row (K12) or first column (K13) in A: at group 1 the
+  // thread's own, as the pair-list kernel stages them
+  GroupRows gr{};
+  int fm = TRANSPOSE ? q : tid;
+  if constexpr (GROUPED) {
+    gr = group_rows(r0, TRANSPOSE ? r0 + q : r0 + tid, r0 + warp * 32, G,
+                    T);
+    fm = gr.t_m;
+  }
   for (int k = k0; k < k1; ++k) {
-    const unsigned char* ab =
-        ap + static_cast<size_t>(__ldg(bp + k)) * T * row_bytes<ENC>(T);
+    // this thread's staged A block (grouped: null for zeros) and whether
+    // the warp's tile has a block at this slot (warp-uniform)
+    const unsigned char* ab;
+    bool wact = true;
+    if constexpr (GROUPED) {
+      const int* bk = bp + static_cast<size_t>(k) * G;
+      if (!slot_used(bk, gr, b_max)) continue;  // uniform in the CTA
+      ab = slot_block<ENC>(ap, bk, gr.t_d, T, b_max);
+      wact = slot_block<ENC>(ap, bk, gr.w_d, T, b_max) != nullptr;
+    } else {
+      ab = ap + static_cast<size_t>(__ldg(bp + k)) * T * row_bytes<ENC>(T);
+    }
     const long long in0 = static_cast<long long>(__ldg(tp + k)) * T;
     float d[2][4][4];  // this pair's products, promoted after it
 #pragma unroll
@@ -458,19 +555,19 @@ mma_kernel(const void* __restrict__ x, int n_in, int F,
         float v[32];
         unsigned short* dst;
         if constexpr (!TRANSPOSE) {
-          // A row tid, contraction columns s0 .. s0 + 31
-          if (tid < T) {
-            load_a32<ENC>(ab, T, tid, s0, v);
+          // A row fm, contraction columns s0 .. s0 + 31
+          if (GROUPED ? ab != nullptr : tid < T) {
+            load_a32<ENC>(ab, T, fm, s0, v);
           } else {
 #pragma unroll
             for (int j = 0; j < 32; ++j) v[j] = 0.0f;
           }
           dst = &As[tid * kAStride];
         } else {
-          // A row s0 + xr (a contraction row), output columns q .. q + 31
-          const int q = (tid & 7) * 32;
-          if (q < T) {
-            load_a32<ENC>(ab, T, s0 + xr, q, v);
+          // A row s0 + xr (a contraction row), output columns fm .. fm + 31
+          // (the CTA's rows q .. q + 31)
+          if (GROUPED ? ab != nullptr : q < T) {
+            load_a32<ENC>(ab, T, s0 + xr, fm, v);
           } else {
 #pragma unroll
             for (int j = 0; j < 32; ++j) v[j] = 0.0f;
@@ -512,6 +609,9 @@ mma_kernel(const void* __restrict__ x, int n_in, int F,
                          bf16x2(terms[2][h], terms[3][h]));
       }
       __syncthreads();
+      if constexpr (GROUPED) {
+        if (!wact) continue;  // the warp's tile has no block at this slot
+      }
 #pragma unroll
       for (int kk = 0; kk < kK; kk += 16) {
         unsigned af[2][4];
@@ -545,12 +645,14 @@ mma_kernel(const void* __restrict__ x, int n_in, int F,
         }
       }
     }
+    if (!GROUPED || wact) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+      for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+        for (int j = 0; j < 4; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] += d[i][j][e];
+          for (int e = 0; e < 4; ++e) acc[i][j][e] += d[i][j][e];
+    }
   }
 
 #pragma unroll
@@ -558,8 +660,8 @@ mma_kernel(const void* __restrict__ x, int n_in, int F,
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int m = warp * 32 + mi * 16 + g + half * 8;
-      const long long row = static_cast<long long>(otile) * T + m;
-      if (m >= T || row >= n_out) continue;
+      const long long row = static_cast<long long>(key) * GT + r0 + m;
+      if (r0 + m >= GT || row >= n_out) continue;
       float* op = out + (static_cast<size_t>(part) * n_out + row) * F;
 #pragma unroll
       for (int ni = 0; ni < 4; ++ni) {
@@ -576,37 +678,39 @@ mma_kernel(const void* __restrict__ x, int n_in, int F,
   }
 }
 
-template <int ENC, bool TR>
+template <int ENC, bool TR, bool GR>
 int launch_vec(const void* x, bool xb, int P, int n_in, int F,
                const unsigned char* a, long long b_max, int T, const int* ptr,
                const int* blk, const int* til, long long pair_stride,
-               int n_out_tiles, int n_out, float* out, cudaStream_t st) {
+               int n_keys, int G, int n_out, float* out, cudaStream_t st) {
+  const int n_row_ctas = (G * T + kRows - 1) / kRows;
+  const int n_y = n_keys * n_row_ctas;
   const bool a16 = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
   const bool a8 = reinterpret_cast<uintptr_t>(x) % 8 == 0 &&
                   reinterpret_cast<uintptr_t>(out) % 8 == 0;
   const int vec = F % 4 == 0 && a16 ? 4 : F % 2 == 0 && a8 ? 2 : 1;
-#define PGT_ARGS                                                           \
-  x, n_in, F, a, b_max, T, ptr, blk, til, pair_stride, n_out_tiles, n_out, \
-      out
+#define PGT_ARGS                                                         \
+  x, n_in, F, a, b_max, T, ptr, blk, til, pair_stride, n_keys, G,          \
+      n_row_ctas, n_out, out
   if (xb) {
     // bf16 rows: 8-byte loads of 4 values where F and the pointers allow
     const bool v4 = F % 4 == 0 && a8;
     if constexpr (ENC == kF32) {
-      const dim3 grid((F + kCols - 1) / kCols, n_out_tiles, P);
+      const dim3 grid((F + kCols - 1) / kCols, n_y, P);
       block_kernel<ENC, TR, 1, true><<<grid, kThreads, 0, st>>>(PGT_ARGS);
     } else {
-      const dim3 grid((F + kMmaCols - 1) / kMmaCols, n_out_tiles, P);
+      const dim3 grid((F + kMmaCols - 1) / kMmaCols, n_y, P);
       if (v4)
-        mma_kernel<ENC, TR, 4, true><<<grid, kThreads, 0, st>>>(PGT_ARGS);
+        mma_kernel<ENC, TR, 4, true, GR><<<grid, kThreads, 0, st>>>(PGT_ARGS);
       else
-        mma_kernel<ENC, TR, 1, true><<<grid, kThreads, 0, st>>>(PGT_ARGS);
+        mma_kernel<ENC, TR, 1, true, GR><<<grid, kThreads, 0, st>>>(PGT_ARGS);
     }
     return static_cast<int>(cudaGetLastError());
   }
   if constexpr (ENC == kF32) {
     // f32 A is not exact in bf16: the scalar CUDA-core path
-    const dim3 grid((F + kCols - 1) / kCols, n_out_tiles, P);
+    const dim3 grid((F + kCols - 1) / kCols, n_y, P);
     if (vec == 4)
       block_kernel<ENC, TR, 4, false><<<grid, kThreads, 0, st>>>(PGT_ARGS);
     else if (vec == 2)
@@ -614,13 +718,13 @@ int launch_vec(const void* x, bool xb, int P, int n_in, int F,
     else
       block_kernel<ENC, TR, 1, false><<<grid, kThreads, 0, st>>>(PGT_ARGS);
   } else {
-    const dim3 grid((F + kMmaCols - 1) / kMmaCols, n_out_tiles, P);
+    const dim3 grid((F + kMmaCols - 1) / kMmaCols, n_y, P);
     if (vec == 4)
-      mma_kernel<ENC, TR, 4, false><<<grid, kThreads, 0, st>>>(PGT_ARGS);
+      mma_kernel<ENC, TR, 4, false, GR><<<grid, kThreads, 0, st>>>(PGT_ARGS);
     else if (vec == 2)
-      mma_kernel<ENC, TR, 2, false><<<grid, kThreads, 0, st>>>(PGT_ARGS);
+      mma_kernel<ENC, TR, 2, false, GR><<<grid, kThreads, 0, st>>>(PGT_ARGS);
     else
-      mma_kernel<ENC, TR, 1, false><<<grid, kThreads, 0, st>>>(PGT_ARGS);
+      mma_kernel<ENC, TR, 1, false, GR><<<grid, kThreads, 0, st>>>(PGT_ARGS);
   }
 #undef PGT_ARGS
   return static_cast<int>(cudaGetLastError());
@@ -630,36 +734,25 @@ template <int ENC>
 int launch_enc(bool transpose, const void* x, bool xb, int P, int n_in,
                int F, const unsigned char* a, long long b_max, int T,
                const int* ptr, const int* blk, const int* til,
-               long long pair_stride, int n_out_tiles, int n_out, float* out,
-               cudaStream_t st) {
-  if (transpose)
-    return launch_vec<ENC, true>(x, xb, P, n_in, F, a, b_max, T, ptr, blk,
-                                 til, pair_stride, n_out_tiles, n_out, out,
-                                 st);
-  return launch_vec<ENC, false>(x, xb, P, n_in, F, a, b_max, T, ptr, blk,
-                                til, pair_stride, n_out_tiles, n_out, out,
-                                st);
+               long long pair_stride, int n_keys, int G, int n_out,
+               float* out, cudaStream_t st) {
+#define PGT_VEC(TR, GR)                                                   \
+  launch_vec<ENC, TR, GR>(x, xb, P, n_in, F, a, b_max, T, ptr, blk, til,   \
+                          pair_stride, n_keys, G, n_out, out, st)
+  if (G > 1) return transpose ? PGT_VEC(true, true) : PGT_VEC(false, true);
+  return transpose ? PGT_VEC(true, false) : PGT_VEC(false, false);
+#undef PGT_VEC
 }
 
-}  // namespace
-
-// x [P, n_in, F] f32, or bf16 when x_bf16; a [P, b_max, T, row_bytes]
-// (enc 0 bits, 1 int8,
-// 2 bf16, 3 f32); ptr [P, n_out_tiles + 1] int32, blk / til [P,
-// pair_stride] int32 (pair k of part p: A block blk and input tile til;
-// output tile i's pairs at ptr[p, i] .. ptr[p, i + 1]); out [P, n_out, F]
-// f32. transpose 0 = K12, 1 = K13. T a multiple of 32 up to 256. All
-// contiguous, on the device; the host validated every index. Returns
-// cudaGetLastError().
-extern "C" int pgt_block_dense(const void* x, int P, int n_in, int F,
-                               const void* a, int enc, long long b_max,
-                               int T, const void* ptr, const void* blk,
-                               const void* til, long long pair_stride,
-                               int n_out_tiles, int n_out, int transpose,
-                               int x_bf16, void* out, void* stream) {
+int launch(const void* x, int P, int n_in, int F, const void* a, int enc,
+           long long b_max, int T, const void* ptr, const void* blk,
+           const void* til, long long pair_stride, int n_keys, int G,
+           int n_out, int transpose, int x_bf16, void* out, void* stream) {
   if (P == 0 || n_out == 0 || F == 0) return 0;
-  if (T < 32 || T > kRows || T % 32 != 0 || n_out_tiles <= 0 ||
-      n_out_tiles > 65535 || P > 65535 || n_in < 0)
+  if (T < 32 || T > kRows || T % 32 != 0 || n_keys <= 0 || G < 1 ||
+      G > 64 || static_cast<long long>(n_keys) * ((G * T + kRows - 1) /
+                                                 kRows) > 65535 ||
+      P > 65535 || n_in < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool xb = x_bf16 != 0;
@@ -672,17 +765,53 @@ extern "C" int pgt_block_dense(const void* x, int P, int n_in, int F,
   switch (enc) {
     case kBits:
       return launch_enc<kBits>(tr, x, xb, P, n_in, F, ab, b_max, T, pt, bk,
-                               tl, pair_stride, n_out_tiles, n_out, o, st);
+                               tl, pair_stride, n_keys, G, n_out, o, st);
     case kI8:
       return launch_enc<kI8>(tr, x, xb, P, n_in, F, ab, b_max, T, pt, bk,
-                             tl, pair_stride, n_out_tiles, n_out, o, st);
+                             tl, pair_stride, n_keys, G, n_out, o, st);
     case kBF16:
       return launch_enc<kBF16>(tr, x, xb, P, n_in, F, ab, b_max, T, pt, bk,
-                               tl, pair_stride, n_out_tiles, n_out, o, st);
+                               tl, pair_stride, n_keys, G, n_out, o, st);
     case kF32:
       return launch_enc<kF32>(tr, x, xb, P, n_in, F, ab, b_max, T, pt, bk,
-                              tl, pair_stride, n_out_tiles, n_out, o, st);
+                              tl, pair_stride, n_keys, G, n_out, o, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+}  // namespace
+
+// K12 / K13. x [P, n_in, F] f32, or bf16 when x_bf16; a [P, b_max, T,
+// row_bytes] (enc 0 bits, 1 int8, 2 bf16, 3 f32); ptr [P, n_out_tiles + 1]
+// int32, blk / til [P, pair_stride] int32 (pair k of part p: A block blk
+// and input tile til; output tile i's pairs at ptr[p, i] .. ptr[p, i +
+// 1]); out [P, n_out, F] f32. transpose 0 = K12, 1 = K13. T a multiple of
+// 32 up to 256. All contiguous, on the device; the host validated every
+// index. Returns cudaGetLastError().
+extern "C" int pgt_block_dense(const void* x, int P, int n_in, int F,
+                               const void* a, int enc, long long b_max,
+                               int T, const void* ptr, const void* blk,
+                               const void* til, long long pair_stride,
+                               int n_out_tiles, int n_out, int transpose,
+                               int x_bf16, void* out, void* stream) {
+  return launch(x, P, n_in, F, a, enc, b_max, T, ptr, blk, til, pair_stride,
+                n_out_tiles, 1, n_out, transpose, x_bf16, out, stream);
+}
+
+// K16 / K17. As K12 / K13 over union-gather groups of G output tiles:
+// ptr [P, n_groups + 1] int32 (group j's union slots at ptr[p, j] ..
+// ptr[p, j + 1]), til [P, slot_stride] int32 (each slot's input tile),
+// blk [P, slot_stride, G] int32 (each slot's A block for each tile of the
+// group; b_max: none). transpose 0 = K16, 1 = K17. Returns
+// cudaGetLastError().
+extern "C" int pgt_block_grouped(const void* x, int P, int n_in, int F,
+                                 const void* a, int enc, long long b_max,
+                                 int T, int G, const void* ptr,
+                                 const void* blk, const void* til,
+                                 long long slot_stride, int n_groups,
+                                 int n_out, int transpose, int x_bf16,
+                                 void* out, void* stream) {
+  return launch(x, P, n_in, F, a, enc, b_max, T, ptr, blk, til, slot_stride,
+                n_groups, G, n_out, transpose, x_bf16, out, stream);
 }

@@ -25,6 +25,25 @@ the kernel for CUDA tensors and run the plain version for CPU tensors:
 
 K2 and K5 copy bytes, so they take rows of any dtype.
 
+The compressed wire (``--halo-dtype``, pipelined mode only; JAX
+``_permute_compressed``, ``halo_transport_dtypes``): each distance block
+travels in a narrow dtype, bf16 by a plain cast, fp8 as e4m3 features /
+e5m2 boundary gradients scaled by one power of two a (sender, distance)
+block from the block's amax; the receiver decodes with the SENDER's
+inverse scale into the compute dtype. Two more kernels, each with its
+plain version:
+
+  - :func:`halo_amax` — K14 (``ops/csrc/halo_wire.cu``), the amax of every
+    sender's block at every distance, in one launch;
+  - :func:`halo_wire` — K15 (the same file), the gather (or the return
+    path's block slice), scale, saturating cast, the write of the narrow
+    payload into the wire buffer ``[P, P-1, B, F]`` at the receiver's slot
+    (the bytes the ring would carry), and the decode into the receiver's
+    halo rows, in one launch.
+
+:func:`exchange_blocks` and :func:`return_blocks` take the wire dtype;
+the carries stay in the compute dtype ("wire-only").
+
 :class:`HaloExchange` (vanilla mode, differentiable ``halo_exchange``) and
 :class:`StaleConcat` (pipelined mode, ``make_stale_concat``) are the
 autograd functions built from them.
@@ -39,12 +58,20 @@ import numpy as np
 import torch
 
 from ..ops import _build
+from ..ops.bucket_spmm import (_OUT_TYPES, F8_MAX, TransportShare,
+                               pow2_scale, quantize, transport_dtypes)
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
 _SIGNATURES = {
     "pgt_halo_gather": [_P, _LL, _P, _LL, _P, _P, _I, _I, _I, _I, _I, _I,
                         _P],
     "pgt_halo_return": [_P, _LL, _P, _LL, _I, _I, _I, _I, _P],
+}
+_WIRE_SIGNATURES = {
+    "pgt_halo_amax": [_P, _I, _LL, _I, _I, _I, _I, _P, _P, _P, _P],
+    "pgt_halo_wire": [_P, _I, _LL, _I, _I, _I, _I, _P, _P, _P, _I, _F, _P,
+                      _P, _P, _P],
 }
 _SCATTER_SIGNATURES = {
     "pgt_halo_scatter": [_P, _LL, _P, _LL, _P, _P, _LL, _P, _I, _I, _I, _I,
@@ -162,9 +189,15 @@ def _check_return(g, b_max):
                          f"(P-1)*B = {(g.shape[0] - 1) * b_max}")
 
 
-def return_blocks_plain(g: torch.Tensor, b_max: int) -> torch.Tensor:
+def return_blocks_plain(g: torch.Tensor, b_max: int,
+                        transport_dt: Optional[torch.dtype] = None,
+                        share: Optional[TransportShare] = None
+                        ) -> torch.Tensor:
     """Plain PyTorch version of K5: for each receiver r and distance d,
-    slice block d-1 of part (r+d) mod P and concatenate."""
+    slice block d-1 of part (r+d) mod P and concatenate. With
+    ``transport_dt`` the plain wire (:func:`halo_wire_plain`) instead."""
+    if transport_dt is not None:
+        return _wire(g, None, None, b_max, transport_dt, PLAIN, share)
     _check_return(g, b_max)
     P = g.shape[0]
     if P == 1:
@@ -174,13 +207,20 @@ def return_blocks_plain(g: torch.Tensor, b_max: int) -> torch.Tensor:
                    for d in range(1, P)]) for r in range(P)])
 
 
-def return_blocks(g: torch.Tensor, b_max: int) -> torch.Tensor:
+def return_blocks(g: torch.Tensor, b_max: int,
+                  transport_dt: Optional[torch.dtype] = None,
+                  share: Optional[TransportShare] = None) -> torch.Tensor:
     """``[P, H, F] -> [P, H, F]``: route each part's halo cotangent back
     along the reverse ring, ``out[r, (d-1)B:dB] = g[(r+d) mod P,
     (d-1)B:dB]`` (``pipegcn_tpu/parallel/halo.py`` ``return_blocks`` for
     all shards at once). Kernel K5 on CUDA tensors (one launch, counted in
     ``return_blocks.launches``; ``g`` may be a view whose parts are each
-    contiguous), :func:`return_blocks_plain` on CPU."""
+    contiguous), :func:`return_blocks_plain` on CPU. With
+    ``transport_dt`` (the boundary-gradient wire dtype) the blocks cross
+    the compressed wire instead: K14 and K15 (:func:`halo_wire`), values
+    taken from or recorded into ``share``."""
+    if transport_dt is not None:
+        return _wire(g, None, None, b_max, transport_dt, KERNELS, share)
     if g.device.type == "cpu":
         return return_blocks_plain(g, b_max)
     _check_return(g, b_max)
@@ -299,27 +339,276 @@ def scatter_bgrad(g: torch.Tensor, bgrad: torch.Tensor,
 scatter_bgrad.launches = 0
 scatter_bgrad.by_mode = {"float32": 0, "bfloat16": 0}  # by row dtype
 
+# ---------------------------------------------------------------------------
+# K14, K15: the compressed halo wire
+
+
+def halo_transport_dtypes(halo_dtype: Optional[str]
+                          ) -> Tuple[Optional[torch.dtype],
+                                     Optional[torch.dtype]]:
+    """(feature, boundary-gradient) wire dtypes of a ``--halo-dtype``: the
+    gather transport's mapping (e4m3 / e5m2 under float8, bf16 both ways
+    under bfloat16), None both for none (the compute dtype)."""
+    return transport_dtypes(halo_dtype)
+
+
+def _check_wire(x, send_idx, send_mask, b_max):
+    if x.dim() != 3 or x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"x must be f32/bf16 [P, rows, F], got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if send_idx is None:
+        _check_return(x, b_max)
+        return
+    _check(x, send_idx, send_mask)
+    if send_idx.shape[2] != b_max:
+        raise ValueError(f"send lists hold {send_idx.shape[2]} rows a "
+                         f"block, expected B = {b_max}")
+
+
+def _senders(P: int, exchange: bool) -> torch.Tensor:
+    """``[P, P-1]``: the part whose distance-d block receiver r takes, (r -
+    d) mod P on the exchange, (r + d) mod P on the return."""
+    r = torch.arange(P)[:, None]
+    d = torch.arange(1, P)[None, :]
+    return (r - d) % P if exchange else (r + d) % P
+
+
+def _sender_blocks(x, send_idx, send_mask, b_max) -> torch.Tensor:
+    """``[P, P-1, B, F]``: sender s's block at distance d in slot [s, d-1]
+    — its send rows gathered (clipped) and masked on the exchange
+    (``send_idx`` given), ``x[s, (d-1)B:dB]`` on the return."""
+    P, n, F = x.shape
+    if send_idx is None:
+        return x.reshape(P, P - 1, b_max, F)
+    idx = send_idx.long().clamp(0, max(n - 1, 0))
+    blk = x[torch.arange(P, device=x.device)[:, None, None], idx]
+    return torch.where(send_mask[..., None], blk, x.new_zeros(()))
+
+
+def halo_amax_plain(x: torch.Tensor, send_idx: Optional[torch.Tensor],
+                    send_mask: Optional[torch.Tensor], b_max: int
+                    ) -> torch.Tensor:
+    """Plain PyTorch version of K14: ``max |block|`` in f32 of every
+    sender's block at every distance, ``[P, P-1]`` (masked rows count as
+    0; a NaN propagates; 0 for an empty block). ``send_idx`` None: the
+    return path's blocks of ``x [P, H, F]``."""
+    _check_wire(x, send_idx, send_mask, b_max)
+    blk = _sender_blocks(x, send_idx, send_mask, b_max).float()
+    if blk.shape[2] * blk.shape[3] == 0:
+        return x.new_zeros(blk.shape[:2], dtype=torch.float32)
+    return blk.abs().amax(dim=(2, 3))
+
+
+def halo_amax(x: torch.Tensor, send_idx: Optional[torch.Tensor],
+              send_mask: Optional[torch.Tensor], b_max: int
+              ) -> torch.Tensor:
+    """K14 on CUDA tensors (one launch for every part and distance,
+    counted in ``halo_amax.launches`` and by path in
+    ``halo_amax.by_mode``), :func:`halo_amax_plain` on CPU tensors;
+    anything else raises."""
+    if x.device.type == "cpu":
+        return halo_amax_plain(x, send_idx, send_mask, b_max)
+    _check_wire(x, send_idx, send_mask, b_max)
+    if x.device.type != "cuda":
+        raise ValueError(f"halo_amax: unsupported device {x.device}")
+    P, n, F = x.shape
+    amax = torch.zeros((P, max(P - 1, 0)), dtype=torch.int32,
+                       device=x.device)
+    if amax.numel() == 0:
+        return amax.view(torch.float32)
+    lib = _build.load("halo_wire", _WIRE_SIGNATURES)
+    rc = lib.pgt_halo_amax(*_wire_args(x, send_idx, send_mask, b_max),
+                           amax.data_ptr(),
+                           torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, "halo_amax")
+    halo_amax.launches += 1
+    halo_amax.by_mode["exchange" if send_idx is not None else "return"] += 1
+    return amax.view(torch.float32)
+
+
+halo_amax.launches = 0
+halo_amax.by_mode = {"exchange": 0, "return": 0}
+
+
+def _wire_args(x, send_idx, send_mask, b_max):
+    """The leading arguments K14 and K15 share: the rows, their type,
+    part stride (elements), P, rows a part, F, B, the send lists or
+    nulls."""
+    P, n, F = x.shape
+    if n and (x.stride(2) != 1 or x.stride(1) != F):
+        raise ValueError("halo wire: the kernels take parts with "
+                         "contiguous rows")
+    if send_idx is not None and not (send_idx.is_contiguous()
+                                     and send_mask.is_contiguous()):
+        raise ValueError("halo wire: send lists must be contiguous")
+    if n >= 2 ** 31 or F >= 2 ** 31 or b_max >= 2 ** 31:
+        raise ValueError("halo wire: x too large for the kernels")
+    return (x.data_ptr(), int(x.dtype == torch.bfloat16), x.stride(0), P,
+            n, F, b_max, None if send_idx is None else send_idx.data_ptr(),
+            None if send_mask is None else send_mask.data_ptr())
+
+
+def _decode(wire: torch.Tensor, inv: Optional[torch.Tensor],
+            dtype: torch.dtype) -> torch.Tensor:
+    """The receiver's decode: ``(wire.f32 * inv).astype(dtype)`` (JAX
+    ``_permute_compressed``), a plain cast where the wire carries no
+    scale (bf16)."""
+    v = wire.float()
+    if inv is not None:
+        v = v * inv[..., None, None]
+    return v.to(dtype)
+
+
+def _check_dt(dt, amax, P):
+    if dt not in _OUT_TYPES:
+        raise ValueError(f"unknown halo wire dtype {dt}")
+    if (amax is None) == (dt in F8_MAX):
+        raise ValueError("an fp8 wire takes the blocks' amax [P, P-1]; a "
+                         "bf16 wire none")
+    if amax is not None and (amax.shape != (P, P - 1)
+                             or amax.dtype != torch.float32):
+        raise ValueError(f"amax must be f32 [{P}, {P - 1}]")
+
+
+def halo_wire_plain(x: torch.Tensor, send_idx: Optional[torch.Tensor],
+                    send_mask: Optional[torch.Tensor], b_max: int,
+                    dt: torch.dtype, amax: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor,
+                               Optional[torch.Tensor]]:
+    """Plain PyTorch version of K15, JAX ``_permute_compressed`` for every
+    (part, distance): each sender's block (:func:`halo_amax_plain`'s)
+    scaled by ``pow2_scale`` of its ``amax`` (fp8; ``amax`` None for a
+    bf16 wire), saturated and cast to ``dt``; the payload written to the
+    receiver's slot of the wire ``[P, P-1, B, F]``, the sender's inverse
+    scale beside it (``inv [P, P-1]``, None for bf16), and decoded into
+    the receiver's halo ``[P, (P-1)*B, F]`` in x's dtype. Returns ``(halo,
+    wire, inv)``."""
+    _check_wire(x, send_idx, send_mask, b_max)
+    P, F = x.shape[0], x.shape[2]
+    _check_dt(dt, amax, P)
+    blk = _sender_blocks(x, send_idx, send_mask, b_max)
+    flat = blk.reshape(-1, b_max, F)
+    scale = None if amax is None else pow2_scale(amax.reshape(-1),
+                                                 F8_MAX[dt])
+    y = quantize(flat, dt, None, scale).view(P, P - 1, b_max, F)
+    snd = _senders(P, send_idx is not None).to(x.device)
+    col = torch.arange(P - 1, device=x.device)[None, :]
+    wire = y[snd, col]
+    inv = None if scale is None else (1.0 / scale).view(P, P - 1)[snd, col]
+    return (_decode(wire, inv, x.dtype).reshape(P, (P - 1) * b_max, F),
+            wire, inv)
+
+
+def halo_wire(x: torch.Tensor, send_idx: Optional[torch.Tensor],
+              send_mask: Optional[torch.Tensor], b_max: int,
+              dt: torch.dtype, amax: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor,
+                         Optional[torch.Tensor]]:
+    """K15 on CUDA tensors (one launch for every part and distance,
+    counted in ``halo_wire.launches`` and by wire dtype in
+    ``halo_wire.by_mode``), :func:`halo_wire_plain` on CPU tensors;
+    anything else raises."""
+    if x.device.type == "cpu":
+        return halo_wire_plain(x, send_idx, send_mask, b_max, dt, amax)
+    _check_wire(x, send_idx, send_mask, b_max)
+    if x.device.type != "cuda":
+        raise ValueError(f"halo_wire: unsupported device {x.device}")
+    P, F = x.shape[0], x.shape[2]
+    _check_dt(dt, amax, P)
+    if amax is not None and not amax.is_contiguous():
+        raise ValueError("halo_wire: amax must be contiguous")
+    out = torch.empty((P, (P - 1) * b_max, F), dtype=x.dtype,
+                      device=x.device)
+    wire = torch.empty((P, P - 1, b_max, F), dtype=dt, device=x.device)
+    inv = None if amax is None else torch.empty(
+        (P, P - 1), dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        if inv is not None:
+            inv.fill_(1.0)
+        return out, wire, inv
+    lib = _build.load("halo_wire", _WIRE_SIGNATURES)
+    rc = lib.pgt_halo_wire(
+        *_wire_args(x, send_idx, send_mask, b_max),
+        None if amax is None else amax.data_ptr(), _OUT_TYPES[dt],
+        F8_MAX.get(dt, 0.0), wire.data_ptr(),
+        None if inv is None else inv.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, "halo_wire")
+    halo_wire.launches += 1
+    halo_wire.by_mode[str(dt).split(".")[-1]] += 1
+    return out, wire, inv
+
+
+halo_wire.launches = 0
+halo_wire.by_mode = {"float8_e4m3fn": 0, "float8_e5m2": 0, "bfloat16": 0}
+
+
+def _wire(x, send_idx, send_mask, b_max, dt, ops, share):
+    """The compressed wire of one exchange (``send_idx`` given) or return:
+    the halo ``[P, (P-1)*B, F]`` in x's dtype. ``ops`` picks the kernels
+    (K14, K15) or the plain versions. ``share`` (a ``TransportShare``)
+    records the payload and inverse scales in sender order, ``[P*(P-1),
+    B, F]`` and ``[P*(P-1)]``, or replaces this run's with another run's,
+    the flips of its own cast counted."""
+    P, F = x.shape[0], x.shape[2]
+    if P == 1:
+        return x.new_zeros((1, 0, F))
+    exchange = send_idx is not None
+    col = torch.arange(P - 1, device=x.device)[None, :]
+    if share is not None and share.source is not None:
+        _check_wire(x, send_idx, send_mask, b_max)
+        flat = _sender_blocks(x, send_idx, send_mask, b_max).reshape(
+            -1, b_max, F)
+        y, inv = share.take(flat, dt)
+        snd = _senders(P, exchange).to(x.device)
+        wire = y.view(P, P - 1, b_max, F)[snd, col]
+        inv = None if inv is None else inv.view(P, P - 1)[snd, col]
+        return _decode(wire, inv, x.dtype).reshape(P, (P - 1) * b_max, F)
+    amax = (ops.amax(x, send_idx, send_mask, b_max) if dt in F8_MAX
+            else None)
+    out, wire, inv = ops.wire(x, send_idx, send_mask, b_max, dt, amax)
+    if share is not None:
+        rcv = _senders(P, not exchange).to(x.device)  # sender -> receiver
+        share.recorded.append((
+            wire[rcv, col].reshape(-1, b_max, F),
+            None if inv is None else inv[rcv, col].reshape(-1)))
+    return out
+
+
 def exchange_blocks(h: torch.Tensor, send_idx: torch.Tensor,
-                    send_mask: torch.Tensor) -> torch.Tensor:
+                    send_mask: torch.Tensor,
+                    transport_dt: Optional[torch.dtype] = None,
+                    ops: Optional["HaloOps"] = None,
+                    share: Optional[TransportShare] = None) -> torch.Tensor:
     """``[P, n_max, F] -> [P, (P-1)*B, F]``: every part's received halo
     block in distance order (``pipegcn_tpu/parallel/halo.py``
-    ``exchange_blocks`` for all shards at once). Not differentiable: the
-    pipelined step ships detached rows."""
-    return halo_gather(h, send_idx, send_mask, with_inner=False)
+    ``exchange_blocks`` for all shards at once): K2, or with
+    ``transport_dt`` (the feature wire dtype) the compressed wire (K14,
+    K15), values taken from or recorded into ``share``. ``ops`` picks the
+    kernel wrappers (the default) or the plain versions. Not
+    differentiable: the pipelined step ships detached rows."""
+    ops = KERNELS if ops is None else ops
+    if transport_dt is not None:
+        return _wire(h, send_idx, send_mask, send_idx.shape[2],
+                     transport_dt, ops, share)
+    return ops.gather(h, send_idx, send_mask, False)
 
 
 class HaloOps:
-    """The three halo functions an autograd function below runs: the
-    kernel wrappers (:data:`KERNELS`, plain versions on CPU tensors) or
-    the plain versions on any device (:data:`PLAIN`, the card-side
-    comparison)."""
+    """The halo functions a caller runs: the kernel wrappers
+    (:data:`KERNELS`, plain versions on CPU tensors) or the plain versions
+    on any device (:data:`PLAIN`, the card-side comparison) — K2's
+    gather, K5's return, K4's scatter and the wire's K14 / K15."""
 
-    def __init__(self, gather, ret, scatter):
+    def __init__(self, gather, ret, scatter, amax, wire):
         self.gather, self.ret, self.scatter = gather, ret, scatter
+        self.amax, self.wire = amax, wire
 
 
-KERNELS = HaloOps(halo_gather, return_blocks, scatter_bgrad)
-PLAIN = HaloOps(halo_gather_plain, return_blocks_plain, scatter_bgrad_plain)
+KERNELS = HaloOps(halo_gather, return_blocks, scatter_bgrad, halo_amax,
+                  halo_wire)
+PLAIN = HaloOps(halo_gather_plain, return_blocks_plain, scatter_bgrad_plain,
+                halo_amax_plain, halo_wire_plain)
 
 
 class HaloExchange(torch.autograd.Function):

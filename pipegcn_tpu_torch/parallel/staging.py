@@ -17,8 +17,9 @@ Differences from the JAX staging:
     trainer drops its raw edges, ``trainer.py:208-237``); the
     destination CSR stays for the CSR paths that share ``forward``;
   - with ``block`` (``--spmm-impl block``) training stages the block
-    tables (``ops.block_spmm``: the A blocks, the dense pair lists and the
-    remainder's bucket tables) in place of the transpose CSR, likewise;
+    tables (``ops.block_spmm``: the A blocks, the dense pair lists, or at
+    ``--block-group > 1`` the per-group unions, and the remainder's bucket
+    tables) in place of the transpose CSR, likewise;
   - ``Trainer._pad_cols`` (the TPU 128-lane ``lane_pad``) has no
     counterpart: it only aligned feature slabs to TPU tiles and is
     numerically inert, so features are staged at their own width.
@@ -99,14 +100,14 @@ def _put(x: np.ndarray, dtype, device: torch.device) -> torch.Tensor:
 def stage(sg: ShardedGraph, device: torch.device,
           training: bool = False,
           bucket_merge: Optional[int] = None,
-          block: Optional[Tuple[int, int, Optional[int]]] = None
+          block: Optional[Tuple[int, int, Optional[int], int]] = None
           ) -> StagedGraph:
     """Copy the arrays the serving path reads to ``device``; with
     ``training`` also the labels, masks and the two host-built inverses
     the training step reads (``Trainer._put_data``), or, given
     ``bucket_merge`` (the ladder's ``min_width``), the bucket tables in
     place of the transpose CSR, or, given ``block`` ``(tile, n_feat_hint,
-    nnz_threshold)``, the block tables in its place."""
+    nnz_threshold, group)``, the block tables in its place."""
     extra = {}
     if training:
         if sg.multilabel:
@@ -115,11 +116,11 @@ def stage(sg: ShardedGraph, device: torch.device,
         n_src = sg.n_max + sg.halo_size
         if block is not None:
             t0 = time.perf_counter()
-            tile, hint, nnz = block
+            tile, hint, nnz, group = block
             bstats: dict = {}
             tables, _ = build_sharded_block_tables(
                 sg, tile=tile, n_feat_hint=hint, nnz_threshold=nnz,
-                stats=bstats)
+                group=group, stats=bstats)
             extra["block"] = stage_block_tables(tables, tile, sg.n_max, n_src,
                                                 device)
             extra["block_build_s"] = time.perf_counter() - t0

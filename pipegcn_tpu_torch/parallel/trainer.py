@@ -54,13 +54,21 @@ epoch and the eval run their bf16 matrix products with cuBLAS's reduced-
 precision reduction off (and TF32 off), so that a bf16 product is the f32
 sum rounded once, as XLA computes it.
 
+With ``halo_dtype`` (``--halo-dtype``; pipelined only, as JAX
+``trainer.py:1065-1069``) each layer's halo exchange and boundary-gradient
+return cross the compressed wire (``parallel/halo.py``: K14 the block
+amaxes, K15 the encode, ring copy and decode; e4m3 features and e5m2
+boundary gradients under float8, bf16 both ways under bfloat16); the
+carries stay in the compute dtype. ``est_halo_bytes_per_epoch`` counts the
+wire's bytes as the JAX trainer does.
+
 Dropout masks come from a ``torch.Generator`` seeded from (seed, epoch),
 so ``train_epoch(e)`` is reproducible; the bits differ from JAX's
 (``jax.random`` folds the epoch and the rank into a key), so runs held
 against the JAX trainer use dropout 0.
 
 Not ported (``NotImplementedError`` naming the ROADMAP item): fused epochs
-and epoch blocks, halo wire dtypes and the comm prefetch, loss scaling,
+and epoch blocks, the comm prefetch, loss scaling,
 the integrity checks and the numerics tripwire, other RNG
 implementations and mask reuse, streaming, checkpoints and sharded eval.
 """
@@ -86,7 +94,8 @@ from ..train.losses import cross_entropy_sum
 from ..train.metrics import calc_acc
 from ..train.optim import adam_init, adam_update
 from ..tree import tree_leaves, tree_map, tree_numpy
-from .halo import KERNELS, PLAIN, halo_exchange, make_stale_concat
+from .halo import (KERNELS, PLAIN, exchange_blocks, halo_exchange,
+                   halo_transport_dtypes, make_stale_concat)
 from .staging import precompute_pp, stage
 
 
@@ -119,7 +128,6 @@ class TrainConfig:
         refused = [
             (self.fused_epochs > 1 or self.epoch_block > 1,
              "fused epochs / epoch blocks (ROADMAP A6, CUDA graphs)"),
-            (self.halo_dtype != "none", "halo wire dtypes (ROADMAP A6)"),
             (self.comm_prefetch, "the layer-0 comm prefetch (ROADMAP A6)"),
             (self.loss_scale != "off", "loss scaling (ROADMAP A9)"),
             (self.integrity_check_every > 0,
@@ -131,6 +139,9 @@ class TrainConfig:
         for bad, what in refused:
             if bad:
                 raise NotImplementedError(f"{what} is not ported yet")
+        if self.halo_dtype not in ("none", "bfloat16", "float8"):
+            raise ValueError(f"unknown halo_dtype: {self.halo_dtype!r} "
+                             "(none | bfloat16 | float8)")
 
 
 @contextlib.contextmanager
@@ -168,15 +179,21 @@ class Trainer:
     GAT's attention op ``(z, el, er, indptr, src, transpose, slope) ->
     out``, to the kernels' or the plain versions'), and ``act`` (relu) is
     the training forward's nonlinearity between layers — the card-side
-    comparison of a training step sets all three, and on the bucket and
-    block paths ``share``, the ``TransportShare`` its transport casts
-    record into or replay from (None: neither). ``eval_cache`` holds the
-    device CSRs of the full-graph eval, by graph; trainers on one device
-    may share it."""
+    comparison of a training step sets all three, and with a gather
+    transport or a halo wire ``share``, the ``TransportShare`` its casts
+    and wire payloads record into or replay from (None: neither).
+    ``eval_cache`` holds the device CSRs of the full-graph eval, by
+    graph; trainers on one device may share it."""
 
     def __init__(self, sg: ShardedGraph, cfg: ModelConfig,
                  tcfg: TrainConfig, device: torch.device,
                  params: Optional[Params] = None):
+        if tcfg.halo_dtype != "none" and not tcfg.enable_pipeline:
+            # JAX trainer.py:1065-1069: the vanilla exchange is
+            # differentiated, and a lossy wire there would bias gradients
+            raise ValueError(
+                "halo_dtype compression requires enable_pipeline: the "
+                "vanilla exchange is differentiated and must stay exact")
         self.sg, self.cfg, self.tcfg = sg, cfg, tcfg
         self.device = device
         self.P = sg.num_parts
@@ -191,7 +208,8 @@ class Trainer:
         self.data = stage(sg, device, training=True,
                           bucket_merge=cfg.bucket_merge if self.bucket
                           else None,
-                          block=(cfg.block_tile, w_hint, cfg.block_nnz)
+                          block=(cfg.block_tile, w_hint, cfg.block_nnz,
+                                 cfg.block_group)
                           if self.block else None)
         self.n_train = float(self.data.n_train_global)
         if cfg.use_pp:
@@ -263,6 +281,26 @@ class Trainer:
                 return self._spmm(fbuf, indptr, src, in_deg, d.transpose)
         return spmm_fn
 
+    def est_halo_bytes_per_epoch(self, compressed: bool = True) -> int:
+        """Halo wire bytes an epoch (JAX ``est_halo_bytes_per_epoch``):
+        every exchanged graph layer ships each part's halo block forward
+        and its boundary gradients back, ``2 P H F_i`` elements, at the
+        compute dtype's size or, with ``compressed`` (the default), the
+        ``--halo-dtype`` wire's (1 byte under float8, at most 2 under
+        bfloat16)."""
+        if self.P == 1:
+            return 0
+        item = 4 if self.cfg.compute_dtype == torch.float32 else 2
+        if compressed:
+            if self.tcfg.halo_dtype == "float8":
+                item = 1
+            elif self.tcfg.halo_dtype == "bfloat16":
+                item = min(item, 2)
+        start = 1 if self.cfg.use_pp else 0
+        return int(sum(2 * self.P * self.sg.halo_size
+                       * self.cfg.layer_sizes[i] * item
+                       for i in range(start, self.cfg.n_layers)))
+
     @property
     def grad_norm(self) -> Optional[float]:
         """Global L2 norm of the last epoch's reduced gradients."""
@@ -302,6 +340,7 @@ class Trainer:
         cdt = cfg.compute_dtype
         ops = self._halo_ops
         pipeline = tc.enable_pipeline
+        feat_dt = halo_transport_dtypes(tc.halo_dtype)[0]
         probes: Dict[str, torch.Tensor] = {}
         fresh: Dict[str, torch.Tensor] = {}
         if pipeline:
@@ -320,9 +359,11 @@ class Trainer:
                 stale_bgrad = self.comm["bavg"][k].to(cdt) \
                     if tc.grad_corr else self.comm["bgrad"][k]
                 fbuf = stale_concat(h, stale_halo, stale_bgrad, probes[k])
-                # this epoch's exchange, consumed next epoch
-                fresh[k] = ops.gather(h.detach(), d.send_idx, d.send_mask,
-                                      False)
+                # this epoch's exchange, consumed next epoch, across the
+                # feature wire under halo_dtype
+                fresh[k] = exchange_blocks(h.detach(), d.send_idx,
+                                           d.send_mask, feat_dt, ops=ops,
+                                           share=self.share)
                 return fbuf
         else:
             def comm_update(i: int, h: torch.Tensor) -> torch.Tensor:
@@ -365,8 +406,12 @@ class Trainer:
         tc, b_max = self.tcfg, self.data.b_max
         m = tc.corr_momentum
         comm = self.comm
+        bgrad_dt = halo_transport_dtypes(tc.halo_dtype)[1]
         for k in fresh:
-            bg = self._halo_ops.ret(probe_grads[k], b_max)
+            # this epoch's halo cotangents to their owners, across the
+            # boundary-gradient wire under halo_dtype
+            bg = self._halo_ops.ret(probe_grads[k], b_max, bgrad_dt,
+                                    self.share)
             comm["halo"][k] = fresh[k]
             comm["bgrad"][k] = bg
             if tc.feat_corr:

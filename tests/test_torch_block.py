@@ -306,13 +306,15 @@ def test_staging_refuses_a_corrupt_index(stem, value):
 
 
 def test_group_and_unknown_encodings_refuse():
+    """The union-gather kernels (K16 / K17) refuse per-tile pair lists;
+    every kernel refuses an A encoding it does not know."""
     sg = port_sharded(sharded(1))
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        pblk.build_sharded_block_tables(sg, tile=16, group=2)
     tables, _ = pblk.build_sharded_block_tables(sg, tile=16, n_feat_hint=16)
     staged = pblk.stage_block_tables(tables, 16, sg.n_max,
                                      sg.n_max + sg.halo_size, CPU)
     x = torch.zeros((1, sg.n_max + sg.halo_size, 3))
+    with pytest.raises(ValueError, match="union-gather"):
+        pblk.block_dense_grouped(x, staged)
     staged.a = staged.a.to(torch.int16)
     with pytest.raises(ValueError, match="encoding"):
         pblk.block_dense(x, staged)

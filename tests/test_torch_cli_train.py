@@ -112,8 +112,7 @@ def test_cli_raises_without_cuda(monkeypatch):
         cli.main(_tiny_argv())
 
 
-@pytest.mark.parametrize("extra", [["--spmm-impl", "block",
-                                    "--block-group", "2"],
+@pytest.mark.parametrize("extra", [["--n-linear", "2"],
                                    ["--norm", "batch"],
                                    ["--spmm-impl", "auto"]])
 def test_unported_cli_choices_refuse(extra):
@@ -159,13 +158,13 @@ def test_model_flags_parse_with_the_jax_defaults():
     ("gcn", ["--use-pp"], ValueError),
     ("gat", ["--spmm-impl", "block"], ValueError),
     ("gat", ["--norm", "batch"], "ROADMAP A5"),
-    ("gcn", ["--spmm-impl", "block", "--block-group", "2"], "ROADMAP A6"),
+    ("gcn", ["--n-linear", "1"], "ROADMAP A5"),
     ("graphsage", ["--spmm-impl", "auto"], "ROADMAP A6")])
 def test_model_refusals(model, extra, err):
     """The JAX package's refusals (use_pp with gcn/gat, block with gat)
-    raise its ValueError; what the port has not got yet (the block
-    kernel's union-gather layout and the tuner, SyncBN) raises
-    NotImplementedError naming its ROADMAP item (``err``)."""
+    raise its ValueError; what the port has not got yet (the dense tail,
+    the tuner, SyncBN) raises NotImplementedError naming its ROADMAP item
+    (``err``)."""
     exc = err if isinstance(err, type) else NotImplementedError
     with pytest.raises(exc) as info:
         cli.run(cli.build_parser().parse_args(_model_argv(model, extra)))
@@ -293,6 +292,70 @@ def test_cli_trains_the_block_path_on_the_cpu(capsys, model, extra):
         res["test_acc"])
     assert res["losses"][-1] < res["losses"][0]
     assert 0.3 < res["test_acc"] <= 1.0
+
+
+@pytest.mark.parametrize("model,extra", [
+    ("graphsage", ["--block-group", "4", "--rem-dtype", "float8",
+                   "--halo-dtype", "float8"]),
+    ("gcn", ["--block-group", "2", "--halo-dtype", "bfloat16"])])
+def test_cli_trains_the_grouped_block_path_with_a_halo_wire(capsys, model,
+                                                            extra):
+    """The slice's flags through cli/main.py: --block-group > 1 (the
+    union-gather tables; the GCN case was refused before it was ported)
+    with the compressed halo wire prints the reference's lines, the loss
+    falls, and the wire carries a quarter (float8) or half (bfloat16) of
+    the f32 halo bytes."""
+    argv = _tiny_argv(["--device", "cpu", "--model", model,
+                       "--spmm-impl", "block", "--block-tile", "32",
+                       "--cluster-size", "64", *extra])
+    argv[argv.index("--dataset") + 1] = "synthetic:800:30:12:5"
+    if model != "graphsage":
+        argv.remove("--use-pp")
+    args = cli.build_parser().parse_args(argv)
+    seen = {}
+    build = cli.build_trainer
+
+    def keep(*a, **kw):
+        seen["trainer"] = build(*a, **kw)
+        return seen["trainer"]
+
+    cli.build_trainer = keep
+    try:
+        res = cli.run(args)
+    finally:
+        cli.build_trainer = build
+    out = capsys.readouterr().out.strip().splitlines()
+    assert any(line.startswith("Process 000 | Epoch 00019 | Time(s) ")
+               and " | Loss " in line for line in out)
+    assert out[-2] == "Validation accuracy {:.2%}".format(res["best_val"])
+    assert out[-1] == "Test Result | Accuracy {:.2%}".format(
+        res["test_acc"])
+    assert res["losses"][-1] < res["losses"][0]
+    t = seen["trainer"]
+    assert t.data.block.group == int(args.block_group)
+    ratio = 4 if args.halo_dtype == "float8" else 2
+    assert t.est_halo_bytes_per_epoch() * ratio == \
+        t.est_halo_bytes_per_epoch(compressed=False)
+
+
+def test_halo_dtype_without_pipeline_refuses():
+    """The vanilla exchange is differentiated: --halo-dtype without
+    --enable-pipeline raises the JAX trainer's ValueError."""
+    argv = _tiny_argv(["--device", "cpu", "--halo-dtype", "float8"])
+    argv.remove("--enable-pipeline")
+    with pytest.raises(ValueError, match="enable_pipeline"):
+        cli.run(cli.build_parser().parse_args(argv))
+
+
+def test_wire_and_tail_flags_parse_with_the_jax_parser():
+    for argv in (["--halo-dtype", "float8", "--block-group", "4"],
+                 ["--halo_dtype", "bfloat16", "--n-linear", "2"]):
+        ours, theirs = (vars(cli.build_parser().parse_args(argv)),
+                        vars(jax_parser().parse_args(argv)))
+        for k in ("halo_dtype", "block_group", "n_linear"):
+            assert ours[k] == theirs[k], (argv, k)
+    with pytest.raises(SystemExit):
+        cli.build_parser().parse_args(["--halo-dtype", "int8"])
 
 
 def _line_epochs(out):

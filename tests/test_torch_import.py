@@ -310,3 +310,34 @@ def test_native_module_is_the_ports_own():
                   if f.endswith(".cpp")) == ["halo_builder.cpp",
                                              "partitioner.cpp"]
     assert not [f for f in os.listdir(native_dir) if f.endswith(".so")]
+
+
+def test_wire_and_grouped_wrappers_refuse_devices_without_a_kernel():
+    """K14 / K15 (the halo wire) and K16 / K17 (the union-gather tile
+    products): a tensor neither on the CPU nor on CUDA raises."""
+    from pipegcn_tpu_torch.ops import block_spmm as blk
+    from pipegcn_tpu_torch.parallel.halo import halo_amax, halo_wire
+
+    m = torch.device("meta")
+    h = torch.empty((2, 5, 4), device=m)
+    idx = torch.zeros((2, 1, 3), dtype=torch.int32, device=m)
+    mask = torch.zeros((2, 1, 3), dtype=torch.bool, device=m)
+    with pytest.raises(ValueError, match="unsupported device"):
+        halo_amax(h, idx, mask, 3)
+    with pytest.raises(ValueError, match="unsupported device"):
+        halo_wire(h, idx, mask, 3, torch.bfloat16)
+    i32 = dict(dtype=torch.int32, device=m)
+    side = blk.GroupSide(ptr=torch.zeros((1, 2), **i32),
+                         tile=torch.zeros((1, 1), **i32),
+                         blk=torch.zeros((1, 1, 2), **i32), group=2,
+                         n_out=64, n_in=64, n_out_tiles=2, transpose=False)
+    tables = blk.BlockTables(
+        a=torch.zeros((1, 1, 32, 4), dtype=torch.uint8, device=m),
+        packed=True, tile=32, fwd=side,
+        bwd=blk.GroupSide(**{**side.__dict__, "transpose": True}),
+        rem_fwd=None, rem_bwd=None)
+    x = torch.empty((1, 64, 8), device=m)
+    with pytest.raises(ValueError, match="unsupported device"):
+        blk.block_dense_grouped(x, tables)
+    with pytest.raises(ValueError, match="unsupported device"):
+        blk.block_dense_grouped_t(x, tables)

@@ -143,7 +143,7 @@ def _jax_stacked_exchange(sg):
 
 
 def test_unported_configs_refuse():
-    for kw in ({"spmm_impl": "block", "block_group": 2},
+    for kw in ({"model": "gcn", "spmm_impl": "auto"},
                {"spmm_impl": "auto"},
                {"norm": "batch"}, {"dropout_bits": 8}, {"n_linear": 1}):
         with pytest.raises(NotImplementedError):

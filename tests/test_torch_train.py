@@ -216,7 +216,7 @@ def test_train_epoch_is_reproducible_with_dropout():
 
 
 @pytest.mark.parametrize("field", [
-    dict(fused_epochs=4), dict(epoch_block=8), dict(halo_dtype="float8"),
+    dict(fused_epochs=4), dict(epoch_block=8), dict(rng_impl="unsafe_rbg"),
     dict(comm_prefetch=True), dict(loss_scale="auto"),
     dict(integrity_check_every=5), dict(numerics_tripwire=True),
     dict(rng_impl="rbg"), dict(dropout_reuse=4)])
