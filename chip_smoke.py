@@ -18,8 +18,8 @@ stack (union-gather block tiles and the fp8 halo wire at bf16):
   1. prints the card's name and power limit (nvidia-smi) and versions;
   2. builds the hand-written kernels from ``pipegcn_tpu_torch/ops/csrc``
      (one nvcc per source, started together): K1 mean SpMM and K3 its
-     transpose (``spmm_mean.cu``), K2 halo gather and K5 reverse-ring
-     return (``halo_gather.cu``), K4 boundary-gradient scatter in f32 and
+     transpose (``spmm_mean.cu``), K2 halo gather, K5 reverse-ring
+     return and K18 the dirty-row exchange (``halo_gather.cu``), K4 boundary-gradient scatter in f32 and
      bf16 (``halo_scatter.cu``), K6 GAT attention forward (in training
      also the sums that give its backward's pass A) and K8 the
      backward's src-keyed pass B (``gat_attn.cuh``, one library a row
@@ -43,6 +43,21 @@ stack (union-gather block tiles and the fp8 halo wire at bf16):
   5. times K1 and K2 (CUDA events, median), their plain versions and one
      PyTorch library call computing the same function, beside the least
      time the card could take (``bound_ms``), and times the refresh;
+ 5a. serving freshness, ``bench.py --serve``'s configuration on the same
+     parts (use_pp off, 100 qps, refresh and 32-row feature churn every
+     0.5 s) through the serve CLI's functions: 5 s without churn, 10 s
+     with it, 5 s with ``--update-fraction 0.05`` on top, the counts set
+     to 0 before the engine's build and read after (K1, K2 and K18, the
+     dirty-row exchange in ``halo_gather.cu``, launched); the halo against
+     a K2 full exchange bit for bit, the logits after ``refresh()``
+     against a recompute through the plain versions; K18 bit-exact
+     against its plain version at the cell's shapes (32, 256, 4,096 and
+     all dirty rows) and on edge cases (P = 2, 3, 4, f32 and bf16 rows,
+     odd row bytes, masked-off out-of-range indices, one owner on every
+     distance, NaN payloads in clean slots); a K18 fed the wrong mask or
+     bits must fail; K18's, K2's and the refresh's times, one churn
+     batch's ``apply_updates`` and ``refresh_boundary`` (host and
+     device); then GCN with 2 s of churn, its halo held likewise;
   6. trains the ``scripts/reddit.sh`` cell through the training CLI's
      functions (``cli/main.py``: ``--inductive --enable-pipeline
      --use-pp``, dropout 0.5, Adam lr 0.01, 2 metis parts of the train
@@ -354,7 +369,6 @@ def serve_phase(args, g, spmm, halo):
     t0 = time.monotonic()
     engine = build_serving_engine(cli, log=log, sg=sg)
     t_engine = time.monotonic() - t0
-    del sg
     summary = run_serving_loop(engine, duration_s=args.serve_seconds,
                                qps=args.qps, refresh_every_s=1.0,
                                report_every_s=2.0, seed=0)
@@ -400,7 +414,7 @@ def serve_phase(args, g, spmm, halo):
                 want, LOGITS_ATOL, LOGITS_RTOL)
 
     refresh_ms = time_ms(engine.refresh, reps=5, warmup=1)
-    return engine, summary, launches, {
+    return sg, engine, summary, launches, {
         "refresh_ms": refresh_ms, "peak_mem_gib": peak_gib,
         "logits_max_abs_err": err_all, "artifact_build_s": t_artifact,
         "engine_build_s": t_engine}
@@ -604,6 +618,329 @@ def timings(engine, spmm, halo):
 
 
 # ---------------------------------------------------------------------------
+# phase 5a: serving freshness (bench.py --serve's configuration)
+
+# bench.py --serve (_measure_serve): use_pp off, dropout 0, 100 qps for
+# 10 s, refresh and 32-row feature churn every 0.5 s (bench.py:342-357,
+# serve/loadgen.py:253); the mixed workload adds --update-fraction 0.05
+FRESH_FLAGS = ["--n-partitions", "2", "--partition-method", "random",
+               "--n-layers", "4", "--n-hidden", "256", "--norm", "layer",
+               "--dtype", "float32", "--seed", "0", "--local-reorder",
+               "none", "--serve-qps", "100", "--serve-duration", "10",
+               "--serve-refresh-every", "0.5", "--serve-update-every", "0.5",
+               "--serve-update-rows", "32"]
+
+
+def fresh_serve(engine, cli, duration, update_every, fraction, seed):
+    from pipegcn_tpu_torch.serve import run_serving_loop
+
+    s = run_serving_loop(engine, duration_s=duration, qps=cli.serve_qps,
+                         refresh_every_s=cli.serve_refresh_every,
+                         report_every_s=2.0, update_every_s=update_every,
+                         update_rows=cli.serve_update_rows,
+                         update_fraction=fraction, seed=seed)
+    require(s["drained"] and s["conserved"] and s["n_queries"] > 0,
+            f"serving loop: {s}")
+    log(f"  {duration:g} s, churn every {update_every:g} s, update fraction "
+        f"{fraction:g}: {s['n_queries']} queries, {s['n_update_arrivals']} "
+        f"update arrivals, p50 / p99 {s['p50_ms']:.3f} / {s['p99_ms']:.3f} "
+        f"ms, hit rate {s['cache_hit_rate']}, staleness max "
+        f"{s['staleness_age_max']}")
+    return s
+
+
+def live_slots(dirty, idx, mask):
+    """Per halo slot: its owner row is dirty and the slot is on a send
+    list — the slots K18 writes. ``[P, (P-1)*B]`` bool."""
+    import torch
+
+    P, n_max = dirty.shape
+    B = idx.shape[2]
+    out = torch.zeros((P, (P - 1) * B), dtype=torch.bool, device=idx.device)
+    for r in range(P):
+        for d in range(1, P):
+            s = (r - d) % P
+            i = idx[s, d - 1].long().clamp(0, n_max - 1)
+            out[r, (d - 1) * B:d * B] = dirty[s].bool()[i] & mask[s, d - 1]
+    return out
+
+
+def k18_check(name, fresh, h, old, dirty, idx, mask, kernel_args=None):
+    """K18 on a copy of ``old`` against its plain version on another, bit
+    for bit; ``kernel_args`` (dirty, mask) hands the kernel other inputs
+    than the plain version (a planted fault)."""
+    kd, km = kernel_args or (dirty, mask)
+    got = fresh.dirty_exchange(h, old.clone(), kd, idx, km)
+    want = fresh.dirty_exchange_plain(h, old.clone(), dirty, idx, mask)
+    return check_bits(name, got, want)
+
+
+def dirty_rows(P, n_max, n, seed):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    d = torch.zeros(P * n_max, dtype=torch.bool, device="cuda")
+    if n >= P * n_max:
+        d[:] = True
+    else:
+        d[torch.randperm(P * n_max, generator=g, device="cuda")[:n]] = True
+    return d.view(P, n_max)
+
+
+def k18_edge_phase(fresh, halo):
+    """K18 against its plain version on hand-made send lists: P = 2 and 4,
+    f32 and bf16 rows, F = 602 (8-byte rows) and F = 5 (odd bytes), with
+    masked-off slots at out-of-range indices, one owner row on every
+    distance, distinct NaN payloads in the old halo; dirty sets empty,
+    all, off-list, random, the one owner."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    for P, n_max, B, F, dt in ((2, 300, 120, 602, torch.float32),
+                               (4, 300, 90, 602, torch.float32),
+                               (4, 65, 20, 5, torch.float32),
+                               (4, 300, 90, 602, torch.bfloat16),
+                               (3, 50, 17, 7, torch.bfloat16)):
+        idx = torch.randint(0, n_max - 4, (P, P - 1, B), generator=gen,
+                            device="cuda", dtype=torch.int32)
+        mask = torch.rand((P, P - 1, B), generator=gen, device="cuda") < 0.75
+        idx[:, :, -1] = n_max + 5
+        idx[:, :, -2] = -7
+        mask[:, :, -2:] = False
+        idx[0, :, :2] = 3
+        mask[0, :, :2] = True
+        h = torch.randn((P, n_max, F), generator=gen, device="cuda").to(dt)
+        ib = torch.int32 if dt == torch.float32 else torch.int16
+        info = torch.iinfo(ib)
+        old = torch.randint(info.min, info.max, (P, (P - 1) * B, F),
+                            generator=gen, device="cuda",
+                            dtype=torch.int64).to(ib)
+        nan = 0x7FC00001 if dt == torch.float32 else 0x7FC1
+        old.view(-1)[:64] = torch.arange(nan, nan + 64, device="cuda").to(ib)
+        old = old.view(dt)
+        on = torch.zeros((P, n_max), dtype=torch.bool, device="cuda")
+        for p in range(P):
+            on[p, idx[p][mask[p]].long()] = True
+        owner = torch.zeros_like(on)
+        owner[0, 3] = True
+        for label, dirty in (("empty", torch.zeros_like(on)),
+                             ("all", torch.ones_like(on)), ("off-list", ~on),
+                             ("random", torch.rand((P, n_max), generator=gen,
+                                                   device="cuda") < 0.3),
+                             ("one owner", owner)):
+            k18_check(f"K18 P={P} F={F} {dt} dirty {label}", fresh, h, old,
+                      dirty, idx, mask)
+        n_live = int(live_slots(owner, idx, mask).sum())
+        require(n_live >= 2 * (P - 1), f"one owner: {n_live} live slots")
+    # the fault checks: a kernel that ignores the mask writes the masked-off
+    # slots of dirty owners; one that ignores the bits writes clean slots
+    all_on = torch.ones_like(mask)
+    all_dirty = torch.ones_like(on)
+    must_fail("planted fault: K18 ignoring send_mask",
+              lambda: k18_check("K18 mask ignored", fresh, h, old, all_dirty,
+                                idx, mask, (all_dirty, all_on)))
+    must_fail("planted fault: K18 writing clean slots",
+              lambda: k18_check("K18 bits ignored", fresh, h, old,
+                                torch.zeros_like(on), idx, mask,
+                                (all_dirty, mask)))
+
+
+def freshness_phase(args, sg, spmm, halo, fresh):
+    """bench.py --serve's configuration through the serve CLI's
+    functions on the serving phase's artifact: serve without churn (5 s),
+    with the 32-row churn (10 s) and with the mixed workload on top (5 s),
+    the counts set to 0 before the engine's build and read after the
+    last run; the halo against a K2 full exchange bit for bit, the logits
+    against a recompute through the plain versions; K18 against its plain
+    version at the cell's shapes (32, 256, 4,096 and all dirty rows) and
+    on edge cases, two planted faults; the timings; then GCN with 2 s of
+    churn, its halo held likewise."""
+    import numpy as np
+    import torch
+    from pipegcn_tpu_torch.cli.serve import build_parser, \
+        build_serving_engine
+    from pipegcn_tpu_torch.models.sage import forward
+
+    cnt = {"spmm_mean": spmm.spmm_mean, "halo_gather": halo.halo_gather,
+           "dirty_exchange": fresh.dirty_exchange}
+    cli = build_parser().parse_args(
+        ["--dataset", args.dataset, "--model", "graphsage", *FRESH_FLAGS])
+    reset_counts(cnt)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    engine = build_serving_engine(cli, log=log, sg=sg)
+    t_engine = time.monotonic() - t0
+    quiet = fresh_serve(engine, cli, 5.0, 0.0, 0.0, seed=2)
+    churn = fresh_serve(engine, cli, cli.serve_duration,
+                        cli.serve_update_every, 0.0, seed=0)
+    mixed = fresh_serve(engine, cli, 5.0, cli.serve_update_every, 0.05,
+                        seed=1)
+    torch.cuda.synchronize()
+    launches = read_counts(cnt)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  engine in {t_engine:.1f}s; launches {launches}")
+    require(all(v > 0 for v in launches.values()),
+            f"a kernel of the freshness path was never launched: {launches}")
+    require(mixed["n_update_arrivals"] > 0, "no update arrivals")
+    require(mixed["cache_hit_rate"] < 1 and mixed["staleness_age_max"] >= 1,
+            f"the mixed workload served no stale query: {mixed}")
+
+    # the incremental halo against a full exchange; the logits after
+    # refresh() against the plain versions with every layer exchanged live
+    d = engine.data
+    check_bits("halo after churn vs K2 full exchange", engine._halo0,
+               engine.full_boundary_exchange())
+    engine.refresh()
+    require(engine.fully_fresh, "refresh() left the engine stale")
+
+    def plain_exchange(h, idx, mask):
+        return halo.halo_gather_plain(h, idx, mask, with_inner=True)
+
+    with torch.inference_mode():
+        ref = forward(engine.params, engine.cfg, engine._feat, d.indptr,
+                      d.edge_src, d.in_deg,
+                      comm_update=lambda i, h: plain_exchange(
+                          h, d.send_idx, d.send_mask),
+                      spmm_fn=spmm.spmm_mean_plain)
+    logits_err = check_close("logits after churn + refresh() vs plain "
+                             "recompute", engine.logits, ref, LOGITS_ATOL,
+                             LOGITS_RTOL)
+    ids = torch.randperm(engine.num_global_nodes,
+                         generator=torch.Generator().manual_seed(3))[:4096]
+    got = torch.from_numpy(engine.query(ids.numpy()))
+    want = ref[torch.from_numpy(engine._q_part[ids.numpy()]).cuda(),
+               torch.from_numpy(engine._q_local[ids.numpy()]).cuda()].cpu()
+    check_close("queried logits vs plain recompute", got, want, LOGITS_ATOL,
+                LOGITS_RTOL)
+    del ref
+
+    # K18 at the cell's shapes: the send view, an old halo of random bits
+    P, n_max, F = engine._feat.shape
+    idx, mask = d.send_idx, d.send_mask
+    B = idx.shape[2]
+    h = engine._send_view()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    old = torch.randint(-2 ** 31, 2 ** 31 - 1, tuple(engine._halo0.shape),
+                        generator=gen, device="cuda",
+                        dtype=torch.int64).to(torch.int32).view(torch.float32)
+    times = {}
+    for n in (32, 256, 4096, P * n_max):
+        dirty = dirty_rows(P, n_max, n, seed=n)
+        label = "all" if n == P * n_max else str(n)
+        k18_check(f"K18 cell, {label} dirty rows", fresh, h, old, dirty, idx,
+                  mask)
+        live = live_slots(dirty, idx, mask)
+        n_slots = int(live.sum())
+        work = old.clone()
+        ms = time_ms(lambda: fresh.dirty_exchange(h, work, dirty, idx, mask))
+        plain = time_ms(lambda: fresh.dirty_exchange_plain(
+            h, work, dirty, idx, mask), reps=5)
+        # library yardstick: the dirty bits and rows gathered per slot,
+        # merged by one torch.where
+        sender = (torch.arange(P, device="cuda")[:, None]
+                  - torch.arange(1, P, device="cuda")[None, :]) % P
+        dist = torch.arange(P - 1, device="cuda")[None, :]
+        gidx = (sender[..., None] * n_max
+                + idx[sender, dist].long().clamp(0, n_max - 1)).reshape(-1)
+        gmask = mask[sender, dist].reshape(-1)
+        flat, dflat = h.reshape(P * n_max, F), dirty.reshape(-1)
+        wflat = work.view(-1, F)
+        lib = time_ms(lambda: torch.where(
+            (dflat[gidx] & gmask)[:, None], flat.index_select(0, gidx),
+            wflat))
+        n_bytes = P * (P - 1) * B * (4 + 1 + 1) + 2 * n_slots * F * 4
+        times[label] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                            bound=bound_ms(n_bytes, 0), dirty_slots=n_slots,
+                            shape=f"P={P} n_max={n_max} B={B} F={F} f32, "
+                                  f"{label} dirty rows, {n_slots} dirty "
+                                  "slots")
+        log(f"  K18 {label} dirty rows ({n_slots} slots): {ms:.4f} ms, "
+            f"plain {plain:.3f}, library {lib:.3f}, bound "
+            f"{times[label]['bound'][0]:.4f} ms")
+        del work, gidx, gmask
+    del old
+    k18_edge_phase(fresh, halo)
+    k2_ms = time_ms(lambda: halo.halo_gather(h, idx, mask, False))
+    refresh_ms = time_ms(engine.refresh, reps=5, warmup=1)
+
+    # apply_updates and refresh_boundary of one 32-row churn batch: host
+    # clock around the call and a synchronize, 20 batches; then the device
+    # time of each (its kernels and copies, torch.profiler), 20 more
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    rng = np.random.default_rng(11)
+
+    def batch():
+        return (rng.integers(0, engine.num_global_nodes, 32),
+                rng.standard_normal((32, engine.n_feat_raw),
+                                    dtype=np.float32))
+
+    host_a, host_b = [], []
+    for _ in range(20):
+        ids_u, vals = batch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.apply_updates(ids_u, vals)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        engine.refresh_boundary()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        host_a.append((t1 - t0) * 1e3)
+        host_b.append((t2 - t1) * 1e3)
+    labels = ("apply_updates", "refresh_boundary")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            ids_u, vals = batch()
+            with record_function(labels[0]):
+                engine.apply_updates(ids_u, vals)
+            with record_function(labels[1]):
+                engine.refresh_boundary()
+        torch.cuda.synchronize()
+    update_ms = {}
+    for label, host in zip(labels, (host_a, host_b)):
+        evs = [e for e in prof.events() if e.name == label
+               and e.device_type == DeviceType.CPU]
+        dev = sum(e.device_time_total for e in evs) / max(len(evs), 1)
+        update_ms[f"{label}_host_ms"] = float(np.median(host))
+        # microseconds of the range's kernels and copies; 0 = the
+        # profiler saw no device activity: not measured
+        update_ms[f"{label}_device_ms"] = dev / 1e3 if dev > 0 else None
+    # K18's own kernel time in the same profile: it launches through
+    # ctypes, not a torch op, so the profiler ties it to no CPU range and
+    # refresh_boundary's device time above counts its torch work only (the
+    # dirty bits' copy); the batch's device time is the sum of the two
+    k18 = [e.device_time for e in prof.events()
+           if e.device_type == DeviceType.CUDA and "dirty_exchange" in e.name]
+    update_ms["k18_in_profile_ms"] = (float(np.mean(k18)) / 1e3
+                                      if k18 else None)
+    log(f"  K2 full exchange {k2_ms:.3f} ms; refresh (use_pp off) "
+        f"{refresh_ms:.3f} ms; a 32-row batch: {update_ms}")
+    check_bits("halo after the timed batches vs K2 full exchange",
+               engine._halo0, engine.full_boundary_exchange())
+    del engine, h
+    torch.cuda.empty_cache()
+
+    # GCN: its send view pre-scales the rows by 1/sqrt(in_deg)
+    gcli = build_parser().parse_args(
+        ["--dataset", args.dataset, "--model", "gcn", *FRESH_FLAGS])
+    gengine = build_serving_engine(gcli, log=log, sg=sg)
+    gcn = fresh_serve(gengine, gcli, 2.0, gcli.serve_update_every, 0.0,
+                      seed=5)
+    check_bits("GCN halo after churn vs K2 full exchange of its send view",
+               gengine._halo0, gengine.full_boundary_exchange())
+    del gengine
+    torch.cuda.empty_cache()
+    return {"launches": launches, "engine_build_s": t_engine,
+            "quiet": quiet, "churn": churn, "mixed": mixed, "gcn": gcn,
+            "peak_mem_gib": peak_gib, "logits_max_abs_err": logits_err,
+            "k18": times, "k2_full_exchange_ms": k2_ms,
+            "refresh_ms": refresh_ms, **update_ms}
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the training cell (scripts/reddit.sh) through cli/main.py
 
 
@@ -613,6 +950,7 @@ def counters(spmm, halo):
     from pipegcn_tpu_torch.ops import block_spmm as blk
     from pipegcn_tpu_torch.ops import bucket_spmm as bs
     from pipegcn_tpu_torch.ops import gat
+    from pipegcn_tpu_torch.serve import freshness as fresh
 
     return {"spmm_mean": spmm.spmm_mean, "halo_gather": halo.halo_gather,
             "spmm_mean_t": spmm.spmm_mean_t,
@@ -626,7 +964,8 @@ def counters(spmm, halo):
             "block_dense_t": blk.block_dense_t,
             "halo_amax": halo.halo_amax, "halo_wire": halo.halo_wire,
             "block_dense_grouped": blk.block_dense_grouped,
-            "block_dense_grouped_t": blk.block_dense_grouped_t}
+            "block_dense_grouped_t": blk.block_dense_grouped_t,
+            "dirty_exchange": fresh.dirty_exchange}
 
 
 # the kernels each model's training path runs
@@ -3895,6 +4234,7 @@ def main() -> int:
         from pipegcn_tpu_torch.ops import block_spmm as blk
         from pipegcn_tpu_torch.ops import bucket_spmm as bs
         from pipegcn_tpu_torch.parallel import halo
+        from pipegcn_tpu_torch.serve import freshness as fresh
     except ImportError as exc:
         log(f"chip_smoke: the port package is missing beside this "
             f"script ({exc})")
@@ -3935,8 +4275,8 @@ def main() -> int:
 
     log(f"[3] serving path: {args.dataset}, 2 parts, GraphSAGE 4x256 "
         "use_pp")
-    engine, summary, launches, serve_stats = serve_phase(args, g, spmm,
-                                                         halo)
+    serve_sg, engine, summary, launches, serve_stats = serve_phase(
+        args, g, spmm, halo)
 
     log("[4] K1, K2 vs plain versions")
     errs = {"K1": k1_phase(engine, spmm, halo), "K2": k2_phase(engine, halo)}
@@ -3944,6 +4284,14 @@ def main() -> int:
     log("[5] K1, K2 timings")
     serve_t, pp = timings(engine, spmm, halo)
     del engine
+    torch.cuda.empty_cache()
+
+    log("[5a] serving freshness: bench.py --serve's configuration (GraphSAGE "
+        "602 -> 256x3 -> 41, use_pp off, 100 qps, refresh every 0.5 s, "
+        "32-row churn every 0.5 s, then --update-fraction 0.05) on the same "
+        "2 random parts; K18 vs its plain version, a planted fault; GCN")
+    fresh_stats = freshness_phase(args, serve_sg, spmm, halo, fresh)
+    del serve_sg
     torch.cuda.empty_cache()
 
     log(f"[6] training cell: scripts/reddit.sh at full width on "
@@ -4207,6 +4555,22 @@ def main() -> int:
                      "pipegcn_tpu/parallel/halo.py:244", n["halo_return"],
                      errs["K5"], tt["K5"]),
     ]
+    # K18: the freshness phase's run (build, the quiet, churn and mixed
+    # runs); times at the cell's shape with 32 dirty rows (a churn
+    # batch), the other dirty counts under "by_dirty_rows"
+    k18t = fresh_stats["k18"]
+    e = kernel_entry("dirty_exchange", src + "halo_gather.cu",
+                     "pipegcn_tpu/serve/freshness.py:51",
+                     fresh_stats["launches"]["dirty_exchange"], 0.0,
+                     k18t["32"])
+    e["by_dirty_rows"] = {k: {**{f: v[f] for f in ("ms", "plain_ms",
+                                                     "library_ms",
+                                                     "dirty_slots")},
+                              "bound_ms": v["bound"][0],
+                              "bound_by": v["bound"][1]}
+                          for k, v in k18t.items()}
+    e["launches_run"] = "the serving-freshness phase's runs"
+    kernels.append(e)
     # K6, K8: times at the hidden layers' shape (dh = 64) beside the GAT
     # training run's launches; the logits layer's (dh = 41) under "dh41";
     # K6 in training's NEG mode (which also gives pass A), its eval mode
@@ -4394,6 +4758,17 @@ def main() -> int:
                     "engine_build_s": serve_stats["engine_build_s"],
                     "logits_max_abs_err": serve_stats["logits_max_abs_err"],
                     **pp}}))
+    fr = {k: v for k, v in fresh_stats.items() if k != "k18"}
+    print(json.dumps({"serving_freshness": {
+        "dataset": args.dataset,
+        "cell": "bench.py --serve: graphsage 602 -> 256 x3 -> 41, "
+                "LayerNorm, use_pp off, dropout 0, 2 random parts of the "
+                "full graph, 100 qps, refresh every 0.5 s, 32-row churn "
+                "every 0.5 s (10 s), then --update-fraction 0.05 (5 s); "
+                "5 s without churn first; GCN 2 s of churn",
+        "cuts": ["2 random parts of the full graph (not metis)",
+                 "--local-reorder none (the serving artifact)"],
+        **fr, "card": smi}}))
     print(json.dumps({"training": {
         "dataset": args.dataset,
         "cell": "scripts/reddit.sh: graphsage 4x256 --use-pp --inductive "

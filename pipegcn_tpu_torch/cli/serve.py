@@ -4,8 +4,11 @@ Port of ``pipegcn_tpu/cli/serve.py``: resolve (or, with ``--serve-build``,
 build) the partition artifact, stage it on the device, build and warm the
 ServingEngine, serve open-loop constant-rate traffic, and print the
 summary as one final ``{"serve": true, ...}`` JSON line, as the JAX CLI
-does. Its own parser covers the flags this slice uses, with the JAX
-CLI's names and defaults. ``--local-reorder cluster`` (the default, as in
+does. Its own parser covers the flags the ported slices use, with the
+JAX CLI's names and defaults: among them the feature-update churn
+(``--serve-update-every``, ``--serve-update-rows``, ``--update-fraction``;
+use_pp off) and ``--model gcn`` (``--use-pp`` is refused for it, as the
+JAX CLI refuses it). ``--local-reorder cluster`` (the default, as in
 JAX) renumbers each part's nodes by locality clusters of the full graph
 (``--cluster-size`` nodes each) and names the artifact with the JAX
 CLI's ``-cs<size>`` suffix; ``--local-reorder none`` keeps the base
@@ -33,7 +36,7 @@ from .layout import add_layout_flags, artifact_name
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="PipeGCN serving on PyTorch/CUDA (port slice 1)")
+        description="PipeGCN serving on PyTorch/CUDA")
     p.add_argument("--dataset", type=str, default="reddit")
     p.add_argument("--graph-name", "--graph_name", type=str, default="")
     p.add_argument("--data-root", "--data_root", type=str, default=None,
@@ -74,8 +77,19 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--serve-refresh-every", "--serve_refresh_every",
                    type=float, default=0.5,
                    help="seconds between logits recomputes")
+    g.add_argument("--serve-update-every", "--serve_update_every",
+                   type=float, default=0.0,
+                   help="seconds between synthetic feature-update churn "
+                        "batches (0 disables)")
+    g.add_argument("--serve-update-rows", "--serve_update_rows", type=int,
+                   default=32, help="rows per synthetic update batch")
     g.add_argument("--serve-build", "--serve_build", action="store_true",
                    help="build the partition artifact when missing")
+    g.add_argument("--update-fraction", "--update_fraction", type=float,
+                   default=0.0,
+                   help="fraction of arrivals that are feature updates "
+                        "instead of queries (mixed workload). 0 = "
+                        "query-only")
     return p
 
 
@@ -156,6 +170,10 @@ def build_serving_engine(args, log=print, sg=None):
     from ..parallel.staging import stage
     from ..serve import ServingEngine
 
+    if args.model not in ("graphsage", "gcn", "gat"):
+        raise ValueError(f"unknown model: {args.model}")
+    if args.model in ("gcn", "gat") and args.use_pp:
+        raise ValueError("--use-pp is a GraphSAGE-only optimization")
     device = resolve_device(args.device)
     if sg is None:
         sg = _load_partition(args, log)
@@ -197,7 +215,10 @@ def main(argv=None) -> int:
             max_delay_ms=args.serve_max_delay_ms,
             report_every_s=args.serve_report_every,
             refresh_every_s=args.serve_refresh_every,
+            update_every_s=args.serve_update_every,
+            update_rows=args.serve_update_rows,
             seed=args.seed,
+            update_fraction=args.update_fraction,
             stop=lambda: stop_flag["stop"],
         )
     finally:

@@ -1,5 +1,6 @@
-// K2 / K5: masked halo gather (emulated ring exchange) and the reverse-ring
-// block return, hand-written for Hopper (sm_90a).
+// K2 / K5 / K18: masked halo gather (emulated ring exchange), the
+// reverse-ring block return and the serving engine's dirty-row exchange,
+// hand-written for Hopper (sm_90a).
 //
 // K2 replaces: pipegcn_tpu/parallel/halo.py  exchange_blocks / halo_exchange:
 // for each ring distance d = 1..P-1, part r receives h[s][send_idx[s][d-1]]
@@ -34,6 +35,25 @@
 // byte copy as K2 (same vector choice, same bound: bytes, each row read
 // and written once); the input may be a strided view (the halo rows of a
 // [P, n_max + H, F] cotangent), since each part's block is contiguous.
+
+// K18 replaces: pipegcn_tpu/serve/freshness.py  dirty_exchange_blocks: the
+// serving engine's incremental layer-0 halo refresh. For receiver r,
+// distance d = 1..P-1 and slot b, with s = (r-d) mod P, e = (s, d-1, b) and
+// i = clip(send_idx[e], 0, n_max-1):
+//   if send_mask[e] and dirty[s, i]:  halo[r, (d-1)B + b] = h[s, i]
+// and the slot is left as it is otherwise. That is JAX's take(clip) ->
+// & send_mask -> where -> ppermute -> where(bits, fresh, halo) collapsed
+// onto one card, in place on the resident halo (JAX donates it).
+// Bound: bytes — the send lists' index and mask bytes and the dirty bits
+// of each slot's owner row, plus each dirty slot's row read and written
+// once. Design: K2's warp per halo row, predicated. The warp reads the
+// slot's mask, index and the owner row's dirty bit (one byte of the u8
+// bitmap [P, n_max], shipped once per refresh) and exits unless both are
+// on; a live slot is copied with K2's widest vector the alignment allows.
+// A masked-off slot never reads its index's dirty bit, and the index is
+// clipped before any read. Clean slots are never written, so their bytes
+// (NaN payloads included) survive; dirty ones are byte copies, bit-exact
+// for any row type.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -145,6 +165,47 @@ int launch_return(const void* in, long long in_part_stride, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename V>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+dirty_exchange_kernel(const char* __restrict__ h, long long h_part_stride,
+                      char* __restrict__ halo, long long halo_part_stride,
+                      const int* __restrict__ send_idx,
+                      const unsigned char* __restrict__ send_mask,
+                      const unsigned char* __restrict__ dirty, int P,
+                      int n_max, int B, int row_bytes) {
+  const int part = blockIdx.y;
+  const int k = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (k >= (P - 1) * B) return;
+  const int d = k / B;  // ring distance d + 1
+  const int b = k - d * B;
+  const int sender = (part - d - 1 + P) % P;
+  const size_t e = (static_cast<size_t>(sender) * (P - 1) + d) * B + b;
+  if (!send_mask[e]) return;
+  const int idx = min(max(send_idx[e], 0), n_max - 1);
+  if (!dirty[static_cast<size_t>(sender) * n_max + idx]) return;
+  const V* from = reinterpret_cast<const V*>(
+      h + sender * h_part_stride + static_cast<size_t>(idx) * row_bytes);
+  V* to = reinterpret_cast<V*>(halo + part * halo_part_stride +
+                               static_cast<size_t>(k) * row_bytes);
+  const int nv = row_bytes / static_cast<int>(sizeof(V));
+  for (int i = lane; i < nv; i += 32) to[i] = __ldg(from + i);
+}
+
+template <typename V>
+int launch_dirty(const void* h, long long h_part_stride, void* halo,
+                 long long halo_part_stride, const int* send_idx,
+                 const unsigned char* send_mask, const unsigned char* dirty,
+                 int P, int n_max, int B, int row_bytes,
+                 cudaStream_t stream) {
+  const int n_slots = (P - 1) * B;
+  const dim3 grid((n_slots + kWarpsPerBlock - 1) / kWarpsPerBlock, P);
+  dirty_exchange_kernel<V><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
+      static_cast<const char*>(h), h_part_stride, static_cast<char*>(halo),
+      halo_part_stride, send_idx, send_mask, dirty, P, n_max, B, row_bytes);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // h: P parts of n_max rows of row_bytes each, part stride h_part_stride
@@ -198,6 +259,38 @@ extern "C" int pgt_halo_return(const void* in, long long in_part_stride,
 #define PGT_LAUNCH(V)                                                    \
   return launch_return<V>(in, in_part_stride, out, out_part_stride, P, B, \
                           n_rows, row_bytes, st)
+  if (a % 16 == 0) PGT_LAUNCH(uint4);
+  if (a % 8 == 0) PGT_LAUNCH(uint2);
+  if (a % 4 == 0) PGT_LAUNCH(unsigned int);
+  if (a % 2 == 0) PGT_LAUNCH(unsigned short);
+  PGT_LAUNCH(unsigned char);
+#undef PGT_LAUNCH
+}
+
+// K18. h: P parts of n_max rows of row_bytes each (the send view), part
+// stride h_part_stride bytes; halo: P parts of (P-1)*B rows, part stride
+// halo_part_stride bytes, updated in place; send_idx [P, P-1, B] int32;
+// send_mask [P, P-1, B] and dirty [P, n_max] one byte each. Strides in
+// bytes. Returns cudaGetLastError().
+extern "C" int pgt_dirty_exchange(const void* h, long long h_part_stride,
+                                  void* halo, long long halo_part_stride,
+                                  const void* send_idx, const void* send_mask,
+                                  const void* dirty, int P, int n_max, int B,
+                                  int row_bytes, void* stream) {
+  if (P <= 1 || B == 0 || row_bytes == 0) return 0;
+  if (n_max <= 0 || B < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const uintptr_t a = reinterpret_cast<uintptr_t>(h) |
+                      reinterpret_cast<uintptr_t>(halo) |
+                      static_cast<uintptr_t>(h_part_stride) |
+                      static_cast<uintptr_t>(halo_part_stride) |
+                      static_cast<uintptr_t>(row_bytes);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* si = static_cast<const int*>(send_idx);
+  const unsigned char* sm = static_cast<const unsigned char*>(send_mask);
+  const unsigned char* db = static_cast<const unsigned char*>(dirty);
+#define PGT_LAUNCH(V)                                                     \
+  return launch_dirty<V>(h, h_part_stride, halo, halo_part_stride, si, sm, \
+                         db, P, n_max, B, row_bytes, st)
   if (a % 16 == 0) PGT_LAUNCH(uint4);
   if (a % 8 == 0) PGT_LAUNCH(uint2);
   if (a % 4 == 0) PGT_LAUNCH(unsigned int);

@@ -67,6 +67,9 @@ _SIGNATURES = {
     "pgt_halo_gather": [_P, _LL, _P, _LL, _P, _P, _I, _I, _I, _I, _I, _I,
                         _P],
     "pgt_halo_return": [_P, _LL, _P, _LL, _I, _I, _I, _I, _P],
+    # K18, the serving engine's dirty-row exchange (serve/freshness.py)
+    "pgt_dirty_exchange": [_P, _LL, _P, _LL, _P, _P, _P, _I, _I, _I, _I,
+                           _P],
 }
 _WIRE_SIGNATURES = {
     "pgt_halo_amax": [_P, _I, _LL, _I, _I, _I, _I, _P, _P, _P, _P],

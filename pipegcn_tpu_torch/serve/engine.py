@@ -1,20 +1,31 @@
 """Sharded inference engine — port of ``pipegcn_tpu/serve/engine.py``
 (``ServingEngine``: ``refresh``, ``query``, ``warmup``, ``load_params``,
-the layer-0 halo cache and the owner-gather query).
+the layer-0 halo cache, the owner-gather query and the freshness path:
+``apply_updates``, ``refresh_boundary``, ``full_boundary_exchange``,
+``staleness_age``, ``fully_fresh``).
 
 The JAX engine runs one shard per device under ``shard_map``; here the P
-parts are stacked on one card (``parallel/staging.py``) and the ring
-exchange is kernel K2. State owned by the engine:
+parts are stacked on one card (``parallel/staging.py``), the ring
+exchange is kernel K2 and the dirty-row exchange kernel K18. State owned
+by the engine:
 
   _feat   [P, n_max, F]     the model input: the use_pp concat
-                            ``[feat, mean_neigh]``, else the raw features
-  _halo0  [P, (P-1)*B, F]   layer-0 halo cache (use_pp off only; under
-                            use_pp layer 0 never exchanges)
+                            ``[feat, mean_neigh]``, else a private copy
+                            of the raw features that updates patch in
+                            place (the staged graph stays intact)
+  _halo0  [P, (P-1)*B, F]   layer-0 halo cache in the SEND VIEW — compute
+                            dtype, GCN degree pre-scale applied — exactly
+                            the rows forward() would exchange at layer 0
+                            (use_pp off only; under use_pp layer 0 never
+                            exchanges)
   _logits [P, n_max, C]     f32 logits of every owned node
 
-Feature updates (``apply_updates``) and topology deltas wait for a later
-slice (the dirty-row exchange, kernel B11); under use_pp the JAX engine
-refuses them too.
+Staleness ledger (as JAX's): ``staleness_age`` counts applied update
+batches whose effects the served logits do not yet reflect.
+apply_updates bumps it; refresh() collapses it to the halo lag;
+refresh_boundary() zeroes the halo lag. age == 0 <=> fully fresh <=> a
+cache hit. Under use_pp updates are refused, as in JAX. Topology deltas
+(JAX ``apply_graph_deltas``) wait for ROADMAP A9.
 """
 
 from __future__ import annotations
@@ -30,6 +41,8 @@ from ..parallel.halo import exchange_blocks, halo_exchange
 from ..parallel.staging import StagedGraph, precompute_pp
 from ..partition.halo import ShardedGraph
 from .batcher import MicroBatcher, ServingStats, bucket_ladder
+from .cache import Layer0Cache
+from .freshness import FreshnessTracker, dirty_exchange
 
 
 class ServingEngine:
@@ -38,10 +51,10 @@ class ServingEngine:
     def __init__(self, sg: ShardedGraph, data: StagedGraph,
                  cfg: ModelConfig, params: Params, *, max_batch: int = 64,
                  ladder_min: int = 8):
-        if cfg.model != "graphsage":
+        if cfg.model not in ("graphsage", "gcn"):
             raise NotImplementedError(
                 f"serving {cfg.model} waits for ROADMAP A5 (the engine "
-                "runs the graphsage forward)")
+                "runs the graphsage and gcn forwards)")
         if cfg.dtype != "float32":
             raise NotImplementedError(
                 f"serving at dtype {cfg.dtype!r} (bf16 compute) waits for "
@@ -52,6 +65,7 @@ class ServingEngine:
         self.P = data.num_parts
         self.n_max = data.n_max
         self.n_class = int(cfg.layer_sizes[-1])
+        self.n_feat_raw = int(sg.n_feat)
         self.ladder = bucket_ladder(ladder_min, max_batch)
         self.params_version = 0
         self.param_generation = -1
@@ -70,15 +84,22 @@ class ServingEngine:
             self._q_part[nid[p, own]] = p
             self._q_local[nid[p, own]] = own
 
+        self.freshness = FreshnessTracker(self.P, self.n_max)
+        self.cache = Layer0Cache(sg.send_idx, sg.send_mask)
+        self._feat_lag = 0   # update batches not yet in _logits
+        self._halo_lag = 0   # update batches whose boundary rows are not
+        #                      yet in _halo0
+
         # ---------------- device state --------------------------------
         if cfg.use_pp:
             self._feat = precompute_pp(data)
             self._halo0 = None
         else:
-            self._feat = data.feat
+            # private copy: updates patch it in place, and the staged
+            # graph's features must stay intact for any other user
+            self._feat = data.feat.clone()
             # the layer-0 halo cache starts fully fresh
-            self._halo0 = exchange_blocks(self._feat, data.send_idx,
-                                          data.send_mask)
+            self._halo0 = self.full_boundary_exchange()
 
     # ---------------- params / warmup ---------------------------------
 
@@ -106,6 +127,89 @@ class ServingEngine:
             torch.cuda.synchronize(self.device)
         return time.monotonic() - t0
 
+    # ---------------- freshness path ----------------------------------
+
+    def _send_view(self) -> torch.Tensor:
+        """Exactly forward()'s layer-0 transform of the features before
+        its exchange: the cast to the compute dtype, then (GCN) the f32
+        ``1/sqrt(in_deg)`` pre-scale cast back, in forward's op order, so
+        the cached halo equals a live exchange bit for bit."""
+        h = self._feat.to(self.cfg.compute_dtype)
+        if self.cfg.model == "gcn":
+            d_sqrt = torch.sqrt(self.data.in_deg)[..., None]
+            h = (h.float() / d_sqrt).to(self.cfg.compute_dtype)
+        return h
+
+    @property
+    def staleness_age(self) -> int:
+        return self._feat_lag
+
+    @property
+    def fully_fresh(self) -> bool:
+        return self._feat_lag == 0
+
+    def apply_updates(self, node_ids, values) -> int:
+        """Patch owned-node features in place, mark the dirty-row bitmap
+        and invalidate the layer-0 cache slots off the send lists.
+        Returns the number of halo slots invalidated. A batch that repeats
+        an id keeps its last row, resolved on the host (a scatter with
+        repeated indices picks any writer on CUDA)."""
+        if self.cfg.use_pp:
+            raise ValueError(
+                "feature updates are unsupported under use_pp: the "
+                "precompute folds raw features into a precomputed "
+                "aggregate; serve with use_pp off (or rebuild the "
+                "engine) to ingest updates")
+        ids = np.atleast_1d(np.asarray(node_ids, np.int64))
+        vals = np.atleast_2d(np.asarray(values, np.float32))
+        if vals.shape != (ids.size, self.n_feat_raw):
+            raise ValueError(
+                f"values must be [{ids.size}, {self.n_feat_raw}], "
+                f"got {vals.shape}")
+        if ids.size and (ids.min() < 0
+                         or ids.max() >= self.num_global_nodes):
+            raise ValueError("node id out of range")
+        parts = self._q_part[ids]
+        local = self._q_local[ids]
+        # the last occurrence of each id wins
+        _, first_of_reversed = np.unique(ids[::-1], return_index=True)
+        last = ids.size - 1 - first_of_reversed
+        if last.size:
+            dev = self.device
+            self._feat[torch.from_numpy(parts[last]).to(dev),
+                       torch.from_numpy(local[last]).to(dev)] = \
+                torch.from_numpy(vals[last]).to(dev, self._feat.dtype)
+        self.freshness.mark(parts, local)
+        touched = self.cache.invalidate_rows(parts, local)
+        self._feat_lag += 1
+        if touched:
+            self._halo_lag += 1
+        return touched
+
+    def refresh_boundary(self) -> int:
+        """Replay the send-list exchange for the dirty rows only (K18),
+        merging their fresh send-view rows into the resident halo cache in
+        place: bit-identical to a full re-exchange. The dirty bitmap goes
+        to the device once. Returns the stale slots refreshed; 0, and no
+        launch, when no row is dirty."""
+        if not self.freshness.any:
+            return 0
+        n = self.cache.n_stale
+        d = self.data
+        dirty = torch.from_numpy(self.freshness.dirty).to(self.device)
+        dirty_exchange(self._send_view(), self._halo0, dirty, d.send_idx,
+                       d.send_mask)
+        self.freshness.clear()
+        self.cache.mark_fresh()
+        self._halo_lag = 0
+        return n
+
+    def full_boundary_exchange(self) -> torch.Tensor:
+        """The whole halo block from scratch (K2 over the send view): the
+        reference the incremental path is held to."""
+        d = self.data
+        return exchange_blocks(self._send_view(), d.send_idx, d.send_mask)
+
     # ---------------- refresh -----------------------------------------
 
     def _comm_update(self, i: int, h: torch.Tensor) -> torch.Tensor:
@@ -117,12 +221,15 @@ class ServingEngine:
         return halo_exchange(h, self.data.send_idx, self.data.send_mask)
 
     def refresh(self) -> None:
-        """Recompute the full logits of every part."""
+        """Recompute the full logits of every part from the current
+        features and halo cache. Served staleness collapses to the halo
+        lag."""
         d = self.data
         with torch.inference_mode():
             self._logits = forward(self._params, self.cfg, self._feat,
                                    d.indptr, d.edge_src, d.in_deg,
                                    comm_update=self._comm_update)
+        self._feat_lag = self._halo_lag
 
     @property
     def params(self) -> Params:
@@ -156,16 +263,12 @@ class ServingEngine:
         if self._logits is None:
             self.refresh()
         out = self._gather(self._q_part[ids], self._q_local[ids])
+        hit = self.fully_fresh
+        self.cache.record_queries(ids.size, hit)
         if stats is not None:
-            # no update path yet: every served logit is fully fresh
-            stats.note_serve(ids.size, True, 0)
+            stats.note_serve(ids.size, hit, self.staleness_age)
             stats.note_params(self.param_generation, self.param_staleness)
         return out
-
-    def apply_updates(self, node_ids, values) -> int:
-        raise NotImplementedError(
-            "feature updates (the dirty-row halo exchange) wait for a "
-            "later slice of the port")
 
     def make_batcher(self, stats: Optional[ServingStats] = None,
                      max_delay_ms: float = 5.0,

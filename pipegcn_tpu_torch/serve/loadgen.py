@@ -8,9 +8,14 @@ the server (coordinated omission). Arrivals are a homogeneous Poisson
 process at ``qps``; at the same seed the stream is the JAX package's
 constant-rate stream, arrival for arrival.
 
-Not carried in this slice: shaped traffic (diurnal / flash-crowd / trace
-replay), update churn (the engine has no update path yet), overload
-shedding, sampled tracing and metrics records.
+Feature-update churn as in JAX: a timer batch of ``update_rows`` random
+rows every ``update_every_s``, and the mixed workload, where an
+``update_fraction`` share of the arrivals are updates instead of
+queries; both draw from ``default_rng(seed + 1)`` and both are inert
+under use_pp.
+
+Not carried yet (ROADMAP A9): shaped traffic (diurnal / flash-crowd /
+trace replay), overload shedding, sampled tracing and metrics records.
 """
 
 from __future__ import annotations
@@ -25,15 +30,23 @@ from .batcher import ServingStats
 
 class OpenLoopGenerator:
     """Deterministic (seeded) Poisson arrival schedule over random
-    single-node queries."""
+    single-node queries. ``update_fraction`` > 0 marks that share of the
+    arrivals as feature updates (``is_update``), drawn after the queries
+    from the same generator and only when the fraction is non-zero, so
+    the arrays equal JAX's at every seed."""
 
     def __init__(self, num_nodes: int, qps: float, duration_s: float,
-                 seed: int = 0):
+                 seed: int = 0, update_fraction: float = 0.0):
         rng = np.random.default_rng(seed)
         n = max(1, int(round(qps * duration_s)))
         gaps = rng.exponential(1.0 / max(qps, 1e-9), n)
         self.arrivals = np.minimum(np.cumsum(gaps), duration_s)
         self.queries = rng.integers(0, num_nodes, (n, 1), dtype=np.int64)
+        if update_fraction > 0:
+            self.is_update = rng.random(n) < float(update_fraction)
+        else:
+            self.is_update = np.zeros(n, bool)
+        self.update_fraction = float(update_fraction)
         self.duration_s = float(duration_s)
 
     def __len__(self) -> int:
@@ -44,7 +57,10 @@ def run_serving_loop(engine, *, duration_s: float, qps: float,
                      max_delay_ms: float = 5.0,
                      report_every_s: float = 2.0,
                      refresh_every_s: float = 0.5,
+                     update_every_s: float = 0.0,
+                     update_rows: int = 32,
                      seed: int = 0,
+                     update_fraction: float = 0.0,
                      stop: Optional[Callable[[], bool]] = None,
                      clock: Callable[[], float] = time.monotonic,
                      sleep: Callable[[float], None] = time.sleep) -> dict:
@@ -54,9 +70,15 @@ def run_serving_loop(engine, *, duration_s: float, qps: float,
     stopped_early, n_submitted, n_served, conserved, ...).
 
     Cadences: every `refresh_every_s` the engine recomputes its logits;
-    every `report_every_s` a window of serving stats closes (a record).
-    `stop()` is polled between arrivals; on stop (or at the end) the
-    queue drains, so every accepted query is answered before return."""
+    every `update_every_s` (0 disables; off under use_pp) a churn batch
+    of `update_rows` random feature rows is applied and the dirty
+    boundary rows re-exchanged (``apply_updates`` then
+    ``refresh_boundary``); every `report_every_s` a window of serving
+    stats closes (a record). `update_fraction` turns that share of the
+    arrivals into the same churn instead of queries (counted in
+    ``n_update_arrivals``; applied unless use_pp). `stop()` is polled
+    between arrivals; on stop (or at the end) the queue drains, so every
+    accepted query is answered before return."""
     stats = ServingStats(clock)
     all_lat: list = []
     fills: list = []
@@ -69,11 +91,25 @@ def run_serving_loop(engine, *, duration_s: float, qps: float,
     batcher = engine.make_batcher(stats=stats, max_delay_ms=max_delay_ms,
                                   clock=clock, observer=observer)
     gen = OpenLoopGenerator(engine.num_global_nodes, qps, duration_s,
-                            seed=seed)
+                            seed=seed, update_fraction=update_fraction)
+    churn = np.random.default_rng(seed + 1)
+    do_updates = update_every_s > 0 and not engine.cfg.use_pp
+    # the mixed workload's churn: the same inertness rule as the timer's
+    do_arrival_updates = gen.update_fraction > 0 and not engine.cfg.use_pp
+    n_update_arrivals = 0
+
+    def apply_churn():
+        ids = churn.integers(0, engine.num_global_nodes, update_rows,
+                             dtype=np.int64)
+        vals = churn.standard_normal(
+            (update_rows, engine.n_feat_raw)).astype(np.float32)
+        engine.apply_updates(ids, vals)
+        engine.refresh_boundary()
 
     t0 = clock()
     next_report = t0 + report_every_s
     next_refresh = t0 + refresh_every_s
+    next_update = t0 + update_every_s if do_updates else float("inf")
     n_records = 0
     total_q = 0
     stale_max = 0
@@ -91,7 +127,10 @@ def run_serving_loop(engine, *, duration_s: float, qps: float,
         n_records += 1
 
     def tick(now):
-        nonlocal next_report, next_refresh, n_refresh
+        nonlocal next_report, next_refresh, n_refresh, next_update
+        if do_updates and now >= next_update:
+            apply_churn()
+            next_update = now + update_every_s
         if now >= next_refresh:
             engine.refresh()
             n_refresh += 1
@@ -101,7 +140,7 @@ def run_serving_loop(engine, *, duration_s: float, qps: float,
             next_report = now + report_every_s
 
     stopped = False
-    for t_arr, q in zip(gen.arrivals, gen.queries):
+    for i, (t_arr, q) in enumerate(zip(gen.arrivals, gen.queries)):
         if stop is not None and stop():
             stopped = True
             break
@@ -118,7 +157,14 @@ def run_serving_loop(engine, *, duration_s: float, qps: float,
             sleep(min(target - now, 0.0005))
         if stopped:
             break
-        batcher.submit(q)
+        if gen.is_update[i]:
+            # mixed workload: this arrival is churn, not a query; it
+            # never enters the ticket ledger
+            n_update_arrivals += 1
+            if do_arrival_updates:
+                apply_churn()
+        else:
+            batcher.submit(q)
         now = clock()
         batcher.pump(now)
         tick(now)
@@ -145,6 +191,7 @@ def run_serving_loop(engine, *, duration_s: float, qps: float,
         "drained": batcher.queue_depth == 0,
         "stopped_early": bool(stopped),
         "traffic": "constant",
+        "n_update_arrivals": int(n_update_arrivals),
         "n_submitted": int(batcher.n_submitted_rows),
         "n_served": int(batcher.n_served_rows),
         # zero tickets lost: submitted == served once the queue is

@@ -341,3 +341,35 @@ def test_wire_and_grouped_wrappers_refuse_devices_without_a_kernel():
         blk.block_dense_grouped(x, tables)
     with pytest.raises(ValueError, match="unsupported device"):
         blk.block_dense_grouped_t(x, tables)
+
+
+def test_freshness_modules_import_without_jax():
+    code = (
+        "import sys\n"
+        "import pipegcn_tpu_torch.serve.freshness\n"
+        "import pipegcn_tpu_torch.serve.cache\n"
+        "import pipegcn_tpu_torch.serve.engine\n"
+        "import pipegcn_tpu_torch.serve.loadgen\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', "
+        "'pipegcn_tpu') or m.startswith(('jax.', 'jaxlib.', "
+        "'pipegcn_tpu.'))]\n"
+        "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    for rel in (("serve", "freshness.py"), ("serve", "cache.py")):
+        assert os.path.join(PKG, *rel) in set(_port_files()), rel
+
+
+def test_dirty_exchange_refuses_devices_without_a_kernel():
+    """K18 (the dirty-row exchange): a tensor neither on the CPU nor on
+    CUDA raises."""
+    from pipegcn_tpu_torch.serve.freshness import dirty_exchange
+
+    m = torch.device("meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        dirty_exchange(torch.empty((2, 5, 4), device=m),
+                       torch.empty((2, 3, 4), device=m),
+                       torch.zeros((2, 5), dtype=torch.bool, device=m),
+                       torch.zeros((2, 1, 3), dtype=torch.int32, device=m),
+                       torch.zeros((2, 1, 3), dtype=torch.bool, device=m))

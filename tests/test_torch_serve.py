@@ -3,6 +3,7 @@ against the port's engine (plain path, CPU) with the converted params —
 every node's logits through query — plus the port's serving loop and
 its CLI."""
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -98,8 +99,11 @@ def test_serving_loop_drains_and_conserves():
     assert s["drained"] and s["conserved"] and not s["stopped_early"]
     assert s["n_queries"] == s["n_served"] == s["n_submitted"] == 200
     assert s["n_refresh"] >= 3 and s["cache_hit_rate"] == 1.0
+    # serving at bf16 compute is still unported (ROADMAP A5)
     with pytest.raises(NotImplementedError):
-        eng.apply_updates([0], np.zeros((1, 8), np.float32))
+        ServingEngine(sg, stage(sg, CPU),
+                      dataclasses.replace(cfg, dtype="bfloat16"),
+                      eng.params)
 
 
 def test_cli_serves_on_cpu(tmp_path):
