@@ -17,7 +17,9 @@ stack (union-gather block tiles and the fp8 halo wire at bf16):
 
   1. prints the card's name and power limit (nvidia-smi) and versions;
   2. builds the hand-written kernels from ``pipegcn_tpu_torch/ops/csrc``
-     (one nvcc per source, started together): K1 mean SpMM and K3 its
+     (one nvcc per source, started together, in the background while the
+     host loads the graph and builds the serving artifact; the first
+     launch waits for them): K1 mean SpMM and K3 its
      transpose (``spmm_mean.cu``), K2 halo gather, K5 reverse-ring
      return and K18 the dirty-row exchange (``halo_gather.cu``), K4 boundary-gradient scatter in f32 and
      bf16 (``halo_scatter.cu``), K6 GAT attention forward (in training
@@ -29,7 +31,8 @@ stack (union-gather block tiles and the fp8 halo wire at bf16):
      amax (``transport_cast.cu``), K12 / K13 the dense-tile products with
      f32 or bf16 rows and K16 / K17 over union-gather groups
      (``block_spmm.cu``), K14 / K15 the compressed halo wire
-     (``halo_wire.cu``); and the native host library
+     (``halo_wire.cu``), K19 the integrity digests (``digest.cu``); and
+     the native host library
      (``pipegcn_tpu_torch/native``, g++), whose absence fails the run;
   3. serves, over 2 random parts of the full graph (cut: not metis, no
      locality clusters): builds the artifact in memory (the serve CLI's
@@ -141,7 +144,34 @@ stack (union-gather block tiles and the fp8 halo wire at bf16):
      each rerun bit-identical; a flipped A bit must fail;
  33. times K14-K17, reports the union dedupe beside K12's group-1 time,
      the wire cell's epoch and its split;
- 34. prints the ``kernels`` JSON line (every kernel and each of its row
+ 34. trains this slice's cell, the integrity plane: the reddit.sh command
+     plus ``--integrity-check-every 2`` through the CLI's functions on the
+     same parts, the counts set to 0 just before the build and read after
+     the final eval: every check ok and none skipped, K19 (all three
+     forms) launched, Freivalds' device half K2 and K1 once each at F = 1;
+     the epoch with no check, a boundary check and a deep check;
+ 35. the detection matrix on that trainer: one fit per target class with
+     ``bitflip@3:<class>`` (8 epochs, eval off), each injected, detected by
+     epoch 5, attributed and recovered; on the bucket trainer of [15] and
+     the block trainer of [20] (each at bf16 since [19] / [24]) Freivalds
+     ok through K9 and through K12 with K9 at F = 1, and a table flip
+     scrubbed, attributed to its part, rebuilt and cleared;
+ 36. the wire guard: a guarded pipelined SAGE epoch bit-identical to the
+     unguarded one (``wire_bad`` 0), the same on the wire cell's trainer
+     of [29] under ``--halo-dtype float8`` and ``bfloat16``; corrupted
+     K15 outputs on that trainer (the script wraps K15's wrapper: a bit of
+     one decoded halo block, of one payload block, of one fp8 scale)
+     counted, one block each; a corrupted copy (the script wraps K2's
+     wrapper) counted and, through fit, the carry flushed; the freshness
+     engine of [5a] with the guard on over
+     32-row churn batches, its halo bit-identical to K2's full exchange,
+     and a corrupted K18 copy rebuilt by the full exchange;
+ 37. holds K19 bit-exact against its plain version and the numpy
+     host_digest (every dtype, 0 / 1 / 97 elements, an unaligned view,
+     the use_pp features, the per-part and rows forms, a flipped bit), and
+     times it over the static data, the features and the guard's rows
+     beside its bound, its plain version and the library sum;
+ 38. prints the ``kernels`` JSON line (every kernel and each of its row
      types, times at the shapes whose launches are counted), a line for
      each cell, the nvidia-smi line, and last ``{"ok": true, "device":
      {...}}``.
@@ -157,6 +187,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 import warnings
 
@@ -343,7 +374,7 @@ def check_bits(name, got, ref) -> float:
 # phase 3: the serving path
 
 
-def serve_phase(args, g, spmm, halo):
+def serve_phase(args, g, spmm, halo, kernels_built):
     import torch
     from pipegcn_tpu_torch.cli.serve import build_artifact, \
         build_parser, build_serving_engine
@@ -362,6 +393,7 @@ def serve_phase(args, g, spmm, halo):
     t0 = time.monotonic()
     sg = build_artifact(cli, log=log, g=g)
     t_artifact = time.monotonic() - t0
+    kernels_built()  # the first kernel launches in the engine's build
 
     spmm.spmm_mean.launches = 0
     halo.halo_gather.launches = 0
@@ -754,7 +786,8 @@ def freshness_phase(args, sg, spmm, halo, fresh):
     against a recompute through the plain versions; K18 against its plain
     version at the cell's shapes (32, 256, 4,096 and all dirty rows) and
     on edge cases, two planted faults; the timings; then GCN with 2 s of
-    churn, its halo held likewise."""
+    churn, its halo held likewise. Returns the stats and the GraphSAGE
+    engine (kept for [36])."""
     import numpy as np
     import torch
     from pipegcn_tpu_torch.cli.serve import build_parser, \
@@ -920,7 +953,7 @@ def freshness_phase(args, sg, spmm, halo, fresh):
         f"{refresh_ms:.3f} ms; a 32-row batch: {update_ms}")
     check_bits("halo after the timed batches vs K2 full exchange",
                engine._halo0, engine.full_boundary_exchange())
-    del engine, h
+    del h
     torch.cuda.empty_cache()
 
     # GCN: its send view pre-scales the rows by 1/sqrt(in_deg)
@@ -933,11 +966,12 @@ def freshness_phase(args, sg, spmm, halo, fresh):
                gengine._halo0, gengine.full_boundary_exchange())
     del gengine
     torch.cuda.empty_cache()
-    return {"launches": launches, "engine_build_s": t_engine,
-            "quiet": quiet, "churn": churn, "mixed": mixed, "gcn": gcn,
-            "peak_mem_gib": peak_gib, "logits_max_abs_err": logits_err,
-            "k18": times, "k2_full_exchange_ms": k2_ms,
-            "refresh_ms": refresh_ms, **update_ms}
+    stats = {"launches": launches, "engine_build_s": t_engine,
+             "quiet": quiet, "churn": churn, "mixed": mixed, "gcn": gcn,
+             "peak_mem_gib": peak_gib, "logits_max_abs_err": logits_err,
+             "k18": times, "k2_full_exchange_ms": k2_ms,
+             "refresh_ms": refresh_ms, **update_ms}
+    return stats, engine  # the engine serves [36]'s wire guard
 
 
 # ---------------------------------------------------------------------------
@@ -949,7 +983,7 @@ def counters(spmm, halo):
     own launches in ``.launches``."""
     from pipegcn_tpu_torch.ops import block_spmm as blk
     from pipegcn_tpu_torch.ops import bucket_spmm as bs
-    from pipegcn_tpu_torch.ops import gat
+    from pipegcn_tpu_torch.ops import digest, gat
     from pipegcn_tpu_torch.serve import freshness as fresh
 
     return {"spmm_mean": spmm.spmm_mean, "halo_gather": halo.halo_gather,
@@ -965,7 +999,10 @@ def counters(spmm, halo):
             "halo_amax": halo.halo_amax, "halo_wire": halo.halo_wire,
             "block_dense_grouped": blk.block_dense_grouped,
             "block_dense_grouped_t": blk.block_dense_grouped_t,
-            "dirty_exchange": fresh.dirty_exchange}
+            "dirty_exchange": fresh.dirty_exchange,
+            # K19, by form: flat, per part (and distance block), rows
+            "digest": digest.digest, "part_digests": digest.part_digests,
+            "row_sums": digest.row_sums}
 
 
 # the kernels each model's training path runs
@@ -980,7 +1017,11 @@ PATH_KERNELS = {"graphsage": ("spmm_mean", "spmm_mean_t") + COMM,
                 # runs only in the pp precompute, K5 never
                 "wire": ("block_dense_grouped", "block_dense_grouped_t",
                          "bucket_gather", "transport_cast", "halo_amax",
-                         "halo_wire", "halo_scatter")}
+                         "halo_wire", "halo_scatter"),
+                # the integrity cell: the SAGE path with the wire lane and
+                # the scrub (K19 in all three forms)
+                "integrity": ("spmm_mean", "spmm_mean_t") + COMM
+                + ("digest", "part_digests", "row_sums")}
 
 
 def require_launched(launches, model, what):
@@ -4175,6 +4216,681 @@ def wire_epoch_split(trainer, cnt, wt, gt16, kt, bt, k4b, block_ms):
     return split
 
 
+# ---------------------------------------------------------------------------
+# phases 34-37: the integrity plane (--integrity-check-every, the bitflip
+# drills, the wire guard) and K19
+
+
+def records(buf, event=None):
+    """The JSONL records a ``MetricsLogger`` wrote into ``buf``."""
+    recs = [json.loads(x) for x in buf.getvalue().splitlines()]
+    return [r for r in recs if event is None or r["event"] == event]
+
+
+def require_checks_ok(recs, what):
+    """Every integrity verdict ok and none skipped (a Freivalds exception
+    is reported as an ok with "skipped: ...", as JAX reports it)."""
+    integ = [r for r in recs if r["event"] == "integrity"]
+    require(integ, f"{what}: no integrity record")
+    bad = [r for r in integ if r["outcome"] != "ok"
+           or str(r.get("detail", "")).startswith("skipped")]
+    require(not bad, f"{what}: checks not ok or skipped: {bad}")
+    return integ
+
+
+def freivalds_launches(trainer, cnt, epoch=1):
+    """Freivalds' device half alone, the counts set to 0 around it: the
+    kernels the aggregation check ran (at F = 1)."""
+    import numpy as np
+    import torch
+
+    r = np.random.default_rng(epoch).integers(
+        0, 2, size=int(trainer.feat.shape[-1])).astype(np.float32) * 2 - 1
+    reset_counts(cnt)
+    from pipegcn_tpu_torch.resilience import IntegrityPlane
+
+    IntegrityPlane(1)._freivalds_device(trainer, r)
+    torch.cuda.synchronize()
+    return read_counts(cnt)
+
+
+def integrity_cell_phase(args, sg, eval_graphs, eval_cache, spmm, halo):
+    """[34] The reddit.sh command plus ``--integrity-check-every 2``
+    through cli/main.py's functions on the shared parts, the counts set to
+    0 before the build and read after the final eval: every check ok and
+    none skipped, K19 (all three forms) and the SAGE path's kernels
+    launched; Freivalds' device half runs K2 and K1 once each at F = 1;
+    the median epoch with no check, with the boundary (dynamic) check and
+    with the deep check."""
+    import dataclasses
+    import io
+    import math
+
+    import numpy as np
+    import torch
+    from pipegcn_tpu_torch.cli.main import build_trainer
+    from pipegcn_tpu_torch.obs import MetricsLogger
+    from pipegcn_tpu_torch.resilience import IntegrityPlane
+
+    cli = train_cli(args, epochs=args.integrity_epochs,
+                    extra=["--integrity-check-every", "2"])
+    cnt = counters(spmm, halo)
+    steps = {}
+    reset_counts(cnt)
+    trainer = build_trainer(cli, sg, torch.device("cuda", 0), log=log,
+                            steps=steps)
+    trainer.eval_cache = eval_cache
+    buf = io.StringIO()
+    t0 = time.monotonic()
+    res = trainer.fit(eval_graphs, log_fn=log, inductive=True,
+                      metrics=MetricsLogger(buf))
+    torch.cuda.synchronize()
+    fit_s = time.monotonic() - t0
+    launches = read_counts(cnt)
+    recs = records(buf)
+    integ = require_checks_ok(recs, "integrity cell")
+    require(not [r for r in recs if r["event"] in ("fault", "recovery")],
+            f"integrity cell: a fault without a planted one: {recs}")
+    losses = res["losses"]
+    require(len(losses) == cli.n_epochs
+            and all(math.isfinite(x) for x in losses),
+            f"integrity cell: losses {losses}")
+    require_launched(launches, "integrity", "integrity cell")
+    deep = sorted({r["epoch"] for r in integ if r["check"] == "freivalds"})
+    require(deep == list(range(2, cli.n_epochs, 2)),
+            f"integrity cell: deep checks at {deep}")
+    residuals = [float(r["detail"].split()[1]) for r in integ
+                 if r["check"] == "freivalds"]
+    log(f"  fit: {len(losses)} epochs in {fit_s:.1f}s, losses "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, {len(integ)} integrity "
+        f"records all ok, Freivalds residuals {residuals}, launches "
+        f"{launches}")
+    fl = freivalds_launches(trainer, cnt)
+    require(fl["spmm_mean"] == 1 and fl["halo_gather"] == 1
+            and sum(fl.values()) == 2,
+            f"Freivalds' device half: launches {fl} (want K1 and K2 once)")
+    log(f"  Freivalds' device half: K1 and K2 once each at F = 1 ({fl})")
+
+    # the cost of a check: the epoch alone (the lane off), with the
+    # boundary check (the dynamic digests before, the capture after) and
+    # with the deep one (also the static scrub and Freivalds); median of 3
+    tc = trainer.tcfg
+    plane = IntegrityPlane(tc.integrity_check_every)
+    plane.baseline(trainer)
+    epoch = [100]
+
+    def run(check):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if check is not None:
+            out = plane.run_checks(trainer, epoch[0], deep=check)
+            require(all(r.outcome == "ok" for r in out), f"checks {out}")
+        trainer.train_epoch(epoch[0])
+        if check is not None:
+            int(trainer.wire_bad)
+            plane.note_dynamic(trainer)
+        torch.cuda.synchronize()
+        epoch[0] += 1
+        return (time.perf_counter() - t0) * 1e3
+
+    trainer.tcfg = dataclasses.replace(tc, integrity_check_every=0)
+    run(None)
+    none_ms = float(np.median([run(None) for _ in range(3)]))
+    trainer.tcfg = tc
+    plane.note_dynamic(trainer)  # the state the unchecked epochs left
+    run(False)
+    boundary_ms = float(np.median([run(False) for _ in range(3)]))
+    deep_ms = float(np.median([run(True) for _ in range(3)]))
+    log(f"  epoch (host clock, synchronized; median of 3): no check "
+        f"{none_ms:.3f} ms, boundary check {boundary_ms:.3f} ms, deep "
+        f"check {deep_ms:.3f} ms")
+
+    # where the boundary check's time goes: its parts on the host clock (a
+    # synchronize after each; median of 5): the digests before the step,
+    # the guarded step, the lane's read-back and the capture after; and
+    # the device time of every kernel and copy of one unchecked and one
+    # checked epoch (torch.profiler)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def parts():
+        marks = []
+        for step in (lambda: require(all(
+                         r.outcome == "ok" for r in plane.run_checks(
+                             trainer, epoch[0], deep=False)),
+                         "boundary checks in the split"),
+                     lambda: trainer.train_epoch(epoch[0]),
+                     lambda: (int(trainer.wire_bad),
+                              plane.note_dynamic(trainer))):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            step()
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        epoch[0] += 1
+        return np.diff(marks) * 1e3
+
+    split = np.median([parts() for _ in range(5)], axis=0)
+
+    def device_ms(check):
+        """Milliseconds of device time by kernel or copy name."""
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run(check)
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time
+        return {k: v / 1e3 for k, v in by_name.items()}
+
+    trainer.tcfg = dataclasses.replace(tc, integrity_check_every=0)
+    dev_none = device_ms(None)
+    trainer.tcfg = tc
+    plane.note_dynamic(trainer)
+    dev_boundary = device_ms(False)
+    # the names whose device time the check adds most to (None: the
+    # profiler saw no device activity, not measured)
+    grew = sorted(((dev_boundary.get(k, 0.0) - dev_none.get(k, 0.0), k)
+                   for k in set(dev_none) | set(dev_boundary)),
+                  reverse=True)[:8]
+    boundary_split = {"checks_before_ms": float(split[0]),
+                      "guarded_step_ms": float(split[1]),
+                      "readback_and_capture_ms": float(split[2]),
+                      "device_ms_no_check": sum(dev_none.values()) or None,
+                      "device_ms_boundary_check":
+                          sum(dev_boundary.values()) or None,
+                      "device_ms_added_by_name": {
+                          k[:80]: round(v, 4) for v, k in grew}}
+    log(f"  boundary check's split (host clock, median of 5; device time "
+        f"from torch.profiler, one epoch each): {boundary_split}")
+    stats = {"epochs": len(losses), "losses": losses, "fit_s": fit_s,
+             "epoch_time_s_mean": res["epoch_time"],
+             "best_val": res["best_val"], "test_acc": res.get("test_acc"),
+             "launches": launches, "integrity_records": len(integ),
+             "freivalds_residuals": residuals,
+             "freivalds_device_launches": fl,
+             "epoch_ms_no_check": none_ms,
+             "epoch_ms_boundary_check": boundary_ms,
+             "epoch_ms_deep_check": deep_ms,
+             "boundary_check_split": boundary_split, "host_steps_s": steps}
+    return trainer, stats
+
+
+def detection_matrix_phase(trainer):
+    """[35] One fit per target class on the integrity cell's trainer,
+    ``bitflip@3:<class>``, 8 epochs, eval off: the flip injected at epoch
+    3, detected by epoch 5, attributed to its class in an integrity record,
+    recovered (its recovery record), the run reaching epoch 8 with finite
+    losses. Returns each class's detection epoch and fit seconds."""
+    import dataclasses
+    import io
+    import math
+
+    import torch
+    from pipegcn_tpu_torch.obs import MetricsLogger
+    from pipegcn_tpu_torch.resilience import TARGETS, FaultPlan
+
+    tc = trainer.tcfg
+    trainer.tcfg = dataclasses.replace(tc, n_epochs=8, eval=False)
+    out = {}
+    for target in TARGETS:
+        buf = io.StringIO()
+        lines = []
+
+        def log_fn(msg):
+            lines.append(msg)
+            log(f"    {msg}")
+
+        t0 = time.monotonic()
+        res = trainer.fit(None, log_fn=log_fn, metrics=MetricsLogger(buf),
+                          fault_plan=FaultPlan.parse(f"bitflip@3:{target}"))
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+        recs = records(buf)
+        inj = [r for r in recs if r["event"] == "fault"
+               and r["kind"] == "injected"]
+        hits = [r for r in recs if r["event"] == "integrity"
+                and r["outcome"] == "mismatch"]
+        rec = [r for r in recs if r["event"] == "recovery"]
+        require(len(inj) == 1 and inj[0]["epoch"] == 3
+                and inj[0]["reason"] == f"bitflip:{target}",
+                f"bitflip:{target}: injection records {inj}")
+        require(hits and all(r["target"] == target for r in hits)
+                and min(r["epoch"] for r in hits) <= 5,
+                f"bitflip:{target}: detections {hits}")
+        require(len(rec) == 1 and rec[0]["target"] == target,
+                f"bitflip:{target}: recovery records {rec}")
+        require(trainer.last_epoch == 8
+                and all(math.isfinite(x) for x in res["losses"]),
+                f"bitflip:{target}: run ended at {trainer.last_epoch}, "
+                f"losses {res['losses']}")
+        ok = [r for r in recs if r["event"] == "integrity"
+              and r["outcome"] == "ok"]
+        require(not [r for r in ok if str(r.get("detail", "")).startswith(
+            "skipped")], f"bitflip:{target}: a skipped check")
+        first = min(r["epoch"] for r in hits)
+        out[target] = {"detected_epoch": first,
+                       "check": hits[0]["check"],
+                       "dirty_shards": hits[0].get("dirty_shards"),
+                       "recovery": {k: v for k, v in rec[0].items()
+                                    if k not in ("event", "time_unix")},
+                       "epochs_run": len(res["losses"]), "fit_s": secs}
+        log(f"  bitflip:{target}: injected at 3, detected at {first} by "
+            f"{hits[0]['check']}, recovered ({out[target]['recovery']}), "
+            f"{len(res['losses'])} epochs run in {secs:.1f}s")
+    trainer.tcfg = tc
+    return out
+
+
+def table_drill(name, trainer, cnt, kernels):
+    """[35] On a trainer of the bucket or block cell: Freivalds ok through
+    its own aggregation at F = 1 (``kernels`` launched, the transport off)
+    and not skipped; a table flip scrubbed, attributed to part 0, rebuilt
+    from the host artifact and cleared."""
+    import torch
+    from pipegcn_tpu_torch.resilience import IntegrityPlane
+
+    plane = IntegrityPlane(1)
+    plane.baseline(trainer)
+    reset_counts(cnt)
+    fr = plane.freivalds(trainer, 1)
+    torch.cuda.synchronize()
+    fl = read_counts(cnt)
+    require(fr.outcome == "ok" and fr.detail.startswith("residual"),
+            f"{name}: Freivalds {fr}")
+    require(all(fl[k] >= 1 for k in kernels),
+            f"{name}: Freivalds launched {fl}, want {kernels}")
+    require(trainer._inject_bitflip("tables", 3, log), f"{name}: no flip")
+    bad = plane.scrub_static(trainer)
+    require(bad.outcome == "mismatch" and bad.dirty_shards == (0,),
+            f"{name}: scrub after the flip {bad}")
+    t0 = time.monotonic()
+    n = trainer._rebuild_static_data(bad.dirty_shards)
+    torch.cuda.synchronize()
+    rebuild_s = time.monotonic() - t0
+    clean = plane.scrub_static(trainer)
+    require(clean.outcome == "ok", f"{name}: scrub after the rebuild {clean}")
+    log(f"  {name}: Freivalds {fr.detail} (launches {fl}); the table flip "
+        f"{bad.detail}, part {list(bad.dirty_shards)}; rebuilt ({n}) in "
+        f"{rebuild_s:.1f}s, scrub ok")
+    return {"freivalds": fr.detail, "freivalds_launches": fl,
+            "scrub": bad.detail, "dirty_shards": list(bad.dirty_shards),
+            "rebuild_s": rebuild_s}
+
+
+def guard_identity(name, trainer, epoch, cnt, want):
+    """[36] One pipelined epoch with the wire lane against the same epoch
+    (same state, same dropout seed) without it: the loss, the parameters
+    and the carry bit-identical, ``wire_bad`` 0, ``want`` launched in the
+    guarded run."""
+    import dataclasses
+
+    import torch
+    from pipegcn_tpu_torch.tree import tree_leaves
+
+    tc = trainer.tcfg
+    snap = trainer.host_state()
+    reset_counts(cnt)
+    trainer.tcfg = dataclasses.replace(tc, integrity_check_every=2)
+    loss_g = trainer.train_epoch(epoch)
+    bad = int(trainer.wire_bad)
+    launches = read_counts(cnt)
+    params_g = [t.detach().clone() for t in tree_leaves(trainer.params)]
+    comm_g = [t.clone() for t in tree_leaves(trainer.comm)]
+    trainer.restore_state(snap)
+    trainer.tcfg = dataclasses.replace(tc, integrity_check_every=0)
+    loss_u = trainer.train_epoch(epoch)
+    same = (loss_g == loss_u and all(
+        torch.equal(a.view(torch.uint8), b.detach().view(torch.uint8))
+        for a, b in zip(params_g + comm_g, tree_leaves(trainer.params)
+                        + tree_leaves(trainer.comm))))
+    trainer.tcfg = tc
+    log(f"  {name}: guarded epoch vs unguarded bit-identical "
+        f"{'ok' if same else 'FAIL'}, wire_bad {bad}, launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    require(same, f"{name}: the guarded epoch differs from the unguarded")
+    require(bad == 0, f"{name}: wire_bad {bad} on a clean wire")
+    require(all(launches[k] >= 1 for k in want),
+            f"{name}: guarded launches {launches}, want {want}")
+    return {"bit_identical": same, "wire_bad": bad,
+            "launches": {k: v for k, v in launches.items() if v}}
+
+
+def planted_wire_fault(trainer, halo):
+    """[36] The script wraps K2's wrapper (not the package) to flip one bit
+    of one received block after the copy: a guarded epoch counts it
+    (``wire_bad`` 1); through fit, armed in the last epoch only, the JAX
+    log line and a flushed carry."""
+    import dataclasses
+
+    from pipegcn_tpu_torch.ops.digest import flip_bit_
+
+    orig = halo.KERNELS.gather
+    armed = [False]
+
+    def corrupt(h, send_idx, send_mask, with_inner):
+        out = orig(h, send_idx, send_mask, with_inner)
+        if armed[0]:
+            armed[0] = False  # one block of one exchange an epoch
+            flip_bit_(out[1, 0], bit=13, index=5)
+        return out
+
+    halo.KERNELS.gather = corrupt
+    try:
+        armed[0] = True
+        trainer.train_epoch(200)
+        bad = int(trainer.wire_bad)
+        require(bad == 1, f"planted wire fault: wire_bad {bad}, want 1")
+        tc = trainer.tcfg
+        trainer.tcfg = dataclasses.replace(tc, n_epochs=2, eval=False)
+        lines = []
+        real = trainer.train_epoch
+
+        def train_epoch(epoch):
+            armed[0] = epoch == 1
+            return real(epoch)
+
+        trainer.train_epoch = train_epoch
+        try:
+            trainer.fit(None, log_fn=lines.append)
+        finally:
+            del trainer.train_epoch
+            trainer.tcfg = tc
+    finally:
+        halo.KERNELS.gather = orig
+    want = ("integrity: halo wire checksum mismatch in 1 distance block(s) "
+            "at epoch 1; flushing carry")
+    flushed = all(not bool(t.any()) for grp in trainer.comm.values()
+                  for t in grp.values())
+    log(f"  planted wire fault: wire_bad {bad}; fit logged "
+        f"{[x for x in lines if x.startswith('integrity')]}, carry flushed "
+        f"{flushed}")
+    require(want in lines, f"planted wire fault: fit logged {lines}")
+    require(flushed, "planted wire fault: the carry was not flushed")
+    return {"wire_bad": bad, "fit_line": want, "carry_flushed": flushed}
+
+
+def planted_k15_faults(trainer, halo, epoch):
+    """[36] The script wraps K15's wrapper (not the package) to flip one
+    bit of one receiver slot after the launch: of the decoded halo the
+    receiver consumes, of the narrow payload, or of the fp8 inverse scale.
+    One guarded epoch of the wire cell for each, under ``--halo-dtype
+    float8`` and ``bfloat16``: ``wire_bad`` 1 each time."""
+    import dataclasses
+
+    from pipegcn_tpu_torch.ops.digest import flip_bit_
+
+    orig = halo.KERNELS.wire
+    plant = [None]
+
+    def corrupt(x, send_idx, send_mask, b_max, dt, amax=None):
+        out, wire, inv = orig(x, send_idx, send_mask, b_max, dt, amax)
+        target, plant[0] = plant[0], None  # one slot of one wire an epoch
+        if target == "halo":
+            flip_bit_(out[1, 0], bit=13, index=5)
+        elif target == "payload":
+            flip_bit_(wire[1, 0, 0], bit=5, index=5)
+        elif target == "scale":
+            flip_bit_(inv[1, 0], bit=3)
+        return out, wire, inv
+
+    tc = trainer.tcfg
+    res = {}
+    halo.KERNELS.wire = corrupt
+    try:
+        for hd, targets in (("float8", ("halo", "payload", "scale")),
+                            ("bfloat16", ("halo", "payload"))):
+            trainer.tcfg = dataclasses.replace(tc, halo_dtype=hd,
+                                               integrity_check_every=2)
+            for target in targets:
+                plant[0] = target
+                trainer.train_epoch(epoch)
+                bad = int(trainer.wire_bad)
+                res[f"{hd} {target}"] = bad
+                require(bad == 1, f"planted K15 fault ({hd}, {target}): "
+                        f"wire_bad {bad}, want 1")
+    finally:
+        halo.KERNELS.wire = orig
+        trainer.tcfg = tc
+    log(f"  planted K15 faults: wire_bad {res}")
+    return res
+
+
+def serving_guard_phase(engine, fresh, cnt):
+    """[36] The freshness engine of [5a] with the wire guard on, ten
+    32-row churn batches: the halo bit-identical to K2's full exchange
+    after each, ``wire_bad_total`` 0, K19 and K18 launched; the guarded
+    batch's refresh_boundary against an unguarded one (host clock, median);
+    then the script wraps K18's wrapper to flip one bit of a received
+    dirty row after the copy: detected (``wire_bad_total`` 1) and the halo
+    rebuilt by the full exchange."""
+    import io
+
+    import numpy as np
+    import torch
+    from pipegcn_tpu_torch.obs import MetricsLogger
+    from pipegcn_tpu_torch.ops.digest import flip_bit_
+
+    rng = np.random.default_rng(13)
+
+    def batch():
+        engine.apply_updates(
+            rng.integers(0, engine.num_global_nodes, 32),
+            rng.standard_normal((32, engine.n_feat_raw), dtype=np.float32))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.refresh_boundary()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    engine.wire_guard = False
+    plain_ms = float(np.median([batch() for _ in range(10)]))
+    engine.wire_guard = True
+    reset_counts(cnt)
+    guarded = []
+    for _ in range(10):
+        guarded.append(batch())
+        same = torch.equal(engine._halo0.view(torch.int32),
+                           engine.full_boundary_exchange().view(torch.int32))
+        require(same, "serving guard: the halo differs from K2's full "
+                "exchange")
+    launches = read_counts(cnt)
+    require(engine.wire_bad_total == 0,
+            f"serving guard: wire_bad_total {engine.wire_bad_total}")
+    require(launches["dirty_exchange"] >= 20 and launches["row_sums"] >= 30
+            and launches["part_digests"] >= 10,
+            f"serving guard: launches {launches}")
+    guard_ms = float(np.median(guarded))
+    orig = fresh.dirty_exchange
+
+    def corrupt(h, halo_, dirty, send_idx, send_mask, guard=False):
+        out = orig(h, halo_, dirty, send_idx, send_mask, guard=guard)
+        if not guard and h.dtype != torch.uint8:
+            live = live_slots(dirty, send_idx, send_mask)
+            r, k = (int(v) for v in torch.nonzero(live)[0])
+            flip_bit_(halo_[r, k], bit=17, index=3)
+        return out
+
+    # K18's wrapper counts through its module name: the stand-in takes
+    # the count while it is installed
+    corrupt.launches = orig.launches
+    fresh.dirty_exchange = corrupt
+    try:
+        buf = io.StringIO()
+        engine.apply_updates(
+            rng.integers(0, engine.num_global_nodes, 32),
+            rng.standard_normal((32, engine.n_feat_raw), dtype=np.float32))
+        engine.refresh_boundary(ml=MetricsLogger(buf))
+    finally:
+        fresh.dirty_exchange = orig
+        orig.launches = corrupt.launches
+    rec = records(buf, "integrity")
+    rebuilt = torch.equal(engine._halo0.view(torch.int32),
+                          engine.full_boundary_exchange().view(torch.int32))
+    log(f"  serving guard: 10 guarded 32-row batches bit-identical to the "
+        f"full exchange, wire_bad_total 0, refresh_boundary {guard_ms:.3f} "
+        f"ms guarded vs {plain_ms:.3f} ms (host clock, median); planted "
+        f"fault: wire_bad_total {engine.wire_bad_total}, halo rebuilt "
+        f"{rebuilt}, record {[(r['check'], r['blocks']) for r in rec]}")
+    require(engine.wire_bad_total == 1 and rebuilt and len(rec) == 1,
+            "serving guard: the planted fault was not detected and rebuilt")
+    return {"batches": 10, "launches": launches,
+            "refresh_boundary_guarded_ms": guard_ms,
+            "refresh_boundary_unguarded_ms": plain_ms,
+            "planted_fault_detected": True}
+
+
+def k19_check(name, x):
+    """K19's flat and per-part forms on ``x`` against their plain versions
+    bit for bit, and the flat form against the numpy host_digest of the
+    same bytes."""
+    import numpy as np
+    import torch
+    from pipegcn_tpu_torch.ops import digest as dg
+
+    got = dg.as_u32(dg.digest(x))
+    ok = np.array_equal(got, dg.as_u32(dg.digest_plain(x)))
+    host = x.detach().cpu().contiguous()
+    if host.dtype in (torch.bfloat16, torch.float8_e4m3fn,
+                      torch.float8_e5m2):  # numpy has no such dtype
+        host = host.view(torch.int16 if host.element_size() == 2
+                         else torch.uint8)
+    ok = ok and np.array_equal(got, dg.host_digest(host.numpy()))
+    if x.dim() >= 1 and x.shape[0] > 1 and x.numel():
+        ok = ok and torch.equal(dg.part_digests(x),
+                                dg.part_digests_plain(x))
+    log(f"  K19 {name}: bit-exact vs plain and host_digest "
+        f"{'ok' if ok else 'FAIL'} ({got.tolist()})")
+    require(ok, f"K19 {name}: disagrees with its plain version or numpy")
+
+
+def k19_phase(trainer, spmm, halo):
+    """[37] K19 against its plain version bit for bit, and against the
+    numpy host_digest: every dtype at 0, 1 and 97 elements and an unaligned
+    view; the cell's largest staged tensor (the use_pp features); the
+    per-part form and the halo's distance blocks; the rows form at the
+    guard's shape; one flipped bit must change the digest and name its
+    part. Then the timings: K19 over the trainer's static data (the
+    scrub), over the features alone (flat and per part), the rows form,
+    their plain versions, the one-call library sum for s1 (no call
+    computes the weighted sum), beside the bytes bound."""
+    import numpy as np
+    import torch
+    from pipegcn_tpu_torch.ops import digest as dg
+    from pipegcn_tpu_torch.resilience.integrity import (_digest_rows,
+                                                        static_tensors)
+
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    base = torch.randn(1001, generator=gen, device="cuda") * 50
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16,
+           "f16": torch.float16, "int32": torch.int32,
+           "int64": torch.int64, "uint8": torch.uint8, "bool": torch.bool,
+           "e4m3": torch.float8_e4m3fn, "e5m2": torch.float8_e5m2}
+    for label, dt in dts.items():
+        if dt == torch.bool:
+            full = base > 0
+        elif dt in (torch.int32, torch.int64, torch.uint8):
+            full = (base * 1e6 if dt != torch.uint8 else base.abs()).to(dt)
+        elif dt == torch.float8_e4m3fn:
+            full = base.clamp(-400, 400).to(dt)
+        else:
+            full = base.to(dt)
+        for n in (0, 1, 97):
+            k19_check(f"{label}, {n} elements", full[:n].contiguous())
+        k19_check(f"{label}, unaligned view (offset 1, 999 elements)",
+                  full[1:1000])
+        k19_check(f"{label}, [2, 500] per part", full[:1000].view(2, 500))
+    feat = trainer.feat
+    k19_check(f"the use_pp features {list(feat.shape)} {feat.dtype}", feat)
+    d = trainer.data
+    P, B = d.num_parts, d.b_max
+    hrows = torch.randn((P, d.n_max, 256), generator=gen, device="cuda")
+    blocks = halo.exchange_blocks(hrows, d.send_idx, d.send_mask)
+    same = (torch.equal(dg.part_digests(blocks, P - 1),
+                        dg.part_digests_plain(blocks, P - 1))
+            and torch.equal(dg.row_sums(hrows, d.send_idx, d.send_mask),
+                            dg.row_sums_plain(hrows, d.send_idx,
+                                              d.send_mask)))
+    # the rows form against the numpy sums of the blocks K2 delivered
+    rcv = dg.as_u32(dg.part_digests(blocks, P - 1))[:, 0].reshape(P, P - 1)
+    snd = dg.as_u32(dg.row_sums(hrows, d.send_idx, d.send_mask))
+    host_ok = all(
+        rcv[(s + dd) % P, dd - 1] == snd[s, dd - 1]
+        == dg.host_digest(blocks[(s + dd) % P, (dd - 1) * B:dd * B]
+                          .cpu().numpy())[0]
+        for s in range(P) for dd in range(1, P))
+    dirty = torch.rand((P, d.n_max), generator=gen, device="cuda") < 0.01
+    same = same and torch.equal(
+        dg.row_sums(hrows, d.send_idx, d.send_mask, dirty),
+        dg.row_sums_plain(hrows, d.send_idx, d.send_mask, dirty))
+    log(f"  K19 rows form and distance blocks at the guard's shape (P = "
+        f"{P}, B = {B}, F = 256 f32; 1 % dirty rows): bit-exact vs plain "
+        f"{'ok' if same else 'FAIL'}, sender = receiver = numpy "
+        f"{'ok' if host_ok else 'FAIL'}")
+    require(same and host_ok, "K19 rows form disagrees")
+    flipped = feat.clone()
+    dg.flip_bit_(flipped[1], bit=0, index=12345)
+    pf, pr = (dg.as_u32(dg.part_digests(t)) for t in (flipped, feat))
+    changed = np.nonzero(np.any(pf != pr, axis=-1))[0].tolist()
+    log(f"  a flipped bit (part 1, element 12345, bit 0): digests of parts "
+        f"{changed} changed")
+    require(changed == [1], f"K19: a flipped bit changed parts {changed}")
+    del flipped
+
+    # timings at the main path's shapes
+    named = static_tensors(trainer)
+    st_bytes = sum(t.numel() * t.element_size() for t in named.values())
+    x32 = feat.view(torch.int32) if feat.dtype == torch.float32 else \
+        feat.view(torch.int16)
+    t = {}
+    scrub_ms = time_ms(lambda: _digest_rows(named, P), reps=10)
+    t["scrub"] = dict(ms=scrub_ms, plain_ms=None, library_ms=None,
+                      bound=bound_ms(st_bytes, 0),
+                      shape=f"the SAGE trainer's {len(named)} static "
+                            f"tensors, {st_bytes} bytes (one launch each, "
+                            f"one read-back)")
+    fb = feat.numel() * feat.element_size()
+    t["flat"] = dict(
+        ms=time_ms(lambda: dg.digest(feat)),
+        plain_ms=time_ms(lambda: dg.digest_plain(feat), reps=3, warmup=1),
+        library_ms=time_ms(lambda: x32.sum(dtype=torch.int64)),
+        bound=bound_ms(fb, 0),
+        shape=f"the use_pp features {list(feat.shape)} {feat.dtype}, "
+              f"{fb} bytes")
+    t["per_part"] = dict(
+        ms=time_ms(lambda: dg.part_digests(feat)),
+        plain_ms=time_ms(lambda: dg.part_digests_plain(feat), reps=3,
+                         warmup=1),
+        library_ms=time_ms(lambda: x32.view(P, -1).sum(
+            dim=1, dtype=torch.int64)),
+        bound=bound_ms(fb, 0), shape=t["flat"]["shape"] + ", per part")
+    on = int(d.send_mask.sum())
+    rb = on * 256 * 4 + d.send_idx.numel() * 5
+    t["rows"] = dict(
+        ms=time_ms(lambda: dg.row_sums(hrows, d.send_idx, d.send_mask)),
+        plain_ms=time_ms(lambda: dg.row_sums_plain(hrows, d.send_idx,
+                                                   d.send_mask), reps=3,
+                         warmup=1),
+        library_ms=None, bound=bound_ms(rb, 0),
+        shape=f"P = {P}, B = {B}, {on} send rows of 256 f32 (a layer's "
+              f"exchange)")
+    t["blocks"] = dict(
+        ms=time_ms(lambda: dg.part_digests(blocks, P - 1)),
+        plain_ms=time_ms(lambda: dg.part_digests_plain(blocks, P - 1),
+                         reps=3, warmup=1),
+        library_ms=time_ms(lambda: blocks.view(torch.int32).view(
+            P * (P - 1), -1).sum(dim=1, dtype=torch.int64)),
+        bound=bound_ms(blocks.numel() * 4, 0),
+        shape=f"the received halo [{P}, {(P - 1) * B}, 256] f32 in "
+              f"{P * (P - 1)} distance blocks")
+    for k, v in t.items():
+        log(f"  K19 {k}: {v['ms']:.4f} ms, plain {v['plain_ms']}, library "
+            f"(s1 alone) {v['library_ms']}, bound {v['bound'][0]:.4f} ms "
+            f"({v['bound'][1]}); {v['shape']}")
+    del hrows, blocks
+    return t
+
+
 def kernel_entry(name, source, replaces, launches, err, t, serving=None):
     """One kernel of the ``kernels`` line: ``t`` timed at the shape whose
     launches are counted (the training run's); K1/K2 also carry their
@@ -4219,7 +4935,11 @@ def main() -> int:
     ap.add_argument("--wire-epochs", type=int, default=6,
                     help="epochs of the union-gather block + fp8 halo wire "
                          "cell")
+    ap.add_argument("--integrity-epochs", type=int, default=6,
+                    help="epochs of the integrity cell")
     args = ap.parse_args()
+
+    import dataclasses
 
     import torch
 
@@ -4253,11 +4973,32 @@ def main() -> int:
         f"{torch.version.cuda}, numpy {numpy.__version__}, "
         f"{torch.cuda.get_device_name(0)}")
 
+    # the kernels build (one nvcc a source, all started together) while
+    # the host loads the graph and builds the serving artifact; the first
+    # launch waits for them
     t0 = time.monotonic()
-    secs = _build.build(["spmm_mean", "halo_gather", "halo_scatter",
-                         *gat.LIBRARIES, "bucket_spmm", "transport_cast",
-                         "block_spmm", "halo_wire"])
-    log(f"[2] kernels built in {time.monotonic() - t0:.1f}s: {secs}")
+    built = {}
+
+    def build_all():
+        try:
+            built["secs"] = _build.build([
+                "spmm_mean", "halo_gather", "halo_scatter", *gat.LIBRARIES,
+                "bucket_spmm", "transport_cast", "block_spmm", "halo_wire",
+                "digest"])
+        except Exception as exc:  # noqa: BLE001 — re-raised on the main thread
+            built["error"] = exc
+
+    compiling = threading.Thread(target=build_all)
+    compiling.start()
+
+    def kernels_built():
+        compiling.join()
+        if "error" in built:
+            raise built["error"]
+        log(f"    kernels built (started {time.monotonic() - t0:.1f}s ago): "
+            f"{built['secs']}")
+
+    log("[2] kernels building in the background; the native library")
     # the native partitioner and radix sort (g++): the training cells
     # partition by metis on it, as the JAX CLI does; its absence fails
     t0 = time.monotonic()
@@ -4275,8 +5016,11 @@ def main() -> int:
 
     log(f"[3] serving path: {args.dataset}, 2 parts, GraphSAGE 4x256 "
         "use_pp")
-    serve_sg, engine, summary, launches, serve_stats = serve_phase(
-        args, g, spmm, halo)
+    try:
+        serve_sg, engine, summary, launches, serve_stats = serve_phase(
+            args, g, spmm, halo, kernels_built)
+    finally:
+        compiling.join()  # no nvcc outlives a failed phase
 
     log("[4] K1, K2 vs plain versions")
     errs = {"K1": k1_phase(engine, spmm, halo), "K2": k2_phase(engine, halo)}
@@ -4290,7 +5034,8 @@ def main() -> int:
         "602 -> 256x3 -> 41, use_pp off, 100 qps, refresh every 0.5 s, "
         "32-row churn every 0.5 s, then --update-fraction 0.05) on the same "
         "2 random parts; K18 vs its plain version, a planted fault; GCN")
-    fresh_stats = freshness_phase(args, serve_sg, spmm, halo, fresh)
+    fresh_stats, fresh_engine = freshness_phase(args, serve_sg, spmm, halo,
+                                                fresh)
     del serve_sg
     torch.cuda.empty_cache()
 
@@ -4396,8 +5141,7 @@ def main() -> int:
         "bf16 bucket", btrainer, counters(spmm, halo), 200, args.bf16_epochs,
         {"bucket_gather": 6, "transport_cast": 6, "spmm_mean": 0,
          "spmm_mean_t": 0}, {"halo_scatter": {"bfloat16": 3, "float32": 0}})
-    del btrainer
-    torch.cuda.empty_cache()
+    torch.cuda.empty_cache()  # btrainer stays for [35]
     bucket_gcn = bucket_gcn_phase(args, sg, spmm, halo)
     torch.cuda.empty_cache()
 
@@ -4438,8 +5182,7 @@ def main() -> int:
         {"block_dense": {"bfloat16": 3, "float32": 0},
          "block_dense_t": {"bfloat16": 3, "float32": 0},
          "halo_scatter": {"bfloat16": 3, "float32": 0}})
-    del ktrainer
-    torch.cuda.empty_cache()
+    torch.cuda.empty_cache()  # ktrainer stays for [35]
 
     log(f"[25] GCN on the block path: {args.block_gcn_epochs} epochs, then "
         f"one epoch: kernels vs plain versions")
@@ -4493,7 +5236,6 @@ def main() -> int:
         f"bfloat16 and none")
     wtrainer, wire_stats = wire_train_phase(args, sg, eval_graphs,
                                             eval_cache, spmm, halo)
-    del eval_graphs, eval_cache
     log("  the command at --block-group 2, 4 and 8, each at f32 and bf16 "
         "compute, 2 epochs each")
     wire_stats["groups"] = wire_group_variants(args, sg, spmm, halo)
@@ -4528,7 +5270,55 @@ def main() -> int:
         wtrainer, counters(spmm, halo), wt, gt16b, kt, bt, k4b,
         {"f32 block": block_split["epoch_ms"],
          "bf16 block": bf16_block["epoch_ms"]})
+    torch.cuda.empty_cache()  # wtrainer stays for [36]
+
+    log(f"[34] integrity cell: the command plus --integrity-check-every 2, "
+        f"{args.integrity_epochs} epochs on the same parts (a deep check at "
+        f"every second boundary, the wire lane in every exchange and "
+        f"return)")
+    itrainer, integ_stats = integrity_cell_phase(args, sg, eval_graphs,
+                                                 eval_cache, spmm, halo)
+    del eval_graphs, eval_cache
+
+    log("[35] the detection matrix: bitflip@3:<class> per target class on "
+        "the integrity cell's trainer; Freivalds and a table flip on the "
+        "bucket and block trainers")
+    integ_stats["detection"] = detection_matrix_phase(itrainer)
+    cnt = counters(spmm, halo)
+    integ_stats["bucket_tables"] = table_drill(
+        "bucket trainer ([15], bf16 since [19])", btrainer, cnt,
+        ["bucket_gather"])
+    del btrainer
+    integ_stats["block_tables"] = table_drill(
+        "block trainer ([20], bf16 since [24])", ktrainer, cnt,
+        ["block_dense", "bucket_gather"])
+    del ktrainer
+    torch.cuda.empty_cache()
+
+    log("[36] the wire guard: guarded epochs bit-identical (K2 / K5; K15's "
+        "e4m3 / e5m2 and bf16 wires), planted K15 faults, a planted corrupt "
+        "copy; the serving guard on the freshness engine of [5a]")
+    guard = {"sage": guard_identity(
+        "SAGE (K2 / K5)", itrainer, 300, cnt,
+        ["halo_gather", "halo_return", "row_sums", "part_digests"])}
+    wtc = wtrainer.tcfg
+    for hd in ("float8", "bfloat16"):
+        wtrainer.tcfg = dataclasses.replace(wtc, halo_dtype=hd)
+        guard[f"wire {hd}"] = guard_identity(
+            f"wire cell, --halo-dtype {hd} (K15)", wtrainer, 400, cnt,
+            ["halo_wire", "part_digests"])
+    wtrainer.tcfg = wtc
+    guard["planted K15"] = planted_k15_faults(wtrainer, halo, 410)
     del wtrainer
+    guard["planted"] = planted_wire_fault(itrainer, halo)
+    guard["serving"] = serving_guard_phase(fresh_engine, fresh, cnt)
+    integ_stats["wire_guard"] = guard
+    del fresh_engine
+    torch.cuda.empty_cache()
+
+    log("[37] K19 vs its plain version and numpy bit for bit; its timings")
+    k19t = k19_phase(itrainer, spmm, halo)
+    del itrainer
     torch.cuda.empty_cache()
 
     # the main path of this slice is training: every kernel's launches
@@ -4742,7 +5532,43 @@ def main() -> int:
             e["also_replaces"] = also
             kernels.append(e)
 
+    # K19, by form: launches over the integrity cell's run ([34]: the
+    # build, the epochs with their checks, the final eval), times at the
+    # main path's shapes ([37]); the flat form's main numbers over the
+    # use_pp features, the scrub's whole static data under "scrub"
+    ni = integ_stats["launches"]
+    for kname, key, replaces, also in (
+            ("digest", "flat", "pipegcn_tpu/resilience/integrity.py:115",
+             ["pipegcn_tpu/resilience/integrity.py:155",
+              "pipegcn_tpu/parallel/halo.py:106"]),
+            ("part_digests", "per_part",
+             "pipegcn_tpu/resilience/integrity.py:213",
+             ["pipegcn_tpu/resilience/integrity.py:115",
+              "pipegcn_tpu/parallel/halo.py:127"]),
+            ("row_sums", "rows", "pipegcn_tpu/parallel/halo.py:106",
+             ["pipegcn_tpu/parallel/halo.py:127",
+              "pipegcn_tpu/serve/freshness.py:51"])):
+        e = kernel_entry(kname, src + "digest.cu", replaces, ni[kname], 0.0,
+                         k19t[key])
+        e["also_replaces"] = also
+        e["library"] = (
+            "none: no single PyTorch call gathers send rows and sums "
+            "their bits" if key == "rows" else
+            "x.view(int32).sum(dtype=int64) gives the plain sum s1 only; "
+            "no call computes the weighted sum s2 (no uint32 arithmetic "
+            "on CUDA)")
+        if key == "flat":
+            e["scrub"] = {"ms": k19t["scrub"]["ms"],
+                          "bound_ms": k19t["scrub"]["bound"][0],
+                          "bound_by": k19t["scrub"]["bound"][1],
+                          "shape": k19t["scrub"]["shape"]}
+        if key == "per_part":
+            e["blocks"] = {**sub(k19t["blocks"]),
+                           "library_ms": k19t["blocks"]["library_ms"]}
+        kernels.append(e)
+
     print(json.dumps({"kernels": kernels}))
+
     print(json.dumps({
         "serving": {"dataset": args.dataset,
                     "cuts": ["2 random parts of the full graph (not "
@@ -4837,6 +5663,14 @@ def main() -> int:
                  f"--halo-dtype bfloat16 and none"],
         **wire_stats, "step_check": wire_step, "kernel_timings": wt,
         "tile_timings": gt32, "tile_timings_bf16": gt16b, "card": smi}}))
+    print(json.dumps({"integrity_training": {
+        "dataset": args.dataset,
+        "cell": "scripts/reddit.sh + --integrity-check-every 2: graphsage "
+                "4x256 --use-pp --inductive --enable-pipeline, dropout 0.5, "
+                "lr 0.01, LayerNorm, f32, 2 metis parts; drills "
+                "bitflip@3:<params|carry|tables|halo>, 8 epochs, eval off",
+        "cuts": [f"{args.integrity_epochs} epochs (not 3000)"],
+        **integ_stats, "k19_timings": k19t, "card": smi}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

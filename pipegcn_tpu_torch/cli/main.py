@@ -17,8 +17,10 @@ parser's names and defaults (``cli/parser.py``), and the model family's
 (``--model {graphsage,gcn,gat}``, ``--n-heads``), the bucket and block
 aggregations' (``--spmm-impl``, ``--rem-dtype``, ``--rem-amax``,
 ``--bucket-merge``, ``--spmm-chunk``, ``--block-tile``, ``--block-nnz``,
-``--block-group``), the halo wire's (``--halo-dtype``) and the local-id
-layout's (``--local-reorder``, by
+``--block-group``), the halo wire's (``--halo-dtype``), the integrity
+plane's (``--integrity-check-every``, and ``--fault-plan`` for its
+``bitflip@E[:rN]:<class>`` drills) and the local-id layout's
+(``--local-reorder``, by
 default ``cluster`` as in JAX: locality clusters of the train subgraph
 under ``--inductive``, ``--cluster-size``), plus ``--device``. As in
 the JAX CLI, the seed is drawn at random unless ``--fix-seed``. Runs on
@@ -124,6 +126,22 @@ def build_parser() -> argparse.ArgumentParser:
                         "or float8 (e4m3 features / e5m2 bgrads, one "
                         "power-of-two scale a distance block: K14/K15); "
                         "decoded back to the compute dtype on receipt")
+    p.add_argument("--integrity-check-every", "--integrity_check_every",
+                   type=int, default=0,
+                   help="epochs between SDC integrity checks "
+                        "(resilience/integrity.py): K19 digest scrub of the "
+                        "static device tensors and Freivalds verification "
+                        "of the production SpMM at this cadence, params / "
+                        "carry digest compares at every boundary, and the "
+                        "halo wire-checksum lane in the pipelined step; 0 "
+                        "disables (and runs the unguarded step)")
+    p.add_argument("--fault-plan", "--fault_plan", type=str, default="",
+                   help="deterministic chaos injection: comma-separated "
+                        "kind@epoch[:rN] entries; the port runs "
+                        "bitflip@E[:rN]:<params|carry|tables|halo> (one "
+                        "bit flipped in that state class at the boundary "
+                        "of E, once) and refuses the JAX package's other "
+                        "kinds")
     p.add_argument("--device", type=str, default=None,
                    help="cuda (default) or cpu; no silent fallback")
     return p
@@ -181,7 +199,8 @@ def configs(args, sg):
                        feat_corr=args.feat_corr, grad_corr=args.grad_corr,
                        corr_momentum=args.corr_momentum,
                        log_every=args.log_every, seed=args.seed,
-                       eval=args.eval, halo_dtype=args.halo_dtype)
+                       eval=args.eval, halo_dtype=args.halo_dtype,
+                       integrity_check_every=args.integrity_check_every)
     return cfg, tcfg
 
 
@@ -221,7 +240,11 @@ def run(args, log=print) -> dict:
     """Full training run; returns ``Trainer.fit``'s result dict."""
     from ..device import resolve_device
 
+    from ..resilience import FaultPlan
+
     device = resolve_device(args.device)
+    fault_plan = FaultPlan.parse(args.fault_plan) if args.fault_plan \
+        else None
     # seed semantics: random unless --fix-seed (reference main.py:11-14)
     if not args.fix_seed:
         args.seed = random.randint(0, 1 << 31)
@@ -232,7 +255,8 @@ def run(args, log=print) -> dict:
     # the train line every 10 epochs, evals every --log-every, as the
     # JAX CLI's fit(reference_logs=True) prints them
     res = trainer.fit(eval_graphs if args.eval else None,
-                      inductive=args.inductive, reference_logs=True)
+                      inductive=args.inductive, reference_logs=True,
+                      fault_plan=fault_plan)
     if args.eval and "test_acc" in res:
         print("Validation accuracy {:.2%}".format(res["best_val"]))
         print("Test Result | Accuracy {:.2%}".format(res["test_acc"]))

@@ -871,9 +871,11 @@ def stage_block_tables(tables: Dict[str, np.ndarray], tile: int, n_max: int,
         sides[direction] = BlockSide(ptr=put(ptr), blk=put(blk),
                                      tile=put(til), n_out=n_out, n_in=n_in,
                                      transpose=direction == "bwd")
+    # copy=True: on the CPU the staged A never shares memory with the host
+    # tables (a restage from them must not see a staged table's flip)
     return BlockTables(
-        a=a_t.to(device), packed=packed, tile=tile, fwd=sides["fwd"],
-        bwd=sides["bwd"],
+        a=a_t.to(device, copy=True), packed=packed, tile=tile,
+        fwd=sides["fwd"], bwd=sides["bwd"],
         rem_fwd=flatten_side(tables, "blkrem_fwd", n_src, device),
         rem_bwd=flatten_side(tables, "blkrem_bwd", n_max, device))
 

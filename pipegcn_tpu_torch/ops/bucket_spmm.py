@@ -321,8 +321,11 @@ def flatten_side(tables: Dict[str, np.ndarray], stem: str, n_src: int,
     meta[1, 1:] = np.cumsum(sizes)
     meta[2, :-1] = widths
     put = torch.from_numpy
+    # copy=True: on the CPU a staged table never shares memory with the
+    # host tables (a restage from them must not see a staged table's flip)
     return BucketSide(idx=put(idx).to(device),
-                      inv=put(np.ascontiguousarray(inv, np.int32)).to(device),
+                      inv=put(np.ascontiguousarray(inv, np.int32)).to(
+                          device, copy=True),
                       meta=put(meta).to(device), n_src=n_src, widths=widths)
 
 

@@ -87,7 +87,10 @@ def csr_transpose(edge_src: np.ndarray, edge_dst: np.ndarray, n_out: int,
     ``indptr_t[n_src]`` is zero. Within a row the edges keep their
     dst-sorted order (a stable sort by source), so the result is
     deterministic. Sources are clipped to [0, n_src - 1], as the forward
-    gather clips them. No ``np.unique`` (which hashes on NumPy >= 2.3)."""
+    gather clips them. No ``np.unique`` (which hashes on NumPy >= 2.3);
+    the sort is the native radix sort where the library is built."""
+    from ..native import stable_argsort
+
     src = np.asarray(edge_src)
     dst = np.asarray(edge_dst)
     indptr = csr_indptr(dst, n_out).reshape(-1, n_out + 1)
@@ -97,7 +100,7 @@ def csr_transpose(edge_src: np.ndarray, edge_dst: np.ndarray, n_out: int,
     for p in range(fs.shape[0]):
         n_e = int(indptr[p, -1])
         s = np.clip(fs[p, :n_e], 0, n_src - 1)
-        order = np.argsort(s, kind="stable")
+        order = stable_argsort(s)
         dst_t[p, :n_e] = fd[p, :n_e][order]
         np.cumsum(np.bincount(s, minlength=n_src), out=ptr[p, 1:])
     return (ptr.astype(_index_dtype(ptr[:, -1])).reshape(

@@ -44,6 +44,19 @@ plain version:
 :func:`exchange_blocks` and :func:`return_blocks` take the wire dtype;
 the carries stay in the compute dtype ("wire-only").
 
+The wire-integrity lane (``guard=True``, pipelined training under
+``--integrity-check-every``; JAX ``_permute_compressed(guard=True)``):
+:func:`exchange_blocks`, :func:`return_blocks` and the wire return ``(out,
+bad)``, ``bad`` a 0-d int64 count of (receiver, distance) blocks whose
+received bits do not sum to the sender's sum (``ops/digest.py``, K19). On
+the K2 / K5 paths the sender's sum is taken from the rows it sends
+(:func:`~pipegcn_tpu_torch.ops.digest.row_sums`, or its return blocks),
+the receiver's from the block it got. On the compressed wire the sums
+cover the narrow payload and the inverse scales (JAX's ``bad_inv``) in the
+wire buffer: on one card K15 writes them straight into the receiver's
+slot, which is the ring copy, so both sums read that buffer (ROADMAP §C).
+``guard=False`` runs exactly the unguarded launches.
+
 :class:`HaloExchange` (vanilla mode, differentiable ``halo_exchange``) and
 :class:`StaleConcat` (pipelined mode, ``make_stale_concat``) are the
 autograd functions built from them.
@@ -58,6 +71,7 @@ import numpy as np
 import torch
 
 from ..ops import _build
+from ..ops import digest as _digest
 from ..ops.bucket_spmm import (_OUT_TYPES, F8_MAX, TransportShare,
                                pow2_scale, quantize, transport_dtypes)
 
@@ -194,13 +208,17 @@ def _check_return(g, b_max):
 
 def return_blocks_plain(g: torch.Tensor, b_max: int,
                         transport_dt: Optional[torch.dtype] = None,
-                        share: Optional[TransportShare] = None
-                        ) -> torch.Tensor:
+                        share: Optional[TransportShare] = None,
+                        guard: bool = False):
     """Plain PyTorch version of K5: for each receiver r and distance d,
     slice block d-1 of part (r+d) mod P and concatenate. With
-    ``transport_dt`` the plain wire (:func:`halo_wire_plain`) instead."""
+    ``transport_dt`` the plain wire (:func:`halo_wire_plain`) instead;
+    ``guard`` as :func:`return_blocks`."""
     if transport_dt is not None:
-        return _wire(g, None, None, b_max, transport_dt, PLAIN, share)
+        return _wire(g, None, None, b_max, transport_dt, PLAIN, share,
+                     guard)
+    if guard:
+        return _guarded_return(g, b_max, PLAIN)
     _check_return(g, b_max)
     P = g.shape[0]
     if P == 1:
@@ -212,7 +230,8 @@ def return_blocks_plain(g: torch.Tensor, b_max: int,
 
 def return_blocks(g: torch.Tensor, b_max: int,
                   transport_dt: Optional[torch.dtype] = None,
-                  share: Optional[TransportShare] = None) -> torch.Tensor:
+                  share: Optional[TransportShare] = None,
+                  guard: bool = False):
     """``[P, H, F] -> [P, H, F]``: route each part's halo cotangent back
     along the reverse ring, ``out[r, (d-1)B:dB] = g[(r+d) mod P,
     (d-1)B:dB]`` (``pipegcn_tpu/parallel/halo.py`` ``return_blocks`` for
@@ -221,9 +240,13 @@ def return_blocks(g: torch.Tensor, b_max: int,
     contiguous), :func:`return_blocks_plain` on CPU. With
     ``transport_dt`` (the boundary-gradient wire dtype) the blocks cross
     the compressed wire instead: K14 and K15 (:func:`halo_wire`), values
-    taken from or recorded into ``share``."""
+    taken from or recorded into ``share``. With ``guard`` it returns
+    ``(out, bad)``, the wire-integrity lane's mismatching blocks."""
     if transport_dt is not None:
-        return _wire(g, None, None, b_max, transport_dt, KERNELS, share)
+        return _wire(g, None, None, b_max, transport_dt, KERNELS, share,
+                     guard)
+    if guard:
+        return _guarded_return(g, b_max, KERNELS)
     if g.device.type == "cpu":
         return return_blocks_plain(g, b_max)
     _check_return(g, b_max)
@@ -546,16 +569,18 @@ halo_wire.launches = 0
 halo_wire.by_mode = {"float8_e4m3fn": 0, "float8_e5m2": 0, "bfloat16": 0}
 
 
-def _wire(x, send_idx, send_mask, b_max, dt, ops, share):
+def _wire(x, send_idx, send_mask, b_max, dt, ops, share, guard=False):
     """The compressed wire of one exchange (``send_idx`` given) or return:
     the halo ``[P, (P-1)*B, F]`` in x's dtype. ``ops`` picks the kernels
     (K14, K15) or the plain versions. ``share`` (a ``TransportShare``)
     records the payload and inverse scales in sender order, ``[P*(P-1),
     B, F]`` and ``[P*(P-1)]``, or replaces this run's with another run's,
-    the flips of its own cast counted."""
+    the flips of its own cast counted. ``guard`` returns ``(halo, bad)``
+    (:func:`_wire_bad`)."""
     P, F = x.shape[0], x.shape[2]
     if P == 1:
-        return x.new_zeros((1, 0, F))
+        out = x.new_zeros((1, 0, F))
+        return (out, _no_bad(x)) if guard else out
     exchange = send_idx is not None
     col = torch.arange(P - 1, device=x.device)[None, :]
     if share is not None and share.source is not None:
@@ -566,7 +591,8 @@ def _wire(x, send_idx, send_mask, b_max, dt, ops, share):
         snd = _senders(P, exchange).to(x.device)
         wire = y.view(P, P - 1, b_max, F)[snd, col]
         inv = None if inv is None else inv.view(P, P - 1)[snd, col]
-        return _decode(wire, inv, x.dtype).reshape(P, (P - 1) * b_max, F)
+        out = _decode(wire, inv, x.dtype).reshape(P, (P - 1) * b_max, F)
+        return (out, _no_bad(x)) if guard else out
     amax = (ops.amax(x, send_idx, send_mask, b_max) if dt in F8_MAX
             else None)
     out, wire, inv = ops.wire(x, send_idx, send_mask, b_max, dt, amax)
@@ -575,43 +601,127 @@ def _wire(x, send_idx, send_mask, b_max, dt, ops, share):
         share.recorded.append((
             wire[rcv, col].reshape(-1, b_max, F),
             None if inv is None else inv[rcv, col].reshape(-1)))
-    return out
+    if not guard:
+        return out
+    return out, _wire_bad(out, wire, inv, amax, dt, exchange, ops)
+
+
+def _nan_canonical(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with every NaN as torch writes one: K15 and the plain decode
+    may write different NaN bits for the same NaN value."""
+    return torch.where(t.isnan(), t.new_full((), float("nan")), t)
+
+
+def _wire_bad(out, wire, inv, amax, dt, exchange, ops) -> torch.Tensor:
+    """The compressed wire's integrity lane on one card: the count of
+    receiver slots ``[r, d-1]`` whose decoded block (what the receiver
+    consumes) does not sum to an independent decode of the payload and
+    scale K15 wrote there, or whose scale is not its sender's (JAX's
+    ``bad_inv`` lane: ``1 / pow2_scale`` of K14's amax, in sender order).
+    K15 encodes, copies and decodes in one launch, so no copy of the
+    payload exists before the ring copy to sum; a corruption of the halo,
+    the payload or the scale after K15 shows, one inside K15 that writes
+    the same wrong value to both does not."""
+    P = out.shape[0]
+    ref = _decode(wire, inv, out.dtype).reshape(out.shape)
+    bad = (_block_sums(_nan_canonical(out), P, ops)
+           != _block_sums(_nan_canonical(ref), P, ops))
+    if inv is not None:
+        col = torch.arange(P - 1, device=out.device)[None, :]
+        want = (1.0 / pow2_scale(amax.reshape(-1), F8_MAX[dt])).view(
+            P, P - 1)[_senders(P, exchange).to(out.device), col]
+        bad |= inv.view(torch.int32) != want.view(torch.int32)
+    return bad.sum()
 
 
 def exchange_blocks(h: torch.Tensor, send_idx: torch.Tensor,
                     send_mask: torch.Tensor,
                     transport_dt: Optional[torch.dtype] = None,
                     ops: Optional["HaloOps"] = None,
-                    share: Optional[TransportShare] = None) -> torch.Tensor:
+                    share: Optional[TransportShare] = None,
+                    guard: bool = False):
     """``[P, n_max, F] -> [P, (P-1)*B, F]``: every part's received halo
     block in distance order (``pipegcn_tpu/parallel/halo.py``
     ``exchange_blocks`` for all shards at once): K2, or with
     ``transport_dt`` (the feature wire dtype) the compressed wire (K14,
     K15), values taken from or recorded into ``share``. ``ops`` picks the
     kernel wrappers (the default) or the plain versions. Not
-    differentiable: the pipelined step ships detached rows."""
+    differentiable: the pipelined step ships detached rows. With
+    ``guard`` it returns ``(halo, bad)``: the sender's sums of its send
+    rows (K19's rows form) against the receiver's of each block it got
+    (the ranges form), ``bad`` the count that differ."""
     ops = KERNELS if ops is None else ops
     if transport_dt is not None:
         return _wire(h, send_idx, send_mask, send_idx.shape[2],
-                     transport_dt, ops, share)
-    return ops.gather(h, send_idx, send_mask, False)
+                     transport_dt, ops, share, guard)
+    if not guard:
+        return ops.gather(h, send_idx, send_mask, False)
+    P = h.shape[0]
+    if P == 1:
+        return ops.gather(h, send_idx, send_mask, False), _no_bad(h)
+    snd = ops.rows(h, send_idx, send_mask)
+    out = ops.gather(h, send_idx, send_mask, False)
+    return out, _bad(_block_sums(out, P, ops), snd, exchange=True)
+
+
+def wire_sum(x: torch.Tensor) -> torch.Tensor:
+    """0-d int32 (u32 bits): the wraparound sum of a tensor's bits, the
+    wire-integrity checksum (JAX ``wire_sum``; s1 of K19's digest)."""
+    return _digest.digest(x.contiguous())[0]
+
+
+def _no_bad(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.int64, device=x.device)
+
+
+def _block_sums(x: torch.Tensor, P: int, ops: "HaloOps") -> torch.Tensor:
+    """``[P, P-1]`` s1 of each part's distance blocks of ``x [P, (P-1)*B,
+    F]`` (each part's rows contiguous)."""
+    return ops.digests(x, P - 1)[:, 0].view(P, P - 1)
+
+
+def _bad(rcv: torch.Tensor, snd: torch.Tensor, exchange: bool
+         ) -> torch.Tensor:
+    """Count of receiver slots ``[r, d-1]`` whose sum differs from its
+    sender's (``snd`` in sender order): (r - d) mod P on the exchange,
+    (r + d) mod P on the return."""
+    P = rcv.shape[0]
+    col = torch.arange(P - 1, device=rcv.device)[None, :]
+    return (rcv != snd[_senders(P, exchange).to(rcv.device), col]).sum()
+
+
+def _guarded_return(g: torch.Tensor, b_max: int, ops: "HaloOps"):
+    """The return with the wire-integrity lane: the senders' sums of their
+    distance blocks of ``g``, the copy (K5 or its plain version), the
+    receivers' sums of what they got."""
+    _check_return(g, b_max)
+    P = g.shape[0]
+    if P == 1:
+        return ops.ret(g, b_max), _no_bad(g)
+    snd = _block_sums(g, P, ops)
+    out = ops.ret(g, b_max)
+    return out, _bad(_block_sums(out, P, ops), snd, exchange=False)
 
 
 class HaloOps:
     """The halo functions a caller runs: the kernel wrappers
     (:data:`KERNELS`, plain versions on CPU tensors) or the plain versions
     on any device (:data:`PLAIN`, the card-side comparison) — K2's
-    gather, K5's return, K4's scatter and the wire's K14 / K15."""
+    gather, K5's return, K4's scatter, the wire's K14 / K15 and the
+    wire-integrity lane's K19 sums (``digests``: the ranges form,
+    ``rows``: the rows form)."""
 
-    def __init__(self, gather, ret, scatter, amax, wire):
+    def __init__(self, gather, ret, scatter, amax, wire, digests, rows):
         self.gather, self.ret, self.scatter = gather, ret, scatter
         self.amax, self.wire = amax, wire
+        self.digests, self.rows = digests, rows
 
 
 KERNELS = HaloOps(halo_gather, return_blocks, scatter_bgrad, halo_amax,
-                  halo_wire)
+                  halo_wire, _digest.part_digests, _digest.row_sums)
 PLAIN = HaloOps(halo_gather_plain, return_blocks_plain, scatter_bgrad_plain,
-                halo_amax_plain, halo_wire_plain)
+                halo_amax_plain, halo_wire_plain, _digest.part_digests_plain,
+                _digest.row_sums_plain)
 
 
 class HaloExchange(torch.autograd.Function):

@@ -20,6 +20,11 @@ Differences from the JAX staging:
     tables (``ops.block_spmm``: the A blocks, the dense pair lists, or at
     ``--block-group > 1`` the per-group unions, and the remainder's bucket
     tables) in place of the transpose CSR, likewise;
+  - the host-built tables go into a dict the caller may keep (the
+    trainer's, for the integrity plane's rebuild, as the JAX trainer's
+    ``_cached_tables`` keeps them beside a saved artifact), and every
+    staged tensor is a copy, on the CPU too, so an in-place change of a
+    staged tensor reaches neither the artifact nor those tables;
   - ``Trainer._pad_cols`` (the TPU 128-lane ``lane_pad``) has no
     counterpart: it only aligned feature slabs to TPU tiles and is
     numerically inert, so features are staged at their own width.
@@ -93,23 +98,29 @@ class StagedGraph:
 def _put(x: np.ndarray, dtype, device: torch.device) -> torch.Tensor:
     # writable + contiguous host copy only where needed (memmapped
     # artifacts are read-only), then one host-to-device copy
+    # (copy=True: a CPU tensor of its own, as a device copy is)
     host = np.require(np.asarray(x, dtype=dtype), requirements=["C", "W"])
-    return torch.from_numpy(host).to(device)
+    return torch.from_numpy(host).to(device, copy=True)
 
 
 def stage(sg: ShardedGraph, device: torch.device,
           training: bool = False,
           bucket_merge: Optional[int] = None,
-          block: Optional[Tuple[int, int, Optional[int], int]] = None
-          ) -> StagedGraph:
+          block: Optional[Tuple[int, int, Optional[int], int]] = None,
+          tables: Optional[dict] = None) -> StagedGraph:
     """Copy the arrays the serving path reads to ``device``; with
     ``training`` also the labels, masks and the two host-built inverses
     the training step reads (``Trainer._put_data``), or, given
     ``bucket_merge`` (the ladder's ``min_width``), the bucket tables in
     place of the transpose CSR, or, given ``block`` ``(tile, n_feat_hint,
-    nnz_threshold, group)``, the block tables in its place."""
+    nnz_threshold, group)``, the block tables in its place. ``tables``, a
+    dict the caller keeps, holds the host-built tables (the transpose CSR,
+    the bucket or block tables) by kind: read when it has them, filled
+    when not, so the caller's next staging of the same artifact (the
+    trainer's rebuild) copies them again instead of building them."""
     extra = {}
     if training:
+        cache = {} if tables is None else tables
         if sg.multilabel:
             raise NotImplementedError(
                 "multilabel training (BCE) waits for ROADMAP A5")
@@ -117,27 +128,31 @@ def stage(sg: ShardedGraph, device: torch.device,
         if block is not None:
             t0 = time.perf_counter()
             tile, hint, nnz, group = block
-            bstats: dict = {}
-            tables, _ = build_sharded_block_tables(
-                sg, tile=tile, n_feat_hint=hint, nnz_threshold=nnz,
-                group=group, stats=bstats)
-            extra["block"] = stage_block_tables(tables, tile, sg.n_max, n_src,
+            if ("block", block) not in cache:
+                bstats: dict = {}
+                cache[("block", block)] = (build_sharded_block_tables(
+                    sg, tile=tile, n_feat_hint=hint, nnz_threshold=nnz,
+                    group=group, stats=bstats)[0], bstats)
+            btab, bstats = cache[("block", block)]
+            extra["block"] = stage_block_tables(btab, tile, sg.n_max, n_src,
                                                 device)
             extra["block_build_s"] = time.perf_counter() - t0
             extra["block_stats"] = bstats
-            del tables
             indptr_t = dst_t = None
         elif bucket_merge is None:
-            indptr_t, dst_t = (torch.from_numpy(a).to(device) for a in
-                               csr_transpose(sg.edge_src, sg.edge_dst,
-                                             sg.n_max, n_src))
+            if "transpose" not in cache:
+                cache["transpose"] = csr_transpose(sg.edge_src, sg.edge_dst,
+                                                   sg.n_max, n_src)
+            indptr_t, dst_t = (torch.from_numpy(a).to(device, copy=True)
+                               for a in cache["transpose"])
         else:
             t0 = time.perf_counter()
-            tables = build_sharded_bucket_tables(sg, min_width=bucket_merge)
-            extra["bucket"] = stage_bucket_tables(tables, sg.n_max, n_src,
-                                                  device)
+            if ("bucket", bucket_merge) not in cache:
+                cache[("bucket", bucket_merge)] = build_sharded_bucket_tables(
+                    sg, min_width=bucket_merge)
+            extra["bucket"] = stage_bucket_tables(
+                cache[("bucket", bucket_merge)], sg.n_max, n_src, device)
             extra["bucket_build_s"] = time.perf_counter() - t0
-            del tables
             indptr_t = dst_t = None
         send_ptr, send_slot = send_csr(sg.send_idx, sg.send_mask, sg.n_max)
         row_mask = (np.arange(sg.n_max)[None, :]

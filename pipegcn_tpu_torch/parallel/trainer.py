@@ -62,6 +62,17 @@ boundary gradients under float8, bf16 both ways under bfloat16); the
 carries stay in the compute dtype. ``est_halo_bytes_per_epoch`` counts the
 wire's bytes as the JAX trainer does.
 
+With ``integrity_check_every`` N > 0 (``--integrity-check-every``; JAX
+``trainer.py:137-143``) ``fit`` drives the integrity plane
+(``resilience/integrity.py``: K19 digests of the static data, params and
+carry, and Freivalds through the step's own aggregation at F = 1) at every
+boundary and deeply every N epochs, recovers by target class (tables
+rebuilt from the host artifact, the carry flushed, params rolled back),
+injects ``--fault-plan bitflip@E:<class>`` flips first, and the pipelined
+epoch's exchanges and returns carry the wire checksum lane
+(``parallel/halo.py`` ``guard=True``), their mismatching blocks summed in
+``wire_bad`` and harvested after the step.
+
 Dropout masks come from a ``torch.Generator`` seeded from (seed, epoch),
 so ``train_epoch(e)`` is reproducible; the bits differ from JAX's
 (``jax.random`` folds the epoch and the rank into a key), so runs held
@@ -69,7 +80,7 @@ against the JAX trainer use dropout 0.
 
 Not ported (``NotImplementedError`` naming the ROADMAP item): fused epochs
 and epoch blocks, the comm prefetch, loss scaling,
-the integrity checks and the numerics tripwire, other RNG
+the numerics tripwire, other RNG
 implementations and mask reuse, streaming, checkpoints and sharded eval.
 """
 
@@ -89,7 +100,9 @@ from ..ops.block_spmm import block_spmm
 from ..ops.bucket_spmm import TransportShare, bucket_spmm
 from ..ops.gat import gat_attention, gat_attention_plain
 from ..ops.spmm import spmm_mean, spmm_mean_plain
+from ..ops.digest import flip_bit_
 from ..partition.halo import ShardedGraph
+from ..resilience.integrity import IntegrityPlane, is_table, static_tensors
 from ..train.losses import cross_entropy_sum
 from ..train.metrics import calc_acc
 from ..train.optim import adam_init, adam_update
@@ -130,8 +143,6 @@ class TrainConfig:
              "fused epochs / epoch blocks (ROADMAP A6, CUDA graphs)"),
             (self.comm_prefetch, "the layer-0 comm prefetch (ROADMAP A6)"),
             (self.loss_scale != "off", "loss scaling (ROADMAP A9)"),
-            (self.integrity_check_every > 0,
-             "integrity checks (ROADMAP A9, kernels B10)"),
             (self.numerics_tripwire, "the numerics tripwire (ROADMAP A9)"),
             (self.rng_impl != "threefry" or self.dropout_reuse > 1,
              "other dropout RNGs and mask reuse (ROADMAP A6)"),
@@ -202,27 +213,11 @@ class Trainer:
         self.share: Optional[TransportShare] = None
         self.bucket = cfg.spmm_impl == "bucket" and cfg.model != "gat"
         self.block = cfg.spmm_impl == "block" and cfg.model != "gat"
-        # the block tables' width hint: the widest graph layer input (JAX
-        # _use_block; every layer of the port is a graph layer)
-        w_hint = max(cfg.layer_sizes[:cfg.n_layers])
-        self.data = stage(sg, device, training=True,
-                          bucket_merge=cfg.bucket_merge if self.bucket
-                          else None,
-                          block=(cfg.block_tile, w_hint, cfg.block_nnz,
-                                 cfg.block_group)
-                          if self.block else None)
+        # the host-built tables, kept for the integrity plane's rebuild
+        # only (JAX _cached_tables); None: built, staged and dropped
+        self._host_tables = {} if tcfg.integrity_check_every > 0 else None
+        self._stage_static()
         self.n_train = float(self.data.n_train_global)
-        if cfg.use_pp:
-            self.feat = precompute_pp(
-                self.data,
-                exchange=lambda h, i, m: halo_exchange(
-                    h, i, m, ops=self._halo_ops),
-                spmm_fn=self._step_spmm(transport=False))
-        else:
-            self.feat = self.data.feat
-        # stored in the compute dtype after the f32 precompute (JAX
-        # trainer.py:225-231)
-        self.feat = self.feat.to(cfg.compute_dtype)
         if params is None:
             params = init_params(cfg, torch.Generator().manual_seed(
                 tcfg.seed), device)
@@ -237,6 +232,37 @@ class Trainer:
         self.last_grads: List[torch.Tensor] = []  # reduced, leaf order
         self.eval_cache: Dict[int, Dict[str, Any]] = {}
         self.eval_setup_s = 0.0  # host seconds building eval-graph CSRs
+        # the last epoch's summed wire-lane mismatches (0-d, on device;
+        # None when the lane is off)
+        self.wire_bad: Optional[torch.Tensor] = None
+        self.last_epoch = 0
+
+    def _stage_static(self) -> None:
+        """Stage the graph (``data``: the arrays, the inverses and the
+        bucket or block tables) and the step's features (``feat``: the
+        use_pp concat, in the compute dtype) from the host artifact."""
+        cfg = self.cfg
+        # the block tables' width hint: the widest graph layer input (JAX
+        # _use_block; every layer of the port is a graph layer)
+        w_hint = max(cfg.layer_sizes[:cfg.n_layers])
+        self.data = stage(self.sg, self.device, training=True,
+                          bucket_merge=cfg.bucket_merge if self.bucket
+                          else None,
+                          block=(cfg.block_tile, w_hint, cfg.block_nnz,
+                                 cfg.block_group)
+                          if self.block else None,
+                          tables=self._host_tables)
+        if cfg.use_pp:
+            self.feat = precompute_pp(
+                self.data,
+                exchange=lambda h, i, m: halo_exchange(
+                    h, i, m, ops=self._halo_ops),
+                spmm_fn=self._step_spmm(transport=False))
+        else:
+            self.feat = self.data.feat
+        # stored in the compute dtype after the f32 precompute (JAX
+        # trainer.py:225-231)
+        self.feat = self.feat.to(cfg.compute_dtype)
 
     @property
     def gat_transport(self) -> Optional[str]:
@@ -327,6 +353,11 @@ class Trainer:
                     device=self.device)
                     for i in self.glayers} for grp in groups}
 
+    def reset_comm(self) -> None:
+        """Zero the pipelined carry: the next epoch consumes zero halos as
+        epoch 0 does (JAX ``reset_comm``; the integrity plane's flush)."""
+        self.comm = self._init_comm()
+
     # ---------------- the step ----------------------------------------
 
     def train_epoch(self, epoch: int) -> float:
@@ -340,6 +371,9 @@ class Trainer:
         cdt = cfg.compute_dtype
         ops = self._halo_ops
         pipeline = tc.enable_pipeline
+        # the wire checksum lane: pipelined only, as JAX trainer.py:1087
+        guard = pipeline and tc.integrity_check_every > 0
+        wire_bad: List[torch.Tensor] = []
         feat_dt = halo_transport_dtypes(tc.halo_dtype)[0]
         probes: Dict[str, torch.Tensor] = {}
         fresh: Dict[str, torch.Tensor] = {}
@@ -363,7 +397,10 @@ class Trainer:
                 # feature wire under halo_dtype
                 fresh[k] = exchange_blocks(h.detach(), d.send_idx,
                                            d.send_mask, feat_dt, ops=ops,
-                                           share=self.share)
+                                           share=self.share, guard=guard)
+                if guard:
+                    fresh[k], bad = fresh[k]
+                    wire_bad.append(bad)
                 return fbuf
         else:
             def comm_update(i: int, h: torch.Tensor) -> torch.Tensor:
@@ -398,20 +435,28 @@ class Trainer:
             adam_update(pgrads, self.opt, self.params, lr=tc.lr,
                         weight_decay=tc.weight_decay)
             if pipeline:
-                self._update_comm(fresh, dict(zip(keys, grads[n:])))
+                self._update_comm(fresh, dict(zip(keys, grads[n:])),
+                                  wire_bad if guard else None)
+            self.wire_bad = sum(wire_bad, torch.zeros(
+                (), dtype=torch.int64, device=self.device)) if guard else None
             return float(loss / self.n_train)
 
     def _update_comm(self, fresh: Dict[str, torch.Tensor],
-                     probe_grads: Dict[str, torch.Tensor]) -> None:
+                     probe_grads: Dict[str, torch.Tensor],
+                     wire_bad: Optional[List[torch.Tensor]] = None) -> None:
         tc, b_max = self.tcfg, self.data.b_max
         m = tc.corr_momentum
         comm = self.comm
         bgrad_dt = halo_transport_dtypes(tc.halo_dtype)[1]
         for k in fresh:
             # this epoch's halo cotangents to their owners, across the
-            # boundary-gradient wire under halo_dtype
+            # boundary-gradient wire under halo_dtype (with the checksum
+            # lane when ``wire_bad`` collects it)
             bg = self._halo_ops.ret(probe_grads[k], b_max, bgrad_dt,
-                                    self.share)
+                                    self.share, guard=wire_bad is not None)
+            if wire_bad is not None:
+                bg, bad = bg
+                wire_bad.append(bad)
             comm["halo"][k] = fresh[k]
             comm["bgrad"][k] = bg
             if tc.feat_corr:
@@ -513,13 +558,142 @@ class Trainer:
                 for k, a in bufs.items()}
             for grp, bufs in host_state["comm"].items()}
 
+    # ---------------- integrity plane (resilience/integrity.py) -------
+
+    def _rebuild_static_data(self, dirty=None) -> int:
+        """Restage the static data (the graph's arrays, the bucket or block
+        tables, the use_pp features) from the host artifact, its tables
+        from ``_host_tables`` when the plane is armed and built again when
+        not: the scrub's recovery (JAX ``_rebuild_static_data``, whose
+        tables come from ``_cached_tables``). The port restages every
+        part; the count
+        returned is JAX's (the dirty parts under bucket, every part
+        otherwise)."""
+        self.data = None  # the old copy goes before the new one is staged
+        self._stage_static()
+        if self.bucket and dirty:
+            return len(dirty)
+        return self.P
+
+    def _replace_static(self, name: str, t: torch.Tensor) -> None:
+        """Put ``t`` in place of the static tensor ``name`` (a
+        ``static_tensors`` key: ``feat`` or a dotted path into ``data``)."""
+        if name == "feat":
+            self.feat = t
+            return
+        *path, leaf = name.split(".")
+        obj = self.data
+        for p in path:
+            obj = getattr(obj, p)
+        setattr(obj, leaf, t)
+
+    def _inject_bitflip(self, target: str, epoch: int, log_fn) -> bool:
+        """The chaos lane's SDC injection (``bitflip@E:<target>``): flip one
+        bit of the element of the named state class that the JAX trainer
+        flips (``trainer.py:819-887``): bit 11 of element ``epoch`` of the
+        first params leaf (JAX's flatten order) and bit 7 of the first key
+        of the halo group or of the first other carry group, in place; bit
+        3 of the first kernel table (``send_idx`` without tables) in a
+        copy put in its place. The kernels are never altered."""
+        if target == "params":
+            flip_bit_(self._leaves[0].detach(), bit=11, index=epoch)
+            return True
+        if target in ("carry", "halo"):
+            comm = self.comm or {}
+            group = ("halo" if target == "halo" else
+                     next((k for k in sorted(comm) if k != "halo"), None))
+            sub = comm.get(group) if group else None
+            if not sub:
+                log_fn(f"bitflip:{target} at epoch {epoch} skipped: "
+                       f"pipelined carry not enabled")
+                return False
+            flip_bit_(sub[sorted(sub)[0]], bit=7, index=epoch)
+            return True
+        if target == "tables":
+            named = static_tensors(self)
+            key = next((k for k in named if is_table(k)), "send_idx")
+            # a flipped copy in its place, as JAX device_puts one: a CPU
+            # tensor may share its memory with the host artifact
+            self._replace_static(key, flip_bit_(named[key].clone(), bit=3,
+                                                index=epoch))
+            return True
+        log_fn(f"bitflip:{target} at epoch {epoch} skipped: "
+               f"unknown target class")
+        return False
+
+    def _recover(self, integ: IntegrityPlane, results, epoch: int,
+                 last_good, log_fn, metrics) -> Optional[int]:
+        """Recovery by the first mismatch's target class (JAX fit,
+        ``trainer.py:2518-2610``); returns the epoch to roll back to for a
+        params corruption, else None."""
+        bad = [r for r in results if r.outcome == "mismatch"]
+        target = bad[0].target
+        dirty = sorted({int(s) for r in bad for s in r.dirty_shards})
+        if metrics is not None:
+            metrics.fault(kind="sdc", epoch=epoch, target=target,
+                          source_rank=0, strikes=integ.total_detections(),
+                          agreed=False)
+        if target == "tables":
+            n_reb = self._rebuild_static_data(dirty or None)
+            integ.baseline(self)
+            log_fn(f"integrity: rebuilt "
+                   f"{'shards ' + str(dirty) if dirty else 'all shards'}"
+                   f" from the host artifact at epoch {epoch}")
+            if metrics is not None:
+                metrics.recovery(kind="sdc", epoch=epoch, target=target,
+                                 tables_rebuilt=n_reb, dirty_shards=dirty)
+            return None
+        if target in ("halo", "carry"):
+            if self.tcfg.enable_pipeline:
+                self.reset_comm()
+            integ.drop_dynamic()
+            log_fn(f"integrity: flushed pipelined carry at epoch {epoch} "
+                   f"({target} corruption)")
+            if metrics is not None:
+                metrics.recovery(kind="sdc", epoch=epoch, target=target,
+                                 flushed=True)
+            return None
+        rollback_to, good_state = last_good
+        log_fn(f"integrity: params corruption at epoch {epoch}; rolling "
+               f"back to epoch {rollback_to}")
+        self.restore_state(good_state)
+        self.last_epoch = rollback_to
+        if self.tcfg.enable_pipeline:
+            self.reset_comm()
+        integ.drop_dynamic()
+        if metrics is not None:
+            metrics.recovery(kind="sdc", epoch=epoch, target=target,
+                             rollback_epoch=rollback_to)
+        return rollback_to
+
+    def _harvest_wire(self, integ: IntegrityPlane, epoch: int, log_fn,
+                      metrics) -> None:
+        """The wire lane's count after a step (JAX ``trainer.py:2736-
+        2770``): a mismatch counts a halo detection and flushes the
+        carry."""
+        wb_n = int(self.wire_bad)
+        if not wb_n:
+            return
+        integ.detections["halo"] = integ.detections.get("halo", 0) + 1
+        log_fn(f"integrity: halo wire checksum mismatch in {wb_n} distance "
+               f"block(s) at epoch {epoch}; flushing carry")
+        if metrics is not None:
+            metrics.integrity(epoch=epoch, check="wire", outcome="mismatch",
+                              target="halo", cadence=integ.check_every,
+                              overhead_s=0.0, blocks=wb_n)
+            metrics.fault(kind="sdc", epoch=epoch, target="halo",
+                          check="wire", blocks=wb_n, agreed=False)
+        if self.tcfg.enable_pipeline:
+            self.reset_comm()
+        integ.drop_dynamic()
+
     # ---------------- the epoch loop ----------------------------------
 
     def fit(self, eval_graphs: Optional[Dict[str, Tuple[Graph, str]]] = None,
             log_fn=print, *, inductive: bool = False,
             checkpoint_dir: Optional[str] = None, sharded_eval: bool = False,
-            stream_plan=None, reference_logs: bool = False
-            ) -> Dict[str, Any]:
+            stream_plan=None, reference_logs: bool = False, metrics=None,
+            fault_plan=None) -> Dict[str, Any]:
         """The epoch loop, reduced: a val evaluation every ``log_every``
         epochs (and at the end when the last epoch is off that grid),
         best-val params kept, test evaluated on them at the end. The
@@ -528,7 +702,17 @@ class Trainer:
         reference's ``train.py``), else every ``log_every`` epochs.
         Comm(s) and Reduce(s) print 0: on one card the exchange and the
         reduction are parts of the epoch, not separate collectives. Epoch
-        times exclude the first 5 epochs, as the JAX ``fit`` does."""
+        times exclude the first 5 epochs, as the JAX ``fit`` does.
+
+        Under ``integrity_check_every`` each boundary runs, in the JAX
+        order: the ``fault_plan``'s bit flips (``resilience.FaultPlan``),
+        the integrity checks (deep at the cadence), their ``integrity``
+        records and the ``fault`` / ``recovery`` records on ``metrics``
+        (an ``obs.MetricsLogger``), the recovery; after the step the wire
+        lane's harvest, the rollback snapshot (every 25 epochs, JAX's
+        ``SentinelConfig.snapshot_every``) and the dynamic digests. A
+        params rollback re-runs epochs: ``losses`` lists every epoch
+        run."""
         if checkpoint_dir or sharded_eval or stream_plan is not None:
             raise NotImplementedError(
                 "checkpoints (ROADMAP A4), sharded eval (ROADMAP A4) and "
@@ -554,20 +738,68 @@ class Trainer:
                 best_params = tree_map(lambda t: t.detach().clone(),
                                    self.params)
 
-        epoch, loss = -1, float("nan")
-        for epoch in range(tc.n_epochs):
+        integ, last_good = None, None
+        if tc.integrity_check_every > 0:
+            integ = IntegrityPlane(tc.integrity_check_every)
+            integ.baseline(self)
+            last_good = (0, self.host_state())
+        epoch, loss = 0, float("nan")
+        while epoch < tc.n_epochs:
+            # ---- SDC chaos, then the detectors, before anything else
+            # touches the state (JAX trainer.py:2171-2220) ----
+            if fault_plan is not None:
+                flip = fault_plan.due_str_arg("bitflip", epoch)
+                if flip is not None and self._inject_bitflip(flip, epoch,
+                                                             log_fn):
+                    log_fn(f"fault-injected bitflip:{flip} at epoch {epoch}")
+                    if metrics is not None:
+                        metrics.fault(kind="injected", epoch=epoch,
+                                      reason=f"bitflip:{flip}")
+            if integ is not None:
+                deep = integ.due(epoch)
+                results = integ.run_checks(self, epoch, deep=deep)
+                for res in results:
+                    if res.outcome == "mismatch":
+                        log_fn(f"integrity: {res.check} mismatch on "
+                               f"{res.target} at epoch {epoch} "
+                               f"({res.detail})")
+                    # ok records only for the deep checks, as JAX
+                    if metrics is not None and (
+                            res.outcome == "mismatch" or deep):
+                        metrics.integrity(
+                            epoch=epoch, check=res.check,
+                            outcome=res.outcome, target=res.target,
+                            cadence=integ.check_every,
+                            overhead_s=round(res.overhead_s, 6),
+                            detail=res.detail,
+                            dirty_shards=list(res.dirty_shards))
+                if any(r.outcome == "mismatch" for r in results):
+                    back = self._recover(integ, results, epoch, last_good,
+                                         log_fn, metrics)
+                    if back is not None:
+                        epoch = back
+                        continue
             t0 = time.perf_counter()
             loss = self.train_epoch(epoch)
             dur = time.perf_counter() - t0
             losses.append(loss)
+            self.last_epoch = epoch + 1
             if epoch >= 5:
                 durs.append(dur)
+            if integ is not None:
+                if self.wire_bad is not None:
+                    self._harvest_wire(integ, epoch, log_fn, metrics)
+                if epoch + 1 - last_good[0] >= 25:
+                    last_good = (epoch + 1, self.host_state())
+                integ.note_dynamic(self)
             line_every = 10 if reference_logs else tc.log_every
             if (epoch + 1) % line_every == 0:
                 log_fn(_train_line(epoch, float(np.mean(durs or [dur])),
                                    loss))
             if (epoch + 1) % tc.log_every == 0 and do_eval:
                 _eval(epoch, loss)
+            epoch += 1
+        epoch -= 1
         if do_eval and tc.n_epochs % tc.log_every != 0:
             _eval(epoch, loss)
         result = {

@@ -26,6 +26,12 @@ apply_updates bumps it; refresh() collapses it to the halo lag;
 refresh_boundary() zeroes the halo lag. age == 0 <=> fully fresh <=> a
 cache hit. Under use_pp updates are refused, as in JAX. Topology deltas
 (JAX ``apply_graph_deltas``) wait for ROADMAP A9.
+
+With ``integrity_check_every > 0`` (JAX reads the trainer's
+``tcfg.integrity_check_every``; its serve CLI never sets it, nor does the
+port's) the dirty-row exchange carries the wire guard
+(``dirty_exchange(guard=True)``): a mismatch discards the merge, rebuilds
+the halo by a full exchange and counts ``wire_bad_total``.
 """
 
 from __future__ import annotations
@@ -50,7 +56,7 @@ class ServingEngine:
 
     def __init__(self, sg: ShardedGraph, data: StagedGraph,
                  cfg: ModelConfig, params: Params, *, max_batch: int = 64,
-                 ladder_min: int = 8):
+                 ladder_min: int = 8, integrity_check_every: int = 0):
         if cfg.model not in ("graphsage", "gcn"):
             raise NotImplementedError(
                 f"serving {cfg.model} waits for ROADMAP A5 (the engine "
@@ -86,6 +92,12 @@ class ServingEngine:
 
         self.freshness = FreshnessTracker(self.P, self.n_max)
         self.cache = Layer0Cache(sg.send_idx, sg.send_mask)
+        self.wire_guard = int(integrity_check_every) > 0
+        self.wire_bad_total = 0
+        # JAX's count of applied topology deltas (apply_graph_deltas, ROADMAP
+        # A9): 0 while only features change, the epoch of a serving
+        # integrity record, as JAX reports it for feature-only serving
+        self.topo_generation = 0
         self._feat_lag = 0   # update batches not yet in _logits
         self._halo_lag = 0   # update batches whose boundary rows are not
         #                      yet in _halo0
@@ -186,19 +198,37 @@ class ServingEngine:
             self._halo_lag += 1
         return touched
 
-    def refresh_boundary(self) -> int:
+    def refresh_boundary(self, ml=None) -> int:
         """Replay the send-list exchange for the dirty rows only (K18),
         merging their fresh send-view rows into the resident halo cache in
         place: bit-identical to a full re-exchange. The dirty bitmap goes
         to the device once. Returns the stale slots refreshed; 0, and no
-        launch, when no row is dirty."""
+        launch, when no row is dirty. With the wire guard a checksum
+        mismatch discards the merge and rebuilds the halo from a full
+        exchange, recording an ``integrity`` event on ``ml`` (an
+        ``obs.MetricsLogger``) when given."""
         if not self.freshness.any:
             return 0
         n = self.cache.n_stale
         d = self.data
         dirty = torch.from_numpy(self.freshness.dirty).to(self.device)
-        dirty_exchange(self._send_view(), self._halo0, dirty, d.send_idx,
-                       d.send_mask)
+        if self.wire_guard:
+            _, bad = dirty_exchange(self._send_view(), self._halo0, dirty,
+                                    d.send_idx, d.send_mask, guard=True)
+            wb = int(bad)
+            if wb:
+                self.wire_bad_total += wb
+                # the merged halo is suspect: rebuild it from scratch
+                self._halo0 = self.full_boundary_exchange()
+                if ml is not None:
+                    ml.integrity(epoch=self.topo_generation, check="wire",
+                                 outcome="mismatch", target="halo",
+                                 cadence=0, overhead_s=0.0, blocks=wb,
+                                 detail="serving dirty-row exchange; halo "
+                                        "rebuilt via full exchange")
+        else:
+            dirty_exchange(self._send_view(), self._halo0, dirty,
+                           d.send_idx, d.send_mask)
         self.freshness.clear()
         self.cache.mark_fresh()
         self._halo_lag = 0

@@ -20,6 +20,16 @@ halo buffer):
 
 Rows travel uncompressed, as in JAX: exactness against the full exchange
 is the contract, and the dirty volume is small.
+
+``dirty_exchange(..., guard=True)`` (the serving wire guard, JAX
+``dirty_exchange_blocks(guard=True)``) sums each (sender, distance)
+block's row payload and its dirty-bit lane (as u8) on the sender's side
+(K19's rows form over the rows and bits it ships), copies the bit lane with
+K18 into a zeroed ``[P, (P-1)*B]`` u8 buffer and merges the rows with K18
+in place, then sums what each receiver got: its received bits, and the
+halo rows at the slots those bits name. It returns ``(halo, bad)``, ``bad``
+the count of mismatching lanes. K18 merges in place, so a caller that sees
+``bad > 0`` must rebuild the halo (the engine does, by a full exchange).
 """
 
 from __future__ import annotations
@@ -28,7 +38,8 @@ import numpy as np
 import torch
 
 from ..ops import _build
-from ..parallel.halo import _SIGNATURES
+from ..ops import digest as _digest
+from ..parallel.halo import _SIGNATURES, _bad
 from ..parallel.halo import _check as _check_send
 
 _INT_OF_SIZE = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
@@ -104,14 +115,49 @@ def dirty_exchange_plain(h: torch.Tensor, halo: torch.Tensor,
     return halo
 
 
+def slot_index(P: int, B: int, device: torch.device) -> torch.Tensor:
+    """``[P, P-1, B]`` int32: each receiver's own halo slots, ``(d-1)*B +
+    b`` — the row list of K19's rows form over a halo."""
+    k = torch.arange((P - 1) * B, dtype=torch.int32, device=device)
+    return k.view(1, P - 1, B).expand(P, P - 1, B).contiguous()
+
+
+def _guarded(h, halo, dirty, send_idx, send_mask):
+    """:func:`dirty_exchange` with the wire guard: ``(halo, bad)``."""
+    _check(h, halo, dirty, send_idx, send_mask)
+    P, B = h.shape[0], send_idx.shape[2]
+    bad = torch.zeros((), dtype=torch.int64, device=h.device)
+    if P < 2 or B == 0:
+        return halo, bad
+    bits = dirty.to(torch.uint8)
+    # the sender's sums: the rows it ships and their dirty bits
+    snd_rows = _digest.row_sums(h, send_idx, send_mask, dirty)
+    snd_bits = _digest.row_sums(bits, send_idx, send_mask)
+    # the copies: the bit lane into zeros, the rows into the halo
+    rbits = torch.zeros((P, (P - 1) * B), dtype=torch.uint8,
+                        device=h.device)
+    dirty_exchange(bits[..., None], rbits[..., None], dirty, send_idx,
+                   send_mask)
+    dirty_exchange(h, halo, dirty, send_idx, send_mask)
+    # the receiver's sums: its bits, and its rows at the slots they name
+    rcv_bits = _digest.part_digests(rbits, P - 1)[:, 0].view(P, P - 1)
+    rcv_rows = _digest.row_sums(halo, slot_index(P, B, h.device),
+                                rbits.view(P, P - 1, B).bool())
+    return halo, (_bad(rcv_rows, snd_rows, exchange=True)
+                  + _bad(rcv_bits, snd_bits, exchange=True))
+
+
 def dirty_exchange(h: torch.Tensor, halo: torch.Tensor, dirty: torch.Tensor,
-                   send_idx: torch.Tensor,
-                   send_mask: torch.Tensor) -> torch.Tensor:
+                   send_idx: torch.Tensor, send_mask: torch.Tensor,
+                   guard: bool = False):
     """Merge the dirty send rows of ``h [P, n_max, F]`` (the send view)
     into the resident ``halo [P, (P-1)*B, F]`` in place, ``dirty
-    [P, n_max]`` bool or uint8 on ``h``'s device; returns ``halo``.
-    Kernel K18 on CUDA tensors (one launch for every part and distance),
+    [P, n_max]`` bool or uint8 on ``h``'s device; returns ``halo``, or
+    with ``guard`` ``(halo, bad)`` (the module docstring). Kernel K18 on
+    CUDA tensors (one launch for every part and distance),
     :func:`dirty_exchange_plain` on CPU tensors."""
+    if guard:
+        return _guarded(h, halo, dirty, send_idx, send_mask)
     if h.device.type == "cpu":
         return dirty_exchange_plain(h, halo, dirty, send_idx, send_mask)
     _check(h, halo, dirty, send_idx, send_mask)

@@ -373,3 +373,42 @@ def test_dirty_exchange_refuses_devices_without_a_kernel():
                        torch.zeros((2, 5), dtype=torch.bool, device=m),
                        torch.zeros((2, 1, 3), dtype=torch.int32, device=m),
                        torch.zeros((2, 1, 3), dtype=torch.bool, device=m))
+
+
+def test_integrity_modules_import_without_jax():
+    code = (
+        "import sys\n"
+        "import pipegcn_tpu_torch.ops.digest\n"
+        "import pipegcn_tpu_torch.resilience.integrity\n"
+        "import pipegcn_tpu_torch.resilience.faults\n"
+        "import pipegcn_tpu_torch.obs.metrics\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', "
+        "'pipegcn_tpu', 'ml_dtypes') or m.startswith(('jax.', 'jaxlib.', "
+        "'pipegcn_tpu.'))]\n"
+        "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    files = set(_port_files())
+    for rel in (("ops", "digest.py"), ("resilience", "integrity.py"),
+                ("resilience", "faults.py"), ("resilience", "__init__.py"),
+                ("obs", "metrics.py"), ("obs", "__init__.py")):
+        assert os.path.join(PKG, *rel) in files, rel
+    assert os.path.exists(os.path.join(PKG, "ops", "csrc", "digest.cu"))
+
+
+def test_digest_wrappers_refuse_devices_without_a_kernel():
+    """K19 (the integrity plane's digests, every form): a tensor neither
+    on the CPU nor on CUDA raises."""
+    from pipegcn_tpu_torch.ops import digest
+
+    m = torch.device("meta")
+    x = torch.empty((2, 5, 4), device=m)
+    with pytest.raises(ValueError, match="unsupported device"):
+        digest.digest(x)
+    with pytest.raises(ValueError, match="unsupported device"):
+        digest.part_digests(x)
+    with pytest.raises(ValueError, match="unsupported device"):
+        digest.row_sums(x, torch.zeros((2, 1, 3), dtype=torch.int32,
+                                       device=m),
+                        torch.zeros((2, 1, 3), dtype=torch.bool, device=m))

@@ -218,7 +218,7 @@ def test_train_epoch_is_reproducible_with_dropout():
 @pytest.mark.parametrize("field", [
     dict(fused_epochs=4), dict(epoch_block=8), dict(rng_impl="unsafe_rbg"),
     dict(comm_prefetch=True), dict(loss_scale="auto"),
-    dict(integrity_check_every=5), dict(numerics_tripwire=True),
+    dict(loss_scale="4096"), dict(numerics_tripwire=True),
     dict(rng_impl="rbg"), dict(dropout_reuse=4)])
 def test_unported_train_options_refuse(field):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
