@@ -29,8 +29,9 @@ stack (union-gather block tiles and the fp8 halo wire at bf16):
      g ``gat_attn_fp8.cu``), K9 the bucket-ELL gather-sum
      (``bucket_spmm.cu``), K10 the transport cast and K11 the per-part
      amax (``transport_cast.cu``), K12 / K13 the dense-tile products with
-     f32 or bf16 rows and K16 / K17 over union-gather groups
-     (``block_spmm.cu``), K14 / K15 the compressed halo wire
+     f32 or bf16 rows and K17 over union-gather groups
+     (``block_spmm.cu``), K16 the union-gather forward and its pre-split
+     (``block_tma.cu``), K14 / K15 the compressed halo wire
      (``halo_wire.cu``), K19 the integrity digests (``digest.cu``); and
      the native host library
      (``pipegcn_tpu_torch/native``, g++), whose absence fails the run;
@@ -97,7 +98,8 @@ stack (union-gather block tiles and the fp8 halo wire at bf16):
  16. holds one bucket epoch against the plain versions, the transported
      values shared (``TransportShare``);
  17. holds K9-K11 against their plain versions (K9 in every dtype, K10 /
-     K11 bit-exact), two planted faults;
+     K11 bit-exact), three planted faults (K11's: one max over both
+     parts);
  18. times K9-K11, the bucket epoch and its split;
  19. runs the bucket command at ``--dtype bfloat16`` on the same trainer
      and tables for a few epochs, then its step check; a few GCN epochs
@@ -141,7 +143,13 @@ stack (union-gather block tiles and the fp8 halo wire at bf16):
      sweep); the decode with the receiver's own scale must fail;
  32. holds K16 / K17 against their plain version (every A encoding,
      groups 2, 4 and 8, a tail group, an empty group, a one-tile union),
-     each rerun bit-identical; a flipped A bit must fail;
+     each rerun bit-identical; a flipped A bit must fail; K16's pre-split
+     bit-exact against its plain version (the cell's rows at F = 256 and
+     602, the finite bit-pattern sweep, bf16 rows at F = 100); K16's TMA /
+     wgmma path on hand-made groups (T = 32, 96, 224, 128, 256; groups 2,
+     4, 8, 16; f32 rows at F = 602 and 130, bf16 rows at F = 5 and 100; a
+     tail group, an empty group, slots unused by half a group or by all of
+     it), and a flipped A bit at T = 96 must fail;
  33. times K14-K17, reports the union dedupe beside K12's group-1 time,
      the wire cell's epoch and its split;
  34. trains this slice's cell, the integrity plane: the reddit.sh command
@@ -174,7 +182,11 @@ stack (union-gather block tiles and the fp8 halo wire at bf16):
  38. prints the ``kernels`` JSON line (every kernel and each of its row
      types, times at the shapes whose launches are counted), a line for
      each cell, the nvidia-smi line, and last ``{"ok": true, "device":
-     {...}}``.
+     {...}}``. With ``--parent DIR`` (a parent commit unpacked with ``git
+     archive``) it first times K11 and K16 of DIR against this checkout's
+     with ``pipegcn_tpu_torch/tools/time_tile_products.py`` in turns
+     (parent, this, this, parent; each its own process) and carries both
+     in those kernels' ``parent_ab``.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when the
 package is missing (the script alone), or when any phase fails.
@@ -316,6 +328,18 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def batched_ms(fn, calls: int = 20) -> float:
+    """Milliseconds a call of ``fn`` with ``calls`` calls back to back
+    between one event pair (median of ``time_ms``'s repetitions): the
+    host runs ahead, so the card's time, without the host work that an
+    event pair around a single call on an idle card also counts."""
+    def run():
+        for _ in range(calls):
+            fn()
+
+    return time_ms(run, reps=10, warmup=1) / calls
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -2361,7 +2385,7 @@ def k10_k11_phase(trainer, bs, halo):
     features; several passes of the kernel's column loop), with static
     and amax scales and the backward's fused g / in_deg, and on a sweep
     of f32 bit patterns in f32 and bf16; K11 exact on the same inputs; a
-    scale off by 2 must fail K10's check. Returns, per kernel, the
+    scale off by 2 must fail K10's check, one max over both parts K11's. Returns, per kernel, the
     largest |difference| over the elements finite in both, the count of
     differing elements and the count of elements compared."""
     import torch
@@ -2413,6 +2437,17 @@ def k10_k11_phase(trainer, bs, halo):
     must_fail("K10 planted fault (scale off by 2)", lambda: check_cast(
         "K10 planted fault (scale off by 2)", bad,
         bs.transport_cast_plain(act, torch.float8_e4m3fn, amax=a)[0]))
+    # K11's own: the kernel over the stack as one part (one max over both
+    # parts, part 1 halved so the parts' maxima differ) against the
+    # per-part amax
+    halved = act.clone()
+    halved[1:] *= 0.5
+    P, F = halved.shape[0], halved.shape[-1]
+    one = bs.part_amax(halved.reshape(1, -1, F)).expand(P).contiguous()
+    must_fail("K11 planted fault (one max over both parts)", lambda:
+              check_cast("K11 planted fault (one max over both parts)", one,
+                         bs.part_amax_plain(halved)))
+    del halved
     log(f"  K10 / K11: largest |difference| {res['K10'][0]:g} / "
         f"{res['K11'][0]:g}, {res['K10'][1]} / {res['K11'][1]} of "
         f"{res['K10'][2]} / {res['K11'][2]} elements differ")
@@ -2578,7 +2613,9 @@ def bucket_timings(trainer, bs):
     single PyTorch call gathers bf16 or fp8 rows into f32 sums), K10
     forward (e4m3) and backward (e5m2, g / in_deg fused) against
     ``clamp().to()`` (two calls), K11 against one
-    ``torch.linalg.vector_norm(ord=inf)``. Bounds count each input read
+    ``torch.linalg.vector_norm(ord=inf)``, both also 20 calls back to
+    back (``batched_ms``: at ~0.1 ms an event pair around one call counts
+    the wrapper's host work as well). Bounds count each input read
     once and each output written once (K9: the real table entries, not
     the sentinel padding) and K9's least work: one add per real entry and
     column and (forward) one division per output element. The static
@@ -2645,11 +2682,14 @@ def bucket_timings(trainer, bs):
             library_ms=None, bound=bound_ms(n_bytes + P * 8, ops + x.numel()),
             shape=out["K10"][name]["shape"] + " amax scale")
         out["K10"][name + " amax"] = scaled
+        norm = (lambda: torch.linalg.vector_norm(  # noqa: E731
+            x, ord=float("inf"), dim=(1, 2)))
         out["K11"][name] = dict(
             ms=time_ms(lambda: bs.part_amax(x, deg)),
             plain_ms=time_ms(lambda: bs.part_amax_plain(x, deg)),
-            library_ms=time_ms(lambda: torch.linalg.vector_norm(
-                x, ord=float("inf"), dim=(1, 2))),
+            library_ms=time_ms(norm),
+            batched_ms=batched_ms(lambda: bs.part_amax(x, deg)),
+            library_batched_ms=batched_ms(norm),
             bound=bound_ms(x.numel() * 4 + P * 4
                            + (deg.numel() * 4 if deg is not None else 0),
                            x.numel()),
@@ -2657,9 +2697,12 @@ def bucket_timings(trainer, bs):
                   f"{' / in_deg' if deg is not None else ''}")
     for k, v in out.items():
         for name, e in v.items():
+            dev = (f", back to back {e['batched_ms']:.3f} / library "
+                   f"{e['library_batched_ms']:.3f}"
+                   if "batched_ms" in e else "")
             log(f"  {k} {name}: {e['ms']:.3f} ms (plain {e['plain_ms']:.3f},"
                 f" library {e['library_ms']}, bound {e['bound'][0]:.3f} "
-                f"{e['bound'][1]}) [{e['shape']}]")
+                f"{e['bound'][1]}{dev}) [{e['shape']}]")
     return out
 
 
@@ -3930,7 +3973,120 @@ def k16_k17_check_phase(trainer, blk, halo):
     log("  K16 / K17 empty groups: zeros ok")
     for dtype in (None, torch.bfloat16):
         block_fault_phase(blk, trainer, dtype=dtype)
+    tile_split_phase(trainer, blk)
+    errs.append(k16_edge_phase(blk))
     return max(errs)
+
+
+def random_groups(T, G, n_tiles, n_in_t, seed, empty=(), extra=()):
+    """Hand-made union slots [(group, input tile, blocks)] over ``n_tiles``
+    output tiles (the last group a tail where G does not divide it): each
+    group but those in ``empty`` ~5 slots of distinct random input tiles,
+    each of its tiles a block with probability 0.5 (one at least), then
+    the slots of ``extra`` [(group, input tile, tiles with a block)];
+    every product its own block. Returns ``(slots, n_blocks)``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    slots, nb = [], 0
+    for g in range(-(-n_tiles // G)):
+        live = [d for d in range(G) if g * G + d < n_tiles]
+        rows = []
+        if g not in empty:
+            for t in rng.choice(n_in_t, min(5, n_in_t), replace=False):
+                use = [d for d in live if rng.random() < 0.5] or live[:1]
+                rows.append((int(t), use))
+        rows += [(t, use) for gg, t, use in extra if gg == g]
+        for t, use in rows:
+            bs = [None] * G
+            for d in use:
+                bs[d] = nb
+                nb += 1
+            slots.append((g, t, bs))
+    return slots, max(nb, 1)
+
+
+def k16_edge_phase(blk):
+    """K16's TMA / wgmma path on hand-made union groups against the plain
+    version (BLOCK_SUM_RTOL * sum|terms|, each rerun bit-identical), f32
+    rows and the bf16 mode: T = 32, 96, 224 (224: a tile's second CTA
+    ragged, 96 rows past T) and 256; groups of 2, 4, 8 and 16; f32 rows at
+    F = 602 (a padded split plane); bf16 rows with F % 8 != 0 (the
+    pre-pass's padded copy) and F % 8 == 0 (read as they are); a tail
+    group of 5 tiles, an empty group, a slot none of the first 8 tiles of
+    a 16-tile group uses and a slot no tile uses. One flipped A bit must
+    fail the check."""
+    import dataclasses
+
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(57)
+    gb = torch.Generator().manual_seed(7)
+    errs = []
+    cases = (
+        # T, G, output tiles, input tiles, [(F, row dtype)], empty, extra
+        (32, 2, 7, 9, [(64, torch.float32), (64, torch.bfloat16),
+                       (5, torch.bfloat16)], (), ()),
+        (96, 4, 10, 7, [(602, torch.float32), (100, torch.bfloat16)], (1,),
+         ()),
+        (224, 8, 11, 6, [(256, torch.float32), (256, torch.bfloat16),
+                         (602, torch.float32), (5, torch.bfloat16)], (), ()),
+        (256, 16, 37, 6, [(256, torch.float32), (100, torch.bfloat16)],
+         (1,), ((0, 5, list(range(8, 16))), (0, 4, []))),
+        (128, 4, 9, 5, [(130, torch.float32)], (), ()),
+    )
+    for T, G, n_t, n_in_t, runs, empty, extra in cases:
+        slots, nb = random_groups(T, G, n_t, n_in_t, seed=T + G,
+                                  empty=empty, extra=extra)
+        a = torch.randint(0, 256, (1, nb, T, T // 8), generator=gb,
+                          dtype=torch.uint8)
+        tb = grouped_tables_of(a, G, slots, n_t * T - 20, n_in_t * T - 30,
+                               tile=T)
+        for F, dt in runs:
+            x = torch.randn((1, tb.fwd.n_in, F), generator=gen,
+                            device="cuda").to(dt)
+            errs.append(block_check(
+                f"K16 edge T={T} G={G} F={F} {t_dtype(x)} rows "
+                f"({len(slots)} slots)", blk, x, tb, tb.fwd))
+        if T == 96:
+            b = next(q for q in slots[0][2] if q is not None)
+            bad = dataclasses.replace(tb, a=tb.a.clone())
+            bad.a[0, b, 7, 3] ^= 1 << 5
+            x = torch.randn((1, tb.fwd.n_in, 64), generator=gen,
+                            device="cuda")
+            got = blk.block_dense_grouped(x, bad)
+            ref = blk.block_dense_plain(x, tb, tb.fwd)
+            abs_sum = blk.block_dense_plain(x.abs(), tb, tb.fwd)
+            must_fail("K16 edge planted fault (one A bit flipped, T=96)",
+                      lambda: check_close("K16 edge planted fault", got,
+                                          ref, BLOCK_ATOL, 0.0, abs_sum,
+                                          BLOCK_SUM_RTOL))
+    return max(errs)
+
+
+def tile_split_phase(trainer, blk):
+    """K16's pre-pass bit-exact against its plain version on the wire
+    cell's rows (f32 at F = 256 and 602) and on the finite patterns of the
+    f32 bit-pattern sweep (near the fp8 limits, subnormals, zeros, near
+    the largest finite); bf16 rows with F % 8 != 0 (the padded copy)."""
+    import torch
+
+    d = trainer.data
+    gen = torch.Generator(device="cuda").manual_seed(59)
+    R = d.n_max + d.halo_size
+    for F in (256, 602):
+        x = torch.randn((d.num_parts, R, F), generator=gen, device="cuda")
+        check_bits(f"K16 pre-split F={F} (cell rows)", blk.tile_split(x),
+                   blk.tile_split_plain(x))
+        del x
+    sw = cast_sweep()
+    sw = torch.where(torch.isfinite(sw), sw, torch.zeros_like(sw))
+    check_bits("K16 pre-split (finite bit-pattern sweep)",
+               blk.tile_split(sw), blk.tile_split_plain(sw))
+    xb = torch.randn((2, 1000, 100), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    check_bits("K16 pre-split bf16 rows F=100", blk.tile_split(xb),
+               blk.tile_split_plain(xb))
 
 
 def wire_train_phase(args, sg, eval_graphs, eval_cache, spmm, halo):
@@ -4912,6 +5068,33 @@ def kernel_entry(name, source, replaces, launches, err, t, serving=None):
     return entry
 
 
+def parent_ab(parent):
+    """K11 (both forms) and K16 (both modes) of a parent checkout against
+    this one's at tools/time_tile_products.py's shapes, each run in its
+    own process (each checkout builds its own kernels), in turns: parent,
+    this, this, parent. Returns each key's two runs a side and their
+    means."""
+    tool = os.path.join(ROOT, "pipegcn_tpu_torch", "tools",
+                        "time_tile_products.py")
+    runs = {"parent": [], "change": []}
+    for label, root in (("parent", parent), ("change", ROOT),
+                        ("change", ROOT), ("parent", parent)):
+        r = subprocess.run([sys.executable, tool, root, label],
+                           capture_output=True, text=True, timeout=900)
+        require(r.returncode == 0, f"time_tile_products.py on {root} "
+                f"failed: {r.stderr[-3000:]}")
+        runs[label].append(json.loads(r.stdout.strip().splitlines()[-1]))
+        log(f"  {label}: {runs[label][-1]}")
+    out = {}
+    for k in ("K11", "K11 deg", "K16 torch.float32", "K16 torch.bfloat16"):
+        par = [x[k] for x in runs["parent"]]
+        new = [x[k] for x in runs["change"]]
+        out[k] = {"parent_ms": sum(par) / 2, "ms": sum(new) / 2,
+                  "parent_runs_ms": par, "runs_ms": new,
+                  "shape": "pipegcn_tpu_torch/tools/time_tile_products.py's"}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--dataset", default="synthetic-reddit",
@@ -4937,6 +5120,10 @@ def main() -> int:
                          "cell")
     ap.add_argument("--integrity-epochs", type=int, default=6,
                     help="epochs of the integrity cell")
+    ap.add_argument("--parent", default=None,
+                    help="a parent checkout: K11 and K16 of both timed in "
+                         "turns by tools/time_tile_products.py, carried "
+                         "in the kernels line as parent_ab")
     args = ap.parse_args()
 
     import dataclasses
@@ -4983,8 +5170,8 @@ def main() -> int:
         try:
             built["secs"] = _build.build([
                 "spmm_mean", "halo_gather", "halo_scatter", *gat.LIBRARIES,
-                "bucket_spmm", "transport_cast", "block_spmm", "halo_wire",
-                "digest"])
+                "bucket_spmm", "transport_cast", "block_spmm", "block_tma",
+                "halo_wire", "digest"])
         except Exception as exc:  # noqa: BLE001 — re-raised on the main thread
             built["error"] = exc
 
@@ -5414,6 +5601,12 @@ def main() -> int:
         e["differing_elements"], e["checked_elements"] = cast_res[k][1:]
     k11["backward"] = {**sub(bt["K11"]["backward e5m2"]),
                        "library_ms": bt["K11"]["backward e5m2"]["library_ms"]}
+    # the card's time with the host running ahead, beside the event-pair
+    # ms that also counts the wrappers' host work
+    for e, t in ((k11, bt["K11"]["forward e4m3"]),
+                 (k11["backward"], bt["K11"]["backward e5m2"])):
+        e["batched_ms"] = t["batched_ms"]
+        e["library_batched_ms"] = t["library_batched_ms"]
     kernels += [k9, k10, k11]
     # K12, K13: the block cell's run, times at its shape (F = 256); the
     # stored A bytes and the tile-product floors beside the bound
@@ -5519,7 +5712,8 @@ def main() -> int:
                 ("float32", gt32, wire_stats["groups"])):
             e = kernel_entry(
                 f"{kname}[{'bf16' if mode == 'bfloat16' else 'f32'}]",
-                src + "block_spmm.cu", replaces,
+                src + ("block_tma.cu" if key == "K16" else "block_spmm.cu"),
+                replaces,
                 run["launches_by_mode"][kname][mode], errs["K16/K17"],
                 tm[key])
             e["launches_run"] = ("the wire cell's" if run is wire_stats
@@ -5567,6 +5761,20 @@ def main() -> int:
                            "library_ms": k19t["blocks"]["library_ms"]}
         kernels.append(e)
 
+    if args.parent is not None:
+        log(f"[38] K11 / K16 of the parent checkout {args.parent} against "
+            f"this one's (time_tile_products.py, in turns)")
+        torch.cuda.empty_cache()
+        ab = parent_ab(args.parent)
+        for e in kernels:
+            key = {"part_amax": "K11",
+                   "block_dense_grouped[bf16]": "K16 torch.bfloat16",
+                   "block_dense_grouped[f32]": "K16 torch.float32"}.get(
+                       e["name"])
+            if key is not None:
+                e["parent_ab"] = ab[key]
+            if e["name"] == "part_amax":
+                e["backward"]["parent_ab"] = ab["K11 deg"]
     print(json.dumps({"kernels": kernels}))
 
     print(json.dumps({

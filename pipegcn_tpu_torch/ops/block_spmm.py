@@ -42,7 +42,10 @@ Device half:
   - kernels K12 (:func:`block_dense`, the forward tile products) and K13
     (:func:`block_dense_t`, the transpose over the same A blocks), and
     over the union groups K16 (:func:`block_dense_grouped`) and K17
-    (:func:`block_dense_grouped_t`), in ``csrc/block_spmm.cu``, over f32
+    (:func:`block_dense_grouped_t`), in ``csrc/block_spmm.cu`` (K16 in
+    ``csrc/block_tma.cu``: TMA stages and ``wgmma`` after a pre-pass,
+    :func:`tile_split`, that splits f32 rows into their three bf16 terms
+    once; f32 A keeps block_spmm.cu's scalar path), over f32
     input rows or, at bf16 compute, bf16 rows (JAX multiplies in the input's dtype with f32 products:
     ``_dense_apply``'s ``compute_dtype``); :func:`block_dense_plain` is
     their plain version (unpack, ``bmm`` per chunk of pairs in f32 over
@@ -896,6 +899,13 @@ _SIGNATURES = {
 }
 # the kernel's A encodings
 _ENC = {torch.int8: 1, torch.bfloat16: 2, torch.float32: 3}
+# K16's source (csrc/block_tma.cu): the pre-pass and the TMA / wgmma
+# kernel (every A encoding but f32, which keeps block_spmm.cu's scalar path)
+_TMA_SIGNATURES = {
+    "pgt_tile_split": [_P, _I, _I, _I, _I, _I, _P, _P],
+    "pgt_block_grouped_tma": [_P, _I, _I, _I, _I, _P, _P, _I, _LL, _I, _I,
+                              _P, _P, _P, _LL, _I, _I, _P, _P],
+}
 
 
 def _check_dense(x: torch.Tensor, tables: BlockTables, side):
@@ -984,6 +994,91 @@ def block_dense_plain(x: torch.Tensor, tables: BlockTables,
     return out.reshape(P, n_tiles * T, F)[:, :side.n_out]
 
 
+def split_width(F: int) -> int:
+    """The padded row width of K16's pre-split planes: F rounded up to 64
+    (a TMA box of 64 bf16 columns, 128 bytes)."""
+    return -(-F // 64) * 64
+
+
+def tile_split_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of K16's pre-pass: ``x`` ``[P, n_in, F]`` f32 ->
+    ``[3, P, n_in, Fp]`` bf16 planes hi, mid, lo (``Fp =
+    split_width(F)``, the pad columns zero): hi = x truncated to bf16,
+    mid = (x - hi) truncated, lo = x - hi - mid truncated, each carrying
+    x's sign bit (so -0 splits into three -0). Truncation never
+    overflows near the largest finite. ``hi + mid + lo == x`` bit for bit
+    wherever |x| >= 2**-110 or x is zero (24 significant bits in three
+    8-bit terms, each exact in bf16); below that the terms hold x
+    truncated toward zero to a multiple of 2**-133, bf16's least
+    subnormal, which no sum of bf16 values can undercut. bf16 ``x``: one
+    plane, the rows copied and padded. Inputs are finite (an infinite
+    input's split is NaN)."""
+    P, R, F = x.shape
+    Fp = split_width(F)
+    if x.dtype == torch.bfloat16:
+        out = torch.zeros((1, P, R, Fp), dtype=torch.bfloat16,
+                          device=x.device)
+        out[0, :, :, :F] = x
+        return out
+    if x.dtype != torch.float32:
+        raise ValueError(f"x must be f32 or bf16, got {x.dtype}")
+    mask = torch.tensor(-65536, dtype=torch.int32)  # 0xffff0000
+    u = x.contiguous().view(torch.int32)
+    sign = u & torch.tensor(-2 ** 31, dtype=torch.int32)
+    hi = u & mask
+    r = x - hi.view(torch.float32)
+    mid = r.view(torch.int32) & mask
+    lo = r - mid.view(torch.float32)
+    out = torch.zeros((3, P, R, Fp), dtype=torch.int16, device=x.device)
+    for h, t in enumerate((hi, mid | sign, lo.view(torch.int32) | sign)):
+        out[h, :, :, :F] = (t >> 16).to(torch.int16)
+    return out.view(torch.bfloat16)
+
+
+def tile_split(x: torch.Tensor) -> torch.Tensor:
+    """K16's pre-pass alone (``tile_split_plain``'s function) on a CUDA
+    tensor, the plain version on a CPU tensor; anything else raises. K16
+    runs it inside its own launch; this entry serves the checks."""
+    if x.device.type == "cpu":
+        return tile_split_plain(x)
+    if x.device.type != "cuda" or x.dim() != 3 or x.dtype not in (
+            torch.float32, torch.bfloat16) or not x.is_contiguous():
+        raise ValueError(f"tile_split: takes a contiguous f32 / bf16 [P, "
+                         f"n_in, F] CUDA tensor, got {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}")
+    P, R, F = x.shape
+    xb = x.dtype == torch.bfloat16
+    out = torch.empty((1 if xb else 3, P, R, split_width(F)),
+                      dtype=torch.bfloat16, device=x.device)
+    lib = _build.load("block_tma", _TMA_SIGNATURES)
+    rc = lib.pgt_tile_split(x.data_ptr(), int(xb), P, R, F,
+                            split_width(F), out.data_ptr(),
+                            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, "tile_split")
+    return out
+
+
+def _launch_tma(x: torch.Tensor, tables: BlockTables, side: GroupSide,
+                out: torch.Tensor, stream: int) -> int:
+    """K16 through csrc/block_tma.cu: the pre-split planes (f32 rows; bf16
+    rows whose row stride or pointer is not 16-byte aligned) then the TMA
+    / wgmma products."""
+    P, R, F = x.shape
+    xb = x.dtype == torch.bfloat16
+    planes = None
+    if not xb or F % 8 or x.data_ptr() % 16:
+        planes = torch.empty((1 if xb else 3, P, R, split_width(F)),
+                             dtype=torch.bfloat16, device=x.device)
+    lib = _build.load("block_tma", _TMA_SIGNATURES)
+    return lib.pgt_block_grouped_tma(
+        x.data_ptr(), int(xb), P, R, F,
+        None if planes is None else planes.data_ptr(), tables.a.data_ptr(),
+        0 if tables.packed else _ENC[tables.a.dtype], tables.b_max,
+        tables.tile, side.group, side.ptr.data_ptr(), side.blk.data_ptr(),
+        side.tile.data_ptr(), side.tile.shape[1], side.n_groups, side.n_out,
+        out.data_ptr(), stream)
+
+
 def _launch(x: torch.Tensor, tables: BlockTables,
             side: BlockSide) -> torch.Tensor:
     _check_dense(x, tables, side)
@@ -1012,7 +1107,9 @@ def _launch(x: torch.Tensor, tables: BlockTables,
     enc = 0 if tables.packed else _ENC[tables.a.dtype]
     stream = torch.cuda.current_stream(x.device).cuda_stream
     xb = int(x.dtype == torch.bfloat16)
-    if grouped:
+    if grouped and not side.transpose and tables.a.dtype != torch.float32:
+        rc = _launch_tma(x, tables, side, out, stream)
+    elif grouped:
         rc = lib.pgt_block_grouped(
             x.data_ptr(), P, R, F, tables.a.data_ptr(), enc, tables.b_max,
             T, G, side.ptr.data_ptr(), side.blk.data_ptr(),

@@ -532,7 +532,7 @@ def part_amax(x: torch.Tensor, deg: Optional[torch.Tensor] = None
     P, rows, F = x.shape
     if rows >= 2 ** 31 or F >= 2 ** 31:
         raise ValueError("part_amax: x too large for the kernel")
-    bits = torch.zeros(P, dtype=torch.int32, device=x.device)
+    bits = torch.empty(P, dtype=torch.int32, device=x.device)  # zeroed there
     lib = _build.load("transport_cast", _CAST_SIGNATURES)
     rc = lib.pgt_part_amax(
         x.data_ptr(), int(x.dtype == torch.bfloat16), P, rows, F,

@@ -1,7 +1,9 @@
 // K12 / K13 and K16 / K17: the dense-tile products of the block-dense
 // SpMM, written by hand for Hopper (sm_90a). One template, four kernels'
 // worth of work: K12 the forward, K13 the transpose (the backward), over
-// per-tile pair lists; K16 / K17 the same over union-gather groups.
+// per-tile pair lists; K16 / K17 the same over union-gather groups. K16
+// over 1-bit, int8 and bf16 A runs in block_tma.cu (TMA stages and
+// wgmma); here it keeps only f32 A's scalar path.
 //
 // K12 / K13 replace: pipegcn_tpu/ops/block_spmm.py  _dense_apply (with
 // _unpack_bits), inside make_block_spmm_fn / make_device_block_spmm_fn,
@@ -739,7 +741,12 @@ int launch_enc(bool transpose, const void* x, bool xb, int P, int n_in,
 #define PGT_VEC(TR, GR)                                                   \
   launch_vec<ENC, TR, GR>(x, xb, P, n_in, F, a, b_max, T, ptr, blk, til,   \
                           pair_stride, n_keys, G, n_out, out, st)
-  if (G > 1) return transpose ? PGT_VEC(true, true) : PGT_VEC(false, true);
+  if (G > 1) {
+    if (transpose) return PGT_VEC(true, true);
+    // K16 over 1-bit, int8 and bf16 A runs in block_tma.cu
+    if constexpr (ENC == kF32) return PGT_VEC(false, true);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return transpose ? PGT_VEC(true, false) : PGT_VEC(false, false);
 #undef PGT_VEC
 }
@@ -799,7 +806,8 @@ extern "C" int pgt_block_dense(const void* x, int P, int n_in, int F,
                 n_out_tiles, 1, n_out, transpose, x_bf16, out, stream);
 }
 
-// K16 / K17. As K12 / K13 over union-gather groups of G output tiles:
+// K16 / K17. As K12 / K13 over union-gather groups of G output tiles
+// (K16, transpose 0, only over f32 A: block_tma.cu takes the others):
 // ptr [P, n_groups + 1] int32 (group j's union slots at ptr[p, j] ..
 // ptr[p, j + 1]), til [P, slot_stride] int32 (each slot's input tile),
 // blk [P, slot_stride, G] int32 (each slot's A block for each tile of the

@@ -1,11 +1,20 @@
-"""Time K12 and K13 (the tile products, f32 rows and the bf16 mode) of the
-port in one checkout, at the block cell's shapes (P = 2, T = 256, F = 256,
-n_max = 71,792, H = n_max, ~5,600 random pairs a part each way, random
-1-bit A), on the card:
+"""Time K12 / K13 (the tile products, f32 rows and the bf16 mode), K16 (the
+union-gather forward, both modes) and K11 (the per-part amax, plain and
+``deg`` forms) of the port in one checkout, on the card:
 
     python3 pipegcn_tpu_torch/tools/time_tile_products.py <checkout> <label>
 
-prints one JSON line of medians (ms). To compare two commits, unpack the
+Shapes. K12 / K13: the block cell's (P = 2, T = 256, F = 256, n_max =
+71,792, H = n_max, ~5,600 random pairs a part each way, random 1-bit A).
+K16: union tables at G = 4 over the same rows, each group ~30 union slots
+of distinct random input tiles, each slot's block for each of the group's
+tiles present with probability 0.66 (the pad otherwise; the wire cell
+runs 11,311 products over 4,279 slots, 2.64 a slot). K11: the bucket
+cell's activations [2, n_max + H, 256] (plain form) and cotangents [2,
+n_max, 256] with a random in-degree (``deg`` form), beside
+``torch.linalg.vector_norm(ord=inf)`` over the same activations.
+
+Prints one JSON line of medians (ms). To compare two commits, unpack the
 other one (``git archive``) into a git-ignored directory and run the two
 alternately in one call (parent, change, change, parent): each checkout
 builds its own kernels."""
@@ -18,9 +27,14 @@ root, label = sys.argv[1], sys.argv[2]
 sys.path.insert(0, root)
 from pipegcn_tpu_torch.ops import _build  # noqa: E402
 from pipegcn_tpu_torch.ops import block_spmm as blk  # noqa: E402
+from pipegcn_tpu_torch.ops import bucket_spmm as bs  # noqa: E402
 
+# the checkout's kernels, built together (a parent checkout may lack a
+# source this one has)
+_build.build([n for n in ("block_spmm", "block_tma", "transport_cast")
+              if (_build.CSRC / f"{n}.cu").exists()])
 torch.manual_seed(0)
-P, T, F = 2, 256, 256
+P, T, F, G = 2, 256, 256, 4
 n_out, n_in = 71792, 143584
 n_out_t, n_in_t = -(-n_out // T), -(-n_in // T)
 B = n_out_t * 20  # A blocks a part: 5,620 (the cell: 5,656)
@@ -37,12 +51,36 @@ def side(n_keys, n_o, n_i, n_other_t, transpose):
                          transpose=transpose)
 
 
+def union_side(slots_per_group=30, p_block=0.66):
+    """The forward union lists at G = 4: distinct random input tiles a
+    group, a block for each (slot, tile) with probability ``p_block``, at
+    least one a slot, distinct random blocks."""
+    n_groups = -(-n_out_t // G)
+    S = n_groups * slots_per_group
+    til = torch.stack([torch.cat([torch.randperm(n_in_t)[:slots_per_group]
+                                  for _ in range(n_groups)])
+                       for _ in range(P)]).int()
+    use = torch.rand((P, S, G)) < p_block
+    use[..., 0] |= ~use.any(-1)
+    bl = torch.full((P, S, G), B, dtype=torch.int32)
+    for p in range(P):
+        n = int(use[p].sum())
+        bl[p][use[p]] = torch.randint(0, B, (n,), dtype=torch.int32)
+    ptr = torch.arange(0, S + 1, slots_per_group, dtype=torch.int32)
+    return blk.GroupSide(ptr=ptr.repeat(P, 1).cuda(), tile=til.cuda(),
+                         blk=bl.cuda(), group=G, n_out=n_out, n_in=n_in,
+                         n_out_tiles=n_out_t, transpose=False)
+
+
 fwd = side(n_out_t, n_out, n_in, n_in_t, False)
 t = blk.BlockTables(a=a, packed=True, tile=T, fwd=fwd, bwd=fwd,
                     rem_fwd=None, rem_bwd=None)
 tt = blk.BlockTables(a=a, packed=True, tile=T,
                      fwd=side(n_in_t, n_in, n_out, n_out_t, True),
                      bwd=side(n_in_t, n_in, n_out, n_out_t, True),
+                     rem_fwd=None, rem_bwd=None)
+ug = union_side()
+tg = blk.BlockTables(a=a, packed=True, tile=T, fwd=ug, bwd=ug,
                      rem_fwd=None, rem_bwd=None)
 
 
@@ -62,11 +100,22 @@ def time_ms(fn, reps=30, warmup=5):
 
 
 out = {"label": label, "csrc": str(_build.CSRC),
-       "card": torch.cuda.get_device_name(0)}
+       "card": torch.cuda.get_device_name(0),
+       "K16 union_slots": int(ug.ptr[:, -1].sum()),
+       "K16 products": int((ug.blk != B).sum())}
 x = torch.randn((P, n_in, F), device="cuda")
 g = torch.randn((P, n_in, F), device="cuda")[:, :n_out].contiguous()
 for dt in (torch.float32, torch.bfloat16):
     xd, gd = x.to(dt), g.to(dt)
     out[f"K12 {dt}"] = time_ms(lambda: blk.block_dense(xd, t))
     out[f"K13 {dt}"] = time_ms(lambda: blk.block_dense_t(gd, tt))
+    out[f"K16 {dt}"] = time_ms(lambda: blk.block_dense_grouped(xd, tg))
+del x, g
+act = torch.randn((P, n_in, F), device="cuda") * 2.0
+cot = torch.randn((P, n_out, F), device="cuda") * 1e-3
+deg = torch.randint(1, 600, (P, n_out), device="cuda").float()
+out["K11"] = time_ms(lambda: bs.part_amax(act))
+out["K11 deg"] = time_ms(lambda: bs.part_amax(cot, deg))
+out["K11 library vector_norm"] = time_ms(lambda: torch.linalg.vector_norm(
+    act, ord=float("inf"), dim=(1, 2)))
 print(json.dumps(out))
