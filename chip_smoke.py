@@ -30,7 +30,8 @@ stack (union-gather block tiles and the fp8 halo wire at bf16):
      (``bucket_spmm.cu``), K10 the transport cast and K11 the per-part
      amax (``transport_cast.cu``), K12 / K13 the dense-tile products with
      f32 or bf16 rows and K17 over union-gather groups
-     (``block_spmm.cu``), K16 the union-gather forward and its pre-split
+     (``block_spmm.cu``; K12 with 1-bit, int8 or bf16 A in
+     ``block_tma.cu``), K16 the union-gather forward and its pre-split
      (``block_tma.cu``), K14 / K15 the compressed halo wire
      (``halo_wire.cu``), K19 the integrity digests (``digest.cu``); and
      the native host library
@@ -74,11 +75,16 @@ stack (union-gather block tiles and the fp8 halo wire at bf16):
      holds it against the same epoch through the plain versions on the
      kernel run's relu masks (flips counted);
   8. holds K3, K4 and K5 against their plain versions at the cell's shapes
-     and on edge cases; K4 in bf16 (bit-exact at P = 2 and 4), K2 and K5
-     bit-exact on bf16 rows;
-  9. times K3-K5 (K4 also in bf16) and K1/K2 at the epoch's shapes, the
-     epoch (median) with its split and the peak memory; then 3 vanilla
-     epochs and a fourth held against the plain versions as in [7];
+     and on edge cases (K5: P = 2, 3 and 4, F = 3 to 602, f32 and bf16
+     rows, strided views whose part stride is no multiple of 16 bytes, H
+     = 0; one block from the wrong sender must fail); K4 in bf16
+     (bit-exact at P = 2 and 4), K2 and K5 bit-exact on bf16 rows;
+  9. times K3-K5 (K4 also in bf16) and K1/K2 at the epoch's shapes (K5
+     also 20 calls back to back, beside index_select and a copy_ of the
+     same blocks, strided and contiguous: the card's copy floor), the
+     epoch (median) with its
+     split and the peak memory; then 3 vanilla epochs and a fourth held
+     against the plain versions as in [7];
  10. trains the GAT cell the same way on the same parts (f32);
  11. holds one pipelined GAT epoch against the plain versions as in [7],
      the plain run also taking the kernel run's leaky branches;
@@ -108,10 +114,22 @@ stack (union-gather block tiles and the fp8 halo wire at bf16):
      then 2 epochs of ``--rem-dtype none``;
  21. holds one block epoch against the plain versions;
  22. holds K12 / K13 against their plain version on f32 rows and in their
-     bf16 mode, at the cell's shapes and on edge cases; a flipped A bit
-     must fail in both;
+     bf16 mode, at the cell's shapes (K12 also at F = 1, Freivalds') and
+     on edge cases; K12 on ``block_tma.cu`` over hand-made pair lists (T
+     = 32, 96, 160, 224; 1-bit, int8 and bf16 A; F = 1, 64, 602 f32 rows,
+     bf16 rows at F = 5, 64, 100; empty output tiles, which must be
+     zeros); a flipped A bit must fail in both and at T = 96;
  23. times K12 / K13 on f32 rows and in the bf16 mode beside cuSPARSE
-     (f32) and the tile floors; the block epoch and its split;
+     (f32) and the tile floors, one call and 20 back to back; the block
+     epoch and its split;
+ 23a. serving through the trainers' aggregation with the transport off:
+     a ServingEngine on the block cell's staged parts and tables
+     (``spmm_impl="block"``: K12 and K9) and one on the bucket cell's
+     (``"bucket"``: K9), no new artifact or tables, and ``"xla"`` (K1)
+     beside them; the counts set to 0 before each build and each refresh
+     and read after: the table kernels grow, K1's does not; the logits
+     against a recompute through the plain versions of the same
+     aggregation; each refresh timed;
  24. runs the block command at ``--dtype bfloat16`` on the same trainer
      and tables (K12 / K13 in their bf16 mode), then its step check;
  25. a few GCN epochs on the block path and their step check;
@@ -183,10 +201,10 @@ stack (union-gather block tiles and the fp8 halo wire at bf16):
      types, times at the shapes whose launches are counted), a line for
      each cell, the nvidia-smi line, and last ``{"ok": true, "device":
      {...}}``. With ``--parent DIR`` (a parent commit unpacked with ``git
-     archive``) it first times K11 and K16 of DIR against this checkout's
-     with ``pipegcn_tpu_torch/tools/time_tile_products.py`` in turns
-     (parent, this, this, parent; each its own process) and carries both
-     in those kernels' ``parent_ab``.
+     archive``) it first times K5, K11, K12 and K16 of DIR against this
+     checkout's with ``pipegcn_tpu_torch/tools/time_tile_products.py`` in
+     turns (parent, this, this, parent; each its own process) and carries
+     both in those kernels' ``parent_ab``.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when the
 package is missing (the script alone), or when any phase fails.
@@ -1459,6 +1477,12 @@ def k4_phase(trainer, halo):
 
 
 def k5_phase(trainer, halo):
+    """K5 bit-exact against its plain version: the cell's strided view
+    (P = 2, F = 256); P = 3 and 4 (blocks from different senders), F =
+    3 / 7 / 41 / 256 / 602 (rows of no 16-byte multiple), f32 and bf16
+    rows with a NaN and a -0.0, each a strided view whose part stride is
+    no multiple of 16 bytes, and H = 0. A kernel fed one block from the
+    wrong sender must fail the check."""
     import torch
 
     d = trainer.data
@@ -1468,16 +1492,34 @@ def k5_phase(trainer, halo):
     check_bits("K5 P=2 F=256 (cell, strided view)",
                halo.return_blocks(full[:, n_max:], d.b_max),
                halo.return_blocks_plain(full[:, n_max:], d.b_max))
+    del full
     for P, B, F, dt in ((3, 20, 7, torch.float32),
                         (4, 9, 3, torch.bfloat16),
-                        (4, 16, 256, torch.float32)):
+                        (4, 16, 256, torch.float32),
+                        (3, 700, 41, torch.float32),
+                        (4, 333, 41, torch.bfloat16),
+                        (3, 257, 602, torch.float32),
+                        (4, 129, 602, torch.bfloat16),
+                        (2, 1001, 256, torch.bfloat16),
+                        (3, 0, 64, torch.float32)):
         x = torch.randn((P, (P - 1) * B + 5, F), generator=gen,
                         device="cuda").to(dt)
         x[0, 0, 0] = float("nan")
-        x[1, 1, 0] = -0.0
+        x[1, min(1, x.shape[1] - 1), 0] = -0.0
         v = x[:, 5:]
-        check_bits(f"K5 P={P} F={F} {dt} (strided view)",
+        check_bits(f"K5 P={P} B={B} F={F} {t_dtype(x)} (strided view, part "
+                   f"stride {x.stride(0) * x.element_size()} B)",
                    halo.return_blocks(v, B), halo.return_blocks_plain(v, B))
+    # one block from the wrong sender: receiver 0's distance-1 block
+    # (sender 1) replaced in the kernel's input by sender 2's
+    P, B = 3, 40
+    v = torch.randn((P, (P - 1) * B, 41), generator=gen, device="cuda")
+    bad = v.clone()
+    bad[1, :B] = v[2, :B]
+    got = halo.return_blocks(bad, B)
+    ref = halo.return_blocks_plain(v, B)
+    must_fail("K5 planted fault (one block from the wrong sender)",
+              lambda: check_bits("K5 planted fault", got, ref))
     return 0.0
 
 
@@ -1563,10 +1605,33 @@ def train_timings(trainer, spmm, halo, cnt):
     ridx = (((r + k // B + 1) % P) * H + k).reshape(-1)
     ghc = gh.contiguous().reshape(P * H, F)
     k5_lib = time_ms(lambda: ghc.index_select(0, ridx))
+    # the card's copy floor: a device-to-device copy_ of the same blocks,
+    # unpermuted, from the same strided view (PyTorch's strided copy) and
+    # from a contiguous copy of them (the same bytes in one flat run)
+    dst = torch.empty((P, H, F), device="cuda")
+    ghv = ghc.view(P, H, F)
     out["K5"] = dict(ms=k5, plain_ms=k5_plain, library_ms=k5_lib,
                      bound=bound_ms(2 * P * H * F * 4, 0),
+                     # 20 calls back to back: the card's time a call,
+                     # without the wrapper's host work that an event pair
+                     # around one call on an idle card also counts
+                     batched_ms=batched_ms(lambda: halo.return_blocks(gh, B)),
+                     library_batched_ms=batched_ms(
+                         lambda: ghc.index_select(0, ridx)),
+                     copy_ms=time_ms(lambda: dst.copy_(gh)),
+                     copy_batched_ms=batched_ms(lambda: dst.copy_(gh)),
+                     copy_contig_ms=time_ms(lambda: dst.copy_(ghv)),
+                     copy_contig_batched_ms=batched_ms(
+                         lambda: dst.copy_(ghv)),
                      shape=f"P={P} H={H} B={B} F={F} f32")
-    del ghc, gh, gi, bg, full
+    e = out["K5"]
+    log(f"  K5: {k5:.4f} ms a call ({e['batched_ms']:.4f} back to back), "
+        f"index_select {k5_lib:.4f} ({e['library_batched_ms']:.4f}), "
+        f"copy_ of the strided blocks {e['copy_ms']:.4f} "
+        f"({e['copy_batched_ms']:.4f}), of contiguous ones "
+        f"{e['copy_contig_ms']:.4f} ({e['copy_contig_batched_ms']:.4f}), "
+        f"bound {e['bound'][0]:.4f} ms, plain {k5_plain:.4f}")
+    del ghc, ghv, gh, gi, bg, full, dst
 
     # --- K1 and K2 at the epoch's shapes, and the epoch ----------------
     out.update(k1_k2_timings(d, spmm, halo, with_inner=False, seed=11))
@@ -2916,6 +2981,86 @@ def k12_k13_edge_phase(blk):
     return max(errs)
 
 
+def k12_tma_edge_phase(blk):
+    """K12 on csrc/block_tma.cu (pair lists as union lists of group 1)
+    over hand-made pair lists against the plain version
+    (BLOCK_SUM_RTOL * sum|terms|, each rerun bit-identical): T = 32, 96
+    (T % 64 == 32: a chunk of two k-steps), 160 (two CTAs a tile, the
+    second ragged) and 224; 1-bit, int8 and bf16 A; f32 rows at F = 1
+    (one column of a 64-column plane), 64 and 602 (a padded split plane);
+    bf16 rows at F = 5 and 100 (the pre-pass's padded copy) and 64 (read
+    as they are); a ragged last output and input tile, and output tiles
+    with an empty pair list, whose rows must be zeros. One flipped A bit
+    at T = 96 must fail the check."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    gb = torch.Generator().manual_seed(11)
+    rng = np.random.default_rng(61)
+    errs = []
+    f32, bf = torch.float32, torch.bfloat16
+    cases = (
+        # T, A encoding, output tiles, input tiles, [(F, row dtype)],
+        # output tiles with no pair
+        (32, "bits", 7, 9, [(1, f32), (64, f32), (5, bf)], (3,)),
+        (96, "bits", 10, 7, [(1, f32), (602, f32), (100, bf), (64, bf)],
+         (0, 4)),
+        (96, "int8", 6, 5, [(64, f32), (64, bf)], (5,)),
+        (160, "bits", 9, 6, [(1, f32), (256, f32), (602, f32), (5, bf),
+                             (256, bf)], (2,)),
+        (160, "bf16", 5, 4, [(130, f32), (100, bf)], ()),
+        (224, "int8", 4, 5, [(256, f32)], (1,)),
+    )
+    for T, enc, n_t, n_in_t, runs, empty in cases:
+        pairs = []
+        for i in range(n_t):
+            if i in empty:
+                continue
+            for tl in rng.choice(n_in_t, min(4, n_in_t), replace=False):
+                pairs.append((i, len(pairs), int(tl)))
+        nb = len(pairs)
+        if enc == "bits":
+            a = torch.randint(0, 256, (1, nb, T, T // 8), generator=gb,
+                              dtype=torch.uint8)
+        elif enc == "int8":
+            a = torch.randint(0, 4, (1, nb, T, T), generator=gb,
+                              dtype=torch.int8)
+        else:
+            a = torch.randint(0, 3, (1, nb, T, T), generator=gb).to(bf)
+        n_out, n_in = n_t * T - 20, n_in_t * T - 30
+        tb = block_tables_of(a, enc == "bits", T, pairs, n_out, n_in)
+        require(blk.tile_entry(False, False, tb.a.dtype)
+                == "pgt_block_grouped_tma", f"K12 T={T} {enc} A: not "
+                "routed to block_tma.cu")
+        for F, dt in runs:
+            x = torch.randn((1, n_in, F), generator=gen,
+                            device="cuda").to(dt)
+            errs.append(block_check(
+                f"K12 tma T={T} {enc} A F={F} {t_dtype(x)} rows "
+                f"({nb} pairs, empty tiles {list(empty)})", blk, x, tb,
+                tb.fwd))
+            got = blk.block_dense(x, tb)
+            for i in empty:
+                require(not bool(got[0, i * T:(i + 1) * T].any()),
+                        f"K12 tma T={T}: empty output tile {i} not zeros")
+        if T == 96 and enc == "bits":
+            bad = dataclasses.replace(tb, a=tb.a.clone())
+            bad.a[0, 0, 7, 3] ^= 1 << 5
+            x = torch.randn((1, n_in, 64), generator=gen, device="cuda")
+            got = blk.block_dense(x, bad)
+            ref = blk.block_dense_plain(x, tb, tb.fwd)
+            abs_sum = blk.block_dense_plain(x.abs(), tb, tb.fwd)
+            must_fail("K12 tma planted fault (one A bit flipped, T=96)",
+                      lambda: check_close("K12 tma planted fault", got, ref,
+                                          BLOCK_ATOL, 0.0, abs_sum,
+                                          BLOCK_SUM_RTOL))
+    log(f"  K12 on block_tma.cu, edge cases: worst |diff| {max(errs):.3e}")
+    return max(errs)
+
+
 def block_fault_phase(blk, trainer, dtype=None):
     """One bit of one A block flipped (the block of part 0's first pair):
     K12's and K13's checks (K16's and K17's on union-gather tables) at the
@@ -2963,6 +3108,10 @@ def k12_k13_cell_phase(trainer, blk, halo):
                     device="cuda")
     errs.append(block_check("K12 cell F=256", blk, act, t, t.fwd))
     errs.append(block_check("K13 cell F=256", blk, g, t, t.bwd))
+    # F = 1: Freivalds' projection through the block trainer's
+    # aggregation (one column, padded to a 64-column plane)
+    errs.append(block_check("K12 cell F=1 (Freivalds)", blk,
+                            act[..., :1].contiguous(), t, t.fwd))
     del act, g
     fbuf = halo.halo_gather(d.feat, d.send_idx, d.send_mask, with_inner=True)
     errs.append(block_check("K12 cell F=602 (pp precompute)", blk, fbuf, t,
@@ -3152,8 +3301,10 @@ def block_timings(trainer, blk, bs, dtype=None, remainder=True):
                           (("K17" if grouped else "K13"), t.bwd, gd)):
         fn = dense_fn(blk, side)
         a, e_dense = dense_csr(t, n, R, side.transpose)
-        lib = None if dtype is not None else time_ms(
-            lambda: torch.sparse.mm(a, x.reshape(-1, F)))
+        lib = lib_b = None
+        if dtype is None:
+            lib = time_ms(lambda: torch.sparse.mm(a, x.reshape(-1, F)))
+            lib_b = batched_ms(lambda: torch.sparse.mm(a, x.reshape(-1, F)))
         del a
         pairs = sum(int(blk._products(side, t.b_max, p, x.device)[0]
                         .shape[0]) for p in range(P))
@@ -3163,6 +3314,10 @@ def block_timings(trainer, blk, bs, dtype=None, remainder=True):
         tile_ops = 2 * pairs * T * T * F
         out[name] = dict(
             ms=time_ms(lambda: fn(x, t)),
+            # 20 calls back to back (the card's time a call), beside the
+            # library call's
+            batched_ms=batched_ms(lambda: fn(x, t)),
+            library_batched_ms=lib_b,
             plain_ms=time_ms(lambda: blk.block_dense_plain(x, t, side),
                              reps=3, warmup=1),
             library_ms=lib, bound=bound_ms(n_bytes, e_dense * F),
@@ -3204,9 +3359,13 @@ def block_timings(trainer, blk, bs, dtype=None, remainder=True):
                       f"{e['tile_floor_split3_tc_ms']:.3f} (three-term "
                       f"split) / {e['tile_floor_f32_ms']:.3f} (f32 CUDA "
                       f"cores)")
+        batched = ""
+        if "batched_ms" in e:
+            batched = (f", back to back {e['batched_ms']:.3f} (library "
+                       f"{e['library_batched_ms']})")
         log(f"  {k}: {e['ms']:.3f} ms (plain {e['plain_ms']}, library "
             f"{e['library_ms']}, bound {e['bound'][0]:.3f} "
-            f"{e['bound'][1]}{floors}) [{e['shape']}]")
+            f"{e['bound'][1]}{batched}{floors}) [{e['shape']}]")
     return out
 
 
@@ -3249,6 +3408,97 @@ def block_epoch_split(trainer, cnt, kt, bt, tt, bucket_split):
         f"{tt['epoch_ms']:.3f} ms, the bucket epoch "
         f"{bucket_split['epoch_ms']:.3f} ms")
     return split
+
+
+def table_serving_phase(ktrainer, btrainer, spmm, halo):
+    """[23a] Serving through the trainers' aggregation, as the JAX engine
+    serves: a ServingEngine on the block cell's staged parts and tables
+    (``spmm_impl="block"``: K12 and K9 on the remainder) and one on the
+    bucket cell's (``"bucket"``: K9), both over the shared parts, no new
+    artifact and no new tables; beside them ``"xla"`` (K1) on the block
+    cell's parts. GraphSAGE 602 -> 256 x3 -> 41, use_pp, LayerNorm,
+    random weights; the config names ``--rem-dtype float8``, which the
+    serving refresh must not take (the transport is off). Each engine's
+    build (the use_pp precompute) and one refresh: the counts set to 0
+    just before and read just after; the table kernels must grow, K1's
+    must not. The logits within the serving tolerance of a recompute
+    through the plain versions of the same aggregation; the refresh
+    timed (median of 5)."""
+    import torch
+    from pipegcn_tpu_torch.models.sage import (ModelConfig, forward,
+                                               init_params)
+    from pipegcn_tpu_torch.parallel.staging import (precompute_pp,
+                                                    table_spmm)
+    from pipegcn_tpu_torch.serve import ServingEngine
+
+    cnt = counters(spmm, halo)
+    base = ktrainer.cfg
+    out = {}
+    for impl, trainer in (("block", ktrainer), ("bucket", btrainer),
+                          ("xla", ktrainer)):
+        d = trainer.data
+        cfg = ModelConfig(layer_sizes=base.layer_sizes, use_pp=True,
+                          norm="layer", dropout=0.0, spmm_impl=impl,
+                          block_tile=trainer.cfg.block_tile,
+                          block_group=trainer.cfg.block_group,
+                          bucket_merge=trainer.cfg.bucket_merge,
+                          rem_dtype="float8")
+        params = init_params(cfg, torch.Generator().manual_seed(5),
+                             d.device)
+        reset_counts(cnt)
+        t0 = time.monotonic()
+        eng = ServingEngine(trainer.sg, d, cfg, params)
+        torch.cuda.synchronize()
+        build_s = time.monotonic() - t0
+        built = read_counts(cnt)
+        reset_counts(cnt)
+        eng.refresh()
+        torch.cuda.synchronize()
+        got = read_counts(cnt)
+        n_agg = cfg.n_layers - 1
+        want = {"block": {"block_dense": n_agg, "bucket_gather": n_agg,
+                          "spmm_mean": 0, "transport_cast": 0},
+                "bucket": {"bucket_gather": n_agg, "spmm_mean": 0,
+                           "block_dense": 0, "transport_cast": 0},
+                "xla": {"spmm_mean": n_agg, "bucket_gather": 0,
+                        "block_dense": 0}}[impl]
+        cell = "block" if trainer is ktrainer else "bucket"
+        log(f"  {impl} engine on the {cell} cell's staged parts: build (pp precompute) {build_s:.2f}s, "
+            f"launches {({k: v for k, v in built.items() if v})}; one "
+            f"refresh: {({k: v for k, v in got.items() if v})}")
+        require({k: got[k] for k in want} == want,
+                f"{impl} serving refresh: launches {got}, want {want}")
+        pp_want = {k: min(v, 1) for k, v in want.items()}
+        require({k: built[k] for k in pp_want} == pp_want,
+                f"{impl} serving precompute: launches {built}, want "
+                f"{pp_want}")
+        logits = eng.logits
+        require(bool(torch.isfinite(logits).all()),
+                f"{impl} serving: non-finite logits")
+        plain_spmm = table_spmm(d, cfg, plain=True) or spmm.spmm_mean_plain
+
+        def plain_exchange(h, idx, mask):
+            return halo.halo_gather_plain(h, idx, mask, with_inner=True)
+
+        with torch.inference_mode():
+            pp = precompute_pp(d, exchange=plain_exchange,
+                               spmm_fn=plain_spmm)
+            ref = forward(params, cfg, pp, d.indptr, d.edge_src, d.in_deg,
+                          comm_update=lambda i, h: plain_exchange(
+                              h, d.send_idx, d.send_mask),
+                          spmm_fn=plain_spmm)
+        del pp
+        err = check_close(f"{impl} served logits vs plain recompute",
+                          logits, ref, LOGITS_ATOL, LOGITS_RTOL)
+        del ref
+        refresh_ms = time_ms(eng.refresh, reps=5, warmup=1)
+        log(f"  {impl} refresh {refresh_ms:.3f} ms (median of 5)")
+        out[impl] = {"refresh_ms": refresh_ms, "engine_build_s": build_s,
+                     "launches_build": built, "launches_refresh": got,
+                     "logits_max_abs_err": err}
+        del eng, logits
+        torch.cuda.empty_cache()
+    return out
 
 
 def block_gcn_phase(args, sg, spmm, halo):
@@ -5069,8 +5319,9 @@ def kernel_entry(name, source, replaces, launches, err, t, serving=None):
 
 
 def parent_ab(parent):
-    """K11 (both forms) and K16 (both modes) of a parent checkout against
-    this one's at tools/time_tile_products.py's shapes, each run in its
+    """K5 (one call and back to back), K11 (both forms), K12 and K16
+    (both modes) of a parent checkout against this one's at
+    tools/time_tile_products.py's shapes, each run in its
     own process (each checkout builds its own kernels), in turns: parent,
     this, this, parent. Returns each key's two runs a side and their
     means."""
@@ -5086,7 +5337,9 @@ def parent_ab(parent):
         runs[label].append(json.loads(r.stdout.strip().splitlines()[-1]))
         log(f"  {label}: {runs[label][-1]}")
     out = {}
-    for k in ("K11", "K11 deg", "K16 torch.float32", "K16 torch.bfloat16"):
+    for k in ("K11", "K11 deg", "K16 torch.float32", "K16 torch.bfloat16",
+              "K12 torch.float32", "K12 torch.bfloat16", "K5",
+              "K5 batched"):
         par = [x[k] for x in runs["parent"]]
         new = [x[k] for x in runs["change"]]
         out[k] = {"parent_ms": sum(par) / 2, "ms": sum(new) / 2,
@@ -5121,9 +5374,9 @@ def main() -> int:
     ap.add_argument("--integrity-epochs", type=int, default=6,
                     help="epochs of the integrity cell")
     ap.add_argument("--parent", default=None,
-                    help="a parent checkout: K11 and K16 of both timed in "
-                         "turns by tools/time_tile_products.py, carried "
-                         "in the kernels line as parent_ab")
+                    help="a parent checkout: K5, K11, K12 and K16 of both "
+                         "timed in turns by tools/time_tile_products.py, "
+                         "carried in the kernels line as parent_ab")
     args = ap.parse_args()
 
     import dataclasses
@@ -5345,7 +5598,8 @@ def main() -> int:
     log("[22] K12, K13 vs plain versions (f32 rows and the bf16 mode); a "
         "planted fault must fail in each")
     errs["K12/K13 cell"] = k12_k13_cell_phase(ktrainer, blk, halo)
-    errs["K12/K13 edge"] = k12_k13_edge_phase(blk)
+    errs["K12/K13 edge"] = max(k12_k13_edge_phase(blk),
+                               k12_tma_edge_phase(blk))
     block_fault_phase(blk, ktrainer)
     errs["K12/K13 bf16"] = block_bf16_checks(ktrainer, blk)
 
@@ -5355,6 +5609,11 @@ def main() -> int:
     kt16 = block_timings(ktrainer, blk, bs, dtype=torch.bfloat16)
     block_split = block_epoch_split(ktrainer, counters(spmm, halo), kt, bt,
                                     tt, bucket_split)
+
+    log("[23a] serving through the trainers' aggregation (transport off): "
+        "engines on the block cell's staged parts and tables (block: K12 + "
+        "K9) and on the bucket cell's (bucket: K9), xla (K1) beside them")
+    table_serving = table_serving_phase(ktrainer, btrainer, spmm, halo)
 
     log(f"[24] bf16 block cell: the block command with --dtype bfloat16 on "
         f"the same trainer and tables, {args.bf16_epochs} epochs (K12 / K13 "
@@ -5532,6 +5791,12 @@ def main() -> int:
                      "pipegcn_tpu/parallel/halo.py:244", n["halo_return"],
                      errs["K5"], tt["K5"]),
     ]
+    # K5: beside the event pair around one call, 20 calls back to back
+    # (the card's time a call) and index_select's likewise, and the
+    # card's copy floor (a copy_ of the same blocks, unpermuted)
+    for f in ("batched_ms", "library_batched_ms", "copy_ms",
+              "copy_batched_ms", "copy_contig_ms", "copy_contig_batched_ms"):
+        kernels[-1][f] = tt["K5"][f]
     # K18: the freshness phase's run (build, the quiet, churn and mixed
     # runs); times at the cell's shape with 32 dirty rows (a churn
     # batch), the other dirty counts under "by_dirty_rows"
@@ -5620,13 +5885,21 @@ def main() -> int:
              ["pipegcn_tpu/ops/block_spmm.py:89",
               "pipegcn_tpu/ops/block_spmm.py:685",
               "pipegcn_tpu/ops/block_spmm.py:952"])):
-        e = kernel_entry(kname, src + "block_spmm.cu", replaces, nk[kname],
+        # K12 with the cell's 1-bit A runs on block_tma.cu (tile_entry)
+        e = kernel_entry(kname, src + ("block_tma.cu" if key == "K12"
+                                       else "block_spmm.cu"),
+                         replaces, nk[kname],
                          max(errs["K12/K13 cell"], errs["K12/K13 edge"]),
                          kt[key])
         for f in ("a_bytes", "a_bytes_ms", "tile_floor_bf16_tc_ms",
-                  "tile_floor_split3_tc_ms", "tile_floor_f32_ms"):
+                  "tile_floor_split3_tc_ms", "tile_floor_f32_ms",
+                  "batched_ms", "library_batched_ms"):
             e[f] = kt[key][f]
         e["also_replaces"] = also
+        if key == "K12":
+            e["serving_launches"] = {
+                k: v["launches_refresh"]["block_dense"]
+                for k, v in table_serving.items()}
         kernels.append(e)
     # the bf16 and narrow row-type modes of K4, K6, K8, K12 and K13, each
     # with its launches by mode in the run of its own cell: K4, K6 and K8
@@ -5657,12 +5930,14 @@ def main() -> int:
     kernels.append(e)
     bm = bf16_block["launches_by_mode"]
     for kname, key in (("block_dense", "K12"), ("block_dense_t", "K13")):
-        e = kernel_entry(f"{kname}[bf16]", src + "block_spmm.cu",
+        e = kernel_entry(f"{kname}[bf16]", src + ("block_tma.cu"
+                                                  if key == "K12"
+                                                  else "block_spmm.cu"),
                          "pipegcn_tpu/ops/block_spmm.py:520",
                          bm[kname]["bfloat16"], errs["K12/K13 bf16"],
                          kt16[key])
         for f in ("a_bytes", "a_bytes_ms", "tile_floor_bf16_tc_ms",
-                  "tile_floor_f32_ms"):
+                  "tile_floor_f32_ms", "batched_ms"):
             e[f] = kt16[key][f]
         kernels.append(e)
 
@@ -5762,12 +6037,16 @@ def main() -> int:
         kernels.append(e)
 
     if args.parent is not None:
-        log(f"[38] K11 / K16 of the parent checkout {args.parent} against "
-            f"this one's (time_tile_products.py, in turns)")
+        log(f"[38] K5, K11, K12 and K16 of the parent checkout "
+            f"{args.parent} against this one's (time_tile_products.py, in "
+            f"turns)")
         torch.cuda.empty_cache()
         ab = parent_ab(args.parent)
         for e in kernels:
             key = {"part_amax": "K11",
+                   "halo_return": "K5",
+                   "block_dense": "K12 torch.float32",
+                   "block_dense[bf16]": "K12 torch.bfloat16",
                    "block_dense_grouped[bf16]": "K16 torch.bfloat16",
                    "block_dense_grouped[f32]": "K16 torch.float32"}.get(
                        e["name"])
@@ -5775,6 +6054,8 @@ def main() -> int:
                 e["parent_ab"] = ab[key]
             if e["name"] == "part_amax":
                 e["backward"]["parent_ab"] = ab["K11 deg"]
+            if e["name"] == "halo_return":
+                e["parent_ab_batched"] = ab["K5 batched"]
     print(json.dumps({"kernels": kernels}))
 
     print(json.dumps({
@@ -5849,7 +6130,8 @@ def main() -> int:
         "cuts": [f"{args.block_epochs} epochs (not 3000)"],
         **block_stats, "step_check": block_step, **block_split,
         "kernel_timings": kt, "kernel_timings_bf16": kt16,
-        "bf16": bf16_block, "gcn": block_gcn, "card": smi}}))
+        "bf16": bf16_block, "gcn": block_gcn,
+        "serving_through_tables": table_serving, "card": smi}}))
     print(json.dumps({"bf16_gat_training": {
         "dataset": args.dataset,
         "cell": "scripts/gat_bench.py: --model gat --n-heads 4 --n-layers "

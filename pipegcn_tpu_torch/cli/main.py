@@ -36,7 +36,7 @@ import random
 import sys
 import time
 
-from .layout import add_layout_flags
+from .layout import add_aggregation_flags, add_layout_flags
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -85,30 +85,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "accepted for the JAX parser's sake and ignored: "
                         "the kernels walk each row in registers and need "
                         "no chunks")
-    p.add_argument("--spmm-impl", "--spmm_impl",
-                   choices=["xla", "bucket", "block", "auto"], default="xla",
-                   help="aggregation: graphsage/gcn by CSR (xla: K1/K3), "
-                        "through degree-bucketed tables (bucket: K9) or "
-                        "through dense tiles plus a bucket remainder "
-                        "(block: K12/K13 and K9); gat runs its attention "
-                        "kernels for xla/bucket/auto; auto for "
-                        "graphsage/gcn is ROADMAP A6")
-    p.add_argument("--block-tile", "--block_tile", type=int, default=256,
-                   help="dense-tile edge length of the block kernel")
-    p.add_argument("--block-nnz", "--block_nnz", type=int, default=0,
-                   help="minimum edges for a tile pair to go dense in the "
-                        "block kernel (0 = read-cost break-even)")
-    p.add_argument("--block-group", "--block_group", type=int, default=1,
-                   help="union-gather group: that many consecutive dst "
-                        "tiles share one gathered source-tile union in the "
-                        "block kernel's dense path (K16/K17; 1 = per-tile "
-                        "pair lists, K12/K13)")
+    add_aggregation_flags(p)
     add_layout_flags(p)
     p.add_argument("--n-heads", "--n_heads", type=int, default=4,
                    help="attention heads for --model gat")
-    p.add_argument("--bucket-merge", "--bucket_merge", type=int, default=0,
-                   help="merge bucket-ladder rungs below this width into "
-                        "one bucket (0 = full ladder)")
     p.add_argument("--rem-dtype", "--rem_dtype",
                    choices=["none", "bfloat16", "float8"], default="none",
                    help="gather-transport dtype of --spmm-impl bucket: "

@@ -7,11 +7,17 @@ summary as one final ``{"serve": true, ...}`` JSON line, as the JAX CLI
 does. Its own parser covers the flags the ported slices use, with the
 JAX CLI's names and defaults: among them the feature-update churn
 (``--serve-update-every``, ``--serve-update-rows``, ``--update-fraction``;
-use_pp off) and ``--model gcn`` (``--use-pp`` is refused for it, as the
-JAX CLI refuses it). ``--local-reorder cluster`` (the default, as in
-JAX) renumbers each part's nodes by locality clusters of the full graph
-(``--cluster-size`` nodes each) and names the artifact with the JAX
-CLI's ``-cs<size>`` suffix; ``--local-reorder none`` keeps the base
+use_pp off), ``--model gcn`` (``--use-pp`` is refused for it, as the
+JAX CLI refuses it) and the aggregation (``--spmm-impl``,
+``--block-tile``, ``--block-nnz``, ``--block-group``,
+``--bucket-merge``): the engine stages the bucket or block tables and
+its refresh aggregates through them with the gather transport off, as
+the JAX engine does (``bucket``: K9; ``block``: K12, or K16 at
+``--block-group > 1``, plus K9 on the remainder; ``xla``: K1).
+``--local-reorder cluster`` (the default, as in JAX) renumbers each
+part's nodes by locality clusters of the full graph (``--cluster-size``
+nodes each) and names the artifact with the JAX CLI's ``-cs<size>``
+suffix; ``--local-reorder none`` keeps the base
 order. Any artifact of either package loads through ``--graph-name``.
 
 Runs on CUDA; ``--device cpu`` runs the plain PyTorch path on the CPU.
@@ -31,7 +37,8 @@ import time
 
 import torch
 
-from .layout import add_layout_flags, artifact_name
+from .layout import (add_aggregation_flags, add_layout_flags,
+                     artifact_name)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -49,6 +56,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--partition-obj", "--partition_obj",
                    choices=["vol", "cut"], default="vol")
     add_layout_flags(p)
+    add_aggregation_flags(p)
     p.add_argument("--model", type=str, default="graphsage")
     p.add_argument("--n-layers", "--n_layers", type=int, default=2)
     p.add_argument("--n-hidden", "--n_hidden", type=int, default=16)
@@ -167,7 +175,6 @@ def build_serving_engine(args, log=print, sg=None):
     params and warmup. Returns the engine."""
     from ..device import resolve_device
     from ..models.sage import ModelConfig, init_params
-    from ..parallel.staging import stage
     from ..serve import ServingEngine
 
     if args.model not in ("graphsage", "gcn", "gat"):
@@ -182,12 +189,16 @@ def build_serving_engine(args, log=print, sg=None):
     cfg = ModelConfig(layer_sizes=layer_sizes, model=args.model,
                       use_pp=args.use_pp,
                       norm=None if args.norm == "none" else args.norm,
-                      dtype=args.dtype)
+                      dtype=args.dtype, spmm_impl=args.spmm_impl,
+                      block_tile=args.block_tile,
+                      block_nnz=args.block_nnz or None,
+                      block_group=args.block_group,
+                      bucket_merge=args.bucket_merge)
     gen = torch.Generator().manual_seed(args.seed)
     params = init_params(cfg, gen, device)
-    engine = ServingEngine(sg, stage(sg, device), cfg, params,
-                           max_batch=args.serve_max_batch,
-                           ladder_min=args.serve_ladder_min)
+    engine = ServingEngine.build(sg, cfg, params, device,
+                                 max_batch=args.serve_max_batch,
+                                 ladder_min=args.serve_ladder_min)
     warm_s = engine.warmup()
     log(f"serve: engine warm in {warm_s:.2f}s (ladder {engine.ladder}, "
         f"{engine.num_global_nodes} nodes, {engine.P} partitions, "

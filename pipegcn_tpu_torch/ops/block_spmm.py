@@ -42,10 +42,12 @@ Device half:
   - kernels K12 (:func:`block_dense`, the forward tile products) and K13
     (:func:`block_dense_t`, the transpose over the same A blocks), and
     over the union groups K16 (:func:`block_dense_grouped`) and K17
-    (:func:`block_dense_grouped_t`), in ``csrc/block_spmm.cu`` (K16 in
-    ``csrc/block_tma.cu``: TMA stages and ``wgmma`` after a pre-pass,
-    :func:`tile_split`, that splits f32 rows into their three bf16 terms
-    once; f32 A keeps block_spmm.cu's scalar path), over f32
+    (:func:`block_dense_grouped_t`), in ``csrc/block_spmm.cu`` (the
+    forwards K16 and K12 in ``csrc/block_tma.cu``: TMA stages and
+    ``wgmma`` after a pre-pass, :func:`tile_split`, that splits f32 rows
+    into their three bf16 terms once, K12 over a pair list's
+    :func:`union_view`; f32 A keeps block_spmm.cu's scalar path; the
+    entry each side takes is :func:`tile_entry`'s), over f32
     input rows or, at bf16 compute, bf16 rows (JAX multiplies in the input's dtype with f32 products:
     ``_dense_apply``'s ``compute_dtype``); :func:`block_dense_plain` is
     their plain version (unpack, ``bmm`` per chunk of pairs in f32 over
@@ -683,6 +685,17 @@ class GroupSide:
         return int(self.ptr.shape[1]) - 1
 
 
+def union_view(side: BlockSide) -> GroupSide:
+    """A pair list as the union list of group 1 (K12's view on
+    csrc/block_tma.cu): each output tile is its own group, each pair a
+    union slot whose one block is the pair's, ``blk`` ``[P, n_pairs,
+    1]``. Views of the same tensors, no copy; no slot holds the pad (the
+    pads were dropped at staging)."""
+    return GroupSide(ptr=side.ptr, tile=side.tile, blk=side.blk[..., None],
+                     group=1, n_out=side.n_out, n_in=side.n_in,
+                     n_out_tiles=side.n_out_tiles, transpose=side.transpose)
+
+
 @dataclasses.dataclass
 class BlockTables:
     """The staged block tables of P parts: ``a`` the A blocks ``[P, B_max,
@@ -718,7 +731,8 @@ def _class_keys(tables, direction: str) -> List[str]:
 def _flatten_pairs(tables, direction: str, b_max: int, n_in_tiles: int):
     """``(ptr, blk, tile)`` numpy of one direction: each output tile's
     pairs in class order (the row its ``ginv`` points at, left to right),
-    pad pairs dropped. Raises on an index out of range."""
+    pad pairs dropped, the row's tail past a part's last pair the pad
+    block ``b_max`` and tile 0. Raises on an index out of range."""
     ginv = np.asarray(tables[f"blk_{direction}_ginv"]).astype(np.int64)
     P, n_tiles = ginv.shape
     keys = _class_keys(tables, direction)
@@ -760,7 +774,9 @@ def _flatten_pairs(tables, direction: str, b_max: int, n_in_tiles: int):
         per_part.append((ptr, bk, tk))
     width = max(1, max(x[1].shape[0] for x in per_part))
     ptr = np.stack([x[0] for x in per_part]).astype(np.int32)
-    blk = np.zeros((P, width), np.int32)
+    # past a part's last pair: the pad block and tile 0, as the union
+    # lists pad (so a pair list is its own union list at group 1)
+    blk = np.full((P, width), b_max, np.int32)
     til = np.zeros((P, width), np.int32)
     for p, (_, bk, tk) in enumerate(per_part):
         blk[p, :bk.shape[0]] = bk
@@ -1058,11 +1074,23 @@ def tile_split(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def tile_entry(grouped: bool, transpose: bool, a_dtype: torch.dtype) -> str:
+    """The C entry that runs one side's tile products on the card: the
+    forward with 1-bit (uint8), int8 or bf16 A on csrc/block_tma.cu's TMA
+    / wgmma kernel, K16 over union groups and K12 over pair lists (their
+    union view at group 1); f32 A (not exact in bf16) and the transposes
+    (K13, K17) on csrc/block_spmm.cu, over union groups or pair lists."""
+    if not transpose and a_dtype != torch.float32:
+        return "pgt_block_grouped_tma"
+    return "pgt_block_grouped" if grouped else "pgt_block_dense"
+
+
 def _launch_tma(x: torch.Tensor, tables: BlockTables, side: GroupSide,
                 out: torch.Tensor, stream: int) -> int:
-    """K16 through csrc/block_tma.cu: the pre-split planes (f32 rows; bf16
-    rows whose row stride or pointer is not 16-byte aligned) then the TMA
-    / wgmma products."""
+    """K16 (and K12, on a pair list's union view) through
+    csrc/block_tma.cu: the pre-split planes (f32 rows; bf16 rows whose row
+    stride or pointer is not 16-byte aligned) then the TMA / wgmma
+    products."""
     P, R, F = x.shape
     xb = x.dtype == torch.bfloat16
     planes = None
@@ -1103,13 +1131,17 @@ def _launch(x: torch.Tensor, tables: BlockTables,
         raise ValueError("block_dense: x too large for the kernel")
     out = torch.empty((P, side.n_out, F), dtype=torch.float32,
                       device=x.device)
-    lib = _build.load("block_spmm", _SIGNATURES)
     enc = 0 if tables.packed else _ENC[tables.a.dtype]
     stream = torch.cuda.current_stream(x.device).cuda_stream
     xb = int(x.dtype == torch.bfloat16)
-    if grouped and not side.transpose and tables.a.dtype != torch.float32:
-        rc = _launch_tma(x, tables, side, out, stream)
-    elif grouped:
+    entry = tile_entry(grouped, side.transpose, tables.a.dtype)
+    if entry == "pgt_block_grouped_tma":
+        rc = _launch_tma(x, tables, side if grouped else union_view(side),
+                         out, stream)
+        _build.check(rc, "block_tma")
+        return out
+    lib = _build.load("block_spmm", _SIGNATURES)
+    if grouped:
         rc = lib.pgt_block_grouped(
             x.data_ptr(), P, R, F, tables.a.data_ptr(), enc, tables.b_max,
             T, G, side.ptr.data_ptr(), side.blk.data_ptr(),

@@ -1,7 +1,8 @@
-// K16 on Hopper: the forward tile products over union-gather groups,
-// redesigned around TMA and wgmma (sm_90a).
+// K16 and K12 on Hopper: the forward tile products over union-gather
+// groups and over per-tile pair lists, redesigned around TMA and wgmma
+// (sm_90a).
 //
-// Replaces: pipegcn_tpu/ops/block_spmm.py  _dense_apply_grouped and
+// K16 replaces: pipegcn_tpu/ops/block_spmm.py  _dense_apply_grouped and
 // _group_union (--block-group > 1), forward, "rduts,rusf->rdtf": G
 // consecutive output tiles of T rows share one union of input tiles, and
 // for every part p and output tile i of the group
@@ -10,6 +11,13 @@
 //                        for tile i is not the pad:  A[blk_k] @ X[tile_k]
 //
 // with the input rows past n_in read as zeros (JAX's zero-padded tiles).
+//
+// K12 replaces: pipegcn_tpu/ops/block_spmm.py  _dense_apply and
+// make_block_spmm_fn's forward (--block-group 1): the same function over
+// per-tile pair lists, which are union lists at G = 1 whose every slot
+// holds its tile's one block (the pads were dropped at staging). The
+// same kernel body runs them with the group's bookkeeping (the pad skip,
+// the per-tile block lookup) compiled out (GROUPED = false).
 // The tables, the A encodings (1-bit, int8, bf16; f32 A keeps the scalar
 // path of block_spmm.cu) and the exactness argument are block_spmm.cu's:
 // A holds small integers, exact in bf16, and each f32 input is split
@@ -272,7 +280,7 @@ __device__ __forceinline__ void frag(const AChunk<ENC>& c, int ks, int t4,
   }
 }
 
-template <int ENC, int TERMS>
+template <int ENC, int TERMS, bool GROUPED>
 __global__ void __launch_bounds__(kThreads, 1)
 tma_kernel(const __grid_constant__ CUtensorMap xmap, int P, int n_in, int F,
            const unsigned char* __restrict__ a, long long b_max, int T,
@@ -292,7 +300,8 @@ tma_kernel(const __grid_constant__ CUtensorMap xmap, int P, int n_in, int F,
   const int c0 = blockIdx.y * kCols;
   const int tile = blockIdx.x / n_row_ctas;  // the output tile, in the part
   const int r0 = (blockIdx.x % n_row_ctas) * kRows;  // its first row here
-  const int key = tile / G, d = tile % G;
+  // the tile's group and its place there (G = 1 without GROUPED)
+  const int key = GROUPED ? tile / G : tile, d = GROUPED ? tile % G : 0;
   if (static_cast<long long>(tile) * T + r0 >= n_out) return;  // uniform
 
   const int tid = threadIdx.x;
@@ -321,7 +330,9 @@ tma_kernel(const __grid_constant__ CUtensorMap xmap, int P, int n_in, int F,
       int s = 0;
       unsigned ph = 0;
       for (int k = k0; k < k1; ++k) {
-        if (__ldg(bp + static_cast<size_t>(k) * G + d) == b_max) continue;
+        if constexpr (GROUPED) {
+          if (__ldg(bp + static_cast<size_t>(k) * G + d) == b_max) continue;
+        }
         const int in0 = __ldg(tp + k) * T;
         for (int c = 0; c < n_chunks; ++c) {
           mbar_wait(empty0 + 8 * s, ph ^ 1u);
@@ -362,14 +373,18 @@ tma_kernel(const __grid_constant__ CUtensorMap xmap, int P, int n_in, int F,
     // this one waits and multiplies (int8 / bf16 A, 16 words a step, are
     // loaded at their own step)
     constexpr bool kAhead = ENC == kBits;
+    // the slot's entry for this tile (a pair list's slot k: its block)
+    auto entry = [&](int k) {
+      return GROUPED ? bp + static_cast<size_t>(k) * G + d : bp + k;
+    };
     auto used_from = [&](int k) {
-      while (k < k1 && __ldg(bp + static_cast<size_t>(k) * G + d) == b_max)
-        ++k;
+      if constexpr (GROUPED) {
+        while (k < k1 && __ldg(entry(k)) == b_max) ++k;
+      }
       return k;
     };
     auto block_of = [&](int k) {
-      return ap + static_cast<size_t>(__ldg(bp + static_cast<size_t>(k) * G +
-                                           d)) * bstride;
+      return ap + static_cast<size_t>(__ldg(entry(k))) * bstride;
     };
     auto depth = [&](int c) { return min(4, (T - c * kChunk) / 16); };
     int k = used_from(k0), c = 0;
@@ -568,14 +583,14 @@ int encode(CUtensorMap* m, const void* p, int cols, long long pitch,
   return rc == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int ENC, int TERMS>
+template <int ENC, int TERMS, bool GROUPED>
 int launch_main(const CUtensorMap& m, int P, int n_in, int F, int cols,
                 const unsigned char* a, long long b_max, int T,
                 const int* ptr, const int* blk, const int* til,
                 long long slot_stride, int n_keys, int G, int n_out,
                 float* out, cudaStream_t st) {
   using R = Ring<TERMS>;
-  auto kern = tma_kernel<ENC, TERMS>;
+  auto kern = tma_kernel<ENC, TERMS, GROUPED>;
   const cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, R::kSmem);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -611,22 +626,23 @@ extern "C" int pgt_tile_split(const void* x, int x_bf16, int P, int n_in,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K16. x [P, n_in, F] f32, or bf16 when x_bf16; planes: the pre-pass's
-// buffer [3 (1 when x_bf16), P, n_in, Fp] bf16 (Fp = F rounded up to 64),
-// or null for bf16 rows read as they are (F % 8 == 0 and x 16-byte
-// aligned); a [P, b_max, T, row_bytes] (enc 0 bits, 1 int8, 2 bf16); ptr
-// [P, n_groups + 1], til [P, slot_stride], blk [P, slot_stride, G] int32
-// (block_spmm.cu's union-gather lists); out [P, n_out, F] f32. T a
-// multiple of 32 up to 256, G 2 .. 64. All contiguous, on the device; the
-// host validated every index. Returns the first CUDA error (the
-// pre-pass's, the tensor map's, the launch's).
+// K16 (G 2 .. 64) and K12 (G = 1). x [P, n_in, F] f32, or bf16 when
+// x_bf16; planes: the pre-pass's buffer [3 (1 when x_bf16), P, n_in, Fp]
+// bf16 (Fp = F rounded up to 64), or null for bf16 rows read as they are
+// (F % 8 == 0 and x 16-byte aligned); a [P, b_max, T, row_bytes] (enc 0
+// bits, 1 int8, 2 bf16); ptr [P, n_groups + 1], til [P, slot_stride], blk
+// [P, slot_stride, G] int32 (block_spmm.cu's union-gather lists; at G = 1
+// the pair lists, n_groups the output tiles, no slot the pad); out [P,
+// n_out, F] f32. T a multiple of 32 up to 256. All contiguous, on the
+// device; the host validated every index. Returns the first CUDA error
+// (the pre-pass's, the tensor map's, the launch's).
 extern "C" int pgt_block_grouped_tma(
     const void* x, int x_bf16, int P, int n_in, int F, void* planes,
     const void* a, int enc, long long b_max, int T, int G, const void* ptr,
     const void* blk, const void* til, long long slot_stride, int n_groups,
     int n_out, void* out, void* stream) {
   if (P == 0 || n_out == 0 || F == 0) return 0;
-  if (T < 32 || T > 256 || T % 32 != 0 || n_groups <= 0 || G < 2 ||
+  if (T < 32 || T > 256 || T % 32 != 0 || n_groups <= 0 || G < 1 ||
       G > 64 || P > 65535 || n_in < 0 || enc < kBits || enc > kBF16 ||
       static_cast<long long>(n_groups) * G * ((T + kRows - 1) / kRows) >
           0x7fffffffll)
@@ -658,9 +674,13 @@ extern "C" int pgt_block_grouped_tma(
   const int* bk = static_cast<const int*>(blk);
   const int* tl = static_cast<const int*>(til);
   float* o = static_cast<float*>(out);
-#define PGT_MAIN(ENC, TERMS)                                                \
-  launch_main<ENC, TERMS>(m, P, n_in, F, cols, ab, b_max, T, pt, bk, tl,   \
-                          slot_stride, n_groups, G, n_out, o, st)
+#define PGT_MAIN(ENC, TERMS)                                                 \
+  (G > 1 ? launch_main<ENC, TERMS, true>(m, P, n_in, F, cols, ab, b_max, T, \
+                                         pt, bk, tl, slot_stride, n_groups,  \
+                                         G, n_out, o, st)                    \
+         : launch_main<ENC, TERMS, false>(m, P, n_in, F, cols, ab, b_max, T, \
+                                          pt, bk, tl, slot_stride, n_groups, \
+                                          G, n_out, o, st))
   if (terms == 3) {
     switch (enc) {
       case kBits: return PGT_MAIN(kBits, 3);

@@ -31,10 +31,20 @@
 // cotangent of receiver r, [(P-1)*B, F] in distance order, goes back along
 // the reverse ring, so on the stacked layout
 //   out[r, (d-1)B : dB] = in[(r+d) mod P, (d-1)B : dB],   d = 1..P-1.
-// One launch covers every part and distance with the same warp-per-row
-// byte copy as K2 (same vector choice, same bound: bytes, each row read
-// and written once); the input may be a strided view (the halo rows of a
-// [P, n_max + H, F] cotangent), since each part's block is contiguous.
+// The input may be a strided view (the halo rows of a [P, n_max + H, F]
+// cotangent): each part's block is contiguous. Bound: bytes, each block
+// read and written once, nothing else. Design: no rows at all. Each of
+// the P (P-1) (receiver, distance) blocks is one contiguous run of
+// B * row_bytes bytes, cut into 16 KB chunks, a block a chunk, each
+// thread keeping four vectors in flight (loads, then stores). The vector
+// is 16 bytes wherever the source and destination addresses of a run
+// agree modulo 16 (the cell's case), else the widest width they agree
+// modulo; a chunk's head and tail up to the vector boundaries are copied
+// byte by byte, so an odd row size or part stride narrows nothing else.
+// Byte copies: bit-exact for any row type. A grid of one wave walking
+// the chunks grid-stride, as K11 reads, timed slower than a block a chunk
+// at every chunk size and depth tried: the card schedules the short
+// blocks of a pure copy better than a loop of them.
 
 // K18 replaces: pipegcn_tpu/serve/freshness.py  dirty_exchange_blocks: the
 // serving engine's incremental layer-0 halo refresh. For receiver r,
@@ -136,33 +146,72 @@ int launch(const void* h, long long h_part_stride, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+constexpr int kReturnThreads = 256;
+constexpr int kReturnChunk = 16384;  // bytes of a run a block copies
+constexpr int kReturnInFlight = 4;   // vectors a thread loads, then stores
+
+// one chunk of n bytes from s to t with vectors V where both are
+// V-aligned; the bytes before the first aligned one and after the last
+// whole vector one at a time
 template <typename V>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-halo_return_kernel(const char* __restrict__ in, long long in_part_stride,
-                   char* __restrict__ out, long long out_part_stride, int P,
-                   int B, int n_rows, int row_bytes) {
-  const int part = blockIdx.y;
-  const int r = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (r >= n_rows) return;
-  const int sender = (part + r / B + 1) % P;  // ring distance r / B + 1
-  const V* from = reinterpret_cast<const V*>(
-      in + sender * in_part_stride + static_cast<size_t>(r) * row_bytes);
-  V* to = reinterpret_cast<V*>(out + part * out_part_stride +
-                               static_cast<size_t>(r) * row_bytes);
-  const int nv = row_bytes / static_cast<int>(sizeof(V));
-  for (int i = lane; i < nv; i += 32) to[i] = __ldg(from + i);
+__device__ __forceinline__ void copy_chunk(const char* __restrict__ s,
+                                           char* __restrict__ t, int n) {
+  constexpr int W = static_cast<int>(sizeof(V));
+  const int mis = static_cast<int>(reinterpret_cast<uintptr_t>(t) % W);
+  const int head = min(n, (W - mis) % W);
+  const int nv = (n - head) / W;
+  const int tail = head + nv * W;
+  const int tid = threadIdx.x;
+  if (tid < head) t[tid] = s[tid];
+  if (tid < n - tail) t[tail + tid] = s[tail + tid];
+  const V* sv = reinterpret_cast<const V*>(s + head);
+  V* tv = reinterpret_cast<V*>(t + head);
+  for (int i0 = tid; i0 < nv; i0 += kReturnInFlight * kReturnThreads) {
+    V v[kReturnInFlight];
+#pragma unroll
+    for (int j = 0; j < kReturnInFlight; ++j) {
+      const int i = i0 + j * kReturnThreads;
+      if (i < nv) v[j] = __ldg(sv + i);
+    }
+#pragma unroll
+    for (int j = 0; j < kReturnInFlight; ++j) {
+      const int i = i0 + j * kReturnThreads;
+      if (i < nv) tv[i] = v[j];
+    }
+  }
 }
 
-template <typename V>
-int launch_return(const void* in, long long in_part_stride, void* out,
-                  long long out_part_stride, int P, int B, int n_rows,
-                  int row_bytes, cudaStream_t stream) {
-  const dim3 grid((n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock, P);
-  halo_return_kernel<V><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
-      static_cast<const char*>(in), in_part_stride, static_cast<char*>(out),
-      out_part_stride, P, B, n_rows, row_bytes);
-  return static_cast<int>(cudaGetLastError());
+__global__ void __launch_bounds__(kReturnThreads)
+halo_return_kernel(const char* __restrict__ in, long long in_part_stride,
+                   char* __restrict__ out, long long out_part_stride, int P,
+                   long long run_bytes, long long chunks_per_run,
+                   long long n_chunks) {
+  for (long long c = blockIdx.x; c < n_chunks; c += gridDim.x) {
+    const long long run = c / chunks_per_run;  // (receiver, distance)
+    const long long o0 = (c - run * chunks_per_run) * kReturnChunk;
+    const int n = static_cast<int>(
+        min(static_cast<long long>(kReturnChunk), run_bytes - o0));
+    const int r = static_cast<int>(run / (P - 1));
+    const int d = static_cast<int>(run - static_cast<long long>(r) * (P - 1));
+    const int sender = (r + d + 1) % P;  // ring distance d + 1
+    const long long off = d * run_bytes + o0;
+    const char* s = in + sender * in_part_stride + off;
+    char* t = out + r * out_part_stride + off;
+    // the widest vector both addresses are aligned to at once
+    const unsigned rel = static_cast<unsigned>(
+        (reinterpret_cast<uintptr_t>(s) - reinterpret_cast<uintptr_t>(t)) &
+        15u);
+    if (rel == 0)
+      copy_chunk<uint4>(s, t, n);
+    else if (rel % 8 == 0)
+      copy_chunk<uint2>(s, t, n);
+    else if (rel % 4 == 0)
+      copy_chunk<unsigned int>(s, t, n);
+    else if (rel % 2 == 0)
+      copy_chunk<unsigned short>(s, t, n);
+    else
+      copy_chunk<unsigned char>(s, t, n);
+  }
 }
 
 template <typename V>
@@ -247,24 +296,19 @@ extern "C" int pgt_halo_return(const void* in, long long in_part_stride,
                                void* out, long long out_part_stride, int P,
                                int B, int n_rows, int row_bytes,
                                void* stream) {
-  if (P == 0 || n_rows == 0 || row_bytes == 0) return 0;
+  if (P <= 1 || n_rows == 0 || row_bytes == 0) return 0;
   if (B <= 0 || n_rows != (P - 1) * B)
     return static_cast<int>(cudaErrorInvalidValue);
-  const uintptr_t a = reinterpret_cast<uintptr_t>(in) |
-                      reinterpret_cast<uintptr_t>(out) |
-                      static_cast<uintptr_t>(in_part_stride) |
-                      static_cast<uintptr_t>(out_part_stride) |
-                      static_cast<uintptr_t>(row_bytes);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define PGT_LAUNCH(V)                                                    \
-  return launch_return<V>(in, in_part_stride, out, out_part_stride, P, B, \
-                          n_rows, row_bytes, st)
-  if (a % 16 == 0) PGT_LAUNCH(uint4);
-  if (a % 8 == 0) PGT_LAUNCH(uint2);
-  if (a % 4 == 0) PGT_LAUNCH(unsigned int);
-  if (a % 2 == 0) PGT_LAUNCH(unsigned short);
-  PGT_LAUNCH(unsigned char);
-#undef PGT_LAUNCH
+  const long long run = static_cast<long long>(B) * row_bytes;
+  const long long per_run = (run + kReturnChunk - 1) / kReturnChunk;
+  const long long n_chunks = per_run * P * (P - 1);
+  // a block a chunk (the grid-stride loop covers grids past the limit)
+  const long long blocks = n_chunks < 0x7fffffffll ? n_chunks : 0x7fffffffll;
+  halo_return_kernel<<<static_cast<unsigned>(blocks), kReturnThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const char*>(in), in_part_stride, static_cast<char*>(out),
+      out_part_stride, P, run, per_run, n_chunks);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // K18. h: P parts of n_max rows of row_bytes each (the send view), part

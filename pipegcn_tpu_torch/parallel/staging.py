@@ -11,15 +11,18 @@ Differences from the JAX staging:
     inverses the backward kernels read: the source-keyed transpose CSR of
     the edges (K3) and the inverse send CSR (K4); ``edge_dst`` itself is
     never staged;
-  - with ``bucket_merge`` (``--spmm-impl bucket``) training stages the
-    stacked bucket tables (``ops.bucket_spmm``, flattened for K9) in place
-    of the transpose CSR, which the bucket step does not read (as the JAX
-    trainer drops its raw edges, ``trainer.py:208-237``); the
-    destination CSR stays for the CSR paths that share ``forward``;
-  - with ``block`` (``--spmm-impl block``) training stages the block
-    tables (``ops.block_spmm``: the A blocks, the dense pair lists, or at
+  - with ``bucket_merge`` (``--spmm-impl bucket``) staging puts the
+    stacked bucket tables (``ops.bucket_spmm``, flattened for K9) on the
+    device, for training in place of the transpose CSR, which the bucket
+    step does not read (as the JAX trainer drops its raw edges,
+    ``trainer.py:208-237``), and for serving, whose refresh aggregates
+    through them as the JAX engine does (``serve/engine.py:220-231``);
+    the destination CSR stays for the CSR paths that share ``forward``;
+  - with ``block`` (``--spmm-impl block``) it stages the block tables
+    (``ops.block_spmm``: the A blocks, the dense pair lists, or at
     ``--block-group > 1`` the per-group unions, and the remainder's bucket
-    tables) in place of the transpose CSR, likewise;
+    tables) likewise; :func:`table_spmm` is the aggregation over either,
+    the trainer's and the serving engine's;
   - the host-built tables go into a dict the caller may keep (the
     trainer's, for the integrity plane's rebuild, as the JAX trainer's
     ``_cached_tables`` keeps them beside a saved artifact), and every
@@ -39,9 +42,10 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops.block_spmm import (BlockTables, build_sharded_block_tables,
-                              stage_block_tables)
-from ..ops.bucket_spmm import (BucketTables, build_sharded_bucket_tables,
+from ..ops.block_spmm import (BlockTables, block_spmm,
+                              build_sharded_block_tables, stage_block_tables)
+from ..ops.bucket_spmm import (BucketTables, bucket_spmm,
+                               build_sharded_bucket_tables,
                                stage_bucket_tables)
 from ..ops.spmm import csr_indptr, csr_transpose, spmm_mean
 from ..partition.halo import ShardedGraph
@@ -70,6 +74,7 @@ class StagedGraph:
     dst_t: Optional[torch.Tensor] = None       # [P, e_max] int32
     send_ptr: Optional[torch.Tensor] = None    # [P, n_max + 1] int32
     send_slot: Optional[torch.Tensor] = None   # [P, nnz] int32
+    # the aggregation's tables (training and serving), when staged
     bucket: Optional[BucketTables] = None      # --spmm-impl bucket
     bucket_build_s: float = 0.0                # host seconds, its tables
     block: Optional[BlockTables] = None        # --spmm-impl block
@@ -108,52 +113,53 @@ def stage(sg: ShardedGraph, device: torch.device,
           bucket_merge: Optional[int] = None,
           block: Optional[Tuple[int, int, Optional[int], int]] = None,
           tables: Optional[dict] = None) -> StagedGraph:
-    """Copy the arrays the serving path reads to ``device``; with
-    ``training`` also the labels, masks and the two host-built inverses
-    the training step reads (``Trainer._put_data``), or, given
-    ``bucket_merge`` (the ladder's ``min_width``), the bucket tables in
-    place of the transpose CSR, or, given ``block`` ``(tile, n_feat_hint,
-    nnz_threshold, group)``, the block tables in its place. ``tables``, a
+    """Copy the arrays the serving path reads to ``device``; given
+    ``bucket_merge`` (the ladder's ``min_width``) also the bucket tables,
+    or, given ``block`` ``(tile, n_feat_hint, nnz_threshold, group)``, the
+    block tables (:func:`aggregation_tables` gives both from a config);
+    with ``training`` also the labels, masks and the host-built inverses
+    the training step reads (``Trainer._put_data``): the inverse send CSR
+    and, without bucket or block tables, the transpose CSR. ``tables``, a
     dict the caller keeps, holds the host-built tables (the transpose CSR,
     the bucket or block tables) by kind: read when it has them, filled
     when not, so the caller's next staging of the same artifact (the
-    trainer's rebuild) copies them again instead of building them."""
+    trainer's rebuild, a serving engine beside a trainer) copies them
+    again instead of building them."""
     extra = {}
+    cache = {} if tables is None else tables
+    if training and sg.multilabel:
+        raise NotImplementedError(
+            "multilabel training (BCE) waits for ROADMAP A5")
+    n_src = sg.n_max + sg.halo_size
+    if block is not None:
+        t0 = time.perf_counter()
+        tile, hint, nnz, group = block
+        if ("block", block) not in cache:
+            bstats: dict = {}
+            cache[("block", block)] = (build_sharded_block_tables(
+                sg, tile=tile, n_feat_hint=hint, nnz_threshold=nnz,
+                group=group, stats=bstats)[0], bstats)
+        btab, bstats = cache[("block", block)]
+        extra["block"] = stage_block_tables(btab, tile, sg.n_max, n_src,
+                                            device)
+        extra["block_build_s"] = time.perf_counter() - t0
+        extra["block_stats"] = bstats
+    elif bucket_merge is not None:
+        t0 = time.perf_counter()
+        if ("bucket", bucket_merge) not in cache:
+            cache[("bucket", bucket_merge)] = build_sharded_bucket_tables(
+                sg, min_width=bucket_merge)
+        extra["bucket"] = stage_bucket_tables(
+            cache[("bucket", bucket_merge)], sg.n_max, n_src, device)
+        extra["bucket_build_s"] = time.perf_counter() - t0
     if training:
-        cache = {} if tables is None else tables
-        if sg.multilabel:
-            raise NotImplementedError(
-                "multilabel training (BCE) waits for ROADMAP A5")
-        n_src = sg.n_max + sg.halo_size
-        if block is not None:
-            t0 = time.perf_counter()
-            tile, hint, nnz, group = block
-            if ("block", block) not in cache:
-                bstats: dict = {}
-                cache[("block", block)] = (build_sharded_block_tables(
-                    sg, tile=tile, n_feat_hint=hint, nnz_threshold=nnz,
-                    group=group, stats=bstats)[0], bstats)
-            btab, bstats = cache[("block", block)]
-            extra["block"] = stage_block_tables(btab, tile, sg.n_max, n_src,
-                                                device)
-            extra["block_build_s"] = time.perf_counter() - t0
-            extra["block_stats"] = bstats
-            indptr_t = dst_t = None
-        elif bucket_merge is None:
+        indptr_t = dst_t = None
+        if block is None and bucket_merge is None:
             if "transpose" not in cache:
                 cache["transpose"] = csr_transpose(sg.edge_src, sg.edge_dst,
                                                    sg.n_max, n_src)
             indptr_t, dst_t = (torch.from_numpy(a).to(device, copy=True)
                                for a in cache["transpose"])
-        else:
-            t0 = time.perf_counter()
-            if ("bucket", bucket_merge) not in cache:
-                cache[("bucket", bucket_merge)] = build_sharded_bucket_tables(
-                    sg, min_width=bucket_merge)
-            extra["bucket"] = stage_bucket_tables(
-                cache[("bucket", bucket_merge)], sg.n_max, n_src, device)
-            extra["bucket_build_s"] = time.perf_counter() - t0
-            indptr_t = dst_t = None
         send_ptr, send_slot = send_csr(sg.send_idx, sg.send_mask, sg.n_max)
         row_mask = (np.arange(sg.n_max)[None, :]
                     < np.asarray(sg.inner_count)[:, None])
@@ -178,6 +184,59 @@ def stage(sg: ShardedGraph, device: torch.device,
         send_mask=_put(sg.send_mask, np.bool_, device),
         **extra,
     )
+
+
+def aggregation_tables(cfg) -> dict:
+    """The :func:`stage` keywords of ``cfg``'s (a ``ModelConfig``)
+    aggregation: ``bucket_merge`` under ``spmm_impl="bucket"``, ``block``
+    under ``"block"`` (the width hint: the widest graph layer's input, JAX
+    ``_use_block``; every layer of the port is a graph layer), none
+    otherwise and for GAT (its attention aggregates by CSR on every
+    impl)."""
+    if cfg.model == "gat":
+        return {}
+    if cfg.spmm_impl == "bucket":
+        return {"bucket_merge": cfg.bucket_merge}
+    if cfg.spmm_impl == "block":
+        return {"block": (cfg.block_tile, max(cfg.layer_sizes[:cfg.n_layers]),
+                          cfg.block_nnz, cfg.block_group)}
+    return {}
+
+
+def table_spmm(data: StagedGraph, cfg, transport: bool = False,
+               plain: bool = False, share=None
+               ) -> Optional[Callable[..., torch.Tensor]]:
+    """The partitioned aggregation ``(fbuf, indptr, src, in_deg) -> mean``
+    through ``data``'s bucket or block tables, as ``cfg`` picks them (JAX
+    ``make_device_spmm_closure``): the block tables (K12, or K16 at
+    ``block_group > 1``, plus K9 on the remainder) or the bucket tables
+    (K9), with the gather transport (``cfg.rem_dtype``, ``cfg.rem_amax``,
+    values shared through ``share``) unless ``transport`` is False;
+    ``plain`` runs the plain versions. None where ``cfg`` aggregates by
+    CSR (xla, GAT). Raises when ``data`` lacks the tables ``cfg`` names."""
+    kw = aggregation_tables(cfg)
+    if not kw:
+        return None
+    tabs = data.block if "block" in kw else data.bucket
+    if tabs is None:
+        raise ValueError(
+            f"spmm_impl={cfg.spmm_impl!r} aggregates through the "
+            f"{cfg.spmm_impl} tables, which this staged graph lacks: "
+            "stage(..., **aggregation_tables(cfg))")
+    if "block" in kw and (tabs.tile, tabs.group) != (cfg.block_tile,
+                                                     cfg.block_group):
+        raise ValueError(
+            f"the staged block tables have tile {tabs.tile} and group "
+            f"{tabs.group}; the config asks for {cfg.block_tile} and "
+            f"{cfg.block_group}")
+    agg = block_spmm if "block" in kw else bucket_spmm
+    rem_dtype = cfg.rem_dtype if transport else None
+    rem_amax = cfg.rem_amax and transport
+    share = share if transport else None
+
+    def spmm_fn(fbuf, indptr, src, in_deg):
+        return agg(fbuf, tabs, in_deg, rem_dtype, rem_amax, plain, share)
+    return spmm_fn
 
 
 def precompute_pp(

@@ -96,8 +96,7 @@ import torch
 
 from ..graph.csr import Graph
 from ..models.sage import ModelConfig, Params, forward, init_params
-from ..ops.block_spmm import block_spmm
-from ..ops.bucket_spmm import TransportShare, bucket_spmm
+from ..ops.bucket_spmm import TransportShare
 from ..ops.gat import gat_attention, gat_attention_plain
 from ..ops.spmm import spmm_mean, spmm_mean_plain
 from ..ops.digest import flip_bit_
@@ -109,7 +108,7 @@ from ..train.optim import adam_init, adam_update
 from ..tree import tree_leaves, tree_map, tree_numpy
 from .halo import (KERNELS, PLAIN, exchange_blocks, halo_exchange,
                    halo_transport_dtypes, make_stale_concat)
-from .staging import precompute_pp, stage
+from .staging import aggregation_tables, precompute_pp, stage, table_spmm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -242,16 +241,9 @@ class Trainer:
         bucket or block tables) and the step's features (``feat``: the
         use_pp concat, in the compute dtype) from the host artifact."""
         cfg = self.cfg
-        # the block tables' width hint: the widest graph layer input (JAX
-        # _use_block; every layer of the port is a graph layer)
-        w_hint = max(cfg.layer_sizes[:cfg.n_layers])
         self.data = stage(self.sg, self.device, training=True,
-                          bucket_merge=cfg.bucket_merge if self.bucket
-                          else None,
-                          block=(cfg.block_tile, w_hint, cfg.block_nnz,
-                                 cfg.block_group)
-                          if self.block else None,
-                          tables=self._host_tables)
+                          tables=self._host_tables,
+                          **aggregation_tables(cfg))
         if cfg.use_pp:
             self.feat = precompute_pp(
                 self.data,
@@ -286,25 +278,15 @@ class Trainer:
     def _step_spmm(self, transport: bool):
         """The partitioned aggregation ``(fbuf, indptr, src, in_deg) ->
         mean``: the block or bucket tables (with the gather transport
-        unless ``transport`` is False) or the part's CSRs."""
-        d, cfg = self.data, self.cfg
-        if self.block:
-            def spmm_fn(fbuf, indptr, src, in_deg):
-                return block_spmm(
-                    fbuf, d.block, in_deg,
-                    cfg.rem_dtype if transport else None,
-                    cfg.rem_amax and transport, self.plain,
-                    self.share if transport else None)
-        elif self.bucket:
-            def spmm_fn(fbuf, indptr, src, in_deg):
-                return bucket_spmm(
-                    fbuf, d.bucket, in_deg,
-                    cfg.rem_dtype if transport else None,
-                    cfg.rem_amax and transport, self.plain,
-                    self.share if transport else None)
-        else:
-            def spmm_fn(fbuf, indptr, src, in_deg):
-                return self._spmm(fbuf, indptr, src, in_deg, d.transpose)
+        unless ``transport`` is False; ``staging.table_spmm``) or the
+        part's CSRs."""
+        d = self.data
+        fn = table_spmm(d, self.cfg, transport, self.plain, self.share)
+        if fn is not None:
+            return fn
+
+        def spmm_fn(fbuf, indptr, src, in_deg):
+            return self._spmm(fbuf, indptr, src, in_deg, d.transpose)
         return spmm_fn
 
     def est_halo_bytes_per_epoch(self, compressed: bool = True) -> int:

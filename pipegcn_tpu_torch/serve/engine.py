@@ -6,8 +6,16 @@ the layer-0 halo cache, the owner-gather query and the freshness path:
 
 The JAX engine runs one shard per device under ``shard_map``; here the P
 parts are stacked on one card (``parallel/staging.py``), the ring
-exchange is kernel K2 and the dirty-row exchange kernel K18. State owned
-by the engine:
+exchange is kernel K2 and the dirty-row exchange kernel K18. The refresh
+and the use_pp precompute aggregate as the JAX engine does, through the
+trainer's aggregation with the gather transport off
+(``make_device_spmm_closure(transport=False)``, ``staging.table_spmm``):
+K1 over the CSR under ``spmm_impl="xla"``, K9 over the bucket tables
+under ``"bucket"``, K12 (K16 at ``block_group > 1``) over the dense tiles
+plus K9 over the remainder under ``"block"``. The staged graph carries
+the tables: :meth:`ServingEngine.build` stages them from the artifact,
+or the caller hands in a trainer's staged data. State owned by the
+engine:
 
   _feat   [P, n_max, F]     the model input: the use_pp concat
                             ``[feat, mean_neigh]``, else a private copy
@@ -43,8 +51,10 @@ import numpy as np
 import torch
 
 from ..models.sage import ModelConfig, Params, forward
+from ..ops.spmm import spmm_mean
 from ..parallel.halo import exchange_blocks, halo_exchange
-from ..parallel.staging import StagedGraph, precompute_pp
+from ..parallel.staging import (StagedGraph, aggregation_tables,
+                                precompute_pp, stage, table_spmm)
 from ..partition.halo import ShardedGraph
 from .batcher import MicroBatcher, ServingStats, bucket_ladder
 from .cache import Layer0Cache
@@ -57,6 +67,10 @@ class ServingEngine:
     def __init__(self, sg: ShardedGraph, data: StagedGraph,
                  cfg: ModelConfig, params: Params, *, max_batch: int = 64,
                  ladder_min: int = 8, integrity_check_every: int = 0):
+        if cfg.spmm_impl == "auto":
+            raise NotImplementedError(
+                "serving spmm_impl='auto' (the measured tuner) waits for "
+                "ROADMAP A6; pass xla, bucket or block")
         if cfg.model not in ("graphsage", "gcn"):
             raise NotImplementedError(
                 f"serving {cfg.model} waits for ROADMAP A5 (the engine "
@@ -67,6 +81,9 @@ class ServingEngine:
                 "ROADMAP A5 (the engine serves float32)")
         self.cfg = cfg
         self.data = data
+        # the refresh's aggregation: the tables of cfg.spmm_impl with the
+        # transport off (raises when data lacks them), else K1
+        self._spmm = table_spmm(data, cfg) or spmm_mean
         self.device = data.device
         self.P = data.num_parts
         self.n_max = data.n_max
@@ -104,7 +121,7 @@ class ServingEngine:
 
         # ---------------- device state --------------------------------
         if cfg.use_pp:
-            self._feat = precompute_pp(data)
+            self._feat = precompute_pp(data, spmm_fn=self._spmm)
             self._halo0 = None
         else:
             # private copy: updates patch it in place, and the staged
@@ -112,6 +129,17 @@ class ServingEngine:
             self._feat = data.feat.clone()
             # the layer-0 halo cache starts fully fresh
             self._halo0 = self.full_boundary_exchange()
+
+    @classmethod
+    def build(cls, sg: ShardedGraph, cfg: ModelConfig, params: Params,
+              device: torch.device, tables: Optional[dict] = None,
+              **kw) -> "ServingEngine":
+        """Stage ``sg`` on ``device`` with the tables ``cfg``'s aggregation
+        reads (the bucket or block tables; no training arrays) and build
+        the engine over it. ``tables`` caches the host-built tables as
+        ``staging.stage`` does; ``kw`` goes to the constructor."""
+        return cls(sg, stage(sg, device, tables=tables,
+                             **aggregation_tables(cfg)), cfg, params, **kw)
 
     # ---------------- params / warmup ---------------------------------
 
@@ -258,7 +286,8 @@ class ServingEngine:
         with torch.inference_mode():
             self._logits = forward(self._params, self.cfg, self._feat,
                                    d.indptr, d.edge_src, d.in_deg,
-                                   comm_update=self._comm_update)
+                                   comm_update=self._comm_update,
+                                   spmm_fn=self._spmm)
         self._feat_lag = self._halo_lag
 
     @property

@@ -1,6 +1,7 @@
 """Time K12 / K13 (the tile products, f32 rows and the bf16 mode), K16 (the
-union-gather forward, both modes) and K11 (the per-part amax, plain and
-``deg`` forms) of the port in one checkout, on the card:
+union-gather forward, both modes), K11 (the per-part amax, plain and
+``deg`` forms) and K5 (the reverse-ring return, one call and 20 back to
+back) of the port in one checkout, on the card:
 
     python3 pipegcn_tpu_torch/tools/time_tile_products.py <checkout> <label>
 
@@ -12,7 +13,13 @@ tiles present with probability 0.66 (the pad otherwise; the wire cell
 runs 11,311 products over 4,279 slots, 2.64 a slot). K11: the bucket
 cell's activations [2, n_max + H, 256] (plain form) and cotangents [2,
 n_max, 256] with a random in-degree (``deg`` form), beside
-``torch.linalg.vector_norm(ord=inf)`` over the same activations.
+``torch.linalg.vector_norm(ord=inf)`` over the same activations. K5: the
+SAGE cell's return, the halo rows of a [2, n_max + H, 256] f32 cotangent
+(a strided view), beside ``index_select`` of the same rows and a
+``copy_`` of the same blocks, from the strided view and from a
+contiguous copy (the card's copy floor), one call per event
+pair and 20 calls back to back (the card's time a call, without the
+wrapper's host work).
 
 Prints one JSON line of medians (ms). To compare two commits, unpack the
 other one (``git archive``) into a git-ignored directory and run the two
@@ -28,10 +35,12 @@ sys.path.insert(0, root)
 from pipegcn_tpu_torch.ops import _build  # noqa: E402
 from pipegcn_tpu_torch.ops import block_spmm as blk  # noqa: E402
 from pipegcn_tpu_torch.ops import bucket_spmm as bs  # noqa: E402
+from pipegcn_tpu_torch.parallel import halo  # noqa: E402
 
 # the checkout's kernels, built together (a parent checkout may lack a
 # source this one has)
-_build.build([n for n in ("block_spmm", "block_tma", "transport_cast")
+_build.build([n for n in ("block_spmm", "block_tma", "transport_cast",
+                          "halo_gather")
               if (_build.CSRC / f"{n}.cu").exists()])
 torch.manual_seed(0)
 P, T, F, G = 2, 256, 256, 4
@@ -118,4 +127,30 @@ out["K11"] = time_ms(lambda: bs.part_amax(act))
 out["K11 deg"] = time_ms(lambda: bs.part_amax(cot, deg))
 out["K11 library vector_norm"] = time_ms(lambda: torch.linalg.vector_norm(
     act, ord=float("inf"), dim=(1, 2)))
+del act, cot, deg
+
+
+def batched_ms(fn, calls=20):
+    def run():
+        for _ in range(calls):
+            fn()
+    return time_ms(run, reps=10, warmup=1) / calls
+
+
+full = torch.randn((P, n_out + n_out, F), device="cuda")
+gh = full[:, n_out:]  # H = n_max at P = 2: one block a part
+ridx = ((torch.arange(P, device="cuda")[:, None] + 1) % P * n_out
+        + torch.arange(n_out, device="cuda")[None, :]).reshape(-1)
+ghc = gh.contiguous().reshape(P * n_out, F)
+dst = torch.empty((P, n_out, F), device="cuda")
+out["K5"] = time_ms(lambda: halo.return_blocks(gh, n_out))
+out["K5 batched"] = batched_ms(lambda: halo.return_blocks(gh, n_out))
+out["K5 library index_select"] = time_ms(lambda: ghc.index_select(0, ridx))
+out["K5 library index_select batched"] = batched_ms(
+    lambda: ghc.index_select(0, ridx))
+out["K5 copy_ floor"] = time_ms(lambda: dst.copy_(gh))
+out["K5 copy_ floor batched"] = batched_ms(lambda: dst.copy_(gh))
+ghv = ghc.view(P, n_out, F)
+out["K5 copy_ contiguous"] = time_ms(lambda: dst.copy_(ghv))
+out["K5 copy_ contiguous batched"] = batched_ms(lambda: dst.copy_(ghv))
 print(json.dumps(out))

@@ -165,6 +165,50 @@ def test_return_blocks_bit_exact(P):
     assert torch.equal(return_blocks(full[:, 3:], B), torch.from_numpy(got))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("F", [41, 602])
+@pytest.mark.parametrize("P", [2, 3, 4])
+def test_return_blocks_plain_matches_jax(P, F, dtype):
+    """K5's plain version, which the card holds the kernel to bit for bit,
+    against JAX's return_blocks under shard_map: P = 2, 3, 4 (blocks from
+    different senders), F = 41 / 602 (rows of no 16-byte multiple), f32
+    and bf16 rows with NaN and -0.0 payloads, a strided view (the halo
+    rows of a [P, n_max + H, F] cotangent, 3 inner rows)."""
+    from pipegcn_tpu.parallel.halo import return_blocks as jax_return
+    from pipegcn_tpu_torch.parallel.halo import return_blocks_plain
+
+    B = 6
+    rng = np.random.default_rng(P * 1000 + F)
+    g = rng.standard_normal((P, 3 + (P - 1) * B, F)).astype(np.float32)
+    g[0, 3, 0], g[P - 1, 4, 1] = np.nan, -0.0
+    if dtype == "bfloat16":  # bf16 bits: the top half of each f32
+        bits = (g.view(np.uint32) >> 16).astype(np.uint16)
+        tg = torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16)
+        jg = jnp.asarray(bits).view(jnp.bfloat16)
+    else:
+        bits, tg, jg = g.view(np.uint32), torch.from_numpy(g), jnp.asarray(g)
+    mesh = Mesh(np.array(jax.devices()[:P]), ("parts",))
+    spec = PartitionSpec("parts")
+    run = jax.jit(jax.shard_map(
+        lambda x: jax_return(x[0, 3:], "parts", P, B)[None], mesh=mesh,
+        in_specs=(spec,), out_specs=spec))
+    want = np.asarray(run(jg).view(
+        jnp.uint16 if dtype == "bfloat16" else jnp.uint32))
+    view = tg[:, 3:]
+    assert not view.is_contiguous()
+    got = return_blocks_plain(view, B)
+    assert got.dtype == tg.dtype and got.shape == (P, (P - 1) * B, F)
+    got_bits = got.view(torch.int16 if dtype == "bfloat16"
+                        else torch.int32).numpy().view(want.dtype)
+    np.testing.assert_array_equal(got_bits, want)
+    # the per-receiver blocks come from the senders the ring names
+    for r in range(P):
+        for d in range(1, P):
+            np.testing.assert_array_equal(
+                got_bits[r, (d - 1) * B:d * B],
+                bits[(r + d) % P, 3 + (d - 1) * B:3 + d * B])
+
+
 @pytest.mark.parametrize("P", [2, 4])
 def test_send_csr_inverts_the_send_lists(P):
     h, idx, mask = _repeat_case(P, n_max=30, B=12, F=2, seed=P)
