@@ -44,10 +44,15 @@ stack (union-gather block tiles and the fp8 halo wire at bf16):
      finite, that both kernels were launched on that run, and that the
      served logits match a recompute through the plain versions;
   4. holds K1 (f32 and bf16) and K2 (bit-exact) against their plain
-     versions at the main path's shapes and on edge cases;
+     versions at the main path's shapes and on edge cases; K1 at its slice
+     rule's plan (``ops/spmm.py k1_plan``) and at forced slice plans
+     bit-identical to K1 at one slice (S = 1, the whole-row kernel), each
+     rerun bit-identical (edge cases: F = 1 to 602, empty rows, the
+     5,000-edge row, pad edges, out-of-range indices, int64 row pointers);
   5. times K1 and K2 (CUDA events, median), their plain versions and one
      PyTorch library call computing the same function, beside the least
-     time the card could take (``bound_ms``), and times the refresh;
+     time the card could take (``bound_ms``), K1 also at S = 1 and at the
+     pp precompute's F = 602 beside cuSPARSE, and times the refresh;
  5a. serving freshness, ``bench.py --serve``'s configuration on the same
      parts (use_pp off, 100 qps, refresh and 32-row feature churn every
      0.5 s) through the serve CLI's functions: 5 s without churn, 10 s
@@ -74,7 +79,9 @@ stack (union-gather block tiles and the fp8 halo wire at bf16):
      state and dropout seed (bit-identical: no kernel uses atomics), and
      holds it against the same epoch through the plain versions on the
      kernel run's relu masks (flips counted);
-  8. holds K3, K4 and K5 against their plain versions at the cell's shapes
+  8. holds K1 at the cell's shape (f32 and bf16 rows) bit-identical to
+     S = 1, at the rule's plan and at forced slice plans; holds K3, K4
+     and K5 against their plain versions at the cell's shapes
      and on edge cases (K5: P = 2, 3 and 4, F = 3 to 602, f32 and bf16
      rows, strided views whose part stride is no multiple of 16 bytes, H
      = 0; one block from the wrong sender must fail); K4 in bf16
@@ -93,9 +100,12 @@ stack (union-gather block tiles and the fp8 halo wire at bf16):
      logits layer's 41) and on edge cases (empty rows, a 5,000-edge row,
      dh = 5 with H = 8, unaligned rows; f32 also H = 1, equal logits,
      int64 row pointers, junk past the CSRs' ends), each rerun
-     bit-identical; a planted fault (one edge of the 5,000-edge row
-     dropped) must fail each check in each row type;
- 13. times K6 and K8 in each row type, the GAT epoch and its split;
+     bit-identical (K6's NEG mode: m and s bit-identical to its eval
+     mode's, whose out is held to the plain version on its own); a
+     planted fault (one edge of the 5,000-edge row dropped) must fail
+     each check in each row type;
+ 13. times K6 (NEG and eval modes) and K8 in each row type at dh = 64
+     and 41, the GAT epoch and its split;
  14. runs a few pipelined GCN epochs and holds one against the plain
      versions;
  15. trains the bucket cell (``--spmm-impl bucket --rem-dtype float8``),
@@ -202,9 +212,10 @@ stack (union-gather block tiles and the fp8 halo wire at bf16):
      each cell, the nvidia-smi line, and last ``{"ok": true, "device":
      {...}}``. With ``--parent DIR`` (a parent commit unpacked with ``git
      archive``) it first times K5, K11, K12 and K16 of DIR against this
-     checkout's with ``pipegcn_tpu_torch/tools/time_tile_products.py`` in
-     turns (parent, this, this, parent; each its own process) and carries
-     both in those kernels' ``parent_ab``.
+     checkout's with ``pipegcn_tpu_torch/tools/time_tile_products.py``
+     and K1, K3, K6 and K8 with ``tools/time_gather_kernels.py``, in
+     turns (parent, this, this, parent; each tool its own process) and
+     carries both in those kernels' ``parent_ab``.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when the
 package is missing (the script alone), or when any phase fails.
@@ -255,18 +266,23 @@ K4_ATOL, K4_RTOL = 1e-6, 1e-6
 STEP_LOSS_RTOL = 1e-5
 STEP_REL_TOL = 1e-4
 RELU_FLIP_FRAC = 1e-4
-# K6 and K8 against their plain versions: both compute every term the
-# same way (the leaky logit, expf, the weight times the row value rounded
-# before the add) and differ in summation order (the kernels per row in
-# edge order, the plain versions by index_add_ atomics), and K8 contracts
-# the weighted row sum with the row's own z after the edge loop instead
-# of per edge (the same terms regrouped). So the bound adds a multiple of
-# the sum of the terms' magnitudes (the plain pass on |z|, |g| and -|rho|
-# gives it). The row max m is a max of identically computed values:
-# bit-exact. The GAT step shares the kernel run's leaky branches with the
-# plain run as it shares the relu masks: a logit within rounding of 0
-# switches leaky' between 1 and the slope, a jump no rounding tolerance
-# bounds; such flips are counted.
+# K6 and K8 against their plain versions: both compute every logit and
+# weight the same way (the leaky logit, expf) and differ in summation
+# order (the kernels per row in edge order, the plain versions by
+# index_add_ atomics). K8 rounds each weight times row value before the
+# add, as the plain version does, and contracts the weighted row sum with
+# the row's own z after the edge loop instead of per edge (the same terms
+# regrouped). K6 fuses each product into its add (an FMA: the term is not
+# rounded on its own, a difference of at most half an ulp of the term),
+# and in its NEG mode (but on f32 rows whose chunks straddle two heads)
+# sums each leaky branch apart and adds the two sums at the end (out =
+# (pos + neg) / s: the same terms regrouped). So the bound adds a
+# multiple of the sum of the terms' magnitudes (the plain pass on |z|,
+# |g| and -|rho| gives it), which covers both. The row max m is a max of
+# identically computed values: bit-exact. The GAT step shares the kernel
+# run's leaky branches with the plain run as it shares the relu masks: a
+# logit within rounding of 0 switches leaky' between 1 and the slope, a
+# jump no rounding tolerance bounds; such flips are counted.
 GAT_ATOL, GAT_RTOL = 1e-5, 1e-5
 LEAKY_FLIP_FRAC = 1e-4
 # The sum term of a row of n terms is gamma_n = max(SUM_RTOL, GAT_SUM_C
@@ -498,6 +514,32 @@ def serve_phase(args, g, spmm, halo, kernels_built):
 # phase 4: kernels against their plain versions
 
 
+def k1_slices(name, spmm, fb, args, plans=()):
+    """K1 at the slice rule's plan (``spmm.k1_plan``; the wrapper's
+    launch) and at each of ``plans`` against K1 at S = 1 (the whole-row
+    kernel, one slice: the summation order of the design before the
+    slices), bit for bit, each rerun bit-identical. Returns the rule's
+    plan."""
+    import torch
+
+    F = fb.shape[-1]
+    rule = spmm.k1_plan(fb.shape[-2], F, fb.element_size(),
+                        spmm._l2_bytes(fb.device), fb.data_ptr())
+    whole = spmm.k1_launch(fb, *args, plan=(F, 0))
+    for plan in (None, *plans):
+        got = spmm.k1_launch(fb, *args, plan=plan)
+        W, vec = rule if plan is None else plan
+        label = (f"W={W} vec={vec} (S={-(-F // W)}"
+                 f"{', the rule' if plan is None else ''})")
+        require(torch.equal(got, whole), f"{name}: K1 at {label} is not "
+                "bit-identical to K1 at S = 1")
+        require(torch.equal(spmm.k1_launch(fb, *args, plan=plan), got),
+                f"{name}: K1 at {label}: a rerun is not bit-identical")
+        log(f"  {name}: K1 at {label} bit-identical to S = 1, rerun "
+            "bit-identical ok")
+    return rule
+
+
 def k1_phase(engine, spmm, halo):
     import torch
 
@@ -517,6 +559,7 @@ def k1_phase(engine, spmm, halo):
         errs.append(check_close(name, spmm.spmm_mean(fb, *args),
                                 spmm.spmm_mean_plain(fb, *args),
                                 K1_ATOL, K1_RTOL))
+        k1_slices(name, spmm, fb, args)
 
     # edge cases: empty rows, a ~5000-degree row, pad edges at the
     # sentinel (junk src past indptr[n_out] must not be read), in_deg = 1
@@ -536,25 +579,53 @@ def k1_phase(engine, spmm, halo):
     indptr = torch.from_numpy(spmm.csr_indptr(edge_dst, n_out)).cuda()
     src = torch.from_numpy(src_np.astype(np.int32)).cuda()
     in_deg = torch.from_numpy(np.maximum(deg, 1).astype(np.float32)).cuda()
-    for F in (1, 3, 16, 602):
+    # the table is small here, so the rule keeps one slice: the sliced
+    # kernel runs at forced plans (slices of 8 to 64 columns, loads of 1
+    # to 8 elements, groups of 8 to 32 lanes, a last slice cut by F)
+    sliced = {torch.float32: ((8, 1), (16, 2), (32, 1), (32, 4), (64, 2)),
+              torch.bfloat16: ((8, 1), (16, 2), (32, 1), (64, 8),
+                               (64, 2))}
+    empty = torch.from_numpy(deg == 0).cuda()
+    for F in (1, 3, 16, 41, 256, 602):
         for dt in (torch.float32, torch.bfloat16):
             fb = torch.randn((n_src, F), generator=gen, device="cuda").to(dt)
             got = spmm.spmm_mean(fb, indptr, src, in_deg)
             ref = spmm.spmm_mean_plain(fb, indptr, src, in_deg)
             errs.append(check_close(f"K1 edge cases {dt} F={F}", got, ref,
                                     K1_ATOL, K1_RTOL))
-            empty = torch.from_numpy(deg == 0).cuda()
             require(bool((got[empty] == 0).all()),
                     "K1: empty rows must be exactly zero")
+            plans = [p for p in sliced[dt] if p[0] < F and F % p[1] == 0]
+            k1_slices(f"K1 edge cases {dt} F={F}", spmm, fb,
+                      (indptr, src, in_deg), plans)
+            for plan in plans:
+                require(bool((spmm.k1_launch(fb, indptr, src, in_deg,
+                                             plan=plan)[empty] == 0).all()),
+                        f"K1 at {plan}: empty rows must be exactly zero")
     junk = src.clone()
     junk[dst.size:] = 123  # pad edges past indptr[n_out]
     fb = torch.randn((n_src, 16), generator=gen, device="cuda")
-    require(torch.equal(spmm.spmm_mean(fb, indptr, junk, in_deg),
-                        spmm.spmm_mean(fb, indptr, src, in_deg)),
-            "K1 read a pad edge past indptr[n_out]")
+    for plan in (None, (8, 1)):
+        require(torch.equal(
+            spmm.k1_launch(fb, indptr, junk, in_deg, plan=plan),
+            spmm.k1_launch(fb, indptr, src, in_deg, plan=plan)),
+            f"K1 at {plan or 'the rule'} read a pad edge past indptr[n_out]")
     errs.append(check_close("K1 int64 indptr", spmm.spmm_mean(
         fb, indptr.long(), src, in_deg), spmm.spmm_mean_plain(
         fb, indptr, src, in_deg), K1_ATOL, K1_RTOL))
+    k1_slices("K1 int64 indptr", spmm, fb, (indptr.long(), src, in_deg),
+              ((8, 1),))
+    # junk indices clamped into range: the same as their clamped values
+    wild = src.clone()
+    wild[:dst.size:5] = -7
+    wild[1:dst.size:5] = n_src + 11
+    clamped = wild.clamp(0, n_src - 1)
+    for plan in (None, (8, 1)):
+        require(torch.equal(
+            spmm.k1_launch(fb, indptr, wild, in_deg, plan=plan),
+            spmm.k1_launch(fb, indptr, clamped, in_deg, plan=plan)),
+            f"K1 at {plan or 'the rule'}: out-of-range indices are not "
+            "clamped")
     return max(errs)
 
 
@@ -595,26 +666,21 @@ def k2_phase(engine, halo):
 # phase 5: timings
 
 
-def k1_k2_timings(d, spmm, halo, with_inner, seed):
-    """K1 and K2 on staged data ``d`` (serving engine's or trainer's): ms,
-    plain ms, one library call's ms and the bound, at F = 256 f32. K2 with
-    the inner rows (serving, vanilla exchange) or without (the pipelined
-    epoch's fresh-halo blocks)."""
+def k1_timing(d, spmm, fbuf, edges, reps=20):
+    """K1 over ``fbuf`` [P, n_src, F] f32 on staged data ``d``: ms at the
+    slice rule's plan (the wrapper's launch) and at S = 1 (``whole_ms``:
+    the whole-row kernel), plain ms, one library call's ms and the
+    bound."""
     import torch
 
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    P, n_max, H = d.num_parts, d.n_max, d.halo_size
-    F = 256
-    h = torch.randn((P, n_max, F), generator=gen, device="cuda")
-    fbuf = halo.halo_exchange(h, d.send_idx, d.send_mask)
-    n_src = fbuf.shape[1]
+    P, n_src, F = fbuf.shape
+    n_max, n_edges = d.n_max, sum(edges)
     args = (d.indptr, d.edge_src, d.in_deg)
-    edges = [int(d.indptr[p, -1]) for p in range(P)]
-    n_edges = sum(edges)
-
-    # --- K1 ------------------------------------------------------------
-    k1_ms = time_ms(lambda: spmm.spmm_mean(fbuf, *args))
-    k1_plain = time_ms(lambda: spmm.spmm_mean_plain(fbuf, *args), reps=5)
+    ms = time_ms(lambda: spmm.spmm_mean(fbuf, *args), reps=reps)
+    whole = time_ms(lambda: spmm.k1_launch(fbuf, *args, plan=(F, 0)),
+                    reps=reps)
+    plain = time_ms(lambda: spmm.spmm_mean_plain(fbuf, *args), reps=3,
+                    warmup=1)
     # library yardstick: one cuSPARSE CSR SpMM over the block-diagonal
     # matrix of both parts, with values 1/in_deg[dst] (the mean)
     crow = torch.cat([d.indptr[0].long()] + [
@@ -628,12 +694,40 @@ def k1_k2_timings(d, spmm, halo, with_inner, seed):
         a = torch.sparse_csr_tensor(crow, col, 1.0 / deg,
                                     size=(P * n_max, P * n_src))
     dense = fbuf.reshape(P * n_src, F)
-    k1_lib = time_ms(lambda: torch.sparse.mm(a, dense))
+    lib = time_ms(lambda: torch.sparse.mm(a, dense), reps=reps)
     del a, crow, col, deg
-    k1_bytes = (fbuf.numel() * 4 + n_edges * 4 + d.indptr.numel()
-                * d.indptr.element_size() + d.in_deg.numel() * 4
-                + P * n_max * F * 4)
-    k1_ops = n_edges * F + P * n_max * F
+    n_bytes = (fbuf.numel() * 4 + n_edges * 4 + d.indptr.numel()
+               * d.indptr.element_size() + d.in_deg.numel() * 4
+               + P * n_max * F * 4)
+    plan = spmm.k1_plan(n_src, F, 4, spmm._l2_bytes(fbuf.device),
+                        fbuf.data_ptr())
+    log(f"  K1 F={F}: {ms:.3f} ms at W={plan[0]} vec={plan[1]} "
+        f"(S={-(-F // plan[0])}), {whole:.3f} at S = 1, cuSPARSE "
+        f"{lib:.3f}")
+    return dict(ms=ms, whole_ms=whole, plain_ms=plain, library_ms=lib,
+                plan=list(plan), bound=bound_ms(n_bytes,
+                                                 n_edges * F + P * n_max * F),
+                shape=f"P={P} n_src={n_src} n_out={n_max} F={F} "
+                      f"edges={n_edges} f32")
+
+
+def k1_k2_timings(d, spmm, halo, with_inner, seed):
+    """K1 (``k1_timing``) and K2 on staged data ``d`` (serving engine's or
+    trainer's): ms, plain ms, one library call's ms and the bound, at F =
+    256 f32. K2 with
+    the inner rows (serving, vanilla exchange) or without (the pipelined
+    epoch's fresh-halo blocks)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    P, n_max, H = d.num_parts, d.n_max, d.halo_size
+    F = 256
+    h = torch.randn((P, n_max, F), generator=gen, device="cuda")
+    fbuf = halo.halo_exchange(h, d.send_idx, d.send_mask)
+    edges = [int(d.indptr[p, -1]) for p in range(P)]
+
+    # --- K1 ------------------------------------------------------------
+    k1 = k1_timing(d, spmm, fbuf, edges)
     del fbuf
 
     # --- K2 ------------------------------------------------------------
@@ -667,10 +761,7 @@ def k1_k2_timings(d, spmm, halo, with_inner, seed):
     k2_bytes = (read_rows * F * 4 + d.send_idx.numel() * 4
                 + d.send_mask.numel() + P * n_out * F * 4)
     return {
-        "K1": dict(ms=k1_ms, plain_ms=k1_plain, library_ms=k1_lib,
-                   bound=bound_ms(k1_bytes, k1_ops),
-                   shape=f"P={P} n_src={n_src} n_out={n_max} F={F} "
-                         f"edges={n_edges} f32"),
+        "K1": k1,
         "K2": dict(ms=k2_ms, plain_ms=k2_plain, library_ms=k2_lib,
                    bound=bound_ms(k2_bytes, 0),
                    shape=f"P={P} n_max={n_max} H={H} F={F} "
@@ -682,10 +773,12 @@ def timings(engine, spmm, halo):
     """K1 and K2 at the serving shape, and at the pp precompute's."""
     d = engine.data
     t = k1_k2_timings(d, spmm, halo, with_inner=True, seed=5)
-    # the pp precompute shape (F = 602, once per engine) for the record
-    args = (d.indptr, d.edge_src, d.in_deg)
+    # the pp precompute's shape (F = 602: once per engine, and layer 0 of
+    # every use_pp-off refresh), K1 beside cuSPARSE and its bound
     fpp = halo.halo_exchange(d.feat, d.send_idx, d.send_mask)
-    pp = {"k1_pp_ms": time_ms(lambda: spmm.spmm_mean(fpp, *args), reps=5),
+    edges = [int(d.indptr[p, -1]) for p in range(d.num_parts)]
+    t["K1 F=602"] = k1_timing(d, spmm, fpp, edges, reps=7)
+    pp = {"k1_pp_ms": t["K1 F=602"]["ms"],
           "k2_pp_ms": time_ms(lambda: halo.halo_exchange(
               d.feat, d.send_idx, d.send_mask), reps=5)}
     return t, pp
@@ -1345,6 +1438,24 @@ def step_phase(trainer, epoch):
 # phase 8: K3, K4, K5 against their plain versions
 
 
+def k1_train_phase(trainer, spmm, halo):
+    """K1 at the training cell's shape (F = 256, f32 and bf16 rows): the
+    slice rule's plan and forced slice plans bit-identical to S = 1, each
+    rerun bit-identical."""
+    import torch
+
+    d = trainer.data
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    h = torch.randn((d.num_parts, d.n_max, 256), generator=gen,
+                    device="cuda")
+    fbuf = halo.halo_exchange(h, d.send_idx, d.send_mask)
+    args = (d.indptr, d.edge_src, d.in_deg)
+    k1_slices("K1 training f32 F=256", spmm, fbuf, args,
+              ((32, 1), (64, 2)))
+    k1_slices("K1 training bf16 F=256", spmm, fbuf.bfloat16(), args,
+              ((64, 2), (128, 4)))
+
+
 def k3_phase(trainer, spmm):
     import numpy as np
     import torch
@@ -1751,8 +1862,10 @@ def gat_check(name, gat, z, el, er, indptr, src, transpose, slope=0.2,
               seed=0, mode="f32"):
     """K6 (both modes) and K8 against their plain versions on one input
     (k6_checks, k8_checks), and pass A's d_er from K6's NEG outputs
-    against d_er from the plain version's; the NEG mode leaves out, m and
-    s bit for bit; each kernel rerun bit-identical. ``mode`` picks the row
+    against d_er from the plain version's; the NEG mode leaves m and s bit
+    for bit (its out may sum each leaky branch apart, so the eval mode's
+    out is held to the plain version on its own); each kernel rerun
+    bit-identical. ``mode`` picks the row
     types (``gat_modes``): z and the cotangent g are cast to them, and
     both sides read the same narrow rows (the plain versions widen them).
     Returns the largest error of each kernel (K6 including d_er)."""
@@ -1767,13 +1880,15 @@ def gat_check(name, gat, z, el, er, indptr, src, transpose, slope=0.2,
     deg = indptr.diff(dim=1)
     name = f"{name} [{mode}]"
     got = gat.gat_fwd(z, el, er, indptr, src, slope, neg=True)
-    require(all(torch.equal(a, b) for a, b in zip(
-        gat.gat_fwd(z, el, er, indptr, src, slope), got)),
-        f"K6 {name}: the NEG mode changes out, m or s")
+    ev = gat.gat_fwd(z, el, er, indptr, src, slope)
+    require(all(torch.equal(a, b) for a, b in zip(ev[1:], got[1:3])),
+            f"K6 {name}: the NEG mode changes m or s")
     ref = gat.gat_fwd_plain(z, el, er, indptr, src, slope, neg=True)
     abs_ref = gat.gat_fwd_plain(z.float().abs(), el, er, indptr, src,
                                 slope, neg=True)
-    e6 = k6_checks(name, got, ref, abs_ref, deg)
+    e6 = max(k6_checks(name, got, ref, abs_ref, deg), check_close(
+        f"K6 {name}: out (eval mode)", ev[0], ref[0], GAT_ATOL, GAT_RTOL,
+        abs_sum=abs_ref[0], sum_rtol=gat_gamma(deg)[..., None, None]))
     g = torch.randn((P, n, H, dh), generator=gen, device="cuda")
     rho = (g * ref[0]).sum(-1)
     d_er = gat.gat_d_er(g, rho, got[3], got[4], slope)
@@ -1793,8 +1908,10 @@ def gat_check(name, gat, z, el, er, indptr, src, transpose, slope=0.2,
                                          *abs_stats, it, dt, slope),
                    it.diff(dim=1), dh)
     again = (*gat.gat_fwd(z, el, er, indptr, src, slope, neg=True),
+             *gat.gat_fwd(z, el, er, indptr, src, slope),
              *gat.gat_bwd_src(z, el, er, *stats, it, dt, slope))
-    require(all(torch.equal(a, b) for a, b in zip(again, (*got, *d_src))),
+    require(all(torch.equal(a, b) for a, b in zip(again, (*got, *ev,
+                                                          *d_src))),
             f"K6/K8 {name}: a rerun is not bit-identical")
     return {"K6": e6, "K8": e8}
 
@@ -3714,14 +3831,20 @@ def k1_bf16_timing(trainer, spmm, halo):
     n_bytes = (fbuf.numel() * 2 + n_edges * 4 + d.indptr.numel()
                * d.indptr.element_size() + d.in_deg.numel() * 4
                + P * n_max * F * 4)
+    plan = spmm.k1_plan(fbuf.shape[1], F, 2, spmm._l2_bytes(fbuf.device),
+                        fbuf.data_ptr())
     out = dict(ms=time_ms(lambda: spmm.spmm_mean(fbuf, *args)),
+               whole_ms=time_ms(lambda: spmm.k1_launch(fbuf, *args,
+                                                       plan=(F, 0))),
+               plan=list(plan),
                plain_ms=time_ms(lambda: spmm.spmm_mean_plain(fbuf, *args),
                                 reps=3, warmup=1),
                library_ms=None,
                bound=bound_ms(n_bytes, n_edges * F + P * n_max * F),
                shape=f"P={P} n_out={n_max} n_src={fbuf.shape[1]} F={F} "
                      f"edges={n_edges} bf16 rows")
-    log(f"  K1 on bf16 rows: {out['ms']:.3f} ms (plain "
+    log(f"  K1 on bf16 rows: {out['ms']:.3f} ms at W={plan[0]} "
+        f"vec={plan[1]}, {out['whole_ms']:.3f} at S = 1 (plain "
         f"{out['plain_ms']:.3f}, bound {out['bound'][0]:.3f} "
         f"{out['bound'][1]})")
     return out
@@ -5307,6 +5430,8 @@ def kernel_entry(name, source, replaces, launches, err, t, serving=None):
              "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
              "bound_ms": bound, "bound_by": by,
              "library_ms": t["library_ms"], "shape": t["shape"]}
+    # K1: its time at S = 1 (the whole-row kernel) and the slice plan
+    entry.update({k: t[k] for k in ("whole_ms", "plan") if k in t})
     if serving is not None:
         t, n = serving
         entry["serving"] = {"launches": n, "ms": t["ms"],
@@ -5314,37 +5439,60 @@ def kernel_entry(name, source, replaces, launches, err, t, serving=None):
                             "bound_ms": t["bound"][0],
                             "bound_by": t["bound"][1],
                             "library_ms": t["library_ms"],
-                            "shape": t["shape"]}
+                            "shape": t["shape"],
+                            **{k: t[k] for k in ("whole_ms", "plan")
+                               if k in t}}
     return entry
 
 
 def parent_ab(parent):
     """K5 (one call and back to back), K11 (both forms), K12 and K16
     (both modes) of a parent checkout against this one's at
-    tools/time_tile_products.py's shapes, each run in its
-    own process (each checkout builds its own kernels), in turns: parent,
-    this, this, parent. Returns each key's two runs a side and their
-    means."""
-    tool = os.path.join(ROOT, "pipegcn_tpu_torch", "tools",
-                        "time_tile_products.py")
+    tools/time_tile_products.py's shapes, and K1 (F = 256 and 602 f32,
+    bf16 rows), K3, K6 (NEG and eval modes) and K8 (f32, bf16 and e4m3 z
+    rows) at tools/time_gather_kernels.py's, each tool run in its own
+    process (each checkout builds its own kernels, the parent's first, all
+    together), in turns: parent, this, this, parent. Returns each key's
+    two runs a side and their means."""
+    tools = [os.path.join(ROOT, "pipegcn_tpu_torch", "tools", t)
+             for t in ("time_tile_products.py", "time_gather_kernels.py")]
+    r = subprocess.run(
+        [sys.executable, "-c",
+         "import sys; sys.path.insert(0, sys.argv[1]); "
+         "from pipegcn_tpu_torch.ops import _build; "
+         "_build.build(n for n in sys.argv[2:] "
+         "if (_build.CSRC / f'{n}.cu').exists())",
+         parent, "block_spmm", "block_tma", "transport_cast", "halo_gather",
+         "spmm_mean", "gat_attn", "gat_attn_bf16", "gat_attn_fp8"],
+        capture_output=True, text=True, timeout=900)
+    require(r.returncode == 0, f"the parent's kernels did not build: "
+            f"{r.stderr[-3000:]}")
     runs = {"parent": [], "change": []}
     for label, root in (("parent", parent), ("change", ROOT),
                         ("change", ROOT), ("parent", parent)):
-        r = subprocess.run([sys.executable, tool, root, label],
-                           capture_output=True, text=True, timeout=900)
-        require(r.returncode == 0, f"time_tile_products.py on {root} "
-                f"failed: {r.stderr[-3000:]}")
-        runs[label].append(json.loads(r.stdout.strip().splitlines()[-1]))
-        log(f"  {label}: {runs[label][-1]}")
+        both = {}
+        for tool in tools:
+            r = subprocess.run([sys.executable, tool, root, label],
+                               capture_output=True, text=True, timeout=900)
+            require(r.returncode == 0, f"{os.path.basename(tool)} on "
+                    f"{root} failed: {r.stderr[-3000:]}")
+            both.update(json.loads(r.stdout.strip().splitlines()[-1]))
+        runs[label].append(both)
+        log(f"  {label}: {both}")
     out = {}
     for k in ("K11", "K11 deg", "K16 torch.float32", "K16 torch.bfloat16",
               "K12 torch.float32", "K12 torch.bfloat16", "K5",
-              "K5 batched"):
+              "K5 batched", "K1 serving f32 F=256", "K1 serving f32 F=602",
+              "K1 serving bf16 F=256", "K3 serving f32 F=256",
+              *(f"{k} {r}" for k in ("K6 NEG", "K6 eval", "K8")
+                for r in ("f32", "bf16", "e4m3"))):
         par = [x[k] for x in runs["parent"]]
         new = [x[k] for x in runs["change"]]
+        tool = ("time_tile_products.py" if k.split()[0] in (
+            "K5", "K11", "K12", "K16") else "time_gather_kernels.py")
         out[k] = {"parent_ms": sum(par) / 2, "ms": sum(new) / 2,
                   "parent_runs_ms": par, "runs_ms": new,
-                  "shape": "pipegcn_tpu_torch/tools/time_tile_products.py's"}
+                  "shape": f"pipegcn_tpu_torch/tools/{tool}'s"}
     return out
 
 
@@ -5374,9 +5522,11 @@ def main() -> int:
     ap.add_argument("--integrity-epochs", type=int, default=6,
                     help="epochs of the integrity cell")
     ap.add_argument("--parent", default=None,
-                    help="a parent checkout: K5, K11, K12 and K16 of both "
-                         "timed in turns by tools/time_tile_products.py, "
-                         "carried in the kernels line as parent_ab")
+                    help="a parent checkout: K1, K3, K5, K6, K8, K11, K12 "
+                         "and K16 of both timed in turns by "
+                         "tools/time_tile_products.py and "
+                         "tools/time_gather_kernels.py, carried in the "
+                         "kernels line as parent_ab")
     args = ap.parse_args()
 
     import dataclasses
@@ -5497,6 +5647,7 @@ def main() -> int:
 
     log("[8] K3, K4, K5 vs plain versions; K4 in bf16, K2 and K5 on bf16 "
         "rows")
+    k1_train_phase(trainer, spmm, halo)
     errs.update(K3=k3_phase(trainer, spmm), K4=k4_phase(trainer, halo),
                 K5=k5_phase(trainer, halo))
     errs["K4 bf16"] = bf16_comm_phase(trainer, halo)
@@ -5791,6 +5942,14 @@ def main() -> int:
                      "pipegcn_tpu/parallel/halo.py:244", n["halo_return"],
                      errs["K5"], tt["K5"]),
     ]
+    # K1 at the pp precompute's F = 602 (serving: once an engine, and
+    # layer 0 of every use_pp-off refresh)
+    t602 = serve_t["K1 F=602"]
+    kernels[0]["serving_f602"] = {
+        "ms": t602["ms"], "whole_ms": t602["whole_ms"], "plan": t602["plan"],
+        "plain_ms": t602["plain_ms"], "bound_ms": t602["bound"][0],
+        "bound_by": t602["bound"][1], "library_ms": t602["library_ms"],
+        "shape": t602["shape"]}
     # K5: beside the event pair around one call, 20 calls back to back
     # (the card's time a call) and index_select's likewise, and the
     # card's copy floor (a copy_ of the same blocks, unpermuted)
@@ -5921,6 +6080,9 @@ def main() -> int:
                              replaces, gm[kname][lib], errs[f"{name} {mode}"],
                              tmode[name][64])
             e["dh41"] = sub(tmode[name][41])
+            if name == "K6":
+                e["eval"] = {"dh64": sub(tmode["K6 eval"][64]),
+                             "dh41": sub(tmode["K6 eval"][41])}
             e["header"] = src + "gat_attn.cuh"
             kernels.append(e)
     e = kernel_entry("spmm_mean[bf16 rows]", src + "spmm_mean.cu",
@@ -6037,14 +6199,23 @@ def main() -> int:
         kernels.append(e)
 
     if args.parent is not None:
-        log(f"[38] K5, K11, K12 and K16 of the parent checkout "
-            f"{args.parent} against this one's (time_tile_products.py, in "
-            f"turns)")
+        log(f"[38] K1, K3, K5, K6, K8, K11, K12 and K16 of the parent "
+            f"checkout {args.parent} against this one's "
+            f"(time_tile_products.py, time_gather_kernels.py, in turns)")
         torch.cuda.empty_cache()
         ab = parent_ab(args.parent)
         for e in kernels:
             key = {"part_amax": "K11",
                    "halo_return": "K5",
+                   "spmm_mean": "K1 serving f32 F=256",
+                   "spmm_mean[bf16 rows]": "K1 serving bf16 F=256",
+                   "spmm_mean_t": "K3 serving f32 F=256",
+                   "gat_fwd": "K6 NEG f32",
+                   "gat_fwd[bf16]": "K6 NEG bf16",
+                   "gat_fwd[e4m3 z, e5m2 g]": "K6 NEG e4m3",
+                   "gat_bwd_src": "K8 f32",
+                   "gat_bwd_src[bf16]": "K8 bf16",
+                   "gat_bwd_src[e4m3 z, e5m2 g]": "K8 e4m3",
                    "block_dense": "K12 torch.float32",
                    "block_dense[bf16]": "K12 torch.bfloat16",
                    "block_dense_grouped[bf16]": "K16 torch.bfloat16",
@@ -6052,6 +6223,11 @@ def main() -> int:
                        e["name"])
             if key is not None:
                 e["parent_ab"] = ab[key]
+            if e["name"] == "spmm_mean":
+                e["serving_f602"]["parent_ab"] = ab["K1 serving f32 F=602"]
+            if e["name"].startswith("gat_fwd"):
+                row = key.split()[-1]
+                e["eval"]["parent_ab"] = ab[f"K6 eval {row}"]
             if e["name"] == "part_amax":
                 e["backward"]["parent_ab"] = ab["K11 deg"]
             if e["name"] == "halo_return":

@@ -59,12 +59,16 @@
 // reads one full row of H*dh floats (1 KB at the hidden layers) from L2
 // or HBM; the least traffic (each input read once) is a few hundred MB,
 // and the least arithmetic is one FMA (2 flops) per edge per element.
-// K6's NEG mode and K8 run two accumulators per element (out and n_neg;
-// d_z and the beta-weighted sum), twice that: split by the edge's leaky
-// branch, one accumulator per branch would do (the weighted sums are then
-// their sum and the positive one plus slope times the negative one).
-// They are random-row-gather kernels.
-//
+// K8 runs two accumulators per element (d_z and the beta-weighted sum),
+// twice that; K6's NEG mode keeps one accumulator per leaky branch (pos
+// and neg; out is their sum, n_neg the negative one; on f32 rows only
+// where no chunk straddles two heads), so each lane does one FMA an
+// element and edge.
+// They are random-row-gather kernels, whose time on this card went to
+// the per-edge work (the weights, the selects and the shared-memory reads
+// of chunks that may straddle two heads, the dependent index and el
+// loads at each chunk's start) more than to the row bytes (PERF.md).
+
 // Design (simple and right first): one warp per row. The warp loads 32
 // edge indices with one coalesced load; each lane computes the attention
 // weights of its own edge for every head (a narrow el / stats row gather,
@@ -76,7 +80,10 @@
 // element's head weight times the value. A chunk may straddle two heads
 // (dh = 41 at the logits layer: F = 164, rows of 164 bytes at e4m3, only
 // 4-byte aligned), so each chunk carries its first head and the element
-// at which the next begins. K6 takes the row max in a
+// at which the next begins; K6 compiles that out where dh is a multiple
+// of its chunk (one weight a chunk), reads narrow rows (bf16, e4m3) in
+// chunks of 8 there and el / er rows of 4 heads as one 16-byte load (see
+// "K6" below). K6 takes the row max in a
 // first, narrow pass over el (two-pass softmax, as the plain version),
 // then the normaliser and the weighted sum in one wide pass, and divides
 // once at the end. Sums run in registers in edge order, warp reductions
@@ -123,8 +130,8 @@ __device__ __forceinline__ void fp8x2(unsigned int pair, float* o) {
   o[1] = f.y;
 }
 
-// VEC (4 or 1) consecutive elements of type XT from element i of p, as
-// floats
+// VEC (8, 4 or 1; 8 for bf16 and fp8 only) consecutive elements of type
+// XT from element i of p, as floats
 template <int XT, int VEC>
 __device__ __forceinline__ void load(const void* p, size_t i, float* o) {
   if constexpr (XT == kF32) {
@@ -137,7 +144,15 @@ __device__ __forceinline__ void load(const void* p, size_t i, float* o) {
     }
   } else if constexpr (XT == kBF16) {
     const unsigned short* q = static_cast<const unsigned short*>(p) + i;
-    if constexpr (VEC == 4) {
+    if constexpr (VEC == 8) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(q));
+      const unsigned u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        o[2 * t] = __uint_as_float(u[t] << 16);
+        o[2 * t + 1] = __uint_as_float(u[t] & 0xffff0000u);
+      }
+    } else if constexpr (VEC == 4) {
       const uint2 v = __ldg(reinterpret_cast<const uint2*>(q));
       o[0] = __uint_as_float(v.x << 16);
       o[1] = __uint_as_float(v.x & 0xffff0000u);
@@ -148,7 +163,13 @@ __device__ __forceinline__ void load(const void* p, size_t i, float* o) {
     }
   } else {
     const unsigned char* q = static_cast<const unsigned char*>(p) + i;
-    if constexpr (VEC == 4) {
+    if constexpr (VEC == 8) {
+      const uint2 v = __ldg(reinterpret_cast<const uint2*>(q));
+      fp8x2<XT>(v.x, o);
+      fp8x2<XT>(v.x >> 16, o + 2);
+      fp8x2<XT>(v.y, o + 4);
+      fp8x2<XT>(v.y >> 16, o + 6);
+    } else if constexpr (VEC == 4) {
       const unsigned u = __ldg(reinterpret_cast<const unsigned*>(q));
       fp8x2<XT>(u, o);
       fp8x2<XT>(u >> 16, o + 2);
@@ -262,8 +283,80 @@ __device__ __forceinline__ void head_dots(const Cols<VEC, NV, HM>& c,
 
 // ---------------------------------------------------------------------------
 // K6
+//
+// The forward's design (PERF.md, PR 12, times each part of it):
+//   - NEG mode: one accumulator per leaky branch. Each edge adds weight *
+//     row into pos or neg by its branch (the weight's sign in shared
+//     memory carries it), so a lane does one FMA an element and edge; out
+//     = (pos + neg) / s, n_neg = neg / s. On f32 rows only where dh % 4 ==
+//     0: at other dh (41) the chunks straddle two heads, the branch test
+//     is per element and cost more than it saved there (not on bf16 or
+//     e4m3 rows), so those rows keep a sum over all edges and one over
+//     the negative ones. The choice follows dh and the row type, never
+//     the load width: aligned or not, a row's sums are the same bits.
+//   - fmaf for weight * value + sum.
+//   - where dh % VEC == 0 (dh = 64) no chunk straddles two heads: one
+//     weight a chunk, no per-element selects (a template flag). dh = 41
+//     keeps the straddling path.
+//   - el and er rows (H = 4) as one 16-byte load.
+//   - narrow rows (bf16, e4m3) in chunks of 8 elements (16 or 8 bytes a
+//     load) where dh % 8 == 0 and the rows allow.
+// The row max stays a separate narrow pass, so m is the max of the same
+// computed logits as before, and each weight is exp(logit - m) as in the
+// plain version.
 
-template <int VEC, int NV, int HM, bool NEG>
+// the HM floats of row r of an [*, H] f32 array (0 past H): one 16-byte
+// load where H = 4 and the array allows it (vec_rows), else H loads
+template <int HM>
+__device__ __forceinline__ void narrow_row(const float* p, size_t r, int H,
+                                           bool vec_rows, float* o) {
+  if constexpr (HM == 4) {
+    if (vec_rows) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(p) + r);
+      o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
+      return;
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < HM; ++h) o[h] = h < H ? __ldg(p + r * H + h) : 0.0f;
+}
+
+// one 32-edge chunk of a row: this lane's edge (clipped source index and
+// el row), or index 0 and zeros past the row's end. Fetched apart from
+// the weights that use it: computing the weights inline at the load ran
+// the f32 NEG mode 13 % slower on an H100 (PERF.md, PR 12)
+template <int HM>
+struct Edge {
+  int i;
+  float e[HM];
+  __device__ __forceinline__ void fetch(const int* src, const float* el,
+                                        long long base, long long end,
+                                        int lane, int R, int H,
+                                        bool vec_rows) {
+    i = 0;
+    if (lane < end - base) {
+      i = clip(__ldg(src + base + lane), R);
+      narrow_row<HM>(el, i, H, vec_rows, e);
+    } else {
+#pragma unroll
+      for (int h = 0; h < HM; ++h) e[h] = 0.0f;
+    }
+  }
+};
+
+template <int VEC>
+__device__ __forceinline__ void store_out(float* p, const float* v) {
+  if constexpr (VEC == 8) {
+    store<4>(p, v);
+    store<4>(p + 4, v + 4);
+  } else {
+    store<VEC>(p, v);
+  }
+}
+
+// STRADDLE: a chunk of VEC elements may span two heads (dh % VEC != 0);
+// SPLIT: the NEG mode sums each leaky branch apart
+template <int VEC, int NV, int HM, bool NEG, bool STRADDLE, bool SPLIT>
 __global__ void __launch_bounds__(kWarps * 32)
 gat_fwd_kernel(const void* __restrict__ z, const float* __restrict__ el,
                const float* __restrict__ er, const void* __restrict__ indptr,
@@ -271,10 +364,12 @@ gat_fwd_kernel(const void* __restrict__ z, const float* __restrict__ el,
                long long src_stride, float* __restrict__ out,
                float* __restrict__ m_out, float* __restrict__ s_out,
                float* __restrict__ nneg_out, float* __restrict__ wneg_out,
-               int R, int n, int H, int dh, float slope) {
+               int R, int n, int H, int dh, float slope, int vec_rows) {
+  constexpr bool kSplit = NEG && SPLIT;
   __shared__ float wsh[kWarps][32][HM];
-  // NEG: the weight again where the edge is on the negative branch, else 0
-  __shared__ float nsh[NEG ? kWarps : 1][32][HM];
+  // NEG without the split: the weight again where the edge is on the
+  // negative branch, else 0
+  __shared__ float nsh[NEG && !kSplit ? kWarps : 1][32][HM];
   const int part = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + warp;
@@ -289,21 +384,22 @@ gat_fwd_kernel(const void* __restrict__ z, const float* __restrict__ el,
   const long long end = row_ptr(indptr, indptr_64, rp + 1);
 
   float er_r[HM], mx[HM], ssum[HM], nsum[HM];
+  narrow_row<HM>(er, orow, H, vec_rows, er_r);
 #pragma unroll
   for (int h = 0; h < HM; ++h) {
-    er_r[h] = h < H ? __ldg(er + orow * H + h) : 0.0f;
     mx[h] = -INFINITY;
     ssum[h] = nsum[h] = 0.0f;
   }
-  // narrow pass: the row max of every head
-  for (long long base = beg; base < end; base += 32) {
-    if (lane < end - base) {
-      const float* e = el + static_cast<size_t>(clip(
-                                __ldg(src + base + lane), R)) * H;
+  // narrow pass: the row max of every head (each lane its edges beg +
+  // lane + 32k in order, then a butterfly: the same max as before); not
+  // unrolled: four edges' el loads in flight a lane ran slower (PERF.md)
+#pragma unroll 1
+  for (long long e = beg + lane; e < end; e += 32) {
+    float ev[HM];
+    narrow_row<HM>(el, clip(__ldg(src + e), R), H, vec_rows, ev);
 #pragma unroll
-      for (int h = 0; h < HM; ++h)
-        if (h < H) mx[h] = fmaxf(mx[h], leaky(__ldg(e + h) + er_r[h], slope));
-    }
+    for (int h = 0; h < HM; ++h)
+      if (h < H) mx[h] = fmaxf(mx[h], leaky(ev[h] + er_r[h], slope));
   }
   warp_max<HM>(mx);
   if (end == beg) {
@@ -311,8 +407,10 @@ gat_fwd_kernel(const void* __restrict__ z, const float* __restrict__ el,
     for (int h = 0; h < HM; ++h) mx[h] = 0.0f;
   }
 
-  // wide pass: normaliser and weighted row sum
+  // wide pass: normaliser and weighted row sums
   const Cols<VEC, NV, HM> c(lane, F, dh);
+  // kSplit: acc the positive branch, accn the negative one; otherwise
+  // acc every edge and accn (NEG) the negative ones
   float acc[NV][VEC], accn[NEG ? NV : 1][VEC];
 #pragma unroll
   for (int v = 0; v < NV; ++v)
@@ -322,24 +420,29 @@ gat_fwd_kernel(const void* __restrict__ z, const float* __restrict__ el,
       if constexpr (NEG) accn[v][k] = 0.0f;
     }
   float(*w)[HM] = wsh[warp];
-  float(*wn)[HM] = nsh[NEG ? warp : 0];
+  float(*wn)[HM] = nsh[NEG && !kSplit ? warp : 0];
+  Edge<HM> cur;
   for (long long base = beg; base < end; base += 32) {
     const int cnt = static_cast<int>(min(32LL, end - base));
-    int mine = 0;
+    cur.fetch(src, el, base, end, lane, R, H, vec_rows);
     if (lane < cnt) {
-      mine = clip(__ldg(src + base + lane), R);
-      const float* e = el + static_cast<size_t>(mine) * H;
 #pragma unroll
       for (int h = 0; h < HM; ++h) {
         if (h < H) {
-          const float lp = __ldg(e + h) + er_r[h];
+          const float lp = cur.e[h] + er_r[h];
           const float wt = expf(leaky(lp, slope) - mx[h]);
-          w[lane][h] = wt;
           ssum[h] += wt;
           if constexpr (NEG) {
             const float wnt = lp > 0.0f ? 0.0f : wt;
-            wn[lane][h] = wnt;
             nsum[h] += wnt;
+            if constexpr (kSplit) {
+              w[lane][h] = lp > 0.0f ? wt : -wt;  // the sign: the branch
+            } else {
+              w[lane][h] = wt;
+              wn[lane][h] = wnt;
+            }
+          } else {
+            w[lane][h] = wt;
           }
         }
       }
@@ -347,22 +450,57 @@ gat_fwd_kernel(const void* __restrict__ z, const float* __restrict__ el,
     __syncwarp();
 #pragma unroll 4
     for (int j = 0; j < cnt; ++j) {
-      const int s = __shfl_sync(kFull, mine, j);
+      const int s = __shfl_sync(kFull, cur.i, j);
       const size_t rowz = zbase + static_cast<size_t>(s) * F;
 #pragma unroll
       for (int v = 0; v < NV; ++v) {
-        if (c.ok[v]) {
-          float y[VEC];
-          load<kZT, VEC>(z, rowz + c.col[v], y);
-          const float w0 = w[j][c.head[v]], w1 = w[j][c.head1[v]];
+        if (!c.ok[v]) continue;
+        float y[VEC];
+        load<kZT, VEC>(z, rowz + c.col[v], y);
+        if constexpr (!STRADDLE) {
+          const float wv = w[j][c.head[v]];
+          if constexpr (kSplit) {
+            const bool ng = __float_as_uint(wv) >> 31;
+            const float wa = fabsf(wv);
 #pragma unroll
-          for (int k = 0; k < VEC; ++k)
-            acc[v][k] += __fmul_rn(k < c.split[v] ? w0 : w1, y[k]);
-          if constexpr (NEG) {
-            const float n0 = wn[j][c.head[v]], n1 = wn[j][c.head1[v]];
+            for (int k = 0; k < VEC; ++k) {
+              if (ng) accn[v][k] = fmaf(wa, y[k], accn[v][k]);
+              else acc[v][k] = fmaf(wa, y[k], acc[v][k]);
+            }
+          } else {
 #pragma unroll
             for (int k = 0; k < VEC; ++k)
-              accn[v][k] += __fmul_rn(k < c.split[v] ? n0 : n1, y[k]);
+              acc[v][k] = fmaf(wv, y[k], acc[v][k]);
+            if constexpr (NEG) {
+              const float wnv = wn[j][c.head[v]];
+#pragma unroll
+              for (int k = 0; k < VEC; ++k)
+                accn[v][k] = fmaf(wnv, y[k], accn[v][k]);
+            }
+          }
+        } else {
+          const float w0 = w[j][c.head[v]], w1 = w[j][c.head1[v]];
+          if constexpr (kSplit) {
+#pragma unroll
+            for (int k = 0; k < VEC; ++k) {
+              const float wv = k < c.split[v] ? w0 : w1;
+              const float wa = fabsf(wv);
+              if (__float_as_uint(wv) >> 31)
+                accn[v][k] = fmaf(wa, y[k], accn[v][k]);
+              else
+                acc[v][k] = fmaf(wa, y[k], acc[v][k]);
+            }
+          } else {
+#pragma unroll
+            for (int k = 0; k < VEC; ++k)
+              acc[v][k] = fmaf(k < c.split[v] ? w0 : w1, y[k], acc[v][k]);
+            if constexpr (NEG) {
+              const float n0 = wn[j][c.head[v]], n1 = wn[j][c.head1[v]];
+#pragma unroll
+              for (int k = 0; k < VEC; ++k)
+                accn[v][k] = fmaf(k < c.split[v] ? n0 : n1, y[k],
+                                  accn[v][k]);
+            }
           }
         }
       }
@@ -393,14 +531,16 @@ gat_fwd_kernel(const void* __restrict__ z, const float* __restrict__ el,
       c.at(v, ssum, s0, s1);
       float y[VEC];
 #pragma unroll
-      for (int k = 0; k < VEC; ++k)
-        y[k] = acc[v][k] / (k < c.split[v] ? s0 : s1);
-      store<VEC>(op + c.col[v], y);
+      for (int k = 0; k < VEC; ++k) {
+        const float t = kSplit ? acc[v][k] + accn[v][k] : acc[v][k];
+        y[k] = t / (!STRADDLE || k < c.split[v] ? s0 : s1);
+      }
+      store_out<VEC>(op + c.col[v], y);
       if constexpr (NEG) {
 #pragma unroll
         for (int k = 0; k < VEC; ++k)
-          y[k] = accn[v][k] / (k < c.split[v] ? s0 : s1);
-        store<VEC>(nneg_out + orow * F + c.col[v], y);
+          y[k] = accn[v][k] / (!STRADDLE || k < c.split[v] ? s0 : s1);
+        store_out<VEC>(nneg_out + orow * F + c.col[v], y);
       }
     }
   }
@@ -552,20 +692,76 @@ int dispatch(const Shape& sh, cudaStream_t st, A... args) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int VEC, int NV, int HM>
-struct FwdLaunch {
-  template <typename... A>
-  static void run(dim3 grid, dim3 block, cudaStream_t st, A... args) {
-    gat_fwd_kernel<VEC, NV, HM, false><<<grid, block, 0, st>>>(args...);
+// K6's shape: as pick, with 8-element chunks of narrow rows where dh % 8
+// == 0, H <= 4 and the rows allow; straddle: a chunk may span two heads
+// (VEC 4 with dh % 4 != 0)
+bool pick_fwd(Shape& sh, bool& straddle, const void* z, bool out_aligned) {
+  const int F = sh.H * sh.dh;
+  constexpr int eb = elem_bytes<kZT>();
+  if (sh.H < 1 || sh.H > 16 || sh.dh < 1) return false;
+  if (kZT != kF32 && sh.H <= 4 && sh.dh % 8 == 0 && aligned(z, 8 * eb) &&
+      out_aligned)
+    sh.vec = 8;
+  else
+    sh.vec = (F % 4 == 0 && sh.dh >= 4 && aligned(z, 4 * eb) && out_aligned)
+                 ? 4 : 1;
+  const int need = (F + 32 * sh.vec - 1) / (32 * sh.vec);
+  if (need > (sh.vec == 8 ? 8 : 16)) return false;
+  sh.nv = need <= 2 ? 2 : need <= 4 ? 4 : need <= 8 ? 8 : 16;
+  sh.hm = sh.H <= 4 ? 4 : 16;
+  straddle = sh.vec == 4 && sh.dh % 4 != 0;
+  return true;
+}
+
+template <int VEC, bool ST, bool SP, bool NEG, typename... A>
+void launch_fwd(const Shape& sh, cudaStream_t st, A... args) {
+  const dim3 grid((sh.rows + kWarps - 1) / kWarps, sh.P);
+  const dim3 block(kWarps * 32);
+#define PGT_K6(NV_, HM_) \
+  gat_fwd_kernel<VEC, NV_, HM_, NEG, ST, SP><<<grid, block, 0, st>>>(args...)
+  if constexpr (VEC == 8) {  // H <= 4, F <= 2048 (pick_fwd)
+    switch (sh.nv) {
+      case 2: PGT_K6(2, 4); break;
+      case 4: PGT_K6(4, 4); break;
+      default: PGT_K6(8, 4); break;
+    }
+  } else if (sh.hm == 4) {
+    switch (sh.nv) {
+      case 2: PGT_K6(2, 4); break;
+      case 4: PGT_K6(4, 4); break;
+      case 8: PGT_K6(8, 4); break;
+      default: PGT_K6(16, 4); break;
+    }
+  } else {
+    switch (sh.nv) {
+      case 2: PGT_K6(2, 16); break;
+      case 4: PGT_K6(4, 16); break;
+      case 8: PGT_K6(8, 16); break;
+      default: PGT_K6(16, 16); break;
+    }
   }
-};
-template <int VEC, int NV, int HM>
-struct FwdNegLaunch {
-  template <typename... A>
-  static void run(dim3 grid, dim3 block, cudaStream_t st, A... args) {
-    gat_fwd_kernel<VEC, NV, HM, true><<<grid, block, 0, st>>>(args...);
+#undef PGT_K6
+}
+
+// the split on narrow rows, and on f32 rows where dh % 4 == 0
+template <bool NEG, typename... A>
+int dispatch_fwd(const Shape& sh, bool straddle, cudaStream_t st,
+                 A... args) {
+  constexpr bool kNarrow = kZT != kF32;
+  if (sh.vec == 8) {  // narrow rows, dh % 8 == 0
+    if constexpr (kNarrow) launch_fwd<8, false, NEG, NEG>(sh, st, args...);
+  } else if (sh.vec == 4 && !straddle) {  // dh % 4 == 0
+    launch_fwd<4, false, NEG, NEG>(sh, st, args...);
+  } else if (sh.vec == 4) {  // dh % 4 != 0
+    launch_fwd<4, true, kNarrow && NEG, NEG>(sh, st, args...);
+  } else if (kNarrow || sh.dh % 4 == 0) {
+    launch_fwd<1, false, NEG, NEG>(sh, st, args...);
+  } else {
+    launch_fwd<1, false, false, NEG>(sh, st, args...);
   }
-};
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int VEC, int NV, int HM>
 struct SrcLaunch {
   template <typename... A>
@@ -594,10 +790,13 @@ extern "C" int PGT_CAT(pgt_gat_fwd, PGT_SUFFIX)(
   if (P == 0 || n == 0) return 0;
   Shape sh{P, n, H, dh, 0, 0, 0};
   const bool neg = n_neg != nullptr;
+  bool straddle = false;
   if (R <= 0 || neg != (w_neg != nullptr) ||
-      !pick(sh, aligned(z, 4 * elem_bytes<kZT>()) && aligned(out, 16) &&
-                    (!neg || aligned(n_neg, 16))))
+      !pick_fwd(sh, straddle, z,
+                aligned(out, 16) && (!neg || aligned(n_neg, 16))))
     return static_cast<int>(cudaErrorInvalidValue);
+  // el / er rows as 16-byte loads
+  const int vec_rows = H == 4 && aligned(el, 16) && aligned(er, 16);
   const auto st = static_cast<cudaStream_t>(stream);
   const auto elf = static_cast<const float*>(el);
   const auto erf = static_cast<const float*>(er);
@@ -608,12 +807,12 @@ extern "C" int PGT_CAT(pgt_gat_fwd, PGT_SUFFIX)(
   const auto nf = static_cast<float*>(n_neg);
   const auto wf = static_cast<float*>(w_neg);
   if (neg)
-    return dispatch<FwdNegLaunch>(sh, st, z, elf, erf, indptr, indptr_64,
-                                  srci, src_stride, outf, mf, sf, nf, wf, R,
-                                  n, H, dh, slope);
-  return dispatch<FwdLaunch>(sh, st, z, elf, erf, indptr, indptr_64, srci,
-                             src_stride, outf, mf, sf, nf, wf, R, n, H, dh,
-                             slope);
+    return dispatch_fwd<true>(sh, straddle, st, z, elf, erf, indptr,
+                              indptr_64, srci, src_stride, outf, mf, sf, nf,
+                              wf, R, n, H, dh, slope, vec_rows);
+  return dispatch_fwd<false>(sh, straddle, st, z, elf, erf, indptr,
+                             indptr_64, srci, src_stride, outf, mf, sf, nf,
+                             wf, R, n, H, dh, slope, vec_rows);
 }
 
 // K8, entry pgt_gat_bwd_src_m<mode>. z [P, R, H*dh] of this mode's z type

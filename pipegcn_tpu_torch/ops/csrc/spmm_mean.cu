@@ -43,6 +43,23 @@
 // atomics, no shared memory, deterministic results. Rows of any degree
 // (0 to thousands) run the same loop. Out-of-range gather indices are
 // clamped (the JAX package's jnp.take(mode="clip")).
+//
+// K1's column slices. Gathering whole rows, the working set is the whole
+// table (238.6 MB a part at the serving shape, F = 256 f32, both parts at
+// once) against a 50 MB L2, so on a layout without reuse (random parts)
+// every gathered row comes from HBM. The caller (ops/spmm.py
+// k1_slice_width) may split the F columns into slices of W columns so
+// that one (part, slice) table, n_src * W * element bytes, fits in L2;
+// the grid runs output rows fastest, then slices, then parts, so the
+// resident blocks share one slice of one part and each gathered line is
+// fetched from HBM about once and then served from L2. In
+// slice_sum_kernel a group of G lanes (a warp, or a part of it: 32 / G
+// rows a warp) owns one output row's W = G * V columns of one slice, each
+// lane V fixed columns; it walks the row's edges in CSR order, loading
+// the next G indices ahead, and adds each gathered value into its own
+// f32 sum. So every output element sums the same values in the same
+// order as the whole-row kernel, and the result is bit-identical to it
+// (S = 1). The indices are re-read once a slice, with streaming loads.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -91,6 +108,15 @@ struct Loader<unsigned short, 8> {
     o[2] = bf16_lo(v.y); o[3] = bf16_hi(v.y);
     o[4] = bf16_lo(v.z); o[5] = bf16_hi(v.z);
     o[6] = bf16_lo(v.w); o[7] = bf16_hi(v.w);
+  }
+};
+template <>
+struct Loader<unsigned short, 4> {
+  static __device__ __forceinline__ void load(const unsigned short* p,
+                                              float* o) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    o[0] = bf16_lo(v.x); o[1] = bf16_hi(v.x);
+    o[2] = bf16_lo(v.y); o[3] = bf16_hi(v.y);
   }
 };
 template <>
@@ -233,6 +259,104 @@ int launch_vec(const T* x, const void* indptr, int indptr_64,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K1 over one column slice: blockIdx.y is the slice (W = G * V columns
+// from blockIdx.y * W; the last may be cut by F), blockIdx.z the part.
+// A group of G lanes owns one output row; lane gl of it the V columns
+// from slice start + gl * V (the wrapper guarantees F % V == 0 and the
+// alignment of V-element loads).
+template <typename T, int V, int G>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+slice_sum_kernel(const T* __restrict__ x, const void* __restrict__ indptr,
+                 int indptr_64, const int* __restrict__ idx,
+                 long long idx_part_stride, const float* __restrict__ deg,
+                 float* __restrict__ out, int n_in, int n_rows, int F) {
+  constexpr int kRows = 32 / G;  // output rows a warp
+  constexpr unsigned kFull = 0xffffffffu;
+  const int part = blockIdx.z;
+  const int lane = threadIdx.x & 31;
+  const int grp = lane / G, gl = lane % G;
+  const int row0 = (blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5)) * kRows;
+  if (row0 >= n_rows) return;  // whole warp leaves together
+  const int row = row0 + grp;
+  const bool live = row < n_rows;
+  const int col = blockIdx.y * (G * V) + gl * V;
+  const bool mine_cols = live && col < F;
+
+  x += static_cast<size_t>(part) * n_in * F + col;
+  idx += static_cast<size_t>(part) * idx_part_stride;
+  long long beg = 0, end = 0;
+  if (live) {
+    const size_t rp = static_cast<size_t>(part) * (n_rows + 1) + row;
+    if (indptr_64) {
+      const long long* ip = static_cast<const long long*>(indptr);
+      beg = ip[rp];
+      end = ip[rp + 1];
+    } else {
+      const int* ip = static_cast<const int*>(indptr);
+      beg = ip[rp];
+      end = ip[rp + 1];
+    }
+  }
+  const long long n = end - beg;
+  // the warp's longest row: every group walks that many chunks, so the
+  // shuffles see the whole warp
+  long long n_max = n;
+#pragma unroll
+  for (int off = G; off < 32; off <<= 1)
+    n_max = max(n_max, __shfl_xor_sync(kFull, n_max, off));
+
+  float acc[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) acc[k] = 0.0f;
+  int next = gl < n ? __ldcs(idx + beg + gl) : 0;
+  for (long long b = 0; b < n_max; b += G) {
+    const int mine = min(max(next, 0), n_in - 1);
+    const int cnt = static_cast<int>(max(0LL, min(static_cast<long long>(G),
+                                                  n - b)));
+    const int c_max = static_cast<int>(min(static_cast<long long>(G),
+                                           n_max - b));
+    next = b + G + gl < n ? __ldcs(idx + beg + b + G + gl) : 0;
+#pragma unroll 8
+    for (int j = 0; j < c_max; ++j) {
+      const int s = __shfl_sync(kFull, mine, j, G);
+      if (j < cnt && mine_cols) {
+        float y[V];
+        Loader<T, V>::load(x + static_cast<size_t>(s) * F, y);
+#pragma unroll
+        for (int k = 0; k < V; ++k) acc[k] += y[k];
+      }
+    }
+  }
+  if (!mine_cols) return;
+  const float d = deg[static_cast<size_t>(part) * n_rows + row];
+#pragma unroll
+  for (int k = 0; k < V; ++k) acc[k] /= d;
+  store<V>(out + (static_cast<size_t>(part) * n_rows + row) * F + col, acc);
+}
+
+template <typename T, int V>
+int launch_slices(const T* x, const void* indptr, int indptr_64,
+                  const int* idx, long long idx_part_stride, const float* deg,
+                  float* out, int P, int n_in, int n_rows, int F, int width,
+                  cudaStream_t stream) {
+  const int G = width / V;
+  const int rows_per_block = kWarpsPerBlock * (32 / G);
+  const dim3 grid((n_rows + rows_per_block - 1) / rows_per_block,
+                  (F + width - 1) / width, P);
+  const dim3 block(kWarpsPerBlock * 32);
+#define PGT_SLICE(G_)                                                    \
+  slice_sum_kernel<T, V, G_><<<grid, block, 0, stream>>>(               \
+      x, indptr, indptr_64, idx, idx_part_stride, deg, out, n_in,        \
+      n_rows, F)
+  switch (G) {
+    case 8: PGT_SLICE(8); break;
+    case 16: PGT_SLICE(16); break;
+    default: PGT_SLICE(32); break;
+  }
+#undef PGT_SLICE
+  return static_cast<int>(cudaGetLastError());
+}
+
 bool aligned(const void* p, int bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
@@ -242,12 +366,18 @@ bool aligned(const void* p, int bytes) {
 // fbuf [P, n_src, F] (f32, or bf16 bits when fbuf_bf16), indptr
 // [P, n_out + 1] (int32, or int64 when indptr_64), src [P, *] int32 with
 // part stride src_part_stride, in_deg [P, n_out] f32, out [P, n_out, F]
-// f32 (16-byte aligned). All contiguous. Returns cudaGetLastError().
+// f32 (16-byte aligned). All contiguous. width: the columns of a slice;
+// width <= 0 or >= F runs the whole-row kernel (one slice), otherwise
+// slice_sum_kernel with vec-element loads (width / vec lanes a row: 8,
+// 16 or 32; F % vec == 0 and fbuf aligned to vec elements; vec 1, 2 or
+// 4 for f32 rows, 1, 2, 4 or 8 for bf16). Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a slice shape it does not take.
 extern "C" int pgt_spmm_mean(const void* fbuf, int fbuf_bf16,
                              const void* indptr, int indptr_64,
                              const void* src, long long src_part_stride,
                              const void* in_deg, void* out, int P,
-                             int n_src, int n_out, int F, void* stream) {
+                             int n_src, int n_out, int F, int width, int vec,
+                             void* stream) {
   if (P == 0 || n_out == 0 || F == 0) return 0;
   if (n_src <= 0 || !aligned(out, 16))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -255,6 +385,32 @@ extern "C" int pgt_spmm_mean(const void* fbuf, int fbuf_bf16,
   const int* s = static_cast<const int*>(src);
   const float* dg = static_cast<const float*>(in_deg);
   float* o = static_cast<float*>(out);
+  if (width > 0 && width < F) {
+    const int esize = fbuf_bf16 ? 2 : 4;
+    const int G = vec > 0 ? width / vec : 0;
+    if (vec <= 0 || width % vec != 0 || (G != 8 && G != 16 && G != 32) ||
+        F % vec != 0 || !aligned(fbuf, vec * esize) ||
+        vec > (fbuf_bf16 ? 8 : 4) || (vec & (vec - 1)) != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+#define PGT_K1S(T, V)                                                    \
+  return launch_slices<T, V>(static_cast<const T*>(fbuf), indptr,        \
+                             indptr_64, s, src_part_stride, dg, o, P,    \
+                             n_src, n_out, F, width, st)
+    if (fbuf_bf16) {
+      switch (vec) {
+        case 1: PGT_K1S(unsigned short, 1);
+        case 2: PGT_K1S(unsigned short, 2);
+        case 4: PGT_K1S(unsigned short, 4);
+        default: PGT_K1S(unsigned short, 8);
+      }
+    }
+    switch (vec) {
+      case 1: PGT_K1S(float, 1);
+      case 2: PGT_K1S(float, 2);
+      default: PGT_K1S(float, 4);
+    }
+#undef PGT_K1S
+  }
 #define PGT_K1(T, VEC)                                                   \
   return launch_vec<T, VEC, false>(f, indptr, indptr_64, s,              \
                                    src_part_stride, dg, o, P, n_src,     \

@@ -52,7 +52,10 @@ on it.
 Kernels (``csrc/gat_attn.cuh``, one library a row-type mode: f32 z and g
 ``gat_attn.cu``, bf16 ``gat_attn_bf16.cu``, e4m3 z and e5m2 g
 ``gat_attn_fp8.cu``): K6 ``gat_fwd`` (also returns m and s, and in its
-``neg`` mode n_neg and w_neg) and K8 ``gat_bwd_src`` (pass B), launched
+``neg`` mode n_neg and w_neg, summing each leaky branch apart, on f32
+rows only where no 4-element chunk straddles two heads: out is the two
+branches' sums added, n_neg the negative one) and K8 ``gat_bwd_src``
+(pass B), launched
 for CUDA tensors and counted in ``<wrapper>.launches``. CPU
 tensors take the plain versions, which walk the edges in chunks of
 ``PLAIN_CHUNK`` with ``index_add_`` and never hold an ``[E, H, dh]``

@@ -21,11 +21,14 @@ returns ``d_in_deg = -sum_f(out * g) / in_deg`` when ``in_deg`` needs it.
 
 :func:`spmm_mean` launches kernel K1 forward and K3 backward
 (``csrc/spmm_mean.cu``) for CUDA tensors and runs the plain versions for
-CPU tensors; anything else raises. :func:`spmm_mean_plain` is the same
-function through the plain versions on any device (the card-side
-comparison). All take one part (``fbuf [n_src, F]``) or P stacked parts
-(``fbuf [P, n_src, F]`` with ``indptr [P, n_out+1]``, ``src [P, E]``,
-``in_deg [P, n_out]``).
+CPU tensors; anything else raises. K1 gathers in column slices where the
+table of one part outgrows the card's L2 (:func:`k1_slice_width`: the
+slice rule, a function of the table's bytes against the L2 the card
+reports; :func:`k1_plan` adds the load width). :func:`spmm_mean_plain`
+is the same function through the plain versions on any device (the
+card-side comparison). All take one part (``fbuf [n_src, F]``) or P
+stacked parts (``fbuf [P, n_src, F]`` with ``indptr [P, n_out+1]``,
+``src [P, E]``, ``in_deg [P, n_out]``).
 """
 
 from __future__ import annotations
@@ -44,11 +47,28 @@ PLAIN_CHUNK = 1 << 21
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "pgt_spmm_mean": [_P, _I, _P, _I, _P, _LL, _P, _P, _I, _I, _I, _I, _P],
+    "pgt_spmm_mean": [_P, _I, _P, _I, _P, _LL, _P, _P, _I, _I, _I, _I, _I,
+                      _I, _P],
     "pgt_spmm_mean_t": [_P, _P, _I, _P, _LL, _P, _P, _I, _I, _I, _I, _P],
 }
 
 Transpose = Tuple[torch.Tensor, torch.Tensor]
+
+# K1's slice rule (measured on an H100, PERF.md): a part's table, and
+# where it is larger each (part, slice) table, n_src rows of a slice's
+# bytes, may take this share of the L2 the card reports. 0.6 admits the
+# serving table's 128-byte slices (29.8 MB of the H100's 52.4 MB), which
+# ran faster than 64-byte ones (14.9 MB). Sliced, the serving table
+# (4.6x the L2, random parts) ran 2.0x faster than whole rows and the
+# f32 training one (2.8x, the cluster layout) 5 % faster; the bf16
+# training one (1.4x) ran within the spread of two timings of one kernel.
+K1_L2_SHARE = 0.6
+# the slice widths K1 takes, in bytes of a row, widest first: a group of
+# lanes reads a slice's bytes of one row an edge (128 B: one cache line)
+K1_SLICE_BYTES = (128, 64, 32)
+# the widest load a lane makes: 16-byte loads (4 f32, 8 bf16 elements,
+# 8 lanes a 128-byte slice) ran fastest
+K1_LOAD_BYTES = 16
 
 
 def _index_dtype(counts: np.ndarray):
@@ -106,6 +126,55 @@ def csr_transpose(edge_src: np.ndarray, edge_dst: np.ndarray, n_out: int,
     return (ptr.astype(_index_dtype(ptr[:, -1])).reshape(
                 src.shape[:-1] + (n_src + 1,)),
             dst_t.reshape(src.shape))
+
+
+def k1_slice_width(n_src: int, F: int, elem_bytes: int,
+                   l2_bytes: int) -> Tuple[int, int]:
+    """K1's column slices for one part's table of ``n_src`` rows of F
+    elements of ``elem_bytes``: ``(W, S)``, W columns a slice and S =
+    ceil(F / W) slices (the last may be narrower). S = 1 (W = F) where
+    the whole table fits ``K1_L2_SHARE`` of ``l2_bytes``; otherwise the
+    widest of ``K1_SLICE_BYTES`` whose slice table fits it (the narrowest
+    where none does). Pure: the CPU tests hold it."""
+    budget = K1_L2_SHARE * l2_bytes
+    if n_src * F * elem_bytes <= budget:
+        return F, 1
+    fits = [b for b in K1_SLICE_BYTES if n_src * b <= budget]
+    W = max(1, (fits[0] if fits else K1_SLICE_BYTES[-1]) // elem_bytes)
+    if W >= F:
+        return F, 1
+    return W, -(-F // W)
+
+
+def k1_plan(n_src: int, F: int, elem_bytes: int, l2_bytes: int,
+            ptr: int) -> Tuple[int, int]:
+    """``(width, vec)`` for ``pgt_spmm_mean``: the slice width of
+    :func:`k1_slice_width` and the elements a lane loads at once: the
+    widest load up to ``K1_LOAD_BYTES`` that F and the table's address
+    ``ptr`` allow, with width / vec lanes a row (8, 16 or 32; past 32 the
+    slice narrows). width = F: the whole-row kernel."""
+    W, S = k1_slice_width(n_src, F, elem_bytes, l2_bytes)
+    if S == 1:
+        return F, 0
+    vec = K1_LOAD_BYTES // elem_bytes
+    while vec > 1 and (F % vec or W % vec or ptr % (vec * elem_bytes)):
+        vec //= 2
+    W = min(W, 32 * vec)
+    while W // vec < 8:  # groups of 8, 16 or 32 lanes
+        vec //= 2
+    return W, vec
+
+
+_L2_BYTES = {}
+
+
+def _l2_bytes(device: torch.device) -> int:
+    """The L2 size the card reports (cudaDevAttrL2CacheSize)."""
+    i = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if i not in _L2_BYTES:
+        _L2_BYTES[i] = torch.cuda.get_device_properties(i).L2_cache_size
+    return _L2_BYTES[i]
 
 
 def _stacked(x, indptr, idx, deg):
@@ -191,11 +260,11 @@ def _spmm_mean_fwd_plain(fbuf, indptr, src, in_deg):
     return out[0] if single else out
 
 
-def _spmm_mean_fwd(fbuf, indptr, src, in_deg):
-    """K1 on CUDA tensors (counted in ``spmm_mean.launches``), the plain
-    version on CPU tensors."""
-    if fbuf.device.type == "cpu":
-        return _spmm_mean_fwd_plain(fbuf, indptr, src, in_deg)
+def k1_launch(fbuf, indptr, src, in_deg, plan=None):
+    """Launch K1 on CUDA tensors with ``plan = (width, vec)`` (default
+    :func:`k1_plan` from the card's L2; ``(F, 0)`` is the whole-row
+    kernel, one slice), uncounted: :func:`spmm_mean` counts its own
+    calls."""
     _check(fbuf, indptr, src, in_deg)
     if fbuf.device.type != "cuda":
         raise ValueError(f"spmm_mean: unsupported device {fbuf.device}")
@@ -206,16 +275,28 @@ def _spmm_mean_fwd(fbuf, indptr, src, in_deg):
     n_out = ip.shape[-1] - 1
     if P * n_src * F >= 2 ** 62 or n_src >= 2 ** 31 or F >= 2 ** 31:
         raise ValueError("spmm_mean: fbuf too large for the kernel")
+    if plan is None:
+        plan = k1_plan(n_src, F, f.element_size(), _l2_bytes(f.device),
+                       f.data_ptr())
     out = torch.empty((P, n_out, F), dtype=torch.float32, device=f.device)
     lib = _build.load("spmm_mean", _SIGNATURES)
     rc = lib.pgt_spmm_mean(
         f.data_ptr(), int(f.dtype == torch.bfloat16), ip.data_ptr(),
         int(ip.dtype == torch.int64), s.data_ptr(), s.shape[1],
-        dg.data_ptr(), out.data_ptr(), P, n_src, n_out, F,
+        dg.data_ptr(), out.data_ptr(), P, n_src, n_out, F, *plan,
         torch.cuda.current_stream(f.device).cuda_stream)
     _build.check(rc, "spmm_mean")
-    spmm_mean.launches += 1
     return out[0] if single else out
+
+
+def _spmm_mean_fwd(fbuf, indptr, src, in_deg):
+    """K1 on CUDA tensors (counted in ``spmm_mean.launches``), the plain
+    version on CPU tensors."""
+    if fbuf.device.type == "cpu":
+        return _spmm_mean_fwd_plain(fbuf, indptr, src, in_deg)
+    out = k1_launch(fbuf, indptr, src, in_deg)
+    spmm_mean.launches += 1
+    return out
 
 
 def spmm_mean_t_plain(g: torch.Tensor, indptr_t: torch.Tensor,

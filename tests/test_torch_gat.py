@@ -318,3 +318,104 @@ def test_gat_config_checks_follow_jax():
                            spmm_impl=impl).spmm_impl == impl
     assert ModelConfig(layer_sizes=(4, 8, 3), rem_dtype="none").rem_dtype \
         is None
+
+
+def _fma32(a, b, c):
+    """f32 fused multiply-add, emulated: the exact product (f64 holds a
+    product of two f32) plus c, rounded once to f32 (a double rounding in
+    rare ties: the emulation is held at the f32 tolerance, not bit for
+    bit)."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def k6_emulated(z, el, er, indptr, src):
+    """K6's arithmetic in its NEG mode (``csrc/gat_attn.cuh``) on f32 z
+    rows, one part, in f32: the row max over the edges' leaky logits; per
+    32-edge chunk, lane l takes edge l of the chunk, its weight exp(logit
+    - m), and adds it into its own s and (negative branch) w_neg sums,
+    which a xor butterfly over the 32 lanes combines; each edge adds
+    weight * z[src] (one fused multiply-add an element) in edge order:
+    where dh is a multiple of the kernel's 4-element chunk, into the sum
+    of its leaky branch, out = (pos + neg) / s; otherwise (on f32 rows the
+    chunks straddle two heads) into a sum over all edges and, on the
+    negative branch, one over those, out = all / s. n_neg = neg / s,
+    w_neg = sum / s; a row without edges gets m = 0, s = 1 and zeros."""
+    n, (R, Hh, dh) = indptr.shape[0] - 1, z.shape
+    out = np.zeros((n, Hh, dh), np.float32)
+    n_neg = np.zeros_like(out)
+    m = np.zeros((n, Hh), np.float32)
+    s = np.ones((n, Hh), np.float32)
+    w_neg = np.zeros((n, Hh), np.float32)
+    for d in range(n):
+        e0, e1 = int(indptr[d]), int(indptr[d + 1])
+        if e0 == e1:
+            continue
+        cols = np.clip(src[e0:e1], 0, R - 1)
+        lp = (el[cols] + er[d]).astype(np.float32)
+        lg = np.where(lp > 0, lp, np.float32(SLOPE) * lp)
+        m[d] = lg.max(0)
+        w = np.exp(lg - m[d]).astype(np.float32)
+        wn = np.where(lp > 0, np.float32(0), w)
+        lanes = np.zeros((2, 32, Hh), np.float32)
+        for j in range(e1 - e0):
+            lanes[0, j % 32] += w[j]
+            lanes[1, j % 32] += wn[j]
+        for off in (16, 8, 4, 2, 1):
+            lanes = lanes + lanes[:, np.arange(32) ^ off]
+        s[d], nsum = lanes[0, 0], lanes[1, 0]
+        split = dh % 4 == 0
+        pos = np.zeros((Hh, dh), np.float32)
+        neg = np.zeros((Hh, dh), np.float32)
+        for j, c in enumerate(cols):
+            on_neg = (lp[j] <= 0)[:, None]
+            neg = np.where(on_neg, _fma32(w[j][:, None], z[c], neg), neg)
+            if split:
+                pos = np.where(on_neg, pos,
+                               _fma32(w[j][:, None], z[c], pos))
+            else:
+                pos = _fma32(w[j][:, None], z[c], pos)
+        out[d] = ((pos + neg) if split else pos) / s[d][:, None]
+        n_neg[d] = neg / s[d][:, None]
+        w_neg[d] = nsum / s[d]
+    return out, m, s, n_neg, w_neg
+
+
+@pytest.mark.parametrize("dh", [41, 64])
+def test_k6_arithmetic_matches_jax_forward(dh):
+    """K6's arithmetic (``k6_emulated``: per-branch sums at dh = 64, a
+    sum over all edges and one over the negative branch at dh = 41) on a
+    graph with a 250-edge row (eight 32-edge chunks) and an empty one,
+    against JAX's
+    ``make_device_gat_fn`` forward: out, m and s from its forward pass,
+    n_neg and w_neg from the same m and s over the negative-branch edges;
+    and pass A's d_er (``gat_d_er`` over the emulation's n_neg, w_neg)
+    against the d_er of JAX's VJP. At the f32 tolerance (rtol 1e-5, atol
+    1e-6; d_er 1e-5 of its max)."""
+    src, dst = graph(10)
+    z, el, er, g = inputs(dh, 11)
+    indptr = csr_indptr(dst, N)
+    fns = jax_bucket_fns(src, dst)
+    for p in range(P):
+        got = k6_emulated(z[p], el[p], er[p], indptr[p], src[p])
+        out, (_, _, _, _, m, s) = fns[p].fwd(
+            jnp.asarray(z[p]), jnp.asarray(el[p]), jnp.asarray(er[p]))
+        real = dst[p] < N
+        sp, dp = src[p][real], dst[p][real]
+        lp = el[p][sp] + er[p][dp]
+        neg = jnp.asarray(lp <= 0)
+        alpha = jnp.exp(jnp.where(lp > 0, lp, SLOPE * lp)
+                        - m[dp]) / s[dp]
+        a_neg = jnp.where(neg, alpha, 0.0)
+        w_neg = jax.ops.segment_sum(a_neg, dp, N)
+        n_neg = jax.ops.segment_sum(a_neg[..., None] * z[p][sp], dp, N)
+        for name, a, b in zip(("out", "m", "s", "n_neg", "w_neg"), got,
+                              (out, m, s, n_neg, w_neg)):
+            np.testing.assert_allclose(a, np.asarray(b), rtol=1e-5,
+                                       atol=1e-6, err_msg=name)
+        assert not got[0][EMPTY].any() and (got[2][EMPTY] == 1).all()
+        _, (_, _, dr) = jax_vjp(fns[p], z[p], el[p], er[p], g[p])
+        gt = torch.from_numpy(g[p])
+        rho = (gt * torch.from_numpy(got[0])).sum(-1)
+        d_er = gat_d_er(gt, rho, torch.from_numpy(got[3]),
+                        torch.from_numpy(got[4]), SLOPE)
+        close_to_max(d_er.numpy(), dr, "pass A: d_er")

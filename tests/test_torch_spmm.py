@@ -10,6 +10,7 @@ import torch
 from pipegcn_tpu.graph import synthetic_graph
 from pipegcn_tpu.ops.spmm import spmm_mean as jax_spmm_mean
 from pipegcn_tpu.partition import ShardedGraph, partition_graph
+from pipegcn_tpu_torch.ops import spmm
 from pipegcn_tpu_torch.ops.spmm import (csr_indptr, csr_transpose, spmm_mean,
                                         spmm_mean_t, spmm_mean_t_plain)
 
@@ -209,3 +210,42 @@ def test_spmm_mean_t_plain_is_the_transpose():
     with pytest.raises(ValueError, match="transpose CSR"):
         spmm_mean(x.requires_grad_(True), ip,
                   torch.from_numpy(src.astype(np.int32)), dg).sum().backward()
+
+
+# the H100's L2 as the card reports it (cudaDevAttrL2CacheSize)
+H100_L2 = 52428800
+
+
+@pytest.mark.parametrize("n_src", [1000, 143584, 232976, 2000000])
+@pytest.mark.parametrize("elem", [4, 2], ids=["f32", "bf16"])
+@pytest.mark.parametrize("F", [1, 41, 164, 256, 602, 1204])
+def test_k1_slices_tile_the_columns_within_the_l2_budget(F, elem, n_src):
+    """K1's slice rule: the S slices of W columns tile [0, F) exactly (the
+    last one cut by F); S = 1 where the table of a part fits the L2
+    budget (``K1_L2_SHARE`` of the L2); otherwise each (part, slice)
+    table stays within that budget, unless not even the narrowest slice
+    fits, which is then taken. The launch plan
+    narrows the slice only as its loads require: width / vec lanes a row,
+    8, 16 or 32, and F a multiple of vec."""
+    budget = spmm.K1_L2_SHARE * H100_L2
+    W, S = spmm.k1_slice_width(n_src, F, elem, H100_L2)
+    assert 1 <= W <= F and S == -(-F // W)
+    bounds = [(s * W, min((s + 1) * W, F)) for s in range(S)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == F
+    assert all(a < b for a, b in bounds)
+    assert all(b == a2 for (_, b), (a2, _) in zip(bounds, bounds[1:]))
+    if n_src * F * elem <= budget:
+        assert S == 1
+    elif S > 1:
+        assert W * elem in spmm.K1_SLICE_BYTES
+        narrowest = n_src * min(spmm.K1_SLICE_BYTES)
+        assert n_src * W * elem <= budget or (
+            narrowest > budget and W * elem == min(spmm.K1_SLICE_BYTES))
+    for ptr in (256, 2 * elem):  # an aligned and a barely aligned table
+        width, vec = spmm.k1_plan(n_src, F, elem, H100_L2, ptr)
+        if S == 1:
+            assert (width, vec) == (F, 0)
+            continue
+        assert width <= W and width // vec in (8, 16, 32)
+        assert width % vec == 0 and F % vec == 0
+        assert ptr % (vec * elem) == 0
