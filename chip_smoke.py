@@ -29,10 +29,10 @@ stack (union-gather block tiles and the fp8 halo wire at bf16):
      g ``gat_attn_fp8.cu``), K9 the bucket-ELL gather-sum
      (``bucket_spmm.cu``), K10 the transport cast and K11 the per-part
      amax (``transport_cast.cu``), K12 / K13 the dense-tile products with
-     f32 or bf16 rows and K17 over union-gather groups
-     (``block_spmm.cu``; K12 with 1-bit, int8 or bf16 A in
-     ``block_tma.cu``), K16 the union-gather forward and its pre-split
-     (``block_tma.cu``), K14 / K15 the compressed halo wire
+     f32 or bf16 rows (``block_spmm.cu``; K12 with 1-bit, int8 or bf16 A
+     in ``block_tma.cu``), K16 / K17 the union-gather forward and
+     transpose and the pre-split (``block_tma.cu``; f32 A in
+     ``block_spmm.cu``), K14 / K15 the compressed halo wire
      (``halo_wire.cu``), K19 the integrity digests (``digest.cu``); and
      the native host library
      (``pipegcn_tpu_torch/native``, g++), whose absence fails the run;
@@ -101,9 +101,10 @@ stack (union-gather block tiles and the fp8 halo wire at bf16):
      dh = 5 with H = 8, unaligned rows; f32 also H = 1, equal logits,
      int64 row pointers, junk past the CSRs' ends), each rerun
      bit-identical (K6's NEG mode: m and s bit-identical to its eval
-     mode's, whose out is held to the plain version on its own); a
-     planted fault (one edge of the 5,000-edge row dropped) must fail
-     each check in each row type;
+     mode's, whose out is held to the plain version on its own); K8's
+     worst error in GAT_SUM_C's unit reported; a planted fault (one edge
+     of the 5,000-edge row dropped) must fail each check in each row
+     type;
  13. times K6 (NEG and eval modes) and K8 in each row type at dh = 64
      and 41, the GAT epoch and its split;
  14. runs a few pipelined GCN epochs and holds one against the plain
@@ -177,7 +178,11 @@ stack (union-gather block tiles and the fp8 halo wire at bf16):
      wgmma path on hand-made groups (T = 32, 96, 224, 128, 256; groups 2,
      4, 8, 16; f32 rows at F = 602 and 130, bf16 rows at F = 5 and 100; a
      tail group, an empty group, slots unused by half a group or by all of
-     it), and a flipped A bit at T = 96 must fail;
+     it), and a flipped A bit at T = 96 must fail; K17's TMA / wgmma path
+     on hand-made transposed groups (T = 32, 96, 128, 160, 224, 256;
+     groups 1 to 16; 1-bit, int8 and bf16 A; f32 and bf16 rows), where in
+     each A encoding a changed A entry and A read untransposed must fail;
+     each check names the C entry it ran;
  33. times K14-K17, reports the union dedupe beside K12's group-1 time,
      the wire cell's epoch and its split;
  34. trains this slice's cell, the integrity plane: the reddit.sh command
@@ -211,11 +216,12 @@ stack (union-gather block tiles and the fp8 halo wire at bf16):
      types, times at the shapes whose launches are counted), a line for
      each cell, the nvidia-smi line, and last ``{"ok": true, "device":
      {...}}``. With ``--parent DIR`` (a parent commit unpacked with ``git
-     archive``) it first times K5, K11, K12 and K16 of DIR against this
-     checkout's with ``pipegcn_tpu_torch/tools/time_tile_products.py``
-     and K1, K3, K6 and K8 with ``tools/time_gather_kernels.py``, in
-     turns (parent, this, this, parent; each tool its own process) and
-     carries both in those kernels' ``parent_ab``.
+     archive``) it first times K5, K11, K12, K13, K16 and K17 of DIR
+     against this checkout's with
+     ``pipegcn_tpu_torch/tools/time_tile_products.py`` and K1, K3, K6 and
+     K8 (dh = 64 and 41) with ``tools/time_gather_kernels.py``, in turns
+     (parent, this, this, parent; each tool its own process) and carries
+     both in those kernels' ``parent_ab``.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when the
 package is missing (the script alone), or when any phase fails.
@@ -269,20 +275,23 @@ RELU_FLIP_FRAC = 1e-4
 # K6 and K8 against their plain versions: both compute every logit and
 # weight the same way (the leaky logit, expf) and differ in summation
 # order (the kernels per row in edge order, the plain versions by
-# index_add_ atomics). K8 rounds each weight times row value before the
-# add, as the plain version does, and contracts the weighted row sum with
-# the row's own z after the edge loop instead of per edge (the same terms
-# regrouped). K6 fuses each product into its add (an FMA: the term is not
-# rounded on its own, a difference of at most half an ulp of the term),
-# and in its NEG mode (but on f32 rows whose chunks straddle two heads)
-# sums each leaky branch apart and adds the two sums at the end (out =
-# (pos + neg) / s: the same terms regrouped). So the bound adds a
-# multiple of the sum of the terms' magnitudes (the plain pass on |z|,
-# |g| and -|rho| gives it), which covers both. The row max m is a max of
-# identically computed values: bit-exact. The GAT step shares the kernel
-# run's leaky branches with the plain run as it shares the relu masks: a
-# logit within rounding of 0 switches leaky' between 1 and the slope, a
-# jump no rounding tolerance bounds; such flips are counted.
+# index_add_ atomics). Both kernels fuse each product into its add (an
+# FMA: the term is not rounded on its own, a difference of at most half
+# an ulp of the term, where the plain version rounds the product first).
+# Both sum each leaky branch apart (but on f32 rows whose chunks straddle
+# two heads, dh = 41) and combine the two sums at the end: K6's out =
+# (pos + neg) / s; K8's d_z = pos + neg and its beta-weighted row sum
+# fma(slope, neg, pos), where the plain version weights each term by
+# beta = alpha or slope * alpha (the same terms regrouped). At dh = 41 on
+# f32 rows K8 keeps an alpha sum and a beta sum, two FMAs an element. K8
+# contracts the beta-weighted row sum with the row's own z after the edge
+# loop instead of per edge (the same terms regrouped again). So the bound
+# adds a multiple of the sum of the terms' magnitudes (the plain pass on
+# |z|, |g| and -|rho| gives it), which covers all of it. The row max m is
+# a max of identically computed values: bit-exact. The GAT step shares
+# the kernel run's leaky branches with the plain run as it shares the relu
+# masks: a logit within rounding of 0 switches leaky' between 1 and the
+# slope, a jump no rounding tolerance bounds; such flips are counted.
 GAT_ATOL, GAT_RTOL = 1e-5, 1e-5
 LEAKY_FLIP_FRAC = 1e-4
 # The sum term of a row of n terms is gamma_n = max(SUM_RTOL, GAT_SUM_C
@@ -290,10 +299,11 @@ LEAKY_FLIP_FRAC = 1e-4
 # where a dot product adds terms). Two orders of n terms differ by about
 # sqrt(n) u where the roundings are independent; on an H100 the worst
 # seen was 4.75 sqrt(n) u, on the edge cases' 5,000-edge row, a third of
-# whose terms come from one source (equal terms round alike). 16 leaves a
-# margin of 3.4 over that, and stays under the shift of one dropped edge
-# of that row (1/n of the sum, 47 sqrt(n) u): gat_fault_phase plants
-# that fault and requires each check to fail.
+# whose terms come from one source (equal terms round alike); K8's worst
+# with its per-branch sums (K8_WORST, reported each run) was 1.06. 16
+# leaves a margin of 3.4 over 4.75, and stays under the shift of one
+# dropped edge of that row (1/n of the sum, 47 sqrt(n) u):
+# gat_fault_phase plants that fault and requires each check to fail.
 GAT_SUM_C = 16.0
 F32_U = 2.0 ** -24
 # K9, K10 and K11 are bit-exact against their plain versions (a NaN equal
@@ -1823,10 +1833,35 @@ def k6_checks(name, got, ref, abs_ref, deg):
                     abs_sum=abs_ref[3], sum_rtol=gi[..., None, None]))
 
 
+# the worst K8 error seen in this run as a multiple of sqrt(n) u sum|terms|
+# (GAT_SUM_C's unit), over the elements whose sum term is at least
+# GAT_ATOL (where the absolute floor does not set the bound)
+K8_WORST = {"c": 0.0, "where": None}
+
+
+def k8_worst_c(name, got, ref, abs_sum, n):
+    """Record the largest |got - ref| / (sqrt(n) u abs_sum) of one K8
+    output in K8_WORST (n the terms of each element's sum)."""
+    import torch
+
+    unit = torch.sqrt(n.double()) * F32_U * abs_sum.double()
+    live = unit >= GAT_ATOL
+    if not bool(live.any()):
+        return
+    c = float(((got.double() - ref.double()).abs() / unit)[live].max())
+    if c > K8_WORST["c"]:
+        K8_WORST.update(c=c, where=name)
+
+
 def k8_checks(name, got, ref, abs_ref, deg_t, dh):
     """K8's (d_z, d_el) against the plain version's, as k6_checks (the
     magnitudes from the plain pass on |z|, |g| and -|rho|; d_el's dot
-    product adds dh terms)."""
+    product adds dh terms); each output's error in GAT_SUM_C's unit goes
+    into K8_WORST."""
+    k8_worst_c(f"K8 {name}: d_z", got[0], ref[0], abs_ref[0],
+               deg_t[..., None, None].expand_as(ref[0]))
+    k8_worst_c(f"K8 {name}: d_el", got[1], ref[1], abs_ref[1],
+               (deg_t + dh)[..., None].expand_as(ref[1]))
     return max(
         check_close(f"K8 {name}: d_z", got[0], ref[0], GAT_ATOL, GAT_RTOL,
                     abs_sum=abs_ref[0],
@@ -2956,11 +2991,15 @@ def dense_fn(blk, side):
 def block_check(name, blk, x, tables, side) -> float:
     """K12 (K13 for a transpose side; K16 / K17 over union groups) against
     the plain version on one input within BLOCK_SUM_RTOL * sum|terms| (the
-    plain product on |x|: A >= 0); a rerun bit-identical. Returns the
-    largest |difference|."""
+    plain product on |x|: A >= 0); a rerun bit-identical. The check's name
+    carries the C entry that ran it (``tile_entry``). Returns the largest
+    |difference|."""
     import torch
 
     fn = dense_fn(blk, side)
+    entry = blk.tile_entry(isinstance(side, blk.GroupSide), side.transpose,
+                           tables.a.dtype)
+    name = f"{name} [{entry}]"
     got = fn(x, tables)
     ref = blk.block_dense_plain(x, tables, side)
     abs_sum = blk.block_dense_plain(x.abs(), tables, side)
@@ -4050,7 +4089,7 @@ def bf16_gat_split(trainer, cnt, g16, g8, gf, k4b, tt):
 # ---------------------------------------------------------------------------
 # the union-gather block + fp8 halo wire cell: K14 / K15 (the compressed
 # halo wire, ops/csrc/halo_wire.cu) and K16 / K17 (the union-gather tile
-# products, ops/csrc/block_spmm.cu)
+# products, ops/csrc/block_tma.cu)
 
 WIRE_FLAGS = ["--spmm-impl", "block", "--block-group", "4", "--rem-dtype",
               "float8", "--halo-dtype", "float8"]
@@ -4240,42 +4279,46 @@ def k14_k15_check_phase(trainer, halo):
                        dt)
 
 
+def group_side(entries, n_o, n_i, transpose, g, b_max, tile):
+    """One part's GroupSide on the card from ``entries`` [(group, input
+    tile, [block or None for each of the g tiles])] in list order, over
+    ``n_o`` output and ``n_i`` input rows."""
+    import torch
+    from pipegcn_tpu_torch.ops import block_spmm as blk
+
+    entries = sorted(entries, key=lambda q: q[0])  # stable
+    ptr = [0] * (-(-n_o // (tile * g)) + 1)
+    for q in entries:
+        ptr[q[0] + 1] += 1
+    for i in range(1, len(ptr)):
+        ptr[i] += ptr[i - 1]
+    til = [q[1] for q in entries] or [0]
+    bl = [[b_max if b is None else b for b in q[2]]
+          for q in entries] or [[b_max] * g]
+    put = (lambda v: torch.tensor([v], dtype=torch.int32,
+                                  device="cuda"))  # noqa: E731
+    return blk.GroupSide(ptr=put(ptr), tile=put(til), blk=put(bl), group=g,
+                         n_out=n_o, n_in=n_i, n_out_tiles=-(-n_o // tile),
+                         transpose=transpose)
+
+
 def grouped_tables_of(a, G, slots, n_out, n_in, tile=256):
     """BlockTables of one part on the card over hand-made union groups:
     ``slots`` [(group, input tile, [block or None for each of the G
     tiles])] in list order; the transpose lists hold the same products
     keyed by input tile, one group a tile. No remainder."""
-    import torch
     from pipegcn_tpu_torch.ops import block_spmm as blk
 
     b_max = a.shape[1]
-
-    def side(entries, n_keys, n_o, n_i, transpose, g):
-        entries = sorted(entries, key=lambda q: q[0])  # stable
-        ptr = [0] * (-(-n_keys // g) + 1)
-        for q in entries:
-            ptr[q[0] + 1] += 1
-        for i in range(1, len(ptr)):
-            ptr[i] += ptr[i - 1]
-        til = [q[1] for q in entries] or [0]
-        bl = [[b_max if b is None else b for b in q[2]]
-              for q in entries] or [[b_max] * g]
-        put = (lambda v: torch.tensor([v], dtype=torch.int32,
-                                      device="cuda"))  # noqa: E731
-        return blk.GroupSide(ptr=put(ptr), tile=put(til), blk=put(bl),
-                             group=g, n_out=n_o, n_in=n_i,
-                             n_out_tiles=-(-n_o // tile),
-                             transpose=transpose)
-
-    n_out_t, n_in_t = -(-n_out // tile), -(-n_in // tile)
     # the transpose: each input tile's products, one "group" of 1 a tile
     tr = sorted((t, g * G + d, b) for g, t, bs in slots
                 for d, b in enumerate(bs) if b is not None)
-    bwd = side([(t, o, [b]) for t, o, b in tr], n_in_t, n_in, n_out, True,
-               1)
-    return blk.BlockTables(a=a.cuda(), packed=True, tile=tile,
-                           fwd=side(slots, n_out_t, n_out, n_in, False, G),
-                           bwd=bwd, rem_fwd=None, rem_bwd=None)
+    bwd = group_side([(t, o, [b]) for t, o, b in tr], n_in, n_out, True, 1,
+                     b_max, tile)
+    return blk.BlockTables(
+        a=a.cuda(), packed=True, tile=tile,
+        fwd=group_side(slots, n_out, n_in, False, G, b_max, tile), bwd=bwd,
+        rem_fwd=None, rem_bwd=None)
 
 
 def k16_k17_check_phase(trainer, blk, halo):
@@ -4348,6 +4391,7 @@ def k16_k17_check_phase(trainer, blk, halo):
         block_fault_phase(blk, trainer, dtype=dtype)
     tile_split_phase(trainer, blk)
     errs.append(k16_edge_phase(blk))
+    errs.append(k17_edge_phase(blk))
     return max(errs)
 
 
@@ -4434,6 +4478,90 @@ def k16_edge_phase(blk):
                       lambda: check_close("K16 edge planted fault", got,
                                           ref, BLOCK_ATOL, 0.0, abs_sum,
                                           BLOCK_SUM_RTOL))
+    return max(errs)
+
+
+def k17_edge_phase(blk):
+    """K17 on csrc/block_tma.cu over hand-made transposed union groups
+    (``bwd``: groups of output tiles, each slot an input tile and A^T's
+    blocks) against the plain version (BLOCK_SUM_RTOL * sum|terms|, each
+    rerun bit-identical), f32 rows and the bf16 mode: T = 32, 96, 128, 160,
+    224 and 256; groups of 1, 2, 4, 8 and 16; 1-bit, int8 and bf16 A; f32
+    rows at F = 602 (a padded split plane) and 130, bf16 rows with F % 8
+    != 0 (the pre-pass's padded copy) and F % 8 == 0 (read as they are); a
+    tail group, an empty group, a slot none of the first 8 tiles of a
+    16-tile group uses and a slot no tile uses. Two planted faults must
+    fail in every A encoding: one A entry changed, and the same products
+    with A read untransposed (the forward kernel over the transposed
+    lists: ``fwd`` holds them marked untransposed). Returns the largest
+    |difference|."""
+    import dataclasses
+
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(67)
+    gb = torch.Generator().manual_seed(13)
+    errs = []
+    f32, bf = torch.float32, torch.bfloat16
+    cases = (
+        # T, G, A encoding, output tiles, input tiles, [(F, row dtype)],
+        # empty groups, extra slots
+        (32, 2, "bits", 7, 9, [(64, f32), (64, bf), (5, bf)], (), ()),
+        (96, 4, "bits", 10, 7, [(602, f32), (100, bf)], (1,), ()),
+        (96, 4, "int8", 6, 5, [(64, f32), (64, bf)], (), ()),
+        (160, 2, "bf16", 5, 4, [(130, f32), (100, bf)], (), ()),
+        (224, 8, "bits", 11, 6, [(256, f32), (256, bf), (5, bf)], (), ()),
+        (256, 16, "bits", 37, 6, [(256, f32), (100, bf)], (1,),
+         ((0, 5, list(range(8, 16))), (0, 4, []))),
+        (128, 1, "int8", 9, 5, [(130, f32)], (), ()),
+    )
+    faulted = set()
+    for T, G, enc, n_t, n_in_t, runs, empty, extra in cases:
+        slots, nb = random_groups(T, G, n_t, n_in_t, seed=T + G + 1,
+                                  empty=empty, extra=extra)
+        if enc == "bits":
+            a = torch.randint(0, 256, (1, nb, T, T // 8), generator=gb,
+                              dtype=torch.uint8)
+        elif enc == "int8":
+            a = torch.randint(0, 4, (1, nb, T, T), generator=gb,
+                              dtype=torch.int8)
+        else:
+            a = torch.randint(0, 3, (1, nb, T, T), generator=gb).to(bf)
+        side = group_side(slots, n_t * T - 20, n_in_t * T - 30, True, G, nb,
+                          T)
+        tb = blk.BlockTables(a=a.cuda(), packed=enc == "bits", tile=T,
+                             fwd=dataclasses.replace(side, transpose=False),
+                             bwd=side, rem_fwd=None, rem_bwd=None)
+        require(blk.tile_entry(True, True, tb.a.dtype)
+                == "pgt_block_grouped_tma", f"K17 T={T} {enc} A: not "
+                "routed to block_tma.cu")
+        for F, dt in runs:
+            x = torch.randn((1, side.n_in, F), generator=gen,
+                            device="cuda").to(dt)
+            errs.append(block_check(
+                f"K17 edge T={T} G={G} {enc} A F={F} {t_dtype(x)} rows "
+                f"({len(slots)} slots)", blk, x, tb, side))
+        if enc in faulted:
+            continue
+        faulted.add(enc)
+        x = torch.randn((1, side.n_in, 64), generator=gen, device="cuda")
+        ref = blk.block_dense_plain(x, tb, side)
+        abs_sum = blk.block_dense_plain(x.abs(), tb, side)
+        b = next(q for q in slots[0][2] if q is not None)
+        bad = dataclasses.replace(tb, a=tb.a.clone())
+        if enc == "bits":
+            bad.a[0, b, 7, 3] ^= 1 << 5  # A[7, 29]: output row 29
+        else:
+            bad.a[0, b, 7, 29] += 1
+        for label, got in (
+                ("one A entry changed", blk.block_dense_grouped_t(x, bad)),
+                ("A read untransposed", blk.block_dense_grouped(x, tb))):
+            name = f"K17 edge planted fault [{enc} A, T={T}] ({label})"
+            must_fail(name, lambda: check_close(
+                name, got, ref, BLOCK_ATOL, 0.0, abs_sum, BLOCK_SUM_RTOL))
+    require(faulted == {"bits", "int8", "bf16"}, "K17 edge faults: an A "
+            f"encoding untested ({sorted(faulted)})")
+    log(f"  K17 on block_tma.cu, edge cases: worst |diff| {max(errs):.3e}")
     return max(errs)
 
 
@@ -5446,11 +5574,12 @@ def kernel_entry(name, source, replaces, launches, err, t, serving=None):
 
 
 def parent_ab(parent):
-    """K5 (one call and back to back), K11 (both forms), K12 and K16
-    (both modes) of a parent checkout against this one's at
-    tools/time_tile_products.py's shapes, and K1 (F = 256 and 602 f32,
-    bf16 rows), K3, K6 (NEG and eval modes) and K8 (f32, bf16 and e4m3 z
-    rows) at tools/time_gather_kernels.py's, each tool run in its own
+    """K5 (one call and back to back), K11 (both forms), K12, K13, K16 and
+    K17 (both modes; K17 also the transposed copy's alternative) of a
+    parent checkout against this one's at tools/time_tile_products.py's
+    shapes, and K1 (F = 256 and 602 f32, bf16 rows), K3, K6 (NEG and eval
+    modes) and K8 (f32, bf16 and e4m3 z rows, dh = 64 and 41) at
+    tools/time_gather_kernels.py's, each tool run in its own
     process (each checkout builds its own kernels, the parent's first, all
     together), in turns: parent, this, this, parent. Returns each key's
     two runs a side and their means."""
@@ -5480,16 +5609,20 @@ def parent_ab(parent):
         runs[label].append(both)
         log(f"  {label}: {both}")
     out = {}
-    for k in ("K11", "K11 deg", "K16 torch.float32", "K16 torch.bfloat16",
-              "K12 torch.float32", "K12 torch.bfloat16", "K5",
-              "K5 batched", "K1 serving f32 F=256", "K1 serving f32 F=602",
+    for k in ("K11", "K11 deg", "K5", "K5 batched",
+              *(f"{k} torch.{d}" for k in ("K12", "K13", "K16", "K17",
+                                           "K17 alt")
+                for d in ("float32", "bfloat16")),
+              "K1 serving f32 F=256", "K1 serving f32 F=602",
               "K1 serving bf16 F=256", "K3 serving f32 F=256",
               *(f"{k} {r}" for k in ("K6 NEG", "K6 eval", "K8")
-                for r in ("f32", "bf16", "e4m3"))):
+                for r in ("f32", "bf16", "e4m3")),
+              *(f"K8 {r} dh=41" for r in ("f32", "bf16", "e4m3"))):
         par = [x[k] for x in runs["parent"]]
         new = [x[k] for x in runs["change"]]
         tool = ("time_tile_products.py" if k.split()[0] in (
-            "K5", "K11", "K12", "K16") else "time_gather_kernels.py")
+            "K5", "K11", "K12", "K13", "K16", "K17")
+            else "time_gather_kernels.py")
         out[k] = {"parent_ms": sum(par) / 2, "ms": sum(new) / 2,
                   "parent_runs_ms": par, "runs_ms": new,
                   "shape": f"pipegcn_tpu_torch/tools/{tool}'s"}
@@ -5522,8 +5655,8 @@ def main() -> int:
     ap.add_argument("--integrity-epochs", type=int, default=6,
                     help="epochs of the integrity cell")
     ap.add_argument("--parent", default=None,
-                    help="a parent checkout: K1, K3, K5, K6, K8, K11, K12 "
-                         "and K16 of both timed in turns by "
+                    help="a parent checkout: K1, K3, K5, K6, K8, K11, K12, "
+                         "K13, K16 and K17 of both timed in turns by "
                          "tools/time_tile_products.py and "
                          "tools/time_gather_kernels.py, carried in the "
                          "kernels line as parent_ab")
@@ -5685,6 +5818,9 @@ def main() -> int:
         errs.update({f"{k} {mode}": max(e_edge[k], e_cell[k])
                      for k in e_edge})
         gat_fault_phase(gat, mode=mode)
+    log(f"  K8's worst error in GAT_SUM_C's unit (sqrt(n) u sum|terms|): "
+        f"{K8_WORST['c']:.3f} against GAT_SUM_C = {GAT_SUM_C:g} "
+        f"({K8_WORST['where']})")
 
     log("[13] K6, K8 timings in each row type, the GAT epoch and its split")
     gt = gat_timings(gtrainer, gat)
@@ -5995,6 +6131,9 @@ def main() -> int:
         if name == "K6":
             entry["eval"] = {"dh64": sub(gt["K6 eval"][64]),
                              "dh41": sub(gt["K6 eval"][41])}
+        else:  # every row type's checks, in GAT_SUM_C's unit
+            entry["worst_sum_c"] = K8_WORST["c"]
+            entry["worst_sum_c_at"] = K8_WORST["where"]
         entry["also_replaces"] = also
         kernels.append(entry)
     # K9-K11: the bucket cell's run (K11: its --rem-amax variant's), times
@@ -6149,8 +6288,7 @@ def main() -> int:
                 ("float32", gt32, wire_stats["groups"])):
             e = kernel_entry(
                 f"{kname}[{'bf16' if mode == 'bfloat16' else 'f32'}]",
-                src + ("block_tma.cu" if key == "K16" else "block_spmm.cu"),
-                replaces,
+                src + "block_tma.cu", replaces,
                 run["launches_by_mode"][kname][mode], errs["K16/K17"],
                 tm[key])
             e["launches_run"] = ("the wire cell's" if run is wire_stats
@@ -6199,8 +6337,8 @@ def main() -> int:
         kernels.append(e)
 
     if args.parent is not None:
-        log(f"[38] K1, K3, K5, K6, K8, K11, K12 and K16 of the parent "
-            f"checkout {args.parent} against this one's "
+        log(f"[38] K1, K3, K5, K6, K8, K11, K12, K13, K16 and K17 of the "
+            f"parent checkout {args.parent} against this one's "
             f"(time_tile_products.py, time_gather_kernels.py, in turns)")
         torch.cuda.empty_cache()
         ab = parent_ab(args.parent)
@@ -6218,11 +6356,21 @@ def main() -> int:
                    "gat_bwd_src[e4m3 z, e5m2 g]": "K8 e4m3",
                    "block_dense": "K12 torch.float32",
                    "block_dense[bf16]": "K12 torch.bfloat16",
+                   "block_dense_t": "K13 torch.float32",
+                   "block_dense_t[bf16]": "K13 torch.bfloat16",
                    "block_dense_grouped[bf16]": "K16 torch.bfloat16",
-                   "block_dense_grouped[f32]": "K16 torch.float32"}.get(
+                   "block_dense_grouped[f32]": "K16 torch.float32",
+                   "block_dense_grouped_t[bf16]": "K17 torch.bfloat16",
+                   "block_dense_grouped_t[f32]": "K17 torch.float32"}.get(
                        e["name"])
             if key is not None:
                 e["parent_ab"] = ab[key]
+            if e["name"].startswith("block_dense_grouped_t"):
+                # the alternative: K16 over a transposed copy of A
+                e["alternative_transposed_copy"] = ab[
+                    key.replace("K17", "K17 alt")]
+            if e["name"].startswith("gat_bwd_src"):
+                e["dh41"]["parent_ab"] = ab[f"{key} dh=41"]
             if e["name"] == "spmm_mean":
                 e["serving_f602"]["parent_ab"] = ab["K1 serving f32 F=602"]
             if e["name"].startswith("gat_fwd"):

@@ -42,12 +42,12 @@ Device half:
   - kernels K12 (:func:`block_dense`, the forward tile products) and K13
     (:func:`block_dense_t`, the transpose over the same A blocks), and
     over the union groups K16 (:func:`block_dense_grouped`) and K17
-    (:func:`block_dense_grouped_t`), in ``csrc/block_spmm.cu`` (the
-    forwards K16 and K12 in ``csrc/block_tma.cu``: TMA stages and
-    ``wgmma`` after a pre-pass, :func:`tile_split`, that splits f32 rows
-    into their three bf16 terms once, K12 over a pair list's
-    :func:`union_view`; f32 A keeps block_spmm.cu's scalar path; the
-    entry each side takes is :func:`tile_entry`'s), over f32
+    (:func:`block_dense_grouped_t`), in ``csrc/block_spmm.cu`` (K16, K17
+    and K12 in ``csrc/block_tma.cu``: TMA stages and ``wgmma`` after a
+    pre-pass, :func:`tile_split`, that splits f32 rows into their three
+    bf16 terms once, K12 over a pair list's :func:`union_view`, K17 with
+    A^T's fragments; K13 and f32 A keep block_spmm.cu; the entry each
+    side takes is :func:`tile_entry`'s), over f32
     input rows or, at bf16 compute, bf16 rows (JAX multiplies in the input's dtype with f32 products:
     ``_dense_apply``'s ``compute_dtype``); :func:`block_dense_plain` is
     their plain version (unpack, ``bmm`` per chunk of pairs in f32 over
@@ -915,12 +915,13 @@ _SIGNATURES = {
 }
 # the kernel's A encodings
 _ENC = {torch.int8: 1, torch.bfloat16: 2, torch.float32: 3}
-# K16's source (csrc/block_tma.cu): the pre-pass and the TMA / wgmma
-# kernel (every A encoding but f32, which keeps block_spmm.cu's scalar path)
+# K16's, K17's and K12's source (csrc/block_tma.cu): the pre-pass and the
+# TMA / wgmma kernel (every A encoding but f32, which keeps block_spmm.cu's
+# scalar path)
 _TMA_SIGNATURES = {
     "pgt_tile_split": [_P, _I, _I, _I, _I, _I, _P, _P],
     "pgt_block_grouped_tma": [_P, _I, _I, _I, _I, _P, _P, _I, _LL, _I, _I,
-                              _P, _P, _P, _LL, _I, _I, _P, _P],
+                              _P, _P, _P, _LL, _I, _I, _I, _P, _P],
 }
 
 
@@ -1075,22 +1076,23 @@ def tile_split(x: torch.Tensor) -> torch.Tensor:
 
 
 def tile_entry(grouped: bool, transpose: bool, a_dtype: torch.dtype) -> str:
-    """The C entry that runs one side's tile products on the card: the
-    forward with 1-bit (uint8), int8 or bf16 A on csrc/block_tma.cu's TMA
-    / wgmma kernel, K16 over union groups and K12 over pair lists (their
-    union view at group 1); f32 A (not exact in bf16) and the transposes
-    (K13, K17) on csrc/block_spmm.cu, over union groups or pair lists."""
-    if not transpose and a_dtype != torch.float32:
+    """The C entry that runs one side's tile products on the card: with
+    1-bit (uint8), int8 or bf16 A, csrc/block_tma.cu's TMA / wgmma kernel
+    for K16 and K17 over union groups and K12 over pair lists (their
+    union view at group 1); K13 (the transpose over pair lists) and f32 A
+    (not exact in bf16) on csrc/block_spmm.cu, over union groups or pair
+    lists."""
+    if a_dtype != torch.float32 and (grouped or not transpose):
         return "pgt_block_grouped_tma"
     return "pgt_block_grouped" if grouped else "pgt_block_dense"
 
 
 def _launch_tma(x: torch.Tensor, tables: BlockTables, side: GroupSide,
                 out: torch.Tensor, stream: int) -> int:
-    """K16 (and K12, on a pair list's union view) through
-    csrc/block_tma.cu: the pre-split planes (f32 rows; bf16 rows whose row
-    stride or pointer is not 16-byte aligned) then the TMA / wgmma
-    products."""
+    """K16, K17 (``side.transpose``: A^T) and K12 (on a pair list's union
+    view) through csrc/block_tma.cu: the pre-split planes (f32 rows; bf16
+    rows whose row stride or pointer is not 16-byte aligned) then the TMA
+    / wgmma products."""
     P, R, F = x.shape
     xb = x.dtype == torch.bfloat16
     planes = None
@@ -1104,7 +1106,7 @@ def _launch_tma(x: torch.Tensor, tables: BlockTables, side: GroupSide,
         0 if tables.packed else _ENC[tables.a.dtype], tables.b_max,
         tables.tile, side.group, side.ptr.data_ptr(), side.blk.data_ptr(),
         side.tile.data_ptr(), side.tile.shape[1], side.n_groups, side.n_out,
-        out.data_ptr(), stream)
+        int(side.transpose), out.data_ptr(), stream)
 
 
 def _launch(x: torch.Tensor, tables: BlockTables,

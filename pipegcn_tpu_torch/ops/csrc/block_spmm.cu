@@ -1,9 +1,10 @@
 // K12 / K13 and K16 / K17: the dense-tile products of the block-dense
-// SpMM, written by hand for Hopper (sm_90a). One template, four kernels'
-// worth of work: K12 the forward, K13 the transpose (the backward), over
-// per-tile pair lists; K16 / K17 the same over union-gather groups. K16
-// over 1-bit, int8 and bf16 A runs in block_tma.cu (TMA stages and
-// wgmma); here it keeps only f32 A's scalar path.
+// SpMM, written by hand for Hopper (sm_90a): K12 the forward, K13 the
+// transpose (the backward), over per-tile pair lists; K16 / K17 the same
+// over union-gather groups. Over 1-bit, int8 and bf16 A, K12, K16 and K17
+// run in block_tma.cu (TMA stages and wgmma); here K13 keeps its
+// tensor-core kernel (mma_kernel), and f32 A the scalar path of all four
+// (block_kernel).
 //
 // K12 / K13 replace: pipegcn_tpu/ops/block_spmm.py  _dense_apply (with
 // _unpack_bits), inside make_block_spmm_fn / make_device_block_spmm_fn,
@@ -39,11 +40,7 @@
 // warp whose tile has the pad at a slot skips its products, and a slot
 // none of the CTA's tiles uses is skipped whole. JAX multiplies the zero
 // block at a pad; skipping it changes nothing but a non-finite input's
-// NaN. The accumulator stays one 256-row tile a CTA (G T rows of 32
-// columns at G = 4, T = 256 would be 128 KB of registers). The tensor-core
-// kernel takes the group as a compile-time flag: its group-1 instance is
-// the pair-list code without the group's per-slot bookkeeping, which cost
-// K12's bf16 mode 22 % when it ran there too.
+// NaN. The accumulator stays one 256-row tile a CTA.
 //
 // What bounds it on the H100: the tile products. The function needs one
 // add per dense edge and column (~7.5e9 adds a call at the training shape,
@@ -67,13 +64,13 @@
 // into a fresh accumulator (lo, mid, hi terms in that order at each
 // 16-deep step) that is then added to the output's f32 sum with an IEEE
 // add ("promotion"): kernel and plain version differ by a few ulps of each
-// pair's partial sum and by summation order. One CTA of 8 warps owns one
-// (part, output tile, 32-column chunk) and walks the tile's pairs in list
-// order; for each 32-deep step of a pair it stages the A chunk in shared
-// memory as bf16 (unpacked from bits, or widened from int8) and the input
-// chunk's three bf16 terms, then each warp loads its fragments with
-// ldmatrix (K13: ldmatrix.trans of the same staged rows, the transpose
-// with no transposed copy) and runs 2 x 4 mma tiles of 16 x 8 per term.
+// pair's partial sum and by summation order. K13's CTA of 8 warps owns
+// one (part, output tile, 32-column chunk) and walks the tile's pairs in
+// list order; for each 32-deep step of a pair it stages the A chunk in
+// shared memory as bf16 (unpacked from bits, or widened from int8) and
+// the input chunk's three bf16 terms, then each warp loads its fragments
+// with ldmatrix.trans of the staged A rows (the transpose with no
+// transposed copy) and runs 2 x 4 mma tiles of 16 x 8 per term.
 // No atomics; a rerun is bit-identical. The ragged last row tile, the
 // input rows past n_in and the columns past F are masked (staged as 0).
 // Inputs are finite (an infinite input's split is NaN).
@@ -103,7 +100,6 @@ constexpr int kK = 32;        // contraction rows staged per step
 constexpr int kThreads = 256;
 // staged bf16 row strides (elements): 16-byte aligned rows whose 8-row
 // ldmatrix reads fall in distinct banks
-constexpr int kAStride = kK + 8;      // K12: A [256 rows][32 contraction]
 constexpr int kATStride = kRows + 8;  // K13: A [32 contraction][256 rows]
 constexpr int kXStride = kMmaCols + 8;  // X [32 contraction][32 columns]
 
@@ -204,22 +200,21 @@ __device__ __forceinline__ void load_xb8(const unsigned short* row, int c,
 
 // Where a CTA's rows lie in its group, worked out once a CTA (the integer
 // divisions by the runtime T stay out of the slot loop): the tiles its
-// 256 rows r0 .. touch (d_lo .. d_hi), the tile of the group row f a
+// 256 rows r0 .. touch (d_lo .. d_hi) and the tile of the group row f a
 // thread stages (t_d, -1 past the group's G T rows) with its row (K12) or
-// first column (K13) in A (t_m), and the tile of its warp's rows (w_d).
+// first column (K13) in A (t_m).
 struct GroupRows {
-  int d_lo, d_hi, t_d, t_m, w_d;
+  int d_lo, d_hi, t_d, t_m;
 };
 
-__device__ __forceinline__ GroupRows group_rows(int r0, int f, int fw,
-                                                int G, int T) {
+__device__ __forceinline__ GroupRows group_rows(int r0, int f, int G,
+                                                int T) {
   const int GT = G * T;
   GroupRows g;
   g.d_lo = r0 / T;
   g.d_hi = min(G, (r0 + kRows + T - 1) / T);
   g.t_d = f < GT ? f / T : -1;
   g.t_m = f - (g.t_d < 0 ? 0 : g.t_d) * T;
-  g.w_d = fw < GT ? fw / T : -1;
   return g;
 }
 
@@ -289,7 +284,7 @@ block_kernel(const void* __restrict__ x, int n_in, int F,
   const int xr = tid >> 3, xc = (tid & 7) * 8;
   const int q = (tid & 7) * 32;
   const GroupRows gr =
-      group_rows(r0, TRANSPOSE ? r0 + q : r0 + tid, r0, G, T);
+      group_rows(r0, TRANSPOSE ? r0 + q : r0 + tid, G, T);
   const int fm = gr.t_m;  // the staged row (K12) or first column (K13)
   for (int k = k0; k < k1; ++k) {
     const int* bk = bp + static_cast<size_t>(k) * G;
@@ -469,20 +464,22 @@ __device__ __forceinline__ void load_xb4(const unsigned short* row, int c,
   }
 }
 
-template <int ENC, bool TRANSPOSE, int VEC, bool XB, bool GROUPED>
+// K13 over 1-bit, int8 and bf16 A (pair lists; K12, K16 and K17 over
+// these encodings run in block_tma.cu): one CTA a (part, output tile,
+// 32-column chunk); the staged A chunk holds contraction rows as stored,
+// read transposed with ldmatrix.trans
+template <int ENC, int VEC, bool XB>
 __global__ void __launch_bounds__(kThreads, 2)
 mma_kernel(const void* __restrict__ x, int n_in, int F,
            const unsigned char* __restrict__ a, long long b_max, int T,
            const int* __restrict__ ptr, const int* __restrict__ blk,
            const int* __restrict__ til, long long pair_stride, int n_keys,
-           int G, int n_row_ctas, int n_out, float* __restrict__ out) {
-  // the staged A chunk (bf16 bits): K12 [256 rows][kAStride] (row m,
-  // contraction column), K13 [32 contraction rows][kATStride] (the A
-  // rows as stored); the input chunk's three terms [3][32][kXStride], or
-  // its one bf16 term in the bf16 mode
+           int n_out, float* __restrict__ out) {
+  // the staged A chunk (bf16 bits) [32 contraction rows][kATStride] (the
+  // A rows as stored); the input chunk's three terms [3][32][kXStride],
+  // or its one bf16 term in the bf16 mode
   constexpr int kTerms = XB ? 1 : 3;
-  __shared__ __align__(16) unsigned short As[TRANSPOSE ? kK * kATStride
-                                                       : kRows * kAStride];
+  __shared__ __align__(16) unsigned short As[kK * kATStride];
   __shared__ __align__(16) unsigned short Xs[kTerms][kK * kXStride];
 
   const int tid = threadIdx.x;
@@ -490,12 +487,7 @@ mma_kernel(const void* __restrict__ x, int n_in, int F,
   const int g = lane >> 2, t4 = lane & 3;  // the mma fragments' row / pair
   const int li = lane >> 3, lj = lane & 7;  // ldmatrix: matrix, its row
   const int c0 = blockIdx.x * kMmaCols;
-  // group 1 (K12 / K13's pair lists) compiles without the group's
-  // bookkeeping: a CTA a tile, every slot a block for all its rows
-  const int Gs = GROUPED ? G : 1;
-  const int key = GROUPED ? blockIdx.y / n_row_ctas : blockIdx.y;
-  const int r0 = GROUPED ? (blockIdx.y % n_row_ctas) * kRows : 0;
-  const int GT = Gs * T;
+  const int key = blockIdx.y;  // the output tile
   const int part = blockIdx.z;
 
   const float* xp =
@@ -505,11 +497,11 @@ mma_kernel(const void* __restrict__ x, int n_in, int F,
   const unsigned char* ap =
       a + static_cast<size_t>(part) * b_max * T * row_bytes<ENC>(T);
   const int* pp = ptr + static_cast<size_t>(part) * (n_keys + 1);
-  const int* bp = blk + static_cast<size_t>(part) * pair_stride * Gs;
+  const int* bp = blk + static_cast<size_t>(part) * pair_stride;
   const int* tp = til + static_cast<size_t>(part) * pair_stride;
 
-  // warp w: output rows r0 + w*32 + [0, 32) (in one tile of the group) as
-  // 2 m-tiles of 16, all 32 columns as 4 n-tiles of 8
+  // warp w: output rows w*32 + [0, 32) as 2 m-tiles of 16, all 32
+  // columns as 4 n-tiles of 8
   float acc[2][4][4];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
@@ -520,29 +512,10 @@ mma_kernel(const void* __restrict__ x, int n_in, int F,
 
   const int k0 = pp[key], k1 = pp[key + 1];
   const int xr = tid >> 3, xc = (tid & 7) * 4;  // staging: input row, cols
-  const int q = (tid & 7) * 32;
-  // the staged row (K12) or first column (K13) in A: at group 1 the
-  // thread's own, as the pair-list kernel stages them
-  GroupRows gr{};
-  int fm = TRANSPOSE ? q : tid;
-  if constexpr (GROUPED) {
-    gr = group_rows(r0, TRANSPOSE ? r0 + q : r0 + tid, r0 + warp * 32, G,
-                    T);
-    fm = gr.t_m;
-  }
+  const int q = (tid & 7) * 32;  // the staged A columns (output rows)
   for (int k = k0; k < k1; ++k) {
-    // this thread's staged A block (grouped: null for zeros) and whether
-    // the warp's tile has a block at this slot (warp-uniform)
-    const unsigned char* ab;
-    bool wact = true;
-    if constexpr (GROUPED) {
-      const int* bk = bp + static_cast<size_t>(k) * G;
-      if (!slot_used(bk, gr, b_max)) continue;  // uniform in the CTA
-      ab = slot_block<ENC>(ap, bk, gr.t_d, T, b_max);
-      wact = slot_block<ENC>(ap, bk, gr.w_d, T, b_max) != nullptr;
-    } else {
-      ab = ap + static_cast<size_t>(__ldg(bp + k)) * T * row_bytes<ENC>(T);
-    }
+    const unsigned char* ab =
+        ap + static_cast<size_t>(__ldg(bp + k)) * T * row_bytes<ENC>(T);
     const long long in0 = static_cast<long long>(__ldg(tp + k)) * T;
     float d[2][4][4];  // this pair's products, promoted after it
 #pragma unroll
@@ -554,28 +527,15 @@ mma_kernel(const void* __restrict__ x, int n_in, int F,
     for (int s0 = 0; s0 < T; s0 += kK) {
       __syncthreads();  // the previous step's fragment loads are done
       {
+        // A row s0 + xr (a contraction row), output columns q .. q + 31
         float v[32];
-        unsigned short* dst;
-        if constexpr (!TRANSPOSE) {
-          // A row fm, contraction columns s0 .. s0 + 31
-          if (GROUPED ? ab != nullptr : tid < T) {
-            load_a32<ENC>(ab, T, fm, s0, v);
-          } else {
-#pragma unroll
-            for (int j = 0; j < 32; ++j) v[j] = 0.0f;
-          }
-          dst = &As[tid * kAStride];
+        if (q < T) {
+          load_a32<ENC>(ab, T, s0 + xr, q, v);
         } else {
-          // A row s0 + xr (a contraction row), output columns fm .. fm + 31
-          // (the CTA's rows q .. q + 31)
-          if (GROUPED ? ab != nullptr : q < T) {
-            load_a32<ENC>(ab, T, s0 + xr, fm, v);
-          } else {
 #pragma unroll
-            for (int j = 0; j < 32; ++j) v[j] = 0.0f;
-          }
-          dst = &As[xr * kATStride + q];
+          for (int j = 0; j < 32; ++j) v[j] = 0.0f;
         }
+        unsigned short* dst = &As[xr * kATStride + q];
 #pragma unroll
         for (int j = 0; j < 32; j += 8)
           *reinterpret_cast<uint4*>(dst + j) =
@@ -611,25 +571,16 @@ mma_kernel(const void* __restrict__ x, int n_in, int F,
                          bf16x2(terms[2][h], terms[3][h]));
       }
       __syncthreads();
-      if constexpr (GROUPED) {
-        if (!wact) continue;  // the warp's tile has no block at this slot
-      }
 #pragma unroll
       for (int kk = 0; kk < kK; kk += 16) {
         unsigned af[2][4];
 #pragma unroll
         for (int mi = 0; mi < 2; ++mi) {
+          // A^T rows r0.., columns kk..: the staged rows kk.. read
+          // transposed
           const int r0 = warp * 32 + mi * 16;
-          if constexpr (!TRANSPOSE) {
-            // matrices (rows r0 | r0 + 8) x (columns kk | kk + 8)
-            ldsm_x4(&As[(r0 + lj + (li & 1) * 8) * kAStride + kk +
-                        (li >> 1) * 8], af[mi]);
-          } else {
-            // A^T rows r0.., columns kk..: the staged rows kk.. read
-            // transposed
-            ldsm_x4_t(&As[(kk + lj + (li >> 1) * 8) * kATStride + r0 +
-                          (li & 1) * 8], af[mi]);
-          }
+          ldsm_x4_t(&As[(kk + lj + (li >> 1) * 8) * kATStride + r0 +
+                        (li & 1) * 8], af[mi]);
         }
 #pragma unroll
         for (int h = 0; h < kTerms; ++h) {  // lo, mid, hi (bf16: the one)
@@ -647,14 +598,12 @@ mma_kernel(const void* __restrict__ x, int n_in, int F,
         }
       }
     }
-    if (!GROUPED || wact) {
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][j][e] += d[i][j][e];
-    }
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += d[i][j][e];
   }
 
 #pragma unroll
@@ -662,8 +611,8 @@ mma_kernel(const void* __restrict__ x, int n_in, int F,
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int m = warp * 32 + mi * 16 + g + half * 8;
-      const long long row = static_cast<long long>(key) * GT + r0 + m;
-      if (r0 + m >= GT || row >= n_out) continue;
+      const long long row = static_cast<long long>(key) * T + m;
+      if (m >= T || row >= n_out) continue;
       float* op = out + (static_cast<size_t>(part) * n_out + row) * F;
 #pragma unroll
       for (int ni = 0; ni < 4; ++ni) {
@@ -680,75 +629,69 @@ mma_kernel(const void* __restrict__ x, int n_in, int F,
   }
 }
 
-template <int ENC, bool TR, bool GR>
-int launch_vec(const void* x, bool xb, int P, int n_in, int F,
-               const unsigned char* a, long long b_max, int T, const int* ptr,
-               const int* blk, const int* til, long long pair_stride,
-               int n_keys, int G, int n_out, float* out, cudaStream_t st) {
-  const int n_row_ctas = (G * T + kRows - 1) / kRows;
-  const int n_y = n_keys * n_row_ctas;
+// the vector width of the row loads and stores: 4 or 2 where F and the
+// pointers allow, else 1
+int vec_width(const void* x, const float* out, int F) {
   const bool a16 = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
   const bool a8 = reinterpret_cast<uintptr_t>(x) % 8 == 0 &&
                   reinterpret_cast<uintptr_t>(out) % 8 == 0;
-  const int vec = F % 4 == 0 && a16 ? 4 : F % 2 == 0 && a8 ? 2 : 1;
+  return F % 4 == 0 && a16 ? 4 : F % 2 == 0 && a8 ? 2 : 1;
+}
+
 #define PGT_ARGS                                                         \
   x, n_in, F, a, b_max, T, ptr, blk, til, pair_stride, n_keys, G,          \
       n_row_ctas, n_out, out
-  if (xb) {
-    // bf16 rows: 8-byte loads of 4 values where F and the pointers allow
-    const bool v4 = F % 4 == 0 && a8;
-    if constexpr (ENC == kF32) {
-      const dim3 grid((F + kCols - 1) / kCols, n_y, P);
-      block_kernel<ENC, TR, 1, true><<<grid, kThreads, 0, st>>>(PGT_ARGS);
-    } else {
-      const dim3 grid((F + kMmaCols - 1) / kMmaCols, n_y, P);
-      if (v4)
-        mma_kernel<ENC, TR, 4, true, GR><<<grid, kThreads, 0, st>>>(PGT_ARGS);
-      else
-        mma_kernel<ENC, TR, 1, true, GR><<<grid, kThreads, 0, st>>>(PGT_ARGS);
-    }
-    return static_cast<int>(cudaGetLastError());
-  }
-  if constexpr (ENC == kF32) {
-    // f32 A is not exact in bf16: the scalar CUDA-core path
-    const dim3 grid((F + kCols - 1) / kCols, n_y, P);
-    if (vec == 4)
-      block_kernel<ENC, TR, 4, false><<<grid, kThreads, 0, st>>>(PGT_ARGS);
-    else if (vec == 2)
-      block_kernel<ENC, TR, 2, false><<<grid, kThreads, 0, st>>>(PGT_ARGS);
-    else
-      block_kernel<ENC, TR, 1, false><<<grid, kThreads, 0, st>>>(PGT_ARGS);
-  } else {
-    const dim3 grid((F + kMmaCols - 1) / kMmaCols, n_y, P);
-    if (vec == 4)
-      mma_kernel<ENC, TR, 4, false, GR><<<grid, kThreads, 0, st>>>(PGT_ARGS);
-    else if (vec == 2)
-      mma_kernel<ENC, TR, 2, false, GR><<<grid, kThreads, 0, st>>>(PGT_ARGS);
-    else
-      mma_kernel<ENC, TR, 1, false, GR><<<grid, kThreads, 0, st>>>(PGT_ARGS);
-  }
-#undef PGT_ARGS
+
+// f32 A (not exact in bf16), any group, either direction: the scalar
+// CUDA-core path
+template <bool TR>
+int launch_scalar(const void* x, bool xb, int P, int n_in, int F,
+                  const unsigned char* a, long long b_max, int T,
+                  const int* ptr, const int* blk, const int* til,
+                  long long pair_stride, int n_keys, int G, int n_out,
+                  float* out, cudaStream_t st) {
+  const int n_row_ctas = (G * T + kRows - 1) / kRows;
+  const dim3 grid((F + kCols - 1) / kCols, n_keys * n_row_ctas, P);
+  const int vec = vec_width(x, out, F);
+  if (xb)
+    block_kernel<kF32, TR, 1, true><<<grid, kThreads, 0, st>>>(PGT_ARGS);
+  else if (vec == 4)
+    block_kernel<kF32, TR, 4, false><<<grid, kThreads, 0, st>>>(PGT_ARGS);
+  else if (vec == 2)
+    block_kernel<kF32, TR, 2, false><<<grid, kThreads, 0, st>>>(PGT_ARGS);
+  else
+    block_kernel<kF32, TR, 1, false><<<grid, kThreads, 0, st>>>(PGT_ARGS);
   return static_cast<int>(cudaGetLastError());
 }
+#undef PGT_ARGS
 
+// K13 over 1-bit, int8 or bf16 A on the tensor cores
 template <int ENC>
-int launch_enc(bool transpose, const void* x, bool xb, int P, int n_in,
-               int F, const unsigned char* a, long long b_max, int T,
+int launch_k13(const void* x, bool xb, int P, int n_in, int F,
+               const unsigned char* a, long long b_max, int T,
                const int* ptr, const int* blk, const int* til,
-               long long pair_stride, int n_keys, int G, int n_out,
-               float* out, cudaStream_t st) {
-#define PGT_VEC(TR, GR)                                                   \
-  launch_vec<ENC, TR, GR>(x, xb, P, n_in, F, a, b_max, T, ptr, blk, til,   \
-                          pair_stride, n_keys, G, n_out, out, st)
-  if (G > 1) {
-    if (transpose) return PGT_VEC(true, true);
-    // K16 over 1-bit, int8 and bf16 A runs in block_tma.cu
-    if constexpr (ENC == kF32) return PGT_VEC(false, true);
-    return static_cast<int>(cudaErrorInvalidValue);
+               long long pair_stride, int n_keys, int n_out, float* out,
+               cudaStream_t st) {
+  const dim3 grid((F + kMmaCols - 1) / kMmaCols, n_keys, P);
+#define PGT_K13(VEC_, XB_)                                                 \
+  mma_kernel<ENC, VEC_, XB_><<<grid, kThreads, 0, st>>>(                   \
+      x, n_in, F, a, b_max, T, ptr, blk, til, pair_stride, n_keys, n_out, \
+      out)
+  const int vec = vec_width(x, out, F);
+  if (xb) {
+    // bf16 rows: 8-byte loads of 4 values where F and the pointers allow
+    if (F % 4 == 0 && vec >= 2) PGT_K13(4, true);
+    else PGT_K13(1, true);
+  } else if (vec == 4) {
+    PGT_K13(4, false);
+  } else if (vec == 2) {
+    PGT_K13(2, false);
+  } else {
+    PGT_K13(1, false);
   }
-  return transpose ? PGT_VEC(true, false) : PGT_VEC(false, false);
-#undef PGT_VEC
+#undef PGT_K13
+  return static_cast<int>(cudaGetLastError());
 }
 
 int launch(const void* x, int P, int n_in, int F, const void* a, int enc,
@@ -759,7 +702,7 @@ int launch(const void* x, int P, int n_in, int F, const void* a, int enc,
   if (T < 32 || T > kRows || T % 32 != 0 || n_keys <= 0 || G < 1 ||
       G > 64 || static_cast<long long>(n_keys) * ((G * T + kRows - 1) /
                                                  kRows) > 65535 ||
-      P > 65535 || n_in < 0)
+      P > 65535 || n_in < 0 || enc < kBits || enc > kF32)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool xb = x_bf16 != 0;
@@ -768,22 +711,26 @@ int launch(const void* x, int P, int n_in, int F, const void* a, int enc,
   const int* bk = static_cast<const int*>(blk);
   const int* tl = static_cast<const int*>(til);
   float* o = static_cast<float*>(out);
-  const bool tr = transpose != 0;
+  if (enc == kF32)
+    return transpose
+               ? launch_scalar<true>(x, xb, P, n_in, F, ab, b_max, T, pt, bk,
+                                     tl, pair_stride, n_keys, G, n_out, o,
+                                     st)
+               : launch_scalar<false>(x, xb, P, n_in, F, ab, b_max, T, pt,
+                                      bk, tl, pair_stride, n_keys, G, n_out,
+                                      o, st);
+  // the other encodings: K13 here, everything else in block_tma.cu
+  if (!transpose || G != 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (enc) {
     case kBits:
-      return launch_enc<kBits>(tr, x, xb, P, n_in, F, ab, b_max, T, pt, bk,
-                               tl, pair_stride, n_keys, G, n_out, o, st);
+      return launch_k13<kBits>(x, xb, P, n_in, F, ab, b_max, T, pt, bk, tl,
+                               pair_stride, n_keys, n_out, o, st);
     case kI8:
-      return launch_enc<kI8>(tr, x, xb, P, n_in, F, ab, b_max, T, pt, bk,
-                             tl, pair_stride, n_keys, G, n_out, o, st);
-    case kBF16:
-      return launch_enc<kBF16>(tr, x, xb, P, n_in, F, ab, b_max, T, pt, bk,
-                               tl, pair_stride, n_keys, G, n_out, o, st);
-    case kF32:
-      return launch_enc<kF32>(tr, x, xb, P, n_in, F, ab, b_max, T, pt, bk,
-                              tl, pair_stride, n_keys, G, n_out, o, st);
+      return launch_k13<kI8>(x, xb, P, n_in, F, ab, b_max, T, pt, bk, tl,
+                             pair_stride, n_keys, n_out, o, st);
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      return launch_k13<kBF16>(x, xb, P, n_in, F, ab, b_max, T, pt, bk, tl,
+                               pair_stride, n_keys, n_out, o, st);
   }
 }
 
@@ -793,9 +740,10 @@ int launch(const void* x, int P, int n_in, int F, const void* a, int enc,
 // row_bytes] (enc 0 bits, 1 int8, 2 bf16, 3 f32); ptr [P, n_out_tiles + 1]
 // int32, blk / til [P, pair_stride] int32 (pair k of part p: A block blk
 // and input tile til; output tile i's pairs at ptr[p, i] .. ptr[p, i +
-// 1]); out [P, n_out, F] f32. transpose 0 = K12, 1 = K13. T a multiple of
-// 32 up to 256. All contiguous, on the device; the host validated every
-// index. Returns cudaGetLastError().
+// 1]); out [P, n_out, F] f32. transpose 0 = K12 (only over f32 A:
+// block_tma.cu takes the others), 1 = K13. T a multiple of 32 up to 256.
+// All contiguous, on the device; the host validated every index. Returns
+// cudaGetLastError().
 extern "C" int pgt_block_dense(const void* x, int P, int n_in, int F,
                                const void* a, int enc, long long b_max,
                                int T, const void* ptr, const void* blk,
@@ -807,7 +755,7 @@ extern "C" int pgt_block_dense(const void* x, int P, int n_in, int F,
 }
 
 // K16 / K17. As K12 / K13 over union-gather groups of G output tiles
-// (K16, transpose 0, only over f32 A: block_tma.cu takes the others):
+// (only over f32 A: block_tma.cu takes the others):
 // ptr [P, n_groups + 1] int32 (group j's union slots at ptr[p, j] ..
 // ptr[p, j + 1]), til [P, slot_stride] int32 (each slot's input tile),
 // blk [P, slot_stride, G] int32 (each slot's A block for each tile of the

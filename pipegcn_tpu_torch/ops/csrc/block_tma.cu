@@ -1,6 +1,6 @@
-// K16 and K12 on Hopper: the forward tile products over union-gather
-// groups and over per-tile pair lists, redesigned around TMA and wgmma
-// (sm_90a).
+// K16, K12 and K17 on Hopper: the forward tile products over union-gather
+// groups and over per-tile pair lists, and the transposed products over
+// union-gather groups, redesigned around TMA and wgmma (sm_90a).
 //
 // K16 replaces: pipegcn_tpu/ops/block_spmm.py  _dense_apply_grouped and
 // _group_union (--block-group > 1), forward, "rduts,rusf->rdtf": G
@@ -18,6 +18,20 @@
 // holds its tile's one block (the pads were dropped at staging). The
 // same kernel body runs them with the group's bookkeeping (the pad skip,
 // the per-tile block lookup) compiled out (GROUPED = false).
+// K17 replaces: pipegcn_tpu/ops/block_spmm.py  _dense_apply_grouped's
+// transpose, "rduts,rutf->rdsf" (the backward of --block-group > 1): the
+// same function with A^T, over the backward's union lists (groups of
+// source tiles, slots of destination tiles),
+//
+//   out[p, i*T + s, :] = sum over the group's union slots k whose A block
+//                        for tile i is not the pad:  A[blk_k]^T @ G[tile_k]
+//
+// The same kernel body runs it (TRANSPOSE = true): the stages, the
+// products and the promotion are K16's; only the A fragment differs (its
+// m index a stored column, its k index a stored row). Over 1-bit A the
+// producer warps stage each chunk's A^T words in the ring (stage_at);
+// over int8 and bf16 A each consumer thread reads A^T's entries from the
+// stored block (load_at, frag_t). No transposed copy of A exists.
 // The tables, the A encodings (1-bit, int8, bf16; f32 A keeps the scalar
 // path of block_spmm.cu) and the exactness argument are block_spmm.cu's:
 // A holds small integers, exact in bf16, and each f32 input is split
@@ -88,11 +102,14 @@ __host__ __device__ constexpr int row_bytes(int T) {
 }
 
 // the ring: 4 stages of three terms (48 KB each) on f32 rows, 8 of one
-// term in the bf16 mode
-template <int TERMS>
+// term in the bf16 mode; with AT (K17 over 1-bit A) each stage also holds
+// the chunk's A^T words, 2 a row of the CTA's 128 output rows (1 KB)
+template <int TERMS, bool AT>
 struct Ring {
   static constexpr int kStages = TERMS == 3 ? 4 : 8;
-  static constexpr int kStageBytes = TERMS * 2 * kBoxBytes;
+  static constexpr int kTmaBytes = TERMS * 2 * kBoxBytes;
+  static constexpr int kAtBytes = AT ? kRows * 2 * 4 : 0;
+  static constexpr int kStageBytes = kTmaBytes + kAtBytes;
   static constexpr int kSmem = kStages * kStageBytes + 1024 +
                                2 * kStages * 8;  // + alignment, barriers
 };
@@ -280,7 +297,140 @@ __device__ __forceinline__ void frag(const AChunk<ENC>& c, int ks, int t4,
   }
 }
 
-template <int ENC, int TERMS, bool GROUPED>
+// K17's A^T fragment. Its m index is a stored column s (the output row)
+// and its k index a stored row t (the contraction): a thread's fragment
+// of k-step ks (s = frow and frow + 8; t = t0, t0 + 1, t0 + 8, t0 + 9
+// with t0 = 16 ks + 2 t4 in the chunk) takes from each of four stored
+// rows the entries of columns frow and frow + 8.
+//
+// 1-bit A (the cells' encoding): the producer warpgroup, which otherwise
+// only issues TMA, transposes each chunk's bits once for the CTA. Each of
+// its 4 warps loads two 32 x 32 bit tiles of the chunk (32 stored rows a
+// lane, one 32-column word each) and transposes them with five xor
+// shuffles (transpose32), so that lane l holds stored column l's 32 bits
+// down those rows: the A^T row's word. Written into the stage beside the
+// TMA boxes (2 words a row of the CTA's 128 rows, zeros past T) before
+// the warp arrives on the stage's full barrier, they are the forward's
+// register words (load_a's) for A^T, read with one 8-byte shared load a
+// fragment row, and frag unpacks them as it does K16's.
+//
+// int8 and bf16 A: the consumer thread reads its entries straight from
+// the stored block (load_at, frag_t), one element a (row, column); these
+// encodings only carry multigraphs' multiplicities.
+
+// a 32 x 32 bit matrix, row l in lane l (bit j: column j), transposed:
+// lane l ends with column l (bit j: row j). Each step swaps the
+// off-diagonal s x s blocks of every 2s x 2s block
+__device__ __forceinline__ unsigned transpose32(unsigned x, int lane) {
+  constexpr unsigned kMask[5] = {0x0000FFFFu, 0x00FF00FFu, 0x0F0F0F0Fu,
+                                 0x33333333u, 0x55555555u};
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+    const int s = 16 >> i;
+    const unsigned m = kMask[i];
+    const unsigned y = __shfl_xor_sync(0xffffffffu, x, s);
+    x = (lane & s) ? (x & ~m) | ((y & ~m) >> s) : (x & m) | ((y & m) << s);
+  }
+  return x;
+}
+
+// The producer warp pw's share of a chunk's A^T words: tiles 2 pw and
+// 2 pw + 1 of the chunk's 2 x 4 tiles of 32 stored rows (t) x 32 stored
+// columns (s) among the CTA's rows r0 .. r0 + 127, written to ``at``
+// (words [128 rows][2]: the row's bits of contraction rows s0 .. s0 + 31
+// and s0 + 32 .. s0 + 63)
+__device__ __forceinline__ void stage_at(const unsigned char* blk, int T,
+                                         int r0, int s0, int pw, int lane,
+                                         unsigned at) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int th = pw >> 1, sw = 2 * (pw & 1) + i;
+    const int t = s0 + 32 * th + lane, cw = r0 / 32 + sw;
+    unsigned x = 0u;
+    if (t < T && cw < T / 32)
+      x = __ldg(reinterpret_cast<const unsigned*>(
+                    blk + static_cast<size_t>(t) * (T / 8)) + cw);
+    x = transpose32(x, lane);
+    asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(
+                     at + ((32 * sw + lane) * 2 + th) * 4),
+                 "r"(x)
+                 : "memory");
+  }
+}
+
+// the int8 / bf16 A^T words of one chunk: w[4 ks .. 4 ks + 3] in
+// fragment order, the (t0, t0 + 1) pair of column frow, of frow + 8,
+// then the (t0 + 8, t0 + 9) pairs
+template <int ENC>
+struct ATChunk {
+  static constexpr int kWords = 16;
+  unsigned w[kWords];
+};
+
+template <int ENC>
+__device__ __forceinline__ void load_at(const unsigned char* blk, int T,
+                                        int s16, int g, int s0, int t4,
+                                        int nks, ATChunk<ENC>& c) {
+  static_assert(ENC != kBits, "1-bit A^T is staged by the producer");
+#pragma unroll
+  for (int i = 0; i < ATChunk<ENC>::kWords; ++i) c.w[i] = 0u;
+  if (s16 >= T) return;  // the warp's columns past T: zeros (uniform)
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    if (ks >= nks) continue;
+    const int t0 = s0 + 16 * ks + 2 * t4;
+    const int rows[4] = {t0, t0 + 1, t0 + 8, t0 + 9};
+    unsigned v[4][2];  // rows[q], columns frow and frow + 8
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const size_t e = static_cast<size_t>(rows[q]) * T + s16 + g;
+      if constexpr (ENC == kI8) {
+        v[q][0] = __ldg(blk + e);
+        v[q][1] = __ldg(blk + e + 8);
+      } else {
+        const unsigned short* p = reinterpret_cast<const unsigned short*>(blk);
+        v[q][0] = __ldg(p + e);
+        v[q][1] = __ldg(p + e + 8);
+      }
+    }
+    constexpr int kShift = ENC == kI8 ? 8 : 16;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)  // rows (t0, t0 + 1), (t0 + 8, t0 + 9)
+#pragma unroll
+      for (int col = 0; col < 2; ++col)
+        c.w[4 * ks + 2 * h + col] =
+            v[2 * h][col] | (v[2 * h + 1][col] << kShift);
+  }
+}
+
+// the wgmma A fragment of k-step ks of an int8 / bf16 chunk of A^T, in
+// frag's order
+template <int ENC>
+__device__ __forceinline__ void frag_t(const ATChunk<ENC>& c, int ks,
+                                       unsigned* a) {
+  const unsigned* w = c.w + 4 * ks;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) a[i] = ENC == kI8 ? i8x2(w[i]) : w[i];
+}
+
+// a consumer thread's A words of one chunk: load_a's (K16, K12; and K17's
+// staged 1-bit A^T, read from shared memory), or load_at's
+template <int ENC, bool TRANSPOSE>
+struct AWords {
+  using type = AChunk<ENC>;
+};
+template <>
+struct AWords<kI8, true> {
+  using type = ATChunk<kI8>;
+};
+template <>
+struct AWords<kBF16, true> {
+  using type = ATChunk<kBF16>;
+};
+
+// TRANSPOSE: K17, the products of A^T (the output rows are A's stored
+// columns); else K16 / K12
+template <int ENC, int TERMS, bool GROUPED, bool TRANSPOSE>
 __global__ void __launch_bounds__(kThreads, 1)
 tma_kernel(const __grid_constant__ CUtensorMap xmap, int P, int n_in, int F,
            const unsigned char* __restrict__ a, long long b_max, int T,
@@ -288,7 +438,9 @@ tma_kernel(const __grid_constant__ CUtensorMap xmap, int P, int n_in, int F,
            const int* __restrict__ til, long long slot_stride, int n_keys,
            int G, int n_row_ctas, int n_out, int f_even,
            float* __restrict__ out) {
-  using R = Ring<TERMS>;
+  // K17 over 1-bit A: the producer warps stage A^T's words
+  constexpr bool kStageAt = TRANSPOSE && ENC == kBits;
+  using R = Ring<TERMS, kStageAt>;
   extern __shared__ unsigned char smem_raw[];
   // the swizzled stages need 1,024-byte alignment
   const unsigned raw = smem_u32(smem_raw);
@@ -307,7 +459,9 @@ tma_kernel(const __grid_constant__ CUtensorMap xmap, int P, int n_in, int F,
   const int tid = threadIdx.x;
   if (tid == 0) {
     for (int s = 0; s < R::kStages; ++s) {
-      mbar_init(full0 + 8 * s, 1);
+      // the TMA thread's arrival (and the bytes), and with kStageAt each
+      // producer warp's once its A^T words are written
+      mbar_init(full0 + 8 * s, kStageAt ? 5 : 1);
       mbar_init(empty0 + 8 * s, kConsumerWarps);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -319,31 +473,46 @@ tma_kernel(const __grid_constant__ CUtensorMap xmap, int P, int n_in, int F,
   const int* tp = til + static_cast<size_t>(part) * slot_stride;
   const int k0 = __ldg(pp + key), k1 = __ldg(pp + key + 1);
   const int n_chunks = (T + kChunk - 1) / kChunk;
+  const size_t bstride = static_cast<size_t>(T) * row_bytes<ENC>(T);
+  const unsigned char* ap = a + static_cast<size_t>(part) * b_max * bstride;
 
   if (tid < 128) {
-    // the producer warpgroup: one thread issues every load
+    // the producer warpgroup: one thread issues every load (with
+    // kStageAt every warp also stages its share of A^T's words)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (tid == 0) {
-      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
-                       reinterpret_cast<uint64_t>(&xmap))
-                   : "memory");
+    if (kStageAt || tid == 0) {
+      if (tid == 0)
+        asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                         reinterpret_cast<uint64_t>(&xmap))
+                     : "memory");
       int s = 0;
       unsigned ph = 0;
       for (int k = k0; k < k1; ++k) {
+        const int* e = GROUPED ? bp + static_cast<size_t>(k) * G + d
+                               : bp + k;  // the slot's block for this tile
         if constexpr (GROUPED) {
-          if (__ldg(bp + static_cast<size_t>(k) * G + d) == b_max) continue;
+          if (__ldg(e) == b_max) continue;
         }
         const int in0 = __ldg(tp + k) * T;
         for (int c = 0; c < n_chunks; ++c) {
           mbar_wait(empty0 + 8 * s, ph ^ 1u);
-          mbar_expect_tx(full0 + 8 * s, R::kStageBytes);
           const unsigned dst = base + s * R::kStageBytes;
+          if (tid == 0) {
+            mbar_expect_tx(full0 + 8 * s, R::kTmaBytes);
 #pragma unroll
-          for (int h = 0; h < TERMS; ++h)
+            for (int h = 0; h < TERMS; ++h)
 #pragma unroll
-            for (int j = 0; j < 2; ++j)
-              tma_load(dst + (2 * h + j) * kBoxBytes, &xmap, c0 + j * kBox,
-                       in0 + c * kChunk, h * P + part, full0 + 8 * s);
+              for (int j = 0; j < 2; ++j)
+                tma_load(dst + (2 * h + j) * kBoxBytes, &xmap,
+                         c0 + j * kBox, in0 + c * kChunk, h * P + part,
+                         full0 + 8 * s);
+          }
+          if constexpr (kStageAt) {
+            stage_at(ap + static_cast<size_t>(__ldg(e)) * bstride, T, r0,
+                     c * kChunk, tid >> 5, tid & 31, dst + R::kTmaBytes);
+            __syncwarp();
+            if ((tid & 31) == 0) mbar_arrive(full0 + 8 * s);
+          }
           if (++s == R::kStages) {
             s = 0;
             ph ^= 1u;
@@ -360,8 +529,7 @@ tma_kernel(const __grid_constant__ CUtensorMap xmap, int P, int n_in, int F,
     const int wrow = r0 + cw * 64;  // the warpgroup's first tile row
     const bool live = wrow < T;     // uniform in the warpgroup
     const int frow = wrow + warp * 16 + g;  // fragment rows frow, frow + 8
-    const size_t bstride = static_cast<size_t>(T) * row_bytes<ENC>(T);
-    const unsigned char* ap = a + static_cast<size_t>(part) * b_max * bstride;
+    const int s16 = frow - g;  // the warp's first fragment row
 
     float acc[64], pr[64];  // [0, 32): columns 0 .. 63; [32, 64): 64 .. 127
 #pragma unroll
@@ -369,10 +537,11 @@ tma_kernel(const __grid_constant__ CUtensorMap xmap, int P, int n_in, int F,
 #pragma unroll
     for (int i = 0; i < 64; ++i) pr[i] = 0.0f;
     // the CTA's steps, (slot, chunk) in list order over the slots with a
-    // block for this tile; 1-bit A words of the next step are loaded while
-    // this one waits and multiplies (int8 / bf16 A, 16 words a step, are
-    // loaded at their own step)
-    constexpr bool kAhead = ENC == kBits;
+    // block for this tile; K16 / K12's 1-bit A words of the next step are
+    // loaded while this one waits and multiplies (int8 / bf16 A, 16 words
+    // a step, are loaded at their own step; K17's 1-bit A^T words are read
+    // from the stage once it is full)
+    constexpr bool kAhead = ENC == kBits && !TRANSPOSE;
     // the slot's entry for this tile (a pair list's slot k: its block)
     auto entry = [&](int k) {
       return GROUPED ? bp + static_cast<size_t>(k) * G + d : bp + k;
@@ -387,11 +556,20 @@ tma_kernel(const __grid_constant__ CUtensorMap xmap, int P, int n_in, int F,
       return ap + static_cast<size_t>(__ldg(entry(k))) * bstride;
     };
     auto depth = [&](int c) { return min(4, (T - c * kChunk) / 16); };
+    using Words = typename AWords<ENC, TRANSPOSE>::type;
+    // the A words of chunk c of a block, from the stored block (with
+    // kStageAt they are read from the stage once it is full)
+    auto load_words = [&](const unsigned char* b, int c, int nks,
+                          Words& w) {
+      if constexpr (TRANSPOSE && !kStageAt)
+        load_at<ENC>(b, T, s16, g, c * kChunk, t4, nks, w);
+      else if constexpr (!TRANSPOSE)
+        load_a<ENC>(b, T, frow, c * kChunk, t4, nks, w);
+    };
     int k = used_from(k0), c = 0;
     const unsigned char* ab = k < k1 ? block_of(k) : nullptr;
-    AChunk<ENC> aw;
-    if (kAhead && live && k < k1)
-      load_a<ENC>(ab, T, frow, 0, t4, depth(0), aw);
+    Words aw;
+    if (kAhead && live && k < k1) load_words(ab, 0, depth(0), aw);
     int s = 0;
     unsigned ph = 0;
     while (k < k1) {
@@ -403,21 +581,38 @@ tma_kernel(const __grid_constant__ CUtensorMap xmap, int P, int n_in, int F,
         abn = kn < k1 ? block_of(kn) : nullptr;
       }
       const int nks = depth(c);
-      AChunk<ENC> an;
+      Words an;
       if (live) {
         if (!kAhead)
-          load_a<ENC>(ab, T, frow, c * kChunk, t4, nks, aw);
+          load_words(ab, c, nks, aw);
         else if (kn < k1)
-          load_a<ENC>(abn, T, frow, cn * kChunk, t4, depth(cn), an);
+          load_words(abn, cn, depth(cn), an);
       }
       mbar_wait(full0 + 8 * s, ph);
       if (live) {
         const unsigned st = base + s * R::kStageBytes;
+        if constexpr (kStageAt) {
+          // the stage's A^T words of rows frow and frow + 8
+          const unsigned char* at =
+              smem_raw + (st - raw) + R::kTmaBytes;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const uint2 v = *reinterpret_cast<const uint2*>(
+                at + (frow + 8 * h - r0) * 8);
+            aw.w[h][0] = v.x;
+            aw.w[h][1] = v.y;
+          }
+        }
         // every A register is written before the fence: a write after
         // it would make ptxas wait before each product
         unsigned af[4][4];
 #pragma unroll
-        for (int ks = 0; ks < 4; ++ks) frag<ENC>(aw, ks, t4, af[ks]);
+        for (int ks = 0; ks < 4; ++ks) {
+          if constexpr (TRANSPOSE && !kStageAt)
+            frag_t<ENC>(aw, ks, af[ks]);
+          else
+            frag<ENC>(aw, ks, t4, af[ks]);
+        }
         fence_acc(pr);
         wgmma_fence();
 #pragma unroll
@@ -583,14 +778,14 @@ int encode(CUtensorMap* m, const void* p, int cols, long long pitch,
   return rc == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int ENC, int TERMS, bool GROUPED>
+template <int ENC, int TERMS, bool GROUPED, bool TRANSPOSE>
 int launch_main(const CUtensorMap& m, int P, int n_in, int F, int cols,
                 const unsigned char* a, long long b_max, int T,
                 const int* ptr, const int* blk, const int* til,
                 long long slot_stride, int n_keys, int G, int n_out,
                 float* out, cudaStream_t st) {
-  using R = Ring<TERMS>;
-  auto kern = tma_kernel<ENC, TERMS, GROUPED>;
+  using R = Ring<TERMS, TRANSPOSE && ENC == kBits>;
+  auto kern = tma_kernel<ENC, TERMS, GROUPED, TRANSPOSE>;
   const cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, R::kSmem);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -626,7 +821,8 @@ extern "C" int pgt_tile_split(const void* x, int x_bf16, int P, int n_in,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K16 (G 2 .. 64) and K12 (G = 1). x [P, n_in, F] f32, or bf16 when
+// K16 (G 2 .. 64), K12 (G = 1) and, with transpose, K17 (A^T over the
+// backward's union lists, G 1 .. 64). x [P, n_in, F] f32, or bf16 when
 // x_bf16; planes: the pre-pass's buffer [3 (1 when x_bf16), P, n_in, Fp]
 // bf16 (Fp = F rounded up to 64), or null for bf16 rows read as they are
 // (F % 8 == 0 and x 16-byte aligned); a [P, b_max, T, row_bytes] (enc 0
@@ -640,7 +836,7 @@ extern "C" int pgt_block_grouped_tma(
     const void* x, int x_bf16, int P, int n_in, int F, void* planes,
     const void* a, int enc, long long b_max, int T, int G, const void* ptr,
     const void* blk, const void* til, long long slot_stride, int n_groups,
-    int n_out, void* out, void* stream) {
+    int n_out, int transpose, void* out, void* stream) {
   if (P == 0 || n_out == 0 || F == 0) return 0;
   if (T < 32 || T > 256 || T % 32 != 0 || n_groups <= 0 || G < 1 ||
       G > 64 || P > 65535 || n_in < 0 || enc < kBits || enc > kBF16 ||
@@ -674,13 +870,16 @@ extern "C" int pgt_block_grouped_tma(
   const int* bk = static_cast<const int*>(blk);
   const int* tl = static_cast<const int*>(til);
   float* o = static_cast<float*>(out);
-#define PGT_MAIN(ENC, TERMS)                                                 \
-  (G > 1 ? launch_main<ENC, TERMS, true>(m, P, n_in, F, cols, ab, b_max, T, \
-                                         pt, bk, tl, slot_stride, n_groups,  \
-                                         G, n_out, o, st)                    \
-         : launch_main<ENC, TERMS, false>(m, P, n_in, F, cols, ab, b_max, T, \
-                                          pt, bk, tl, slot_stride, n_groups, \
-                                          G, n_out, o, st))
+  // the transposes take the grouped instance at any G (K13, over pair
+  // lists, keeps block_spmm.cu)
+#define PGT_RUN(ENC, TERMS, GR, TR)                                       \
+  launch_main<ENC, TERMS, GR, TR>(m, P, n_in, F, cols, ab, b_max, T, pt, \
+                                  bk, tl, slot_stride, n_groups, G, n_out, \
+                                  o, st)
+#define PGT_MAIN(ENC, TERMS)                                   \
+  (transpose ? PGT_RUN(ENC, TERMS, true, true)                 \
+   : G > 1   ? PGT_RUN(ENC, TERMS, true, false)                \
+             : PGT_RUN(ENC, TERMS, false, false))
   if (terms == 3) {
     switch (enc) {
       case kBits: return PGT_MAIN(kBits, 3);
@@ -694,4 +893,5 @@ extern "C" int pgt_block_grouped_tma(
     default: return PGT_MAIN(kBF16, 1);
   }
 #undef PGT_MAIN
+#undef PGT_RUN
 }

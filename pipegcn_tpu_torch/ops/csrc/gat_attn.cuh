@@ -59,11 +59,10 @@
 // reads one full row of H*dh floats (1 KB at the hidden layers) from L2
 // or HBM; the least traffic (each input read once) is a few hundred MB,
 // and the least arithmetic is one FMA (2 flops) per edge per element.
-// K8 runs two accumulators per element (d_z and the beta-weighted sum),
-// twice that; K6's NEG mode keeps one accumulator per leaky branch (pos
-// and neg; out is their sum, n_neg the negative one; on f32 rows only
-// where no chunk straddles two heads), so each lane does one FMA an
-// element and edge.
+// K6's NEG mode and K8 keep one accumulator per leaky branch (pos and
+// neg: K6's out is their sum, n_neg the negative one, on f32 rows only
+// where no chunk straddles two heads; K8's d_z their sum, its beta sum
+// pos + slope * neg), so each lane does one FMA an element and edge.
 // They are random-row-gather kernels, whose time on this card went to
 // the per-edge work (the weights, the selects and the shared-memory reads
 // of chunks that may straddle two heads, the dependent index and el
@@ -80,10 +79,10 @@
 // element's head weight times the value. A chunk may straddle two heads
 // (dh = 41 at the logits layer: F = 164, rows of 164 bytes at e4m3, only
 // 4-byte aligned), so each chunk carries its first head and the element
-// at which the next begins; K6 compiles that out where dh is a multiple
-// of its chunk (one weight a chunk), reads narrow rows (bf16, e4m3) in
-// chunks of 8 there and el / er rows of 4 heads as one 16-byte load (see
-// "K6" below). K6 takes the row max in a
+// at which the next begins; K6 and K8 compile that out where dh is a
+// multiple of their chunk (one weight a chunk), read narrow rows in
+// chunks of 8 there and rows of 4 heads' statistics as 16-byte loads
+// (see "K6" and "K8" below). K6 takes the row max in a
 // first, narrow pass over el (two-pass softmax, as the plain version),
 // then the normaliser and the weighted sum in one wide pass, and divides
 // once at the end. Sums run in registers in edge order, warp reductions
@@ -548,18 +547,62 @@ gat_fwd_kernel(const void* __restrict__ z, const float* __restrict__ el,
 
 // ---------------------------------------------------------------------------
 // K8 (pass B, src-keyed over the transpose CSR): d_z, d_el
+//
+// The design takes K6's across (PERF.md times each part of it):
+//   - one accumulator per leaky branch. beta = alpha on the positive
+//     branch and slope * alpha on the negative one, so each edge adds
+//     alpha * g[dst] into pos or neg by its branch (the weight's sign in
+//     shared memory carries it), one FMA an element and edge, and at the
+//     end d_z = pos + neg and sum_e beta_e g[dst_e] = fma(slope, neg,
+//     pos). At every dh and row type: where chunks straddle two heads (dh
+//     = 41) the branch test is per element, and two FMA accumulators
+//     (alpha * g and beta * g) ran 42 % slower there on f32 rows. Aligned
+//     or not, a row's d_z is the same bits (one form, every load width).
+//   - where dh % VEC == 0 no chunk straddles two heads: one weight a
+//     chunk, no per-element selects (a template flag).
+//   - the stats row (er, m, s, rho of 4 heads) as four 16-byte loads, the
+//     row's own el as one, fetched apart from the weights that use them.
+//   - narrow g rows (bf16, e5m2) in chunks of 8 elements where dh % 8 ==
+//     0 and the rows allow; the row's own z (bf16, e4m3) in the dot
+//     products at the same width.
+//   - one chunk a lane where it covers the row (no registers for a
+//     second), and the cells' instances held to 64 registers: 4 blocks
+//     resident (gat_bwd_src_kernel_4).
 
-template <int VEC, int NV, int HM>
-__global__ void __launch_bounds__(kWarps * 32)
-gat_bwd_src_kernel(const void* __restrict__ z, const float* __restrict__ el,
-                   const float* __restrict__ stats,
-                   const void* __restrict__ g,
-                   const void* __restrict__ indptr_t, int indptr_64,
-                   const int* __restrict__ dst_t, long long dst_stride,
-                   float* __restrict__ d_z, float* __restrict__ d_el, int R,
-                   int n, int H, int dh, float slope) {
-  __shared__ float wa_sh[kWarps][32][HM];
-  __shared__ float wb_sh[kWarps][32][HM];
+// one 32-edge chunk of a row: this lane's edge (clipped destination
+// index and its stats row: er, m, s, rho), or index 0 past the row's end.
+// Fetched apart from the weights that use it (as K6's Edge)
+template <int HM>
+struct DstStats {
+  int i;
+  float er[HM], m[HM], s[HM], rho[HM];
+  __device__ __forceinline__ void fetch(const int* dst_t, const float* stats,
+                                        long long base, long long end,
+                                        int lane, int n, int H,
+                                        bool vec_rows) {
+    i = 0;
+    if (lane < end - base) {
+      i = clip(__ldg(dst_t + base + lane), n);
+      const size_t r = static_cast<size_t>(i) * 4;
+      narrow_row<HM>(stats, r, H, vec_rows, er);
+      narrow_row<HM>(stats, r + 1, H, vec_rows, m);
+      narrow_row<HM>(stats, r + 2, H, vec_rows, s);
+      narrow_row<HM>(stats, r + 3, H, vec_rows, rho);
+    }
+  }
+};
+
+// STRADDLE: a chunk of VEC elements may span two heads (dh % VEC != 0)
+template <int VEC, int NV, int HM, bool STRADDLE>
+__device__ __forceinline__ void gat_bwd_src(
+    const void* __restrict__ z, const float* __restrict__ el,
+    const float* __restrict__ stats, const void* __restrict__ g,
+    const void* __restrict__ indptr_t, int indptr_64,
+    const int* __restrict__ dst_t, long long dst_stride,
+    float* __restrict__ d_z, float* __restrict__ d_el, int R, int n, int H,
+    int dh, float slope, int vec_rows) {
+  // alpha, signed by its branch (negative: the negative branch)
+  __shared__ float wsh[kWarps][32][HM];
   const int part = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + warp;
@@ -574,70 +617,85 @@ gat_bwd_src_kernel(const void* __restrict__ z, const float* __restrict__ el,
   const long long end = row_ptr(indptr_t, indptr_64, rp + 1);
 
   float el_r[HM], brho[HM];
+  narrow_row<HM>(el, orow, H, vec_rows, el_r);
 #pragma unroll
-  for (int h = 0; h < HM; ++h) {
-    el_r[h] = h < H ? __ldg(el + orow * H + h) : 0.0f;
-    brho[h] = 0.0f;
-  }
+  for (int h = 0; h < HM; ++h) brho[h] = 0.0f;
   const Cols<VEC, NV, HM> c(lane, F, dh);
-  float acc_a[NV][VEC], acc_b[NV][VEC];
+  float pos[NV][VEC], neg[NV][VEC];
 #pragma unroll
   for (int v = 0; v < NV; ++v)
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) acc_a[v][k] = acc_b[v][k] = 0.0f;
-  float(*wa)[HM] = wa_sh[warp];
-  float(*wb)[HM] = wb_sh[warp];
+    for (int k = 0; k < VEC; ++k) pos[v][k] = neg[v][k] = 0.0f;
+  float(*w)[HM] = wsh[warp];
+  DstStats<HM> cur;
   for (long long base = beg; base < end; base += 32) {
     const int cnt = static_cast<int>(min(32LL, end - base));
-    int mine = 0;
+    cur.fetch(dst_t, stats, base, end, lane, n, H, vec_rows);
     if (lane < cnt) {
-      mine = clip(__ldg(dst_t + base + lane), n);
-      const float* st = stats + static_cast<size_t>(mine) * 4 * H;
 #pragma unroll
       for (int h = 0; h < HM; ++h) {
         if (h < H) {
-          const float lp = el_r[h] + __ldg(st + h);
-          const float a = expf(leaky(lp, slope) - __ldg(st + H + h)) /
-                          __ldg(st + 2 * H + h);
+          const float lp = el_r[h] + cur.er[h];
+          const float a = expf(leaky(lp, slope) - cur.m[h]) / cur.s[h];
           const float b = lp > 0.0f ? a : a * slope;
-          wa[lane][h] = a;
-          wb[lane][h] = b;
-          brho[h] += b * __ldg(st + 3 * H + h);
+          brho[h] = fmaf(b, cur.rho[h], brho[h]);
+          w[lane][h] = lp > 0.0f ? a : -a;  // the sign: the branch
         }
       }
     }
     __syncwarp();
 #pragma unroll 4
     for (int j = 0; j < cnt; ++j) {
-      const int dj = __shfl_sync(kFull, mine, j);
+      const int dj = __shfl_sync(kFull, cur.i, j);
       const size_t rowg = gbase + static_cast<size_t>(dj) * F;
 #pragma unroll
       for (int v = 0; v < NV; ++v) {
-        if (c.ok[v]) {
-          float y[VEC];
-          load<kGT, VEC>(g, rowg + c.col[v], y);
-          const float a0 = wa[j][c.head[v]], a1 = wa[j][c.head1[v]];
-          const float b0 = wb[j][c.head[v]], b1 = wb[j][c.head1[v]];
+        if (!c.ok[v]) continue;
+        float y[VEC];
+        load<kGT, VEC>(g, rowg + c.col[v], y);
+        if constexpr (!STRADDLE) {
+          const float wv = w[j][c.head[v]];
+          const bool ng = __float_as_uint(wv) >> 31;
+          const float wa = fabsf(wv);
 #pragma unroll
           for (int k = 0; k < VEC; ++k) {
-            const bool first = k < c.split[v];
-            acc_a[v][k] += __fmul_rn(first ? a0 : a1, y[k]);
-            acc_b[v][k] += __fmul_rn(first ? b0 : b1, y[k]);
+            if (ng) neg[v][k] = fmaf(wa, y[k], neg[v][k]);
+            else pos[v][k] = fmaf(wa, y[k], pos[v][k]);
+          }
+        } else {
+          const float w0 = w[j][c.head[v]], w1 = w[j][c.head1[v]];
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) {
+            const float wv = k < c.split[v] ? w0 : w1;
+            const float wa = fabsf(wv);
+            if (__float_as_uint(wv) >> 31)
+              neg[v][k] = fmaf(wa, y[k], neg[v][k]);
+            else
+              pos[v][k] = fmaf(wa, y[k], pos[v][k]);
           }
         }
       }
     }
     __syncwarp();
   }
+  // d_z = pos + neg into pos, the beta-weighted sum into neg
+#pragma unroll
+  for (int v = 0; v < NV; ++v)
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      const float p = pos[v][k], q = neg[v][k];
+      pos[v][k] = p + q;
+      neg[v][k] = fmaf(slope, q, p);
+    }
   float* dzp = d_z + orow * F;
 #pragma unroll
   for (int v = 0; v < NV; ++v)
-    if (c.ok[v]) store<VEC>(dzp + c.col[v], acc_a[v]);
+    if (c.ok[v]) store_out<VEC>(dzp + c.col[v], pos[v]);
   // d_el = z[r] . (sum_e beta_e g[dst_e]) - sum_e beta_e rho[dst_e]
   float dot[HM];
   head_dots<kZT, VEC, NV, HM>(
       c, static_cast<const unsigned char*>(z) + orow * F * elem_bytes<kZT>(),
-      acc_b, dot);
+      neg, dot);
   warp_sum<HM>(dot);
   warp_sum<HM>(brho);
   if (lane == 0) {
@@ -646,6 +704,38 @@ gat_bwd_src_kernel(const void* __restrict__ z, const float* __restrict__ el,
       if (h < H) d_el[orow * H + h] = dot[h] - brho[h];
   }
 }
+
+#define PGT_K8_PARAMS                                                        \
+  const void *__restrict__ z, const float *__restrict__ el,                  \
+      const float *__restrict__ stats, const void *__restrict__ g,           \
+      const void *__restrict__ indptr_t, int indptr_64,                      \
+      const int *__restrict__ dst_t, long long dst_stride,                   \
+      float *__restrict__ d_z, float *__restrict__ d_el, int R, int n, int H, \
+      int dh, float slope, int vec_rows
+#define PGT_K8_ARGS                                                        \
+  z, el, stats, g, indptr_t, indptr_64, dst_t, dst_stride, d_z, d_el, R, n, \
+      H, dh, slope, vec_rows
+
+template <int VEC, int NV, int HM, bool STRADDLE>
+__global__ void __launch_bounds__(kWarps * 32)
+gat_bwd_src_kernel(PGT_K8_PARAMS) {
+  gat_bwd_src<VEC, NV, HM, STRADDLE>(PGT_K8_ARGS);
+}
+
+// The cells' instances, 8 elements a lane over 4 heads (F = 256: e5m2 /
+// bf16 g rows in one chunk of 8, f32 in two of 4; dh = 41 in two chunks
+// of 4 that straddle heads), kept to 64 registers so that 4 blocks stay
+// resident: a gather bound by its latency, K8 ran 1.7x faster on e5m2
+// rows at dh = 64 than at the 96 registers (2 blocks) the compiler chose
+// (PERF.md). On f32 rows at dh = 41 the cap's spills cost more
+// than the fourth block gained: that instance keeps its own 80 (3 blocks).
+template <int VEC, int NV, int HM, bool STRADDLE>
+__global__ void __launch_bounds__(kWarps * 32, 4)
+gat_bwd_src_kernel_4(PGT_K8_PARAMS) {
+  gat_bwd_src<VEC, NV, HM, STRADDLE>(PGT_K8_ARGS);
+}
+#undef PGT_K8_PARAMS
+#undef PGT_K8_ARGS
 
 // ---------------------------------------------------------------------------
 // launch: VEC from F, dh and the alignment, NV from the row width, HM from
@@ -659,42 +749,11 @@ bool aligned(const void* p, int bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-// false when the kernels cannot take the shape (the wrapper checks first);
-// vec4_aligned: every wide row pointer is aligned to 4 elements
-bool pick(Shape& sh, bool vec4_aligned) {
-  const int F = sh.H * sh.dh;
-  if (sh.H < 1 || sh.H > 16 || sh.dh < 1) return false;
-  sh.vec = (F % 4 == 0 && sh.dh >= 4 && vec4_aligned) ? 4 : 1;
-  const int need = (F + 32 * sh.vec - 1) / (32 * sh.vec);
-  if (need > 16) return false;
-  sh.nv = need <= 2 ? 2 : need <= 4 ? 4 : need <= 8 ? 8 : 16;
-  sh.hm = sh.H <= 4 ? 4 : 16;
-  return true;
-}
-
-template <template <int, int, int> class L, typename... A>
-int dispatch(const Shape& sh, cudaStream_t st, A... args) {
-  const dim3 grid((sh.rows + kWarps - 1) / kWarps, sh.P);
-  const dim3 block(kWarps * 32);
-#define PGT_NV(VEC_, HM_)                                             \
-  switch (sh.nv) {                                                    \
-    case 2: L<VEC_, 2, HM_>::run(grid, block, st, args...); break;    \
-    case 4: L<VEC_, 4, HM_>::run(grid, block, st, args...); break;    \
-    case 8: L<VEC_, 8, HM_>::run(grid, block, st, args...); break;    \
-    default: L<VEC_, 16, HM_>::run(grid, block, st, args...); break;  \
-  }
-  if (sh.vec == 4) {
-    if (sh.hm == 4) { PGT_NV(4, 4) } else { PGT_NV(4, 16) }
-  } else {
-    if (sh.hm == 4) { PGT_NV(1, 4) } else { PGT_NV(1, 16) }
-  }
-#undef PGT_NV
-  return static_cast<int>(cudaGetLastError());
-}
-
-// K6's shape: as pick, with 8-element chunks of narrow rows where dh % 8
-// == 0, H <= 4 and the rows allow; straddle: a chunk may span two heads
-// (VEC 4 with dh % 4 != 0)
+// K6's shape: VEC 8 (narrow rows where dh % 8 == 0, H <= 4 and the rows
+// allow), else 4 (F % 4 == 0, dh >= 4 and the rows allow), else 1; NV
+// chunks a lane; straddle: a chunk may span two heads (VEC 4 with dh % 4
+// != 0). False when the kernel cannot take the shape (the wrapper checks
+// first)
 bool pick_fwd(Shape& sh, bool& straddle, const void* z, bool out_aligned) {
   const int F = sh.H * sh.dh;
   constexpr int eb = elem_bytes<kZT>();
@@ -762,13 +821,80 @@ int dispatch_fwd(const Shape& sh, bool straddle, cudaStream_t st,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int VEC, int NV, int HM>
-struct SrcLaunch {
-  template <typename... A>
-  static void run(dim3 grid, dim3 block, cudaStream_t st, A... args) {
-    gat_bwd_src_kernel<VEC, NV, HM><<<grid, block, 0, st>>>(args...);
+// K8's shape: as pick_fwd, with every wide row (z, g, d_z) allowing the
+// width, and 8-element chunks where g is narrow
+bool pick_bwd(Shape& sh, bool& straddle, const void* z, const void* g,
+              bool dz_aligned) {
+  const int F = sh.H * sh.dh;
+  constexpr int ez = elem_bytes<kZT>(), eg = elem_bytes<kGT>();
+  if (sh.H < 1 || sh.H > 16 || sh.dh < 1) return false;
+  if (kGT != kF32 && sh.H <= 4 && sh.dh % 8 == 0 && aligned(z, 8 * ez) &&
+      aligned(g, 8 * eg) && dz_aligned)
+    sh.vec = 8;
+  else
+    sh.vec = (F % 4 == 0 && sh.dh >= 4 && aligned(z, 4 * ez) &&
+              aligned(g, 4 * eg) && dz_aligned)
+                 ? 4 : 1;
+  const int need = (F + 32 * sh.vec - 1) / (32 * sh.vec);
+  if (need > (sh.vec == 8 ? 8 : 16)) return false;
+  // one chunk a lane where it covers the row: no registers for a second
+  sh.nv = need <= 1 ? 1 : need <= 2 ? 2 : need <= 4 ? 4 : need <= 8 ? 8 : 16;
+  sh.hm = sh.H <= 4 ? 4 : 16;
+  straddle = sh.vec == 4 && sh.dh % 4 != 0;
+  return true;
+}
+
+template <int VEC, bool ST, typename... A>
+void launch_bwd(const Shape& sh, cudaStream_t st, A... args) {
+  const dim3 grid((sh.rows + kWarps - 1) / kWarps, sh.P);
+  const dim3 block(kWarps * 32);
+#define PGT_K8(NV_, HM_)                                                \
+  if constexpr (VEC * NV_ == 8 && HM_ == 4 && (!ST || kGT != kF32))    \
+    gat_bwd_src_kernel_4<VEC, NV_, HM_, ST>                             \
+        <<<grid, block, 0, st>>>(args...);                              \
+  else                                                                  \
+    gat_bwd_src_kernel<VEC, NV_, HM_, ST><<<grid, block, 0, st>>>(args...)
+  if constexpr (VEC == 8) {  // H <= 4, F <= 2048 (pick_bwd)
+    switch (sh.nv) {
+      case 1: PGT_K8(1, 4); break;
+      case 2: PGT_K8(2, 4); break;
+      case 4: PGT_K8(4, 4); break;
+      default: PGT_K8(8, 4); break;
+    }
+  } else if (sh.hm == 4) {
+    switch (sh.nv) {
+      case 1: PGT_K8(1, 4); break;
+      case 2: PGT_K8(2, 4); break;
+      case 4: PGT_K8(4, 4); break;
+      case 8: PGT_K8(8, 4); break;
+      default: PGT_K8(16, 4); break;
+    }
+  } else {
+    switch (sh.nv) {
+      case 1: PGT_K8(1, 16); break;
+      case 2: PGT_K8(2, 16); break;
+      case 4: PGT_K8(4, 16); break;
+      case 8: PGT_K8(8, 16); break;
+      default: PGT_K8(16, 16); break;
+    }
   }
-};
+#undef PGT_K8
+}
+
+template <typename... A>
+int dispatch_bwd(const Shape& sh, bool straddle, cudaStream_t st,
+                 A... args) {
+  if (sh.vec == 8) {  // narrow g rows, dh % 8 == 0
+    if constexpr (kGT != kF32) launch_bwd<8, false>(sh, st, args...);
+  } else if (sh.vec == 4 && straddle) {  // dh % 4 != 0
+    launch_bwd<4, true>(sh, st, args...);
+  } else if (sh.vec == 4) {
+    launch_bwd<4, false>(sh, st, args...);
+  } else {
+    launch_bwd<1, false>(sh, st, args...);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
@@ -828,14 +954,15 @@ extern "C" int PGT_CAT(pgt_gat_bwd_src, PGT_SUFFIX)(
     int dh, float slope, void* stream) {
   if (P == 0 || R == 0) return 0;
   Shape sh{P, R, H, dh, 0, 0, 0};
-  if (n <= 0 ||
-      !pick(sh, aligned(z, 4 * elem_bytes<kZT>()) &&
-                    aligned(g, 4 * elem_bytes<kGT>()) && aligned(d_z, 16)))
+  bool straddle = false;
+  if (n <= 0 || !pick_bwd(sh, straddle, z, g, aligned(d_z, 16)))
     return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch<SrcLaunch>(
-      sh, static_cast<cudaStream_t>(stream), z,
+  // the stats rows and el rows as 16-byte loads
+  const int vec_rows = H == 4 && aligned(stats, 16) && aligned(el, 16);
+  return dispatch_bwd(
+      sh, straddle, static_cast<cudaStream_t>(stream), z,
       static_cast<const float*>(el), static_cast<const float*>(stats), g,
       indptr_t, indptr_64, static_cast<const int*>(dst_t), dst_stride,
       static_cast<float*>(d_z), static_cast<float*>(d_el), R, n, H, dh,
-      slope);
+      slope, vec_rows);
 }

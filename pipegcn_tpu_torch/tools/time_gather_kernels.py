@@ -4,8 +4,10 @@ checkout, on the card:
 
     python3 pipegcn_tpu_torch/tools/time_gather_kernels.py <checkout> <label>
     python3 pipegcn_tpu_torch/tools/time_gather_kernels.py <checkout> <label> \\
-        --sweep             # K1 at each slice plan, K6 against its plain
-                            # version
+        --sweep             # K1 at each slice plan, K6 and K8 against
+                            # their plain versions
+    python3 pipegcn_tpu_torch/tools/time_gather_kernels.py <checkout> <label> \\
+        --gat-only          # K6 and K8 alone, with --sweep's check of them
 
 Shapes (random CSRs made on the card from a seed: uniform sources, no
 locality, as the serving layout's random parts):
@@ -16,8 +18,9 @@ locality, as the serving layout's random parts):
   - K3: the serving CSR's sizes transposed (n_src rows gathering F = 256
     f32 rows of n_out).
   - K6 (training's NEG mode) and K8: the GAT cell's sizes (P = 2, n =
-    71,792, R = 143,584, 20,695,742 edges a part, H = 4, dh = 64), z rows
-    f32, bf16 and e4m3 (K8's g rows f32, bf16, e5m2).
+    71,792, R = 143,584, 20,695,742 edges a part, H = 4, dh = 64; K8 also
+    at the logits layer's dh = 41), z rows f32, bf16 and e4m3 (K8's g rows
+    f32, bf16, e5m2).
 
 Each time is the median of CUDA event pairs around one call. Prints one
 JSON line (ms). To compare two commits, unpack the other one (``git
@@ -78,74 +81,83 @@ def deg_of(indptr):
 
 out = {"label": label, "csrc": str(_build.CSRC),
        "card": torch.cuda.get_device_name(0)}
-_build.build(["spmm_mean", *gat.LIBRARIES])
-gen = torch.Generator(device="cuda").manual_seed(SEED)
+gat_only = "--gat-only" in flags
+_build.build(([] if gat_only else ["spmm_mean"]) + list(gat.LIBRARIES))
 
-# --- K1 / K3 at the serving shape --------------------------------------------
-ip, src = random_csr(SERVE["n_out"], SERVE["n_src"], SERVE["edges"], 1)
-deg = deg_of(ip)
-x256 = torch.randn((P, SERVE["n_src"], 256), generator=gen, device="cuda")
-x602 = torch.randn((P, SERVE["n_src"], 602), generator=gen, device="cuda")
-xb = x256.bfloat16()
-cases = {"K1 serving f32 F=256": x256, "K1 serving f32 F=602": x602,
-         "K1 serving bf16 F=256": xb}
-for name, x in cases.items():
-    out[name] = time_ms(lambda: spmm.spmm_mean(x, ip, src, deg),
-                        reps=9 if x.shape[-1] > 256 else 15)
-if "--sweep" in flags:
-    sweep = {}
-    l2 = torch.cuda.get_device_properties(0).L2_cache_size
-    out["l2_bytes"] = l2
-    for name, x in cases.items():
-        F, eb = x.shape[-1], x.element_size()
-        whole = spmm.k1_launch(x, ip, src, deg, plan=(F, 0))
-        res = {"whole": time_ms(lambda: spmm.k1_launch(
-            x, ip, src, deg, plan=(F, 0)), reps=9)}
-        for wb in (64, 128, 256):
-            W = wb // eb
-            for vec in (1, 2, 4, 8):
-                if W % vec or W // vec not in (8, 16, 32) \
-                        or vec > 16 // eb or F % vec:
-                    continue
-                plan = (W, vec)
-                got = spmm.k1_launch(x, ip, src, deg, plan=plan)
-                res[f"W={W} vec={vec}"] = {
-                    "ms": time_ms(lambda: spmm.k1_launch(
-                        x, ip, src, deg, plan=plan), reps=9),
-                    "bit_identical": bool(torch.equal(got, whole))}
-                del got
-        res["rule"] = list(spmm.k1_plan(x.shape[1], F, eb, l2,
-                                         x.data_ptr()))
-        sweep[name] = res
-        del whole
-    out["K1 sweep"] = sweep
-del x256, x602, xb, cases
 
-# K3 over the transposed sizes, dividing by the serving CSR's in-degrees
-it, dt = random_csr(SERVE["n_src"], SERVE["n_out"], SERVE["edges"], 2)
-g = torch.randn((P, SERVE["n_out"], 256), generator=gen, device="cuda")
-out["K3 serving f32 F=256"] = time_ms(
-    lambda: spmm.spmm_mean_t(g, it, dt, deg))
-del ip, src, deg, it, dt, g
-
-if "--sweep" in flags:
-    ip, src = random_csr(TRAIN["n_out"], TRAIN["n_src"], TRAIN["edges"], 4)
+def k1_k3(gen):
+    """K1 at the serving shape (``--sweep``: at every slice plan, and at
+    the training cell's sizes), K3 at the serving CSR's transpose."""
+    # --- K1 / K3 at the serving shape ---------------------------------------
+    ip, src = random_csr(SERVE["n_out"], SERVE["n_src"], SERVE["edges"], 1)
     deg = deg_of(ip)
-    x = torch.randn((P, TRAIN["n_src"], 256), generator=gen, device="cuda")
-    for dtype in (torch.float32, torch.bfloat16):
-        xd = x.to(dtype)
-        eb = xd.element_size()
-        res = {"whole": time_ms(lambda: spmm.k1_launch(
-            xd, ip, src, deg, plan=(256, 0)))}
-        for wb in (64, 128, 256):
-            W = wb // eb
-            vec = max(1, W // 32)
-            res[f"W={W} vec={vec}"] = time_ms(lambda: spmm.k1_launch(
-                xd, ip, src, deg, plan=(W, vec)))
-        out["K1 sweep"][f"K1 train-size random {dtype}"] = res
-    del ip, src, deg, x, xd
+    x256 = torch.randn((P, SERVE["n_src"], 256), generator=gen, device="cuda")
+    x602 = torch.randn((P, SERVE["n_src"], 602), generator=gen, device="cuda")
+    xb = x256.bfloat16()
+    cases = {"K1 serving f32 F=256": x256, "K1 serving f32 F=602": x602,
+             "K1 serving bf16 F=256": xb}
+    for name, x in cases.items():
+        out[name] = time_ms(lambda: spmm.spmm_mean(x, ip, src, deg),
+                            reps=9 if x.shape[-1] > 256 else 15)
+    if "--sweep" in flags:
+        sweep = {}
+        l2 = torch.cuda.get_device_properties(0).L2_cache_size
+        out["l2_bytes"] = l2
+        for name, x in cases.items():
+            F, eb = x.shape[-1], x.element_size()
+            whole = spmm.k1_launch(x, ip, src, deg, plan=(F, 0))
+            res = {"whole": time_ms(lambda: spmm.k1_launch(
+                x, ip, src, deg, plan=(F, 0)), reps=9)}
+            for wb in (64, 128, 256):
+                W = wb // eb
+                for vec in (1, 2, 4, 8):
+                    if W % vec or W // vec not in (8, 16, 32) \
+                            or vec > 16 // eb or F % vec:
+                        continue
+                    plan = (W, vec)
+                    got = spmm.k1_launch(x, ip, src, deg, plan=plan)
+                    res[f"W={W} vec={vec}"] = {
+                        "ms": time_ms(lambda: spmm.k1_launch(
+                            x, ip, src, deg, plan=plan), reps=9),
+                        "bit_identical": bool(torch.equal(got, whole))}
+                    del got
+            res["rule"] = list(spmm.k1_plan(x.shape[1], F, eb, l2,
+                                             x.data_ptr()))
+            sweep[name] = res
+            del whole
+        out["K1 sweep"] = sweep
+    del x256, x602, xb, cases
+
+    # K3 over the transposed sizes, dividing by the serving CSR's in-degrees
+    it, dt = random_csr(SERVE["n_src"], SERVE["n_out"], SERVE["edges"], 2)
+    g = torch.randn((P, SERVE["n_out"], 256), generator=gen, device="cuda")
+    out["K3 serving f32 F=256"] = time_ms(
+        lambda: spmm.spmm_mean_t(g, it, dt, deg))
+    del ip, src, deg, it, dt, g
+
+    if "--sweep" in flags:
+        ip, src = random_csr(TRAIN["n_out"], TRAIN["n_src"], TRAIN["edges"], 4)
+        deg = deg_of(ip)
+        x = torch.randn((P, TRAIN["n_src"], 256), generator=gen, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            xd = x.to(dtype)
+            eb = xd.element_size()
+            res = {"whole": time_ms(lambda: spmm.k1_launch(
+                xd, ip, src, deg, plan=(256, 0)))}
+            for wb in (64, 128, 256):
+                W = wb // eb
+                vec = max(1, W // 32)
+                res[f"W={W} vec={vec}"] = time_ms(lambda: spmm.k1_launch(
+                    xd, ip, src, deg, plan=(W, vec)))
+            out["K1 sweep"][f"K1 train-size random {dtype}"] = res
+        del ip, src, deg, x, xd
+
+
+if not gat_only:
+    k1_k3(torch.Generator(device="cuda").manual_seed(SEED))
 
 # --- K6 / K8 at the GAT cell's sizes ------------------------------------------
+gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
 n, R = TRAIN["n_out"], TRAIN["n_src"]
 ip, src = random_csr(n, R, TRAIN["edges"], 5)
 it, dt = random_csr(R, n, TRAIN["edges"], 6)
@@ -167,29 +179,62 @@ for name, (zdt, gdt) in rows.items():
     out[f"K8 {name}"] = time_ms(
         lambda: gat.gat_bwd_src(zq, el, er, m, s, gq, rho, it, dt))
     del o, m, s, gg, rho, gq, zq
+    # K8 at the logits layer's dh = 41 (chunks of 4 straddle two heads)
+    zq = z[..., :41].contiguous().to(zdt)
+    o, m, s = gat.gat_fwd(zq, el, er, ip, src)
+    gg = torch.randn_like(o)
+    rho = (gg * o).sum(-1)
+    gq = gg.to(gdt)
+    out[f"K8 {name} dh=41"] = time_ms(
+        lambda: gat.gat_bwd_src(zq, el, er, m, s, gq, rho, it, dt))
+    del o, m, s, gg, rho, gq, zq
 
-if "--sweep" in flags:
-    # K6 against its plain version on a cut of the cell's sizes: m
-    # bit-exact, the rest at a relative error far below the GAT tolerance
-    # that chip_smoke.py holds it to
+if gat_only or "--sweep" in flags:
+    # K6 and K8 against their plain versions on a cut of the cell's sizes
+    # (K8 over a random transpose CSR of its own): K6's m bit-exact, the
+    # rest at a relative error far below the GAT tolerances that
+    # chip_smoke.py holds them to; K8's d_z on rows one element off
+    # alignment bit-identical to the aligned rows'
     small = random_csr(4000, 9000, 1200000, 7)
+    small_t = random_csr(9000, 4000, 1200000, 8)
     zs = torch.randn((P, 9000, H, DH), generator=gen, device="cuda")
     els = torch.randn((P, 9000, H), generator=gen, device="cuda")
     ers = torch.randn((P, 4000, H), generator=gen, device="cuda")
-    check = {}
-    for name, (zdt, _) in rows.items():
+    gs = torch.randn((P, 4000, H, DH), generator=gen, device="cuda")
+
+    def unaligned(x):
+        u = torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")[1:]
+        return u.view(x.shape).copy_(x)
+
+    def rel(got, ref):
+        return [float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(got, ref)]
+
+    k6c, k8c = {}, {}
+    for name, (zdt, gdt) in rows.items():
         for dh in (64, 41):
             zq = zs[..., :dh].contiguous().to(zdt)
             got = gat.gat_fwd(zq, els, ers, *small, neg=True)
             ref = gat.gat_fwd_plain(zq, els, ers, *small, neg=True)
             again = gat.gat_fwd(zq, els, ers, *small, neg=True)
-            check[f"{name} dh={dh}"] = {
+            k6c[f"{name} dh={dh}"] = {
                 "m_bit_exact": bool(torch.equal(got[1], ref[1])),
                 "rerun_bit_identical": all(
                     torch.equal(a, b) for a, b in zip(got, again)),
-                "rel_err": [float((a - b).abs().max() / b.abs().max())
-                            for a, b in zip(got, ref)]}
-    out["K6 check"] = check
-    del small, zs, els, ers
+                "rel_err": rel(got, ref)}
+            gq = gs[..., :dh].contiguous().to(gdt)
+            rho = (gq.float() * ref[0]).sum(-1)
+            a8 = (zq, els, ers, ref[1], ref[2], gq, rho, *small_t)
+            got = gat.gat_bwd_src(*a8)
+            k8c[f"{name} dh={dh}"] = {
+                "rerun_bit_identical": all(
+                    torch.equal(a, b)
+                    for a, b in zip(got, gat.gat_bwd_src(*a8))),
+                "unaligned_d_z_bit_identical": bool(torch.equal(
+                    gat.gat_bwd_src(unaligned(zq), *a8[1:5], unaligned(gq),
+                                    *a8[6:])[0], got[0])),
+                "rel_err": rel(got, gat.gat_bwd_src_plain(*a8))}
+    out["K6 check"], out["K8 check"] = k6c, k8c
+    del small, small_t, zs, els, ers, gs
 
 print(json.dumps(out))

@@ -1,7 +1,7 @@
-"""Time K12 / K13 (the tile products, f32 rows and the bf16 mode), K16 (the
-union-gather forward, both modes), K11 (the per-part amax, plain and
-``deg`` forms) and K5 (the reverse-ring return, one call and 20 back to
-back) of the port in one checkout, on the card:
+"""Time K12 / K13 (the tile products, f32 rows and the bf16 mode), K16 /
+K17 (the union-gather forward and transpose, both modes), K11 (the
+per-part amax, plain and ``deg`` forms) and K5 (the reverse-ring return,
+one call and 20 back to back) of the port in one checkout, on the card:
 
     python3 pipegcn_tpu_torch/tools/time_tile_products.py <checkout> <label>
 
@@ -10,7 +10,11 @@ Shapes. K12 / K13: the block cell's (P = 2, T = 256, F = 256, n_max =
 K16: union tables at G = 4 over the same rows, each group ~30 union slots
 of distinct random input tiles, each slot's block for each of the group's
 tiles present with probability 0.66 (the pad otherwise; the wire cell
-runs 11,311 products over 4,279 slots, 2.64 a slot). K11: the bucket
+runs 11,311 products over 4,279 slots, 2.64 a slot). K17: the backward's
+union tables at G = 4 alike (groups of source tiles, slots of destination
+tiles), and beside it the alternative of a transposed copy of A: K16's
+forward over the copy and the same lists (the same products), and the
+copy's own build (unpack, transpose, pack on the card). K11: the bucket
 cell's activations [2, n_max + H, 256] (plain form) and cotangents [2,
 n_max, 256] with a random in-degree (``deg`` form), beside
 ``torch.linalg.vector_norm(ord=inf)`` over the same activations. K5: the
@@ -25,8 +29,10 @@ Prints one JSON line of medians (ms). To compare two commits, unpack the
 other one (``git archive``) into a git-ignored directory and run the two
 alternately in one call (parent, change, change, parent): each checkout
 builds its own kernels."""
+import dataclasses
 import json
 import sys
+import time
 
 import torch
 
@@ -60,14 +66,17 @@ def side(n_keys, n_o, n_i, n_other_t, transpose):
                          transpose=transpose)
 
 
-def union_side(slots_per_group=30, p_block=0.66):
-    """The forward union lists at G = 4: distinct random input tiles a
-    group, a block for each (slot, tile) with probability ``p_block``, at
-    least one a slot, distinct random blocks."""
-    n_groups = -(-n_out_t // G)
+def union_side(slots_per_group=30, p_block=0.66, transpose=False):
+    """The union lists at G = 4 (``transpose``: the backward's, keyed by
+    source tile): distinct random input tiles a group, a block for each
+    (slot, tile) with probability ``p_block``, at least one a slot, random
+    blocks."""
+    n_key_t, n_in_tiles = (n_in_t, n_out_t) if transpose else (n_out_t,
+                                                               n_in_t)
+    n_groups = -(-n_key_t // G)
     S = n_groups * slots_per_group
-    til = torch.stack([torch.cat([torch.randperm(n_in_t)[:slots_per_group]
-                                  for _ in range(n_groups)])
+    til = torch.stack([torch.cat([torch.randperm(n_in_tiles)[
+        :slots_per_group] for _ in range(n_groups)])
                        for _ in range(P)]).int()
     use = torch.rand((P, S, G)) < p_block
     use[..., 0] |= ~use.any(-1)
@@ -77,8 +86,19 @@ def union_side(slots_per_group=30, p_block=0.66):
         bl[p][use[p]] = torch.randint(0, B, (n,), dtype=torch.int32)
     ptr = torch.arange(0, S + 1, slots_per_group, dtype=torch.int32)
     return blk.GroupSide(ptr=ptr.repeat(P, 1).cuda(), tile=til.cuda(),
-                         blk=bl.cuda(), group=G, n_out=n_out, n_in=n_in,
-                         n_out_tiles=n_out_t, transpose=False)
+                         blk=bl.cuda(), group=G,
+                         n_out=n_in if transpose else n_out,
+                         n_in=n_out if transpose else n_in,
+                         n_out_tiles=n_key_t, transpose=transpose)
+
+
+def transposed_bits(a):
+    """Every 1-bit block of ``a`` [P, B, T, T // 8] transposed (unpacked,
+    transposed, packed again, little-endian within each byte)."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=a.device)
+    bits = ((a[..., None] >> shifts) & 1).reshape(*a.shape[:2], T, T)
+    bits = bits.transpose(2, 3).reshape(*a.shape[:2], T, T // 8, 8)
+    return (bits << shifts).sum(-1, dtype=torch.uint8)
 
 
 fwd = side(n_out_t, n_out, n_in, n_in_t, False)
@@ -91,6 +111,9 @@ tt = blk.BlockTables(a=a, packed=True, tile=T,
 ug = union_side()
 tg = blk.BlockTables(a=a, packed=True, tile=T, fwd=ug, bwd=ug,
                      rem_fwd=None, rem_bwd=None)
+ugt = union_side(transpose=True)
+tgt = blk.BlockTables(a=a, packed=True, tile=T, fwd=ugt, bwd=ugt,
+                      rem_fwd=None, rem_bwd=None)
 
 
 def time_ms(fn, reps=30, warmup=5):
@@ -111,15 +134,32 @@ def time_ms(fn, reps=30, warmup=5):
 out = {"label": label, "csrc": str(_build.CSRC),
        "card": torch.cuda.get_device_name(0),
        "K16 union_slots": int(ug.ptr[:, -1].sum()),
-       "K16 products": int((ug.blk != B).sum())}
+       "K16 products": int((ug.blk != B).sum()),
+       "K17 union_slots": int(ugt.ptr[:, -1].sum()),
+       "K17 products": int((ugt.blk != B).sum())}
 x = torch.randn((P, n_in, F), device="cuda")
 g = torch.randn((P, n_in, F), device="cuda")[:, :n_out].contiguous()
+torch.cuda.synchronize()
+t0 = time.monotonic()
+a_t = transposed_bits(a)
+torch.cuda.synchronize()
+out["K17 alt transposed copy build"] = (time.monotonic() - t0) * 1e3
+tgt_copy = blk.BlockTables(
+    a=a_t, packed=True, tile=T, fwd=dataclasses.replace(ugt, transpose=False),
+    bwd=ugt, rem_fwd=None, rem_bwd=None)
 for dt in (torch.float32, torch.bfloat16):
     xd, gd = x.to(dt), g.to(dt)
     out[f"K12 {dt}"] = time_ms(lambda: blk.block_dense(xd, t))
     out[f"K13 {dt}"] = time_ms(lambda: blk.block_dense_t(gd, tt))
     out[f"K16 {dt}"] = time_ms(lambda: blk.block_dense_grouped(xd, tg))
-del x, g
+    out[f"K17 {dt}"] = time_ms(lambda: blk.block_dense_grouped_t(gd, tgt))
+    # the alternative: K16's forward over the transposed copy
+    out[f"K17 alt {dt}"] = time_ms(
+        lambda: blk.block_dense_grouped(gd, tgt_copy))
+    out[f"K17 alt {dt} bit-identical"] = bool(torch.equal(
+        blk.block_dense_grouped(gd, tgt_copy),
+        blk.block_dense_grouped_t(gd, tgt)))
+del x, g, a_t, tgt_copy
 act = torch.randn((P, n_in, F), device="cuda") * 2.0
 cot = torch.randn((P, n_out, F), device="cuda") * 1e-3
 deg = torch.randint(1, 600, (P, n_out), device="cuda").float()

@@ -419,3 +419,104 @@ def test_k6_arithmetic_matches_jax_forward(dh):
         d_er = gat_d_er(gt, rho, torch.from_numpy(got[3]),
                         torch.from_numpy(got[4]), SLOPE)
         close_to_max(d_er.numpy(), dr, "pass A: d_er")
+
+
+def k8_emulated(z, el, er, m, s, g, rho, indptr_t, dst_t):
+    """K8's arithmetic (``csrc/gat_attn.cuh``, pass B) on f32 z and g rows,
+    one part, in f32: per source row r and 32-edge chunk of its out-edges
+    in the transpose CSR, lane l takes edge l of the chunk, its alpha =
+    exp(leaky(l) - m[dst]) / s[dst] and beta (alpha, or slope * alpha on
+    the negative branch), and adds beta * rho[dst] into its own sum (a
+    fused multiply-add), which a xor butterfly over the 32 lanes combines;
+    each edge adds alpha * g[dst] (one fused multiply-add an element) in
+    edge order into the sum of its leaky branch (at every dh: where the
+    kernel's 4-element chunks straddle two heads, the branch is taken per
+    element), d_z = pos + neg and the beta sum = fma(slope, neg, pos).
+    d_el = z[r] . beta sum - sum beta rho, the dot product a fused
+    multiply-add chain a lane's 4-element chunk, added into the chunk's
+    head(s), then the butterfly. A row without edges gets zeros."""
+    R, Hh, dh = z.shape
+    n, F = er.shape[0], Hh * dh
+    slope = np.float32(SLOPE)
+    d_z = np.zeros((R, Hh, dh), np.float32)
+    d_el = np.zeros((R, Hh), np.float32)
+
+    def butterfly(lanes):
+        for off in (16, 8, 4, 2, 1):
+            lanes = lanes + lanes[np.arange(32) ^ off]
+        return lanes[0]
+
+    for r in range(R):
+        e0, e1 = int(indptr_t[r]), int(indptr_t[r + 1])
+        dsts = np.clip(dst_t[e0:e1], 0, n - 1)
+        lp = (el[r] + er[dsts]).astype(np.float32)
+        lg = np.where(lp > 0, lp, slope * lp)
+        alpha = (np.exp(lg - m[dsts]) / s[dsts]).astype(np.float32)
+        beta = np.where(lp > 0, alpha, alpha * slope)
+        lanes = np.zeros((32, Hh), np.float32)
+        for j in range(e1 - e0):
+            lanes[j % 32] = _fma32(beta[j], rho[dsts[j]], lanes[j % 32])
+        brho = butterfly(lanes)
+        pos = np.zeros(F, np.float32)
+        neg = np.zeros(F, np.float32)
+        for j, d in enumerate(dsts):
+            on_neg = np.repeat(lp[j] <= 0, dh)
+            prod = _fma32(np.repeat(alpha[j], dh), g[d].reshape(F),
+                          np.where(on_neg, neg, pos))
+            pos = np.where(on_neg, pos, prod)
+            neg = np.where(on_neg, prod, neg)
+        acc, accb = pos + neg, _fma32(slope, neg, pos)
+        d_z[r] = acc.reshape(Hh, dh)
+        zr = z[r].reshape(F)
+        dots = np.zeros((32, Hh), np.float32)
+        for c0 in range(0, F, 4):  # lane (c0 / 4) % 32's chunks, in order
+            t = {}
+            for k in range(c0, min(c0 + 4, F)):
+                t[k // dh] = _fma32(zr[k], accb[k],
+                                    t.get(k // dh, np.float32(0)))
+            for h, v in t.items():
+                dots[(c0 // 4) % 32, h] += v
+        d_el[r] = butterfly(dots) - brho
+    return d_z, d_el
+
+
+def out_edge_graph(seed):
+    """``graph(seed)`` with the transpose's edge cases: 250 of each
+    part's edges leave source HEAVY (eight 32-edge chunks of its row in
+    the transpose CSR) and none leaves source EMPTY."""
+    src, dst = graph(seed)
+    rng = np.random.default_rng(seed + 1)
+    for p in range(P):
+        real = np.flatnonzero(dst[p] < N)
+        src[p, real[src[p, real] == EMPTY]] = EMPTY + 1
+        src[p, rng.choice(real, 250, replace=False)] = HEAVY
+    return src, dst
+
+
+@pytest.mark.parametrize("dh", [41, 64])
+def test_k8_arithmetic_matches_jax_backward(dh):
+    """K8's arithmetic (``k8_emulated``: per-branch sums, one weight a
+    4-element chunk at dh = 64, the branch per element at dh = 41, where
+    the chunks straddle two heads) on a graph whose transpose has a
+    250-edge row and an empty one, against the d_z and d_el of the VJP of
+    JAX's
+    ``make_device_gat_fn`` (its pass B), from JAX's forward m and s, at
+    the f32 tolerance (1e-5 of each tensor's max, the module's backward
+    tolerance)."""
+    src, dst = out_edge_graph(12)
+    z, el, er, g = inputs(dh, 13)
+    it, dt = csr_transpose(src, dst, N, R)
+    fns = jax_bucket_fns(src, dst)
+    for p in range(P):
+        assert it[p, HEAVY + 1] - it[p, HEAVY] >= 250
+        assert it[p, EMPTY + 1] == it[p, EMPTY]
+        out, (_, _, _, _, m, s) = fns[p].fwd(
+            jnp.asarray(z[p]), jnp.asarray(el[p]), jnp.asarray(er[p]))
+        out, m, s = (np.asarray(x) for x in (out, m, s))
+        rho = (g[p] * out).sum(-1).astype(np.float32)
+        d_z, d_el = k8_emulated(z[p], el[p], er[p], m, s, g[p], rho, it[p],
+                                dt[p])
+        _, (dz, de, _) = jax_vjp(fns[p], z[p], el[p], er[p], g[p])
+        close_to_max(d_z, dz, "d_z")
+        close_to_max(d_el, de, "d_el")
+        assert not d_z[EMPTY].any() and not d_el[EMPTY].any()

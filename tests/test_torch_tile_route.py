@@ -1,10 +1,13 @@
-"""The forward tile products' route onto csrc/block_tma.cu (plain path,
-CPU; the kernels run only on the card, where chip_smoke.py holds them
-against block_dense_plain): ``tile_entry`` case by case, and K12's view
-of a pair list as the union list of group 1 (``union_view``), array for
-array the lists that ``_group_union`` and ``_flatten_unions`` build at
-group 1 over the same dense blocks, with the same plain products through
-either."""
+"""The tile products' route onto csrc/block_tma.cu (plain path, CPU; the
+kernels run only on the card, where chip_smoke.py holds them against
+block_dense_plain): ``tile_entry`` case by case; K12's view of a pair
+list as the union list of group 1 (``union_view``), array for array the
+lists that ``_group_union`` and ``_flatten_unions`` build at group 1 over
+the same dense blocks, with the same plain products through either; and
+K17's function, A^T over the backward's union lists, equal to K16's
+forward over a transposed copy of A on the same lists."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -26,11 +29,12 @@ A_DTYPES = {"bits": torch.uint8, "int8": torch.int8,
 @pytest.mark.parametrize("transpose", [False, True], ids=["fwd", "bwd"])
 @pytest.mark.parametrize("grouped", [False, True], ids=["pairs", "groups"])
 def test_tile_entry(grouped, transpose, a):
-    """The forward with 1-bit, int8 or bf16 A runs on the TMA / wgmma
-    entry at group 1 (K12) and above (K16); f32 A and the transposes (K13,
-    K17) keep block_spmm.cu's entries."""
+    """1-bit, int8 or bf16 A runs on the TMA / wgmma entry in the forward
+    at group 1 (K12) and above (K16) and in the transpose over union groups
+    (K17); f32 A and the transpose over pair lists (K13) keep
+    block_spmm.cu's entries."""
     got = pblk.tile_entry(grouped, transpose, A_DTYPES[a])
-    if not transpose and a != "f32":
+    if a != "f32" and (grouped or not transpose):
         want = "pgt_block_grouped_tma"
     else:
         want = "pgt_block_grouped" if grouped else "pgt_block_dense"
@@ -117,3 +121,43 @@ def test_union_view_equals_the_group_1_union_lists(P):
     assert bool(want.any())
     for side in (view, built):
         assert torch.equal(pblk.block_dense_plain(x, t, side), want)
+
+
+def _transposed(a: torch.Tensor, packed: bool) -> torch.Tensor:
+    """Stored A blocks ``[P, B, T, T(/8)]`` each transposed: 1-bit blocks
+    unpacked, transposed and packed again (little-endian in each byte)."""
+    if not packed:
+        return a.transpose(-1, -2).contiguous()
+    T = a.shape[2]
+    bits = pblk._unpack(a, True).to(torch.uint8).transpose(-1, -2)
+    shifts = torch.arange(8, dtype=torch.uint8)
+    return (bits.reshape(*a.shape[:2], T, T // 8, 8) << shifts).sum(
+        -1, dtype=torch.uint8)
+
+
+@pytest.mark.parametrize("dup", [0, 2, 200], ids=["bits", "int8", "bf16"])
+def test_k17_is_k16_over_the_transposed_blocks(dup):
+    """K17's function (A^T over the backward's union lists at group 4,
+    which the TMA entry now runs) equals K16's forward over a transposed
+    copy of A on the same lists (the alternative K17 design timed in
+    tools/time_tile_products.py), in the 1-bit, int8 and bf16 encodings;
+    reading A untransposed over those lists (the planted fault of
+    chip_smoke.py's K17 checks) gives another result."""
+    psg = port_sharded(sharded(2, dup))
+    tile, n_src = 16, psg.n_max + psg.halo_size
+    host, _ = pblk.build_sharded_block_tables(psg, tile=tile,
+                                              n_feat_hint=16, group=4)
+    t = pblk.stage_block_tables(host, tile, psg.n_max, n_src, CPU)
+    want_dtype = {0: torch.uint8, 2: torch.int8, 200: torch.bfloat16}[dup]
+    assert t.a.dtype == want_dtype and t.bwd.transpose and t.group == 4
+    assert pblk.tile_entry(True, True, t.a.dtype) == "pgt_block_grouped_tma"
+    g = torch.from_numpy(np.random.default_rng(dup).standard_normal(
+        (2, t.bwd.n_in, 24)).astype(np.float32))
+    want = pblk.block_dense_plain(g, t, t.bwd)
+    assert bool(want.any())
+    lists = dataclasses.replace(t.bwd, transpose=False)
+    copy = dataclasses.replace(t, a=_transposed(t.a, t.packed))
+    got = pblk.block_dense_plain(g, copy, lists)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    wrong = pblk.block_dense_plain(g, t, lists)
+    assert (wrong - want).abs().max() > 1e-2
