@@ -29,8 +29,7 @@ stack (union-gather block tiles and the fp8 halo wire at bf16):
      g ``gat_attn_fp8.cu``), K9 the bucket-ELL gather-sum
      (``bucket_spmm.cu``), K10 the transport cast and K11 the per-part
      amax (``transport_cast.cu``), K12 / K13 the dense-tile products with
-     f32 or bf16 rows (``block_spmm.cu``; K12 with 1-bit, int8 or bf16 A
-     in ``block_tma.cu``), K16 / K17 the union-gather forward and
+     f32 or bf16 rows and K16 / K17 the union-gather forward and
      transpose and the pre-split (``block_tma.cu``; f32 A in
      ``block_spmm.cu``), K14 / K15 the compressed halo wire
      (``halo_wire.cu``), K19 the integrity digests (``digest.cu``); and
@@ -82,11 +81,15 @@ stack (union-gather block tiles and the fp8 halo wire at bf16):
   8. holds K1 at the cell's shape (f32 and bf16 rows) bit-identical to
      S = 1, at the rule's plan and at forced slice plans; holds K3, K4
      and K5 against their plain versions at the cell's shapes
-     and on edge cases (K5: P = 2, 3 and 4, F = 3 to 602, f32 and bf16
+     and on edge cases (K3 also bit-identical to K1's whole-row kernel
+     over g / in_deg, at the cell (F = 256, 602) and on edge cases: F = 1
+     to 602, empty rows, the 5,000-edge row, n_src not a multiple of a
+     CTA's rows, int64 row pointers; K5: P = 2, 3 and 4, F = 3 to 602, f32 and bf16
      rows, strided views whose part stride is no multiple of 16 bytes, H
      = 0; one block from the wrong sender must fail); K4 in bf16
      (bit-exact at P = 2 and 4), K2 and K5 bit-exact on bf16 rows;
-  9. times K3-K5 (K4 also in bf16) and K1/K2 at the epoch's shapes (K5
+  9. times K3-K5 (K4 also in bf16; K3 beside K1's whole-row kernel over
+     g / in_deg) and K1/K2 at the epoch's shapes (K5
      also 20 calls back to back, beside index_select and a copy_ of the
      same blocks, strided and contiguous: the card's copy floor), the
      epoch (median) with its
@@ -180,9 +183,10 @@ stack (union-gather block tiles and the fp8 halo wire at bf16):
      tail group, an empty group, slots unused by half a group or by all of
      it), and a flipped A bit at T = 96 must fail; K17's TMA / wgmma path
      on hand-made transposed groups (T = 32, 96, 128, 160, 224, 256;
-     groups 1 to 16; 1-bit, int8 and bf16 A; f32 and bf16 rows), where in
-     each A encoding a changed A entry and A read untransposed must fail;
-     each check names the C entry it ran;
+     groups 1 to 16; 1-bit, int8 and bf16 A; f32 and bf16 rows), and
+     K13's over hand-made pair lists (their union view at G = 1; T = 32
+     to 256), where in each A encoding a changed A entry and A read
+     untransposed must fail; each check names the C entry it ran;
  33. times K14-K17, reports the union dedupe beside K12's group-1 time,
      the wire cell's epoch and its split;
  34. trains this slice's cell, the integrity plane: the reddit.sh command
@@ -218,8 +222,9 @@ stack (union-gather block tiles and the fp8 halo wire at bf16):
      {...}}``. With ``--parent DIR`` (a parent commit unpacked with ``git
      archive``) it first times K5, K11, K12, K13, K16 and K17 of DIR
      against this checkout's with
-     ``pipegcn_tpu_torch/tools/time_tile_products.py`` and K1, K3, K6 and
-     K8 (dh = 64 and 41) with ``tools/time_gather_kernels.py``, in turns
+     ``pipegcn_tpu_torch/tools/time_tile_products.py`` and K1, K3 (random
+     rows, and at the training cell's locality), K6 and K8 (dh = 64 and
+     41) with ``tools/time_gather_kernels.py``, in turns
      (parent, this, this, parent; each tool its own process) and carries
      both in those kernels' ``parent_ab``.
 
@@ -1466,6 +1471,28 @@ def k1_train_phase(trainer, spmm, halo):
               ((64, 2), (128, 4)))
 
 
+def k3_identities(name, spmm, g, it, dt, in_deg):
+    """K3 ``torch.equal`` to K1's whole-row kernel over the prescaled
+    cotangent g * (1 / in_deg) with in_deg = 1 (the same terms in the same
+    order: the parent K3's arithmetic), and a rerun bit-identical. Returns
+    K3's result."""
+    import torch
+
+    got = spmm.spmm_mean_t(g, it, dt, in_deg)
+    require(torch.equal(spmm.spmm_mean_t(g, it, dt, in_deg), got),
+            f"{name}: a K3 rerun is not bit-identical")
+    x, ip, d, dg = (t if t.dim() == n else t[None] for t, n in (
+        (g, 3), (it, 2), (dt, 2), (in_deg, 2)))
+    gp = (x * torch.reciprocal(dg)[..., None]).contiguous()
+    one = torch.ones((ip.shape[0], ip.shape[-1] - 1), device=g.device)
+    k1 = spmm.k1_launch(gp, ip, d, one, plan=(g.shape[-1], 0))
+    require(torch.equal(k1.reshape(got.shape), got),
+            f"{name}: K3 is not K1's whole-row kernel over g / in_deg")
+    log(f"  {name}: K3 bit-identical on a rerun and to K1's whole-row "
+        f"kernel over g / in_deg")
+    return got
+
+
 def k3_phase(trainer, spmm):
     import numpy as np
     import torch
@@ -1479,11 +1506,13 @@ def k3_phase(trainer, spmm):
     # input takes K3 in the backward)
     for F in (256, 602):
         g = torch.randn((P, n_max, F), generator=gen, device="cuda")
+        got = k3_identities(f"K3 f32 F={F} (cell)", spmm, g, it, dt,
+                            d.in_deg)
         errs.append(check_close(
-            f"K3 f32 F={F} (cell)", spmm.spmm_mean_t(g, it, dt, d.in_deg),
+            f"K3 f32 F={F} (cell)", got,
             spmm.spmm_mean_t_plain(g, it, dt, d.in_deg), K3_ATOL, K3_RTOL,
             abs_sum=spmm.spmm_mean_t_plain(g.abs(), it, dt, d.in_deg)))
-        del g
+        del g, got
     # SpmmMean's backward (K3) for f32 and bf16 fbuf: d_fbuf in fbuf's
     # dtype; bf16 rounds the f32 sums once, so one bf16 ulp apart at most
     w = torch.randn((P, n_max, 256), generator=gen, device="cuda")
@@ -1502,8 +1531,9 @@ def k3_phase(trainer, spmm):
                                 grads[0].float(), grads[1].float(), atol,
                                 rtol, abs_sum=w_abs))
     # edge cases: sources with no edges (exact zero rows), a 5000-edge
-    # source, pad edges dropped, junk past indptr_t[n_src] never read,
-    # odd widths, int64 row pointers
+    # source, n_src not a multiple of a CTA's rows (700) and F not one of
+    # its column slice (1, 3, 41, 602), pad edges dropped, junk past
+    # indptr_t[n_src] never read, int64 row pointers
     rng = np.random.default_rng(7)
     n_out, n_src = 300, 700
     deg = rng.integers(0, 80, n_out)
@@ -1520,15 +1550,19 @@ def k3_phase(trainer, spmm):
     in_deg = torch.from_numpy(rng.uniform(1, 50, n_out).astype(
         np.float32)).cuda()
     require(int(np.diff(ip_np)[5]) > 3000, "K3 edge case lost its heavy row")
-    for F in (1, 3, 16, 256, 602):
+    for F in (1, 3, 16, 41, 256, 602):
         g = torch.randn((n_out, F), generator=gen, device="cuda")
-        got = spmm.spmm_mean_t(g, it, dtt, in_deg)
+        got = k3_identities(f"K3 edge cases F={F}", spmm, g, it, dtt,
+                            in_deg)
         errs.append(check_close(f"K3 edge cases F={F}", got,
                                 spmm.spmm_mean_t_plain(g, it, dtt, in_deg),
                                 K3_ATOL, K3_RTOL, abs_sum=spmm.spmm_mean_t_plain(
                                     g.abs(), it, dtt, in_deg)))
         require(bool((got[100:160] == 0).all()),
                 "K3: sources without edges must be exactly zero")
+        require(torch.equal(spmm.spmm_mean_t(g, it.long(), dtt, in_deg),
+                            got),
+                f"K3 int64 indptr_t F={F}: not bit-identical to int32")
     junk = dtt.clone()
     junk[dst.size:] = n_out - 1
     g = torch.randn((n_out, 16), generator=gen, device="cuda")
@@ -1664,6 +1698,14 @@ def train_timings(trainer, spmm, halo, cnt):
     # --- K3 ------------------------------------------------------------
     g = torch.randn((P, n_max, F), generator=gen, device="cuda")
     k3 = time_ms(lambda: spmm.spmm_mean_t(g, it, dt, d.in_deg))
+    # K1's whole-row kernel over the prescaled cotangent: the parent K3's
+    # arithmetic and access pattern (one warp a row, every edge's whole
+    # row gathered), in the same run
+    gp = g * torch.reciprocal(d.in_deg)[..., None]
+    one = torch.ones((P, n_src), device="cuda")
+    k1_whole = time_ms(lambda: spmm.k1_launch(gp, it, dt, one,
+                                              plan=(F, 0)))
+    del gp, one
     k3_plain = time_ms(lambda: spmm.spmm_mean_t_plain(g, it, dt, d.in_deg),
                        reps=5)
     # library yardstick: one cuSPARSE CSR SpMM with the block-diagonal
@@ -1688,8 +1730,12 @@ def train_timings(trainer, spmm, halo, cnt):
     k3_ops = n_edges * F + P * n_max * F
     out["K3"] = dict(ms=k3, plain_ms=k3_plain, library_ms=k3_lib,
                      bound=bound_ms(k3_bytes, k3_ops),
+                     k1_whole_row_ms=k1_whole,
                      shape=f"P={P} n_out={n_max} n_src={n_src} F={F} "
                            f"edges={n_edges} f32")
+    log(f"  K3: {k3:.3f} ms, K1's whole-row kernel over g / deg "
+        f"{k1_whole:.3f}, torch.sparse.mm {k3_lib:.3f}, bound "
+        f"{out['K3']['bound'][0]:.3f}")
 
     # --- K4 ------------------------------------------------------------
     full = torch.randn((P, n_src, F), generator=gen, device="cuda")
@@ -4562,6 +4608,87 @@ def k17_edge_phase(blk):
     require(faulted == {"bits", "int8", "bf16"}, "K17 edge faults: an A "
             f"encoding untested ({sorted(faulted)})")
     log(f"  K17 on block_tma.cu, edge cases: worst |diff| {max(errs):.3e}")
+    return max(max(errs), k13_edge_cases(blk, gen, gb))
+
+
+def k13_edge_cases(blk, gen, gb):
+    """K13 on csrc/block_tma.cu (the transposed products over the
+    backward's pair lists, their union view at G = 1) over hand-made pair
+    lists against the plain version (BLOCK_SUM_RTOL * sum|terms|, each
+    rerun bit-identical): T = 32, 96, 160, 224 and 256; 1-bit, int8 and
+    bf16 A; f32 rows (F = 602: a padded split plane; 64, 130, 256) and bf16
+    rows (F = 5, 100: a padded copy; 64, 256: read as they are); an output
+    tile with no pairs (zeros). In every A encoding one A entry changed
+    and A read untransposed (K12's forward over the same lists) must
+    fail. Returns the largest |difference|."""
+    import dataclasses
+
+    import torch
+
+    errs = []
+    f32, bf = torch.float32, torch.bfloat16
+    cases = (
+        # T, A encoding, output tiles, input tiles, [(F, row dtype)]
+        (32, "bits", 7, 9, [(64, f32), (64, bf), (5, bf)]),
+        (96, "int8", 6, 5, [(602, f32), (100, bf)]),
+        (160, "bf16", 5, 4, [(130, f32), (64, bf)]),
+        (224, "bits", 6, 5, [(256, f32), (100, bf)]),
+        (256, "bits", 9, 6, [(256, f32), (256, bf)]),
+        (256, "int8", 4, 3, [(64, f32)]),
+        (128, "bf16", 3, 5, [(256, bf)]),
+    )
+    faulted = set()
+    for T, enc, n_t, n_in_t, runs in cases:
+        slots, nb = random_groups(T, 1, n_t, n_in_t, seed=3 * T + 1,
+                                  empty=(1,))
+        if enc == "bits":
+            a = torch.randint(0, 256, (1, nb, T, T // 8), generator=gb,
+                              dtype=torch.uint8)
+        elif enc == "int8":
+            a = torch.randint(0, 4, (1, nb, T, T), generator=gb,
+                              dtype=torch.int8)
+        else:
+            a = torch.randint(0, 3, (1, nb, T, T), generator=gb).to(bf)
+        g1 = group_side(slots, n_t * T - 20, n_in_t * T - 30, True, 1, nb, T)
+        side = blk.BlockSide(ptr=g1.ptr, blk=g1.blk[..., 0].contiguous(),
+                             tile=g1.tile, n_out=g1.n_out, n_in=g1.n_in,
+                             transpose=True)
+        tb = blk.BlockTables(a=a.cuda(), packed=enc == "bits", tile=T,
+                             fwd=dataclasses.replace(side, transpose=False),
+                             bwd=side, rem_fwd=None, rem_bwd=None)
+        require(blk.tile_entry(False, True, tb.a.dtype)
+                == "pgt_block_grouped_tma", f"K13 T={T} {enc} A: not "
+                "routed to block_tma.cu")
+        for F, dt in runs:
+            x = torch.randn((1, side.n_in, F), generator=gen,
+                            device="cuda").to(dt)
+            errs.append(block_check(
+                f"K13 edge T={T} {enc} A F={F} {t_dtype(x)} rows "
+                f"({len(slots)} pairs)", blk, x, tb, side))
+            got = blk.block_dense_t(x, tb)
+            require(bool((got[0, T:2 * T] == 0).all()),
+                    f"K13 edge T={T}: the tile with no pairs is not zeros")
+        if enc in faulted:
+            continue
+        faulted.add(enc)
+        x = torch.randn((1, side.n_in, 64), generator=gen, device="cuda")
+        ref = blk.block_dense_plain(x, tb, side)
+        abs_sum = blk.block_dense_plain(x.abs(), tb, side)
+        b = slots[0][2][0]
+        bad = dataclasses.replace(tb, a=tb.a.clone())
+        if enc == "bits":
+            bad.a[0, b, 7, 3] ^= 1 << 5  # A[7, 29]: output row 29
+        else:
+            bad.a[0, b, 7, 29] += 1
+        for label, got in (
+                ("one A entry changed", blk.block_dense_t(x, bad)),
+                ("A read untransposed", blk.block_dense(x, tb))):
+            name = f"K13 edge planted fault [{enc} A, T={T}] ({label})"
+            must_fail(name, lambda: check_close(
+                name, got, ref, BLOCK_ATOL, 0.0, abs_sum, BLOCK_SUM_RTOL))
+    require(faulted == {"bits", "int8", "bf16"}, "K13 edge faults: an A "
+            f"encoding untested ({sorted(faulted)})")
+    log(f"  K13 on block_tma.cu, edge cases: worst |diff| {max(errs):.3e}")
     return max(errs)
 
 
@@ -5558,8 +5685,10 @@ def kernel_entry(name, source, replaces, launches, err, t, serving=None):
              "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
              "bound_ms": bound, "bound_by": by,
              "library_ms": t["library_ms"], "shape": t["shape"]}
-    # K1: its time at S = 1 (the whole-row kernel) and the slice plan
-    entry.update({k: t[k] for k in ("whole_ms", "plan") if k in t})
+    # K1: its time at S = 1 (the whole-row kernel) and the slice plan;
+    # K3: K1's whole-row kernel over the prescaled cotangent
+    entry.update({k: t[k] for k in ("whole_ms", "plan", "k1_whole_row_ms")
+                  if k in t})
     if serving is not None:
         t, n = serving
         entry["serving"] = {"launches": n, "ms": t["ms"],
@@ -5615,6 +5744,7 @@ def parent_ab(parent):
                 for d in ("float32", "bfloat16")),
               "K1 serving f32 F=256", "K1 serving f32 F=602",
               "K1 serving bf16 F=256", "K3 serving f32 F=256",
+              "K3 clustered f32 F=256",
               *(f"{k} {r}" for k in ("K6 NEG", "K6 eval", "K8")
                 for r in ("f32", "bf16", "e4m3")),
               *(f"K8 {r} dh=41" for r in ("f32", "bf16", "e4m3"))):
@@ -6183,10 +6313,8 @@ def main() -> int:
              ["pipegcn_tpu/ops/block_spmm.py:89",
               "pipegcn_tpu/ops/block_spmm.py:685",
               "pipegcn_tpu/ops/block_spmm.py:952"])):
-        # K12 with the cell's 1-bit A runs on block_tma.cu (tile_entry)
-        e = kernel_entry(kname, src + ("block_tma.cu" if key == "K12"
-                                       else "block_spmm.cu"),
-                         replaces, nk[kname],
+        # with the cell's 1-bit A both run on block_tma.cu (tile_entry)
+        e = kernel_entry(kname, src + "block_tma.cu", replaces, nk[kname],
                          max(errs["K12/K13 cell"], errs["K12/K13 edge"]),
                          kt[key])
         for f in ("a_bytes", "a_bytes_ms", "tile_floor_bf16_tc_ms",
@@ -6231,9 +6359,7 @@ def main() -> int:
     kernels.append(e)
     bm = bf16_block["launches_by_mode"]
     for kname, key in (("block_dense", "K12"), ("block_dense_t", "K13")):
-        e = kernel_entry(f"{kname}[bf16]", src + ("block_tma.cu"
-                                                  if key == "K12"
-                                                  else "block_spmm.cu"),
+        e = kernel_entry(f"{kname}[bf16]", src + "block_tma.cu",
                          "pipegcn_tpu/ops/block_spmm.py:520",
                          bm[kname]["bfloat16"], errs["K12/K13 bf16"],
                          kt16[key])
@@ -6347,7 +6473,7 @@ def main() -> int:
                    "halo_return": "K5",
                    "spmm_mean": "K1 serving f32 F=256",
                    "spmm_mean[bf16 rows]": "K1 serving bf16 F=256",
-                   "spmm_mean_t": "K3 serving f32 F=256",
+                   "spmm_mean_t": "K3 clustered f32 F=256",
                    "gat_fwd": "K6 NEG f32",
                    "gat_fwd[bf16]": "K6 NEG bf16",
                    "gat_fwd[e4m3 z, e5m2 g]": "K6 NEG e4m3",
@@ -6373,6 +6499,9 @@ def main() -> int:
                 e["dh41"]["parent_ab"] = ab[f"{key} dh=41"]
             if e["name"] == "spmm_mean":
                 e["serving_f602"]["parent_ab"] = ab["K1 serving f32 F=602"]
+            if e["name"] == "spmm_mean_t":
+                # the witness without locality (random rows)
+                e["parent_ab_serving"] = ab["K3 serving f32 F=256"]
             if e["name"].startswith("gat_fwd"):
                 row = key.split()[-1]
                 e["eval"]["parent_ab"] = ab[f"K6 eval {row}"]

@@ -42,12 +42,12 @@ Device half:
   - kernels K12 (:func:`block_dense`, the forward tile products) and K13
     (:func:`block_dense_t`, the transpose over the same A blocks), and
     over the union groups K16 (:func:`block_dense_grouped`) and K17
-    (:func:`block_dense_grouped_t`), in ``csrc/block_spmm.cu`` (K16, K17
-    and K12 in ``csrc/block_tma.cu``: TMA stages and ``wgmma`` after a
-    pre-pass, :func:`tile_split`, that splits f32 rows into their three
-    bf16 terms once, K12 over a pair list's :func:`union_view`, K17 with
-    A^T's fragments; K13 and f32 A keep block_spmm.cu; the entry each
-    side takes is :func:`tile_entry`'s), over f32
+    (:func:`block_dense_grouped_t`), in ``csrc/block_tma.cu`` (TMA stages
+    and ``wgmma`` after a pre-pass, :func:`tile_split`, that splits f32
+    rows into their three bf16 terms once; K12 and K13 over a pair list's
+    :func:`union_view`, K13 and K17 with A^T's fragments; f32 A keeps the
+    scalar path of ``csrc/block_spmm.cu``; the entry each side takes is
+    :func:`tile_entry`'s), over f32
     input rows or, at bf16 compute, bf16 rows (JAX multiplies in the input's dtype with f32 products:
     ``_dense_apply``'s ``compute_dtype``); :func:`block_dense_plain` is
     their plain version (unpack, ``bmm`` per chunk of pairs in f32 over
@@ -686,7 +686,7 @@ class GroupSide:
 
 
 def union_view(side: BlockSide) -> GroupSide:
-    """A pair list as the union list of group 1 (K12's view on
+    """A pair list as the union list of group 1 (K12's and K13's view on
     csrc/block_tma.cu): each output tile is its own group, each pair a
     union slot whose one block is the pair's, ``blk`` ``[P, n_pairs,
     1]``. Views of the same tensors, no copy; no slot holds the pad (the
@@ -1078,19 +1078,19 @@ def tile_split(x: torch.Tensor) -> torch.Tensor:
 def tile_entry(grouped: bool, transpose: bool, a_dtype: torch.dtype) -> str:
     """The C entry that runs one side's tile products on the card: with
     1-bit (uint8), int8 or bf16 A, csrc/block_tma.cu's TMA / wgmma kernel
-    for K16 and K17 over union groups and K12 over pair lists (their
-    union view at group 1); K13 (the transpose over pair lists) and f32 A
-    (not exact in bf16) on csrc/block_spmm.cu, over union groups or pair
-    lists."""
-    if a_dtype != torch.float32 and (grouped or not transpose):
+    for K16 and K17 over union groups and K12 and K13 over pair lists
+    (their union view at group 1); f32 A (not exact in bf16) on
+    csrc/block_spmm.cu, over union groups or pair lists, either
+    direction."""
+    if a_dtype != torch.float32:
         return "pgt_block_grouped_tma"
     return "pgt_block_grouped" if grouped else "pgt_block_dense"
 
 
 def _launch_tma(x: torch.Tensor, tables: BlockTables, side: GroupSide,
                 out: torch.Tensor, stream: int) -> int:
-    """K16, K17 (``side.transpose``: A^T) and K12 (on a pair list's union
-    view) through csrc/block_tma.cu: the pre-split planes (f32 rows; bf16
+    """K16, K17 (``side.transpose``: A^T), K12 and K13 (on a pair list's
+    union view) through csrc/block_tma.cu: the pre-split planes (f32 rows; bf16
     rows whose row stride or pointer is not 16-byte aligned) then the TMA
     / wgmma products."""
     P, R, F = x.shape

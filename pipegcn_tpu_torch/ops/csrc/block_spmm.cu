@@ -1,10 +1,10 @@
-// K12 / K13 and K16 / K17: the dense-tile products of the block-dense
-// SpMM, written by hand for Hopper (sm_90a): K12 the forward, K13 the
-// transpose (the backward), over per-tile pair lists; K16 / K17 the same
-// over union-gather groups. Over 1-bit, int8 and bf16 A, K12, K16 and K17
-// run in block_tma.cu (TMA stages and wgmma); here K13 keeps its
-// tensor-core kernel (mma_kernel), and f32 A the scalar path of all four
-// (block_kernel).
+// K12 / K13 and K16 / K17 over f32 A: the dense-tile products of the
+// block-dense SpMM, written by hand for Hopper (sm_90a): K12 the forward,
+// K13 the transpose (the backward), over per-tile pair lists; K16 / K17
+// the same over union-gather groups. Over 1-bit, int8 and bf16 A all four
+// run in block_tma.cu (TMA stages and wgmma: K12 / K13 over a pair list's
+// union view); here f32 A (multiplicities above 256, not exact in bf16)
+// takes the scalar path of all four (block_kernel).
 //
 // K12 / K13 replace: pipegcn_tpu/ops/block_spmm.py  _dense_apply (with
 // _unpack_bits), inside make_block_spmm_fn / make_device_block_spmm_fn,
@@ -46,48 +46,29 @@
 // add per dense edge and column (~7.5e9 adds a call at the training shape,
 // ~0.11 ms at the card's 67 TFLOP/s f32) and moves ~0.55 GB over the
 // dense edges (input, output and an int32 index an edge: ~0.16 ms at
-// 3.35 TB/s); the stored A blocks add their own bytes (~0.78 GB of 1-bit
-// tiles at 0.5 % density, ~27 bytes a dense edge), and the tile products
-// do T*T*F multiply-adds per pair whatever the tile's density (T*T / nnz,
-// ~200x the edges' adds on the cell's cluster layout).
+// 3.35 TB/s); the stored A blocks add their own bytes, and the tile
+// products do T*T*F multiply-adds per pair whatever the tile's density.
 //
-// Design. Exactness first: A holds small integers (0/1, or multiplicities)
-// and JAX multiplies in f32, so a bf16 product of a rounded input would be
-// wrong by ~2^-9. Each f32 input is split exactly into three bf16 terms,
-// hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid) (x = hi + mid
-// + lo: 24 significant bits in three 8-bit terms); A up to 256 is exact in
-// bf16, so every product a * term is exact in f32, and the tensor cores
-// (mma.sync.m16n8k16 bf16, f32 accumulation) take three products per
-// entry: 3 * 2 * pairs * T*T*F flops, a floor 5x under the CUDA cores' for
-// one f32 product. The tensor cores add with truncation and no guard bits,
-// which grows with the running sum's magnitude, so each pair's products go
-// into a fresh accumulator (lo, mid, hi terms in that order at each
-// 16-deep step) that is then added to the output's f32 sum with an IEEE
-// add ("promotion"): kernel and plain version differ by a few ulps of each
-// pair's partial sum and by summation order. K13's CTA of 8 warps owns
-// one (part, output tile, 32-column chunk) and walks the tile's pairs in
-// list order; for each 32-deep step of a pair it stages the A chunk in
-// shared memory as bf16 (unpacked from bits, or widened from int8) and
-// the input chunk's three bf16 terms, then each warp loads its fragments
-// with ldmatrix.trans of the staged A rows (the transpose with no
-// transposed copy) and runs 2 x 4 mma tiles of 16 x 8 per term.
-// No atomics; a rerun is bit-identical. The ragged last row tile, the
-// input rows past n_in and the columns past F are masked (staged as 0).
-// Inputs are finite (an infinite input's split is NaN).
+// Exactness, which block_tma.cu's tensor-core products rest on: A holds
+// small integers (0/1, or multiplicities) and JAX multiplies in f32, so a
+// bf16 product of a rounded input would be wrong by ~2^-9. Each f32 input
+// is split exactly into three bf16 terms, hi = bf16(x), mid = bf16(x -
+// hi), lo = bf16(x - hi - mid) (x = hi + mid + lo: 24 significant bits in
+// three 8-bit terms); A up to 256 is exact in bf16, so every product a *
+// term is exact in f32. The tensor cores add with truncation and no guard
+// bits, which grows with the running sum's magnitude, so each pair's
+// products go into a fresh accumulator that is then added to the output's
+// f32 sum with an IEEE add ("promotion"): kernel and plain version differ
+// by a few ulps of each pair's partial sum and by summation order. In the
+// bf16 mode an input value is already one bf16 term: one product instead
+// of three. No atomics; a rerun is bit-identical.
 //
-// The bf16 mode. With bf16 input rows (JAX's bf16 einsum with f32
-// products, preferred_element_type f32) an input value is already one
-// bf16 term: each 32-deep step stages it as it is and runs one product
-// instead of three, so the tile products' floor is a third of the f32
-// mode's; every product a * x is still exact in f32 and the promotion per
-// pair is the same.
-//
-// A stored as f32 (multiplicities above 256, not exact in bf16) takes a
-// scalar path instead: a register-tiled SGEMM over the same pair lists, 8
-// x 8 outputs a thread over 64 columns, fmaf on the CUDA cores (one
-// rounding an add with 0/1 A).
+// f32 A takes the scalar path here: a register-tiled SGEMM over the same
+// lists, 8 x 8 outputs a thread over 64 columns, fmaf on the CUDA cores
+// (one rounding an add with 0/1 A). The ragged last row tile, the input
+// rows past n_in and the columns past F are masked (staged as 0). Inputs
+// are finite (an infinite input's split is NaN).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -95,72 +76,23 @@ namespace {
 
 constexpr int kRows = 256;    // output rows a CTA covers (the largest tile)
 constexpr int kCols = 64;     // output columns a CTA covers (scalar path)
-constexpr int kMmaCols = 32;  // output columns a CTA covers (tensor cores)
 constexpr int kK = 32;        // contraction rows staged per step
 constexpr int kThreads = 256;
-// staged bf16 row strides (elements): 16-byte aligned rows whose 8-row
-// ldmatrix reads fall in distinct banks
-constexpr int kATStride = kRows + 8;  // K13: A [32 contraction][256 rows]
-constexpr int kXStride = kMmaCols + 8;  // X [32 contraction][32 columns]
 
-enum Enc { kBits = 0, kI8 = 1, kBF16 = 2, kF32 = 3 };
+// the entry points' A encoding this file runs (0 bits, 1 int8 and 2 bf16
+// run in block_tma.cu)
+constexpr int kF32 = 3;
 
-template <int ENC>
-__host__ __device__ constexpr int row_bytes(int T) {
-  return ENC == kBits ? T / 8 : ENC == kI8 ? T : ENC == kBF16 ? 2 * T : 4 * T;
-}
-
-__device__ __forceinline__ float bf16_lo(unsigned int u) {
-  return __uint_as_float(u << 16);
-}
-__device__ __forceinline__ float bf16_hi(unsigned int u) {
-  return __uint_as_float(u & 0xffff0000u);
-}
-__device__ __forceinline__ float i8(unsigned int u, int b) {
-  return static_cast<float>(static_cast<signed char>((u >> (8 * b)) & 0xffu));
-}
-
-// A[row, c0 : c0 + 32] of one block (c0 % 32 == 0) as floats
-template <int ENC>
+// A[row, c0 : c0 + 32] of one f32 block (c0 % 32 == 0)
 __device__ __forceinline__ void load_a32(const unsigned char* blk, int T,
                                          int row, int c0, float* v) {
-  const unsigned char* p = blk + static_cast<size_t>(row) * row_bytes<ENC>(T);
-  if constexpr (ENC == kBits) {
-    const unsigned int w = __ldg(reinterpret_cast<const unsigned int*>(
-        p + c0 / 8));
+  const float4* q = reinterpret_cast<const float4*>(
+      blk + (static_cast<size_t>(row) * T + c0) * 4);
 #pragma unroll
-    for (int j = 0; j < 32; ++j) v[j] = static_cast<float>((w >> j) & 1u);
-  } else if constexpr (ENC == kI8) {
-    const uint4* q = reinterpret_cast<const uint4*>(p + c0);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const uint4 u = __ldg(q + h);
-      const unsigned int w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) v[16 * h + 4 * i + b] = i8(w[i], b);
-    }
-  } else if constexpr (ENC == kBF16) {
-    const uint4* q = reinterpret_cast<const uint4*>(p + 2 * c0);
-#pragma unroll
-    for (int h = 0; h < 4; ++h) {
-      const uint4 u = __ldg(q + h);
-      const unsigned int w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        v[8 * h + 2 * i] = bf16_lo(w[i]);
-        v[8 * h + 2 * i + 1] = bf16_hi(w[i]);
-      }
-    }
-  } else {
-    const float4* q = reinterpret_cast<const float4*>(p + 4 * c0);
-#pragma unroll
-    for (int h = 0; h < 8; ++h) {
-      const float4 u = __ldg(q + h);
-      v[4 * h] = u.x; v[4 * h + 1] = u.y; v[4 * h + 2] = u.z;
-      v[4 * h + 3] = u.w;
-    }
+  for (int h = 0; h < 8; ++h) {
+    const float4 u = __ldg(q + h);
+    v[4 * h] = u.x; v[4 * h + 1] = u.y; v[4 * h + 2] = u.z;
+    v[4 * h + 3] = u.w;
   }
 }
 
@@ -229,16 +161,15 @@ __device__ __forceinline__ bool slot_used(const int* bk, const GroupRows& g,
 
 // the A block of tile d of the group at one slot, or null (the pad, or
 // d < 0: rows past the group's)
-template <int ENC>
 __device__ __forceinline__ const unsigned char* slot_block(
     const unsigned char* ap, const int* bk, int d, int T, long long b_max) {
   if (d < 0) return nullptr;
   const int b = __ldg(bk + d);
   if (b == b_max) return nullptr;
-  return ap + static_cast<size_t>(b) * T * row_bytes<ENC>(T);
+  return ap + static_cast<size_t>(b) * T * 4 * T;
 }
 
-template <int ENC, bool TRANSPOSE, int VEC, bool XB>
+template <bool TRANSPOSE, int VEC, bool XB>
 __global__ void __launch_bounds__(kThreads, 2)
 block_kernel(const void* __restrict__ x, int n_in, int F,
              const unsigned char* __restrict__ a, long long b_max, int T,
@@ -265,7 +196,7 @@ block_kernel(const void* __restrict__ x, int n_in, int F,
   const unsigned short* xbp = static_cast<const unsigned short*>(x) +
                               static_cast<size_t>(part) * n_in * F;
   const unsigned char* ap =
-      a + static_cast<size_t>(part) * b_max * T * row_bytes<ENC>(T);
+      a + static_cast<size_t>(part) * b_max * T * 4 * T;
   const int* pp = ptr + static_cast<size_t>(part) * (n_keys + 1);
   const int* bp = blk + static_cast<size_t>(part) * pair_stride * G;
   const int* tp = til + static_cast<size_t>(part) * pair_stride;
@@ -290,7 +221,7 @@ block_kernel(const void* __restrict__ x, int n_in, int F,
     const int* bk = bp + static_cast<size_t>(k) * G;
     if (!slot_used(bk, gr, b_max)) continue;  // uniform in the CTA
     // this thread's staged A block (null: zeros, which add nothing)
-    const unsigned char* ab = slot_block<ENC>(ap, bk, gr.t_d, T, b_max);
+    const unsigned char* ab = slot_block(ap, bk, gr.t_d, T, b_max);
     const long long in0 = static_cast<long long>(__ldg(tp + k)) * T;
     for (int s0 = 0; s0 < T; s0 += kK) {
       __syncthreads();  // the previous step's reads are done
@@ -298,7 +229,7 @@ block_kernel(const void* __restrict__ x, int n_in, int F,
       if constexpr (!TRANSPOSE) {
         // A row fm, contraction columns s0 .. s0 + 31
         if (ab != nullptr) {
-          load_a32<ENC>(ab, T, fm, s0, v);
+          load_a32(ab, T, fm, s0, v);
         } else {
 #pragma unroll
           for (int j = 0; j < 32; ++j) v[j] = 0.0f;
@@ -308,7 +239,7 @@ block_kernel(const void* __restrict__ x, int n_in, int F,
       } else {
         // A row s0 + kk (a contraction row), output columns fm .. fm + 31
         if (ab != nullptr) {
-          load_a32<ENC>(ab, T, s0 + xr, fm, v);
+          load_a32(ab, T, s0 + xr, fm, v);
         } else {
 #pragma unroll
           for (int j = 0; j < 32; ++j) v[j] = 0.0f;
@@ -378,257 +309,6 @@ block_kernel(const void* __restrict__ x, int n_in, int F,
   }
 }
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(const void* p, unsigned* r) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(const void* p, unsigned* r) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// d += a (16 x 16, row) . b (16 x 8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float* d, const unsigned* a,
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-
-// x = hi + mid + lo exactly (finite x), each term a bf16
-__device__ __forceinline__ void split3(float x, float* t) {
-  const float hi = __bfloat162float(__float2bfloat16_rn(x));
-  const float r = x - hi;
-  const float mid = __bfloat162float(__float2bfloat16_rn(r));
-  t[0] = r - mid;  // lo: exact in bf16 (the bits left after hi and mid)
-  t[1] = mid;
-  t[2] = hi;
-}
-
-// 4 consecutive f32 of one input row from column c (masked at F)
-template <int VEC>
-__device__ __forceinline__ void load_x4(const float* row, int c, int F,
-                                        float* v) {
-  if constexpr (VEC == 4) {
-    float4 u = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (c < F) u = __ldg(reinterpret_cast<const float4*>(row + c));
-    v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; j += VEC) {
-      if constexpr (VEC == 2) {
-        float2 u = make_float2(0.f, 0.f);
-        if (c + j < F) u = __ldg(reinterpret_cast<const float2*>(row + c + j));
-        v[j] = u.x; v[j + 1] = u.y;
-      } else {
-        v[j] = c + j < F ? __ldg(row + c + j) : 0.f;
-      }
-    }
-  }
-}
-
-// 4 consecutive bf16 of one input row from column c, raw bits (masked at
-// F; VEC 4: one 8-byte load, else scalar loads)
-template <int VEC>
-__device__ __forceinline__ void load_xb4(const unsigned short* row, int c,
-                                         int F, unsigned* lo, unsigned* hi) {
-  if constexpr (VEC == 4) {
-    uint2 u = make_uint2(0u, 0u);
-    if (c < F) u = __ldg(reinterpret_cast<const uint2*>(row + c));
-    *lo = u.x;
-    *hi = u.y;
-  } else {
-    unsigned v[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      v[j] = c + j < F ? static_cast<unsigned>(__ldg(row + c + j)) : 0u;
-    *lo = v[0] | v[1] << 16;
-    *hi = v[2] | v[3] << 16;
-  }
-}
-
-// K13 over 1-bit, int8 and bf16 A (pair lists; K12, K16 and K17 over
-// these encodings run in block_tma.cu): one CTA a (part, output tile,
-// 32-column chunk); the staged A chunk holds contraction rows as stored,
-// read transposed with ldmatrix.trans
-template <int ENC, int VEC, bool XB>
-__global__ void __launch_bounds__(kThreads, 2)
-mma_kernel(const void* __restrict__ x, int n_in, int F,
-           const unsigned char* __restrict__ a, long long b_max, int T,
-           const int* __restrict__ ptr, const int* __restrict__ blk,
-           const int* __restrict__ til, long long pair_stride, int n_keys,
-           int n_out, float* __restrict__ out) {
-  // the staged A chunk (bf16 bits) [32 contraction rows][kATStride] (the
-  // A rows as stored); the input chunk's three terms [3][32][kXStride],
-  // or its one bf16 term in the bf16 mode
-  constexpr int kTerms = XB ? 1 : 3;
-  __shared__ __align__(16) unsigned short As[kK * kATStride];
-  __shared__ __align__(16) unsigned short Xs[kTerms][kK * kXStride];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;  // the mma fragments' row / pair
-  const int li = lane >> 3, lj = lane & 7;  // ldmatrix: matrix, its row
-  const int c0 = blockIdx.x * kMmaCols;
-  const int key = blockIdx.y;  // the output tile
-  const int part = blockIdx.z;
-
-  const float* xp =
-      static_cast<const float*>(x) + static_cast<size_t>(part) * n_in * F;
-  const unsigned short* xbp = static_cast<const unsigned short*>(x) +
-                              static_cast<size_t>(part) * n_in * F;
-  const unsigned char* ap =
-      a + static_cast<size_t>(part) * b_max * T * row_bytes<ENC>(T);
-  const int* pp = ptr + static_cast<size_t>(part) * (n_keys + 1);
-  const int* bp = blk + static_cast<size_t>(part) * pair_stride;
-  const int* tp = til + static_cast<size_t>(part) * pair_stride;
-
-  // warp w: output rows w*32 + [0, 32) as 2 m-tiles of 16, all 32
-  // columns as 4 n-tiles of 8
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
-
-  const int k0 = pp[key], k1 = pp[key + 1];
-  const int xr = tid >> 3, xc = (tid & 7) * 4;  // staging: input row, cols
-  const int q = (tid & 7) * 32;  // the staged A columns (output rows)
-  for (int k = k0; k < k1; ++k) {
-    const unsigned char* ab =
-        ap + static_cast<size_t>(__ldg(bp + k)) * T * row_bytes<ENC>(T);
-    const long long in0 = static_cast<long long>(__ldg(tp + k)) * T;
-    float d[2][4][4];  // this pair's products, promoted after it
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) d[i][j][e] = 0.0f;
-    for (int s0 = 0; s0 < T; s0 += kK) {
-      __syncthreads();  // the previous step's fragment loads are done
-      {
-        // A row s0 + xr (a contraction row), output columns q .. q + 31
-        float v[32];
-        if (q < T) {
-          load_a32<ENC>(ab, T, s0 + xr, q, v);
-        } else {
-#pragma unroll
-          for (int j = 0; j < 32; ++j) v[j] = 0.0f;
-        }
-        unsigned short* dst = &As[xr * kATStride + q];
-#pragma unroll
-        for (int j = 0; j < 32; j += 8)
-          *reinterpret_cast<uint4*>(dst + j) =
-              make_uint4(bf16x2(v[j], v[j + 1]), bf16x2(v[j + 2], v[j + 3]),
-                         bf16x2(v[j + 4], v[j + 5]),
-                         bf16x2(v[j + 6], v[j + 7]));
-      }
-      if constexpr (XB) {
-        // the bf16 mode: the input's bits are its one term
-        const long long r = in0 + s0 + xr;
-        unsigned lo = 0u, hi = 0u;
-        if (r < n_in)
-          load_xb4<VEC>(xbp + static_cast<size_t>(r) * F, c0 + xc, F, &lo,
-                        &hi);
-        *reinterpret_cast<uint2*>(&Xs[0][xr * kXStride + xc]) =
-            make_uint2(lo, hi);
-      } else {
-        const long long r = in0 + s0 + xr;
-        float u[4];
-        if (r < n_in) {
-          load_x4<VEC>(xp + static_cast<size_t>(r) * F, c0 + xc, F, u);
-        } else {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) u[j] = 0.0f;
-        }
-        float terms[4][3];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) split3(u[j], terms[j]);
-#pragma unroll
-        for (int h = 0; h < 3; ++h)
-          *reinterpret_cast<uint2*>(&Xs[h][xr * kXStride + xc]) =
-              make_uint2(bf16x2(terms[0][h], terms[1][h]),
-                         bf16x2(terms[2][h], terms[3][h]));
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kK; kk += 16) {
-        unsigned af[2][4];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          // A^T rows r0.., columns kk..: the staged rows kk.. read
-          // transposed
-          const int r0 = warp * 32 + mi * 16;
-          ldsm_x4_t(&As[(kk + lj + (li >> 1) * 8) * kATStride + r0 +
-                        (li & 1) * 8], af[mi]);
-        }
-#pragma unroll
-        for (int h = 0; h < kTerms; ++h) {  // lo, mid, hi (bf16: the one)
-#pragma unroll
-          for (int nj = 0; nj < 2; ++nj) {
-            unsigned bf[4];  // n-tiles 2 nj and 2 nj + 1
-            ldsm_x4_t(&Xs[h][(kk + lj + (li & 1) * 8) * kXStride + nj * 16 +
-                             (li >> 1) * 8], bf);
-#pragma unroll
-            for (int mi = 0; mi < 2; ++mi) {
-              mma_bf16(d[mi][2 * nj], af[mi], bf[0], bf[1]);
-              mma_bf16(d[mi][2 * nj + 1], af[mi], bf[2], bf[3]);
-            }
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] += d[i][j][e];
-  }
-
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = warp * 32 + mi * 16 + g + half * 8;
-      const long long row = static_cast<long long>(key) * T + m;
-      if (m >= T || row >= n_out) continue;
-      float* op = out + (static_cast<size_t>(part) * n_out + row) * F;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int c = c0 + ni * 8 + 2 * t4;
-        const float v0 = acc[mi][ni][2 * half], v1 = acc[mi][ni][2 * half + 1];
-        if constexpr (VEC >= 2) {
-          if (c < F) *reinterpret_cast<float2*>(op + c) = make_float2(v0, v1);
-        } else {
-          if (c < F) op[c] = v0;
-          if (c + 1 < F) op[c + 1] = v1;
-        }
-      }
-    }
-  }
-}
-
 // the vector width of the row loads and stores: 4 or 2 where F and the
 // pointers allow, else 1
 int vec_width(const void* x, const float* out, int F) {
@@ -655,44 +335,16 @@ int launch_scalar(const void* x, bool xb, int P, int n_in, int F,
   const dim3 grid((F + kCols - 1) / kCols, n_keys * n_row_ctas, P);
   const int vec = vec_width(x, out, F);
   if (xb)
-    block_kernel<kF32, TR, 1, true><<<grid, kThreads, 0, st>>>(PGT_ARGS);
+    block_kernel<TR, 1, true><<<grid, kThreads, 0, st>>>(PGT_ARGS);
   else if (vec == 4)
-    block_kernel<kF32, TR, 4, false><<<grid, kThreads, 0, st>>>(PGT_ARGS);
+    block_kernel<TR, 4, false><<<grid, kThreads, 0, st>>>(PGT_ARGS);
   else if (vec == 2)
-    block_kernel<kF32, TR, 2, false><<<grid, kThreads, 0, st>>>(PGT_ARGS);
+    block_kernel<TR, 2, false><<<grid, kThreads, 0, st>>>(PGT_ARGS);
   else
-    block_kernel<kF32, TR, 1, false><<<grid, kThreads, 0, st>>>(PGT_ARGS);
+    block_kernel<TR, 1, false><<<grid, kThreads, 0, st>>>(PGT_ARGS);
   return static_cast<int>(cudaGetLastError());
 }
 #undef PGT_ARGS
-
-// K13 over 1-bit, int8 or bf16 A on the tensor cores
-template <int ENC>
-int launch_k13(const void* x, bool xb, int P, int n_in, int F,
-               const unsigned char* a, long long b_max, int T,
-               const int* ptr, const int* blk, const int* til,
-               long long pair_stride, int n_keys, int n_out, float* out,
-               cudaStream_t st) {
-  const dim3 grid((F + kMmaCols - 1) / kMmaCols, n_keys, P);
-#define PGT_K13(VEC_, XB_)                                                 \
-  mma_kernel<ENC, VEC_, XB_><<<grid, kThreads, 0, st>>>(                   \
-      x, n_in, F, a, b_max, T, ptr, blk, til, pair_stride, n_keys, n_out, \
-      out)
-  const int vec = vec_width(x, out, F);
-  if (xb) {
-    // bf16 rows: 8-byte loads of 4 values where F and the pointers allow
-    if (F % 4 == 0 && vec >= 2) PGT_K13(4, true);
-    else PGT_K13(1, true);
-  } else if (vec == 4) {
-    PGT_K13(4, false);
-  } else if (vec == 2) {
-    PGT_K13(2, false);
-  } else {
-    PGT_K13(1, false);
-  }
-#undef PGT_K13
-  return static_cast<int>(cudaGetLastError());
-}
 
 int launch(const void* x, int P, int n_in, int F, const void* a, int enc,
            long long b_max, int T, const void* ptr, const void* blk,
@@ -702,7 +354,7 @@ int launch(const void* x, int P, int n_in, int F, const void* a, int enc,
   if (T < 32 || T > kRows || T % 32 != 0 || n_keys <= 0 || G < 1 ||
       G > 64 || static_cast<long long>(n_keys) * ((G * T + kRows - 1) /
                                                  kRows) > 65535 ||
-      P > 65535 || n_in < 0 || enc < kBits || enc > kF32)
+      P > 65535 || n_in < 0 || enc != kF32)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool xb = x_bf16 != 0;
@@ -711,37 +363,22 @@ int launch(const void* x, int P, int n_in, int F, const void* a, int enc,
   const int* bk = static_cast<const int*>(blk);
   const int* tl = static_cast<const int*>(til);
   float* o = static_cast<float*>(out);
-  if (enc == kF32)
-    return transpose
-               ? launch_scalar<true>(x, xb, P, n_in, F, ab, b_max, T, pt, bk,
-                                     tl, pair_stride, n_keys, G, n_out, o,
-                                     st)
-               : launch_scalar<false>(x, xb, P, n_in, F, ab, b_max, T, pt,
-                                      bk, tl, pair_stride, n_keys, G, n_out,
-                                      o, st);
-  // the other encodings: K13 here, everything else in block_tma.cu
-  if (!transpose || G != 1) return static_cast<int>(cudaErrorInvalidValue);
-  switch (enc) {
-    case kBits:
-      return launch_k13<kBits>(x, xb, P, n_in, F, ab, b_max, T, pt, bk, tl,
-                               pair_stride, n_keys, n_out, o, st);
-    case kI8:
-      return launch_k13<kI8>(x, xb, P, n_in, F, ab, b_max, T, pt, bk, tl,
-                             pair_stride, n_keys, n_out, o, st);
-    default:
-      return launch_k13<kBF16>(x, xb, P, n_in, F, ab, b_max, T, pt, bk, tl,
-                               pair_stride, n_keys, n_out, o, st);
-  }
+  return transpose
+             ? launch_scalar<true>(x, xb, P, n_in, F, ab, b_max, T, pt, bk,
+                                   tl, pair_stride, n_keys, G, n_out, o, st)
+             : launch_scalar<false>(x, xb, P, n_in, F, ab, b_max, T, pt, bk,
+                                    tl, pair_stride, n_keys, G, n_out, o,
+                                    st);
 }
 
 }  // namespace
 
-// K12 / K13. x [P, n_in, F] f32, or bf16 when x_bf16; a [P, b_max, T,
-// row_bytes] (enc 0 bits, 1 int8, 2 bf16, 3 f32); ptr [P, n_out_tiles + 1]
-// int32, blk / til [P, pair_stride] int32 (pair k of part p: A block blk
-// and input tile til; output tile i's pairs at ptr[p, i] .. ptr[p, i +
-// 1]); out [P, n_out, F] f32. transpose 0 = K12 (only over f32 A:
-// block_tma.cu takes the others), 1 = K13. T a multiple of 32 up to 256.
+// K12 / K13 over f32 A (block_tma.cu takes the other encodings). x [P,
+// n_in, F] f32, or bf16 when x_bf16; a [P, b_max, T, T] f32 (enc 3);
+// ptr [P, n_out_tiles + 1] int32, blk / til [P, pair_stride] int32 (pair
+// k of part p: A block blk and input tile til; output tile i's pairs at
+// ptr[p, i] .. ptr[p, i + 1]); out [P, n_out, F] f32. transpose 0 = K12,
+// 1 = K13. T a multiple of 32 up to 256.
 // All contiguous, on the device; the host validated every index. Returns
 // cudaGetLastError().
 extern "C" int pgt_block_dense(const void* x, int P, int n_in, int F,

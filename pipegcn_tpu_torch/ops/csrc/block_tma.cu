@@ -1,6 +1,6 @@
-// K16, K12 and K17 on Hopper: the forward tile products over union-gather
-// groups and over per-tile pair lists, and the transposed products over
-// union-gather groups, redesigned around TMA and wgmma (sm_90a).
+// K16, K12, K17 and K13 on Hopper: the forward and transposed tile
+// products over union-gather groups and over per-tile pair lists,
+// redesigned around TMA and wgmma (sm_90a).
 //
 // K16 replaces: pipegcn_tpu/ops/block_spmm.py  _dense_apply_grouped and
 // _group_union (--block-group > 1), forward, "rduts,rusf->rdtf": G
@@ -28,12 +28,17 @@
 //
 // The same kernel body runs it (TRANSPOSE = true): the stages, the
 // products and the promotion are K16's; only the A fragment differs (its
-// m index a stored column, its k index a stored row). Over 1-bit A the
-// producer warps stage each chunk's A^T words in the ring (stage_at);
-// over int8 and bf16 A each consumer thread reads A^T's entries from the
-// stored block (load_at, frag_t). No transposed copy of A exists.
+// m index a stored column, its k index a stored row).
+// K13 replaces: _dense_apply's transpose and make_block_spmm_fn's
+// backward (--block-group 1): K17's function over the backward's pair
+// lists, run as K12 runs the forward's (their union view, GROUPED =
+// false, TRANSPOSE = true). Over 1-bit A the producer warps stage each
+// chunk's A^T words in the ring (stage_at); over int8 and bf16 A each
+// consumer thread reads A^T's entries from the stored block (load_at,
+// frag_t). No transposed copy of A exists.
 // The tables, the A encodings (1-bit, int8, bf16; f32 A keeps the scalar
-// path of block_spmm.cu) and the exactness argument are block_spmm.cu's:
+// path of block_spmm.cu in all four) and the exactness argument are
+// block_spmm.cu's:
 // A holds small integers, exact in bf16, and each f32 input is split
 // exactly into three bf16 terms, so every product a * term is exact in
 // f32 and the tensor cores' sum of one pair is the only rounding inside a
@@ -822,7 +827,8 @@ extern "C" int pgt_tile_split(const void* x, int x_bf16, int P, int n_in,
 }
 
 // K16 (G 2 .. 64), K12 (G = 1) and, with transpose, K17 (A^T over the
-// backward's union lists, G 1 .. 64). x [P, n_in, F] f32, or bf16 when
+// backward's union lists, G 2 .. 64) and K13 (G = 1: the backward's pair
+// lists). x [P, n_in, F] f32, or bf16 when
 // x_bf16; planes: the pre-pass's buffer [3 (1 when x_bf16), P, n_in, Fp]
 // bf16 (Fp = F rounded up to 64), or null for bf16 rows read as they are
 // (F % 8 == 0 and x 16-byte aligned); a [P, b_max, T, row_bytes] (enc 0
@@ -870,15 +876,16 @@ extern "C" int pgt_block_grouped_tma(
   const int* bk = static_cast<const int*>(blk);
   const int* tl = static_cast<const int*>(til);
   float* o = static_cast<float*>(out);
-  // the transposes take the grouped instance at any G (K13, over pair
-  // lists, keeps block_spmm.cu)
+  // G = 1 (K12, K13: a pair list's union view) compiles the group's
+  // bookkeeping out; G > 1 (K16, K17) keeps it
 #define PGT_RUN(ENC, TERMS, GR, TR)                                       \
   launch_main<ENC, TERMS, GR, TR>(m, P, n_in, F, cols, ab, b_max, T, pt, \
                                   bk, tl, slot_stride, n_groups, G, n_out, \
                                   o, st)
-#define PGT_MAIN(ENC, TERMS)                                   \
-  (transpose ? PGT_RUN(ENC, TERMS, true, true)                 \
-   : G > 1   ? PGT_RUN(ENC, TERMS, true, false)                \
+#define PGT_MAIN(ENC, TERMS)                                           \
+  (transpose ? (G > 1 ? PGT_RUN(ENC, TERMS, true, true)                \
+                      : PGT_RUN(ENC, TERMS, false, true))              \
+   : G > 1   ? PGT_RUN(ENC, TERMS, true, false)                        \
              : PGT_RUN(ENC, TERMS, false, false))
   if (terms == 3) {
     switch (enc) {

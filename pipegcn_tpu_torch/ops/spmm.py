@@ -24,11 +24,13 @@ returns ``d_in_deg = -sum_f(out * g) / in_deg`` when ``in_deg`` needs it.
 CPU tensors; anything else raises. K1 gathers in column slices where the
 table of one part outgrows the card's L2 (:func:`k1_slice_width`: the
 slice rule, a function of the table's bytes against the L2 the card
-reports; :func:`k1_plan` adds the load width). :func:`spmm_mean_plain`
-is the same function through the plain versions on any device (the
-card-side comparison). All take one part (``fbuf [n_src, F]``) or P
-stacked parts (``fbuf [P, n_src, F]`` with ``indptr [P, n_out+1]``,
-``src [P, E]``, ``in_deg [P, n_out]``).
+reports; :func:`k1_plan` adds the load width); K3 prescales ``g`` by
+``1 / in_deg`` once and gathers it in 64-column slices
+(:data:`K3_SLICE`) for a CTA of consecutive sources.
+:func:`spmm_mean_plain` is the same function through the plain versions
+on any device (the card-side comparison). All take one part
+(``fbuf [n_src, F]``) or P stacked parts (``fbuf [P, n_src, F]`` with
+``indptr [P, n_out+1]``, ``src [P, E]``, ``in_deg [P, n_out]``).
 """
 
 from __future__ import annotations
@@ -49,7 +51,8 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "pgt_spmm_mean": [_P, _I, _P, _I, _P, _LL, _P, _P, _I, _I, _I, _I, _I,
                       _I, _P],
-    "pgt_spmm_mean_t": [_P, _P, _I, _P, _LL, _P, _P, _I, _I, _I, _I, _P],
+    "pgt_spmm_mean_t": [_P, _P, _I, _P, _LL, _P, _P, _P, _I, _I, _I, _I,
+                        _P],
 }
 
 Transpose = Tuple[torch.Tensor, torch.Tensor]
@@ -69,6 +72,9 @@ K1_SLICE_BYTES = (128, 64, 32)
 # the widest load a lane makes: 16-byte loads (4 f32, 8 bf16 elements,
 # 8 lanes a 128-byte slice) ran fastest
 K1_LOAD_BYTES = 16
+# K3's column slice (f32 columns; csrc/spmm_mean.cu kK3Width): the width
+# of the prescaled cotangent's slices, which K3's CTAs gather
+K3_SLICE = 64
 
 
 def _index_dtype(counts: np.ndarray):
@@ -316,7 +322,9 @@ def spmm_mean_t(g: torch.Tensor, indptr_t: torch.Tensor,
                 dst_t: torch.Tensor, in_deg: torch.Tensor) -> torch.Tensor:
     """Transpose mean aggregation ``[P, n_out, F] f32 -> [P, n_src, F]
     f32``: kernel K3 on CUDA tensors (counted in
-    ``spmm_mean_t.launches``), :func:`spmm_mean_t_plain` on CPU."""
+    ``spmm_mean_t.launches``: the prescale of ``g`` by ``1 / in_deg`` into
+    column slices, then the sliced gather), :func:`spmm_mean_t_plain` on
+    CPU."""
     if g.device.type == "cpu":
         return spmm_mean_t_plain(g, indptr_t, dst_t, in_deg)
     _check_t(g, indptr_t, dst_t, in_deg)
@@ -329,12 +337,15 @@ def spmm_mean_t(g: torch.Tensor, indptr_t: torch.Tensor,
     n_src = ip.shape[-1] - 1
     if P * max(n_out, n_src) * F >= 2 ** 62 or n_out >= 2 ** 31:
         raise ValueError("spmm_mean_t: g too large for the kernel")
+    gp = torch.empty((P, -(-F // K3_SLICE), n_out, K3_SLICE),
+                     dtype=torch.float32, device=x.device)
     out = torch.empty((P, n_src, F), dtype=torch.float32, device=x.device)
     lib = _build.load("spmm_mean", _SIGNATURES)
     rc = lib.pgt_spmm_mean_t(
         x.data_ptr(), ip.data_ptr(), int(ip.dtype == torch.int64),
-        d.data_ptr(), d.shape[1], dg.data_ptr(), out.data_ptr(), P, n_out,
-        n_src, F, torch.cuda.current_stream(x.device).cuda_stream)
+        d.data_ptr(), d.shape[1], dg.data_ptr(), gp.data_ptr(),
+        out.data_ptr(), P, n_out, n_src, F,
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "spmm_mean_t")
     spmm_mean_t.launches += 1
     return out[0] if single else out

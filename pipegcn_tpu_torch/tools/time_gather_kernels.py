@@ -16,7 +16,13 @@ locality, as the serving layout's random parts):
     precompute) and F = 256 bf16; ``--sweep`` adds the training cell's
     sizes (n_out = 71,792, n_src = 143,584, 20,695,742 edges a part).
   - K3: the serving CSR's sizes transposed (n_src rows gathering F = 256
-    f32 rows of n_out).
+    f32 rows of n_out), with no reuse for a CTA's rows; and the training
+    cell's sizes with its locality ("K3 clustered": P = 2, n_out =
+    71,792, n_src = 143,584, 20,695,742 edges a part; source row s draws
+    80 % of its edges uniformly from the 10 consecutive 256-row windows
+    centred at s n_out / n_src and 20 % uniformly over all n_out,
+    ascending within the row: about 10 dense windows a 256-row group,
+    ~2,900 edges each, as the block cell's tiles).
   - K6 (training's NEG mode) and K8: the GAT cell's sizes (P = 2, n =
     71,792, R = 143,584, 20,695,742 edges a part, H = 4, dh = 64; K8 also
     at the logits layer's dh = 41), z rows f32, bf16 and e4m3 (K8's g rows
@@ -79,6 +85,33 @@ def deg_of(indptr):
     return indptr.diff(dim=1).clamp(min=1).float().contiguous()
 
 
+def clustered_csr(n_rows, n_idx, edges, seed, local=0.8, win=256, span=10):
+    """indptr [P, n_rows + 1] int32 and idx [P, edges] int32: rows uniform
+    at random, each edge's index with probability ``local`` uniform in
+    the ``span`` windows of ``win`` rows centred at row * n_idx / n_rows
+    (kept inside [0, n_idx)), else uniform over all; ascending within a
+    row."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    indptr = torch.zeros((P, n_rows + 1), dtype=torch.int32, device="cuda")
+    idx = torch.empty((P, edges), dtype=torch.int32, device="cuda")
+    w = span * win
+    for p in range(P):
+        rows = torch.randint(0, n_rows, (edges,), generator=gen,
+                             device="cuda").sort().values
+        indptr[p, 1:] = torch.bincount(rows, minlength=n_rows).cumsum(0)
+        lo = (rows * n_idx // n_rows - w // 2).clamp(0, n_idx - w)
+        near = lo + torch.randint(0, w, (edges,), generator=gen,
+                                  device="cuda")
+        far = torch.randint(0, n_idx, (edges,), generator=gen,
+                            device="cuda")
+        pick = torch.rand(edges, generator=gen, device="cuda") < local
+        d = torch.where(pick, near, far)
+        key = (rows * n_idx + d).sort().values
+        idx[p] = (key % n_idx).int()
+        del rows, lo, near, far, pick, d, key
+    return indptr, idx
+
+
 out = {"label": label, "csrc": str(_build.CSRC),
        "card": torch.cuda.get_device_name(0)}
 gat_only = "--gat-only" in flags
@@ -87,7 +120,8 @@ _build.build(([] if gat_only else ["spmm_mean"]) + list(gat.LIBRARIES))
 
 def k1_k3(gen):
     """K1 at the serving shape (``--sweep``: at every slice plan, and at
-    the training cell's sizes), K3 at the serving CSR's transpose."""
+    the training cell's sizes), K3 at the serving CSR's transpose and at
+    the training cell's locality."""
     # --- K1 / K3 at the serving shape ---------------------------------------
     ip, src = random_csr(SERVE["n_out"], SERVE["n_src"], SERVE["edges"], 1)
     deg = deg_of(ip)
@@ -134,6 +168,7 @@ def k1_k3(gen):
     out["K3 serving f32 F=256"] = time_ms(
         lambda: spmm.spmm_mean_t(g, it, dt, deg))
     del ip, src, deg, it, dt, g
+    k3_clustered(gen)
 
     if "--sweep" in flags:
         ip, src = random_csr(TRAIN["n_out"], TRAIN["n_src"], TRAIN["edges"], 4)
@@ -151,6 +186,17 @@ def k1_k3(gen):
                     xd, ip, src, deg, plan=(W, vec)))
             out["K1 sweep"][f"K1 train-size random {dtype}"] = res
         del ip, src, deg, x, xd
+
+
+def k3_clustered(gen):
+    """K3 at the training cell's sizes and locality."""
+    it, dt = clustered_csr(TRAIN["n_src"], TRAIN["n_out"], TRAIN["edges"], 3)
+    deg = torch.randint(1, 600, (P, TRAIN["n_out"]), generator=gen,
+                        device="cuda").float()
+    g = torch.randn((P, TRAIN["n_out"], 256), generator=gen, device="cuda")
+    out["K3 clustered f32 F=256"] = time_ms(
+        lambda: spmm.spmm_mean_t(g, it, dt, deg))
+    del it, dt, deg, g
 
 
 if not gat_only:

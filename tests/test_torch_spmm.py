@@ -249,3 +249,91 @@ def test_k1_slices_tile_the_columns_within_the_l2_budget(F, elem, n_src):
         assert width <= W and width // vec in (8, 16, 32)
         assert width % vec == 0 and F % vec == 0
         assert ptr % (vec * elem) == 0
+
+
+
+# ---------------------------------------------------------------------------
+# K3's design (csrc/spmm_mean.cu gather_t_kernel), emulated in numpy
+
+
+# K3's geometry (csrc/spmm_mean.cu): kK3Threads threads a CTA, each lane
+# group kK3RowsPerGroup rows; the slice is ops/spmm.py K3_SLICE
+K3_THREADS, K3_ROWS_PER_GROUP = 1024, 3
+
+
+def _k3_emulated(g, it, dt, deg):
+    """K3's arithmetic and walk in numpy f32, one part: the prescale
+    g * (1 / deg) rounded into column slices of ``K3_SLICE`` (zero past
+    F), then for every CTA, slice and lane group, its rows stepped together
+    a chunk of ``K3_SLICE / 4`` edges at a time, each element adding its
+    row's gathered values in CSR order. Returns the output and each row's
+    visited edges (one slice's walk)."""
+    width, rpg = spmm.K3_SLICE, K3_ROWS_PER_GROUP
+    n_out, F = g.shape
+    n_src = it.shape[0] - 1
+    G = width // 4
+    slots = K3_THREADS // G
+    S = -(-F // width)
+    gp = np.zeros((S, n_out, width), np.float32)
+    rc = (np.float32(1) / deg.astype(np.float32)).astype(np.float32)
+    for s in range(S):
+        cols = slice(s * width, min(F, (s + 1) * width))
+        w = cols.stop - cols.start
+        gp[s, :, :w] = g[:, cols] * rc[:, None]
+    out = np.zeros((n_src, S * width), np.float32)
+    visits = [[] for _ in range(n_src)]
+    for row0 in range(0, n_src, slots * rpg):
+        for s in range(S):
+            for slot in range(slots):
+                rows = [row0 + slot + slots * j for j in range(rpg)]
+                cur = {r: int(it[r]) for r in rows if r < n_src}
+                acc = {r: np.zeros(width, np.float32) for r in cur}
+                while any(cur[r] < it[r + 1] for r in cur):
+                    for r in cur:  # one chunk of each row, in turn
+                        stop = min(cur[r] + G, int(it[r + 1]))
+                        for e in range(cur[r], stop):
+                            d = min(max(int(dt[e]), 0), n_out - 1)
+                            acc[r] = (acc[r] + gp[s, d]).astype(np.float32)
+                            if s == 0:
+                                visits[r].append(e)
+                        cur[r] = stop
+                for r in cur:
+                    out[r, s * width:(s + 1) * width] = acc[r]
+    return out[:, :F], visits
+
+
+@pytest.mark.parametrize("F,n_src", [(41, 130), (64, 400), (130, 250),
+                                     (1, 130)])
+def test_k3_walk_sums_each_row_in_csr_order(F, n_src):
+    """K3's sliced walk (numpy emulation at the kernel's geometry; one or
+    more CTAs and column slices) visits each edge of each row once, in CSR
+    order, so every output element is the parent K3's sum bit for bit: the
+    terms g[dst] * (1 / in_deg[dst]), rounded, added in edge order from 0
+    (K1's whole-row kernel over the prescaled cotangent); rows with no
+    edges are exactly zero; and it is the plain version's function up to
+    summation order, which K3's CPU path runs."""
+    rng = np.random.default_rng(F + n_src)
+    n_out = 50
+    deg = rng.integers(0, 30, n_out)
+    dst = np.repeat(np.arange(n_out), deg)
+    src = rng.integers(0, n_src, dst.size)
+    src[rng.random(dst.size) < 0.3] = 7  # a heavy row across chunks
+    src[np.isin(src, np.arange(20, 30))] = 0  # empty rows
+    it, dt = csr_transpose(src, dst, n_out, n_src)
+    g = rng.standard_normal((n_out, F)).astype(np.float32)
+    in_deg = rng.uniform(1, 9, n_out).astype(np.float32)
+    got, visits = _k3_emulated(g, it, dt, in_deg)
+    for r in range(n_src):
+        assert visits[r] == list(range(it[r], it[r + 1]))
+    rc = (np.float32(1) / in_deg).astype(np.float32)
+    for r in (0, 7, 25, n_src - 1):
+        want = np.zeros(F, np.float32)
+        for e in range(it[r], it[r + 1]):
+            want = (want + g[dt[e]] * rc[dt[e]]).astype(np.float32)
+        np.testing.assert_array_equal(got[r], want)
+    assert (got[20:30] == 0).all()
+    args = (torch.from_numpy(g), torch.from_numpy(it), torch.from_numpy(dt),
+            torch.from_numpy(in_deg))
+    plain = spmm_mean_t_plain(*args)
+    np.testing.assert_allclose(got, plain.numpy(), rtol=1e-5, atol=1e-5)
+    assert torch.equal(spmm_mean_t(*args), plain)

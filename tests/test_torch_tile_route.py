@@ -1,7 +1,7 @@
 """The tile products' route onto csrc/block_tma.cu (plain path, CPU; the
 kernels run only on the card, where chip_smoke.py holds them against
-block_dense_plain): ``tile_entry`` case by case; K12's view of a pair
-list as the union list of group 1 (``union_view``), array for array the
+block_dense_plain): ``tile_entry`` case by case; K12's and K13's view
+of a pair list as the union list of group 1 (``union_view``), array for array the
 lists that ``_group_union`` and ``_flatten_unions`` build at group 1 over
 the same dense blocks, with the same plain products through either; and
 K17's function, A^T over the backward's union lists, equal to K16's
@@ -29,12 +29,11 @@ A_DTYPES = {"bits": torch.uint8, "int8": torch.int8,
 @pytest.mark.parametrize("transpose", [False, True], ids=["fwd", "bwd"])
 @pytest.mark.parametrize("grouped", [False, True], ids=["pairs", "groups"])
 def test_tile_entry(grouped, transpose, a):
-    """1-bit, int8 or bf16 A runs on the TMA / wgmma entry in the forward
-    at group 1 (K12) and above (K16) and in the transpose over union groups
-    (K17); f32 A and the transpose over pair lists (K13) keep
-    block_spmm.cu's entries."""
+    """1-bit, int8 or bf16 A runs on the TMA / wgmma entry in both
+    directions, over pair lists (K12, K13) and union groups (K16, K17);
+    f32 A keeps block_spmm.cu's entries."""
     got = pblk.tile_entry(grouped, transpose, A_DTYPES[a])
-    if a != "f32" and (grouped or not transpose):
+    if a != "f32":
         want = "pgt_block_grouped_tma"
     else:
         want = "pgt_block_grouped" if grouped else "pgt_block_dense"
@@ -121,6 +120,33 @@ def test_union_view_equals_the_group_1_union_lists(P):
     assert bool(want.any())
     for side in (view, built):
         assert torch.equal(pblk.block_dense_plain(x, t, side), want)
+
+
+@pytest.mark.parametrize("P", [1, 2])
+def test_k13_view_of_the_backward_pairs(P):
+    """K13's route: the backward pair list seen as the union list of group
+    1 (``union_view``, a view of the same tensors, transposed as the
+    list), whose plain products (A^T over each source tile's pairs) equal
+    those of the pair list; ``tile_entry`` sends it to the TMA entry."""
+    psg = port_sharded(sharded(P))
+    tile, hint = 16, 8
+    n_src = psg.n_max + psg.halo_size
+    host, _ = pblk.build_sharded_block_tables(psg, tile=tile,
+                                              n_feat_hint=hint)
+    t = pblk.stage_block_tables(host, tile, psg.n_max, n_src, CPU)
+    assert isinstance(t.bwd, pblk.BlockSide) and t.bwd.transpose
+    view = pblk.union_view(t.bwd)
+    assert view.transpose and view.group == 1
+    assert view.blk.data_ptr() == t.bwd.blk.data_ptr()
+    assert (view.n_out, view.n_in, view.n_out_tiles) == (
+        t.bwd.n_out, t.bwd.n_in, t.bwd.n_out_tiles)
+    assert pblk.tile_entry(False, True, t.a.dtype) == "pgt_block_grouped_tma"
+    g = torch.from_numpy(np.random.default_rng(P + 7).standard_normal(
+        (P, psg.n_max, 24)).astype(np.float32))
+    want = pblk.block_dense_plain(g, t, t.bwd)
+    assert bool(want.any())
+    assert torch.equal(pblk.block_dense_plain(g, t, view), want)
+    assert torch.equal(pblk.block_dense_t(g, t), want)
 
 
 def _transposed(a: torch.Tensor, packed: bool) -> torch.Tensor:
