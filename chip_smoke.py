@@ -117,9 +117,12 @@ stack (union-gather block tiles and the fp8 halo wire at bf16):
      ``--rem-dtype bfloat16`` and ``none`` on the same trainer;
  16. holds one bucket epoch against the plain versions, the transported
      values shared (``TransportShare``);
- 17. holds K9-K11 against their plain versions (K9 in every dtype, K10 /
-     K11 bit-exact), three planted faults (K11's: one max over both
-     parts);
+ 17. holds K9-K11 against their plain versions (K9 bit-exact in every
+     dtype, at the cell and on edge cases: one CTA's rows spanning every
+     bucket width, rows one entry past a lane group's chunk, sentinels
+     in the middle of rows, negative indices, empty rows, F = 1 to 602;
+     K10 / K11 bit-exact), three planted faults (K11's: one max over
+     both parts);
  18. times K9-K11, the bucket epoch and its split;
  19. runs the bucket command at ``--dtype bfloat16`` on the same trainer
      and tables for a few epochs, then its step check; a few GCN epochs
@@ -172,7 +175,10 @@ stack (union-gather block tiles and the fp8 halo wire at bf16):
      shapes, an emulated P = 4 set whose per-block scales differ across
      distances, every wire (e4m3, e5m2, bf16) on f32 and bf16 rows, edge
      cases (all-masked and zero-amax blocks, a NaN row, the bit-pattern
-     sweep); the decode with the receiver's own scale must fail;
+     sweep; the vector's: F = 1, 3, 41, 602, a strided return view whose
+     part stride is no multiple of 16 bytes, B below a block's chunk,
+     every row masked); the decode with the receiver's own scale must
+     fail;
  32. holds K16 / K17 against their plain version (every A encoding,
      groups 2, 4 and 8, a tail group, an empty group, a one-tile union),
      each rerun bit-identical; a flipped A bit must fail; K16's pre-split
@@ -220,11 +226,13 @@ stack (union-gather block tiles and the fp8 halo wire at bf16):
      types, times at the shapes whose launches are counted), a line for
      each cell, the nvidia-smi line, and last ``{"ok": true, "device":
      {...}}``. With ``--parent DIR`` (a parent commit unpacked with ``git
-     archive``) it first times K5, K11, K12, K13, K16 and K17 of DIR
+     archive``) it first times K5, K11, K12, K13, K15, K16 and K17 of DIR
      against this checkout's with
      ``pipegcn_tpu_torch/tools/time_tile_products.py`` and K1, K3 (random
-     rows, and at the training cell's locality), K6 and K8 (dh = 64 and
-     41) with ``tools/time_gather_kernels.py``, in turns
+     rows, and at the training cell's locality), K9 (the training cell's
+     sizes: clustered tables in every row type, random tables at e4m3), K6
+     and K8 (dh = 64 and 41) with ``tools/time_gather_kernels.py``, in
+     turns
      (parent, this, this, parent; each tool its own process) and carries
      both in those kernels' ``parent_ab``.
 
@@ -2545,14 +2553,100 @@ def bucket_edge_case(bs, min_width):
         np.float32)).cuda(), torch.from_numpy(deg == 0).cuda())
 
 
+def k9_ladder_case(bs):
+    """Bucket tables of 2 parts (60 output rows, 700 source rows) whose
+    rows hold every width of the ladder up to 711 entries, one of each
+    rung less one, 16, 17, 32 and 33 entries (a lane group's chunk and one
+    entry more), empty rows and 0-40 entries: fewer than 64 table rows
+    (the parts' caps), the fewest list rows a CTA holds in any row type's
+    geometry, so one CTA walks every bucket width. Then the same tables
+    flipped: a sentinel in the middle of the 17-, 33- and 711-entry rows
+    (what a table flip makes), negative indices in the 13- and 711-entry
+    rows, one output's inv pointing past the tables and another's at a
+    row a third output owns. Returns ``(tables, flipped forward side,
+    in-degrees, empty-row mask)`` on the card."""
+    import bisect
+    import types
+
+    import numpy as np
+    import torch
+
+    P, n, R = 2, 60, 700
+    rungs = bs.ladder_prefix(17)
+    head = sorted(set(rungs + [w - 1 for w in rungs] + [16, 17, 32, 33]))
+    rng = np.random.default_rng(33)
+    src, dst = [], []
+    for _ in range(P):
+        deg = rng.integers(0, 41, n)
+        deg[:len(head)] = head  # 0 (rung 1 less one) .. 711
+        deg[len(head):len(head) + 3] = 0
+        d = np.repeat(np.arange(n), deg)
+        src.append(rng.integers(0, R, d.size).astype(np.int32))
+        dst.append(d.astype(np.int32))
+    sg = types.SimpleNamespace(num_parts=P, n_max=n, halo_size=R - n,
+                               edge_src=src, edge_dst=dst)
+    t = bs.stage_bucket_tables(bs.build_sharded_bucket_tables(sg), n, R,
+                               torch.device("cuda"))
+    require(t.fwd.widths == tuple(rungs) and int(t.fwd.meta[0, -1]) <= 64,
+            f"K9 ladder case widths {t.fwd.widths}, "
+            f"{int(t.fwd.meta[0, -1])} table rows")
+    degs = np.stack([np.bincount(d, minlength=n) for d in dst])
+    meta = t.fwd.meta.cpu()
+    flip = bs.BucketSide(**{**t.fwd.__dict__, "idx": t.fwd.idx.clone(),
+                            "inv": t.fwd.inv.clone()})
+    flip.inv[0, 50] = int(meta[0, -1]) + 3
+    flip.inv[1, 55] = flip.inv[1, head.index(28)]
+    for p in range(P):
+        for w, changes in ((17, ((8, R),)), (33, ((16, R + 5),)),
+                           (711, ((300, R), (0, -3), (500, -1))),
+                           (13, ((4, -7),))):
+            r = head.index(w)
+            j = int(t.fwd.inv[p, r])
+            b = bisect.bisect_right(meta[0].tolist(), j) - 1
+            base = int(meta[1, b]) + (j - int(meta[0, b])) * int(meta[2, b])
+            for k, v in changes:
+                flip.idx[p, base + k] = v
+    return (t, flip, torch.from_numpy(np.maximum(degs, 1).astype(
+        np.float32)).cuda(), torch.from_numpy(degs == 0).cuda())
+
+
 def k9_edge_phase(bs):
     """K9 on edge cases: empty rows (exact zeros), a 5,000-entry row, the
-    bucket merge 4, F = 5, 16, 256 and 602 in every input dtype, both
-    directions, and junk in the cap-padding table rows (never read)."""
+    bucket merge 4, F = 5, 16, 256 and 602 in every input dtype (e4m3 /
+    e5m2 rows at F = 602 only 2-byte aligned), both directions, and junk
+    in the cap-padding table rows (never read); the ladder case
+    (``k9_ladder_case``: one CTA's rows spanning every bucket width, rows
+    one entry past a lane group's chunk, empty rows) and its flipped
+    tables (sentinels in the middle of rows, negative indices, an inv past
+    the tables and one repeating a row) at F = 1,
+    3, 41, 256 and 602 in every dtype. Each check reruns the kernel
+    (bit-identical)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(21)
     errs = []
+    dts = (torch.float32, torch.bfloat16, torch.float8_e4m3fn,
+           torch.float8_e5m2)
+
+    def rows(shape, dt):
+        v = torch.randn(shape, generator=gen, device="cuda")
+        return (v.to(dt) if dt in (torch.float32, torch.bfloat16)
+                else bs.transport_cast_plain(v, dt)[0])
+
+    t, flip, deg, empty = k9_ladder_case(bs)
+    n, R = t.bwd.n_src, t.fwd.n_src
+    for F in (1, 3, 41, 256, 602):
+        for dt in dts:
+            x, g = rows((2, R, F), dt), rows((2, n, F), dt)
+            name = f"K9 ladder case F={F} {dt}"
+            errs.append(k9_check(name + " forward", bs, x, t.fwd, deg))
+            errs.append(k9_check(name + " backward", bs, g, t.bwd))
+            errs.append(k9_check(name + " flipped tables", bs, x, flip,
+                                 deg))
+            out = bs.bucket_gather(x, t.fwd, deg)
+            require(bool((out[empty] == 0).all()),
+                    f"{name}: rows without edges must be exactly zero")
+    del t, flip
     for merge in (0, 4):
         t, deg, empty = bucket_edge_case(bs, merge)
         n, R = t.bwd.n_src, t.fwd.n_src
@@ -2560,13 +2654,8 @@ def k9_edge_phase(bs):
                                                or min(t.fwd.widths) >= 4),
                 f"K9 edge case ladder {t.fwd.widths}")
         for F in (5, 16, 256, 602):
-            for dt in (torch.float32, torch.bfloat16, torch.float8_e4m3fn,
-                       torch.float8_e5m2):
-                x = torch.randn((2, R, F), generator=gen, device="cuda")
-                g = torch.randn((2, n, F), generator=gen, device="cuda")
-                x, g = (v.to(dt) if dt in (torch.float32, torch.bfloat16)
-                        else bs.transport_cast_plain(v, dt)[0]
-                        for v in (x, g))
+            for dt in dts:
+                x, g = rows((2, R, F), dt), rows((2, n, F), dt)
                 name = f"K9 edge cases merge={merge} F={F} {dt}"
                 errs.append(k9_check(name + " forward", bs, x, t.fwd, deg))
                 errs.append(k9_check(name + " backward", bs, g, t.bwd))
@@ -4225,19 +4314,68 @@ def wire_p4_case(seed, F=48):
     return x, idx, mask, sg.b_max
 
 
+def k15_edge_phase(halo):
+    """K14 / K15 bit-exact on the vector's edge cases, P = 3, f32 and bf16
+    rows, every wire: F = 1, 3, 41 and 602 (vectors of 1 or 2 elements),
+    the exchange and the return from a contiguous block and from a
+    strided view whose part stride and base are no multiple of 16 bytes
+    (F = 42); B = 5, less than a block's chunk of rows; every row masked
+    (the halo exact +0, scale 1)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(53)
+    P, n = 3, 40
+
+    def case(F, B, p_mask=0.8):
+        x = torch.randn((P, n, F), generator=gen, device="cuda") * 3.0
+        idx = torch.randint(-2, n + 2, (P, P - 1, B), generator=gen,
+                            device="cuda", dtype=torch.int32)
+        mask = torch.rand((P, P - 1, B), generator=gen,
+                          device="cuda") < p_mask
+        full = torch.randn((P, 1 + (P - 1) * B, F), generator=gen,
+                           device="cuda")
+        return x, idx, mask, full
+
+    for F, B, p_mask in ((1, 12, 0.8), (3, 12, 0.8), (41, 12, 0.8),
+                         (602, 12, 0.8), (42, 12, 0.8), (64, 5, 0.8),
+                         (64, 12, 0.0)):
+        x, idx, mask, full = case(F, B, p_mask)
+        for rows in (torch.float32, torch.bfloat16):
+            xr, fr = x.to(rows), full.to(rows)
+            for dt in wire_dtypes():
+                tag = (f"F={F} B={B}{' all masked' if p_mask == 0 else ''} "
+                       f"{t_dtype(xr)} rows -> {str(dt)[6:]}")
+                _, out, _, inv = wire_check(f"vector edge case {tag}", halo,
+                                            xr, idx, mask, B, dt)
+                if p_mask == 0:
+                    require(bool((out.float() == 0).all())
+                            and not bool(torch.signbit(out.float()).any())
+                            and (inv is None or bool((inv == 1).all())),
+                            f"vector edge case {tag}: an all-masked "
+                            f"exchange must give +0 and scale 1")
+                wire_check(f"vector edge case {tag} return", halo,
+                           fr[:, 1:].contiguous(), None, None, B, dt)
+                view = fr[:, 1:]  # part stride (1 + (P-1) B) F elements
+                wire_check(f"vector edge case {tag} return, strided view "
+                           f"(part stride {view.stride(0) * fr.element_size()}"
+                           f" bytes)", halo, view, None, None, B, dt)
+
+
 def k14_k15_check_phase(trainer, halo):
     """K14 / K15 bit-exact against their plain versions: at the cell's
     shapes; on an emulated P = 4 set whose per-block scales differ across
     distances, every wire (e4m3, e5m2, bf16) on f32 and bf16 rows, both
     directions; on edge cases (an all-masked block, a zero-amax block, a
     NaN row, the f32 bit-pattern sweep around the fp8 saturation points
-    and subnormals in blocks that hold a NaN, so their scale is 1). A
-    planted fault, the decode with the receiver's own scale in place of
-    the sender's, must fail the K15 check."""
+    and subnormals in blocks that hold a NaN, so their scale is 1); on
+    the vector's edge cases (``k15_edge_phase``). A planted fault, the
+    decode with the receiver's own scale in place of the sender's, must
+    fail the K15 check."""
     import torch
     from pipegcn_tpu_torch.ops import bucket_spmm as bs
 
     k14_k15_cell_phase(trainer, halo)
+    k15_edge_phase(halo)
     x, idx, mask, B = wire_p4_case(7)
     sc = bs.pow2_scale(halo.halo_amax(x, idx, mask, B), 448.0)
     require(bool((sc != sc[:, :1]).any()),
@@ -5704,11 +5842,15 @@ def kernel_entry(name, source, replaces, launches, err, t, serving=None):
 
 def parent_ab(parent):
     """K5 (one call and back to back), K11 (both forms), K12, K13, K16 and
-    K17 (both modes; K17 also the transposed copy's alternative) of a
+    K17 (both modes; K17 also the transposed copy's alternative) and K15
+    (the exchange's e4m3 and bf16 wires, the return's e5m2 and bf16; one
+    call and 20 back to back) of a
     parent checkout against this one's at tools/time_tile_products.py's
-    shapes, and K1 (F = 256 and 602 f32, bf16 rows), K3, K6 (NEG and eval
-    modes) and K8 (f32, bf16 and e4m3 z rows, dh = 64 and 41) at
-    tools/time_gather_kernels.py's, each tool run in its own
+    shapes, and K1 (F = 256 and 602 f32, bf16 rows), K3, K9 (clustered
+    tables: e4m3, e5m2 over the transpose's, bf16, f32; random tables:
+    e4m3), K6 (NEG and eval modes) and K8 (f32, bf16 and e4m3 z rows, dh
+    = 64 and 41) at tools/time_gather_kernels.py's, each tool run in its
+    own
     process (each checkout builds its own kernels, the parent's first, all
     together), in turns: parent, this, this, parent. Returns each key's
     two runs a side and their means."""
@@ -5721,7 +5863,8 @@ def parent_ab(parent):
          "_build.build(n for n in sys.argv[2:] "
          "if (_build.CSRC / f'{n}.cu').exists())",
          parent, "block_spmm", "block_tma", "transport_cast", "halo_gather",
-         "spmm_mean", "gat_attn", "gat_attn_bf16", "gat_attn_fp8"],
+         "spmm_mean", "gat_attn", "gat_attn_bf16", "gat_attn_fp8",
+         "bucket_spmm", "halo_wire"],
         capture_output=True, text=True, timeout=900)
     require(r.returncode == 0, f"the parent's kernels did not build: "
             f"{r.stderr[-3000:]}")
@@ -5745,13 +5888,19 @@ def parent_ab(parent):
               "K1 serving f32 F=256", "K1 serving f32 F=602",
               "K1 serving bf16 F=256", "K3 serving f32 F=256",
               "K3 clustered f32 F=256",
+              *(f"K9 clustered {r} F=256" for r in ("e4m3", "e5m2", "bf16",
+                                                    "f32")),
+              "K9 random e4m3 F=256",
+              *(f"K15 {k}{b}" for k in ("exchange e4m3", "return e5m2",
+                                        "exchange bf16", "return bf16")
+                for b in ("", " batched")),
               *(f"{k} {r}" for k in ("K6 NEG", "K6 eval", "K8")
                 for r in ("f32", "bf16", "e4m3")),
               *(f"K8 {r} dh=41" for r in ("f32", "bf16", "e4m3"))):
         par = [x[k] for x in runs["parent"]]
         new = [x[k] for x in runs["change"]]
         tool = ("time_tile_products.py" if k.split()[0] in (
-            "K5", "K11", "K12", "K13", "K16", "K17")
+            "K5", "K11", "K12", "K13", "K15", "K16", "K17")
             else "time_gather_kernels.py")
         out[k] = {"parent_ms": sum(par) / 2, "ms": sum(new) / 2,
                   "parent_runs_ms": par, "runs_ms": new,
@@ -5785,8 +5934,9 @@ def main() -> int:
     ap.add_argument("--integrity-epochs", type=int, default=6,
                     help="epochs of the integrity cell")
     ap.add_argument("--parent", default=None,
-                    help="a parent checkout: K1, K3, K5, K6, K8, K11, K12, "
-                         "K13, K16 and K17 of both timed in turns by "
+                    help="a parent checkout: K1, K3, K5, K6, K8, K9, K11, "
+                         "K12, K13, K15, K16 and K17 of both timed in turns "
+                         "by "
                          "tools/time_tile_products.py and "
                          "tools/time_gather_kernels.py, carried in the "
                          "kernels line as parent_ab")
@@ -6463,8 +6613,8 @@ def main() -> int:
         kernels.append(e)
 
     if args.parent is not None:
-        log(f"[38] K1, K3, K5, K6, K8, K11, K12, K13, K16 and K17 of the "
-            f"parent checkout {args.parent} against this one's "
+        log(f"[38] K1, K3, K5, K6, K8, K9, K11, K12, K13, K15, K16 and "
+            f"K17 of the parent checkout {args.parent} against this one's "
             f"(time_tile_products.py, time_gather_kernels.py, in turns)")
         torch.cuda.empty_cache()
         ab = parent_ab(args.parent)
@@ -6487,8 +6637,9 @@ def main() -> int:
                    "block_dense_grouped[bf16]": "K16 torch.bfloat16",
                    "block_dense_grouped[f32]": "K16 torch.float32",
                    "block_dense_grouped_t[bf16]": "K17 torch.bfloat16",
-                   "block_dense_grouped_t[f32]": "K17 torch.float32"}.get(
-                       e["name"])
+                   "block_dense_grouped_t[f32]": "K17 torch.float32",
+                   "bucket_gather": "K9 clustered e4m3 F=256",
+                   "halo_wire": "K15 exchange e4m3"}.get(e["name"])
             if key is not None:
                 e["parent_ab"] = ab[key]
             if e["name"].startswith("block_dense_grouped_t"):
@@ -6509,6 +6660,16 @@ def main() -> int:
                 e["backward"]["parent_ab"] = ab["K11 deg"]
             if e["name"] == "halo_return":
                 e["parent_ab_batched"] = ab["K5 batched"]
+            if e["name"] == "bucket_gather":
+                e["parent_ab_others"] = {
+                    k: ab[k] for k in ("K9 clustered e5m2 F=256",
+                                       "K9 clustered bf16 F=256",
+                                       "K9 clustered f32 F=256",
+                                       "K9 random e4m3 F=256")}
+            if e["name"] == "halo_wire":
+                e["parent_ab_others"] = {
+                    k: ab[k] for k in ab if k.startswith("K15")
+                    and k != "K15 exchange e4m3"}
     print(json.dumps({"kernels": kernels}))
 
     print(json.dumps({

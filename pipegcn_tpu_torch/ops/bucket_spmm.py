@@ -274,13 +274,17 @@ class BucketSide:
     ``idx [P, sum_b cap_b * w_b]`` int32 (the ``[cap_b, w_b]`` tables
     row-major, bucket after bucket), ``inv [P, n_out]`` int32 and ``meta
     [3, nb + 1]`` int64 (row offsets, element offsets, widths). ``n_src``
-    is the gathered input's row count, its index the zero sentinel."""
+    is the gathered input's row count, its index the zero sentinel.
+    ``rows`` is the tables' row count (``meta``'s last row offset) as the
+    host staged it, which K9 sizes its table-order lists by; None reads it
+    from ``meta`` on each launch."""
 
     idx: torch.Tensor
     inv: torch.Tensor
     meta: torch.Tensor
     n_src: int
     widths: Tuple[int, ...]
+    rows: Optional[int] = None
 
     @property
     def n_out(self) -> int:
@@ -326,7 +330,8 @@ def flatten_side(tables: Dict[str, np.ndarray], stem: str, n_src: int,
     return BucketSide(idx=put(idx).to(device),
                       inv=put(np.ascontiguousarray(inv, np.int32)).to(
                           device, copy=True),
-                      meta=put(meta).to(device), n_src=n_src, widths=widths)
+                      meta=put(meta).to(device), n_src=n_src, widths=widths,
+                      rows=int(meta[0, -1]))
 
 
 def stage_bucket_tables(tables: Dict[str, np.ndarray], n_max: int,
@@ -346,8 +351,8 @@ PLAIN_ELEMS = 1 << 24
 _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
 _K9_SIGNATURES = {
-    "pgt_bucket_spmm": [_P, _I, _I, _I, _I, _P, _LL, _P, _I, _P, _I, _P, _P,
-                        _P, _P],
+    "pgt_bucket_spmm": [_P, _I, _I, _I, _I, _P, _LL, _P, _I, _P, _I, _I, _P,
+                        _P, _P, _P, _P],
 }
 _CAST_SIGNATURES = {
     "pgt_transport_cast": [_P, _I, _I, _I, _I, _P, _P, _I, _F, _P, _P, _P],
@@ -450,15 +455,23 @@ def bucket_gather(x: torch.Tensor, side: BucketSide,
     if side.nb > 128:
         raise ValueError(f"bucket_gather: {side.nb} buckets (the kernel "
                          "takes at most 128)")
+    rows = side.rows if side.rows is not None else int(side.meta[0, -1])
+    if rows + side.n_out >= 2 ** 31:
+        raise ValueError("bucket_gather: tables too large for the kernel")
     out = torch.empty((P, side.n_out, F), dtype=torch.float32,
                       device=x.device)
+    # the kernel's table-order lists: perm [P, rows], over [P, n_out],
+    # n_over [P]
+    scratch = torch.empty(P * (rows + side.n_out + 1), dtype=torch.int32,
+                          device=x.device)
     lib = _build.load("bucket_spmm", _K9_SIGNATURES)
     ptr = (lambda t: None if t is None else t.data_ptr())
     rc = lib.pgt_bucket_spmm(
         x.data_ptr(), _X_TYPES[x.dtype], P, R, F, side.idx.data_ptr(),
         side.idx.shape[1], side.meta.data_ptr(), side.nb,
-        side.inv.data_ptr(), side.n_out, ptr(in_deg), ptr(inv_scale),
-        out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+        side.inv.data_ptr(), side.n_out, rows, scratch.data_ptr(),
+        ptr(in_deg), ptr(inv_scale), out.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "bucket_spmm")
     bucket_gather.launches += 1
     return out

@@ -89,7 +89,7 @@ _SIGNATURES = {
 _WIRE_SIGNATURES = {
     "pgt_halo_amax": [_P, _I, _LL, _I, _I, _I, _I, _P, _P, _P, _P],
     "pgt_halo_wire": [_P, _I, _LL, _I, _I, _I, _I, _P, _P, _P, _I, _F, _P,
-                      _P, _P, _P],
+                      _P, _P, _I, _P],
 }
 _SCATTER_SIGNATURES = {
     "pgt_halo_scatter": [_P, _LL, _P, _LL, _P, _P, _LL, _P, _I, _I, _I, _I,
@@ -484,6 +484,18 @@ def _wire_args(x, send_idx, send_mask, b_max):
             None if send_mask is None else send_mask.data_ptr())
 
 
+def k15_vec(x: torch.Tensor, wire: torch.Tensor, out: torch.Tensor) -> int:
+    """K15's vector: the most elements (at most 16 bytes of ``x``) that F,
+    ``x``'s part stride and the ``x``, ``wire`` and ``out`` pointers are all
+    aligned to, so that every row of each starts on a vector."""
+    F = x.shape[2]
+    vec = 16 // x.element_size()
+    while vec > 1 and (F % vec or x.stride(0) % vec or any(
+            t.data_ptr() % (vec * t.element_size()) for t in (x, wire, out))):
+        vec //= 2
+    return vec
+
+
 def _decode(wire: torch.Tensor, inv: Optional[torch.Tensor],
             dtype: torch.dtype) -> torch.Tensor:
     """The receiver's decode: ``(wire.f32 * inv).astype(dtype)`` (JAX
@@ -568,6 +580,7 @@ def halo_wire(x: torch.Tensor, send_idx: Optional[torch.Tensor],
         None if amax is None else amax.data_ptr(), _OUT_TYPES[dt],
         F8_MAX.get(dt, 0.0), wire.data_ptr(),
         None if inv is None else inv.data_ptr(), out.data_ptr(),
+        k15_vec(x, wire, out),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "halo_wire")
     halo_wire.launches += 1

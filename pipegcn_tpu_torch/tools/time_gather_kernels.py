@@ -1,6 +1,6 @@
-"""Time K1 (the mean SpMM forward), K3 (its transpose), K6 (the GAT
-attention forward) and K8 (its src-keyed backward pass) of the port in one
-checkout, on the card:
+"""Time K1 (the mean SpMM forward), K3 (its transpose), K9 (the bucket
+ELL gather-sum), K6 (the GAT attention forward) and K8 (its src-keyed
+backward pass) of the port in one checkout, on the card:
 
     python3 pipegcn_tpu_torch/tools/time_gather_kernels.py <checkout> <label>
     python3 pipegcn_tpu_torch/tools/time_gather_kernels.py <checkout> <label> \\
@@ -8,6 +8,8 @@ checkout, on the card:
                             # their plain versions
     python3 pipegcn_tpu_torch/tools/time_gather_kernels.py <checkout> <label> \\
         --gat-only          # K6 and K8 alone, with --sweep's check of them
+    python3 pipegcn_tpu_torch/tools/time_gather_kernels.py <checkout> <label> \\
+        --k9-only           # K9 alone
 
 Shapes (random CSRs made on the card from a seed: uniform sources, no
 locality, as the serving layout's random parts):
@@ -23,6 +25,15 @@ locality, as the serving layout's random parts):
     centred at s n_out / n_src and 20 % uniformly over all n_out,
     ascending within the row: about 10 dense windows a 256-row group,
     ~2,900 edges each, as the block cell's tiles).
+  - K9: bucket tables (the checkout's ``BucketSide``, laid out as
+    ``build_sharded_bucket_tables`` and ``flatten_side`` lay them out,
+    built on the card by ``bucket_side``) at the training cell's sizes:
+    "K9 clustered" over ``clustered_csr``'s forward CSR (n_out = 71,792
+    outputs over n_src = 143,584 rows, 20,695,742 edges a part), e4m3,
+    bf16 and f32 rows divided by the in-degree, and e5m2 rows over its
+    transpose's tables (143,584 outputs over 71,792 rows, the backward's
+    shape); "K9 random e4m3" over ``random_csr`` at the forward's sizes,
+    where locality cannot help. F = 256.
   - K6 (training's NEG mode) and K8: the GAT cell's sizes (P = 2, n =
     71,792, R = 143,584, 20,695,742 edges a part, H = 4, dh = 64; K8 also
     at the logits layer's dh = 41), z rows f32, bf16 and e4m3 (K8's g rows
@@ -43,6 +54,7 @@ root, label = sys.argv[1], sys.argv[2]
 flags = sys.argv[3:]
 sys.path.insert(0, root)
 from pipegcn_tpu_torch.ops import _build, gat, spmm  # noqa: E402
+from pipegcn_tpu_torch.ops import bucket_spmm as bs  # noqa: E402
 
 SEED = 0
 P = 2
@@ -115,7 +127,80 @@ def clustered_csr(n_rows, n_idx, edges, seed, local=0.8, win=256, span=10):
 out = {"label": label, "csrc": str(_build.CSRC),
        "card": torch.cuda.get_device_name(0)}
 gat_only = "--gat-only" in flags
-_build.build(([] if gat_only else ["spmm_mean"]) + list(gat.LIBRARIES))
+k9_only = "--k9-only" in flags
+_build.build(["bucket_spmm"] if k9_only else
+             ([] if gat_only else ["spmm_mean", "bucket_spmm"])
+             + list(gat.LIBRARIES))
+
+
+def bucket_side(indptr, idx, n_src):
+    """The P parts' bucket tables of CSRs ``indptr [P, n_out + 1]``, ``idx
+    [P, E]`` (rows the outputs, each row's entries in CSR order) as a
+    ``BucketSide`` on the card: the ladder up to the largest degree, each
+    part's rows of a bucket in ascending order, the buckets padded to the
+    parts' largest count, inv to the zero row for empty rows (what
+    ``build_sharded_bucket_tables`` and ``flatten_side`` build on the
+    host)."""
+    P, n_out = indptr.shape[0], indptr.shape[1] - 1
+    ptr = indptr.long()
+    deg = ptr.diff(dim=1)
+    widths = bs._bucket_widths(int(deg.max()))
+    bid = torch.searchsorted(torch.tensor(widths, device="cuda"),
+                             deg.clamp(min=1)).clamp(max=len(widths) - 1)
+    bid[deg == 0] = -1
+    caps = [int((bid == b).sum(1).max()) for b in range(len(widths))]
+    kept = [b for b in range(len(widths)) if caps[b]]
+    row_off = [0]
+    elem_off = [0]
+    for b in kept:
+        row_off.append(row_off[-1] + caps[b])
+        elem_off.append(elem_off[-1] + caps[b] * widths[b])
+    tab = torch.full((P, max(elem_off[-1], 1)), n_src, dtype=torch.int32,
+                     device="cuda")
+    inv = torch.full((P, n_out), row_off[-1], dtype=torch.int32,
+                     device="cuda")
+    for k, b in enumerate(kept):
+        w = widths[b]
+        col = torch.arange(w, device="cuda")
+        for p in range(P):
+            rows = (bid[p] == b).nonzero().squeeze(1)
+            inv[p, rows] = (row_off[k] + torch.arange(
+                rows.numel(), device="cuda")).int()
+            pos = ptr[p, rows][:, None] + col
+            mat = torch.where(col < deg[p, rows][:, None],
+                              idx[p].index_select(0, pos.clamp(
+                                  max=idx.shape[1] - 1).reshape(-1)).view(
+                                      pos.shape), n_src)
+            tab[p, elem_off[k]:elem_off[k] + mat.numel()] = \
+                mat.reshape(-1).int()
+            del pos, mat
+    meta = torch.zeros((3, len(kept) + 1), dtype=torch.int64)
+    meta[0, 1:] = torch.tensor(row_off[1:])
+    meta[1, 1:] = torch.tensor(elem_off[1:])
+    meta[2, :-1] = torch.tensor([widths[b] for b in kept])
+    side = bs.BucketSide(idx=tab, inv=inv, meta=meta.cuda(), n_src=n_src,
+                         widths=tuple(widths[b] for b in kept))
+    if "rows" in side.__dataclass_fields__:  # the row count, as staged
+        side.rows = row_off[-1]
+    return side
+
+
+def csr_t(indptr, idx, n_src):
+    """The transpose CSRs of ``(indptr, idx)`` (rows the n_src sources,
+    each row's entries in ascending output order)."""
+    P = indptr.shape[0]
+    ip_t = torch.zeros((P, n_src + 1), dtype=torch.int32, device="cuda")
+    idx_t = torch.empty_like(idx)
+    for p in range(P):
+        rows = torch.repeat_interleave(
+            torch.arange(indptr.shape[1] - 1, device="cuda"),
+            indptr[p].diff().long())
+        order = torch.sort(idx[p], stable=True).indices
+        idx_t[p] = rows[order].int()
+        ip_t[p, 1:] = torch.bincount(idx[p].long(),
+                                     minlength=n_src).cumsum(0)
+        del rows, order
+    return ip_t, idx_t
 
 
 def k1_k3(gen):
@@ -199,8 +284,43 @@ def k3_clustered(gen):
     del it, dt, deg, g
 
 
+def k9(gen):
+    """K9 at the training cell's sizes: the clustered forward tables (e4m3,
+    bf16, f32 rows), their transpose's (e5m2), the random forward tables
+    (e4m3)."""
+    n, R, F = TRAIN["n_out"], TRAIN["n_src"], 256
+    ip, idx = clustered_csr(n, R, TRAIN["edges"], 9)
+    deg = deg_of(ip)
+    fwd = bucket_side(ip, idx, R)
+    bwd = bucket_side(*csr_t(ip, idx, R), n)
+    del ip, idx
+    x = torch.randn((P, R, F), generator=gen, device="cuda") * 2.0
+    g = torch.randn((P, n, F), generator=gen, device="cuda") * 1e-3
+    for name, side, v, d in (
+            ("e4m3", fwd, x.to(torch.float8_e4m3fn), deg),
+            ("e5m2", bwd, g.to(torch.float8_e5m2), None),
+            ("bf16", fwd, x.to(torch.bfloat16), deg),
+            ("f32", fwd, x, deg)):
+        out[f"K9 clustered {name} F={F}"] = time_ms(
+            lambda: bs.bucket_gather(v, side, d))
+    del fwd, bwd
+    ip, idx = random_csr(n, R, TRAIN["edges"], 10)
+    rnd = bucket_side(ip, idx, R)
+    deg = deg_of(ip)
+    del ip, idx
+    x8 = x.to(torch.float8_e4m3fn)
+    out[f"K9 random e4m3 F={F}"] = time_ms(
+        lambda: bs.bucket_gather(x8, rnd, deg))
+    del rnd, x, g, x8
+
+
+if k9_only:
+    k9(torch.Generator(device="cuda").manual_seed(SEED + 2))
+    print(json.dumps(out))
+    sys.exit(0)
 if not gat_only:
     k1_k3(torch.Generator(device="cuda").manual_seed(SEED))
+    k9(torch.Generator(device="cuda").manual_seed(SEED + 2))
 
 # --- K6 / K8 at the GAT cell's sizes ------------------------------------------
 gen = torch.Generator(device="cuda").manual_seed(SEED + 1)

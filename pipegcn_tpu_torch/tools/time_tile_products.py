@@ -1,9 +1,12 @@
 """Time K12 / K13 (the tile products, f32 rows and the bf16 mode), K16 /
 K17 (the union-gather forward and transpose, both modes), K11 (the
-per-part amax, plain and ``deg`` forms) and K5 (the reverse-ring return,
-one call and 20 back to back) of the port in one checkout, on the card:
+per-part amax, plain and ``deg`` forms), K5 (the reverse-ring return,
+one call and 20 back to back) and K15 (the halo wire's encode, ring copy
+and decode) of the port in one checkout, on the card:
 
     python3 pipegcn_tpu_torch/tools/time_tile_products.py <checkout> <label>
+    python3 pipegcn_tpu_torch/tools/time_tile_products.py <checkout> <label> \\
+        --k15-only          # K15 alone
 
 Shapes. K12 / K13: the block cell's (P = 2, T = 256, F = 256, n_max =
 71,792, H = n_max, ~5,600 random pairs a part each way, random 1-bit A).
@@ -23,7 +26,12 @@ SAGE cell's return, the halo rows of a [2, n_max + H, 256] f32 cotangent
 ``copy_`` of the same blocks, from the strided view and from a
 contiguous copy (the card's copy floor), one call per event
 pair and 20 calls back to back (the card's time a call, without the
-wrapper's host work).
+wrapper's host work). K15: the wire cell's (P = 2, n_max = 71,792 bf16
+rows of F = 256): the exchange of a block of 71,792 send rows, a random
+permutation of each part's rows, mask set, on the e4m3 and bf16 wires
+(the e4m3 wire with its blocks' K14 amax, computed once); the return of
+the halo rows of a [2, n_max + H, 256] bf16 cotangent (a strided view, as
+K5's) on the e5m2 and bf16 wires; one call and 20 back to back.
 
 Prints one JSON line of medians (ms). To compare two commits, unpack the
 other one (``git archive``) into a git-ignored directory and run the two
@@ -43,14 +51,66 @@ from pipegcn_tpu_torch.ops import block_spmm as blk  # noqa: E402
 from pipegcn_tpu_torch.ops import bucket_spmm as bs  # noqa: E402
 from pipegcn_tpu_torch.parallel import halo  # noqa: E402
 
+k15_only = "--k15-only" in sys.argv[3:]
 # the checkout's kernels, built together (a parent checkout may lack a
 # source this one has)
-_build.build([n for n in ("block_spmm", "block_tma", "transport_cast",
-                          "halo_gather")
+_build.build([n for n in (("halo_wire",) if k15_only else (
+    "block_spmm", "block_tma", "transport_cast", "halo_gather", "halo_wire"))
               if (_build.CSRC / f"{n}.cu").exists()])
 torch.manual_seed(0)
 P, T, F, G = 2, 256, 256, 4
 n_out, n_in = 71792, 143584
+
+
+def time_ms(fn, reps=30, warmup=5):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        ts.append(s.elapsed_time(e))
+    return sorted(ts)[len(ts) // 2]
+
+
+def batched_ms(fn, calls=20):
+    def run():
+        for _ in range(calls):
+            fn()
+    return time_ms(run, reps=10, warmup=1) / calls
+
+
+def k15(out):
+    """K15 at the wire cell's shape: one call and 20 back to back."""
+    h = torch.randn((P, n_out, F), device="cuda").bfloat16() * 2.0
+    sidx = torch.stack([torch.randperm(n_out, device="cuda")
+                        for _ in range(P)]).int().view(P, 1, n_out)
+    smask = torch.ones((P, 1, n_out), dtype=torch.bool, device="cuda")
+    cot = (torch.randn((P, n_out + n_out, F), device="cuda")
+           * 1e-3).bfloat16()[:, n_out:]
+    for key, x, si, sm, dt in (
+            ("K15 exchange e4m3", h, sidx, smask, torch.float8_e4m3fn),
+            ("K15 return e5m2", cot, None, None, torch.float8_e5m2),
+            ("K15 exchange bf16", h, sidx, smask, torch.bfloat16),
+            ("K15 return bf16", cot, None, None, torch.bfloat16)):
+        amax = (halo.halo_amax(x, si, sm, n_out) if dt != torch.bfloat16
+                else None)
+        out[key] = time_ms(
+            lambda: halo.halo_wire(x, si, sm, n_out, dt, amax))
+        out[key + " batched"] = batched_ms(
+            lambda: halo.halo_wire(x, si, sm, n_out, dt, amax))
+
+
+if k15_only:
+    res = {"label": label, "csrc": str(_build.CSRC),
+           "card": torch.cuda.get_device_name(0)}
+    k15(res)
+    print(json.dumps(res))
+    sys.exit(0)
 n_out_t, n_in_t = -(-n_out // T), -(-n_in // T)
 B = n_out_t * 20  # A blocks a part: 5,620 (the cell: 5,656)
 a = torch.randint(0, 256, (P, B, T, T // 8), dtype=torch.uint8).cuda()
@@ -116,21 +176,6 @@ tgt = blk.BlockTables(a=a, packed=True, tile=T, fwd=ugt, bwd=ugt,
                       rem_fwd=None, rem_bwd=None)
 
 
-def time_ms(fn, reps=30, warmup=5):
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    ts = []
-    for _ in range(reps):
-        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        s.record()
-        fn()
-        e.record()
-        e.synchronize()
-        ts.append(s.elapsed_time(e))
-    return sorted(ts)[len(ts) // 2]
-
-
 out = {"label": label, "csrc": str(_build.CSRC),
        "card": torch.cuda.get_device_name(0),
        "K16 union_slots": int(ug.ptr[:, -1].sum()),
@@ -170,13 +215,6 @@ out["K11 library vector_norm"] = time_ms(lambda: torch.linalg.vector_norm(
 del act, cot, deg
 
 
-def batched_ms(fn, calls=20):
-    def run():
-        for _ in range(calls):
-            fn()
-    return time_ms(run, reps=10, warmup=1) / calls
-
-
 full = torch.randn((P, n_out + n_out, F), device="cuda")
 gh = full[:, n_out:]  # H = n_max at P = 2: one block a part
 ridx = ((torch.arange(P, device="cuda")[:, None] + 1) % P * n_out
@@ -193,4 +231,6 @@ out["K5 copy_ floor batched"] = batched_ms(lambda: dst.copy_(gh))
 ghv = ghc.view(P, n_out, F)
 out["K5 copy_ contiguous"] = time_ms(lambda: dst.copy_(ghv))
 out["K5 copy_ contiguous batched"] = batched_ms(lambda: dst.copy_(ghv))
+del full, gh, ghc, ghv, dst, ridx
+k15(out)
 print(json.dumps(out))

@@ -314,3 +314,167 @@ def test_plain_k9_is_the_csr_mean():
     assert not torch.equal(junk.idx, staged.fwd.idx)
     assert torch.equal(pbs.bucket_gather(fb, junk, deg),
                        pbs.bucket_gather(fb, staged.fwd, deg))
+
+
+# ---------------------------------------------------------------------------
+# K9's design (csrc/bucket_spmm.cu bucket_kernel), emulated in numpy
+
+
+# K9's geometry (csrc/bucket_spmm.cu): kGroup lanes a row, one vector of
+# at most 16 bytes a lane; Geometry<XT>: threads a CTA, rows a lane group
+# and entries a row a step, by row type
+K9_GROUP = 16
+K9_GEOMETRY = {torch.float32: (1024, 3, 2), torch.bfloat16: (1024, 1, 8),
+               torch.float8_e4m3fn: (1024, 1, 4),
+               torch.float8_e5m2: (1024, 1, 4)}
+
+
+def _k9_vec(F, dt):
+    """The kernel's vector (elements): the widest of 16 bytes and down
+    that F allows (the tensors here are aligned)."""
+    vec = 16 // torch.empty((), dtype=dt).element_size()
+    while F % vec:
+        vec //= 2
+    return vec
+
+
+def _k9_emulated(x, side, in_deg=None, inv_scale=None):
+    """K9's walk in numpy f32: for every part, the pre-pass's list (each
+    output at its table row, in output order; the outputs sent to the zero
+    row or to a row already claimed after them), then for every CTA
+    (``threads / K9_GROUP`` lane groups of ``rows`` consecutive list
+    entries each, entry ``slot + slots * j``), column slice of
+    ``K9_GROUP`` vectors and lane group, its rows stepped together a chunk
+    of ``K9_GROUP`` table entries at a time, ``depth`` entries of each row
+    a step, each element adding its row's widened values in table order
+    from +0.0; a sentinel (>= n_src) skipped wherever it sits, a negative
+    index read as row 0, an inv clipped to [0, total] and its bucket found
+    by the kernel's binary search over the row offsets. Returns the output
+    and each (part, output)'s visited entry offsets (slice 0)."""
+    P, n_src, F = x.shape
+    threads, rpg, depth = K9_GEOMETRY[x.dtype]
+    slots, G = threads // K9_GROUP, K9_GROUP
+    W = G * _k9_vec(F, x.dtype)
+    xf = x.float().numpy()
+    idx = side.idx.numpy()
+    inv = side.inv.numpy().astype(np.int64)
+    meta = side.meta.numpy()
+    nb, n_out = side.nb, side.n_out
+    total = int(meta[0, nb])
+    rows = side.rows if side.rows is not None else total
+    out = np.zeros((P, n_out, F), np.float32)
+    visits = {}
+    for p in range(P):
+        perm, over = [-1] * rows, []
+        for o in range(n_out):
+            t = max(int(inv[p, o]), 0)
+            if t < min(total, rows) and perm[t] < 0:
+                perm[t] = o
+            else:
+                over.append(o)
+        order = perm + over
+        for row0 in range(0, len(order), slots * rpg):
+            for c0 in range(0, F, W):
+                cols = slice(c0, min(F, c0 + W))
+                for slot in range(slots):
+                    walk = {}  # output -> [entry offsets, next chunk, sum]
+                    for j in range(rpg):
+                        r = row0 + slot + slots * j
+                        if r >= len(order) or order[r] < 0:
+                            continue
+                        i = order[r]
+                        t = max(int(inv[p, i]), 0)
+                        ents = []
+                        if t < total:
+                            lo, hi = 0, nb - 1
+                            while lo < hi:
+                                mid = (lo + hi + 1) >> 1
+                                lo, hi = ((mid, hi) if meta[0, mid] <= t
+                                          else (lo, mid - 1))
+                            w = int(meta[2, lo])
+                            e0 = int(meta[1, lo]) + (t - int(meta[0, lo])) * w
+                            ents = list(range(e0, e0 + w))
+                        walk[i] = [ents, 0, np.zeros(cols.stop - c0,
+                                                     np.float32)]
+                    while any(c < len(e) for e, c, _ in walk.values()):
+                        # a chunk of each row, ``depth`` entries a step
+                        for q in range(0, G, depth):
+                            for i, st in walk.items():
+                                ents, c, acc = st
+                                for e in ents[c + q:c + q + depth]:
+                                    s = int(idx[p, e])
+                                    if s >= n_src:
+                                        continue
+                                    acc = (acc + xf[p, max(s, 0), cols]
+                                           ).astype(np.float32)
+                                    if c0 == 0:
+                                        visits.setdefault((p, i),
+                                                          []).append(e)
+                                st[2] = acc
+                        for st in walk.values():
+                            st[1] += G
+                    for i, (_, _, acc) in walk.items():
+                        y = acc
+                        if in_deg is not None:
+                            y = (y / in_deg[p, i].numpy()).astype(np.float32)
+                        if inv_scale is not None:
+                            y = (y * inv_scale[p].numpy()).astype(np.float32)
+                        out[p, i, cols] = y
+    return torch.from_numpy(out), visits
+
+
+@pytest.mark.parametrize("F", [1, 41, 256])
+def test_k9_walk_sums_each_row_in_table_order(F):
+    """K9's walk (numpy emulation at the kernel's geometry: the pre-pass's
+    outputs in table order, lane groups, rows stepped together, chunks of
+    the table, column slices) visits each real entry of each output's
+    table row once, in table order, and gives
+    ``bucket_gather_plain``'s bits on both directions' tables, for f32,
+    bf16, e4m3 and e5m2 rows, with the in-degree and an inverse scale:
+    on tables flipped to hold sentinels in the middle of rows and
+    negative indices too, and with rows sent to the zero row (empty rows,
+    and an inv flipped past the tables) or to a row another output claims
+    (an inv flipped to repeat one)."""
+    P = 2
+    sg = sharded(P)
+    n_src = sg.n_max + sg.halo_size
+    t = pbs.stage_bucket_tables(
+        pbs.build_sharded_bucket_tables(port_sharded(sg)), sg.n_max, n_src,
+        CPU)
+    # the flips: a sentinel in the middle of the widest rows, a negative
+    # index in some row of every bucket, an inv past the tables
+    flip = pbs.BucketSide(**{**t.fwd.__dict__, "idx": t.fwd.idx.clone(),
+                             "inv": t.fwd.inv.clone()})
+    meta = flip.meta.numpy()
+    w_top = int(meta[2, flip.nb - 1])
+    e_top = int(meta[1, flip.nb - 1])
+    flip.idx[:, e_top + w_top // 2] = n_src + 3
+    flip.idx[0, meta[1, :-1]] = -2
+    flip.inv[1, 3] = int(meta[0, -1]) + 7
+    flip.inv[0, 9] = flip.inv[0, 2]
+    rng = np.random.default_rng(F)
+    deg = torch.from_numpy(np.maximum(sg.in_deg, 1).astype(np.float32))
+    scale = torch.tensor([0.5, 4.0])
+    for dt in (torch.float32, torch.bfloat16, torch.float8_e4m3fn,
+               torch.float8_e5m2):
+        for side, d, sc in ((t.fwd, deg, None), (t.bwd, None, scale),
+                            (flip, deg, scale)):
+            x = torch.from_numpy(rng.standard_normal(
+                (P, side.n_src, F)).astype(np.float32) * 3.0)
+            x = x.to(dt) if dt in (torch.float32, torch.bfloat16) else \
+                pbs.quantize(x, dt)
+            got, visits = _k9_emulated(x, side, d, sc)
+            assert_same_values(got, pbs.bucket_gather_plain(x, side, d, sc),
+                               f"{dt} {side.n_out}")
+            # every real entry of every row once, in table order
+            idx, m = side.idx.numpy(), side.meta.numpy()
+            for p in range(P):
+                for i in range(side.n_out):
+                    tr = max(int(side.inv[p, i]), 0)
+                    want = []
+                    if tr < int(m[0, -1]):
+                        b = int(np.searchsorted(m[0], tr, side="right")) - 1
+                        e0 = int(m[1, b]) + (tr - int(m[0, b])) * int(m[2, b])
+                        want = [e for e in range(e0, e0 + int(m[2, b]))
+                                if idx[p, e] < side.n_src]
+                    assert visits.get((p, i), []) == want, (p, i)

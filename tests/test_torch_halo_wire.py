@@ -32,7 +32,8 @@ from pipegcn_tpu.parallel.trainer import Trainer as JaxTrainer
 from pipegcn_tpu.partition import ShardedGraph, partition_graph
 from pipegcn_tpu_torch.models import ModelConfig, first_copy, params_from_jax
 from pipegcn_tpu_torch.ops import bucket_spmm as pbs
-from pipegcn_tpu_torch.ops.bucket_spmm import TransportShare, quantize
+from pipegcn_tpu_torch.ops.bucket_spmm import (F8_MAX, TransportShare,
+                                               quantize)
 from pipegcn_tpu_torch.parallel import halo as phalo
 from pipegcn_tpu_torch.parallel.trainer import TrainConfig, Trainer
 from test_torch_bucket import to_torch
@@ -392,3 +393,110 @@ def test_wire_trainer_matches_jax(monkeypatch, P, mode):
         t.train_epoch(0)
     assert not torch.equal(runs[0].comm["halo"]["1"],
                            runs[1].comm["halo"]["1"])
+
+
+# ---------------------------------------------------------------------------
+# K15's design (csrc/halo_wire.cu wire_kernel), emulated
+
+
+# K15's geometry (csrc/halo_wire.cu): kWireWarps warps a block, each
+# kWireRows rows of one slot block, a block a chunk of rows
+K15_WARPS, K15_ROWS = 8, 4
+
+
+def _k15_emulated(x, send_idx, send_mask, b_max, dt, amax):
+    """K15's split: the vector ``phalo.k15_vec`` picks; for every slot
+    block (receiver r, distance d; sender s), each block's chunk of
+    ``K15_WARPS * K15_ROWS`` rows, each warp's rows, each lane's vectors
+    (lane, lane + 32, ...): the offsets in x's storage that the vector's
+    elements are read from (the sender row's, -1 for a masked row) and the
+    receiver slot's offsets they are written to. Then the elements so read
+    are encoded as the plain cast does (the sender block's scale) and
+    decoded. Returns ``(halo, wire, inv, writes)``, writes the count of
+    stores of each element."""
+    P, n, F = x.shape
+    B = b_max
+    wire = torch.empty((P, P - 1, B, F), dtype=dt)
+    out = torch.empty((P, (P - 1) * B, F), dtype=x.dtype)
+    vec = phalo.k15_vec(x, wire, out)
+    assert F % vec == 0 and x.stride(0) % vec == 0
+    assert (x.data_ptr() // x.element_size()) % vec == 0
+    flat = x.as_strided(((P - 1) * x.stride(0) + n * F,), (1,),
+                        x.storage_offset())
+    src = np.full(out.numel(), -2, np.int64)
+    writes = np.zeros(out.numel(), np.int64)
+    nvec, chunk = F // vec, K15_WARPS * K15_ROWS
+    lanes = [(np.arange(lane, nvec, 32)[:, None] * vec
+              + np.arange(vec)).ravel() for lane in range(32)]
+    senders = {}
+    for r in range(P):
+        for d1 in range(P - 1):
+            s = (r - d1 - 1) % P if send_idx is not None else (r + d1 + 1) % P
+            slot = r * (P - 1) + d1
+            senders[slot] = (s, d1)
+            for c0 in range(0, B, chunk):
+                for w0 in range(c0, min(B, c0 + chunk), K15_ROWS):
+                    for b in range(w0, min(B, w0 + K15_ROWS)):
+                        row = s * x.stride(0) + (d1 * B + b) * F
+                        if send_idx is not None:
+                            row = -1
+                            if send_mask[s, d1, b]:
+                                i = min(max(int(send_idx[s, d1, b]), 0),
+                                        n - 1)
+                                row = s * x.stride(0) + i * F
+                        for el in lanes:
+                            o = (slot * B + b) * F + el
+                            src[o] = row + el if row >= 0 else -1
+                            writes[o] += 1
+    got = torch.from_numpy(src)
+    vals = torch.where(got >= 0, flat[got.clamp(min=0)].float(),
+                       torch.zeros(()))
+    vals = vals.view(P * (P - 1), B, F)
+    inv = None if amax is None else torch.empty((P, P - 1))
+    wv, ov = wire.view(-1, B, F), out.view(-1, B, F)
+    for slot, (s, d1) in senders.items():
+        scale = (None if amax is None
+                 else pbs.pow2_scale(amax[s, d1].view(1), F8_MAX[dt]))
+        q = pbs.quantize(vals[slot:slot + 1], dt, None, scale)
+        y = q.float() if scale is None else q.float() * (1.0 / scale[0])
+        wv[slot], ov[slot] = q[0], y[0].to(x.dtype)
+        if inv is not None:
+            inv.view(-1)[slot] = 1.0 / scale[0]
+    return out, wire, inv, torch.from_numpy(writes)
+
+
+@pytest.mark.parametrize("F", [1, 3, 41, 48, 256, 602])
+def test_k15_chunks_cover_every_element_once(F):
+    """K15's split (the vector its wrapper picks, a block a chunk of rows,
+    a warp's rows, a lane's vectors) writes every (row, column) of the
+    payload and the decoded halo exactly once, and what it writes is
+    ``halo_wire_plain``'s, bit for bit: f32 and bf16 rows, the exchange
+    (P = 3, clipped and masked send rows) and the return, from aligned
+    parts and from views whose part stride (and base) is odd, every
+    wire."""
+    P, n, B = 3, 40, 37  # B past one block's chunk of rows
+    rng = np.random.default_rng(F)
+    idx = torch.from_numpy(rng.integers(-2, n + 2, (P, P - 1, B)).astype(
+        np.int32))
+    mask = torch.from_numpy(rng.random((P, P - 1, B)) < 0.8)
+    for rows in (torch.float32, torch.bfloat16):
+        big = torch.from_numpy(rng.standard_normal(
+            (P, n + 1, F)).astype(np.float32) * 3.0).to(rows)
+        g = torch.from_numpy(rng.standard_normal(
+            (P, 1 + (P - 1) * B, F)).astype(np.float32)).to(rows)
+        cases = [(big[:, :n].contiguous(), idx, mask),
+                 (big[:, 1:], idx, mask),  # part stride (n + 1) F
+                 (g[:, 1:].contiguous(), None, None),
+                 (g[:, 1:], None, None)]
+        for x, si, sm in cases:
+            for dt in (torch.float8_e4m3fn, torch.float8_e5m2, BF16):
+                amax = (phalo.halo_amax(x, si, sm, B) if dt in F8_MAX
+                        else None)
+                got = _k15_emulated(x, si, sm, B, dt, amax)
+                want = phalo.halo_wire_plain(x, si, sm, B, dt, amax)
+                assert bool((got[3] == 1).all()), (rows, dt, x.stride())
+                for a, b in zip(got[:3], want):
+                    if b is not None:
+                        assert torch.equal(a.view(torch.uint8),
+                                           b.view(torch.uint8)), (
+                            rows, dt, x.stride())
