@@ -121,9 +121,14 @@ stack (union-gather block tiles and the fp8 halo wire at bf16):
      dtype, at the cell and on edge cases: one CTA's rows spanning every
      bucket width, rows one entry past a lane group's chunk, sentinels
      in the middle of rows, negative indices, empty rows, F = 1 to 602;
-     K10 / K11 bit-exact), three planted faults (K11's: one max over
-     both parts);
- 18. times K9-K11, the bucket epoch and its split;
+     K10 / K11 bit-exact at the cell on f32 and bf16 rows; K10 on its
+     vector's edge cases: F = 1, 3, 41, 164, 602 at P = 3, rows x F no
+     multiple of the vector, storage one element past a 16-byte boundary,
+     every input and output type, with and without deg and the amax
+     scale, each rerun bit-identical), three planted faults (K11's: one
+     max over both parts);
+ 18. times K9-K11 (K10 also on bf16 rows, and 20 calls back to back),
+     the bucket epoch and its split;
  19. runs the bucket command at ``--dtype bfloat16`` on the same trainer
      and tables for a few epochs, then its step check; a few GCN epochs
      on the bucket path and their step check;
@@ -177,8 +182,11 @@ stack (union-gather block tiles and the fp8 halo wire at bf16):
      cases (all-masked and zero-amax blocks, a NaN row, the bit-pattern
      sweep; the vector's: F = 1, 3, 41, 602, a strided return view whose
      part stride is no multiple of 16 bytes, B below a block's chunk,
-     every row masked); the decode with the receiver's own scale must
-     fail;
+     every row masked); K14 on its own edge cases (F = 1, 3, 41, 42, 602,
+     a return view of odd part stride, B below a chunk, every row masked,
+     a NaN that must reach its own block's word only, 20,000-row blocks);
+     one max over each sender's blocks at every distance must fail the
+     K14 check, the decode with the receiver's own scale the K15 check;
  32. holds K16 / K17 against their plain version (every A encoding,
      groups 2, 4 and 8, a tail group, an empty group, a one-tile union),
      each rerun bit-identical; a flipped A bit must fail; K16's pre-split
@@ -193,7 +201,7 @@ stack (union-gather block tiles and the fp8 halo wire at bf16):
      K13's over hand-made pair lists (their union view at G = 1; T = 32
      to 256), where in each A encoding a changed A entry and A read
      untransposed must fail; each check names the C entry it ran;
- 33. times K14-K17, reports the union dedupe beside K12's group-1 time,
+ 33. times K14-K17 (K14 also 20 calls back to back), reports the union dedupe beside K12's group-1 time,
      the wire cell's epoch and its split;
  34. trains this slice's cell, the integrity plane: the reddit.sh command
      plus ``--integrity-check-every 2`` through the CLI's functions on the
@@ -226,8 +234,8 @@ stack (union-gather block tiles and the fp8 halo wire at bf16):
      types, times at the shapes whose launches are counted), a line for
      each cell, the nvidia-smi line, and last ``{"ok": true, "device":
      {...}}``. With ``--parent DIR`` (a parent commit unpacked with ``git
-     archive``) it first times K5, K11, K12, K13, K15, K16 and K17 of DIR
-     against this checkout's with
+     archive``) it first times K5, K10, K11, K12, K13, K14, K15, K16 and
+     K17 of DIR against this checkout's with
      ``pipegcn_tpu_torch/tools/time_tile_products.py`` and K1, K3 (random
      rows, and at the training cell's locality), K9 (the training cell's
      sizes: clustered tables in every row type, random tables at e4m3), K6
@@ -2433,9 +2441,9 @@ def gcn_phase(args, sg, spmm, halo):
 # K9, K10 and K11
 
 
-def check_cast(name, got, ref) -> int:
-    """Bit-identical, except that any NaN equals any NaN. Returns the
-    count of differing elements (0 when the check passes)."""
+def cast_differs(name, got, ref) -> int:
+    """The count of elements whose bits differ, any NaN equal to any
+    NaN (shapes and dtypes must agree)."""
     import torch
 
     require(got.shape == ref.shape and got.dtype == ref.dtype,
@@ -2444,7 +2452,13 @@ def check_cast(name, got, ref) -> int:
     bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[
         got.element_size()]
     differ = (gn != rn) | (~gn & ~rn & (got.view(bits) != ref.view(bits)))
-    n_diff = int(differ.sum())
+    return int(differ.sum())
+
+
+def check_cast(name, got, ref) -> int:
+    """Bit-identical, except that any NaN equals any NaN. Returns the
+    count of differing elements (0 when the check passes)."""
+    n_diff = cast_differs(name, got, ref)
     log(f"  {name}: bit-exact (NaN = NaN) {'ok' if n_diff == 0 else 'FAIL'}"
         f" ({n_diff} of {got.numel()} elements differ)")
     require(n_diff == 0, f"{name}: kernel is not bit-exact against its "
@@ -2731,22 +2745,80 @@ def cast_sweep():
         1, -1, 128).cuda()
 
 
+def k10_edge_cases(bs, held):
+    """K10 bit-exact (y and inv_scale, NaN = NaN) on the vector's edge
+    cases, each rerun bit-identical: P = 3 parts of 37 rows at F = 1, 3,
+    41, 164 and 602 (at odd F a part's rows x F is no multiple of the
+    vector) and of 20,000 rows at F = 164 (every block strides over
+    several chunks); f32 and bf16 input, from aligned storage and from a
+    contiguous view one element past it (the narrower vectors); every
+    output type, with and without deg and the amax scale; a NaN, an
+    infinity and a value past the fp8 range in every input. One log line
+    a shape."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    P = 3
+    for F, rows in ((1, 37), (3, 37), (41, 37), (164, 37), (602, 37),
+                    (164, 20000)):
+        n = P * rows * F
+        base = torch.randn(n + 1, generator=gen, device="cuda") * 3.0
+        base[[7 % n, 11 % n, n - 1]] = torch.tensor(
+            [float("nan"), float("inf"), 1e6], device="cuda")
+        deg = torch.randint(1, 50, (P, rows), generator=gen,
+                            device="cuda").float()
+        checks, vecs = 0, set()
+        for src in (torch.float32, torch.bfloat16):
+            buf = base.to(src)
+            for x in (buf[:n].view(P, rows, F), buf[1:].view(P, rows, F)):
+                for dg in (None, deg):
+                    a = bs.part_amax_plain(x, dg)
+                    for dt in (torch.float8_e4m3fn, torch.float8_e5m2,
+                               torch.bfloat16):
+                        for amax in (None, a):
+                            tag = (f"K10 edge F={F} rows={rows} {src} -> "
+                                   f"{dt} offset {x.storage_offset()}"
+                                   f"{' / deg' if dg is not None else ''}"
+                                   f"{' amax' if amax is not None else ''}")
+                            got = bs.transport_cast(x, dt, dg, amax)
+                            ref = bs.transport_cast_plain(x, dt, dg, amax)
+                            held("K10", tag, got[0], ref[0], quiet=True)
+                            if ref[1] is not None:
+                                held("K10", tag + " inv_scale", got[1],
+                                     ref[1], quiet=True)
+                            again = bs.transport_cast(x, dt, dg, amax)
+                            require(all(torch.equal(
+                                u.view(torch.uint8), v.view(torch.uint8))
+                                for u, v in zip(got, again)
+                                if u is not None),
+                                f"{tag}: a rerun is not bit-identical")
+                            vecs.add(bs.k10_vec(x, got[0], dg))
+                            checks += 1
+        log(f"  K10 edge cases F={F}, P={P} x {rows} rows: {checks} casts "
+            f"bit-exact (NaN = NaN) and rerun bit-identical, vectors of "
+            f"{sorted(vecs)} elements")
+
+
 def k10_k11_phase(trainer, bs, halo):
     """K10 bit-exact against its plain version on the cell's activations
     and cotangents at F = 256 and at GCN layer 0's F = 602 (the exchanged
-    features; several passes of the kernel's column loop), with static
-    and amax scales and the backward's fused g / in_deg, and on a sweep
-    of f32 bit patterns in f32 and bf16; K11 exact on the same inputs; a
-    scale off by 2 must fail K10's check, one max over both parts K11's. Returns, per kernel, the
-    largest |difference| over the elements finite in both, the count of
-    differing elements and the count of elements compared."""
+    features; several passes of the kernel's column loop), f32 and bf16
+    rows, with static and amax scales and the backward's fused g / in_deg,
+    on a sweep of f32 bit patterns in f32 and bf16 and on the vector's
+    edge cases (``k10_edge_cases``); K11 exact on the same inputs; a
+    scale off by 2 must fail K10's check, one max over both parts K11's.
+    Returns, per kernel, the largest |difference| over the elements
+    finite in both, the count of differing elements and the count of
+    elements compared."""
     import torch
 
     d = trainer.data
     res = {"K10": [0.0, 0, 0], "K11": [0.0, 0, 0]}
 
-    def held(k, name, got, ref):
-        n = check_cast(name, got, ref)
+    def held(k, name, got, ref, quiet=False):
+        n = (cast_differs if quiet else check_cast)(name, got, ref)
+        require(n == 0, f"{name}: kernel is not bit-exact against its "
+                f"plain version ({n} elements differ)")
         r = res[k]
         r[0], r[1], r[2] = (max(r[0], cast_err(got, ref)), r[1] + n,
                             r[2] + got.numel())
@@ -2755,22 +2827,27 @@ def k10_k11_phase(trainer, bs, halo):
     feat = halo.halo_exchange(d.feat, d.send_idx, d.send_mask)
     _, cot602 = transport_inputs(d, 25, F=feat.shape[-1])
     for F, (a_in, c_in) in ((256, (act, cot)), (602, (feat, cot602))):
-        for dt in (torch.float8_e4m3fn, torch.float8_e5m2, torch.bfloat16):
-            for name, x, deg in (("activations", a_in, None),
-                                 ("cotangents / in_deg", c_in, d.in_deg)):
+        for src in (torch.float32, torch.bfloat16):
+            for name, x, deg in (("activations", a_in.to(src), None),
+                                 ("cotangents / in_deg", c_in.to(src),
+                                  d.in_deg)):
                 a = bs.part_amax(x, deg)
-                held("K11", f"K11 {name} F={F} (cell)", a,
+                held("K11", f"K11 {name} {src} F={F} (cell)", a,
                      bs.part_amax_plain(x, deg))
-                for amax in (None, a):
-                    got = bs.transport_cast(x, dt, deg, amax)
-                    ref = bs.transport_cast_plain(x, dt, deg, amax)
-                    tag = (f"K10 {dt} {name} F={F}"
-                           f"{' amax' if amax is not None else ''}")
-                    held("K10", tag + " (cell)", got[0], ref[0])
-                    if ref[1] is not None:
-                        held("K10", tag + " inv_scale", got[1], ref[1])
-                    del got, ref
+                for dt in (torch.float8_e4m3fn, torch.float8_e5m2,
+                           torch.bfloat16):
+                    for amax in (None, a):
+                        got = bs.transport_cast(x, dt, deg, amax)
+                        ref = bs.transport_cast_plain(x, dt, deg, amax)
+                        tag = (f"K10 {src} -> {dt} {name} F={F}"
+                               f"{' amax' if amax is not None else ''}")
+                        held("K10", tag + " (cell)", got[0], ref[0])
+                        if ref[1] is not None:
+                            held("K10", tag + " inv_scale", got[1], ref[1])
+                        del got, ref
+                del x
     del feat, cot602
+    k10_edge_cases(bs, held)
     sweep = cast_sweep()
     for src in (torch.float32, torch.bfloat16):
         x = sweep.to(src)
@@ -2963,8 +3040,9 @@ def bucket_timings(trainer, bs):
     """K9 forward and backward in each transport dtype at the cell's
     shapes (ms, plain ms, bound; cuSPARSE over the CSR for f32 only: no
     single PyTorch call gathers bf16 or fp8 rows into f32 sums), K10
-    forward (e4m3) and backward (e5m2, g / in_deg fused) against
-    ``clamp().to()`` (two calls), K11 against one
+    forward (e4m3) and backward (e5m2, g / in_deg fused) on f32 and on
+    bf16 rows (the bf16 cells' forward; their backward casts f32
+    cotangents) against ``clamp().to()`` (two calls), K11 against one
     ``torch.linalg.vector_norm(ord=inf)``, both also 20 calls back to
     back (``batched_ms``: at ~0.1 ms an event pair around one call counts
     the wrapper's host work as well). Bounds count each input read
@@ -3014,19 +3092,29 @@ def bucket_timings(trainer, bs):
                       f"entries={E} {dt}")
     for name, x, dt, deg in (
             ("forward e4m3", act, torch.float8_e4m3fn, None),
-            ("backward e5m2", cot, torch.float8_e5m2, d.in_deg)):
+            ("backward e5m2", cot, torch.float8_e5m2, d.in_deg),
+            ("forward e4m3 bf16 rows", act.bfloat16(), torch.float8_e4m3fn,
+             None),
+            ("backward e5m2 bf16 rows", cot.bfloat16(), torch.float8_e5m2,
+             d.in_deg)):
         m = bs.F8_MAX[dt]
-        n_bytes = x.numel() * 5 + (deg.numel() * 4 if deg is not None else 0)
+        n_bytes = (x.numel() * (x.element_size() + 1)
+                   + (deg.numel() * 4 if deg is not None else 0))
         ops = x.numel() * (2 if deg is not None else 1)
+        lib_fn = (lambda: torch.clamp(x, -m, m).to(dt))  # noqa: E731
         out["K10"][name] = dict(
             ms=time_ms(lambda: bs.transport_cast(x, dt, deg)),
             plain_ms=time_ms(lambda: bs.transport_cast_plain(x, dt, deg)),
-            library_ms=time_ms(lambda: torch.clamp(x, -m, m).to(dt)),
+            library_ms=time_ms(lib_fn),
+            batched_ms=batched_ms(lambda: bs.transport_cast(x, dt, deg)),
+            library_batched_ms=batched_ms(lib_fn),
             library_calls="torch.clamp + Tensor.to (two calls; the "
                           "backward's division not included)",
             bound=bound_ms(n_bytes, ops),
-            shape=f"{tuple(x.shape)} f32 -> {dt}"
+            shape=f"{tuple(x.shape)} {t_dtype(x)} -> {dt}"
                   f"{' / in_deg' if deg is not None else ''}")
+        if x.dtype != torch.float32:
+            continue  # the amax scale and K11: f32 rows
         a = bs.part_amax(x, deg)
         scaled = dict(
             ms=time_ms(lambda: bs.transport_cast(x, dt, deg, a)),
@@ -4189,14 +4277,16 @@ def bf16_gat_phase(args, sg, eval_graphs, eval_cache, spmm, halo):
     return trainer, stats
 
 
-def bf16_gat_split(trainer, cnt, g16, g8, gf, k4b, tt):
+def bf16_gat_split(trainer, cnt, g16, g8, gf, k4b, tt, bt):
     """The bf16 GAT epoch (median of 5 after one warm epoch, the cell's
     float8 transport) and its split by this run's kernel times: K6 and K8
     in the e4m3 / e5m2 row types at dh = 64 (layers 0-2) and 41 (the
-    logits layer), K10 8 times (the bucket cell's f32 -> e4m3 time at F =
-    256 for each: an estimate), K4 in bf16, K2 / K5 at their f32 times
-    (an upper estimate: the rows are half as wide), the rest by
-    subtraction."""
+    logits layer), K10 on z and on the cotangents, half its launches each
+    (the bucket cell's times at F = 256: the forward on bf16 rows, the
+    backward on f32 rows with its / in_deg, an estimate: GAT's backward
+    divides by nothing and its logits layer is 164 wide), K4 in bf16, K2
+    / K5 at their f32 times (an upper estimate: the rows are half as
+    wide), the rest by subtraction."""
     reset_counts(cnt)
     base = trainer.tcfg.n_epochs + 20
     epochs = iter(range(base, base + 100))
@@ -4209,12 +4299,16 @@ def bf16_gat_split(trainer, cnt, g16, g8, gf, k4b, tt):
     comm_ms = (per_epoch["halo_gather"] * tt["K2"]["ms"]
                + per_epoch["halo_scatter"] * k4b["ms"]
                + per_epoch["halo_return"] * tt["K5"]["ms"])
+    k10_ms = per_epoch["transport_cast"] / 2 * (
+        bt["K10"]["forward e4m3 bf16 rows"]["ms"]
+        + bt["K10"]["backward e5m2"]["ms"])
     split = {"epoch_ms": epoch_ms, "attention_kernels_ms": attn_ms,
-             "comm_kernels_ms": comm_ms,
-             "rest_ms": epoch_ms - attn_ms - comm_ms,
+             "comm_kernels_ms": comm_ms, "k10_ms": k10_ms,
+             "rest_ms": epoch_ms - attn_ms - comm_ms - k10_ms,
              "launches_per_epoch": per_epoch}
     log(f"  bf16 gat epoch {epoch_ms:.3f} ms median: K6+K8 (e4m3/e5m2) "
-        f"{attn_ms:.3f} ms, comm kernels {comm_ms:.3f} ms, rest "
+        f"{attn_ms:.3f} ms, comm kernels {comm_ms:.3f} ms, K10 "
+        f"{k10_ms:.3f} ms, rest "
         f"{split['rest_ms']:.3f} ms ({per_epoch}); the same kernels in "
         f"bf16 rows {sum(3 * g16[k][64]['ms'] + g16[k][41]['ms'] for k in ('K6', 'K8')):.3f} ms, "
         f"in f32 {sum(3 * gf[k][64]['ms'] + gf[k][41]['ms'] for k in ('K6', 'K8')):.3f} ms")
@@ -4361,6 +4455,88 @@ def k15_edge_phase(halo):
                            f" bytes)", halo, view, None, None, B, dt)
 
 
+def k14_edge_phase(halo):
+    """K14 bit-exact (NaN = NaN) against its plain version on its own edge
+    cases, each rerun bit-identical, f32 and bf16 rows, P = 3: F = 1, 3,
+    41, 42 and 602 (vectors of 1 or 2 elements, or 16 bytes); the
+    exchange (clipped and masked send rows) of B = 12 rows and of B = 5,
+    less than a block's chunk; every row masked (amax exact 0); a NaN in
+    one sent row, which must reach that block's word and no other; the
+    return from a contiguous block and from a strided view whose part
+    stride is odd (F odd), a NaN in one of its blocks; then 20,000 rows a
+    block at F = 48 both ways, so that every block strides over several
+    chunks. One log line a shape."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(55)
+    P = 3
+
+    def held(tag, x, idx, mask, B):
+        got = halo.halo_amax(x, idx, mask, B)
+        ref = halo.halo_amax_plain(x, idx, mask, B)
+        n = cast_differs(tag, got, ref)
+        require(n == 0, f"{tag}: K14 is not bit-exact against its plain "
+                f"version ({n} of {got.numel()} words differ: "
+                f"{got.tolist()} against {ref.tolist()})")
+        require(torch.equal(halo.halo_amax(x, idx, mask, B).view(
+            torch.int32), got.view(torch.int32)),
+            f"{tag}: a rerun is not bit-identical")
+        return got
+
+    for F, n, B in ((1, 40, 12), (3, 40, 12), (41, 40, 12), (42, 40, 12),
+                    (602, 40, 12), (41, 40, 5), (48, 20000, 20000)):
+        x = torch.randn((P, n, F), generator=gen, device="cuda") * 3.0
+        idx = torch.randint(-2, n + 2, (P, P - 1, B), generator=gen,
+                            device="cuda", dtype=torch.int32)
+        mask = torch.rand((P, P - 1, B), generator=gen, device="cuda") < 0.8
+        if n == B:  # every row once a block, in a random order
+            idx = torch.stack([torch.stack([torch.randperm(
+                n, generator=gen, device="cuda") for _ in range(P - 1)])
+                for _ in range(P)]).int()
+        full = torch.randn((P, 1 + (P - 1) * B, F), generator=gen,
+                           device="cuda")
+        checks, vecs = 0, set()
+        for rows in (torch.float32, torch.bfloat16):
+            xr, fr = x.to(rows), full.to(rows)
+            tag = f"K14 edge F={F} B={B} {t_dtype(xr)} rows"
+            for label, m in (("", mask), (" all masked", torch.zeros_like(
+                    mask))):
+                a = held(f"{tag} exchange{label}", xr, idx, m, B)
+                if label:
+                    require(not bool(a.view(torch.int32).any()),
+                            f"{tag}: an all-masked exchange must give 0")
+                checks += 1
+            # a NaN in a row part 1 sends at distance 1 only
+            r = int(idx[1, 0][mask[1, 0]][0].clamp(0, n - 1))
+            nm = mask.clone()
+            nm[1, 1][idx[1, 1].clamp(0, n - 1) == r] = False
+            xn = xr.clone()
+            xn[1, r, F // 2] = float("nan")
+            a = held(f"{tag} exchange, a NaN row", xn, idx, nm, B)
+            want = torch.zeros((P, P - 1), dtype=torch.bool, device="cuda")
+            want[1, 0] = True
+            require(torch.equal(torch.isnan(a), want), f"{tag}: the NaN "
+                    f"must reach its own block's word only: {a.tolist()}")
+            for label, g in ((" return", fr[:, 1:].contiguous()),
+                             (" return, strided view", fr[:, 1:])):
+                held(tag + label, g, None, None, B)
+                vecs.add(halo.k14_vec(g))
+                checks += 1
+            gn = fr[:, 1:].clone()
+            gn[2, B + 3, 0] = float("nan")  # sender 2's distance-2 block
+            a = held(f"{tag} return, a NaN", gn, None, None, B)
+            want = torch.zeros((P, P - 1), dtype=torch.bool, device="cuda")
+            want[2, 1] = True
+            require(torch.equal(torch.isnan(a), want), f"{tag}: the NaN "
+                    f"must reach its own block's word only: {a.tolist()}")
+            vecs.add(halo.k14_vec(xr))
+            checks += 2
+        log(f"  K14 edge cases F={F} B={B}: {checks} amaxes bit-exact (NaN = "
+            f"NaN) and rerun bit-identical, vectors of {sorted(vecs)} "
+            f"elements; the return view's part stride "
+            f"{full[:, 1:].stride(0)} elements")
+
+
 def k14_k15_check_phase(trainer, halo):
     """K14 / K15 bit-exact against their plain versions: at the cell's
     shapes; on an emulated P = 4 set whose per-block scales differ across
@@ -4368,20 +4544,29 @@ def k14_k15_check_phase(trainer, halo):
     directions; on edge cases (an all-masked block, a zero-amax block, a
     NaN row, the f32 bit-pattern sweep around the fp8 saturation points
     and subnormals in blocks that hold a NaN, so their scale is 1); on
-    the vector's edge cases (``k15_edge_phase``). A planted fault, the
-    decode with the receiver's own scale in place of the sender's, must
-    fail the K15 check."""
+    the vector's edge cases (``k15_edge_phase``) and K14's own
+    (``k14_edge_phase``). Planted faults: one max over each sender's
+    blocks at every distance must fail the K14 check; the decode with the
+    receiver's own scale in place of the sender's, the K15 check."""
     import torch
     from pipegcn_tpu_torch.ops import bucket_spmm as bs
 
     k14_k15_cell_phase(trainer, halo)
     k15_edge_phase(halo)
+    k14_edge_phase(halo)
     x, idx, mask, B = wire_p4_case(7)
-    sc = bs.pow2_scale(halo.halo_amax(x, idx, mask, B), 448.0)
+    a4 = halo.halo_amax(x, idx, mask, B)
+    sc = bs.pow2_scale(a4, 448.0)
     require(bool((sc != sc[:, :1]).any()),
             f"P = 4 set: a sender's blocks should take different scales "
             f"at different distances: {sc.tolist()}")
     log(f"  P = 4 set: per-block scales {sc.tolist()}")
+    # K14's planted fault: one max over each sender's blocks at every
+    # distance (a per-part amax) in place of the per-block one
+    one = a4.amax(dim=1, keepdim=True).expand_as(a4).contiguous()
+    must_fail("K14 planted fault (one max over each sender's distances)",
+              lambda: check_cast("K14 planted fault", one,
+                                 halo.halo_amax_plain(x, idx, mask, B)))
     P = 4
     g = torch.randn((P, (P - 1) * B, x.shape[2]), device="cuda") * \
         (8.0 ** torch.arange(1, P, device="cuda").repeat_interleave(B)
@@ -5040,7 +5225,7 @@ def wire_group_variants(args, sg, spmm, halo):
 
 def wire_timings(trainer, halo):
     """K14 and K15 at the cell's shapes on bf16 rows (ms, plain ms, the
-    bound): the exchange's amax and e4m3 wire over the send lists, the
+    bound; K14 also 20 calls back to back): the exchange's amax and e4m3 wire over the send lists, the
     return's amax and e5m2 wire over the [P, H, 256] cotangent, and K15's
     bf16 wire both ways. The bound counts the sent rows' bytes once (a
     masked row is never read), the send lists, the amaxes, the wire
@@ -5068,6 +5253,7 @@ def wire_timings(trainer, halo):
         extra = lists if idx is not None else 0
         out[f"K14 {name}"] = dict(
             ms=time_ms(lambda: halo.halo_amax(x, idx, mask, B)),
+            batched_ms=batched_ms(lambda: halo.halo_amax(x, idx, mask, B)),
             plain_ms=time_ms(lambda: halo.halo_amax_plain(x, idx, mask, B),
                              reps=5, warmup=1),
             library_ms=None,
@@ -5091,8 +5277,10 @@ def wire_timings(trainer, halo):
                 shape=f"P={P} B={B} F={F} bf16 rows -> {dt}, "
                       f"{rows_read} rows read")
     for k, e in out.items():
+        dev = (f", back to back {e['batched_ms']:.3f}" if "batched_ms" in e
+               else "")
         log(f"  {k}: {e['ms']:.3f} ms (plain {e['plain_ms']:.3f}, bound "
-            f"{e['bound'][0]:.3f} {e['bound'][1]}; no single library "
+            f"{e['bound'][0]:.3f} {e['bound'][1]}{dev}; no single library "
             f"call) [{e['shape']}]")
     return out
 
@@ -5102,8 +5290,9 @@ def wire_epoch_split(trainer, cnt, wt, gt16, kt, bt, k4b, block_ms):
     cell's float8 wire) and its split by this run's kernel times at the
     cell's shapes: K16 and K17 in the bf16 mode 3 times each, K9 on the
     remainder 6 (the f32 block cell's: the same tables and e4m3 / e5m2
-    rows), K10 6 (the bucket cell's f32-input times: an upper estimate),
-    K14 and K15 3 times each way, K4 in bf16, the rest by subtraction;
+    rows), K10 6 (the bucket cell's shapes: the forward on bf16 rows, the
+    backward on f32 cotangents, as the cell casts them), K14 and K15 3
+    times each way, K4 in bf16, the rest by subtraction;
     the peak memory."""
     import torch
 
@@ -5120,7 +5309,7 @@ def wire_epoch_split(trainer, cnt, wt, gt16, kt, bt, k4b, block_ms):
         "k16_ms": 3 * gt16["K16"]["ms"], "k17_ms": 3 * gt16["K17"]["ms"],
         "k9_remainder_ms": 3 * (kt["K9 remainder forward e4m3"]["ms"]
                                 + kt["K9 remainder backward e5m2"]["ms"]),
-        "k10_ms": 3 * (bt["K10"]["forward e4m3"]["ms"]
+        "k10_ms": 3 * (bt["K10"]["forward e4m3 bf16 rows"]["ms"]
                        + bt["K10"]["backward e5m2"]["ms"]),
         "k14_ms": 3 * (wt["K14 exchange"]["ms"] + wt["K14 return"]["ms"]),
         "k15_ms": 3 * (wt["K15 exchange float8_e4m3fn"]["ms"]
@@ -5842,9 +6031,11 @@ def kernel_entry(name, source, replaces, launches, err, t, serving=None):
 
 def parent_ab(parent):
     """K5 (one call and back to back), K11 (both forms), K12, K13, K16 and
-    K17 (both modes; K17 also the transposed copy's alternative) and K15
+    K17 (both modes; K17 also the transposed copy's alternative), K15
     (the exchange's e4m3 and bf16 wires, the return's e5m2 and bf16; one
-    call and 20 back to back) of a
+    call and 20 back to back), K10 (forward e4m3 on f32 and bf16 rows,
+    backward e5m2 / in_deg) and K14 (exchange, return; both one call and
+    20 back to back) of a
     parent checkout against this one's at tools/time_tile_products.py's
     shapes, and K1 (F = 256 and 602 f32, bf16 rows), K3, K9 (clustered
     tables: e4m3, e5m2 over the transpose's, bf16, f32; random tables:
@@ -5894,13 +6085,17 @@ def parent_ab(parent):
               *(f"K15 {k}{b}" for k in ("exchange e4m3", "return e5m2",
                                         "exchange bf16", "return bf16")
                 for b in ("", " batched")),
+              *(f"{k}{b}" for k in ("K10 forward e4m3", "K10 backward e5m2",
+                                    "K10 forward e4m3 bf16 rows",
+                                    "K14 exchange", "K14 return")
+                for b in ("", " batched")),
               *(f"{k} {r}" for k in ("K6 NEG", "K6 eval", "K8")
                 for r in ("f32", "bf16", "e4m3")),
               *(f"K8 {r} dh=41" for r in ("f32", "bf16", "e4m3"))):
         par = [x[k] for x in runs["parent"]]
         new = [x[k] for x in runs["change"]]
         tool = ("time_tile_products.py" if k.split()[0] in (
-            "K5", "K11", "K12", "K13", "K15", "K16", "K17")
+            "K5", "K10", "K11", "K12", "K13", "K14", "K15", "K16", "K17")
             else "time_gather_kernels.py")
         out[k] = {"parent_ms": sum(par) / 2, "ms": sum(new) / 2,
                   "parent_runs_ms": par, "runs_ms": new,
@@ -6208,13 +6403,13 @@ def main() -> int:
     bf16_xla, k1b = bf16_sage_xla_phase(args, sg, spmm, halo)
     torch.cuda.empty_cache()
     # the bf16 SAGE epochs split by this run's kernel times (K2 / K5 at
-    # their f32 times, K10 at its f32-input times: upper estimates, the
-    # rows are bf16)
+    # their f32 times: upper estimates, the rows are bf16; K10's forward
+    # on bf16 rows, its backward on the f32 cotangents the cells cast)
     comm = {"halo_gather": tt["K2"]["ms"], "halo_scatter": k4b["ms"],
             "halo_return": tt["K5"]["ms"]}
     k9_ms = (bt["K9"]["forward float8_e4m3fn"]["ms"]
              + bt["K9"]["backward float8_e5m2"]["ms"]) / 2
-    k10_ms = (bt["K10"]["forward e4m3"]["ms"]
+    k10_ms = (bt["K10"]["forward e4m3 bf16 rows"]["ms"]
               + bt["K10"]["backward e5m2"]["ms"]) / 2
     bf16_split("bf16 xla", bf16_xla, {"spmm_mean": k1b["ms"],
                                       "spmm_mean_t": tt["K3"]["ms"], **comm})
@@ -6239,7 +6434,7 @@ def main() -> int:
         "and its split")
     bf16_gat_step = step_phase(g16trainer, args.bf16_gat_epochs + 10)
     bf16_gat["split"] = bf16_gat_split(g16trainer, counters(spmm, halo),
-                                       gt16, gt8, gt, k4b, tt)
+                                       gt16, gt8, gt, k4b, tt, bt)
     del g16trainer
     torch.cuda.empty_cache()
 
@@ -6432,7 +6627,10 @@ def main() -> int:
                        nb["transport_cast"], errs["K10"],
                        bt["K10"]["forward e4m3"])
     k10["library_calls"] = bt["K10"]["forward e4m3"]["library_calls"]
-    k10["others"] = {k: {**sub(v), "library_ms": v["library_ms"]}
+    k10["others"] = {k: {**sub(v), "library_ms": v["library_ms"],
+                         **{f: v[f] for f in ("batched_ms",
+                                              "library_batched_ms")
+                            if f in v}}
                      for k, v in bt["K10"].items() if k != "forward e4m3"}
     k10["also_replaces"] = ["pipegcn_tpu/ops/bucket_spmm.py:462"]
     k11 = kernel_entry("part_amax", src + "transport_cast.cu",
@@ -6446,7 +6644,8 @@ def main() -> int:
                        "library_ms": bt["K11"]["backward e5m2"]["library_ms"]}
     # the card's time with the host running ahead, beside the event-pair
     # ms that also counts the wrappers' host work
-    for e, t in ((k11, bt["K11"]["forward e4m3"]),
+    for e, t in ((k10, bt["K10"]["forward e4m3"]),
+                 (k11, bt["K11"]["forward e4m3"]),
                  (k11["backward"], bt["K11"]["backward e5m2"])):
         e["batched_ms"] = t["batched_ms"]
         e["library_batched_ms"] = t["library_batched_ms"]
@@ -6527,7 +6726,9 @@ def main() -> int:
                      "pipegcn_tpu/parallel/halo.py:127", nw["halo_amax"],
                      0.0, wt["K14 exchange"])
     e["launches_by_mode"] = mw["halo_amax"]
-    e["others"] = {"return": sub(wt["K14 return"])}
+    e["batched_ms"] = wt["K14 exchange"]["batched_ms"]
+    e["others"] = {"return": {**sub(wt["K14 return"]),
+                              "batched_ms": wt["K14 return"]["batched_ms"]}}
     e["also_replaces"] = ["pipegcn_tpu/ops/bucket_spmm.py:462"]
     e["library"] = "none: no single PyTorch call takes a per-block amax " \
         "over gathered send rows"
@@ -6613,8 +6814,8 @@ def main() -> int:
         kernels.append(e)
 
     if args.parent is not None:
-        log(f"[38] K1, K3, K5, K6, K8, K9, K11, K12, K13, K15, K16 and "
-            f"K17 of the parent checkout {args.parent} against this one's "
+        log(f"[38] K1, K3, K5, K6, K8, K9, K10, K11, K12, K13, K14, K15, "
+            f"K16 and K17 of the parent checkout {args.parent} against this one's "
             f"(time_tile_products.py, time_gather_kernels.py, in turns)")
         torch.cuda.empty_cache()
         ab = parent_ab(args.parent)
@@ -6639,6 +6840,8 @@ def main() -> int:
                    "block_dense_grouped_t[bf16]": "K17 torch.bfloat16",
                    "block_dense_grouped_t[f32]": "K17 torch.float32",
                    "bucket_gather": "K9 clustered e4m3 F=256",
+                   "transport_cast": "K10 forward e4m3",
+                   "halo_amax": "K14 exchange",
                    "halo_wire": "K15 exchange e4m3"}.get(e["name"])
             if key is not None:
                 e["parent_ab"] = ab[key]
@@ -6666,10 +6869,10 @@ def main() -> int:
                                        "K9 clustered bf16 F=256",
                                        "K9 clustered f32 F=256",
                                        "K9 random e4m3 F=256")}
-            if e["name"] == "halo_wire":
+            if e["name"] in ("halo_wire", "transport_cast", "halo_amax"):
                 e["parent_ab_others"] = {
-                    k: ab[k] for k in ab if k.startswith("K15")
-                    and k != "K15 exchange e4m3"}
+                    k: ab[k] for k in ab if k.startswith(key.split()[0])
+                    and k != key}
     print(json.dumps({"kernels": kernels}))
 
     print(json.dumps({

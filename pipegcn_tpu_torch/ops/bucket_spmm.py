@@ -355,7 +355,8 @@ _K9_SIGNATURES = {
                         _P, _P, _P, _P],
 }
 _CAST_SIGNATURES = {
-    "pgt_transport_cast": [_P, _I, _I, _I, _I, _P, _P, _I, _F, _P, _P, _P],
+    "pgt_transport_cast": [_P, _I, _I, _I, _I, _P, _P, _I, _F, _P, _P, _I,
+                           _P],
     "pgt_part_amax": [_P, _I, _I, _I, _I, _P, _P, _P],
 }
 F8_MAX = {torch.float8_e4m3fn: 448.0, torch.float8_e5m2: 57344.0}
@@ -589,6 +590,21 @@ def transport_cast_plain(x: torch.Tensor, dt: torch.dtype,
     return quantize(x, dt, deg, s), 1.0 / s
 
 
+def k10_vec(x: torch.Tensor, y: torch.Tensor,
+            deg: Optional[torch.Tensor] = None) -> int:
+    """K10's vector: the most elements (at most 16 bytes of ``x``) that the
+    ``x`` and ``y`` pointers are aligned to and that divide F where ``deg``
+    is given (a vector never straddles a row: one deg a vector), a part's
+    ``rows * F`` elements otherwise (every part starts on a vector)."""
+    P, rows, F = x.shape
+    run = F if deg is not None else rows * F
+    vec = 16 // x.element_size()
+    while vec > 1 and (run % vec or any(
+            t.data_ptr() % (vec * t.element_size()) for t in (x, y))):
+        vec //= 2
+    return vec
+
+
 def transport_cast(x: torch.Tensor, dt: torch.dtype,
                    deg: Optional[torch.Tensor] = None,
                    amax: Optional[torch.Tensor] = None
@@ -624,7 +640,7 @@ def transport_cast(x: torch.Tensor, dt: torch.dtype,
         None if deg is None else deg.data_ptr(),
         amax.data_ptr() if use_amax else None, _OUT_TYPES[dt],
         F8_MAX.get(dt, 0.0), y.data_ptr(),
-        None if inv is None else inv.data_ptr(),
+        None if inv is None else inv.data_ptr(), k10_vec(x, y, deg),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "transport_cast")
     transport_cast.launches += 1

@@ -19,13 +19,14 @@
 // K14: amax[s, d-1] = max |blk| over [B, F] in f32 (masked rows count as
 // 0), as the bits of the f32 value. Max is order-free: the bits of |v|
 // are compared as unsigned ints (non-negative floats order as their bits,
-// NaN above +inf, so a NaN propagates as jnp.max's does), reduced per warp
-// with __reduce_max_sync and merged with atomicMax on the block's word
-// (zeroed by the wrapper): deterministic. Why not K11: K11 reduces a
+// NaN above +inf, so a NaN propagates as jnp.max's does), as a running max
+// in registers, reduced per warp with __reduce_max_sync, per block in
+// shared memory, and merged with one atomicMax a block on its slot's word
+// (zeroed by the entry point): deterministic. Why not K11: K11 reduces a
 // whole part's contiguous rows; this amax is over one distance block's
 // gathered send rows, and K2 + K11 per block would add a full write and
 // read of every block.
-//
+
 // K15: for every receiver slot (r, d), from sender s's block:
 //
 //   fp8 (e4m3 features / e5m2 boundary gradients):
@@ -53,19 +54,28 @@
 // What bounds both on the H100: bytes. K14 reads every sent element once
 // (and an index a row); K15 reads it once more and writes the payload
 // (1 B fp8, 2 B bf16) and the decoded row (4 B f32, 2 B bf16); a few ops
-// an element. K14's design, as K10 / K11: a block of 256 threads per run
-// of rows of one (slot) block (grid-strided over the rows), threads over
-// the columns, every (part, distance) in one launch (gridDim.y = P (P -
-// 1)). K15's design: a warp owns kWireRows rows of one slot block, a
+// an element. Both take vectors of VEC elements: 16 bytes of x where F,
+// the part stride and the pointers allow it (8 bf16 or 4 f32), the
+// widest width they all agree on otherwise, one width a launch, chosen by
+// the wrapper (halo.k14_vec, halo.k15_vec), so no row needs a head or a
+// tail. K15's design: a warp owns kWireRows rows of one slot block, a
 // block kWireWarps warps, a block a chunk of consecutive rows (gridDim.x
 // chunks, gridDim.y the slots). Lanes j < kWireRows read row j's send
 // index and mask once and shuffle its source offset to the warp; each
-// lane then takes one vector of VEC elements of each of the rows at a
-// time (16 bytes of x where F, the part stride and the pointers allow
-// it: 8 bf16 or 4 f32; the widest width that x, the payload and the
-// output all agree on otherwise, chosen once a launch), issues the rows'
-// loads before their converts, and writes the payload as one VEC-element
-// word (8 or 4 bytes of fp8) and the decoded values as one store.
+// lane then takes one vector of each of the rows at a time, issues the
+// rows' loads before their converts, and writes the payload as one
+// VEC-element word (8 or 4 bytes of fp8) and the decoded values as one
+// store. K14 (was: a block of 256 threads per run of rows, a thread a
+// column, 2-byte loads, an atomicMax a warp): the exchange reads K15's
+// rows (a warp kWireRows rows at a time, each row's index and mask read
+// once, a masked row never read, the rows' loads issued before their
+// maxes) in one wave of blocks spread over the P (P - 1) slot blocks, the
+// warps grid-strided over the rows; the return's block ((d-1) B .. d B of
+// the sender's part) is one contiguous slab, a block a chunk of kThreads
+// x kAmaxAhead vectors (8 KB at 16-byte vectors), every load of the
+// chunk issued before the maxes (the exchange's rows in a block a chunk
+// ran 3 % slower; the return in one wave tied, and 2 vectors a thread ran
+// 3 % faster than 4: PERF.md's K14 design table).
 
 #include "transport.cuh"
 
@@ -88,62 +98,140 @@ __device__ __forceinline__ long long src_row(
   return base + static_cast<long long>(i) * F;
 }
 
-__global__ void __launch_bounds__(kThreads)
-amax_kernel(const void* __restrict__ x, int x_bf16, long long part_stride,
-            int P, int n_rows, int F, int B, const int* __restrict__ send_idx,
-            const unsigned char* __restrict__ send_mask,
-            unsigned int* __restrict__ amax) {
-  const int Pm1 = P - 1;
-  const int s = blockIdx.y / Pm1, d1 = blockIdx.y % Pm1;
-  unsigned int best = 0u;
-  for (int b = blockIdx.x; b < B; b += gridDim.x) {
-    const long long row = src_row(s, d1, b, Pm1, part_stride, n_rows, F,
-                                  B, send_idx, send_mask);
-    if (row < 0) continue;  // a masked row: |0| never raises the max
-    const size_t r0 = static_cast<size_t>(row);
-    for (int c = threadIdx.x; c < F; c += blockDim.x)
-      best = max(best, __float_as_uint(load(x, r0 + c, x_bf16)) &
-                           0x7fffffffu);
-  }
-  best = __reduce_max_sync(0xffffffffu, best);
-  if ((threadIdx.x & 31) == 0 && best != 0u) atomicMax(amax + blockIdx.y, best);
-}
-
-// K15's geometry: warps a block, rows a warp stepped together
+// K15's geometry (and K14's exchange): warps a block, rows a warp
+// stepped together
 constexpr int kWireWarps = 8;
 constexpr int kWireRows = 4;
+// K14's return: vectors in flight a thread
+constexpr int kAmaxAhead = 2;
 
-// NB bytes (1, 2, 4, 8 or 16) at p, as 32-bit words (the low bytes first)
-template <int NB>
-__device__ __forceinline__ void load_words(const void* p, unsigned int* w) {
-  if constexpr (NB == 16) {
-    const uint4 v = __ldg(static_cast<const uint4*>(p));
-    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-  } else if constexpr (NB == 8) {
-    const uint2 v = __ldg(static_cast<const uint2*>(p));
-    w[0] = v.x; w[1] = v.y;
-  } else if constexpr (NB == 4) {
-    w[0] = __ldg(static_cast<const unsigned int*>(p));
-  } else if constexpr (NB == 2) {
-    w[0] = __ldg(static_cast<const unsigned short*>(p));
-  } else {
-    w[0] = __ldg(static_cast<const unsigned char*>(p));
+// the running max of |v|'s bits over the VEC elements of NB bytes of x
+// held as words (bf16 bits when XB)
+template <bool XB, int NB>
+__device__ __forceinline__ unsigned int words_max(const unsigned int* w,
+                                                  unsigned int best) {
+#pragma unroll
+  for (int k = 0; k < (NB + 3) / 4; ++k) {
+    if constexpr (XB) {
+      // |v| of a widened bf16 is its bits shifted up, sign cleared
+      best = max(best, (w[k] << 16) & 0x7fff0000u);
+      if constexpr (NB >= 4) best = max(best, w[k] & 0x7fff0000u);
+    } else {
+      best = max(best, w[k] & 0x7fffffffu);
+    }
+  }
+  return best;
+}
+
+// the block's max merged into its slot's word: a warp max, the warps'
+// maxima in shared memory, one atomicMax a block (none for a zero max)
+__device__ __forceinline__ void block_max(unsigned int best,
+                                          unsigned int* word) {
+  __shared__ unsigned int warp_max[kThreads / 32];
+  best = __reduce_max_sync(0xffffffffu, best);
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = best;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 1; i < kThreads / 32; ++i) best = max(best, warp_max[i]);
+    if (best != 0u) atomicMax(word, best);
   }
 }
 
-template <int NB>
-__device__ __forceinline__ void store_words(void* p, const unsigned int* w) {
-  if constexpr (NB == 16) {
-    *static_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-  } else if constexpr (NB == 8) {
-    *static_cast<uint2*>(p) = make_uint2(w[0], w[1]);
-  } else if constexpr (NB == 4) {
-    *static_cast<unsigned int*>(p) = w[0];
-  } else if constexpr (NB == 2) {
-    *static_cast<unsigned short*>(p) = static_cast<unsigned short>(w[0]);
-  } else {
-    *static_cast<unsigned char*>(p) = static_cast<unsigned char>(w[0]);
+// K14 on the exchange: slot block blockIdx.y = s (P - 1) + d - 1, its rows
+// kWireRows a warp at a time (the warps grid-strided over them), each
+// lane a vector of NB bytes of each row at a time
+template <bool XB, int NB>
+__global__ void __launch_bounds__(kThreads)
+exchange_amax_kernel(const void* __restrict__ x, long long part_stride,
+                     int P, int n_rows, int F, int B,
+                     const int* __restrict__ send_idx,
+                     const unsigned char* __restrict__ send_mask,
+                     unsigned int* __restrict__ amax) {
+  static_assert(kThreads == kWireWarps * 32, "a block of kWireWarps warps");
+  constexpr int XS = XB ? 2 : 4, VEC = NB / XS, XW = (NB + 3) / 4;
+  constexpr int R = kWireRows;
+  const int Pm1 = P - 1;
+  const int s = blockIdx.y / Pm1, d1 = blockIdx.y % Pm1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nvec = F / VEC;
+  const char* xc = static_cast<const char*>(x);
+  unsigned int best = 0u;
+  for (int b0 = (blockIdx.x * kWireWarps + warp) * R; b0 < B;
+       b0 += gridDim.x * kWireWarps * R) {
+    // lane j < R: row b0 + j's first element in x (-1: a masked row or
+    // one past the block, never read)
+    long long mine = -1;
+    if (lane < R && b0 + lane < B)
+      mine = src_row(s, d1, b0 + lane, Pm1, part_stride, n_rows, F, B,
+                     send_idx, send_mask);
+    long long row[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) row[j] = __shfl_sync(0xffffffffu, mine, j);
+    for (int v = lane; v < nvec; v += 32) {
+      unsigned int raw[R][XW];
+#pragma unroll
+      for (int j = 0; j < R; ++j)
+        if (row[j] >= 0)
+          load_words<NB>(xc + (row[j] + static_cast<long long>(v) * VEC) *
+                                  XS, raw[j]);
+#pragma unroll
+      for (int j = 0; j < R; ++j)
+        if (row[j] >= 0) best = words_max<XB, NB>(raw[j], best);
+    }
   }
+  block_max(best, amax + blockIdx.y);
+}
+
+// K14 on the return: chunk blockIdx.x of slot block blockIdx.y's B x F
+// elements, one contiguous slab of n_vec vectors of NB bytes
+template <bool XB, int NB>
+__global__ void __launch_bounds__(kThreads)
+return_amax_kernel(const void* __restrict__ x, long long part_stride, int P,
+                   long long n_vec, unsigned int* __restrict__ amax) {
+  constexpr int XS = XB ? 2 : 4, XW = (NB + 3) / 4;
+  constexpr long long kChunk = static_cast<long long>(kThreads) * kAmaxAhead;
+  const int Pm1 = P - 1;
+  const int s = blockIdx.y / Pm1, d1 = blockIdx.y % Pm1;
+  const char* xp = static_cast<const char*>(x) + s * part_stride * XS +
+                   d1 * n_vec * NB;
+  const long long c = blockIdx.x * kChunk + threadIdx.x;
+  unsigned int w[kAmaxAhead][XW];
+#pragma unroll
+  for (int i = 0; i < kAmaxAhead; ++i)
+    if (c + i * kThreads < n_vec)
+      load_words<NB>(xp + (c + i * kThreads) * NB, w[i]);
+  unsigned int best = 0u;
+#pragma unroll
+  for (int i = 0; i < kAmaxAhead; ++i)
+    if (c + i * kThreads < n_vec) best = words_max<XB, NB>(w[i], best);
+  block_max(best, amax + blockIdx.y);
+}
+
+template <bool XB, int NB>
+int amax_launch(const void* x, long long part_stride, int P, int n_rows,
+                int F, int B, const int* si, const unsigned char* sm,
+                unsigned int* am, cudaStream_t st) {
+  const int slots = P * (P - 1);
+  if (si != nullptr) {
+    static const int per_sm =
+        occupancy(exchange_amax_kernel<XB, NB>, kThreads);
+    constexpr int kChunk = kWireWarps * kWireRows;
+    const dim3 grid(one_wave(per_sm, slots, (B + kChunk - 1) / kChunk),
+                    slots);
+    exchange_amax_kernel<XB, NB><<<grid, kThreads, 0, st>>>(
+        x, part_stride, P, n_rows, F, B, si, sm, am);
+  } else {
+    // a block a chunk of each slot block (no loop, no occupancy query)
+    const long long n_vec =
+        static_cast<long long>(B) * F / (NB / (XB ? 2 : 4));
+    const long long chunk = static_cast<long long>(kThreads) * kAmaxAhead;
+    const dim3 grid(static_cast<unsigned>((n_vec + chunk - 1) / chunk),
+                    slots);
+    return_amax_kernel<XB, NB><<<grid, kThreads, 0, st>>>(x, part_stride, P,
+                                                          n_vec, am);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // W the wire type, XB x (and out) in bf16 bits (else f32), VEC elements a
@@ -247,10 +335,6 @@ wire_kernel(const void* __restrict__ x, long long part_stride, int P,
   }
 }
 
-int blocks_for(int rows) {
-  return rows < 2048 ? (rows > 0 ? rows : 1) : 2048;
-}
-
 // K15's blocks along a slot block: a block a chunk of kWireWarps *
 // kWireRows rows
 int wire_blocks(int B) {
@@ -289,22 +373,45 @@ int wire_launch(int vec, dim3 grid, cudaStream_t st, const void* x,
 // part_stride elements apart, each part's rows contiguous; B rows a
 // block; send_idx [P, P-1, B] int32 and send_mask [P, P-1, B] bytes (the
 // exchange), or both null (the return: x's blocks (d-1) B .. d B); amax
-// [P, P-1] uint32, zeroed by the caller, receives the f32 bits of each
-// sender block's max |value|. On the device. Returns cudaGetLastError().
+// [P, P-1] uint32 receives the f32 bits of each sender block's max
+// |value| (zeroed here first); vec the elements a vector (1, 2, 4, or 8
+// for bf16 rows; at most 16 bytes of x), dividing F and the part stride,
+// x aligned to it. On the device. Returns the first CUDA error (the
+// memset's, the launch's), or cudaErrorInvalidValue for a vector the
+// arguments do not allow.
 extern "C" int pgt_halo_amax(const void* x, int x_bf16, long long part_stride,
                              int P, int n_rows, int F, int B,
                              const void* send_idx, const void* send_mask,
-                             void* amax, void* stream) {
-  if (P < 2 || B == 0 || F == 0) return 0;
-  if ((send_idx == nullptr) != (send_mask == nullptr))
+                             void* amax, int vec, void* stream) {
+  if (P < 2) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t z = cudaMemsetAsync(
+      amax, 0, static_cast<size_t>(P) * (P - 1) * sizeof(unsigned int), st);
+  if (z != cudaSuccess || B == 0 || F == 0) return static_cast<int>(z);
+  const int nb = vec * (x_bf16 ? 2 : 4);
+  if ((send_idx == nullptr) != (send_mask == nullptr) || vec < 1 ||
+      (vec & (vec - 1)) != 0 || nb > 16 || F % vec != 0 ||
+      part_stride % vec != 0 || reinterpret_cast<uintptr_t>(x) % nb != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(blocks_for(B), P * (P - 1));
-  amax_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, x_bf16, part_stride, P, n_rows, F, B,
-      static_cast<const int*>(send_idx),
-      static_cast<const unsigned char*>(send_mask),
-      static_cast<unsigned int*>(amax));
-  return static_cast<int>(cudaGetLastError());
+  const int* si = static_cast<const int*>(send_idx);
+  const unsigned char* sm = static_cast<const unsigned char*>(send_mask);
+  unsigned int* am = static_cast<unsigned int*>(amax);
+#define PGT_K14(XB, NB) \
+  return amax_launch<XB, NB>(x, part_stride, P, n_rows, F, B, si, sm, am, st)
+  if (x_bf16) {
+    switch (nb) {
+      case 16: PGT_K14(true, 16);
+      case 8: PGT_K14(true, 8);
+      case 4: PGT_K14(true, 4);
+      default: PGT_K14(true, 2);
+    }
+  }
+  switch (nb) {
+    case 16: PGT_K14(false, 16);
+    case 8: PGT_K14(false, 8);
+    default: PGT_K14(false, 4);
+  }
+#undef PGT_K14
 }
 
 // K15. x, part_stride, P, n_rows, F, B, send_idx, send_mask as K14's;

@@ -2,7 +2,7 @@
 // (transport_cast.cu) and K14 / K15 (halo_wire.cu): the row loads (f32,
 // or bf16 bits widened exactly), the exact power-of-two amax scale and the
 // casts, each bit-exact against its plain PyTorch version (a NaN equal to
-// any NaN).
+// any NaN); the vector loads and stores as 32-bit words; the SM count.
 
 #pragma once
 
@@ -65,6 +65,74 @@ __device__ __forceinline__ float from_fp8(unsigned char q) {
       static_cast<__nv_fp8_storage_t>(q),
       OUT == kOutE4M3 ? __NV_E4M3 : __NV_E5M2);
   return __half2float(__half(h));
+}
+
+// NB bytes (1, 2, 4, 8 or 16) at p, as 32-bit words (the low bytes first)
+template <int NB>
+__device__ __forceinline__ void load_words(const void* p, unsigned int* w) {
+  if constexpr (NB == 16) {
+    const uint4 v = __ldg(static_cast<const uint4*>(p));
+    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+  } else if constexpr (NB == 8) {
+    const uint2 v = __ldg(static_cast<const uint2*>(p));
+    w[0] = v.x; w[1] = v.y;
+  } else if constexpr (NB == 4) {
+    w[0] = __ldg(static_cast<const unsigned int*>(p));
+  } else if constexpr (NB == 2) {
+    w[0] = __ldg(static_cast<const unsigned short*>(p));
+  } else {
+    w[0] = __ldg(static_cast<const unsigned char*>(p));
+  }
+}
+
+template <int NB>
+__device__ __forceinline__ void store_words(void* p, const unsigned int* w) {
+  if constexpr (NB == 16) {
+    *static_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else if constexpr (NB == 8) {
+    *static_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+  } else if constexpr (NB == 4) {
+    *static_cast<unsigned int*>(p) = w[0];
+  } else if constexpr (NB == 2) {
+    *static_cast<unsigned short*>(p) = static_cast<unsigned short>(w[0]);
+  } else {
+    *static_cast<unsigned char*>(p) = static_cast<unsigned char>(w[0]);
+  }
+}
+
+// the card's multiprocessors, read once (132 if the query fails)
+inline int sm_count() {
+  static const int sms = [] {
+    int n = 0;
+    return cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, 0) ==
+                       cudaSuccess && n > 0
+               ? n
+               : 132;
+  }();
+  return sms;
+}
+
+// blocks of `threads` threads of `kernel` one multiprocessor holds at
+// once (a launch template keeps it in a static: read once an instance)
+template <typename K>
+int occupancy(K kernel, int threads) {
+  int per_sm = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                    0) != cudaSuccess ||
+      per_sm < 1)
+    per_sm = 1;
+  return per_sm;
+}
+
+// blocks a part (or slot) for a launch of one wave: as many blocks as the
+// multiprocessors hold at once (`per_sm` each), spread over `parts`, never
+// more than the `need` that cover a part, at least one (a second, partial
+// wave would leave most of the card idle at its end)
+inline unsigned one_wave(int per_sm, int parts, long long need) {
+  long long n = (static_cast<long long>(per_sm) * sm_count() + parts - 1) /
+                parts;
+  if (n > need) n = need;
+  return static_cast<unsigned>(n > 0 ? n : 1);
 }
 
 }  // namespace

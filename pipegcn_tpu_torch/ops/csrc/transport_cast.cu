@@ -32,51 +32,158 @@
 //
 // What bounds both on the H100: bytes. Each element is read once (4 B)
 // and written once (1 B fp8, 2 B bf16); the arithmetic is a few ops per
-// element. K10: a block per run of rows (grid-strided), threads over the
-// columns of a row, so loads and stores are coalesced and the row's deg is
-// one broadcast load; no integer division per element. K11 reads only:
-// its part's slab as one flat run of 16-byte vectors (4 f32 or 8 bf16;
-// 8, 4 or 2 bytes where the row bytes or the pointer allow no more), four
-// vectors in flight a thread, one wave of blocks (as many as the
-// multiprocessors hold at once) spread over the parts, a block-level max in shared memory and one
-// atomicMax a block (was: a block per row run, 4,096 a part, and an
-// atomicMax a warp on the part's one word). A vector never straddles a
-// row (its width divides the row bytes), so the deg form loads one deg a
-// vector and keeps the per-element true division.
+// element. Both walk each part's slab as one flat run of vectors: 16
+// bytes of x (4 f32 or 8 bf16) where the arguments allow it, narrower
+// otherwise, one width a launch. K10 (was: a block per run of rows, a
+// thread a column, one 4-byte load and one 1-byte store a row in flight):
+// a block a chunk of kCastThreads x kCastAhead consecutive vectors (8 KB
+// of x at 16-byte vectors), a thread kCastAhead of them, kCastThreads
+// apart, both loaded before the first is converted; it stores each
+// vector's payload as one word (VEC bytes of fp8, 2 VEC of bf16). A block
+// a chunk ran 2-6 % faster than one wave of blocks striding over the
+// chunks, 2 vectors a thread up to 1 % faster than 4 or 8 (PERF.md's K10
+// design table). The vector's width comes from the
+// wrapper (bucket_spmm.k10_vec): without deg the part's element count
+// and both pointers are aligned to it; with deg it divides F, so a vector
+// never straddles a row and loads one deg, and each element keeps its
+// true division. Every element is computed as the plain version computes
+// it, so any split that writes each element once is bit-exact.
+// K11 reads only: its part's slab as one flat run of 16-byte vectors (4
+// f32 or 8 bf16; 8, 4 or 2 bytes where the row bytes or the pointer allow
+// no more), four vectors in flight a thread, one wave of blocks spread
+// over the parts, a block-level max in shared memory and one atomicMax a
+// block (was: a block per row run, 4,096 a part, and an atomicMax a warp
+// on the part's one word). A vector never straddles a row (its width
+// divides the row bytes), so the deg form loads one deg a vector and
+// keeps the per-element true division.
 
 #include "transport.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // K11's
 
-template <int OUT>
-__global__ void __launch_bounds__(kThreads)
-cast_kernel(const void* __restrict__ x, int x_bf16, int rows, int F,
-            const float* __restrict__ deg,
+// K10's geometry: threads a block, vectors in flight a thread
+constexpr int kCastThreads = 256;
+constexpr int kCastAhead = 2;
+
+// K10 over chunk blockIdx.x of part blockIdx.y's n_vec vectors of NB
+// bytes of x (VEC = NB / XS elements; with DEG, per_row vectors a row of F
+// elements and one deg a row)
+template <int OUT, bool XB, int NB, bool DEG>
+__global__ void __launch_bounds__(kCastThreads)
+cast_kernel(const void* __restrict__ x, long long n_vec, int per_row,
+            const float* __restrict__ deg, long long rows,
             const unsigned int* __restrict__ amax, float m,
             void* __restrict__ y, float* __restrict__ inv_scale) {
+  constexpr int XS = XB ? 2 : 4, VEC = NB / XS;
+  constexpr int YB = VEC * (OUT == kOutBF16 ? 2 : 1);  // payload bytes
+  constexpr int XW = (NB + 3) / 4, YW = (YB + 3) / 4;
+  constexpr long long kChunk = static_cast<long long>(kCastThreads) *
+                               kCastAhead;
   const int part = blockIdx.y;
+  const bool scaled = amax != nullptr;
   float s = 1.0f;
-  if (amax != nullptr) {
+  if (scaled) {
     s = pow2_scale(amax[part], m);
     if (blockIdx.x == 0 && threadIdx.x == 0) inv_scale[part] = 1.0f / s;
   }
-  const size_t base = static_cast<size_t>(part) * rows * F;
-  for (int r = blockIdx.x; r < rows; r += gridDim.x) {
-    const float d =
-        deg != nullptr ? deg[static_cast<size_t>(part) * rows + r] : 1.0f;
-    const size_t row0 = base + static_cast<size_t>(r) * F;
-    for (int c = threadIdx.x; c < F; c += blockDim.x) {
-      float v = load(x, row0 + c, x_bf16);
-      if (deg != nullptr) v = v / d;
-      if (amax != nullptr) v = v * s;
-      if constexpr (OUT == kOutBF16)
-        static_cast<unsigned short*>(y)[row0 + c] = to_bf16(v);
-      else
-        static_cast<unsigned char*>(y)[row0 + c] = to_fp8<OUT>(v);
+  const char* xp = static_cast<const char*>(x) + part * n_vec * NB;
+  char* yp = static_cast<char*>(y) + part * n_vec * YB;
+  const float* dp = DEG ? deg + part * rows : nullptr;
+  // the row of a vector by a 32-bit division where it fits (a 64-bit
+  // division is a long instruction sequence)
+  const bool narrow = n_vec <= 0xffffffffLL;
+  const long long c = blockIdx.x * kChunk + threadIdx.x;
+  unsigned int w[kCastAhead][XW];
+  float d[kCastAhead];
+#pragma unroll
+  for (int i = 0; i < kCastAhead; ++i) {
+    const long long v = c + i * kCastThreads;
+    if (v < n_vec) {
+      load_words<NB>(xp + v * NB, w[i]);
+      if constexpr (DEG)
+        d[i] = __ldg(dp + (narrow ? static_cast<long long>(
+                                        static_cast<unsigned>(v) /
+                                        static_cast<unsigned>(per_row))
+                                  : v / per_row));
     }
   }
+#pragma unroll
+  for (int i = 0; i < kCastAhead; ++i) {
+    const long long v = c + i * kCastThreads;
+    if (v >= n_vec) break;
+    unsigned int q[YW];
+#pragma unroll
+    for (int k = 0; k < YW; ++k) q[k] = 0u;
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      // element k widened to f32 (bf16: its bits in the word's half)
+      float e = XB ? __uint_as_float(((w[i][k / 2] >> (16 * (k & 1))) &
+                                      0xffffu) << 16)
+                   : __uint_as_float(w[i][k]);
+      if constexpr (DEG) e = e / d[i];
+      if (scaled) e = e * s;
+      if constexpr (OUT == kOutBF16)
+        q[k / 2] |= static_cast<unsigned int>(to_bf16(e)) << (16 * (k & 1));
+      else
+        q[k / 4] |= static_cast<unsigned int>(to_fp8<OUT>(e))
+                    << (8 * (k & 3));
+    }
+    store_words<YB>(yp + v * YB, q);
+  }
+}
+
+template <int OUT, bool XB, int NB, bool DEG>
+int cast_launch(int P, const void* x, long long n_vec, int per_row,
+                const float* deg, long long rows, const unsigned int* amax,
+                float m, void* y, float* inv_scale, cudaStream_t st) {
+  // a block a chunk (one block for an empty part: inv_scale is written)
+  const long long chunk = static_cast<long long>(kCastThreads) * kCastAhead;
+  const dim3 grid(static_cast<unsigned>(n_vec > 0 ? (n_vec + chunk - 1) /
+                                                        chunk
+                                                  : 1),
+                  P);
+  cast_kernel<OUT, XB, NB, DEG><<<grid, kCastThreads, 0, st>>>(
+      x, n_vec, per_row, deg, rows, amax, m, y, inv_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K10's instance for a vector of nb bytes of x
+template <int OUT, bool XB, bool DEG>
+int cast_vec(int nb, int P, const void* x, long long n_vec, int per_row,
+             const float* deg, long long rows, const unsigned int* amax,
+             float m, void* y, float* inv_scale, cudaStream_t st) {
+#define PGT_CAST(NB)                                                        \
+  return cast_launch<OUT, XB, NB, DEG>(P, x, n_vec, per_row, deg, rows,     \
+                                       amax, m, y, inv_scale, st)
+  switch (nb) {
+    case 16: PGT_CAST(16);
+    case 8: PGT_CAST(8);
+    case 4: PGT_CAST(4);
+    case 2:
+      if constexpr (XB) PGT_CAST(2);
+      break;
+  }
+#undef PGT_CAST
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int OUT>
+int cast_out(int x_bf16, bool with_deg, int nb, int P, const void* x,
+             long long n_vec, int per_row, const float* deg, long long rows,
+             const unsigned int* amax, float m, void* y, float* inv_scale,
+             cudaStream_t st) {
+#define PGT_CAST(XB, DEG)                                                   \
+  return cast_vec<OUT, XB, DEG>(nb, P, x, n_vec, per_row, deg, rows, amax, \
+                                m, y, inv_scale, st)
+  if (x_bf16) {
+    if (with_deg) PGT_CAST(true, true);
+    PGT_CAST(true, false);
+  }
+  if (with_deg) PGT_CAST(false, true);
+  PGT_CAST(false, false);
+#undef PGT_CAST
 }
 
 // K11: a thread's max |v| bits over the vectors v0, v0 + stride, ... of
@@ -150,48 +257,53 @@ amax_kernel(const void* __restrict__ x, long long n_vec, int per_row,
   }
 }
 
-int blocks_for(int rows) {
-  return rows < 4096 ? (rows > 0 ? rows : 1) : 4096;
-}
-
 }  // namespace
 
 // K10. x [P, rows, F] f32 (bf16 bits when x_bf16); deg [P, rows] f32 or
 // null; amax [P] uint32 (f32 bits, from K11) or null; out_type 0 bf16,
 // 1 e4m3fn, 2 e5m2; m the fp8 finite max (ignored for bf16); y [P, rows,
 // F] of out_type; inv_scale [P] f32 (written when amax is given). All
-// contiguous, on the device. Returns cudaGetLastError().
+// contiguous, on the device. vec the elements a vector (1, 2, 4, or 8 for
+// bf16 x; at most 16 bytes of x), dividing F where deg is given and rows
+// x F otherwise, x and y aligned to it. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a vector the arguments do not allow.
 extern "C" int pgt_transport_cast(const void* x, int x_bf16, int P, int rows,
                                   int F, const void* deg, const void* amax,
                                   int out_type, float m, void* y,
-                                  void* inv_scale, void* stream) {
+                                  void* inv_scale, int vec, void* stream) {
   if (P == 0 || rows == 0 || F == 0) {
     if (amax == nullptr || P == 0) return 0;
   }
-  if (amax != nullptr && inv_scale == nullptr)
+  const int xs = x_bf16 ? 2 : 4, ys = out_type == kOutBF16 ? 2 : 1;
+  const long long run = deg != nullptr ? F : static_cast<long long>(rows) * F;
+  auto al = [](const void* p, long long n) {
+    return reinterpret_cast<uintptr_t>(p) % n == 0;
+  };
+  if ((amax != nullptr && inv_scale == nullptr) || vec < 1 ||
+      (vec & (vec - 1)) != 0 || vec * xs > 16 || run % vec != 0 ||
+      !al(x, vec * xs) || !al(y, vec * ys))
     return static_cast<int>(cudaErrorInvalidValue);
+  const long long n_vec = static_cast<long long>(rows) * F / vec;
+  const int per_row = F / vec;  // used only with deg (vec divides F)
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(blocks_for(rows), P);
   const float* dg = static_cast<const float*>(deg);
   const unsigned int* am = static_cast<const unsigned int*>(amax);
   float* sc = static_cast<float*>(inv_scale);
+  const bool wd = deg != nullptr;
+  const int nb = vec * xs;
   switch (out_type) {
     case kOutBF16:
-      cast_kernel<kOutBF16><<<grid, kThreads, 0, st>>>(x, x_bf16, rows, F,
-                                                       dg, am, m, y, sc);
-      break;
+      return cast_out<kOutBF16>(x_bf16, wd, nb, P, x, n_vec, per_row, dg,
+                                rows, am, m, y, sc, st);
     case kOutE4M3:
-      cast_kernel<kOutE4M3><<<grid, kThreads, 0, st>>>(x, x_bf16, rows, F,
-                                                       dg, am, m, y, sc);
-      break;
+      return cast_out<kOutE4M3>(x_bf16, wd, nb, P, x, n_vec, per_row, dg,
+                                rows, am, m, y, sc, st);
     case kOutE5M2:
-      cast_kernel<kOutE5M2><<<grid, kThreads, 0, st>>>(x, x_bf16, rows, F,
-                                                       dg, am, m, y, sc);
-      break;
+      return cast_out<kOutE5M2>(x_bf16, wd, nb, P, x, n_vec, per_row, dg,
+                                rows, am, m, y, sc, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // K11. x [P, rows, F] f32 (bf16 bits when x_bf16); deg [P, rows] f32 or
@@ -214,27 +326,14 @@ extern "C" int pgt_part_amax(const void* x, int x_bf16, int P, int rows,
     vb /= 2;
   const long long n_vec = row_b / vb * rows;  // a part's vectors
   const int per_row = static_cast<int>(row_b / vb);
-  static int sms = 0;
-  if (sms == 0 &&
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, 0) !=
-          cudaSuccess)
-    sms = 132;
   const float* dg = static_cast<const float*>(deg);
   unsigned int* am = static_cast<unsigned int*>(amax);
-  // one wave: as many blocks as the multiprocessors hold at once, spread
-  // over the parts (a second, partial wave would leave most of the card
-  // idle at its end), never more than a part's vectors need
+  // one wave spread over the parts
 #define PGT_AMAX(VT, XB)                                                   \
   {                                                                        \
-    int per_sm = 0;                                                        \
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(                     \
-            &per_sm, amax_kernel<VT, XB>, kThreads, 0) != cudaSuccess ||   \
-        per_sm < 1)                                                        \
-      per_sm = 1;                                                          \
-    long long per_part = (static_cast<long long>(per_sm) * sms + P - 1) / P; \
-    const long long need = (n_vec + kThreads - 1) / kThreads;              \
-    if (per_part > need) per_part = need;                                  \
-    const dim3 grid(static_cast<unsigned>(per_part), P);                   \
+    const dim3 grid(one_wave(occupancy(amax_kernel<VT, XB>, kThreads), P,  \
+                             (n_vec + kThreads - 1) / kThreads),           \
+                    P);                                                    \
     amax_kernel<VT, XB><<<grid, kThreads, 0, st>>>(x, n_vec, per_row, dg,  \
                                                    rows, am);              \
   }

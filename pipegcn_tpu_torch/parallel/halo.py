@@ -87,7 +87,7 @@ _SIGNATURES = {
                            _P],
 }
 _WIRE_SIGNATURES = {
-    "pgt_halo_amax": [_P, _I, _LL, _I, _I, _I, _I, _P, _P, _P, _P],
+    "pgt_halo_amax": [_P, _I, _LL, _I, _I, _I, _I, _P, _P, _P, _I, _P],
     "pgt_halo_wire": [_P, _I, _LL, _I, _I, _I, _I, _P, _P, _P, _I, _F, _P,
                       _P, _P, _I, _P],
 }
@@ -448,13 +448,13 @@ def halo_amax(x: torch.Tensor, send_idx: Optional[torch.Tensor],
     if x.device.type != "cuda":
         raise ValueError(f"halo_amax: unsupported device {x.device}")
     P, n, F = x.shape
-    amax = torch.zeros((P, max(P - 1, 0)), dtype=torch.int32,
-                       device=x.device)
+    amax = torch.empty((P, max(P - 1, 0)), dtype=torch.int32,
+                       device=x.device)  # zeroed by the entry point
     if amax.numel() == 0:
         return amax.view(torch.float32)
     lib = _build.load("halo_wire", _WIRE_SIGNATURES)
     rc = lib.pgt_halo_amax(*_wire_args(x, send_idx, send_mask, b_max),
-                           amax.data_ptr(),
+                           amax.data_ptr(), k14_vec(x),
                            torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "halo_amax")
     halo_amax.launches += 1
@@ -482,6 +482,18 @@ def _wire_args(x, send_idx, send_mask, b_max):
     return (x.data_ptr(), int(x.dtype == torch.bfloat16), x.stride(0), P,
             n, F, b_max, None if send_idx is None else send_idx.data_ptr(),
             None if send_mask is None else send_mask.data_ptr())
+
+
+def k14_vec(x: torch.Tensor) -> int:
+    """K14's vector: the most elements (at most 16 bytes of ``x``) that F,
+    ``x``'s part stride and its pointer are aligned to, so that every row
+    (and every return block) starts on a vector."""
+    F = x.shape[2]
+    vec = 16 // x.element_size()
+    while vec > 1 and (F % vec or x.stride(0) % vec
+                       or x.data_ptr() % (vec * x.element_size())):
+        vec //= 2
+    return vec
 
 
 def k15_vec(x: torch.Tensor, wire: torch.Tensor, out: torch.Tensor) -> int:

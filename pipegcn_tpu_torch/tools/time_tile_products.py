@@ -1,12 +1,15 @@
 """Time K12 / K13 (the tile products, f32 rows and the bf16 mode), K16 /
 K17 (the union-gather forward and transpose, both modes), K11 (the
 per-part amax, plain and ``deg`` forms), K5 (the reverse-ring return,
-one call and 20 back to back) and K15 (the halo wire's encode, ring copy
-and decode) of the port in one checkout, on the card:
+one call and 20 back to back), K15 (the halo wire's encode, ring copy
+and decode), K10 (the transport cast) and K14 (the halo wire's per-block
+amax) of the port in one checkout, on the card:
 
     python3 pipegcn_tpu_torch/tools/time_tile_products.py <checkout> <label>
     python3 pipegcn_tpu_torch/tools/time_tile_products.py <checkout> <label> \\
         --k15-only          # K15 alone
+    python3 pipegcn_tpu_torch/tools/time_tile_products.py <checkout> <label> \\
+        --k10-k14-only      # K10 and K14 alone
 
 Shapes. K12 / K13: the block cell's (P = 2, T = 256, F = 256, n_max =
 71,792, H = n_max, ~5,600 random pairs a part each way, random 1-bit A).
@@ -26,7 +29,14 @@ SAGE cell's return, the halo rows of a [2, n_max + H, 256] f32 cotangent
 ``copy_`` of the same blocks, from the strided view and from a
 contiguous copy (the card's copy floor), one call per event
 pair and 20 calls back to back (the card's time a call, without the
-wrapper's host work). K15: the wire cell's (P = 2, n_max = 71,792 bf16
+wrapper's host work). K10, one call and 20 back to back: the bucket
+cell's activations [2, n_max + H, 256] f32 and bf16 to e4m3 (the
+forward), its cotangents [2, n_max, 256] f32 with a random in-degree to
+e5m2 (the backward's ``g / in_deg``). K14, one call and 20 back to back,
+at K15's shapes below: the exchange's amax over the permuted send rows,
+the return's over the strided cotangent view. Each K10 and K14 key also
+reports whether the kernel's output equals its plain version's bits
+(``... exact``). K15: the wire cell's (P = 2, n_max = 71,792 bf16
 rows of F = 256): the exchange of a block of 71,792 send rows, a random
 permutation of each part's rows, mask set, on the e4m3 and bf16 wires
 (the e4m3 wire with its blocks' K14 amax, computed once); the return of
@@ -52,10 +62,13 @@ from pipegcn_tpu_torch.ops import bucket_spmm as bs  # noqa: E402
 from pipegcn_tpu_torch.parallel import halo  # noqa: E402
 
 k15_only = "--k15-only" in sys.argv[3:]
+k10_k14_only = "--k10-k14-only" in sys.argv[3:]
 # the checkout's kernels, built together (a parent checkout may lack a
 # source this one has)
-_build.build([n for n in (("halo_wire",) if k15_only else (
-    "block_spmm", "block_tma", "transport_cast", "halo_gather", "halo_wire"))
+_build.build([n for n in (
+    ("halo_wire",) if k15_only else ("transport_cast", "halo_wire")
+    if k10_k14_only else ("block_spmm", "block_tma", "transport_cast",
+                          "halo_gather", "halo_wire"))
               if (_build.CSRC / f"{n}.cu").exists()])
 torch.manual_seed(0)
 P, T, F, G = 2, 256, 256, 4
@@ -105,10 +118,52 @@ def k15(out):
             lambda: halo.halo_wire(x, si, sm, n_out, dt, amax))
 
 
-if k15_only:
+def same_bits(a, b):
+    """Equal bits, a NaN equal to any NaN."""
+    nan = torch.isnan(a.float())
+    if not torch.equal(nan, torch.isnan(b.float())):
+        return False
+    bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[a.element_size()]
+    return bool(torch.equal(a.view(bits)[~nan], b.view(bits)[~nan]))
+
+
+def k10_k14(out):
+    """K10 at the bucket cell's shapes and K14 at K15's: one call and 20
+    back to back, and whether each equals its plain version's bits."""
+    act = torch.randn((P, n_in, F), device="cuda") * 2.0
+    cot = torch.randn((P, n_out, F), device="cuda") * 1e-3
+    deg = torch.randint(1, 600, (P, n_out), device="cuda").float()
+    for key, x, dt, d in (
+            ("K10 forward e4m3", act, torch.float8_e4m3fn, None),
+            ("K10 backward e5m2", cot, torch.float8_e5m2, deg),
+            ("K10 forward e4m3 bf16 rows", act.bfloat16(),
+             torch.float8_e4m3fn, None)):
+        out[key] = time_ms(lambda: bs.transport_cast(x, dt, d))
+        out[key + " batched"] = batched_ms(
+            lambda: bs.transport_cast(x, dt, d))
+        out[key + " exact"] = same_bits(bs.transport_cast(x, dt, d)[0],
+                                        bs.transport_cast_plain(x, dt, d)[0])
+    del act, cot, deg
+    h = torch.randn((P, n_out, F), device="cuda").bfloat16() * 2.0
+    sidx = torch.stack([torch.randperm(n_out, device="cuda")
+                        for _ in range(P)]).int().view(P, 1, n_out)
+    smask = torch.ones((P, 1, n_out), dtype=torch.bool, device="cuda")
+    cot = (torch.randn((P, n_out + n_out, F), device="cuda")
+           * 1e-3).bfloat16()[:, n_out:]
+    for key, x, si, sm in (("K14 exchange", h, sidx, smask),
+                           ("K14 return", cot, None, None)):
+        out[key] = time_ms(lambda: halo.halo_amax(x, si, sm, n_out))
+        out[key + " batched"] = batched_ms(
+            lambda: halo.halo_amax(x, si, sm, n_out))
+        out[key + " exact"] = same_bits(
+            halo.halo_amax(x, si, sm, n_out),
+            halo.halo_amax_plain(x, si, sm, n_out))
+
+
+if k15_only or k10_k14_only:
     res = {"label": label, "csrc": str(_build.CSRC),
            "card": torch.cuda.get_device_name(0)}
-    k15(res)
+    (k15 if k15_only else k10_k14)(res)
     print(json.dumps(res))
     sys.exit(0)
 n_out_t, n_in_t = -(-n_out // T), -(-n_in // T)
@@ -233,4 +288,5 @@ out["K5 copy_ contiguous"] = time_ms(lambda: dst.copy_(ghv))
 out["K5 copy_ contiguous batched"] = batched_ms(lambda: dst.copy_(ghv))
 del full, gh, ghc, ghv, dst, ridx
 k15(out)
+k10_k14(out)
 print(json.dumps(out))

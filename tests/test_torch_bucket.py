@@ -478,3 +478,108 @@ def test_k9_walk_sums_each_row_in_table_order(F):
                         want = [e for e in range(e0, e0 + int(m[2, b]))
                                 if idx[p, e] < side.n_src]
                     assert visits.get((p, i), []) == want, (p, i)
+
+
+# ---------------------------------------------------------------------------
+# K10's design (csrc/transport_cast.cu cast_kernel), emulated
+
+
+def csrc_constant(source: str, name: str) -> int:
+    """``constexpr int <name> = <n>;`` of ``pipegcn_tpu_torch/ops/csrc/
+    <source>``: the emulations run at the kernel's own geometry."""
+    import re
+
+    from pipegcn_tpu_torch.ops import _build
+
+    text = (_build.CSRC / source).read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+def _k10_emulated(x, dt, deg=None, amax=None):
+    """K10's split: the vector ``pbs.k10_vec`` picks; for every part, a
+    block a chunk of ``kCastThreads * kCastAhead`` consecutive vectors,
+    each thread ``kCastAhead`` vectors ``kCastThreads`` apart, the last
+    chunk cut at the part's end; with ``deg`` one divisor a vector, its
+    first element's row. Each element is then cast as the plain version casts
+    it, with that divisor and the part's scale. Returns ``(y, inv, writes,
+    rows_of_vector)``: the count of stores of each element, and per vector
+    the rows its elements lie in."""
+    T = csrc_constant("transport_cast.cu", "kCastThreads")
+    A = csrc_constant("transport_cast.cu", "kCastAhead")
+    P, rows, F = x.shape
+    y = torch.empty(x.shape, dtype=dt)
+    vec = pbs.k10_vec(x, y, deg)
+    run = F if deg is not None else rows * F
+    assert run % vec == 0
+    assert (x.data_ptr() // x.element_size()) % vec == 0
+    n_vec = rows * F // vec
+    chunk = T * A
+    vs = []
+    for b in range(max(1, -(-n_vec // chunk))):
+        v = (b * chunk + np.arange(T)[None, :]
+             + np.arange(A)[:, None] * T).ravel()
+        vs.append(v[v < n_vec])
+    v = np.concatenate(vs) if vs else np.zeros(0, np.int64)
+    el = v[:, None] * vec + np.arange(vec)[None, :]   # [vectors, vec]
+    writes = np.zeros((P, rows * F), np.int64)
+    for p in range(P):
+        np.add.at(writes[p], el.ravel(), 1)
+    xf = x.reshape(P, -1)
+    scale = None
+    if amax is not None and dt in pbs.F8_MAX:
+        scale = pbs.pow2_scale(amax, pbs.F8_MAX[dt])
+    flat = y.view(P, -1)
+    for p in range(P):
+        e = torch.from_numpy(el.ravel())
+        vals = xf[p, e].float()
+        if deg is not None:
+            # one deg a vector: its first element's row
+            vals = vals / deg[p, torch.from_numpy(el[:, 0] // F)].repeat_interleave(vec)
+        if scale is not None:
+            vals = vals * scale[p]
+        m = pbs.F8_MAX.get(dt)
+        if m is not None:
+            vals = torch.clamp(vals, -m, m)
+        flat[p, e] = vals.to(dt)
+    inv = None if scale is None else 1.0 / scale
+    return y, inv, writes, el // F
+
+
+@pytest.mark.parametrize("F", [1, 3, 41, 164, 256, 602])
+def test_k10_vectors_cover_every_element_once(F):
+    """K10's split (the vector its wrapper picks, a block a chunk of
+    vectors, a thread's vectors in flight, one deg a vector) writes every element of y exactly once, no vector straddles
+    a row where a deg is loaded, and what it writes is
+    ``transport_cast_plain``'s, bit for bit: f32 and bf16 input, e4m3,
+    e5m2 and bf16 output, with and without deg and the amax scale, P = 1,
+    2 and 3, from aligned storage and from storage one element past it
+    (narrower vectors, a part's rows x F no multiple of the vector)."""
+    rng = np.random.default_rng(F)
+    rows = max(5, 12001 // F)
+    for P in (1, 2, 3):
+        n = P * rows * F
+        base = rng.standard_normal(n + 1).astype(np.float32) * 3.0
+        base[rng.integers(0, n + 1, 3)] = [np.nan, np.inf, 1e6]
+        deg = torch.from_numpy(rng.integers(1, 50, (P, rows)).astype(
+            np.float32))
+        for src in (torch.float32, torch.bfloat16):
+            buf = torch.from_numpy(base).to(src)
+            for x in (buf[:n].view(P, rows, F), buf[1:].view(P, rows, F)):
+                for d in (None, deg):
+                    amax = pbs.part_amax_plain(x, d)
+                    for dt in (torch.float8_e4m3fn, torch.float8_e5m2,
+                               torch.bfloat16):
+                        for a in (None, amax):
+                            what = (P, src, x.storage_offset(), d is None,
+                                    dt, a is None)
+                            y, inv, writes, vrows = _k10_emulated(x, dt, d,
+                                                                  a)
+                            assert (writes == 1).all(), what
+                            if d is not None:
+                                assert (vrows == vrows[:, :1]).all(), what
+                            want, want_inv = pbs.transport_cast_plain(
+                                x, dt, d, a)
+                            assert_same_values(y, want, str(what))
+                            assert (inv is None) == (want_inv is None)
+                            if inv is not None:
+                                assert torch.equal(inv, want_inv), what

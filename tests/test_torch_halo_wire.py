@@ -36,7 +36,7 @@ from pipegcn_tpu_torch.ops.bucket_spmm import (F8_MAX, TransportShare,
                                                quantize)
 from pipegcn_tpu_torch.parallel import halo as phalo
 from pipegcn_tpu_torch.parallel.trainer import TrainConfig, Trainer
-from test_torch_bucket import to_torch
+from test_torch_bucket import csrc_constant, to_torch
 from test_torch_train import (CPU, MODES, SIZES, one_torch_thread,
                               port_sharded, sharded)
 from test_torch_train_bucket_transport import FLIP_FRAC, JaxTap
@@ -500,3 +500,128 @@ def test_k15_chunks_cover_every_element_once(F):
                         assert torch.equal(a.view(torch.uint8),
                                            b.view(torch.uint8)), (
                             rows, dt, x.stride())
+
+
+# ---------------------------------------------------------------------------
+# K14's design (csrc/halo_wire.cu exchange_amax_kernel, return_amax_kernel),
+# emulated
+
+# blocks the card holds at once in the emulation of K14's one wave (the
+# H100's ~1,000 cut so that at these sizes every warp strides over rows)
+WAVE = 4
+
+
+def _k14_emulated(x, send_idx, send_mask, b_max):
+    """K14's split: the vector ``phalo.k14_vec`` picks. The exchange: one
+    wave of ``WAVE`` blocks spread over the P (P - 1) slot blocks (never
+    more than a slot's chunks of ``kWireWarps * kWireRows`` rows), each
+    warp ``kWireRows`` rows at a time, striding by the grid's warps, each
+    lane its vectors (lane, lane + 32, ...) of every row that is not
+    masked. The return: a block a chunk of ``kThreads * kAmaxAhead``
+    vectors of the slot block's contiguous slab ((d-1) B .. d B of the
+    sender's part), a thread ``kAmaxAhead`` of them ``kThreads`` apart.
+    Each slot's max is taken over the bits of |v| of the elements so read
+    (unsigned, NaN above +inf). Returns ``(amax [P, P-1] f32, reads)``,
+    reads the count of reads of each (slot, row, column) of the blocks."""
+    W = csrc_constant("halo_wire.cu", "kWireWarps")
+    R = csrc_constant("halo_wire.cu", "kWireRows")
+    T = csrc_constant("halo_wire.cu", "kThreads")
+    A = csrc_constant("halo_wire.cu", "kAmaxAhead")
+    assert T == 32 * W
+    P, n, F = x.shape
+    B = b_max
+    vec = phalo.k14_vec(x)
+    assert F % vec == 0 and x.stride(0) % vec == 0
+    assert (x.data_ptr() // x.element_size()) % vec == 0
+    flat = x.as_strided(((P - 1) * x.stride(0) + n * F,), (1,),
+                        x.storage_offset()).float().numpy()
+    bits = flat.view(np.uint32) & np.uint32(0x7fffffff)   # |v|'s bits
+    slots = P * (P - 1)
+    amax = np.zeros(slots, np.uint32)
+    reads = np.zeros((slots, B, F), np.int64)
+    nvec = F // vec
+    for slot in range(slots):
+        s, d1 = divmod(slot, P - 1)
+        read = []  # (row of the block, column, offset in x)
+        if send_idx is not None:
+            chunk = W * R
+            grid = max(1, min(-(-WAVE // slots), -(-B // chunk)))
+            for blk in range(grid):
+                for warp in range(W):
+                    for b0 in range((blk * W + warp) * R, B,
+                                    grid * W * R):
+                        for b in range(b0, min(B, b0 + R)):
+                            if not send_mask[s, d1, b]:
+                                continue  # never read
+                            i = min(max(int(send_idx[s, d1, b]), 0), n - 1)
+                            row = s * x.stride(0) + i * F
+                            for lane in range(32):
+                                for v in range(lane, nvec, 32):
+                                    c = v * vec + np.arange(vec)
+                                    read.append((np.full(vec, b), c,
+                                                 row + c))
+        else:
+            n_vec = B * F // vec
+            chunk = T * A
+            base = s * x.stride(0) + d1 * B * F
+            for blk in range(-(-n_vec // chunk)):
+                v = (blk * chunk + np.arange(T)[None, :]
+                     + np.arange(A)[:, None] * T).ravel()
+                v = v[v < n_vec]
+                e = (v[:, None] * vec + np.arange(vec)).ravel()
+                read.append((e // F, e % F, base + e))
+        if read:
+            b, c, off = (np.concatenate(a) for a in zip(*read))
+            np.add.at(reads[slot], (b, c), 1)
+            amax[slot] = bits[off].max()
+    return (torch.from_numpy(amax.view(np.float32).reshape(P, P - 1)),
+            torch.from_numpy(reads))
+
+
+@pytest.mark.parametrize("F", [1, 3, 41, 48, 256, 602])
+def test_k14_split_reads_every_sent_element_once(F):
+    """K14's split (the vector its wrapper picks, the exchange's warps
+    striding over rows in one wave, the return's chunks) reads every element of every sent row exactly once and
+    no masked row, and its maxima are ``halo_amax_plain``'s bits, a NaN
+    propagating to its own block only: the exchange at P = 3 with clipped
+    and masked send rows, the return from aligned views and from views
+    whose part stride (and base) is odd, f32 and bf16 rows."""
+    P, n, B = 3, 40, 37  # B past one chunk of rows
+    rng = np.random.default_rng(F)
+    idx = torch.from_numpy(rng.integers(-2, n + 2, (P, P - 1, B)).astype(
+        np.int32))
+    mask = torch.from_numpy(rng.random((P, P - 1, B)) < 0.8)
+    for rows in (torch.float32, BF16):
+        big = rng.standard_normal((P, n + 1, F)).astype(np.float32) * 3.0
+        # a NaN in a row that part 1 sends to distance 1 only
+        nan_row = int(idx[1, 0][mask[1, 0]][0].clamp(0, n - 1))
+        big[1, nan_row, F // 2] = np.nan
+        big = torch.from_numpy(big).to(rows)
+        g = rng.standard_normal((P, 1 + (P - 1) * B, F)).astype(np.float32)
+        g[2, 1 + B + 3, 0] = np.nan  # the return: sender 2's distance 2
+        g = torch.from_numpy(g).to(rows)
+        cases = [(big[:, :n].contiguous(), idx, mask),
+                 (big[:, 1:], idx, mask),  # part stride (n + 1) F
+                 (g[:, 1:].contiguous(), None, None),
+                 (g[:, 1:], None, None)]   # part stride (1 + (P-1) B) F
+        for x, si, sm in cases:
+            what = (rows, x.stride(), si is None)
+            got, reads = _k14_emulated(x, si, sm, B)
+            want = phalo.halo_amax_plain(x, si, sm, B)
+            sent = (sm.reshape(-1, B) if si is not None
+                    else torch.ones((P * (P - 1), B), dtype=torch.bool))
+            assert torch.equal(reads, sent[..., None].long().expand(
+                -1, -1, F)), what
+            nan = torch.isnan(got)
+            assert torch.equal(nan, torch.isnan(want)), what
+            assert torch.equal(got[~nan].view(torch.int32),
+                               want[~nan].view(torch.int32)), what
+            if si is not None:
+                # the NaN reaches only the blocks that send its row
+                bad = torch.isnan(x.float()).any(-1)      # [P, n]
+                sends = bad[torch.arange(P)[:, None, None],
+                            idx.long().clamp(0, n - 1)] & mask
+                assert torch.equal(nan, sends.any(-1)), what
+                assert bool(nan.any()) or x.storage_offset(), what
+            else:
+                assert nan.sum() == 1 and bool(nan[2, 1]), what
