@@ -61,10 +61,13 @@ stack (union-gather block tiles and the fp8 halo wire at bf16):
      a K2 full exchange bit for bit, the logits after ``refresh()``
      against a recompute through the plain versions; K18 bit-exact
      against its plain version at the cell's shapes (32, 256, 4,096 and
-     all dirty rows) and on edge cases (P = 2, 3, 4, f32 and bf16 rows,
-     odd row bytes, masked-off out-of-range indices, one owner on every
-     distance, NaN payloads in clean slots); a K18 fed the wrong mask or
-     bits must fail; K18's, K2's and the refresh's times, one churn
+     all dirty rows, every slot masked off; reruns identical) and on edge
+     cases (P = 2, 3, 4, f32, bf16 and u8 rows, F = 1 to 602, odd row
+     bytes, B = 5,000 and 5,003 so that warps straddle distances,
+     masked-off out-of-range indices, one owner on every distance, NaN
+     payloads in clean slots); a K18 fed the wrong mask or bits, or one
+     masked-off slot kept, must fail; K18's times (one call, 20 back to
+     back, the profiler's device time), K2's and the refresh's, one churn
      batch's ``apply_updates`` and ``refresh_boundary`` (host and
      device); then GCN with 2 s of churn, its halo held likewise;
   6. trains the ``scripts/reddit.sh`` cell through the training CLI's
@@ -208,7 +211,9 @@ stack (union-gather block tiles and the fp8 halo wire at bf16):
      same parts, the counts set to 0 just before the build and read after
      the final eval: every check ok and none skipped, K19 (all three
      forms) launched, Freivalds' device half K2 and K1 once each at F = 1;
-     the epoch with no check, a boundary check and a deep check;
+     the epoch with no check, a boundary check and a deep check; the wire
+     lane's ranges-form launches by shape (the script wraps the lane's
+     digest function);
  35. the detection matrix on that trainer: one fit per target class with
      ``bitflip@3:<class>`` (8 epochs, eval off), each injected, detected by
      epoch 5, attributed and recovered; on the bucket trainer of [15] and
@@ -224,12 +229,22 @@ stack (union-gather block tiles and the fp8 halo wire at bf16):
      wrapper) counted and, through fit, the carry flushed; the freshness
      engine of [5a] with the guard on over
      32-row churn batches, its halo bit-identical to K2's full exchange,
-     and a corrupted K18 copy rebuilt by the full exchange;
+     a batch's device time with the guard off and on (torch.profiler, by
+     kernel), K19's rows form at the serving guard's shape (F = 602, 32
+     dirty rows) bit-exact and timed (one call, 20 back to back, the
+     profiler's device time), and a corrupted K18 copy rebuilt by the full
+     exchange;
  37. holds K19 bit-exact against its plain version and the numpy
      host_digest (every dtype, 0 / 1 / 97 elements, an unaligned view,
-     the use_pp features, the per-part and rows forms, a flipped bit), and
-     times it over the static data, the features and the guard's rows
-     beside its bound, its plain version and the library sum;
+     the use_pp features, the per-part and rows forms, a flipped bit), the
+     rows form also on edge sets (P = 2, 3, 4; B = 37, 5,000 and 5,003;
+     f32 rows of F = 1, 5, 41, 602, bf16 rows, 1-byte u8 rows; parts one
+     row apart; no bits, none, all and random rows dirty, every slot
+     masked off; each rerun identical) with a planted fault (a row summed
+     twice) that must fail, and times it over the static data, the
+     features, the guard's rows and distance blocks (one call, 20 back to
+     back, the profiler's device time) beside its bound, its plain version
+     and the library sum;
  38. prints the ``kernels`` JSON line (every kernel and each of its row
      types, times at the shapes whose launches are counted), a line for
      each cell, the nvidia-smi line, and last ``{"ok": true, "device":
@@ -241,8 +256,10 @@ stack (union-gather block tiles and the fp8 halo wire at bf16):
      sizes: clustered tables in every row type, random tables at e4m3), K6
      and K8 (dh = 64 and 41) with ``tools/time_gather_kernels.py``, in
      turns
-     (parent, this, this, parent; each tool its own process) and carries
-     both in those kernels' ``parent_ab``.
+     (parent, this, this, parent; each tool its own process), then K10,
+     K14, K15, K18 and K19 of both side by side in one process with
+     ``tools/time_transport_ab.py``, and carries both in those kernels'
+     ``parent_ab``.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when the
 package is missing (the script alone), or when any phase fails.
@@ -405,6 +422,91 @@ def batched_ms(fn, calls: int = 20) -> float:
             fn()
 
     return time_ms(run, reps=10, warmup=1) / calls
+
+
+# seconds the profiler's window stays open before the first profiled call
+# and after the last has finished (four times more in each further
+# session): a window closed at its last kernel loses device events as the
+# process ages, and a session can lose some of its launches whatever its
+# pad (PERF.md, the K18 / K19 redesign)
+PROFILE_PAD_S = 0.05
+
+
+def profiled(fn, calls: int = 1, need: str = "", count: int = 1,
+             tries: int = 3):
+    """torch.profiler (CPU and CUDA activity, CUPTI) over ``calls`` calls
+    of ``fn``, the window padded on both sides; a fresh session with a
+    wider pad while fewer than ``count`` device events' names hold
+    ``need`` ("": any device event; ``count``: the launches the calls
+    make). After ``tries`` sessions the one that saw the most is returned;
+    the phase fails if none saw any."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    best = (None, -1)
+    for t in range(tries):
+        pad = PROFILE_PAD_S * 4 ** t
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(pad)
+        seen = sum(e.device_type == DeviceType.CUDA and need in e.name
+                   for e in prof.events())
+        if seen >= count:
+            if t:
+                log(f"    (the profiler saw {need or 'the device'} in "
+                    f"session {t + 1}, padded {pad} s)")
+            return prof
+        log(f"    (the profiler saw {seen} of {count} {need or 'device'} "
+            f"events in session {t + 1}, padded {pad} s)")
+        if seen > best[1]:
+            best = (prof, seen)
+    require(best[1] > 0, f"torch.profiler saw no device event named like "
+            f"{need!r} in {tries} sessions")
+    return best[0]
+
+
+def device_times(prof, calls: int = 1):
+    """Milliseconds a call of device time in ``prof`` by kernel or copy
+    name."""
+    from torch.autograd import DeviceType
+
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.device_time / calls / 1e3)
+    return by_name
+
+
+def launch_ms(prof, kernel: str) -> float:
+    """Milliseconds of one launch of the kernels whose name holds
+    ``kernel`` in ``prof``: the mean over the launches it saw, so that a
+    session that lost some still reads their time."""
+    from torch.autograd import DeviceType
+
+    us = [e.device_time for e in prof.events()
+          if e.device_type == DeviceType.CUDA and kernel in e.name]
+    require(bool(us), f"torch.profiler saw no {kernel!r} launch")
+    return sum(us) / len(us) / 1e3
+
+
+def device_ms(fn, kernel: str, calls: int = 20) -> float:
+    """The card's time a call of ``fn`` in the kernel whose name holds
+    ``kernel`` (launched once a call), as ``profiled`` reads it over
+    ``calls`` calls after one untimed call. A small kernel launched
+    through ctypes can take less time on the card than its call takes on
+    the host, which an event pair (one call or back to back) then
+    counts."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    return launch_ms(profiled(fn, calls, kernel, count=calls), kernel)
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -886,19 +988,34 @@ def dirty_rows(P, n_max, n, seed):
 
 
 def k18_edge_phase(fresh, halo):
-    """K18 against its plain version on hand-made send lists: P = 2 and 4,
-    f32 and bf16 rows, F = 602 (8-byte rows) and F = 5 (odd bytes), with
-    masked-off slots at out-of-range indices, one owner row on every
-    distance, distinct NaN payloads in the old halo; dirty sets empty,
-    all, off-list, random, the one owner."""
+    """K18 against its plain version on hand-made send lists: P = 2, 3 and
+    4, f32 and bf16 rows, F = 602 (8-byte rows), F = 41 and 5 (4-byte
+    vectors), F = 1 (a row of one vector) and 1-byte u8 rows (the guard's bit lane), B = 5,003 and 5,000
+    (several blocks, each warp's 32 slots spread over distances and
+    senders, B no multiple of 32), with masked-off slots
+    at out-of-range indices, one owner row on every distance, distinct NaN
+    payloads in the old halo; dirty sets empty, all, off-list, random, the
+    one owner, and every slot masked off; each rerun bit-identical. Three
+    planted faults must fail: a kernel fed an all-on mask (the mask
+    ignored), one fed all-dirty bits (clean slots written), and a build of
+    the kernel whose live test keeps the last slot of the send lists,
+    masked off (``PLANTS``)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(31)
+    bits_of = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+               torch.uint8: torch.uint8}
+    faults = None
     for P, n_max, B, F, dt in ((2, 300, 120, 602, torch.float32),
                                (4, 300, 90, 602, torch.float32),
                                (4, 65, 20, 5, torch.float32),
                                (4, 300, 90, 602, torch.bfloat16),
-                               (3, 50, 17, 7, torch.bfloat16)):
+                               (3, 50, 17, 7, torch.bfloat16),
+                               (3, 2000, 5003, 41, torch.float32),
+                               (2, 6000, 5000, 602, torch.float32),
+                               (4, 700, 5003, 1, torch.float32),
+                               (3, 900, 5003, 1, torch.uint8),
+                               (2, 60, 37, 41, torch.bfloat16)):
         idx = torch.randint(0, n_max - 4, (P, P - 1, B), generator=gen,
                             device="cuda", dtype=torch.int32)
         mask = torch.rand((P, P - 1, B), generator=gen, device="cuda") < 0.75
@@ -907,31 +1024,51 @@ def k18_edge_phase(fresh, halo):
         mask[:, :, -2:] = False
         idx[0, :, :2] = 3
         mask[0, :, :2] = True
-        h = torch.randn((P, n_max, F), generator=gen, device="cuda").to(dt)
-        ib = torch.int32 if dt == torch.float32 else torch.int16
+        ib = bits_of[dt]
         info = torch.iinfo(ib)
+        if dt == torch.uint8:
+            h = torch.randint(0, 256, (P, n_max, F), generator=gen,
+                              device="cuda", dtype=torch.int32).to(dt)
+        else:
+            h = torch.randn((P, n_max, F), generator=gen,
+                            device="cuda").to(dt)
         old = torch.randint(info.min, info.max, (P, (P - 1) * B, F),
                             generator=gen, device="cuda",
                             dtype=torch.int64).to(ib)
-        nan = 0x7FC00001 if dt == torch.float32 else 0x7FC1
-        old.view(-1)[:64] = torch.arange(nan, nan + 64, device="cuda").to(ib)
+        if dt != torch.uint8:
+            nan = 0x7FC00001 if dt == torch.float32 else 0x7FC1
+            old.view(-1)[:64] = torch.arange(nan, nan + 64,
+                                             device="cuda").to(ib)
         old = old.view(dt)
         on = torch.zeros((P, n_max), dtype=torch.bool, device="cuda")
         for p in range(P):
             on[p, idx[p][mask[p]].long()] = True
         owner = torch.zeros_like(on)
         owner[0, 3] = True
-        for label, dirty in (("empty", torch.zeros_like(on)),
-                             ("all", torch.ones_like(on)), ("off-list", ~on),
-                             ("random", torch.rand((P, n_max), generator=gen,
-                                                   device="cuda") < 0.3),
-                             ("one owner", owner)):
-            k18_check(f"K18 P={P} F={F} {dt} dirty {label}", fresh, h, old,
-                      dirty, idx, mask)
+        for label, dirty, m in (
+                ("empty", torch.zeros_like(on), mask),
+                ("all", torch.ones_like(on), mask), ("off-list", ~on, mask),
+                ("random", torch.rand((P, n_max), generator=gen,
+                                      device="cuda") < 0.3, mask),
+                ("one owner", owner, mask),
+                ("all, every slot masked off", torch.ones_like(on),
+                 torch.zeros_like(mask))):
+            k18_check(f"K18 P={P} B={B} F={F} {dt} dirty {label}", fresh, h,
+                      old, dirty, idx, m)
+            if label == "random":
+                first = fresh.dirty_exchange(h, old.clone(), dirty, idx, m)
+                again = fresh.dirty_exchange(h, old.clone(), dirty, idx, m)
+                check_bits(f"K18 P={P} B={B} F={F} {dt} rerun", again,
+                           first)
         n_live = int(live_slots(owner, idx, mask).sum())
         require(n_live >= 2 * (P - 1), f"one owner: {n_live} live slots")
+        if B >= 5000 and faults is None:
+            faults = (h, old, on, idx, mask)
     # the fault checks: a kernel that ignores the mask writes the masked-off
-    # slots of dirty owners; one that ignores the bits writes clean slots
+    # slots of dirty owners; one that ignores the bits writes clean slots;
+    # the planted build, whose live test keeps the last slot of the send
+    # lists (masked off here, its clipped owner row dirty), writes it
+    h, old, on, idx, mask = faults
     all_on = torch.ones_like(mask)
     all_dirty = torch.ones_like(on)
     must_fail("planted fault: K18 ignoring send_mask",
@@ -941,6 +1078,12 @@ def k18_edge_phase(fresh, halo):
               lambda: k18_check("K18 bits ignored", fresh, h, old,
                                 torch.zeros_like(on), idx, mask,
                                 (all_dirty, mask)))
+    require(not bool(mask[-1, -1, -1]), "K18 faults: the last slot is on")
+    with planted("k18", fresh):
+        must_fail("planted fault: K18 built with its live test keeping "
+                  "the last (masked-off) slot",
+                  lambda: k18_check("K18 planted build, last slot kept",
+                                    fresh, h, old, all_dirty, idx, mask))
 
 
 def freshness_phase(args, sg, spmm, halo, fresh):
@@ -1023,17 +1166,29 @@ def freshness_phase(args, sg, spmm, halo, fresh):
                         generator=gen, device="cuda",
                         dtype=torch.int64).to(torch.int32).view(torch.float32)
     times = {}
-    for n in (32, 256, 4096, P * n_max):
+    off = torch.zeros_like(mask)
+    for n, m in ((32, mask), (256, mask), (4096, mask), (P * n_max, mask),
+                 (P * n_max, off)):
         dirty = dirty_rows(P, n_max, n, seed=n)
-        label = "all" if n == P * n_max else str(n)
+        label = ("none live" if m is off else "all" if n == P * n_max
+                 else str(n))
         k18_check(f"K18 cell, {label} dirty rows", fresh, h, old, dirty, idx,
-                  mask)
-        live = live_slots(dirty, idx, mask)
+                  m)
+        check_bits(f"K18 cell, {label} dirty rows, rerun",
+                   fresh.dirty_exchange(h, old.clone(), dirty, idx, m),
+                   fresh.dirty_exchange(h, old.clone(), dirty, idx, m))
+        live = live_slots(dirty, idx, m)
         n_slots = int(live.sum())
         work = old.clone()
-        ms = time_ms(lambda: fresh.dirty_exchange(h, work, dirty, idx, mask))
+
+        def call():
+            fresh.dirty_exchange(h, work, dirty, idx, m)
+
+        ms = time_ms(call)
+        batched = batched_ms(call)
+        dev = device_ms(call, "dirty_exchange")
         plain = time_ms(lambda: fresh.dirty_exchange_plain(
-            h, work, dirty, idx, mask), reps=5)
+            h, work, dirty, idx, m), reps=5)
         # library yardstick: the dirty bits and rows gathered per slot,
         # merged by one torch.where
         sender = (torch.arange(P, device="cuda")[:, None]
@@ -1041,19 +1196,22 @@ def freshness_phase(args, sg, spmm, halo, fresh):
         dist = torch.arange(P - 1, device="cuda")[None, :]
         gidx = (sender[..., None] * n_max
                 + idx[sender, dist].long().clamp(0, n_max - 1)).reshape(-1)
-        gmask = mask[sender, dist].reshape(-1)
+        gmask = m[sender, dist].reshape(-1)
         flat, dflat = h.reshape(P * n_max, F), dirty.reshape(-1)
         wflat = work.view(-1, F)
         lib = time_ms(lambda: torch.where(
             (dflat[gidx] & gmask)[:, None], flat.index_select(0, gidx),
             wflat))
         n_bytes = P * (P - 1) * B * (4 + 1 + 1) + 2 * n_slots * F * 4
-        times[label] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+        times[label] = dict(ms=ms, batched_ms=batched, device_ms=dev,
+                            plain_ms=plain, library_ms=lib,
                             bound=bound_ms(n_bytes, 0), dirty_slots=n_slots,
                             shape=f"P={P} n_max={n_max} B={B} F={F} f32, "
                                   f"{label} dirty rows, {n_slots} dirty "
-                                  "slots")
-        log(f"  K18 {label} dirty rows ({n_slots} slots): {ms:.4f} ms, "
+                                  "slots" + (", every slot masked off"
+                                             if m is off else ""))
+        log(f"  K18 {label} dirty rows ({n_slots} slots): {ms:.4f} ms one "
+            f"call, {batched:.4f} back to back, device (profiler) {dev}, "
             f"plain {plain:.3f}, library {lib:.3f}, bound "
             f"{times[label]['bound'][0]:.4f} ms")
         del work, gidx, gmask
@@ -1066,7 +1224,7 @@ def freshness_phase(args, sg, spmm, halo, fresh):
     # clock around the call and a synchronize, 20 batches; then the device
     # time of each (its kernels and copies, torch.profiler), 20 more
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import record_function
 
     rng = np.random.default_rng(11)
 
@@ -1089,15 +1247,15 @@ def freshness_phase(args, sg, spmm, halo, fresh):
         host_a.append((t1 - t0) * 1e3)
         host_b.append((t2 - t1) * 1e3)
     labels = ("apply_updates", "refresh_boundary")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(20):
-            ids_u, vals = batch()
-            with record_function(labels[0]):
-                engine.apply_updates(ids_u, vals)
-            with record_function(labels[1]):
-                engine.refresh_boundary()
-        torch.cuda.synchronize()
+
+    def ranged():
+        ids_u, vals = batch()
+        with record_function(labels[0]):
+            engine.apply_updates(ids_u, vals)
+        with record_function(labels[1]):
+            engine.refresh_boundary()
+
+    prof = profiled(ranged, 20, "dirty_exchange", count=20)
     update_ms = {}
     for label, host in zip(labels, (host_a, host_b)):
         evs = [e for e in prof.events() if e.name == label
@@ -1111,10 +1269,7 @@ def freshness_phase(args, sg, spmm, halo, fresh):
     # ctypes, not a torch op, so the profiler ties it to no CPU range and
     # refresh_boundary's device time above counts its torch work only (the
     # dirty bits' copy); the batch's device time is the sum of the two
-    k18 = [e.device_time for e in prof.events()
-           if e.device_type == DeviceType.CUDA and "dirty_exchange" in e.name]
-    update_ms["k18_in_profile_ms"] = (float(np.mean(k18)) / 1e3
-                                      if k18 else None)
+    update_ms["k18_in_profile_ms"] = launch_ms(prof, "dirty_exchange")
     log(f"  K2 full exchange {k2_ms:.3f} ms; refresh (use_pp off) "
         f"{refresh_ms:.3f} ms; a 32-row batch: {update_ms}")
     check_bits("halo after the timed batches vs K2 full exchange",
@@ -2021,6 +2176,70 @@ def must_fail(name, check) -> None:
         log(f"  {name}: fails the check, as it must")
         return
     raise Failed(f"{name}: a planted fault passed the check")
+
+
+# faults planted in a kernel's own source behind a define that the
+# package's build never sets: key -> (library, define). Each is compiled
+# beside the package's kernels and run through the package's wrapper with
+# its library swapped in (``planted``).
+PLANTS = {"k18": ("halo_gather", "PGT_PLANT_K18_KEEP_LAST_SLOT"),
+          "k19_rows": ("digest", "PGT_PLANT_K19_ROW_TWICE")}
+_PLANT_BUILDS = {}
+
+
+def start_plants() -> None:
+    """One ``nvcc`` a planted instance, started now (beside the package's
+    builds) into the git-ignored build directory; ``planted`` waits."""
+    from pipegcn_tpu_torch.ops import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    for key, (name, define) in PLANTS.items():
+        out = _build.BUILD_DIR / f"lib{name}-{define.lower()}.so"
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, f"-D{define}", "-o",
+               str(out), str(_build.CSRC / f"{name}.cu")]
+        with open(out.with_suffix(".log"), "w") as msg:
+            _PLANT_BUILDS[key] = (out, subprocess.Popen(
+                cmd, stdout=msg, stderr=subprocess.STDOUT))
+
+
+def join_plants() -> None:
+    for _, proc in _PLANT_BUILDS.values():
+        proc.wait()
+
+
+class planted:
+    """``with planted(key, module):`` the package's library of
+    ``PLANTS[key]`` is its planted instance while the block runs, bound
+    with ``module._SIGNATURES``; a failed build fails the phase."""
+
+    def __init__(self, key, module):
+        self.name, self.define = PLANTS[key]
+        self.key, self.module = key, module
+
+    def __enter__(self):
+        import ctypes
+
+        from pipegcn_tpu_torch.ops import _build
+
+        out, proc = _PLANT_BUILDS[self.key]
+        require(proc.wait() == 0,
+                f"planted build -D{self.define}: nvcc failed:\n"
+                f"{out.with_suffix('.log').read_text()}")
+        lib = ctypes.CDLL(str(out))
+        for fn, argtypes in self.module._SIGNATURES.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        self.real = _build.load(self.name, self.module._SIGNATURES)
+        with _build._lock:
+            _build._libs[self.name] = lib
+        return self
+
+    def __exit__(self, *exc):
+        from pipegcn_tpu_torch.ops import _build
+
+        with _build._lock:
+            _build._libs[self.name] = self.real
+        return False
 
 
 def gat_fault_phase(gat, slope=0.2, mode="f32"):
@@ -5392,12 +5611,41 @@ def integrity_cell_phase(args, sg, eval_graphs, eval_cache, spmm, halo):
                             steps=steps)
     trainer.eval_cache = eval_cache
     buf = io.StringIO()
+    # the wire lane's ranges-form launches by shape: the script wraps the
+    # lane's digest function (not the package's) for the cell's run and
+    # files under the call's shape the launches that K19's own counter
+    # took during the call (none for an empty part or a call that raised)
+    from pipegcn_tpu_torch.ops import digest as dg
+
+    lane = halo.KERNELS.digests
+    lane_shapes = {}
+
+    def tally(x, blocks=1, out=None):
+        before = dg.part_digests.launches
+        try:
+            return lane(x, blocks, out)
+        finally:
+            n = dg.part_digests.launches - before
+            if n:
+                key = (f"{list(x.shape)} {str(x.dtype)[6:]}, {blocks} "
+                       f"block(s) a part")
+                lane_shapes[key] = lane_shapes.get(key, 0) + n
+
+    halo.KERNELS.digests = tally
     t0 = time.monotonic()
-    res = trainer.fit(eval_graphs, log_fn=log, inductive=True,
-                      metrics=MetricsLogger(buf))
-    torch.cuda.synchronize()
+    try:
+        res = trainer.fit(eval_graphs, log_fn=log, inductive=True,
+                          metrics=MetricsLogger(buf))
+        torch.cuda.synchronize()
+    finally:
+        halo.KERNELS.digests = lane
     fit_s = time.monotonic() - t0
     launches = read_counts(cnt)
+    log(f"  the wire lane's ranges-form launches by shape: {lane_shapes}")
+    require(sum(lane_shapes.values()) <= launches["part_digests"],
+            f"integrity cell: the wire lane's ranges-form launches "
+            f"{lane_shapes} exceed K19's per-part count "
+            f"{launches['part_digests']}")
     recs = records(buf)
     integ = require_checks_ok(recs, "integrity cell")
     require(not [r for r in recs if r["event"] in ("fault", "recovery")],
@@ -5461,9 +5709,6 @@ def integrity_cell_phase(args, sg, eval_graphs, eval_cache, spmm, halo):
     # the guarded step, the lane's read-back and the capture after; and
     # the device time of every kernel and copy of one unchecked and one
     # checked epoch (torch.profiler)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     def parts():
         marks = []
         for step in (lambda: require(all(
@@ -5483,22 +5728,16 @@ def integrity_cell_phase(args, sg, eval_graphs, eval_cache, spmm, halo):
 
     split = np.median([parts() for _ in range(5)], axis=0)
 
-    def device_ms(check):
-        """Milliseconds of device time by kernel or copy name."""
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            run(check)
-        by_name = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time
-        return {k: v / 1e3 for k, v in by_name.items()}
+    def epoch_device(check):
+        """Milliseconds of an epoch's device time by kernel or copy
+        name."""
+        return device_times(profiled(lambda: run(check)))
 
     trainer.tcfg = dataclasses.replace(tc, integrity_check_every=0)
-    dev_none = device_ms(None)
+    dev_none = epoch_device(None)
     trainer.tcfg = tc
     plane.note_dynamic(trainer)
-    dev_boundary = device_ms(False)
+    dev_boundary = epoch_device(False)
     # the names whose device time the check adds most to (None: the
     # profiler saw no device activity, not measured)
     grew = sorted(((dev_boundary.get(k, 0.0) - dev_none.get(k, 0.0), k)
@@ -5518,6 +5757,7 @@ def integrity_cell_phase(args, sg, eval_graphs, eval_cache, spmm, halo):
              "epoch_time_s_mean": res["epoch_time"],
              "best_val": res["best_val"], "test_acc": res.get("test_acc"),
              "launches": launches, "integrity_records": len(integ),
+             "wire_lane_ranges_launches_by_shape": lane_shapes,
              "freivalds_residuals": residuals,
              "freivalds_device_launches": fl,
              "epoch_ms_no_check": none_ms,
@@ -5812,6 +6052,67 @@ def serving_guard_phase(engine, fresh, cnt):
             and launches["part_digests"] >= 10,
             f"serving guard: launches {launches}")
     guard_ms = float(np.median(guarded))
+
+    # the device time of a 32-row churn batch (apply_updates and
+    # refresh_boundary), guard off and on: every kernel and copy the
+    # profiler saw over 10 batches, a batch's share, split by kernel
+    def one_batch():
+        engine.apply_updates(
+            rng.integers(0, engine.num_global_nodes, 32),
+            rng.standard_normal((32, engine.n_feat_raw), dtype=np.float32))
+        engine.refresh_boundary()
+
+    # a batch's launches of K18 (the rows, and under the guard their bit
+    # lane) and, under the guard, of the rows form (the sender's rows and
+    # bits, the receiver's rows) and the ranges form (the receiver's bits)
+    per_batch = {False: {"dirty_exchange": 1},
+                 True: {"dirty_exchange": 2, "rows_kernel": 3,
+                        "ranges_kernel": 1}}
+
+    def batch_device(guard):
+        engine.wire_guard = guard
+        n = per_batch[guard]
+        prof = profiled(one_batch, 10, "dirty_exchange",
+                        count=10 * n["dirty_exchange"])
+        split = {k: launch_ms(prof, k) * c for k, c in n.items()}
+        split["other kernels and copies"] = sum(
+            ms for name, ms in device_times(prof, 10).items()
+            if not any(k in name for k in n))
+        return {"total_ms": sum(split.values()), "by_kernel_ms": split}
+
+    batch_dev = {"unguarded": batch_device(False),
+                 "guarded": batch_device(True)}
+    require(engine.wire_bad_total == 0,
+            f"serving guard: wire_bad_total {engine.wire_bad_total}")
+    log(f"  a 32-row churn batch's device time (profiler, 10 batches): "
+        f"{batch_dev}")
+
+    # K19's rows form at the serving guard's shape: the send view, the
+    # cell's send lists, 32 dirty rows
+    from pipegcn_tpu_torch.ops import digest as dg
+
+    P, n_max, F = engine._feat.shape
+    idx, mask = engine.data.send_idx, engine.data.send_mask
+    h = engine._send_view()
+    dirty = dirty_rows(P, n_max, 32, seed=32)
+    k19_rows_check("K19 rows at the serving guard's shape, 32 dirty rows",
+                   dg, h, idx, mask, dirty)
+    n_live = int(live_slots(dirty, idx, mask).sum())
+
+    def rows():
+        dg.row_sums(h, idx, mask, dirty)
+
+    rows_guard = dict(
+        ms=time_ms(rows), batched_ms=batched_ms(rows),
+        device_ms=device_ms(rows, "rows_kernel"),
+        plain_ms=time_ms(lambda: dg.row_sums_plain(h, idx, mask, dirty),
+                         reps=3, warmup=1),
+        library_ms=None,
+        bound=bound_ms(idx.numel() * 6 + n_live * F * 4, 0),
+        shape=f"P = {P}, B = {idx.shape[2]}, F = {F} f32 (the serving "
+              f"guard's send rows), 32 dirty rows, {n_live} live send rows")
+    log(f"  K19 rows at the serving guard's shape: {rows_guard}")
+    del h
     orig = fresh.dirty_exchange
 
     def corrupt(h, halo_, dirty, send_idx, send_mask, guard=False):
@@ -5848,6 +6149,7 @@ def serving_guard_phase(engine, fresh, cnt):
     return {"batches": 10, "launches": launches,
             "refresh_boundary_guarded_ms": guard_ms,
             "refresh_boundary_unguarded_ms": plain_ms,
+            "batch_device": batch_dev, "k19_rows": rows_guard,
             "planted_fault_detected": True}
 
 
@@ -5873,6 +6175,75 @@ def k19_check(name, x):
     log(f"  K19 {name}: bit-exact vs plain and host_digest "
         f"{'ok' if ok else 'FAIL'} ({got.tolist()})")
     require(ok, f"K19 {name}: disagrees with its plain version or numpy")
+
+
+def k19_rows_check(name, dg, h, idx, mask, dirty=None):
+    """K19's rows form against its plain version bit for bit (and a rerun
+    identical)."""
+    import torch
+
+    got = dg.row_sums(h, idx, mask, dirty)
+    check_bits(name, got, dg.row_sums_plain(h, idx, mask, dirty))
+    require(torch.equal(got, dg.row_sums(h, idx, mask, dirty)),
+            f"{name}: a rerun differs")
+
+
+def k19_rows_edge_phase(dg):
+    """[37] K19's rows form against its plain version on hand-made send
+    lists: P = 2, 3 and 4, f32 rows of F = 1, 41 and 602 (16-, 4- and
+    8-byte vectors, a row of one vector), bf16 rows of F = 41 and 602, 1-byte u8 rows (the guard's bit lane),
+    parts one row apart (an odd part stride), B = 37, 5,000 and 5,003
+    (several blocks and warps, B no multiple of 32), clipped indices and
+    masked-off slots at out-of-range indices; no bits, no rows dirty, all,
+    random, every slot masked off. A planted fault must fail: a build of
+    the kernel in which a group of live rows that is not full sums its
+    first row twice (``PLANTS``)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(73)
+    fault = None
+    for P, n, B, F, dt in ((2, 300, 37, 1, torch.float32),
+                           (3, 300, 5003, 41, torch.float32),
+                           (4, 2000, 5000, 602, torch.float32),
+                           (2, 6000, 5003, 602, torch.float32),
+                           (3, 400, 5003, 41, torch.bfloat16),
+                           (2, 500, 37, 602, torch.bfloat16),
+                           (4, 900, 5003, 1, torch.uint8),
+                           (3, 60, 37, 5, torch.float32)):
+        idx = torch.randint(-3, n + 3, (P, P - 1, B), generator=gen,
+                            device="cuda", dtype=torch.int32)
+        mask = torch.rand((P, P - 1, B), generator=gen, device="cuda") < 0.8
+        idx[:, :, -1] = n + 5
+        mask[:, :, -1] = False
+        if dt == torch.uint8:
+            big = torch.randint(0, 256, (P, n + 1, F), generator=gen,
+                                device="cuda", dtype=torch.int32).to(dt)
+        else:
+            big = (torch.randn((P, n + 1, F), generator=gen, device="cuda")
+                   * 3).to(dt)
+        for lay, h in (("contiguous", big[:, :n].contiguous()),
+                       ("parts one row apart", big[:, 1:])):
+            for label, dirty, m in (
+                    ("no bits", None, mask),
+                    ("no rows dirty", torch.zeros((P, n), dtype=torch.bool,
+                                                  device="cuda"), mask),
+                    ("all dirty", torch.ones((P, n), dtype=torch.bool,
+                                             device="cuda"), mask),
+                    ("random dirty", torch.rand((P, n), generator=gen,
+                                                device="cuda") < 0.3, mask),
+                    ("every slot masked off", None, torch.zeros_like(mask))):
+                k19_rows_check(f"K19 rows P={P} B={B} F={F} {dt} {lay}, "
+                               f"{label}", dg, h, idx, m, dirty)
+        if B >= 5000 and dt == torch.float32 and fault is None:
+            fault = (h, idx, mask)
+    # a row summed twice: the planted build, in which a group of live rows
+    # that is not full takes its first row again
+    h, idx, mask = fault
+    with planted("k19_rows", dg):
+        must_fail("planted fault: K19's rows form built with a part-full "
+                  "group summing its first row twice",
+                  lambda: k19_rows_check("K19 rows planted build, a row "
+                                         "summed twice", dg, h, idx, mask))
 
 
 def k19_phase(trainer, spmm, halo):
@@ -5939,6 +6310,7 @@ def k19_phase(trainer, spmm, halo):
         f"{'ok' if same else 'FAIL'}, sender = receiver = numpy "
         f"{'ok' if host_ok else 'FAIL'}")
     require(same and host_ok, "K19 rows form disagrees")
+    k19_rows_edge_phase(dg)
     flipped = feat.clone()
     dg.flip_bit_(flipped[1], bit=0, index=12345)
     pf, pr = (dg.as_u32(dg.part_digests(t)) for t in (flipped, feat))
@@ -5977,27 +6349,40 @@ def k19_phase(trainer, spmm, halo):
         bound=bound_ms(fb, 0), shape=t["flat"]["shape"] + ", per part")
     on = int(d.send_mask.sum())
     rb = on * 256 * 4 + d.send_idx.numel() * 5
+
+    def rows():
+        dg.row_sums(hrows, d.send_idx, d.send_mask)
+
     t["rows"] = dict(
-        ms=time_ms(lambda: dg.row_sums(hrows, d.send_idx, d.send_mask)),
+        ms=time_ms(rows), batched_ms=batched_ms(rows),
+        device_ms=device_ms(rows, "rows_kernel"),
         plain_ms=time_ms(lambda: dg.row_sums_plain(hrows, d.send_idx,
                                                    d.send_mask), reps=3,
                          warmup=1),
         library_ms=None, bound=bound_ms(rb, 0),
         shape=f"P = {P}, B = {B}, {on} send rows of 256 f32 (a layer's "
               f"exchange)")
+
+    def block_sums():
+        dg.part_digests(blocks, P - 1)
+
     t["blocks"] = dict(
-        ms=time_ms(lambda: dg.part_digests(blocks, P - 1)),
+        ms=time_ms(block_sums), batched_ms=batched_ms(block_sums),
+        device_ms=device_ms(block_sums, "ranges_kernel"),
         plain_ms=time_ms(lambda: dg.part_digests_plain(blocks, P - 1),
                          reps=3, warmup=1),
         library_ms=time_ms(lambda: blocks.view(torch.int32).view(
+            P * (P - 1), -1).sum(dim=1, dtype=torch.int64)),
+        library_batched_ms=batched_ms(lambda: blocks.view(torch.int32).view(
             P * (P - 1), -1).sum(dim=1, dtype=torch.int64)),
         bound=bound_ms(blocks.numel() * 4, 0),
         shape=f"the received halo [{P}, {(P - 1) * B}, 256] f32 in "
               f"{P * (P - 1)} distance blocks")
     for k, v in t.items():
-        log(f"  K19 {k}: {v['ms']:.4f} ms, plain {v['plain_ms']}, library "
-            f"(s1 alone) {v['library_ms']}, bound {v['bound'][0]:.4f} ms "
-            f"({v['bound'][1]}); {v['shape']}")
+        log(f"  K19 {k}: {v['ms']:.4f} ms one call, back to back "
+            f"{v.get('batched_ms')}, device (profiler) {v.get('device_ms')}, "
+            f"plain {v['plain_ms']}, library (s1 alone) {v['library_ms']}, "
+            f"bound {v['bound'][0]:.4f} ms ({v['bound'][1]}); {v['shape']}")
     del hrows, blocks
     return t
 
@@ -6043,8 +6428,14 @@ def parent_ab(parent):
     = 64 and 41) at tools/time_gather_kernels.py's, each tool run in its
     own
     process (each checkout builds its own kernels, the parent's first, all
-    together), in turns: parent, this, this, parent. Returns each key's
-    two runs a side and their means."""
+    together), in turns: parent, this, this, parent; then K18 (32, 4,096
+    and all dirty rows, every slot masked off) and K19 (the rows form at
+    the training wire lane's and the serving guard's shapes, the ranges
+    form at the guard's halo), with K10, K14 and K15, of both side by side
+    in one process (tools/time_transport_ab.py, 8 interleaved rounds).
+    Returns each
+    key's two runs a side and their means, or the side-by-side
+    medians."""
     tools = [os.path.join(ROOT, "pipegcn_tpu_torch", "tools", t)
              for t in ("time_tile_products.py", "time_gather_kernels.py")]
     r = subprocess.run(
@@ -6055,7 +6446,7 @@ def parent_ab(parent):
          "if (_build.CSRC / f'{n}.cu').exists())",
          parent, "block_spmm", "block_tma", "transport_cast", "halo_gather",
          "spmm_mean", "gat_attn", "gat_attn_bf16", "gat_attn_fp8",
-         "bucket_spmm", "halo_wire"],
+         "bucket_spmm", "halo_wire", "digest"],
         capture_output=True, text=True, timeout=900)
     require(r.returncode == 0, f"the parent's kernels did not build: "
             f"{r.stderr[-3000:]}")
@@ -6100,6 +6491,26 @@ def parent_ab(parent):
         out[k] = {"parent_ms": sum(par) / 2, "ms": sum(new) / 2,
                   "parent_runs_ms": par, "runs_ms": new,
                   "shape": f"pipegcn_tpu_torch/tools/{tool}'s"}
+    # K10, K14, K15, K18 and K19 side by side in one process, interleaved
+    # rounds (K10 / K14 / K15 under "<key> side by side", beside their
+    # runs in turns above)
+    r = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "pipegcn_tpu_torch", "tools",
+                                      "time_transport_ab.py"),
+         f"parent={parent}", f"change={ROOT}", "--rounds", "8"],
+        capture_output=True, text=True, timeout=900)
+    require(r.returncode == 0, f"time_transport_ab.py failed: "
+            f"{r.stderr[-3000:]}")
+    side = json.loads(r.stdout.strip().splitlines()[-1])
+    log(f"  side by side: {side}")
+    for k, v in side["ms"]["change"].items():
+        key = k if k.startswith(("K18", "K19")) else f"{k} side by side"
+        out[key] = {"parent": side["ms"]["parent"][k], "change": v,
+                  "rounds": side["rounds"],
+                  "shape": "pipegcn_tpu_torch/tools/time_transport_ab.py's "
+                           "(one process, interleaved rounds; [median, "
+                           "lowest, highest] ms of each round's hot, cold "
+                           "and profiled device time)"}
     return out
 
 
@@ -6129,12 +6540,12 @@ def main() -> int:
     ap.add_argument("--integrity-epochs", type=int, default=6,
                     help="epochs of the integrity cell")
     ap.add_argument("--parent", default=None,
-                    help="a parent checkout: K1, K3, K5, K6, K8, K9, K11, "
-                         "K12, K13, K15, K16 and K17 of both timed in turns "
-                         "by "
+                    help="a parent checkout: K1, K3, K5, K6, K8-K17 of "
+                         "both timed in turns by "
                          "tools/time_tile_products.py and "
-                         "tools/time_gather_kernels.py, carried in the "
-                         "kernels line as parent_ab")
+                         "tools/time_gather_kernels.py, K18 and K19 side by "
+                         "side by tools/time_transport_ab.py, carried in "
+                         "the kernels line as parent_ab")
     args = ap.parse_args()
 
     import dataclasses
@@ -6188,6 +6599,7 @@ def main() -> int:
 
     compiling = threading.Thread(target=build_all)
     compiling.start()
+    start_plants()
 
     def kernels_built():
         compiling.join()
@@ -6219,6 +6631,7 @@ def main() -> int:
             args, g, spmm, halo, kernels_built)
     finally:
         compiling.join()  # no nvcc outlives a failed phase
+        join_plants()
 
     log("[4] K1, K2 vs plain versions")
     errs = {"K1": k1_phase(engine, spmm, halo), "K2": k2_phase(engine, halo)}
@@ -6575,12 +6988,16 @@ def main() -> int:
                      "pipegcn_tpu/serve/freshness.py:51",
                      fresh_stats["launches"]["dirty_exchange"], 0.0,
                      k18t["32"])
-    e["by_dirty_rows"] = {k: {**{f: v[f] for f in ("ms", "plain_ms",
-                                                     "library_ms",
-                                                     "dirty_slots")},
+    e["batched_ms"] = k18t["32"]["batched_ms"]
+    e["device_ms"] = k18t["32"]["device_ms"]
+    e["by_dirty_rows"] = {k: {**{f: v[f] for f in (
+                              "ms", "batched_ms", "device_ms", "plain_ms",
+                              "library_ms", "dirty_slots", "shape")},
                               "bound_ms": v["bound"][0],
                               "bound_by": v["bound"][1]}
                           for k, v in k18t.items()}
+    e["churn_batch_device"] = integ_stats["wire_guard"]["serving"][
+        "batch_device"]
     e["launches_run"] = "the serving-freshness phase's runs"
     kernels.append(e)
     # K6, K8: times at the hidden layers' shape (dh = 64) beside the GAT
@@ -6810,13 +7227,27 @@ def main() -> int:
                           "shape": k19t["scrub"]["shape"]}
         if key == "per_part":
             e["blocks"] = {**sub(k19t["blocks"]),
-                           "library_ms": k19t["blocks"]["library_ms"]}
+                           **{f: k19t["blocks"][f] for f in (
+                               "library_ms", "batched_ms", "device_ms",
+                               "library_batched_ms")},
+                           "launches_by_shape": integ_stats[
+                               "wire_lane_ranges_launches_by_shape"],
+                           "launches_run": "the wire lane's ranges form in "
+                                           "the integrity cell's run"}
+        if key == "rows":
+            e["batched_ms"] = k19t["rows"]["batched_ms"]
+            e["device_ms"] = k19t["rows"]["device_ms"]
+            rg = integ_stats["wire_guard"]["serving"]["k19_rows"]
+            e["serving_guard"] = {**sub(rg), **{f: rg[f] for f in (
+                "batched_ms", "device_ms")}}
         kernels.append(e)
 
     if args.parent is not None:
         log(f"[38] K1, K3, K5, K6, K8, K9, K10, K11, K12, K13, K14, K15, "
-            f"K16 and K17 of the parent checkout {args.parent} against this one's "
-            f"(time_tile_products.py, time_gather_kernels.py, in turns)")
+            f"K16 and K17 of the parent checkout {args.parent} against this "
+            f"one's (time_tile_products.py, time_gather_kernels.py, in "
+            f"turns); K10, K14, K15, K18 and K19 side by side "
+            f"(time_transport_ab.py)")
         torch.cuda.empty_cache()
         ab = parent_ab(args.parent)
         for e in kernels:
@@ -6842,7 +7273,9 @@ def main() -> int:
                    "bucket_gather": "K9 clustered e4m3 F=256",
                    "transport_cast": "K10 forward e4m3",
                    "halo_amax": "K14 exchange",
-                   "halo_wire": "K15 exchange e4m3"}.get(e["name"])
+                   "halo_wire": "K15 exchange e4m3",
+                   "dirty_exchange": "K18 32 dirty",
+                   "row_sums": "K19 rows"}.get(e["name"])
             if key is not None:
                 e["parent_ab"] = ab[key]
             if e["name"].startswith("block_dense_grouped_t"):
@@ -6869,6 +7302,15 @@ def main() -> int:
                                        "K9 clustered bf16 F=256",
                                        "K9 clustered f32 F=256",
                                        "K9 random e4m3 F=256")}
+            if e["name"] == "dirty_exchange":
+                e["parent_ab_others"] = {
+                    k: ab[k] for k in ("K18 4096 dirty", "K18 all dirty",
+                                       "K18 none live")}
+            if e["name"] == "row_sums":
+                e["serving_guard"]["parent_ab"] = ab[
+                    "K19 rows guard 32 dirty"]
+            if e["name"] == "part_digests":
+                e["blocks"]["parent_ab"] = ab["K19 ranges guard halo"]
             if e["name"] in ("halo_wire", "transport_cast", "halo_amax"):
                 e["parent_ab_others"] = {
                     k: ab[k] for k in ab if k.startswith(key.split()[0])

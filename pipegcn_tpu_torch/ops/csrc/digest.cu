@@ -36,12 +36,25 @@
 // the range (its unaligned head and tail word by word), each vector
 // widened to its 16 / W words; the two u32 sums reduced by warp shuffles
 // and added to the output with one atomicAdd per warp and sum (the
-// wrapper zeroes the output). The rows form runs a warp per row, lanes
-// over the row's 16-byte vectors (or words, where the row is not 16-byte
-// aligned), the same reduction per (sender, distance).
+// wrapper zeroes the output). The rows form: one wave of blocks spread
+// over the P (P - 1) (sender, distance) blocks, kRowsWarps warps a block
+// striding over the block's slots, a warp 32 consecutive slots at a time.
+// Lane i loads slot i's mask byte and index together, clips the index and,
+// where the mask is on and bits are given, reads the owner row's dirty
+// bit; a ballot gives the live rows, which the warp sums kRowsRows at a
+// time, each row's offset shuffled from the lane that scanned it, lanes
+// over the row's vectors, every load of those rows issued before the
+// adds. The vector is the widest (16, 8, 4, 2 or 1 bytes, never narrower
+// than a word) that the row size, the part stride and the pointer allow,
+// one a launch, so no row has a head or a tail. The per-warp shuffle
+// reduction and an atomicAdd a warp close it. PERF.md's K19 rows-form
+// entries have the measured alternatives. PGT_PLANT_K19_ROW_TWICE (never
+// set by the build) plants a fault for chip_smoke.py: a group of rows
+// that is not full takes its first row again, which is summed twice.
 
-#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "transport.cuh"
 
 namespace {
 
@@ -122,47 +135,123 @@ __global__ void ranges_kernel(const unsigned char* __restrict__ base,
   }
 }
 
-template <int W>
-__global__ void rows_kernel(const unsigned char* __restrict__ h,
-                            long long part_bytes, int n_rows, int row_bytes,
-                            int B, int Pm1, const int* __restrict__ idx,
-                            const unsigned char* __restrict__ mask,
-                            const unsigned char* __restrict__ dirty,
-                            unsigned* __restrict__ out) {
+// the rows form's geometry: warps a block, live rows a warp sums at a time
+constexpr int kRowsWarps = 8;
+constexpr int kRowsRows = 8;
+
+// the sum of the W-byte words of NB bytes held as 32-bit words (NB < 4:
+// the low bytes of w[0], the rest zero)
+template <int W, int NB>
+__device__ __forceinline__ unsigned words_sum(const unsigned* w) {
+  unsigned s = 0;
+#pragma unroll
+  for (int k = 0; k < (NB + 3) / 4; ++k)
+#pragma unroll
+    for (int c = 0; c < 4 / W; ++c) s += part_of<W>(w[k], c);
+  return s;
+}
+
+// W the word, NB the bytes of a vector (NB >= W; row_bytes, part_bytes and
+// h aligned to NB)
+template <int W, int NB>
+__global__ void __launch_bounds__(kRowsWarps * 32)
+rows_kernel(const unsigned char* __restrict__ h, long long part_bytes,
+            int n_rows, int row_bytes, int B, int Pm1,
+            const int* __restrict__ idx,
+            const unsigned char* __restrict__ mask,
+            const unsigned char* __restrict__ dirty,
+            unsigned* __restrict__ out) {
+  constexpr int R = kRowsRows, XW = (NB + 3) / 4;
+  constexpr unsigned kFull = 0xffffffffu;
   const int slot = blockIdx.y;  // s * (P - 1) + d - 1
   const int s = slot / Pm1;
   const int lane = threadIdx.x & 31;
-  const int warps = blockDim.x / 32;
-  const int n_words = row_bytes / W;
+  const int nv = row_bytes / NB;
+  const unsigned char* hs = h + s * part_bytes;
+  const long long k0 = static_cast<long long>(slot) * B;
   unsigned s1 = 0;
-  for (int b = blockIdx.x * warps + threadIdx.x / 32; b < B;
-       b += gridDim.x * warps) {
-    const long long k = static_cast<long long>(slot) * B + b;
-    if (!mask[k]) continue;
-    int i = idx[k];
-    i = i < 0 ? 0 : (i >= n_rows ? n_rows - 1 : i);  // jnp.take(mode="clip")
-    if (dirty != nullptr &&
-        !dirty[static_cast<long long>(s) * n_rows + i])
-      continue;
-    const unsigned char* row = h + s * part_bytes +
-                               static_cast<long long>(i) * row_bytes;
-    if ((row_bytes & 15) == 0 && (reinterpret_cast<uintptr_t>(row) & 15) == 0) {
-      const uint4* v = reinterpret_cast<const uint4*>(row);
-      for (int c = lane; c < row_bytes / 16; c += 32) {
-        const uint4 q = __ldg(v + c);
-        const unsigned lanes[4] = {q.x, q.y, q.z, q.w};
+  for (int b0 = (blockIdx.x * kRowsWarps + (threadIdx.x >> 5)) * 32; b0 < B;
+       b0 += gridDim.x * kRowsWarps * 32) {
+    // lane's slot b0 + lane: its row's byte offset in the part, or -1
+    const int b = b0 + lane;
+    long long row = -1;
+    if (b < B) {
+      const unsigned char on = __ldg(mask + k0 + b);
+      int i = __ldg(idx + k0 + b);
+      i = i < 0 ? 0 : (i >= n_rows ? n_rows - 1 : i);  // take(mode="clip")
+      if (on && (dirty == nullptr ||
+                 dirty[static_cast<long long>(s) * n_rows + i]))
+        row = static_cast<long long>(i) * row_bytes;
+    }
+    unsigned live = __ballot_sync(kFull, row >= 0);
+    while (live != 0u) {
+      // the next R live rows of the 32 slots (-1: none)
+      long long r[R];
 #pragma unroll
-        for (int l = 0; l < 4; ++l)
-#pragma unroll
-          for (int j = 0; j < 4 / W; ++j) s1 += part_of<W>(lanes[l], j);
+      for (int q = 0; q < R; ++q) {
+        r[q] = -1;
+        if (live != 0u) {
+          const int l = __ffs(live) - 1;
+          live &= live - 1u;
+          r[q] = __shfl_sync(kFull, row, l);
+        }
+#ifdef PGT_PLANT_K19_ROW_TWICE
+        if (q == R - 1 && r[q] < 0) r[q] = r[0];
+#endif
       }
-    } else {
-      for (int c = lane; c < n_words; c += 32)
-        s1 += load_word<W>(row + static_cast<long long>(c) * W);
+      for (int v = lane; v < nv; v += 32) {
+        unsigned w[R][XW];
+#pragma unroll
+        for (int q = 0; q < R; ++q)
+          if (r[q] >= 0)
+            load_words<NB>(hs + r[q] + static_cast<long long>(v) * NB, w[q]);
+#pragma unroll
+        for (int q = 0; q < R; ++q)
+          if (r[q] >= 0) s1 += words_sum<W, NB>(w[q]);
+      }
     }
   }
   s1 = warp_sum(s1);
   if (lane == 0) atomicAdd(out + slot, s1);
+}
+
+template <int W, int NB>
+void rows_launch(const unsigned char* h, long long part_bytes, int P,
+                 int n_rows, int row_bytes, int B, const int* idx,
+                 const unsigned char* mask, const unsigned char* dirty,
+                 unsigned* out, cudaStream_t st) {
+  static const int per_sm = occupancy(rows_kernel<W, NB>, kRowsWarps * 32);
+  const int slots = P * (P - 1);
+  constexpr int kChunk = kRowsWarps * 32;
+  const dim3 grid(one_wave(per_sm, slots, (B + kChunk - 1) / kChunk),
+                  slots);
+  rows_kernel<W, NB><<<grid, kRowsWarps * 32, 0, st>>>(
+      h, part_bytes, n_rows, row_bytes, B, P - 1, idx, mask, dirty, out);
+}
+
+// the rows form with the widest vector of NB >= W bytes that the
+// pointer, the part stride and the row size allow
+template <int W>
+void rows_dispatch(const unsigned char* h, long long part_bytes, int P,
+                   int n_rows, int row_bytes, int B, const int* idx,
+                   const unsigned char* mask, const unsigned char* dirty,
+                   unsigned* out, cudaStream_t st) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(h) |
+                      static_cast<uintptr_t>(part_bytes) |
+                      static_cast<uintptr_t>(row_bytes);
+#define PGT_ROWS(NB)                                                       \
+  return rows_launch<W, NB>(h, part_bytes, P, n_rows, row_bytes, B, idx,   \
+                            mask, dirty, out, st)
+  if (a % 16 == 0) PGT_ROWS(16);
+  if (a % 8 == 0) PGT_ROWS(8);
+  if constexpr (W < 4) {
+    if (a % 4 == 0) PGT_ROWS(4);
+  }
+  if constexpr (W < 2) {
+    if (a % 2 == 0) PGT_ROWS(2);
+  }
+  PGT_ROWS(W);  // the entry holds h and the strides to words
+#undef PGT_ROWS
 }
 
 int blocks_for(long long work, int per_block) {
@@ -217,10 +306,10 @@ extern "C" int pgt_digest_rows(const void* h, long long part_bytes, int P,
                                const void* idx, const void* mask,
                                const void* dirty, void* out, void* stream) {
   if (P < 2 || B == 0 || row_bytes == 0) return 0;
-  if (n_rows <= 0 || row_bytes % W != 0 ||
+  if (n_rows <= 0 || (W != 1 && W != 2 && W != 4) || row_bytes % W != 0 ||
+      part_bytes % W != 0 || reinterpret_cast<uintptr_t>(h) % W != 0 ||
       static_cast<long long>(P) * (P - 1) > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(blocks_for(B, kThreads / 32), P * (P - 1));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned char* hb = static_cast<const unsigned char*>(h);
   const int* ix = static_cast<const int*>(idx);
@@ -229,19 +318,16 @@ extern "C" int pgt_digest_rows(const void* h, long long part_bytes, int P,
   unsigned* o = static_cast<unsigned*>(out);
   switch (W) {
     case 1:
-      rows_kernel<1><<<grid, kThreads, 0, st>>>(hb, part_bytes, n_rows,
-                                                row_bytes, B, P - 1, ix, mk,
-                                                dt, o);
+      rows_dispatch<1>(hb, part_bytes, P, n_rows, row_bytes, B, ix, mk, dt,
+                       o, st);
       break;
     case 2:
-      rows_kernel<2><<<grid, kThreads, 0, st>>>(hb, part_bytes, n_rows,
-                                                row_bytes, B, P - 1, ix, mk,
-                                                dt, o);
+      rows_dispatch<2>(hb, part_bytes, P, n_rows, row_bytes, B, ix, mk, dt,
+                       o, st);
       break;
     case 4:
-      rows_kernel<4><<<grid, kThreads, 0, st>>>(hb, part_bytes, n_rows,
-                                                row_bytes, B, P - 1, ix, mk,
-                                                dt, o);
+      rows_dispatch<4>(hb, part_bytes, P, n_rows, row_bytes, B, ix, mk, dt,
+                       o, st);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -56,14 +56,26 @@
 // onto one card, in place on the resident halo (JAX donates it).
 // Bound: bytes — the send lists' index and mask bytes and the dirty bits
 // of each slot's owner row, plus each dirty slot's row read and written
-// once. Design: K2's warp per halo row, predicated. The warp reads the
-// slot's mask, index and the owner row's dirty bit (one byte of the u8
-// bitmap [P, n_max], shipped once per refresh) and exits unless both are
-// on; a live slot is copied with K2's widest vector the alignment allows.
-// A masked-off slot never reads its index's dirty bit, and the index is
-// clipped before any read. Clean slots are never written, so their bytes
-// (NaN payloads included) survive; dirty ones are byte copies, bit-exact
-// for any row type.
+// once. Design: one scan of the send lists in their own order (sender,
+// distance, slot), a block a chunk of 32 kDirtyWarps slots. Lane l of the
+// grid's warp g takes slot g + l G (G the grid's warps), so a warp's slots
+// may lie in any distance and sender: each lane works out its own. A lane
+// loads its slot's mask byte and index together and, only where the mask
+// is on, clips the index and reads the owner row's dirty bit (one byte of
+// the u8 bitmap [P, n_max], shipped once per refresh). A ballot gives the
+// warp's live slots; the warp copies them one row at a time, the row's
+// source and destination shuffled from the lane that scanned it, lanes
+// over the row's vectors, up to kDirtyAhead vectors a lane loaded (past
+// L1) before the stores. The vector is K2's widest that the row size,
+// part strides and pointers allow.
+// Invariants: a masked-off slot never reads its index's dirty bit, and the
+// index is clipped before any read; clean slots are never written, so
+// their bytes (NaN payloads included) survive; dirty ones are byte
+// copies, bit-exact for any row type; no two slots share a destination,
+// so the split is free. PERF.md's K18 design table has the measured
+// alternatives. PGT_PLANT_K18_KEEP_LAST_SLOT (never set by the build)
+// plants a fault for chip_smoke.py: the last slot of the send lists is
+// live whatever its mask.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -214,31 +226,70 @@ halo_return_kernel(const char* __restrict__ in, long long in_part_stride,
   }
 }
 
+// K18's geometry: warps a block (a block a chunk of 32 kDirtyWarps
+// slots), vectors of a live row a lane loads before it stores them
+constexpr int kDirtyWarps = 4;
+constexpr int kDirtyAhead = 16;
+
 template <typename V>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+__global__ void __launch_bounds__(kDirtyWarps * 32)
 dirty_exchange_kernel(const char* __restrict__ h, long long h_part_stride,
                       char* __restrict__ halo, long long halo_part_stride,
                       const int* __restrict__ send_idx,
                       const unsigned char* __restrict__ send_mask,
                       const unsigned char* __restrict__ dirty, int P,
-                      int n_max, int B, int row_bytes) {
-  const int part = blockIdx.y;
-  const int k = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+                      int n_max, int B, int row_bytes, long long n_slots) {
+  constexpr int U = kDirtyAhead;
+  constexpr unsigned kFull = 0xffffffffu;
   const int lane = threadIdx.x & 31;
-  if (k >= (P - 1) * B) return;
-  const int d = k / B;  // ring distance d + 1
-  const int b = k - d * B;
-  const int sender = (part - d - 1 + P) % P;
-  const size_t e = (static_cast<size_t>(sender) * (P - 1) + d) * B + b;
-  if (!send_mask[e]) return;
-  const int idx = min(max(send_idx[e], 0), n_max - 1);
-  if (!dirty[static_cast<size_t>(sender) * n_max + idx]) return;
-  const V* from = reinterpret_cast<const V*>(
-      h + sender * h_part_stride + static_cast<size_t>(idx) * row_bytes);
-  V* to = reinterpret_cast<V*>(halo + part * halo_part_stride +
-                               static_cast<size_t>(k) * row_bytes);
+  const long long per_sender = static_cast<long long>(P - 1) * B;
   const int nv = row_bytes / static_cast<int>(sizeof(V));
-  for (int i = lane; i < nv; i += 32) to[i] = __ldg(from + i);
+  // lane l of the grid's warp g scans slot g + l G (send-list order): the
+  // block's warps read neighbouring mask bytes and indices, and the warps
+  // copy neighbouring rows at each step
+  const long long G = static_cast<long long>(gridDim.x) * kDirtyWarps;
+  const long long e = static_cast<long long>(blockIdx.x) * kDirtyWarps +
+                      (threadIdx.x >> 5) + G * lane;
+  // the byte offsets of a live slot's row in h and of its slot in the
+  // halo (-1: not live); the dirty bit read only where the mask is on
+  long long src = -1, dst = 0;
+  if (e < n_slots) {
+    const unsigned char on = __ldg(send_mask + e);
+    const int ix = __ldg(send_idx + e);
+#ifdef PGT_PLANT_K18_KEEP_LAST_SLOT
+    if (on || e == n_slots - 1) {
+#else
+    if (on) {
+#endif
+      const int s = static_cast<int>(e / per_sender);
+      const int i = min(max(ix, 0), n_max - 1);  // jnp.take(mode="clip")
+      if (dirty[static_cast<size_t>(s) * n_max + i]) {
+        const long long k = e - s * per_sender;  // the receiver's slot
+        const int d = static_cast<int>(k / B);   // ring distance d + 1
+        const int r = (s + d + 1) % P;
+        src = s * h_part_stride + static_cast<long long>(i) * row_bytes;
+        dst = r * halo_part_stride + k * row_bytes;
+      }
+    }
+  }
+  unsigned live = __ballot_sync(kFull, src >= 0);
+  while (live != 0u) {
+    // the next live row, lanes over its vectors, U a lane in flight,
+    // cached in L2 only (a row is read once)
+    const int l = __ffs(live) - 1;
+    live &= live - 1u;
+    const V* from = reinterpret_cast<const V*>(h + __shfl_sync(kFull, src, l));
+    V* to = reinterpret_cast<V*>(halo + __shfl_sync(kFull, dst, l));
+    for (int v0 = lane; v0 < nv; v0 += 32 * U) {
+      V x[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (v0 + 32 * u < nv) x[u] = __ldcg(from + v0 + 32 * u);
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (v0 + 32 * u < nv) to[v0 + 32 * u] = x[u];
+    }
+  }
 }
 
 template <typename V>
@@ -247,11 +298,15 @@ int launch_dirty(const void* h, long long h_part_stride, void* halo,
                  const unsigned char* send_mask, const unsigned char* dirty,
                  int P, int n_max, int B, int row_bytes,
                  cudaStream_t stream) {
-  const int n_slots = (P - 1) * B;
-  const dim3 grid((n_slots + kWarpsPerBlock - 1) / kWarpsPerBlock, P);
-  dirty_exchange_kernel<V><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
+  // a block a chunk of 32 kDirtyWarps slots
+  constexpr long long kChunk = kDirtyWarps * 32LL;
+  const long long n_slots = static_cast<long long>(P) * (P - 1) * B;
+  const unsigned grid = static_cast<unsigned>((n_slots + kChunk - 1) /
+                                              kChunk);
+  dirty_exchange_kernel<V><<<grid, kDirtyWarps * 32, 0, stream>>>(
       static_cast<const char*>(h), h_part_stride, static_cast<char*>(halo),
-      halo_part_stride, send_idx, send_mask, dirty, P, n_max, B, row_bytes);
+      halo_part_stride, send_idx, send_mask, dirty, P, n_max, B, row_bytes,
+      n_slots);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -47,6 +47,7 @@ from pipegcn_tpu_torch.serve import (FreshnessTracker, Layer0Cache,
                                      run_serving_loop)
 from pipegcn_tpu_torch.serve.freshness import (dirty_exchange,
                                                dirty_exchange_plain)
+from test_torch_bucket import csrc_constant
 
 pytestmark = pytest.mark.torch
 
@@ -252,6 +253,139 @@ def test_dirty_exchange_checks_its_arguments():
     with pytest.raises(ValueError, match="dirty must be"):
         dirty_exchange(h, torch.zeros((P, B, F)),
                        torch.zeros((P, n_max), dtype=torch.int32), idx, mask)
+
+
+# ---------------- K18's split (csrc/halo_gather.cu), emulated ---------
+
+# the row types of the split tests: (dtype, F)
+K18_ROWS = {"f32 F=1": (torch.float32, 1), "f32 F=41": (torch.float32, 41),
+            "f32 F=602": (torch.float32, 602),
+            "bf16 F=41": (torch.bfloat16, 41), "u8 F=1": (torch.uint8, 1)}
+
+
+def _k18_emulated(h, halo, dirty, idx, mask):
+    """K18's split at the kernel's constants (``kDirtyWarps``,
+    ``kDirtyAhead``): a block a chunk of 32 ``kDirtyWarps`` slots of the
+    send lists in their own order (sender, distance, slot), lane l of the
+    grid's warp g on slot g + l G (G the grid's warps); the mask and index
+    of every slot, the dirty bit only where the mask is on; the warp's
+    live slots copied one row at a time in lane order, lanes over the
+    row's vectors (K2's widest vector the pointers, part strides and row
+    size allow; ``kDirtyAhead`` of each row a lane at a time). Returns ``(halo after, writes,
+    straddles)``: the halo's bytes written how many times each (``[P,
+    (P-1)*B, row bytes]``), and the warps whose slots span two (sender,
+    distance) blocks."""
+    Wp = csrc_constant("halo_gather.cu", "kDirtyWarps")
+    U = csrc_constant("halo_gather.cu", "kDirtyAhead")
+    P, n_max, F = h.shape
+    B = idx.shape[2]
+    row_bytes = F * h.element_size()
+    per_sender = (P - 1) * B
+    a = (h.data_ptr() | halo.data_ptr() | n_max * row_bytes
+         | per_sender * row_bytes | row_bytes)
+    V = next(w for w in (16, 8, 4, 2, 1) if a % w == 0)
+    nv = row_bytes // V
+    # lanes over the row's vectors: lane v0 = lane, lane + 32 U, ... loads
+    # v0, v0 + 32, ..., v0 + 32 (U - 1)
+    vs = np.array([v0 + 32 * u for lane in range(32)
+                   for v0 in range(lane, nv, 32 * U) for u in range(U)
+                   if v0 + 32 * u < nv], np.int64)
+    offs = (vs[:, None] * V + np.arange(V)).ravel()
+    hb = h.contiguous().view(torch.uint8).numpy().reshape(-1)
+    out = halo.clone()
+    ob = out.view(torch.uint8).numpy().reshape(-1)  # out's bytes
+    writes = np.zeros(ob.size, np.int64)
+    m = mask.numpy().reshape(-1)
+    ix = idx.numpy().reshape(-1)
+    bits = dirty.numpy().reshape(-1).astype(bool)
+    n_slots = P * per_sender
+    G = -(-n_slots // (32 * Wp)) * Wp
+    straddles = 0
+    for g in range(G):
+        e = g + G * np.arange(32)
+        e = e[e < n_slots]
+        straddles += len(np.unique(e // B)) > 1
+        on = m[e].astype(bool)
+        s = e // per_sender
+        i = np.clip(ix[e], 0, n_max - 1)
+        live = np.zeros(e.size, bool)
+        live[on] = bits[s[on] * n_max + i[on]]  # on slots only
+        k = e - s * per_sender
+        r = (s + k // B + 1) % P
+        src = s * n_max * row_bytes + i * row_bytes
+        dst = r * per_sender * row_bytes + k * row_bytes
+        for lane in np.nonzero(live)[0]:  # one row at a time, lane order
+            ob[dst[lane] + offs] = hb[src[lane] + offs]
+            writes[dst[lane] + offs] += 1
+    return out, writes.reshape(P, per_sender, row_bytes), straddles
+
+
+def _live_slots(dirty, idx, mask):
+    """``[P, (P-1)*B]``: the receiver slots whose sender has the slot on
+    its list and the (clipped) row dirty."""
+    P, n_max = dirty.shape
+    B = idx.shape[2]
+    live = np.zeros((P, (P - 1) * B), bool)
+    for r in range(P):
+        for d in range(1, P):
+            s = (r - d) % P
+            i = np.clip(idx[s, d - 1], 0, n_max - 1)
+            live[r, (d - 1) * B:d * B] = mask[s, d - 1] & dirty[s, i]
+    return live
+
+
+@pytest.mark.parametrize("rows", list(K18_ROWS))
+@pytest.mark.parametrize("P", [2, 3, 4])
+def test_k18_split_writes_every_live_slot_once(P, rows):
+    """K18's split writes every live slot (mask on, owner row dirty)
+    exactly once and never a clean or masked-off slot, and the halo it
+    leaves is ``dirty_exchange_plain``'s bit for bit (which the tests above
+    hold to a full exchange): B not a multiple of 32, warps whose slots
+    straddle distances and senders, several blocks (F <= 41: B = 1,037),
+    clipped indices, masked-off slots at out-of-range indices; every slot
+    masked off, no rows dirty, all rows dirty, random, off-list."""
+    dt, F = K18_ROWS[rows]
+    n_max, B = 50, (37 if F == 602 else 1037)
+    idx, mask = _send_lists(P, n_max, B, seed=10 * P + F)
+    idx[:, :, 5] = n_max + 3   # out of range, on: clipped to the last row
+    mask[:, :, 5] = True
+    rng = np.random.default_rng(F)
+    if dt == torch.uint8:
+        h = torch.from_numpy(rng.integers(0, 256, (P, n_max, F),
+                                          dtype=np.uint8))
+        old = torch.from_numpy(rng.integers(0, 256, (P, (P - 1) * B, F),
+                                            dtype=np.uint8))
+    else:
+        h = torch.from_numpy(rng.standard_normal(
+            (P, n_max, F), dtype=np.float32)).to(dt)
+        old = torch.from_numpy(rng.standard_normal(
+            (P, (P - 1) * B, F), dtype=np.float32)).to(dt)
+    on_list = np.zeros((P, n_max), bool)
+    for p in range(P):
+        on_list[p, np.clip(idx[p][mask[p]], 0, n_max - 1)] = True
+    cases = {
+        "every slot masked off": (np.zeros_like(mask), np.ones((P, n_max),
+                                                                bool)),
+        "no rows dirty": (mask, np.zeros((P, n_max), bool)),
+        "all rows dirty": (mask, np.ones((P, n_max), bool)),
+        "random": (mask, rng.random((P, n_max)) < 0.3),
+        "off-list": (mask, ~on_list),
+    }
+    ti = torch.from_numpy(idx)
+    for name, (m, bits) in cases.items():
+        tm, tb = torch.from_numpy(m), torch.from_numpy(bits)
+        got, writes, straddles = _k18_emulated(h, old, tb, ti, tm)
+        live = _live_slots(bits, idx, m)
+        assert straddles > 0, (name, "no warp straddles")
+        assert writes.max() <= 1, (name, "a byte written twice")
+        assert np.array_equal(writes.sum(-1), live * writes.shape[-1]), name
+        want = dirty_exchange_plain(h, old.clone(), tb, ti, tm)
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8)), \
+            name
+        if name in ("every slot masked off", "no rows dirty", "off-list"):
+            assert not live.any(), name
+        else:
+            assert live.any(), name
 
 
 # ---------------- the engine against JAX -------------------------------

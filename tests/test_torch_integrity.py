@@ -53,6 +53,7 @@ from pipegcn_tpu_torch.parallel import halo as phalo
 from pipegcn_tpu_torch.parallel.trainer import TrainConfig, Trainer
 from pipegcn_tpu_torch.resilience import FaultPlan, IntegrityPlane
 from pipegcn_tpu_torch.resilience import integrity as pint
+from test_torch_bucket import csrc_constant
 from test_torch_train import CPU, one_torch_thread, port_sharded
 
 pytestmark = pytest.mark.torch
@@ -171,6 +172,125 @@ def test_row_sums_are_the_send_blocks_sums():
                     r = (s + d) % P
                     blk = halo[r, (d - 1) * B:d * B].numpy()
                     assert want == jint.host_digest(blk)[0]
+
+
+# K19's rows form (csrc/digest.cu rows_kernel), its split emulated
+
+# blocks the card holds at once in the emulation of the rows form's one
+# wave (cut so that at these sizes the warps stride)
+WAVE = 4
+ROWS = {"f32 F=1": (torch.float32, 1), "f32 F=41": (torch.float32, 41),
+        "f32 F=602": (torch.float32, 602), "bf16 F=41": (torch.bfloat16, 41),
+        "u8 F=1": (torch.uint8, 1)}
+
+
+def _rows_emulated(h, idx, mask, dirty):
+    """The rows form's split at the kernel's constants (``kRowsWarps``,
+    ``kRowsRows``): per (sender, distance) block, one wave of ``WAVE``
+    blocks spread over the P (P - 1) blocks, the warps striding over the
+    block's slots 32 at a time, lane i slot i: the mask and index, the
+    clip, the dirty bit where the mask is on; the live rows summed
+    ``kRowsRows`` at a time, lanes over the row's vectors (the widest of
+    16, 8, 4, 2 bytes, never under a word, that the pointer, part stride
+    and row size allow); each vector's words zero-extended and added in u32. Returns ``(sums [P,
+    P-1] u32, reads)``, reads the count of reads of each byte of each
+    slot's row (``[P, P-1, B, row bytes]``)."""
+    Wr = csrc_constant("digest.cu", "kRowsWarps")
+    R = csrc_constant("digest.cu", "kRowsRows")
+    P, n = h.shape[:2]
+    B = idx.shape[2]
+    es = h.element_size()
+    W = 4 if es == 8 else es
+    row_bytes = h[0, 0].numel() * es
+    part_bytes = h.stride(0) * es
+    a = h.data_ptr() | part_bytes | row_bytes
+    NB = next((w for w in (16, 8, 4, 2) if w >= W and a % w == 0), W)
+    nv = row_bytes // NB
+    vs = np.concatenate([np.arange(lane, nv, 32) for lane in range(32)])
+    offs = (vs[:, None] * NB + np.arange(NB)).ravel()
+    span = (P - 1) * h.stride(0) + h[0].numel()
+    hb = h.as_strided((span,), (1,), h.storage_offset()).contiguous()
+    hb = hb.view(torch.uint8).numpy()  # the parts' bytes, from h[0, 0]
+    words = {1: np.uint8, 2: np.uint16, 4: np.uint32}[W]
+    m = mask.numpy()
+    ix = idx.numpy()
+    bits = None if dirty is None else dirty.numpy().astype(bool)
+    sums = np.zeros((P, P - 1), np.uint32)
+    reads = np.zeros((P, P - 1, B, row_bytes), np.int64)
+    slots = P * (P - 1)
+    grid = max(1, min(-(-WAVE // slots), -(-B // (Wr * 32))))
+    for slot in range(slots):
+        s, d1 = divmod(slot, P - 1)
+        for blk in range(grid):
+            for warp in range(Wr):
+                for b0 in range((blk * Wr + warp) * 32, B, grid * Wr * 32):
+                    b = b0 + np.arange(32)
+                    b = b[b < B]
+                    i = np.clip(ix[s, d1, b], 0, n - 1)
+                    live = m[s, d1, b].astype(bool)
+                    if bits is not None:
+                        live[live] = bits[s, i[live]]
+                    lanes = np.nonzero(live)[0]
+                    groups = [lanes[g:g + R]
+                              for g in range(0, lanes.size, R)]
+                    for grp in groups:
+                        for lane in grp:
+                            row = s * part_bytes + int(i[lane]) * row_bytes
+                            got = hb[row + offs]
+                            reads[s, d1, b[lane], offs] += 1
+                            w = np.ascontiguousarray(got).view(words)
+                            with np.errstate(over="ignore"):
+                                sums[s, d1] += np.add.reduce(
+                                    w.astype(np.uint32), dtype=np.uint32)
+    return sums, reads
+
+
+@pytest.mark.parametrize("rows", list(ROWS))
+@pytest.mark.parametrize("P", [2, 3, 4])
+def test_rows_form_split_sums_every_live_row_once(P, rows):
+    """The rows form's split reads every byte of every live row (mask on,
+    and the owner row dirty where bits are given) exactly once and nothing
+    else, and its sums are ``row_sums_plain``'s bits (held to JAX's
+    ``wire_sum`` above): B not a multiple of 32, enough slots that the
+    warps stride (F <= 41), clipped indices, masked-off slots at
+    out-of-range indices, contiguous parts and parts one row apart; no
+    bits, every slot masked off, no rows dirty, all rows dirty, random."""
+    dt, F = ROWS[rows]
+    n, B = 50, (37 if F == 602 else 1037)
+    rng = np.random.default_rng(P * 1000 + F)
+    idx = rng.integers(-3, n + 3, (P, P - 1, B)).astype(np.int32)
+    mask = rng.random((P, P - 1, B)) < 0.8
+    idx[:, :, -1] = n + 5        # out of range, masked off
+    mask[:, :, -1] = False
+    if dt == torch.uint8:
+        big = torch.from_numpy(rng.integers(0, 256, (P, n + 1, F),
+                                            dtype=np.uint8))
+    else:
+        big = torch.from_numpy(rng.standard_normal(
+            (P, n + 1, F), dtype=np.float32) * 3.0).to(dt)
+    ti = torch.from_numpy(idx)
+    cases = {
+        "no bits": (mask, None),
+        "every slot masked off": (np.zeros_like(mask), np.ones((P, n), bool)),
+        "no rows dirty": (mask, np.zeros((P, n), bool)),
+        "all rows dirty": (mask, np.ones((P, n), bool)),
+        "random": (mask, rng.random((P, n)) < 0.3),
+    }
+    for h in (big[:, :n].contiguous(), big[:, 1:]):  # part stride n, n + 1
+        for name, (m, bits) in cases.items():
+            tm = torch.from_numpy(m)
+            tb = None if bits is None else torch.from_numpy(bits)
+            got, reads = _rows_emulated(h, ti, tm, tb)
+            live = m & (True if bits is None else
+                        bits[np.arange(P)[:, None, None],
+                             np.clip(idx, 0, n - 1)])
+            what = (name, tuple(h.stride()))
+            assert np.array_equal(reads, np.broadcast_to(
+                live[..., None], reads.shape).astype(np.int64)), what
+            want = pdig.as_u32(pdig.row_sums_plain(h, ti, tm, tb))
+            assert np.array_equal(got, want), what
+            assert live.any() == (name not in ("every slot masked off",
+                                               "no rows dirty")), what
 
 
 # ---------------- fault grammar ----------------------------------------
